@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's semantic-search path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+ 1. the card: ``nvidia-smi`` name and power limit; build the CUDA kernels
+    from ``text_similarity_tpu_torch/csrc`` (nvcc, sm_90a).
+ 2. K2 (exact cosine top-k) against its plain version at N = 100,003 ragged,
+    D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora with
+    duplicated rows.
+ 3. K1 (IVF scan) against its plain version on a 1M × 384 IVF index built
+    on the card from the bench recipe (4096 gaussian centres ×3 + unit
+    noise; queries = corpus rows + 0.1 noise), bf16 slabs,
+    ``IndexConfig.auto(1M)``, 4096 queries with the serving args at k = 10
+    and k = 100 (deferred merge) and approx_width = 0 (exact merge); IVF
+    recall@10 against K2's exact top-k over the f32 corpus ≥ 0.95.
+ 4. The pipeline at the full width of minilm-l6 (random weights from a
+    seed, vocab trained on a synthetic corpus): 120,000 documents (the IVF
+    path, K1) and 2,000 documents (the brute-force path, K2), requests of 1,
+    5 and 64 verbatim corpus sentences; each must find itself in its top 10
+    at score ≥ 0.99 (≥ 95% of queries; on a multi-query IVF request, of
+    the queries whose own slab was in their block's shared probe list).
+    Both kernels' launch counters must rise during this phase, and each
+    kernel must agree with its plain version at the pipeline's shapes.
+ 5. One JSON line ``{"kernels": [...]}``: launches in phase 4, time, plain
+    time, bound and library time at the phase-2/3 shapes.
+ 6. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+
+Every time is measured here, on this card, with CUDA events (kernels) or
+the host clock around synchronised work (pipeline). f32 matmuls run
+without TF32 (``allow_tf32 = False``): the plain versions are exact f32.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
+PEAK_BYTES = 3.35e12        # HBM3 bytes/s
+PEAK_F32 = 67e12            # f32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12          # bf16 tensor-core FLOP/s
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def overlap(a, b) -> float:
+    return float(np.mean([len(set(r) & set(s)) / len(r) for r, s in zip(a, b)]))
+
+
+def separated_ids_equal(ki, ri, rs, tol=1e-5) -> bool:
+    """ids equal at every rank whose reference score differs from both
+    neighbours by more than tol (near-ties may swap under another
+    summation order)."""
+    gap = np.minimum(
+        np.abs(np.diff(rs, axis=1, prepend=np.inf)),
+        np.abs(np.diff(rs, axis=1, append=-np.inf)),
+    )
+    sep = gap > tol
+    return bool(np.array_equal(ki[sep], ri[sep]))
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: K2
+# ---------------------------------------------------------------------------
+
+def phase_topk(torch, card):
+    from text_similarity_tpu_torch.ops.topk import (
+        cosine_topk_cuda, cosine_topk_reference, l2_normalize,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    n, d = 100_003, 384
+    corpus = l2_normalize(torch.randn(n, d, generator=g, device=dev))
+    src = torch.randperm(n // 2, generator=g, device=dev)[:256]
+    dst = n // 2 + torch.randperm(n - n // 2, generator=g, device=dev)[:512]
+    corpus[dst[:256]] = corpus[src]
+    corpus[dst[256:]] = corpus[src]       # three copies: exact ties
+    queries = l2_normalize(corpus[src] + 0.05 * torch.randn(256, d, generator=g, device=dev))
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        c = corpus.to(dtype).contiguous()
+        for q_n in (1, 7, 256):
+            q = queries[:q_n].contiguous()
+            for k in (10, 20):
+                ks, ki = cosine_topk_cuda(q, c, k)
+                rs, ri = cosine_topk_reference(q, c, k)
+                torch.cuda.synchronize()
+                ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+                err = float(np.abs(ks - rs).max())
+                worst = max(worst, err)
+                if dtype == torch.float32:
+                    ok = err <= 1e-5 and separated_ids_equal(ki, ri, rs)
+                    detail = f"ids equal {np.mean(ki == ri):.4f}"
+                else:
+                    ov = overlap(ki, ri)
+                    ok = err <= 1e-4 and ov >= 0.99
+                    detail = f"overlap {ov:.4f}"
+                log(f"K2 {str(dtype)[6:]} Q={q_n} k={k}: max|Δscore| {err:.2e}, {detail}"
+                    f" -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K2 disagrees with its plain version")
+    # timing at the main shape: f32 corpus (the pipeline's store), Q=256, k=10
+    q, k = queries.contiguous(), 10
+    ms = time_ms(torch, lambda: cosine_topk_cuda(q, corpus, k))
+    plain = time_ms(torch, lambda: cosine_topk_reference(q, corpus, k), iters=3, warmup=1)
+    lib = time_ms(torch, lambda: torch.topk(q @ corpus.T, k, dim=1))
+    qn = q.shape[0]
+    b_ms, b_by = bound_ms(qn * d * 4 + n * d * 4 + qn * k * 8, 2.0 * qn * n * d, PEAK_F32)
+    corpus_bf16 = corpus.to(torch.bfloat16)
+    ms_bf16 = time_ms(torch, lambda: cosine_topk_cuda(q, corpus_bf16, k))
+    ms_q1 = time_ms(torch, lambda: cosine_topk_cuda(q[:1], corpus, k))
+    log(f"K2 times [{card}]: f32 Q=256 k=10 kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"torch.topk(q@cT) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"bf16 corpus {ms_bf16:.3f} ms; Q=1 {ms_q1:.3f} ms")
+    return {
+        "name": "cosine_topk", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/topk.cu",
+        "replaces": "text_similarity_tpu/ops/topk.py:307",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"Q=256 N={n} D={d} k=10 f32",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: K1
+# ---------------------------------------------------------------------------
+
+def bench_corpus(torch, n, n_q, d=384, seed=0):
+    """bench.py's recipe with torch: 4096 gaussian centres ×3 + unit noise;
+    queries are corpus rows + 0.1 noise."""
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(4096, d, generator=g, device=dev)
+    assign = torch.randint(0, 4096, (n,), generator=g, device=dev)
+    corpus = torch.empty((n, d), device=dev)
+    for i in range(0, n, 1 << 18):
+        j = min(i + (1 << 18), n)
+        corpus[i:j] = l2_normalize(
+            centers[assign[i:j]] * 3.0 + torch.randn(j - i, d, generator=g, device=dev)
+        )
+    queries = l2_normalize(corpus[:n_q] + 0.1 * torch.randn(n_q, d, generator=g, device=dev))
+    return corpus, queries
+
+
+def serving_plan(ivf, queries):
+    """The probe plan ``IVFIndex.query`` makes with the pipeline's serving
+    args (block_q 64, union_factor 1) → (sorted queries, probe list, order,
+    block_q): the inputs K1 gets on the main path."""
+    from text_similarity_tpu_torch.index.ivf import _plan_probes, _round_up
+
+    block_q = min(64, queries.shape[0])
+    probes = min(ivf.config.num_probes, ivf.num_base_clusters)
+    union = min(_round_up(probes, 8), ivf.num_base_clusters)
+    q_s, probe_list, order = _plan_probes(
+        queries, ivf.centroids, ivf.num_base_clusters, ivf.data_padded.shape[0], block_q, union
+    )
+    return q_s, probe_list, order, block_q
+
+
+def phase_ivf(torch, card):
+    from text_similarity_tpu_torch.core.config import IndexConfig
+    from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+
+    n, n_q, d = 1_000_000, 4096, 384
+    corpus, queries = bench_corpus(torch, n, n_q, d)
+    cfg = IndexConfig.auto(n)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf = IVFIndex.build(
+        corpus, cfg, data_dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
+    )
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    mc = ivf.data_padded.shape[1]
+    log(f"IVF build [{card}]: {build_s:.2f} s for {n}x{d}, C={ivf.num_base_clusters} "
+        f"(+{ivf.num_overflow} overflow), Mc={mc}, probes={cfg.num_probes}")
+
+    q_s, probes, _, block_q = serving_plan(ivf, queries)
+    worst, main = 0.0, None
+    for k, aw in ((10, 2048), (100, 2048), (10, 0)):
+        w, slots = ivf.scan_mode(k, aw, 0)
+        mode = f"deferred w={w} S={slots}" if w else "exact"
+        args = (q_s, probes, ivf.data_padded, ivf.ids_padded, k, block_q, w, slots)
+        ks, ki = ivf_scan_cuda(*args)
+        rs, ri = ivf_scan_reference(*args)
+        torch.cuda.synchronize()
+        ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+        err = float(np.abs(ks - rs).max())
+        worst = max(worst, err)
+        ov = overlap(ki, ri)
+        ok = ov >= 0.99 and err <= 1e-4
+        ms = time_ms(torch, lambda: ivf_scan_cuda(*args), iters=5, warmup=1)
+        log(f"K1 Mc={mc} k={k} mode {mode}: overlap {ov:.4f}, max|Δscore| {err:.2e}, "
+            f"kernel {ms:.3f} ms [{card}] -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K1 disagrees with its plain version")
+        if k == 10 and w:
+            plain = time_ms(torch, lambda: ivf_scan_reference(*args), iters=1, warmup=1)
+            main = (args, ms, plain, mode)
+    if main is None:
+        raise AssertionError("the deferred merge did not run at Mc >= 1024")
+
+    # recall@10 of the serving query against the exact top-10 (K2, f32)
+    _, exact = cosine_topk_cuda(queries, corpus, 10)
+    _, got = ivf.query(queries, k=10, block_q=64, union_factor=1, approx_width=2048)
+    recall = overlap(got.cpu().numpy(), exact.cpu().numpy())
+    t_q = time_ms(torch, lambda: ivf.query(queries, k=10, block_q=64, union_factor=1,
+                                           approx_width=2048), iters=3, warmup=1)
+    log(f"IVF recall@10 vs exact: {recall:.4f} (gate 0.95); query 4096 @k=10 "
+        f"{t_q:.2f} ms = {n_q / t_q * 1e3:.0f} QPS [{card}]")
+    if recall < 0.95:
+        raise AssertionError("IVF recall@10 below 0.95")
+
+    args, ms, plain, mode = main
+    slabs = torch.unique(args[1])
+    valid = (ivf.ids_padded >= 0).sum(dim=1)
+    n_bytes = int(valid[slabs].sum()) * d * 2 + slabs.numel() * mc * 4 + n_q * d * 4 + n_q * 10 * 8
+    per_block = valid[args[1].long()].sum(dim=1)          # valid slots scanned per block
+    ops = 2.0 * block_q * d * float(per_block.sum())
+    b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
+    log(f"K1 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "ivf_scan", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/ivf_scan.cu",
+        "replaces": "text_similarity_tpu/index/ivf.py:1945",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k=10 {mode} bf16",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the pipeline
+# ---------------------------------------------------------------------------
+
+def synthetic_corpus(n, seed=0, n_words=20_000):
+    """n unique sentences of 8-40 words over ~20k synthetic words."""
+    rng = np.random.default_rng(seed)
+    syll = [a + b for a in "bcdfghjklmnprstvwz" for b in "aeiou"]
+    words = set()
+    while len(words) < n_words:
+        words.add("".join(rng.choice(syll, rng.integers(2, 5))))
+    words = sorted(words)
+    out, seen = [], set()
+    while len(out) < n:
+        lens = rng.integers(8, 41, n)
+        picks = rng.integers(0, len(words), lens.sum())
+        pos = 0
+        for length in lens:
+            s = " ".join(words[j] for j in picks[pos:pos + length])
+            pos += length
+            if s not in seen:
+                seen.add(s)
+                out.append(s)
+                if len(out) == n:
+                    break
+    return out
+
+
+def own_slab_probed(torch, pipe, texts, doc_ids):
+    """Per query of one IVF request: is the slab that holds its own document
+    in the probe list of its query block? The pipeline's serving args
+    (block_q 64, union round_up(probes, 8)) give all queries of a block one
+    shared list, so a request of queries from many clusters cannot have
+    every query's own slab probed."""
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    ivf = pipe.ivf
+    mc = ivf.data_padded.shape[1]
+    _, probe_list, order, block_q = serving_plan(
+        ivf, _pad_pow2(pipe.encoder.encode(texts, device_output=True))
+    )
+    block_of = torch.argsort(order)[: len(texts)] // block_q
+    ids = ivf.ids_padded.reshape(-1)
+    slab = torch.full((int(ids.max()) + 1,), -1, dtype=torch.long, device=ids.device)
+    live = torch.nonzero(ids >= 0)[:, 0]
+    slab[ids[live].long()] = live // mc
+    own = slab[torch.as_tensor(np.asarray(doc_ids), device=ids.device)]
+    hit = (probe_list[block_of].long() == own[:, None]).any(dim=1)
+    return hit.cpu().tolist()
+
+
+def phase_pipeline(torch, card):
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.data.tokenization import (
+        WordPieceTokenizer, train_wordpiece_vocab,
+    )
+    from text_similarity_tpu_torch.index import BruteForceIndex
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+    from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    t0 = time.time()
+    corpus = synthetic_corpus(120_000)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=30522))
+    arch = ARCH_PRESETS["minilm-l6"]
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    log(f"pipeline set-up: corpus + vocab ({tok.vocab_size}) + minilm-l6 init "
+        f"{time.time() - t0:.1f} s")
+
+    rng = np.random.default_rng(1)
+    # (pipeline, request size) → [queries, self-hits, own slab probed,
+    # self-hits among those, [ms]]
+    results = {}
+    requests = []   # IVF requests, for the probe-coverage check after the window
+
+    def run(label, pipe, n_docs, sizes):
+        """Requests of verbatim corpus sentences → self-retrieval hits (own
+        document in the top 10 at score ≥ 0.99) per request size."""
+        picks = rng.choice(n_docs, size=sum(sizes), replace=False)
+        start = 0
+        for size in sizes:
+            req = picks[start:start + size]
+            start += size
+            texts = [pipe.corpus[j] for j in req]
+            torch.cuda.synchronize()
+            t = time.time()
+            out = pipe(texts, max_num_results=10)
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            hit = [any(d == j and s >= 0.99 for _, s, d in row) for j, row in zip(req, out)]
+            if pipe.ivf is not None:
+                requests.append((label, size, texts, req, hit))
+            rec = results.setdefault((label, size), [0, 0, 0, 0, []])
+            rec[0] += size
+            rec[1] += sum(hit)
+            rec[4].append(dt * 1e3)
+
+    torch.cuda.synchronize()
+    t = time.time()
+    big = SemanticSearchPipeline(enc, corpus=corpus, device="cuda")
+    torch.cuda.synchronize()
+    enc_s = time.time() - t
+    log(f"encode 120000 docs: {enc_s:.1f} s = {len(corpus) / enc_s:.0f} sentences/s "
+        f"(tokenize + minilm-l6 bf16) [{card}]")
+    sample = big.store.view[:2000]
+    cos = sample @ sample.T
+    log(f"random-weight embeddings: mean cosine between distinct documents "
+        f"{float((cos.sum() - cos.diagonal().sum()) / (2000 * 1999)):.4f}")
+    t = time.time()
+    big._build_ivf()
+    torch.cuda.synchronize()
+    log(f"IVF build over 120000 docs: {time.time() - t:.2f} s, Mc={big.ivf.data_padded.shape[1]}, "
+        f"C={big.ivf.num_base_clusters} (+{big.ivf.num_overflow}) [{card}]")
+    small = SemanticSearchPipeline(enc, corpus=corpus[:2000], device="cuda")
+    # warm both paths so the counted window holds serving calls only
+    big(corpus[:1], 10)
+    small(corpus[:1], 10)
+
+    cosine_topk_cuda.launches = 0
+    ivf_scan_cuda.launches = 0
+    ivf_label, brute_label = "ivf pipeline (120000 docs)", "brute pipeline (2000 docs)"
+    run(ivf_label, big, len(corpus), [1] * 20 + [5, 64])
+    run(brute_label, small, 2000, [1, 5, 64])
+    launches = {"cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
+    log(f"launches during the pipeline phase: {launches}")
+
+    # IVF requests: which queries had their own document's slab probed
+    for label, size, texts, req, hit in requests:
+        rec = results[(label, size)]
+        for probed, h in zip(own_slab_probed(torch, big, texts, req), hit):
+            rec[2] += probed
+            rec[3] += probed and h
+    for (label, size), (total, hits, probed, probed_hits, ms) in sorted(results.items()):
+        cover = (f"; own slab probed for {probed}/{total}, of which {probed_hits} find "
+                 f"themselves" if label == ivf_label else "")
+        log(f"{label}: {len(ms)} request(s) of {size}: {hits}/{total} queries find "
+            f"themselves in the top 10 at score >= 0.99{cover}; median {np.median(ms):.1f} ms "
+            f"= {size / np.median(ms) * 1e3:.1f} QPS [{card}]")
+
+    # repeated 64-query requests on both paths, and where their time goes:
+    # encode alone, search alone (the index's query on encoded rows)
+    q64 = [corpus[j] for j in rng.choice(2000, 64, replace=False)]
+    qe = _pad_pow2(enc.encode(q64, device_output=True))
+    mc = big.ivf.data_padded.shape[1]
+
+    def host_ms(fn, reps=5):
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.time() - t) / reps * 1e3
+
+    enc_ms = host_ms(lambda: enc.encode(q64, device_output=True))
+    for label, pipe, search in (
+        ("ivf pipeline", big, lambda: big.ivf.query(
+            qe, k=10, block_q=64, union_factor=1, approx_width=2048 if mc >= 1024 else 0)),
+        ("brute pipeline", small, lambda: BruteForceIndex(small.store).query(qe, k=10)),
+    ):
+        total = host_ms(lambda: pipe(q64, 10))
+        log(f"{label}: 64-query request {total:.2f} ms = {64 / total * 1e3:.0f} QPS; "
+            f"encode alone {enc_ms:.2f} ms, search alone {host_ms(search):.2f} ms [{card}]")
+
+    # the kernels against their plain versions at the pipeline's shapes
+    ks, ki = cosine_topk_cuda(qe, small.store.view.contiguous(), 20)
+    rs, ri = cosine_topk_reference(qe, small.store.view, 20)
+    ivf = big.ivf
+    w, slots = ivf.scan_mode(10, 2048 if mc >= 1024 else 0, 0)
+    qs, probes, _, block_q = serving_plan(ivf, qe)
+    args = (qs, probes, ivf.data_padded, ivf.ids_padded, 10, block_q, w, slots)
+    ks2, ki2 = ivf_scan_cuda(*args)
+    rs2, ri2 = ivf_scan_reference(*args)
+    torch.cuda.synchronize()
+    ov1, ov2 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), overlap(ki2.cpu().numpy(), ri2.cpu().numpy())
+    e1 = float((ks - rs).abs().max())
+    e2 = float((ks2 - rs2).abs().max())
+    log(f"at pipeline shapes: K2 (64x{small.store.size}, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}; "
+        f"K1 (64 queries, {'deferred' if w else 'exact'}) overlap {ov2:.4f} max|Δ| {e2:.2e}")
+    if min(ov1, ov2) < 0.99 or max(e1, e2) > 1e-4:
+        raise AssertionError("a kernel disagrees with its plain version at pipeline shapes")
+
+    # The gate: ≥ 95% self-retrieval on every brute-force request and every
+    # single-query IVF request; on a multi-query IVF request, ≥ 95% among the
+    # queries whose own slab was probed. The serving args share one union of
+    # round_up(probes, 8) slabs across a 64-query block, which cannot hold
+    # the own slab of every query of a request drawn from many clusters.
+    for (label, size), (total, hits, probed, probed_hits, _) in results.items():
+        if label == brute_label or size == 1:
+            if hits < 0.95 * total:
+                raise AssertionError(f"{label}, requests of {size}: self-retrieval "
+                                     f"{hits}/{total} below 95%")
+        elif probed_hits < 0.95 * probed or probed == 0:
+            raise AssertionError(f"{label}, requests of {size}: self-retrieval "
+                                 f"{probed_hits}/{probed} of probed queries below 95%")
+    if launches["cosine_topk"] == 0 or launches["ivf_scan"] == 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    try:
+        from text_similarity_tpu_torch.ops import _cuda
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable from {REPO}: {e}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(card, flush=True)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t = time.time()
+    _cuda.build(verbose=True)
+    _cuda.lib()
+    log(f"kernels built in {time.time() - t:.1f} s")
+
+    kernels = [phase_topk(torch, card), phase_ivf(torch, card)]
+    launches = phase_pipeline(torch, card)
+    for kern in kernels:
+        kern["launches"] = launches[kern["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

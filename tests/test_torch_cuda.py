@@ -1,0 +1,168 @@
+"""The CUDA kernels on the card, each held against its plain version, and
+the port's pipeline on the card against the same pipeline on the CPU.
+
+Imports neither jax nor the JAX package, so it runs on a machine with a
+card and no JAX; without a card every test skips. On the card:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from text_similarity_tpu_torch.core.config import ARCH_PRESETS, IndexConfig
+from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
+from text_similarity_tpu_torch.index.ivf import (
+    IVFIndex,
+    _plan_probes,
+    ivf_scan_cuda,
+    ivf_scan_reference,
+)
+from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact f32 plain versions
+    return torch.device("cuda")
+
+
+def _unit(a):
+    return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _overlap(a, b):
+    return np.mean([len(set(r) & set(s)) / len(r) for r, s in zip(a, b)])
+
+
+def _assert_agree(ks, ki, rs, ri, exact_ids):
+    """Scores allclose 1e-5; f32: ids equal wherever neighbouring scores
+    differ by > 1e-5 (near-ties may swap under another summation order);
+    bf16: id overlap ≥ 0.99."""
+    ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+    np.testing.assert_allclose(ks, rs, atol=1e-5)
+    if exact_ids:
+        gap = np.minimum(
+            np.abs(np.diff(rs, axis=1, prepend=np.inf)),
+            np.abs(np.diff(rs, axis=1, append=-np.inf)),
+        )
+        sep = gap > 1e-5
+        np.testing.assert_array_equal(ki[sep], ri[sep])
+    else:
+        assert _overlap(ki, ri) >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 20, 256])
+@pytest.mark.parametrize("q_n", [1, 7, 33])
+def test_topk_kernel_matches_plain(cuda, dtype, k, q_n):
+    rng = np.random.default_rng(5)
+    x = _unit(rng.standard_normal((10_007, 64)))
+    src = rng.choice(5000, q_n, replace=False)
+    x[5000 + np.arange(q_n)] = x[src]                 # exact ties
+    q = _unit(x[src] + 0.05 * rng.standard_normal((q_n, 64)))
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    before = cosine_topk_cuda.launches
+    ks, ki = cosine_topk_cuda(tq, tx, k=k)
+    rs, ri = cosine_topk_reference(tq, tx, k=k)
+    torch.cuda.synchronize()
+    assert cosine_topk_cuda.launches == before + 1
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+
+
+def test_topk_kernel_rejects_bad_inputs(cuda):
+    x = torch.nn.functional.normalize(torch.randn(1000, 64, device=cuda), dim=1)
+    q = x[:4].contiguous()
+    with pytest.raises(ValueError):
+        cosine_topk_cuda(q, x, k=257)
+    with pytest.raises(ValueError):
+        cosine_topk_cuda(q, x.T.contiguous().T, k=5)      # not contiguous
+    with pytest.raises(TypeError):
+        cosine_topk_cuda(q.double(), x, k=5)
+    with pytest.raises(ValueError):
+        cosine_topk_cuda(q.cpu(), x, k=5)
+
+
+def _clustered(n=4096, d=64, centers=64, q=64, seed=11):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((centers, d))
+    x = _unit(c[rng.integers(0, centers, n)] * 3.0 + rng.standard_normal((n, d)))
+    return _unit(x[:q] + 0.1 * rng.standard_normal((q, d))), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "approx_width,acc_slots,k",
+    [(0, 1, 10), (128, 1, 10), (128, 2, 20), (128, 4, 100), (256, 3, 10), (0, 1, 256)],
+)
+@pytest.mark.parametrize("block_q", [1, 8, 64])
+def test_ivf_kernel_matches_plain(cuda, dtype, approx_width, acc_slots, k, block_q):
+    q, x = _clustered()
+    ivf = IVFIndex.build(
+        torch.from_numpy(x).to(cuda),
+        IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4, max_cluster_size=256),
+        data_dtype=dtype, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda,
+    )
+    assert ivf.data_padded.shape[1] == 256
+    qs, probes, _ = _plan_probes(
+        torch.from_numpy(q).to(cuda), ivf.centroids, ivf.num_base_clusters,
+        ivf.data_padded.shape[0], block_q, 8,
+    )
+    args = (qs, probes, ivf.data_padded, ivf.ids_padded, k, block_q, approx_width, acc_slots)
+    before = ivf_scan_cuda.launches
+    ks, ki = ivf_scan_cuda(*args)
+    rs, ri = ivf_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert ivf_scan_cuda.launches == before + 1
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+
+
+def _corpus(n, seed=0):
+    rng = np.random.default_rng(seed)
+    words = [f"{chr(97 + i % 26)}{chr(97 + i * 7 % 26)}{i}" for i in range(3000)]
+    return list(dict.fromkeys(" ".join(rng.choice(words, rng.integers(8, 25))) for _ in range(n)))
+
+
+@pytest.mark.parametrize("use_ivf", [False, True])
+def test_pipeline_on_card_matches_cpu(cuda, tmp_path, use_ivf):
+    """The same saved encoder, store and index on the CPU and on the card
+    (f32 encoder): the card's run launches its kernel and returns the CPU's
+    documents (id overlap ≥ 0.99) with scores allclose 1e-4."""
+    corpus = _corpus(3000)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=4000, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    cpu_enc = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION, device="cpu")
+    cpu = SemanticSearchPipeline(
+        cpu_enc, corpus=corpus, use_ivf=use_ivf, device="cpu",
+        index_config=IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4),
+    )
+    queries = corpus[:64]
+    want = cpu(queries, 10)
+    cpu.save(str(tmp_path / "pipe"))
+    cpu_enc.save(str(tmp_path / "enc"))
+    enc = SentenceEncoder.load(str(tmp_path / "enc"), bf16=False, device=cuda)
+    pipe = SemanticSearchPipeline(enc, use_ivf=use_ivf, device=cuda)
+    pipe.load_corpus(str(tmp_path / "pipe"))
+    counter = ivf_scan_cuda if use_ivf else cosine_topk_cuda
+    before = counter.launches
+    got = pipe(queries, 10)
+    assert counter.launches > before
+    assert _overlap([[x[2] for x in r] for r in got], [[x[2] for x in r] for r in want]) >= 0.99
+    np.testing.assert_allclose(
+        [[x[1] for x in r] for r in got], [[x[1] for x in r] for r in want], atol=1e-4
+    )
+    if not use_ivf:
+        # exact search finds each verbatim query first; a 64-query IVF
+        # request shares one probe union, which need not hold every
+        # query's own cluster
+        for q, row in zip(queries, got):
+            assert row[0][0] == q

@@ -1,0 +1,92 @@
+"""Checkpoint layout shared with the JAX package.
+
+A checkpoint is a directory ``step_XXXXXXXX/`` holding ``params.npz`` (flat
+arrays keyed by ``/``-joined tree paths) and ``meta.json``; ``LATEST`` in
+the parent names the newest one. This module reads and writes that layout
+from plain nested dicts of numpy arrays or tensors, so checkpoints move
+between the two packages. Sharding metadata is not written; any that a JAX
+checkpoint carries is ignored.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{_SEP}{key}" if prefix else str(key)
+        if isinstance(val, dict):
+            flat.update(_flatten(val, path))
+        elif isinstance(val, torch.Tensor):
+            flat[path] = val.detach().to("cpu").numpy()
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def save_checkpoint(
+    path: str,
+    params: dict,
+    step: int = 0,
+    meta: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Write ``path/step_{step:08d}`` (via a ``.tmp`` dir renamed at the
+    end, so a crash never leaves a half-written step dir) and point
+    ``LATEST`` at it."""
+    ckpt_dir = os.path.join(path, f"step_{step:08d}")
+    tmp_dir = ckpt_dir + ".tmp"
+    if os.path.isdir(tmp_dir):
+        shutil.rmtree(tmp_dir)
+    os.makedirs(tmp_dir, exist_ok=True)
+    np.savez(os.path.join(tmp_dir, "params.npz"), **_flatten(params))
+    with open(os.path.join(tmp_dir, "meta.json"), "w") as f:
+        json.dump({"step": step, "meta": meta or {}}, f, indent=2)
+    if os.path.isdir(ckpt_dir):
+        shutil.rmtree(ckpt_dir)
+    os.rename(tmp_dir, ckpt_dir)
+    with open(os.path.join(path, "LATEST"), "w") as f:
+        f.write(os.path.basename(ckpt_dir))
+    return ckpt_dir
+
+
+def latest_checkpoint(path: str) -> Optional[str]:
+    latest = os.path.join(path, "LATEST")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            name = f.read().strip()
+        d = os.path.join(path, name)
+        if os.path.isdir(d):
+            return d
+    cands = sorted(
+        d for d in (os.listdir(path) if os.path.isdir(path) else [])
+        if re.match(r"step_\d+$", d)
+    )
+    return os.path.join(path, cands[-1]) if cands else None
+
+
+def restore_checkpoint_raw(ckpt_dir: str) -> Tuple[dict, int, Dict[str, Any]]:
+    """→ (nested dict of numpy arrays, step, meta), rebuilt from the flat
+    key paths alone."""
+    with np.load(os.path.join(ckpt_dir, "params.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    tree: dict = {}
+    for key, arr in flat.items():
+        parts = key.split(_SEP)
+        d = tree
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = arr
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        info = json.load(f)
+    return tree, info["step"], info.get("meta", {})

@@ -1,0 +1,226 @@
+// IVF block-union scan (kernel K1).
+//
+// Replaces text_similarity_tpu/index/ivf.py _ivf_query_pallas → _ivf_kernel
+// → _ivf_body, in its two merge modes:
+//  * exact (width = Mc, slots = 0): the exact top-k of the scores of a
+//    query block's probed slabs (the reference's _merge_block_topk);
+//  * deferred (approx_width = w, acc_slots = S in 1..4): every lane class
+//    (slab position mod w) keeps a running top-S (score, id); a later probe
+//    displaces a slot only on a strictly greater score and the loser
+//    cascades to the next slot; at the end the exact top-k of the S·w
+//    accumulator entries is taken, lowest id first among equal scores.
+// Queries of one block_q block share one probe list (the block union).
+//
+// Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
+// query block; the arithmetic (2·B·U·Mc·D) runs here on the CUDA cores in
+// f32, so the kernel is operation-bound far above the card's bf16 tensor
+// rate. A wgmma / TMA pipeline is later work.
+//
+// Design: the TPU accumulator is block_q × S·w × 8 bytes (1 MB at 64 ×
+// 2048 × 2), far over 227 KB of shared memory. Here a CTA takes 16 queries
+// of a block and a 128-lane range of the lane classes, so each thread owns
+// 8 queries × 1 lane class × S slots in registers, and walks the block's
+// whole probe list in order (probe ids loaded by the CTA itself): the same
+// insertion order, the same collisions, hence the same ids as the Pallas
+// kernel. Each CTA writes its per-query top-k of its accumulator entries
+// (or, in exact mode, of its slab positions); merge_partials takes the top-k
+// over the lane ranges. Queries are rounded to bf16 before the dot when the
+// slabs are bf16, as the reference does; slots with id < 0 score −inf.
+#include "common.cuh"
+
+namespace {
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+ivf_pass1(const float* __restrict__ q, const int* __restrict__ probes,
+          const T* __restrict__ data, const int* __restrict__ ids, int D, int U,
+          int C_tot, int Mc, int block_q, int n_sub, int k, int width, int n_ranges,
+          float* __restrict__ part_s, int* __restrict__ part_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = kp_for(k);
+  float* qs = reinterpret_cast<float*>(smem);        // kQTile × D
+  float* ct = qs + kQTile * D;                       // kRows × kDCP
+  float* sc = ct + kRows * kDCP;                     // kQTile × kRows
+  int* sid = reinterpret_cast<int*>(sc + kQTile * kRows);  // kQTile × kRows
+  float* sel_f = reinterpret_cast<float*>(sid + kQTile * kRows);
+  int* sel_i = reinterpret_cast<int*>(sel_f + kQTile * 2 * kp);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x / n_sub, sub = blockIdx.x % n_sub;
+  const int range = blockIdx.y, r0 = range * kRows;
+  const int qrow0 = blk * block_q + sub * kQTile;
+  const int qn = min(kQTile, block_q - sub * kQTile);
+  const int lanes = min(kRows, width - r0);
+  const int chunks = Mc / width;
+
+  for (int idx = tid; idx < kQTile * D; idx += kThreads) {
+    const int qi = idx / D;
+    const float v = qi < qn ? q[(size_t)(qrow0 + qi) * D + idx % D] : 0.f;
+    qs[idx] = round_to<T>(v);
+  }
+  Selector sel[kQPW];
+#pragma unroll
+  for (int a = 0; a < kQPW; ++a) {
+    const int ql = warp + a * kWarps;
+    sel_init(sel[a], sel_f + ql * 2 * kp, sel_i + ql * 2 * kp, k, lane);
+  }
+  __syncthreads();
+
+  const int r = tid % kRows, g = tid / kRows;
+  constexpr int kS = S > 0 ? S : 1;
+  float acc_s[kQPT][kS];
+  int acc_i[kQPT][kS];
+#pragma unroll
+  for (int j = 0; j < kQPT; ++j)
+#pragma unroll
+    for (int t = 0; t < kS; ++t) {
+      acc_s[j][t] = -INFINITY;
+      acc_i[j][t] = -1;
+    }
+
+  for (int u = 0; u < U; ++u) {
+    const int c = probes[(size_t)blk * U + u];
+    if (c < 0 || c >= C_tot) continue;  // CTA-uniform
+    for (int ch = 0; ch < chunks; ++ch) {
+      const size_t pos0 = (size_t)c * Mc + (size_t)ch * width + r0;
+      float a[kQPT];
+      tile_scores<T>(data + pos0 * D, lanes, D, qs, ct, a);
+      const int id = r < lanes ? ids[pos0 + r] : -1;
+      if constexpr (S > 0) {
+        if (r < lanes) {
+#pragma unroll
+          for (int j = 0; j < kQPT; ++j) {
+            float ds = id >= 0 ? a[j] : -INFINITY;
+            int di = id;
+#pragma unroll
+            for (int t = 0; t < S; ++t) {
+              if (ds > acc_s[j][t]) {
+                const float ts = acc_s[j][t];
+                const int ti = acc_i[j][t];
+                acc_s[j][t] = ds;
+                acc_i[j][t] = di;
+                ds = ts;
+                di = ti;
+              }
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kQPT; ++j) {
+          sc[(g * kQPT + j) * kRows + r] = id >= 0 ? a[j] : -INFINITY;
+          sid[(g * kQPT + j) * kRows + r] = id;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int a2 = 0; a2 < kQPW; ++a2) {
+          const int ql = warp + a2 * kWarps;
+          if (ql >= qn) continue;  // warp-uniform
+          for (int base = 0; base < lanes; base += 32) {
+            const int rr = base + lane;
+            const bool has = rr < lanes;
+            sel_push(sel[a2], has, has ? sc[ql * kRows + rr] : -INFINITY,
+                     has ? sid[ql * kRows + rr] : -1, lane);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+#pragma unroll
+      for (int j = 0; j < kQPT; ++j) {
+        sc[(g * kQPT + j) * kRows + r] = acc_s[j][t];
+        sid[(g * kQPT + j) * kRows + r] = acc_i[j][t];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a2 = 0; a2 < kQPW; ++a2) {
+        const int ql = warp + a2 * kWarps;
+        if (ql >= qn) continue;
+        for (int base = 0; base < lanes; base += 32) {
+          const int rr = base + lane;
+          const bool has = rr < lanes;
+          sel_push(sel[a2], has, has ? sc[ql * kRows + rr] : -INFINITY,
+                   has ? sid[ql * kRows + rr] : -1, lane);
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int a2 = 0; a2 < kQPW; ++a2) {
+    const int ql = warp + a2 * kWarps;
+    if (ql >= qn) continue;
+    sel_flush(sel[a2], lane);
+    const size_t o = ((size_t)(qrow0 + ql) * n_ranges + range) * k;
+    for (int j = lane; j < k; j += 32) {
+      part_s[o + j] = sel[a2].ls[j];
+      part_i[o + j] = sel[a2].li[j];
+    }
+  }
+}
+
+template <typename T, int S>
+cudaError_t run_scan(const float* q, const int* probes, const T* data, const int* ids,
+                     int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+                     int width, float* part_s, int* part_i, float* out_s, int* out_i,
+                     cudaStream_t st) {
+  const int kp = host_kp_for(k);
+  const size_t smem =
+      sizeof(float) * ((size_t)kQTile * D + kRows * kDCP + kQTile * kRows) +
+      sizeof(int) * (size_t)kQTile * kRows +
+      (size_t)kQTile * 2 * kp * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      ivf_pass1<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_blocks = B / block_q;
+  const int n_sub = (block_q + kQTile - 1) / kQTile;
+  const int n_ranges = (width + kRows - 1) / kRows;
+  dim3 grid(n_blocks * n_sub, n_ranges);
+  ivf_pass1<T, S><<<grid, kThreads, smem, st>>>(q, probes, data, ids, D, U, C_tot, Mc,
+                                                block_q, n_sub, k, width, n_ranges,
+                                                part_s, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_merge(part_s, part_i, B, n_ranges, k, out_s, out_i, st);
+}
+
+template <typename T>
+cudaError_t dispatch_slots(int slots, const float* q, const int* probes, const T* data,
+                           const int* ids, int B, int D, int U, int C_tot, int Mc,
+                           int block_q, int k, int width, float* part_s, int* part_i,
+                           float* out_s, int* out_i, cudaStream_t st) {
+  switch (slots) {
+    case 0: return run_scan<T, 0>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 1: return run_scan<T, 1>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 2: return run_scan<T, 2>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 3: return run_scan<T, 3>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 4: return run_scan<T, 4>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// slots = 0: exact merge over slab positions (width must equal Mc);
+// slots = S ≥ 1: deferred lane-class fold of width `width` (Mc % width == 0).
+extern "C" int ts_ivf_scan(const float* q, const int* probes, const void* data,
+                           int data_bf16, const int* ids, int B, int D, int U,
+                           int C_tot, int Mc, int block_q, int k, int width, int slots,
+                           float* part_s, int* part_i, float* out_s, int* out_i,
+                           void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (data_bf16)
+    return (int)dispatch_slots(slots, q, probes,
+                               static_cast<const __nv_bfloat16*>(data), ids, B, D, U,
+                               C_tot, Mc, block_q, k, width, part_s, part_i, out_s,
+                               out_i, st);
+  return (int)dispatch_slots(slots, q, probes, static_cast<const float*>(data), ids,
+                             B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i,
+                             out_s, out_i, st);
+}

@@ -1,0 +1,25 @@
+from .encoder import (
+    Encoder,
+    EncoderOutput,
+    embed_inputs,
+    encoder_forward,
+    init_params,
+    params_from_jax,
+    transformer_layer,
+)
+from .pooling import cls_pool, max_pool, mean_pool
+from .sentence_encoder import SentenceEncoder
+
+__all__ = [
+    "Encoder",
+    "EncoderOutput",
+    "embed_inputs",
+    "encoder_forward",
+    "init_params",
+    "params_from_jax",
+    "transformer_layer",
+    "cls_pool",
+    "max_pool",
+    "mean_pool",
+    "SentenceEncoder",
+]

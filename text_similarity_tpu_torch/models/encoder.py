@@ -1,0 +1,324 @@
+"""BERT-class transformer encoder (inference), port of
+``text_similarity_tpu.models.encoder``.
+
+Parameters keep the JAX package's tree layout — a nested dict with the L
+layers stacked on a leading axis — so a JAX parameter tree (as numpy)
+carries across with :func:`params_from_jax` and checkpoints are shared.
+:class:`Encoder` holds the tree as an ``nn.Module``; the forward is plain
+tensor code: embeddings + LN, then L post-LN blocks (fused head-interleaved
+QKV, exact attention, FFN), then the optional tanh pooler.
+
+Precision follows the reference: embeddings and LayerNorms in f32, layer
+matmuls in the compute dtype with f32 accumulation, softmax in f32.
+Not ported yet: RoBERTa position offsets, ALBERT sharing and factorized
+embeddings, MoE, performer / windowed attention, head pruning, int8 weights,
+dropout (training).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..core.config import EncoderArch
+from ..core.precision import DEFAULT_PRECISION, Precision
+from ..ops.attention import attention_reference
+
+
+class EncoderOutput(NamedTuple):
+    last_hidden_state: torch.Tensor         # (B, S, H)
+    pooler_output: Optional[torch.Tensor]   # (B, H) tanh(W·cls) or None
+
+
+def _check_supported(arch: EncoderArch) -> None:
+    unsupported = {
+        "position_offset": arch.position_offset,
+        "share_layers": arch.share_layers,
+        "embed_factor_size": arch.embed_factor_size,
+        "num_experts": arch.num_experts,
+        "attention_window": arch.attention_window,
+        "head_dim_override": arch.head_dim_override,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if arch.attention_type != "softmax":
+        bad.append(f"attention_type={arch.attention_type!r}")
+    if bad:
+        raise NotImplementedError(
+            f"encoder options not ported yet: {', '.join(bad)} "
+            "(ROADMAP queue 1: RoBERTa/ALBERT variants, MoE, long context)"
+        )
+
+
+def _param_shapes(arch: EncoderArch) -> dict:
+    h, i, l = arch.hidden_size, arch.intermediate_size, arch.num_layers
+    dense = lambda fi, fo: {"w": (l, fi, fo), "b": (l, fo)}  # noqa: E731
+    ln = lambda *s: {"scale": s, "bias": s}  # noqa: E731
+    shapes = {
+        "embeddings": {
+            "word": (arch.vocab_size, h),
+            "position": (arch.max_position, h),
+            "ln": ln(h),
+        },
+        "layers": {
+            "attn": {n: dense(h, h) for n in ("q", "k", "v", "o")},
+            "attn_ln": ln(l, h),
+            "mlp": {"in": dense(h, i), "out": dense(i, h)},
+            "mlp_ln": ln(l, h),
+        },
+    }
+    if arch.has_token_type:
+        shapes["embeddings"]["token_type"] = (arch.type_vocab_size, h)
+    if arch.has_pooler:
+        shapes["pooler"] = {"w": (h, h), "b": (h,)}
+    if arch.projection_dim:
+        shapes["projection"] = {
+            "w": (h, arch.projection_dim), "b": (arch.projection_dim,),
+        }
+    return shapes
+
+
+def init_params(
+    arch: EncoderArch,
+    generator: Optional[torch.Generator] = None,
+    device="cpu",
+) -> dict:
+    """Random-init params (normal, std 0.02; LN scale 1, biases 0) drawn
+    from ``generator`` in a fixed tree order. The numbers differ from the
+    JAX package's ``init_params`` (another RNG); carry JAX weights across
+    with :func:`params_from_jax` instead."""
+    _check_supported(arch)
+
+    def make(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = make(val)
+            elif key == "scale":
+                out[key] = torch.ones(val, device=device)
+            elif key in ("b", "bias"):
+                out[key] = torch.zeros(val, device=device)
+            else:
+                out[key] = (
+                    torch.randn(val, generator=generator, device=device) * 0.02
+                )
+        return out
+
+    return make(_param_shapes(arch))
+
+
+def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
+    """A JAX-layout parameter tree of numpy arrays (e.g. from
+    ``restore_checkpoint_raw`` or ``jax.device_get(params)``) → the same
+    tree of f32 tensors on ``device``, checked leaf by leaf against the
+    shapes ``arch`` implies."""
+    _check_supported(arch)
+
+    def convert(shapes, sub, path):
+        out = {}
+        for key, shp in shapes.items():
+            if key not in sub:
+                raise KeyError(f"parameter tree is missing {path + key!r}")
+            if isinstance(shp, dict):
+                out[key] = convert(shp, sub[key], path + key + "/")
+                continue
+            arr = np.asarray(sub[key])
+            if arr.dtype.kind != "f":
+                raise TypeError(
+                    f"{path + key}: expected a float array, got {arr.dtype}"
+                )
+            if tuple(arr.shape) != tuple(shp):
+                raise ValueError(
+                    f"{path + key}: shape {arr.shape} != expected {shp}"
+                )
+            out[key] = torch.from_numpy(arr.astype(np.float32)).to(device)
+        return out
+
+    return convert(_param_shapes(arch), tree, "")
+
+
+class _ParamTree(nn.Module):
+    """A nested dict of tensors held as (frozen) module parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, _ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False)
+                )
+
+    def tree(self) -> dict:
+        out = {}
+        for key in self._keys:
+            val = getattr(self, key)
+            out[key] = val.tree() if isinstance(val, _ParamTree) else val
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _layer_norm(x, scale, bias, eps):
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _act(name: str):
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="none")
+    if name == "gelu_new":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    if name == "mish":
+        return lambda x: x * torch.tanh(F.softplus(x))
+    if name == "swish":
+        return F.silu
+    if name == "penalized_tanh":
+        return lambda x: torch.where(x > 0, torch.tanh(x), 0.25 * torch.tanh(x))
+    raise ValueError(f"unknown activation {name}")
+
+
+def _dense(x: torch.Tensor, wb: dict) -> torch.Tensor:
+    # matmul accumulates in f32 and rounds to x's dtype; the bias adds after
+    # the rounding, as the reference's einsum(...).astype(x.dtype) + b
+    return torch.matmul(x, wb["w"]) + wb["b"]
+
+
+def transformer_layer(
+    hx: torch.Tensor,              # (B, S, H) in the compute dtype
+    lp: dict,                      # one layer's params (unstacked, cast)
+    attention_mask: torch.Tensor,  # (B, S)
+    *,
+    arch: EncoderArch,
+) -> torch.Tensor:
+    """One post-LN block: MHA + residual + LN, FFN + residual + LN."""
+    b, s, h = hx.shape
+    nh, hd = arch.num_heads, arch.head_dim
+    attn, mlp = lp["attn"], lp["mlp"]
+    # fused QKV with the reference's head-interleaved (h, nh, 3, hd) stack
+    w_qkv = torch.stack(
+        [attn[n]["w"].reshape(h, nh, hd) for n in ("q", "k", "v")], dim=2
+    )
+    b_qkv = torch.stack(
+        [attn[n]["b"].reshape(nh, hd) for n in ("q", "k", "v")], dim=1
+    )
+    qkv = torch.matmul(hx, w_qkv.reshape(h, nh * 3 * hd)).reshape(
+        b, s, nh, 3, hd
+    ) + b_qkv
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    ctx = attention_reference(q, k, v, attention_mask).reshape(b, s, nh * hd)
+    ctx = _dense(ctx, attn["o"])
+    hx1 = _layer_norm(
+        hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
+        arch.layer_norm_eps,
+    )
+    ff = _dense(hx1, mlp["in"])
+    ff = _act(arch.hidden_act)(ff.float()).to(hx1.dtype)
+    ff = _dense(ff, mlp["out"])
+    return _layer_norm(
+        hx1 + ff, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"],
+        arch.layer_norm_eps,
+    )
+
+
+def embed_inputs(
+    emb: dict,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    token_type_ids: Optional[torch.Tensor] = None,
+    *,
+    arch: EncoderArch,
+    precision: Precision = DEFAULT_PRECISION,
+) -> torch.Tensor:
+    """Word + position (+ token type) embeddings and LN in f32, returned in
+    the compute dtype."""
+    s = input_ids.shape[1]
+    x = emb["word"][input_ids.long()]
+    x = x + emb["position"][None, :s, :]
+    if arch.has_token_type:
+        if token_type_ids is None:
+            x = x + emb["token_type"][0]
+        else:
+            x = x + emb["token_type"][token_type_ids.long()]
+    x = _layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"], arch.layer_norm_eps)
+    return x.to(precision.compute_dtype)
+
+
+def encoder_forward(
+    params: dict,
+    input_ids: torch.Tensor,                       # (B, S) int
+    attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = keep
+    token_type_ids: Optional[torch.Tensor] = None,
+    *,
+    arch: EncoderArch,
+    precision: Precision = DEFAULT_PRECISION,
+) -> EncoderOutput:
+    """Run the encoder: embeddings, then a loop over the L stacked layers
+    (the reference's ``lax.scan``), then the pooler when the arch has one."""
+    b, s = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
+    x = embed_inputs(
+        params["embeddings"], input_ids, attention_mask, token_type_ids,
+        arch=arch, precision=precision,
+    )
+    layers = _cast_tree(params["layers"], precision.compute_dtype)
+    for li in range(arch.num_layers):
+        lp = _index_tree(layers, li)
+        x = transformer_layer(x, lp, attention_mask, arch=arch)
+    pooler_out = None
+    if arch.has_pooler and "pooler" in params:
+        pw = params["pooler"]
+        pooler_out = torch.tanh(x[:, 0, :].float() @ pw["w"] + pw["b"]).to(x.dtype)
+    return EncoderOutput(x, pooler_out)
+
+
+def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+    return {
+        k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+        for k, v in tree.items()
+    }
+
+
+def _index_tree(tree: dict, i: int) -> dict:
+    return {
+        k: _index_tree(v, i) if isinstance(v, dict) else v[i]
+        for k, v in tree.items()
+    }
+
+
+class Encoder(nn.Module):
+    """The encoder as an ``nn.Module`` over a JAX-layout parameter tree."""
+
+    def __init__(
+        self,
+        arch: EncoderArch,
+        params: dict,
+        precision: Precision = DEFAULT_PRECISION,
+    ):
+        super().__init__()
+        _check_supported(arch)
+        self.arch = arch
+        self.precision = precision
+        self.params = _ParamTree(params)
+
+    def tree(self) -> dict:
+        return self.params.tree()
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None) -> EncoderOutput:
+        return encoder_forward(
+            self.tree(), input_ids, attention_mask, token_type_ids,
+            arch=self.arch, precision=self.precision,
+        )

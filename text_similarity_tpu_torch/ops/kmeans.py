@@ -1,0 +1,97 @@
+"""Spherical k-means — the IVF build step (port of
+``text_similarity_tpu.ops.kmeans``) as plain tensor ops: chunked matmul +
+argmax for assignment, ``index_add_`` for the centroid sums. The row chunking
+keeps the (chunk, C) score block bounded instead of materialising (N, C).
+Random draws come from an explicit ``torch.Generator``; they cannot match
+the JAX package's, so builds agree in quality, not in centroids.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _chunk_rows(n: int, chunk: int) -> int:
+    # small corpora need no 65536-row chunk
+    return min(chunk, max(8, 1 << (max(n - 1, 1)).bit_length()))
+
+
+def _scores(rows: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    return rows.float() @ centroids.float().T
+
+
+def assign_clusters(
+    data: torch.Tensor,       # (N, D) L2-normalized
+    centroids: torch.Tensor,  # (C, D) L2-normalized
+    chunk: int = 65536,
+) -> torch.Tensor:
+    """argmax_c <x, centroid_c> per row (first maximum on ties) → (N,) int32."""
+    n = data.shape[0]
+    chunk = _chunk_rows(n, chunk)
+    out = [
+        torch.argmax(_scores(data[i:i + chunk], centroids), dim=1)
+        for i in range(0, n, chunk)
+    ]
+    return torch.cat(out).to(torch.int32)
+
+
+def assign_clusters_topk(
+    data: torch.Tensor,
+    centroids: torch.Tensor,
+    topk: int = 3,
+    chunk: int = 65536,
+) -> torch.Tensor:
+    """Per row, the ids of its ``topk`` nearest centroids, returned
+    topk-major as **(topk, N)** like the reference."""
+    n = data.shape[0]
+    chunk = _chunk_rows(n, chunk)
+    out = [
+        torch.topk(_scores(data[i:i + chunk], centroids), topk, dim=1).indices.T
+        for i in range(0, n, chunk)
+    ]
+    return torch.cat(out, dim=1).to(torch.int32)
+
+
+def _kmeans_iter(
+    data: torch.Tensor, centroids: torch.Tensor, generator: torch.Generator,
+    chunk: int,
+) -> torch.Tensor:
+    c, n = centroids.shape[0], data.shape[0]
+    assign = assign_clusters(data, centroids, chunk=chunk).long()
+    sums = torch.zeros((c, data.shape[1]), dtype=torch.float32, device=data.device)
+    counts = torch.zeros((c,), dtype=torch.float32, device=data.device)
+    for i in range(0, n, chunk):
+        a = assign[i:i + chunk]
+        sums.index_add_(0, a, data[i:i + chunk].float())
+        counts.index_add_(0, a, torch.ones_like(a, dtype=torch.float32))
+    new = sums / counts.clamp_min(1.0)[:, None]
+    # re-seed empty clusters from random data rows
+    rand_rows = data[
+        torch.randint(0, n, (c,), generator=generator, device=generator.device)
+        .to(data.device)
+    ].float()
+    new = torch.where(counts[:, None] > 0, new, rand_rows)
+    norm = torch.linalg.norm(new, dim=1, keepdim=True)
+    return new / norm.clamp_min(1e-12)
+
+
+def kmeans(
+    data: torch.Tensor,       # (N, D) L2-normalized
+    num_clusters: int,
+    iters: int = 12,
+    generator: Optional[torch.Generator] = None,
+    chunk: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spherical k-means → (centroids (C, D) normalized f32, assignments
+    (N,) int32). Initial centroids are distinct random rows; empty
+    clusters are re-seeded from random rows each iteration."""
+    if generator is None:
+        generator = torch.Generator(device=data.device).manual_seed(0)
+    n = data.shape[0]
+    init_idx = torch.randperm(n, generator=generator, device=generator.device)[:num_clusters]
+    centroids = data[init_idx.to(data.device)].float()
+    for _ in range(iters):
+        centroids = _kmeans_iter(data, centroids, generator, _chunk_rows(n, chunk))
+    return centroids, assign_clusters(data, centroids, chunk=chunk)

@@ -1,0 +1,139 @@
+"""Exact cosine top-k (kernel K2) and its plain version.
+
+Port of ``text_similarity_tpu.ops.topk``: ``cosine_topk`` returns the exact
+top-k of ``queries · corpusᵀ`` ordered by (score desc, id asc) — among
+equal scores the lowest id wins, as the reference's merge rounds and
+``lax.top_k`` do.
+
+* ``cosine_topk_reference``: plain tensor code, chunked over the corpus like
+  the reference's ``cosine_topk_xla``; selection uses stable sorts so ties
+  keep the lowest id (``torch.topk`` promises no tie order).
+* ``cosine_topk_cuda``: the hand-written CUDA kernel (``csrc/topk.cu``).
+* ``cosine_topk``: dispatches on the corpus's device — the kernel for a
+  CUDA tensor, the plain version for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _cuda
+
+MAX_K = 256   # the kernel's selector holds at most 256 winners per query
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    n = torch.sqrt(torch.sum(x.float().square(), dim=dim, keepdim=True))
+    return (x / n.clamp_min(eps)).to(x.dtype)
+
+
+def select_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis by (score desc, id asc): sort by id, then
+    stably by score."""
+    by_id = torch.argsort(ids, dim=-1, stable=True)
+    s = torch.gather(scores, -1, by_id)
+    i = torch.gather(ids, -1, by_id)
+    by_score = torch.argsort(s, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(s, -1, by_score), torch.gather(i, -1, by_score)
+
+
+def _dot_dtype_queries(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    # the reference casts the queries to the corpus dtype before the dot
+    if corpus.dtype == torch.bfloat16:
+        return queries.to(torch.bfloat16).float()
+    return queries.float()
+
+
+def cosine_topk_reference(
+    queries: torch.Tensor,  # (Q, D) L2-normalized
+    corpus: torch.Tensor,   # (N, D) L2-normalized, f32 or bf16
+    k: int = 10,
+    chunk: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: chunked f32 scores (products of bf16 values are
+    exact in f32) with a running (score desc, id asc) merge, so the full
+    (Q, N) score matrix never exists."""
+    q = _dot_dtype_queries(queries, corpus)
+    n = corpus.shape[0]
+    best_s = best_i = None
+    for start in range(0, n, chunk):
+        c = corpus[start:start + chunk].float()
+        s = q @ c.T
+        # within a chunk ids increase with the column, so a stable sort
+        # already breaks score ties toward the lowest id
+        order = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
+        cs = torch.gather(s, 1, order)
+        ci = (order + start).to(torch.int32)
+        if best_s is None:
+            best_s, best_i = cs, ci
+            continue
+        # running winners hold lower ids than this chunk: put them first
+        ms = torch.cat([best_s, cs], dim=1)
+        mi = torch.cat([best_i, ci], dim=1)
+        order = torch.argsort(ms, dim=1, descending=True, stable=True)[:, :k]
+        best_s, best_i = torch.gather(ms, 1, order), torch.gather(mi, 1, order)
+    return best_s, best_i
+
+
+def _check_k(k: int, n: int) -> None:
+    if not 1 <= k <= min(n, MAX_K):
+        raise ValueError(f"k={k} must be in [1, min(N={n}, {MAX_K})]")
+
+
+def cosine_topk_cuda(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K2 on the card. queries (Q, D) f32, corpus (N, D) f32 or
+    bf16, both contiguous CUDA tensors; D a multiple of 32, k ≤ 256.
+    → (scores (Q, k) f32, ids (Q, k) int32)."""
+    _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
+    _cuda.require_cuda(corpus, "corpus", (torch.float32, torch.bfloat16), 2)
+    q_n, d = queries.shape
+    n = corpus.shape[0]
+    if corpus.shape[1] != d or d % 32 or d > 1024:
+        raise ValueError(f"dims: queries {d}, corpus {corpus.shape[1]} (need equal, %32, ≤1024)")
+    if queries.device != corpus.device:
+        raise ValueError("queries and corpus must be on one device")
+    _check_k(k, n)
+    dev = corpus.device
+    out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    if q_n == 0:
+        return out_s, out_i
+    q_tiles = -(-q_n // 16)
+    # split the corpus so ~2 CTAs land on each of the 132 SMs, ≥ 512 rows each
+    splits = max(1, min(-(-264 // q_tiles), -(-n // 512)))
+    rows_per_split = -(-n // splits)
+    rows_per_split = -(-rows_per_split // 128) * 128
+    splits = -(-n // rows_per_split)
+    part_s = torch.empty((q_n, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q_n, splits, k), dtype=torch.int32, device=dev)
+    err = _cuda.lib().ts_cosine_topk(
+        queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+        q_n, n, d, k, splits, rows_per_split,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "cosine_topk kernel")
+    cosine_topk_cuda.launches += 1
+    return out_s, out_i
+
+
+cosine_topk_cuda.launches = 0
+
+
+def cosine_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact cosine top-k (inputs L2-normalized): the CUDA kernel for a
+    CUDA corpus, the plain version for a CPU corpus."""
+    if corpus.is_cuda:
+        return cosine_topk_cuda(queries.float().contiguous(), corpus.contiguous(), k)
+    _check_k(k, corpus.shape[0])
+    return cosine_topk_reference(queries, corpus, k)
