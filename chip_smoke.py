@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero):
  1. the card: ``nvidia-smi`` name and power limit; build the CUDA kernels
-    from ``text_similarity_tpu_torch/csrc`` (nvcc, sm_90a).
+    from ``text_similarity_tpu_torch/csrc`` (nvcc, sm_90a; one process per
+    source, started together).
  2. K2 (exact cosine top-k) against its plain version at N = 100,003 ragged,
     D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora with
     duplicated rows.
@@ -23,9 +24,30 @@ Phases (any failure exits non-zero):
     the queries whose own slab was in their block's shared probe list).
     Both kernels' launch counters must rise during this phase, and each
     kernel must agree with its plain version at the pipeline's shapes.
- 5. One JSON line ``{"kernels": [...]}``: launches in phase 4, time, plain
-    time, bound and library time at the phase-2/3 shapes.
- 6. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 5. int8 serving:
+    - K3 (int8 top-k) against its plain version at N = 100,003 ragged,
+      D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, duplicated rows; timed at
+      Q = 256, k = 10 beside ``torch.topk((q @ c.float().T) * s, k)``;
+    - K4 (int8 IVF scan) against its plain version on an int8 index of the
+      phase-3 corpus (``IndexConfig.auto(1M)``, ``quantize_int8=True``, bf16
+      rescore copy), 4096 queries with the serving args: k = 10 raw, the
+      rescore's k_scan = 20 (deferred, S = 2) and the exact merge; recall@10
+      of int8 + rescore against K2's exact top-10 ≥ 0.95 (raw int8
+      recall and both QPS printed);
+    - the int8 pipeline: the phase-4 minilm-l6 weights through ``to_int8``,
+      the 120,000 documents with an int8 IVF (``IndexConfig.auto`` with
+      ``quantize_int8=True``), requests of 1, 5 and 64 under phase 4's
+      self-retrieval gate, one ``add_documents`` (the new document finds
+      itself) and one ``remove_documents`` (the removed id never comes
+      back) on the built index, one ``BruteForceIndex`` query over an
+      ``EmbeddingStore(quantized=True)`` of 2,000 of those embeddings. The
+      K3 and K4 launch counters, zeroed just before, must rise. Printed:
+      the mean cosine between the int8 and the bf16 encoder's embeddings of
+      64 texts and the int8 encoder's sentences/s.
+ 6. One JSON line ``{"kernels": [...]}`` for K1-K4: launches in the
+    pipeline window of their phase (4 or 5), time, plain time, bound and
+    library time at the phase-2/3/5 shapes.
+ 7. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -270,7 +292,7 @@ def phase_ivf(torch, card):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k=10 {mode} bf16",
-    }
+    }, (corpus, queries, exact)
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +346,102 @@ def own_slab_probed(torch, pipe, texts, doc_ids):
     return hit.cpu().tolist()
 
 
+def serve_requests(torch, pipe, label, n_docs, sizes, rng, results, requests):
+    """Requests of verbatim corpus sentences → self-retrieval hits (own
+    document in the top 10 at score ≥ 0.99) per request size, into
+    ``results[(label, size)] = [queries, hits, own slab probed, hits among
+    those, [ms]]``; IVF requests also go to ``requests`` for the
+    probe-coverage check."""
+    picks = rng.choice(n_docs, size=sum(sizes), replace=False)
+    start = 0
+    for size in sizes:
+        req = picks[start:start + size]
+        start += size
+        texts = [pipe.corpus[j] for j in req]
+        torch.cuda.synchronize()
+        t = time.time()
+        out = pipe(texts, max_num_results=10)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        hit = [any(d == j and s >= 0.99 for _, s, d in row) for j, row in zip(req, out)]
+        if pipe.ivf is not None:
+            requests.append((pipe, label, size, texts, req, hit))
+        rec = results.setdefault((label, size), [0, 0, 0, 0, []])
+        rec[0] += size
+        rec[1] += sum(hit)
+        rec[4].append(dt * 1e3)
+
+
+def gate_requests(torch, results, requests, card):
+    """Log each (pipeline, request size) and gate it: ≥ 95% self-retrieval
+    on every brute-force request and every single-query IVF request; on a
+    multi-query IVF request, ≥ 95% among the queries whose own slab was
+    probed. The serving args share one union of round_up(probes, 8) slabs
+    across a 64-query block, which cannot hold the own slab of every query
+    of a request drawn from many clusters."""
+    ivf_labels = {label for _, label, *_ in requests}
+    for pipe, label, size, texts, req, hit in requests:
+        rec = results[(label, size)]
+        for probed, h in zip(own_slab_probed(torch, pipe, texts, req), hit):
+            rec[2] += probed
+            rec[3] += probed and h
+    for (label, size), (total, hits, probed, probed_hits, ms) in sorted(results.items()):
+        cover = (f"; own slab probed for {probed}/{total}, of which {probed_hits} find "
+                 f"themselves" if label in ivf_labels else "")
+        log(f"{label}: {len(ms)} request(s) of {size}: {hits}/{total} queries find "
+            f"themselves in the top 10 at score >= 0.99{cover}; median {np.median(ms):.1f} ms "
+            f"= {size / np.median(ms) * 1e3:.1f} QPS [{card}]")
+    for (label, size), (total, hits, probed, probed_hits, _) in results.items():
+        if label not in ivf_labels or size == 1:
+            if hits < 0.95 * total:
+                raise AssertionError(f"{label}, requests of {size}: self-retrieval "
+                                     f"{hits}/{total} below 95%")
+        elif probed_hits < 0.95 * probed or probed == 0:
+            raise AssertionError(f"{label}, requests of {size}: self-retrieval "
+                                 f"{probed_hits}/{probed} of probed queries below 95%")
+
+
+def host_ms(torch, fn, reps=5):
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t) / reps * 1e3
+
+
+def profile_split(torch, label, fn, card, top=8):
+    """One call of ``fn`` under ``torch.profiler`` → log its wall time, the
+    device's busy and idle share of it (the sum of the device time of every
+    kernel, one stream, over the wall time), and the ops that took the most
+    device time. The profiler's own overhead lengthens the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t) * 1e3
+    # device-side events only (the CPU op that launched a kernel reports the
+    # same time again), as the profiler's own table totals them
+    ops = [
+        (e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+        and e.self_device_time_total > 0
+    ]
+    busy = sum(ms for ms, _, _ in ops)
+    if busy == 0:
+        log(f"profile of {label}: wall {wall:.2f} ms; device time not measured "
+            f"(the profiler recorded no device events) [{card}]")
+        return
+    ops.sort(reverse=True)
+    head = "; ".join(f"{key[:60]} x{n} {ms:.3f} ms" for ms, n, key in ops[:top])
+    log(f"profile of {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top device ops: {head} [{card}]")
+
+
 def phase_pipeline(torch, card):
     from text_similarity_tpu_torch.core.config import ARCH_PRESETS
     from text_similarity_tpu_torch.data.tokenization import (
@@ -346,32 +464,7 @@ def phase_pipeline(torch, card):
         f"{time.time() - t0:.1f} s")
 
     rng = np.random.default_rng(1)
-    # (pipeline, request size) → [queries, self-hits, own slab probed,
-    # self-hits among those, [ms]]
-    results = {}
-    requests = []   # IVF requests, for the probe-coverage check after the window
-
-    def run(label, pipe, n_docs, sizes):
-        """Requests of verbatim corpus sentences → self-retrieval hits (own
-        document in the top 10 at score ≥ 0.99) per request size."""
-        picks = rng.choice(n_docs, size=sum(sizes), replace=False)
-        start = 0
-        for size in sizes:
-            req = picks[start:start + size]
-            start += size
-            texts = [pipe.corpus[j] for j in req]
-            torch.cuda.synchronize()
-            t = time.time()
-            out = pipe(texts, max_num_results=10)
-            torch.cuda.synchronize()
-            dt = time.time() - t
-            hit = [any(d == j and s >= 0.99 for _, s, d in row) for j, row in zip(req, out)]
-            if pipe.ivf is not None:
-                requests.append((label, size, texts, req, hit))
-            rec = results.setdefault((label, size), [0, 0, 0, 0, []])
-            rec[0] += size
-            rec[1] += sum(hit)
-            rec[4].append(dt * 1e3)
+    results, requests = {}, []
 
     torch.cuda.synchronize()
     t = time.time()
@@ -396,48 +489,27 @@ def phase_pipeline(torch, card):
 
     cosine_topk_cuda.launches = 0
     ivf_scan_cuda.launches = 0
-    ivf_label, brute_label = "ivf pipeline (120000 docs)", "brute pipeline (2000 docs)"
-    run(ivf_label, big, len(corpus), [1] * 20 + [5, 64])
-    run(brute_label, small, 2000, [1, 5, 64])
+    serve_requests(torch, big, "ivf pipeline (120000 docs)", len(corpus), [1] * 20 + [5, 64],
+                   rng, results, requests)
+    serve_requests(torch, small, "brute pipeline (2000 docs)", 2000, [1, 5, 64],
+                   rng, results, requests)
     launches = {"cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
     log(f"launches during the pipeline phase: {launches}")
-
-    # IVF requests: which queries had their own document's slab probed
-    for label, size, texts, req, hit in requests:
-        rec = results[(label, size)]
-        for probed, h in zip(own_slab_probed(torch, big, texts, req), hit):
-            rec[2] += probed
-            rec[3] += probed and h
-    for (label, size), (total, hits, probed, probed_hits, ms) in sorted(results.items()):
-        cover = (f"; own slab probed for {probed}/{total}, of which {probed_hits} find "
-                 f"themselves" if label == ivf_label else "")
-        log(f"{label}: {len(ms)} request(s) of {size}: {hits}/{total} queries find "
-            f"themselves in the top 10 at score >= 0.99{cover}; median {np.median(ms):.1f} ms "
-            f"= {size / np.median(ms) * 1e3:.1f} QPS [{card}]")
 
     # repeated 64-query requests on both paths, and where their time goes:
     # encode alone, search alone (the index's query on encoded rows)
     q64 = [corpus[j] for j in rng.choice(2000, 64, replace=False)]
     qe = _pad_pow2(enc.encode(q64, device_output=True))
     mc = big.ivf.data_padded.shape[1]
-
-    def host_ms(fn, reps=5):
-        torch.cuda.synchronize()
-        t = time.time()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.time() - t) / reps * 1e3
-
-    enc_ms = host_ms(lambda: enc.encode(q64, device_output=True))
+    enc_ms = host_ms(torch, lambda: enc.encode(q64, device_output=True))
     for label, pipe, search in (
         ("ivf pipeline", big, lambda: big.ivf.query(
             qe, k=10, block_q=64, union_factor=1, approx_width=2048 if mc >= 1024 else 0)),
         ("brute pipeline", small, lambda: BruteForceIndex(small.store).query(qe, k=10)),
     ):
-        total = host_ms(lambda: pipe(q64, 10))
+        total = host_ms(torch, lambda: pipe(q64, 10))
         log(f"{label}: 64-query request {total:.2f} ms = {64 / total * 1e3:.0f} QPS; "
-            f"encode alone {enc_ms:.2f} ms, search alone {host_ms(search):.2f} ms [{card}]")
+            f"encode alone {enc_ms:.2f} ms, search alone {host_ms(torch, search):.2f} ms [{card}]")
 
     # the kernels against their plain versions at the pipeline's shapes
     ks, ki = cosine_topk_cuda(qe, small.store.view.contiguous(), 20)
@@ -457,21 +529,264 @@ def phase_pipeline(torch, card):
     if min(ov1, ov2) < 0.99 or max(e1, e2) > 1e-4:
         raise AssertionError("a kernel disagrees with its plain version at pipeline shapes")
 
-    # The gate: ≥ 95% self-retrieval on every brute-force request and every
-    # single-query IVF request; on a multi-query IVF request, ≥ 95% among the
-    # queries whose own slab was probed. The serving args share one union of
-    # round_up(probes, 8) slabs across a 64-query block, which cannot hold
-    # the own slab of every query of a request drawn from many clusters.
-    for (label, size), (total, hits, probed, probed_hits, _) in results.items():
-        if label == brute_label or size == 1:
-            if hits < 0.95 * total:
-                raise AssertionError(f"{label}, requests of {size}: self-retrieval "
-                                     f"{hits}/{total} below 95%")
-        elif probed_hits < 0.95 * probed or probed == 0:
-            raise AssertionError(f"{label}, requests of {size}: self-retrieval "
-                                 f"{probed_hits}/{probed} of probed queries below 95%")
+    gate_requests(torch, results, requests, card)
     if launches["cosine_topk"] == 0 or launches["ivf_scan"] == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches, {"corpus": corpus, "tok": tok, "params": params, "enc": enc,
+                      "bf16_store": big.store}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: int8 serving
+# ---------------------------------------------------------------------------
+
+def phase_int8_topk(torch, card):
+    """K3 against its plain version, and its times, at the phase-2 shapes."""
+    from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
+    from text_similarity_tpu_torch.ops.topk import (
+        cosine_topk_int8_cuda, cosine_topk_int8_reference, l2_normalize,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, d = 100_003, 384
+    corpus = l2_normalize(torch.randn(n, d, generator=g, device=dev))
+    src = torch.randperm(n // 2, generator=g, device=dev)[:256]
+    dst = n // 2 + torch.randperm(n - n // 2, generator=g, device=dev)[:512]
+    corpus[dst[:256]] = corpus[src]
+    corpus[dst[256:]] = corpus[src]       # three copies: exact ties
+    queries = l2_normalize(corpus[src] + 0.05 * torch.randn(256, d, generator=g, device=dev))
+    codes, scales = quantize_embeddings_int8(corpus)
+    worst = 0.0
+    for q_n in (1, 7, 256):
+        q = queries[:q_n].contiguous()
+        for k in (10, 20):
+            ks, ki = cosine_topk_int8_cuda(q, codes, scales, k)
+            rs, ri = cosine_topk_int8_reference(q, codes, scales, k)
+            torch.cuda.synchronize()
+            ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+            err = float(np.abs(ks - rs).max())
+            worst = max(worst, err)
+            ok = err <= 1e-5 and separated_ids_equal(ki, ri, rs)
+            log(f"K3 int8 Q={q_n} k={k}: max|Δscore| {err:.2e}, ids equal "
+                f"{np.mean(ki == ri):.4f} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K3 disagrees with its plain version")
+    q, k = queries.contiguous(), 10
+    ms = time_ms(torch, lambda: cosine_topk_int8_cuda(q, codes, scales, k))
+    plain = time_ms(torch, lambda: cosine_topk_int8_reference(q, codes, scales, k),
+                    iters=3, warmup=1)
+    lib = time_ms(torch, lambda: torch.topk((q @ codes.float().T) * scales, k, dim=1))
+    qn = q.shape[0]
+    b_ms, b_by = bound_ms(qn * d * 4 + n * d + n * 4 + qn * k * 8, 2.0 * qn * n * d, PEAK_F32)
+    ms_q1 = time_ms(torch, lambda: cosine_topk_int8_cuda(q[:1], codes, scales, k))
+    log(f"K3 times [{card}]: int8 Q=256 k=10 kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"torch.topk((q@c.float()T)*s) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"Q=1 {ms_q1:.3f} ms")
+    return {
+        "name": "cosine_topk_int8", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/topk.cu",
+        "replaces": "text_similarity_tpu/ops/topk.py:617",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"Q=256 N={n} D={d} k=10 int8",
+    }
+
+
+def phase_int8_ivf(torch, card, corpus, queries, exact):
+    """K4 against its plain version on an int8 index of the phase-3 corpus;
+    recall@10 of int8 + rescore (gate) and of raw int8 against exact."""
+    import dataclasses
+
+    from text_similarity_tpu_torch.core.config import IndexConfig
+    from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda, ivf_scan_reference
+
+    n, d = corpus.shape
+    n_q = queries.shape[0]
+    cfg = dataclasses.replace(IndexConfig.auto(n), quantize_int8=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf = IVFIndex.build(corpus, cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    mc = ivf.data_padded.shape[1]
+    log(f"int8 IVF build [{card}]: {time.time() - t0:.2f} s for {n}x{d}, "
+        f"C={ivf.num_base_clusters} (+{ivf.num_overflow}), Mc={mc}, rescore copy "
+        f"{str(ivf.rescore_data.dtype)[6:]}")
+
+    q_s, probes, _, block_q = serving_plan(ivf, queries)
+    worst, main = 0.0, None
+    for label, k_scan, aw in (("k=10 raw", 10, 2048), ("k=10 rescore scan", 20, 2048),
+                              ("k=10 rescore scan, exact", 20, 0)):
+        w, slots = ivf.scan_mode(k_scan, aw, 0)
+        mode = f"deferred w={w} S={slots}" if w else "exact"
+        args = (q_s, probes, ivf.data_padded, ivf.ids_padded, k_scan, block_q, w, slots)
+        ks, ki = ivf_scan_cuda(*args, scales=ivf.scales_padded)
+        rs, ri = ivf_scan_reference(*args, scales=ivf.scales_padded)
+        torch.cuda.synchronize()
+        ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+        err = float(np.abs(ks - rs).max())
+        worst = max(worst, err)
+        ov = overlap(ki, ri)
+        ok = ov >= 0.99 and err <= 1e-4
+        ms = time_ms(torch, lambda: ivf_scan_cuda(*args, scales=ivf.scales_padded),
+                     iters=5, warmup=1)
+        log(f"K4 Mc={mc} {label} (k_scan {k_scan}) mode {mode}: overlap {ov:.4f}, "
+            f"max|Δscore| {err:.2e}, kernel {ms:.3f} ms [{card}] -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K4 disagrees with its plain version")
+        if k_scan == 20 and w:
+            plain = time_ms(torch, lambda: ivf_scan_reference(*args, scales=ivf.scales_padded),
+                            iters=1, warmup=1)
+            main = (args, ms, plain, mode, slots)
+    if main is None or main[4] != 2:
+        raise AssertionError("the rescore scan did not run the two-slot deferred fold")
+
+    exact_h = exact.cpu().numpy()
+    qargs = dict(k=10, block_q=64, union_factor=1, approx_width=2048)
+    recall = {}
+    for label, kc in (("int8 + rescore", 0), ("raw int8", -1)):
+        _, got = ivf.query(queries, k_coarse=kc, **qargs)
+        recall[label] = overlap(got.cpu().numpy(), exact_h)
+        t_q = time_ms(torch, lambda: ivf.query(queries, k_coarse=kc, **qargs), iters=3, warmup=1)
+        log(f"int8 IVF {label}: recall@10 vs exact {recall[label]:.4f}; query 4096 @k=10 "
+            f"{t_q:.2f} ms = {n_q / t_q * 1e3:.0f} QPS [{card}]")
+    if recall["int8 + rescore"] < 0.95:
+        raise AssertionError("int8 + rescore recall@10 below 0.95")
+
+    args, ms, plain, mode, _ = main
+    slabs = torch.unique(args[1])
+    valid = (ivf.ids_padded >= 0).sum(dim=1)
+    # codes + scale of every valid slot, the ids of every probed slot, the
+    # queries once, the (B, k_scan) results
+    n_bytes = (int(valid[slabs].sum()) * (d + 4) + slabs.numel() * mc * 4
+               + n_q * d * 4 + n_q * args[4] * 8)
+    ops = 2.0 * block_q * d * float(valid[args[1].long()].sum())
+    b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
+    log(f"K4 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "ivf_scan_int8", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/ivf_scan.cu",
+        "replaces": "text_similarity_tpu/index/ivf.py:1945 (_ivf_kernel_int8 :1709)",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k_scan=20 {mode} int8",
+    }
+
+
+def phase_int8_pipeline(torch, card, ctx):
+    """The int8 serving path end to end; → the K3/K4 launches of its window."""
+    import dataclasses
+
+    from text_similarity_tpu_torch.core.config import IndexConfig
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.topk import (
+        cosine_topk_cuda, cosine_topk_int8_cuda, cosine_topk_int8_reference,
+    )
+    from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    corpus, enc = ctx["corpus"], ctx["enc"]
+    enc8 = SentenceEncoder(ctx["params"], enc.arch, tokenizer=ctx["tok"], device="cuda").to_int8()
+    rng = np.random.default_rng(2)
+    q64 = [corpus[j] for j in rng.choice(len(corpus), 64, replace=False)]
+    e16 = enc.encode(q64, device_output=True)
+    e8 = enc8.encode(q64, device_output=True)
+    log(f"int8 vs bf16 encoder (minilm-l6, same weights): mean cosine of 64 embeddings "
+        f"{float((e16 * e8).sum(dim=1).mean()):.5f}, min {float((e16 * e8).sum(dim=1).min()):.5f}")
+
+    cfg = dataclasses.replace(IndexConfig.auto(len(corpus)), quantize_int8=True)
+    torch.cuda.synchronize()
+    t = time.time()
+    pipe = SemanticSearchPipeline(enc8, corpus=corpus, index_config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    enc_s = time.time() - t
+    log(f"int8 encode 120000 docs: {enc_s:.1f} s = {len(corpus) / enc_s:.0f} sentences/s "
+        f"(tokenize + minilm-l6 int8) [{card}]")
+    t = time.time()
+    pipe._build_ivf()
+    torch.cuda.synchronize()
+    ivf = pipe.ivf
+    log(f"int8 IVF build over 120000 docs: {time.time() - t:.2f} s, Mc={ivf.data_padded.shape[1]}, "
+        f"C={ivf.num_base_clusters} (+{ivf.num_overflow}), slabs {str(ivf.data_padded.dtype)[6:]}, "
+        f"rescore {str(ivf.rescore_data.dtype)[6:]} [{card}]")
+    store8 = EmbeddingStore(2000, enc8.embedding_dim, quantized=True, device="cuda")
+    store8.add(pipe.store.view[:2000])
+    brute = BruteForceIndex(store8)
+    qb = _pad_pow2(enc8.encode(corpus[:64], device_output=True))
+    pipe(corpus[:1], 10)        # warm the path outside the counted window
+    brute.query(qb, k=10)
+    new_doc = "zyx quantized serving check sentence that was never indexed before"
+    gone = int(rng.integers(0, len(corpus)))
+
+    results, requests = {}, []
+    for counter in ("launches", "launches_int8"):
+        setattr(ivf_scan_cuda, counter, 0)
+    cosine_topk_cuda.launches = 0
+    cosine_topk_int8_cuda.launches = 0
+    serve_requests(torch, pipe, "int8 ivf pipeline (120000 docs)", len(corpus),
+                   [1] * 20 + [5, 64], rng, results, requests)
+    new_id = int(pipe.add_documents([new_doc])[0])
+    found = pipe([new_doc], 10)[0]
+    pipe.remove_documents([gone])
+    after = pipe([corpus[gone]], 10)[0]
+    s_b, i_b = brute.query(qb, k=10)
+    launches = {"cosine_topk_int8": cosine_topk_int8_cuda.launches,
+                "ivf_scan_int8": ivf_scan_cuda.launches_int8,
+                "cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
+    log(f"launches during the int8 pipeline window: {launches}")
+
+    ok_add = bool(found) and found[0][2] == new_id and found[0][1] >= 0.99
+    ok_remove = all(d != gone for _, _, d in after)
+    log(f"int8 add_documents: new id {new_id} first at score "
+        f"{found[0][1] if found else float('nan'):.4f} -> {'ok' if ok_add else 'FAIL'}; "
+        f"remove_documents({gone}): absent from its own query's top 10 -> "
+        f"{'ok' if ok_remove else 'FAIL'}")
+    self_hits = int(sum(i_b[r, 0] == r and s_b[r, 0] >= 0.99 for r in range(64)))
+    log(f"BruteForceIndex over an int8 store of 2000 embeddings: {self_hits}/64 verbatim "
+        f"queries first at score >= 0.99")
+
+    enc8_ms = host_ms(torch, lambda: enc8.encode(q64, device_output=True))
+    qe = _pad_pow2(e8)
+    search_ms = host_ms(torch, lambda: ivf.query(qe, k=10, block_q=64, union_factor=1))
+    total = host_ms(torch, lambda: pipe(q64, 10))
+    log(f"int8 ivf pipeline: 64-query request {total:.2f} ms = {64 / total * 1e3:.0f} QPS; "
+        f"int8 encode alone {enc8_ms:.2f} ms, int8 search alone (scan + rescore) "
+        f"{search_ms:.2f} ms [{card}]")
+    profile_split(torch, "one 64-query int8 request", lambda: pipe(q64, 10), card)
+    profile_split(torch, "int8 encode of 64 texts", lambda: enc8.encode(q64, device_output=True),
+                  card)
+    profile_split(torch, "bf16 encode of the same 64 texts",
+                  lambda: enc.encode(q64, device_output=True), card)
+
+    # the kernels against their plain versions at the int8 pipeline's shapes
+    ks, ki = cosine_topk_int8_cuda(qb, store8.view, store8.scales_view, 20)
+    rs, ri = cosine_topk_int8_reference(qb, store8.view, store8.scales_view, 20)
+    mc = ivf.data_padded.shape[1]
+    k_scan = ivf.scan_k(10)
+    w, slots = ivf.scan_mode(k_scan, 2048 if mc >= 1024 else 0, 0)
+    qs, probes, _, block_q = serving_plan(ivf, qe)
+    args = (qs, probes, ivf.data_padded, ivf.ids_padded, k_scan, block_q, w, slots)
+    ks2, ki2 = ivf_scan_cuda(*args, scales=ivf.scales_padded)
+    rs2, ri2 = ivf_scan_reference(*args, scales=ivf.scales_padded)
+    torch.cuda.synchronize()
+    ov1, ov2 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), overlap(ki2.cpu().numpy(), ri2.cpu().numpy())
+    e1, e2 = float((ks - rs).abs().max()), float((ks2 - rs2).abs().max())
+    log(f"at int8 pipeline shapes: K3 (64x2000, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}; "
+        f"K4 (64 queries, k_scan {k_scan}, {'deferred' if w else 'exact'}) overlap {ov2:.4f} "
+        f"max|Δ| {e2:.2e}")
+    if min(ov1, ov2) < 0.99 or max(e1, e2) > 1e-4:
+        raise AssertionError("an int8 kernel disagrees with its plain version at pipeline shapes")
+
+    gate_requests(torch, results, requests, card)
+    if not (ok_add and ok_remove):
+        raise AssertionError("add_documents / remove_documents on the int8 index failed")
+    if self_hits < 0.95 * 64:
+        raise AssertionError(f"int8 brute-force self-retrieval {self_hits}/64 below 95%")
+    if launches["cosine_topk_int8"] == 0 or launches["ivf_scan_int8"] == 0:
+        raise AssertionError(f"an int8 kernel of the path never launched: {launches}")
     return launches
 
 
@@ -502,10 +817,18 @@ def main() -> int:
     _cuda.lib()
     log(f"kernels built in {time.time() - t:.1f} s")
 
-    kernels = [phase_topk(torch, card), phase_ivf(torch, card)]
-    launches = phase_pipeline(torch, card)
-    for kern in kernels:
+    k2 = phase_topk(torch, card)
+    k1, (corpus, queries, exact) = phase_ivf(torch, card)
+    launches, ctx = phase_pipeline(torch, card)
+    k3 = phase_int8_topk(torch, card)
+    k4 = phase_int8_ivf(torch, card, corpus, queries, exact)
+    del corpus, queries, exact
+    launches8 = phase_int8_pipeline(torch, card, ctx)
+    kernels = [k1, k2, k3, k4]
+    for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
+    for kern in (k3, k4):
+        kern["launches"] = launches8[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

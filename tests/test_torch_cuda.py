@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card, each held against its plain version, and
-the port's pipeline on the card against the same pipeline on the CPU.
+"""The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4),
+each held against its plain version, and the port's pipelines (bf16 and
+int8 serving) on the card against the same pipelines on the CPU.
 
 Imports neither jax nor the JAX package, so it runs on a machine with a
 card and no JAX; without a card every test skips. On the card:
@@ -7,21 +8,33 @@ card and no JAX; without a card every test skips. On the card:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
 from text_similarity_tpu_torch.core.config import ARCH_PRESETS, IndexConfig
 from text_similarity_tpu_torch.core.precision import FP32_PRECISION
 from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
+from text_similarity_tpu_torch.index import ivf as ivf_mod
 from text_similarity_tpu_torch.index.ivf import (
     IVFIndex,
     _plan_probes,
+    ivf_scan,
     ivf_scan_cuda,
     ivf_scan_reference,
 )
 from text_similarity_tpu_torch.models import SentenceEncoder, init_params
-from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+from text_similarity_tpu_torch.ops import topk as topk_mod
+from text_similarity_tpu_torch.ops.topk import (
+    cosine_topk_cuda,
+    cosine_topk_int8,
+    cosine_topk_int8_cuda,
+    cosine_topk_int8_reference,
+    cosine_topk_reference,
+)
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
 
 pytestmark = pytest.mark.cuda
@@ -125,6 +138,95 @@ def test_ivf_kernel_matches_plain(cuda, dtype, approx_width, acc_slots, k, block
     _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
 
 
+@pytest.mark.parametrize("k", [1, 10, 20, 256])
+@pytest.mark.parametrize("q_n", [1, 7, 33])
+def test_topk_int8_kernel_matches_plain(cuda, k, q_n):
+    """K3: f32 queries against int8 rows × scales; ties from duplicated
+    rows. Scores allclose 1e-5, ids equal at separated ranks."""
+    rng = np.random.default_rng(6)
+    x = _unit(rng.standard_normal((10_007, 64)))
+    src = rng.choice(5000, q_n, replace=False)
+    x[5000 + np.arange(q_n)] = x[src]
+    q = torch.from_numpy(_unit(x[src] + 0.05 * rng.standard_normal((q_n, 64)))).to(cuda)
+    codes, scales = quantize_embeddings_int8(torch.from_numpy(x).to(cuda))
+    before = cosine_topk_int8_cuda.launches
+    ks, ki = cosine_topk_int8_cuda(q, codes, scales, k=k)
+    rs, ri = cosine_topk_int8_reference(q, codes, scales, k=k)
+    torch.cuda.synchronize()
+    assert cosine_topk_int8_cuda.launches == before + 1
+    _assert_agree(ks, ki, rs, ri, True)
+
+
+@pytest.mark.parametrize(
+    "approx_width,acc_slots,k",
+    [(0, 1, 10), (0, 1, 20), (128, 1, 10), (128, 2, 20), (256, 2, 20), (128, 4, 100)],
+)
+@pytest.mark.parametrize("block_q", [1, 8, 64])
+def test_ivf_int8_kernel_matches_plain(cuda, approx_width, acc_slots, k, block_q):
+    """K4: int8 slabs × per-slot scales, queries rounded to bf16, exact and
+    deferred modes. Scores allclose 1e-5, ids equal at separated ranks."""
+    q, x = _clustered()
+    ivf = IVFIndex.build(
+        torch.from_numpy(x).to(cuda),
+        IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4, max_cluster_size=256,
+                    quantize_int8=True),
+        generator=torch.Generator(device=cuda).manual_seed(0), device=cuda,
+    )
+    assert ivf.data_padded.dtype == torch.int8
+    qs, probes, _ = _plan_probes(
+        torch.from_numpy(q).to(cuda), ivf.centroids, ivf.num_base_clusters,
+        ivf.data_padded.shape[0], block_q, 8,
+    )
+    args = (qs, probes, ivf.data_padded, ivf.ids_padded, k, block_q, approx_width, acc_slots)
+    before = ivf_scan_cuda.launches_int8
+    ks, ki = ivf_scan_cuda(*args, scales=ivf.scales_padded)
+    rs, ri = ivf_scan_reference(*args, scales=ivf.scales_padded)
+    torch.cuda.synchronize()
+    assert ivf_scan_cuda.launches_int8 == before + 1
+    _assert_agree(ks, ki, rs, ri, True)
+
+
+def test_int8_wrappers_never_reach_the_plain_version(cuda, monkeypatch):
+    """On CUDA tensors the dispatching wrappers launch K3 / K4; their plain
+    versions are never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(topk_mod, "cosine_topk_int8_reference", refuse)
+    monkeypatch.setattr(ivf_mod, "ivf_scan_reference", refuse)
+    q, x = _clustered()
+    codes, scales = quantize_embeddings_int8(torch.from_numpy(x).to(cuda))
+    before = cosine_topk_int8_cuda.launches
+    cosine_topk_int8(torch.from_numpy(q).to(cuda), codes, scales, k=10)
+    assert cosine_topk_int8_cuda.launches == before + 1
+    ivf = IVFIndex.build(
+        torch.from_numpy(x).to(cuda),
+        IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=2, quantize_int8=True),
+        device=cuda,
+    )
+    before = ivf_scan_cuda.launches_int8
+    ivf.query(torch.from_numpy(q).to(cuda), k=10, block_q=8)
+    assert ivf_scan_cuda.launches_int8 == before + 1
+    with pytest.raises(ValueError):   # int8 slabs without their scales
+        ivf_scan(ivf.centroids[:8].contiguous(), torch.zeros((1, 1), dtype=torch.int32,
+                 device=cuda), ivf.data_padded, ivf.ids_padded, 10, 8)
+
+
+def test_int8_encoder_on_card_matches_cpu(cuda):
+    """to_int8 on the card (torch._int_mm, one-row batches padded to its
+    minimum) against the CPU (f32 compute): embeddings allclose 1e-4."""
+    corpus = _corpus(200)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=1000, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(1))
+    cpu = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION,
+                          device="cpu").to_int8()
+    card = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION,
+                           device=cuda).to_int8()
+    for texts in (corpus[:1], corpus[:3], corpus[:64]):
+        np.testing.assert_allclose(card.encode(texts), cpu.encode(texts), atol=1e-4)
+
+
 def _corpus(n, seed=0):
     rng = np.random.default_rng(seed)
     words = [f"{chr(97 + i % 26)}{chr(97 + i * 7 % 26)}{i}" for i in range(3000)]
@@ -166,3 +268,39 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path, use_ivf):
         # query's own cluster
         for q, row in zip(queries, got):
             assert row[0][0] == q
+
+
+def test_int8_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """The int8 serving path (to_int8 encoder, int8 IVF with the bf16
+    rescore) on the CPU and on the card from one saved state: the card
+    launches K4 and returns the CPU's documents (overlap ≥ 0.99), scores
+    allclose 1e-4; add and remove work on the card's built index."""
+    corpus = _corpus(3000)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=4000, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    cpu_enc = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION,
+                              device="cpu").to_int8()
+    cfg = dataclasses.replace(IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4),
+                              quantize_int8=True)
+    cpu = SemanticSearchPipeline(cpu_enc, corpus=corpus, use_ivf=True, index_config=cfg,
+                                 device="cpu")
+    queries = corpus[:64]
+    want = cpu(queries, 10)
+    cpu.save(str(tmp_path / "pipe"))
+    cpu_enc.save(str(tmp_path / "enc"))
+    enc = SentenceEncoder.load(str(tmp_path / "enc"), bf16=False, device=cuda)
+    pipe = SemanticSearchPipeline(enc, use_ivf=True, device=cuda)
+    pipe.load_corpus(str(tmp_path / "pipe"))
+    assert pipe.ivf.data_padded.dtype == torch.int8
+    before = ivf_scan_cuda.launches_int8
+    got = pipe(queries, 10)
+    assert ivf_scan_cuda.launches_int8 > before
+    assert _overlap([[x[2] for x in r] for r in got], [[x[2] for x in r] for r in want]) >= 0.99
+    np.testing.assert_allclose(
+        [[x[1] for x in r] for r in got], [[x[1] for x in r] for r in want], atol=1e-4
+    )
+    new_id = int(pipe.add_documents(["a brand new document"])[0])
+    assert pipe(["a brand new document"], 1)[0][0][2] == new_id
+    pipe.remove_documents([new_id])
+    assert all(x[2] != new_id for x in pipe(["a brand new document"], 10)[0])

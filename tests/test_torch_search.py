@@ -132,8 +132,10 @@ def test_pipeline_save_load_roundtrip(saved, tmp_path):
     again = SemanticSearchPipeline(pipe.encoder, use_ivf=True, device="cpu")
     again.load_corpus(str(tmp_path))
     assert again(corpus[:4], 3) == pipe(corpus[:4], 3)
-    with pytest.raises(NotImplementedError):
-        again.add_documents(["one more document"])
+    # a document added to the loaded index goes into it (no rebuild)
+    ivf = again.ivf
+    assert again.add_documents(["one more document"]).tolist() == [len(corpus)]
+    assert again.ivf is ivf and again(["one more document"], 1)[0][0][2] == len(corpus)
 
 
 def test_add_documents_and_warmup(saved):

@@ -8,6 +8,9 @@ back to the CPU on its own.
 
 Ported so far: the semantic-search serving path — WordPiece tokenization,
 the BERT-class sentence encoder, the embedding store, brute-force and IVF
-top-k search (the two search kernels are hand-written CUDA under
-``csrc/``) and ``SemanticSearchPipeline``.
+top-k search and ``SemanticSearchPipeline`` (with add and remove on a built
+index) — and int8 serving: int8 weights (``SentenceEncoder.to_int8``), the
+int8 store and int8 IVF slabs with a bf16 rescore. The four search kernels
+(exact top-k and the IVF scan, each over float and int8 rows) are
+hand-written CUDA under ``csrc/``.
 """

@@ -1,8 +1,8 @@
 // Shared building blocks of the search kernels (topk.cu, ivf_scan.cu).
 //
 // * A 128-row × 16-query score tile: a CTA of 256 threads stages 128 rows
-//   of the corpus (or of an IVF slab) through shared memory, 32 dims at a
-//   time, converted to f32; thread (row r, group g) accumulates the dot
+//   of the corpus (or of an IVF slab; f32, bf16 or int8 codes) through
+//   shared memory, 32 dims at a time, converted to f32 (exactly); thread (row r, group g) accumulates the dot
 //   products of row r with queries g*8 .. g*8+7 in f32 on the CUDA cores,
 //   in a fixed order over the dims (so equal rows give bit-equal scores).
 // * A warp-level exact top-k selector: a sorted list of KP = pow2 ≥ k
@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -38,16 +40,11 @@ __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+__device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// 16 bytes of T at p → f32 values in out (4 floats or 8 bf16).
+// 16 bytes of T at p → f32 values in out (4 floats, 8 bf16 or 16 int8).
 __device__ __forceinline__ void load16(const float* p, float* out) {
   float4 v = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
@@ -63,8 +60,20 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  const char4* c = reinterpret_cast<const char4*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    out[4 * e] = c[e].x;
+    out[4 * e + 1] = c[e].y;
+    out[4 * e + 2] = c[e].z;
+    out[4 * e + 3] = c[e].w;
+  }
+}
+
 // Scores of tile rows [0, n_valid) (row r at rows + r*D) against the 16
-// queries in qs (row-major, stride D, already rounded to T). Thread
+// queries in qs (row-major, stride D, already rounded). Thread
 // (r = tid % kRows, g = tid / kRows) gets acc[j] = <row r, query g*8+j>.
 // Rows ≥ n_valid read as zeros. Every thread of the CTA must call this.
 template <typename T>

@@ -1,7 +1,11 @@
-// IVF block-union scan (kernel K1).
+// IVF block-union scan (kernel K1), and its int8 variant (kernel K4).
 //
-// Replaces text_similarity_tpu/index/ivf.py _ivf_query_pallas → _ivf_kernel
-// → _ivf_body, in its two merge modes:
+// K1 replaces text_similarity_tpu/index/ivf.py _ivf_query_pallas →
+// _ivf_kernel → _ivf_body; K4 replaces the same call with _ivf_kernel_int8:
+// int8 slabs (C_tot, Mc, D) with per-slot f32 scales (C_tot, Mc), scored as
+// the reference does — queries rounded to bf16, codes widened exactly, an
+// f32-accumulated dot, THEN × the slot's scale, then empty slots (id < 0)
+// masked to −inf. Both keep the two merge modes:
 //  * exact (width = Mc, slots = 0): the exact top-k of the scores of a
 //    query block's probed slabs (the reference's _merge_block_topk);
 //  * deferred (approx_width = w, acc_slots = S in 1..4): every lane class
@@ -12,9 +16,10 @@
 // Queries of one block_q block share one probe list (the block union).
 //
 // Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
-// query block; the arithmetic (2·B·U·Mc·D) runs here on the CUDA cores in
-// f32, so the kernel is operation-bound far above the card's bf16 tensor
-// rate. A wgmma / TMA pipeline is later work.
+// query block (int8: U·Mc·(D + 4) plus the ids); the arithmetic
+// (2·B·U·Mc·D) runs here on the CUDA cores in f32, so the kernel is
+// operation-bound far above the card's bf16 tensor rate. A wgmma / TMA
+// pipeline is later work.
 //
 // Design: the TPU accumulator is block_q × S·w × 8 bytes (1 MB at 64 ×
 // 2048 × 2), far over 227 KB of shared memory. Here a CTA takes 16 queries
@@ -25,7 +30,8 @@
 // kernel. Each CTA writes its per-query top-k of its accumulator entries
 // (or, in exact mode, of its slab positions); merge_partials takes the top-k
 // over the lane ranges. Queries are rounded to bf16 before the dot when the
-// slabs are bf16, as the reference does; slots with id < 0 score −inf.
+// slabs are bf16 or int8, as the reference does; slots with id < 0 score
+// −inf.
 #include "common.cuh"
 
 namespace {
@@ -33,7 +39,8 @@ namespace {
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 ivf_pass1(const float* __restrict__ q, const int* __restrict__ probes,
-          const T* __restrict__ data, const int* __restrict__ ids, int D, int U,
+          const T* __restrict__ data, const float* __restrict__ scales,
+          const int* __restrict__ ids, int D, int U,
           int C_tot, int Mc, int block_q, int n_sub, int k, int width, int n_ranges,
           float* __restrict__ part_s, int* __restrict__ part_i) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -56,7 +63,7 @@ ivf_pass1(const float* __restrict__ q, const int* __restrict__ probes,
   for (int idx = tid; idx < kQTile * D; idx += kThreads) {
     const int qi = idx / D;
     const float v = qi < qn ? q[(size_t)(qrow0 + qi) * D + idx % D] : 0.f;
-    qs[idx] = round_to<T>(v);
+    qs[idx] = std::is_same_v<T, float> ? v : round_bf16(v);
   }
   Selector sel[kQPW];
 #pragma unroll
@@ -85,6 +92,11 @@ ivf_pass1(const float* __restrict__ q, const int* __restrict__ probes,
       const size_t pos0 = (size_t)c * Mc + (size_t)ch * width + r0;
       float a[kQPT];
       tile_scores<T>(data + pos0 * D, lanes, D, qs, ct, a);
+      if constexpr (std::is_same_v<T, int8_t>) {
+        const float sc = r < lanes ? scales[pos0 + r] : 0.f;
+#pragma unroll
+        for (int j = 0; j < kQPT; ++j) a[j] *= sc;
+      }
       const int id = r < lanes ? ids[pos0 + r] : -1;
       if constexpr (S > 0) {
         if (r < lanes) {
@@ -166,8 +178,8 @@ ivf_pass1(const float* __restrict__ q, const int* __restrict__ probes,
 }
 
 template <typename T, int S>
-cudaError_t run_scan(const float* q, const int* probes, const T* data, const int* ids,
-                     int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+cudaError_t run_scan(const float* q, const int* probes, const T* data, const float* scales,
+                     const int* ids, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
                      int width, float* part_s, int* part_i, float* out_s, int* out_i,
                      cudaStream_t st) {
   const int kp = host_kp_for(k);
@@ -182,7 +194,7 @@ cudaError_t run_scan(const float* q, const int* probes, const T* data, const int
   const int n_sub = (block_q + kQTile - 1) / kQTile;
   const int n_ranges = (width + kRows - 1) / kRows;
   dim3 grid(n_blocks * n_sub, n_ranges);
-  ivf_pass1<T, S><<<grid, kThreads, smem, st>>>(q, probes, data, ids, D, U, C_tot, Mc,
+  ivf_pass1<T, S><<<grid, kThreads, smem, st>>>(q, probes, data, scales, ids, D, U, C_tot, Mc,
                                                 block_q, n_sub, k, width, n_ranges,
                                                 part_s, part_i);
   err = cudaGetLastError();
@@ -192,15 +204,15 @@ cudaError_t run_scan(const float* q, const int* probes, const T* data, const int
 
 template <typename T>
 cudaError_t dispatch_slots(int slots, const float* q, const int* probes, const T* data,
-                           const int* ids, int B, int D, int U, int C_tot, int Mc,
+                           const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
                            int block_q, int k, int width, float* part_s, int* part_i,
                            float* out_s, int* out_i, cudaStream_t st) {
   switch (slots) {
-    case 0: return run_scan<T, 0>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
-    case 1: return run_scan<T, 1>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
-    case 2: return run_scan<T, 2>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
-    case 3: return run_scan<T, 3>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
-    case 4: return run_scan<T, 4>(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 0: return run_scan<T, 0>(q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 1: return run_scan<T, 1>(q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 2: return run_scan<T, 2>(q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 3: return run_scan<T, 3>(q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
+    case 4: return run_scan<T, 4>(q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -217,10 +229,21 @@ extern "C" int ts_ivf_scan(const float* q, const int* probes, const void* data,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (data_bf16)
     return (int)dispatch_slots(slots, q, probes,
-                               static_cast<const __nv_bfloat16*>(data), ids, B, D, U,
-                               C_tot, Mc, block_q, k, width, part_s, part_i, out_s,
-                               out_i, st);
-  return (int)dispatch_slots(slots, q, probes, static_cast<const float*>(data), ids,
-                             B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i,
+                               static_cast<const __nv_bfloat16*>(data), nullptr, ids,
+                               B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i,
+                               out_s, out_i, st);
+  return (int)dispatch_slots(slots, q, probes, static_cast<const float*>(data), nullptr,
+                             ids, B, D, U, C_tot, Mc, block_q, k, width, part_s, part_i,
                              out_s, out_i, st);
+}
+
+// K4: int8 slabs with per-slot f32 scales (C_tot, Mc); modes as above.
+extern "C" int ts_ivf_scan_int8(const float* q, const int* probes, const int8_t* data,
+                                const float* scales, const int* ids, int B, int D, int U,
+                                int C_tot, int Mc, int block_q, int k, int width,
+                                int slots, float* part_s, int* part_i, float* out_s,
+                                int* out_i, void* stream) {
+  return (int)dispatch_slots(slots, q, probes, data, scales, ids, B, D, U, C_tot, Mc,
+                             block_q, k, width, part_s, part_i, out_s, out_i,
+                             reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,17 @@
-// Exact cosine top-k over a dense corpus (kernel K2).
+// Exact cosine top-k over a dense corpus (kernel K2) or an int8 corpus
+// with per-row scales (kernel K3).
 //
-// Replaces text_similarity_tpu/ops/topk.py cosine_topk_pallas → _topk_kernel
-// (whose TPU grid walks the corpus in order and carries the winners in
-// VMEM). Computes, for each query, the exact top-k of q·corpusᵀ over rows
-// [0, N), ordered by (score desc, id asc).
+// K2 replaces text_similarity_tpu/ops/topk.py cosine_topk_pallas →
+// _topk_kernel (whose TPU grid walks the corpus in order and carries the
+// winners in VMEM). Computes, for each query, the exact top-k of
+// q·corpusᵀ over rows [0, N), ordered by (score desc, id asc).
+//
+// K3 replaces cosine_topk_pallas_int8 → _topk_int8_kernel: the same top-k
+// of (q · float(c_row)) × scale_row, with f32 queries (not quantized) and
+// the int8 codes widened exactly to f32, an f32 dot (f32 FMAs, no TF32),
+// then the row's scale. It reads a quarter of K2's f32 bytes (N·D int8 +
+// N·4 scale bytes), so it is operation-bound on the CUDA cores at any
+// batch above a few queries; the design is K2's, with an int8 tile loader.
 //
 // Bound on the H100: an f32 corpus must stay exact (no TF32), so the dot
 // products run on the CUDA cores and the kernel is operation-bound there
@@ -24,8 +32,9 @@ namespace {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q, int N,
-           int D, int k, int rows_per_split, int splits, float* __restrict__ part_s,
+topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus,
+           const float* __restrict__ scales, int Q, int N, int D, int k,
+           int rows_per_split, int splits, float* __restrict__ part_s,
            int* __restrict__ part_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kp = kp_for(k);
@@ -44,7 +53,9 @@ topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q, int
   for (int idx = tid; idx < kQTile * D; idx += kThreads) {
     const int qi = idx / D;
     const float v = (q0 + qi < Q) ? q[(size_t)(q0 + qi) * D + idx % D] : 0.f;
-    qs[idx] = round_to<T>(v);
+    // bf16 rows: queries rounded to bf16, as the reference; f32 and int8
+    // rows: f32 queries
+    qs[idx] = std::is_same_v<T, __nv_bfloat16> ? round_bf16(v) : v;
   }
   Selector sel[kQPW];
 #pragma unroll
@@ -59,6 +70,11 @@ topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q, int
     const int nv = min(kRows, row_end - row0);
     float acc[kQPT];
     tile_scores<T>(corpus + (size_t)row0 * D, nv, D, qs, ct, acc);
+    if constexpr (std::is_same_v<T, int8_t>) {
+      const float sc = r < nv ? scales[row0 + r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kQPT; ++j) acc[j] *= sc;
+    }
 #pragma unroll
     for (int j = 0; j < kQPT; ++j) sc[(g * kQPT + j) * kRows + r] = acc[j];
     __syncthreads();
@@ -88,9 +104,9 @@ topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q, int
 }
 
 template <typename T>
-cudaError_t run_topk(const float* q, const T* corpus, int Q, int N, int D, int k,
-                     int splits, int rows_per_split, float* part_s, int* part_i,
-                     float* out_s, int* out_i, cudaStream_t st) {
+cudaError_t run_topk(const float* q, const T* corpus, const float* scales, int Q, int N,
+                     int D, int k, int splits, int rows_per_split, float* part_s,
+                     int* part_i, float* out_s, int* out_i, cudaStream_t st) {
   const int kp = host_kp_for(k);
   const size_t smem =
       sizeof(float) * ((size_t)kQTile * D + kRows * kDCP + kQTile * kRows) +
@@ -99,8 +115,8 @@ cudaError_t run_topk(const float* q, const T* corpus, int Q, int N, int D, int k
       topk_pass1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + kQTile - 1) / kQTile, splits);
-  topk_pass1<T><<<grid, kThreads, smem, st>>>(q, corpus, Q, N, D, k, rows_per_split,
-                                              splits, part_s, part_i);
+  topk_pass1<T><<<grid, kThreads, smem, st>>>(q, corpus, scales, Q, N, D, k,
+                                              rows_per_split, splits, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge(part_s, part_i, Q, splits, k, out_s, out_i, st);
@@ -114,8 +130,17 @@ extern "C" int ts_cosine_topk(const float* q, const void* corpus, int corpus_bf1
                               float* out_s, int* out_i, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (corpus_bf16)
-    return (int)run_topk(q, static_cast<const __nv_bfloat16*>(corpus), Q, N, D, k,
-                         splits, rows_per_split, part_s, part_i, out_s, out_i, st);
-  return (int)run_topk(q, static_cast<const float*>(corpus), Q, N, D, k, splits,
-                       rows_per_split, part_s, part_i, out_s, out_i, st);
+    return (int)run_topk(q, static_cast<const __nv_bfloat16*>(corpus), nullptr, Q, N,
+                         D, k, splits, rows_per_split, part_s, part_i, out_s, out_i, st);
+  return (int)run_topk(q, static_cast<const float*>(corpus), nullptr, Q, N, D, k,
+                       splits, rows_per_split, part_s, part_i, out_s, out_i, st);
+}
+
+// K3: int8 corpus (N, D) with per-row f32 scales (N,).
+extern "C" int ts_cosine_topk_int8(const float* q, const int8_t* corpus,
+                                   const float* scales, int Q, int N, int D, int k,
+                                   int splits, int rows_per_split, float* part_s,
+                                   int* part_i, float* out_s, int* out_i, void* stream) {
+  return (int)run_topk(q, corpus, scales, Q, N, D, k, splits, rows_per_split, part_s,
+                       part_i, out_s, out_i, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -10,9 +10,16 @@ QKV, exact attention, FFN), then the optional tanh pooler.
 
 Precision follows the reference: embeddings and LayerNorms in f32, layer
 matmuls in the compute dtype with f32 accumulation, softmax in f32.
+
+int8 weights (``compress.quantize.quantize_params_int8``): a kernel or an
+embedding table may be a ``{"q": int8, "s": f32 scale}`` leaf. Dense layers
+with such kernels quantize their input per token and run an exact
+int8×int8→int32 product (``_int8_dense``, the fused QKV), embedding tables
+dequantize the gathered rows, the pooler dequantizes its kernel.
+
 Not ported yet: RoBERTa position offsets, ALBERT sharing and factorized
-embeddings, MoE, performer / windowed attention, head pruning, int8 weights,
-dropout (training).
+embeddings, MoE, performer / windowed attention, head pruning, dropout
+(training).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.attention import attention_reference
@@ -114,8 +122,20 @@ def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
     """A JAX-layout parameter tree of numpy arrays (e.g. from
     ``restore_checkpoint_raw`` or ``jax.device_get(params)``) → the same
     tree of f32 tensors on ``device``, checked leaf by leaf against the
-    shapes ``arch`` implies."""
+    shapes ``arch`` implies. A quantized leaf ``{"q": int8, "s": scale}``
+    (``quantize_params_int8``) carries across as int8 codes and f32 scales
+    whose contraction axis (-2) is 1."""
     _check_supported(arch)
+
+    def leaf(arr, shp, name, kind):
+        arr = np.asarray(arr)
+        if arr.dtype.kind != kind:
+            raise TypeError(f"{name}: expected a {kind!r} array, got {arr.dtype}")
+        if tuple(arr.shape) != tuple(shp):
+            raise ValueError(f"{name}: shape {arr.shape} != expected {shp}")
+        if kind == "i":
+            return torch.from_numpy(arr.astype(np.int8)).to(device)
+        return torch.from_numpy(arr.astype(np.float32)).to(device)
 
     def convert(shapes, sub, path):
         out = {}
@@ -124,17 +144,16 @@ def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
                 raise KeyError(f"parameter tree is missing {path + key!r}")
             if isinstance(shp, dict):
                 out[key] = convert(shp, sub[key], path + key + "/")
-                continue
-            arr = np.asarray(sub[key])
-            if arr.dtype.kind != "f":
-                raise TypeError(
-                    f"{path + key}: expected a float array, got {arr.dtype}"
-                )
-            if tuple(arr.shape) != tuple(shp):
-                raise ValueError(
-                    f"{path + key}: shape {arr.shape} != expected {shp}"
-                )
-            out[key] = torch.from_numpy(arr.astype(np.float32)).to(device)
+            elif isinstance(sub[key], dict):
+                if set(sub[key]) != {"q", "s"}:
+                    raise KeyError(f"{path + key}: a quantized leaf holds q and s")
+                s_shp = tuple(shp[:-2]) + (1, shp[-1])
+                out[key] = {
+                    "q": leaf(sub[key]["q"], shp, path + key + "/q", "i"),
+                    "s": leaf(sub[key]["s"], s_shp, path + key + "/s", "f"),
+                }
+            else:
+                out[key] = leaf(sub[key], shp, path + key, "f")
         return out
 
     return convert(_param_shapes(arch), tree, "")
@@ -190,9 +209,42 @@ def _act(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
+def dequant_weight(w):
+    """Weight-only dequant of one ``{"q", "s"}`` leaf (f32); a dense
+    kernel passes through."""
+    if _is_q(w):
+        return w["q"].float() * w["s"]
+    return w
+
+
+def _dyn_quant_tokens(x: torch.Tensor):
+    """Per-token (last-axis) symmetric int8 → (int8 codes, (…, 1) f32
+    scale)."""
+    x32 = x.float()
+    s = _jit_scale(torch.amax(torch.abs(x32), dim=-1, keepdim=True))
+    return _quantize(x32, s), s
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(…, K) int8 @ (K, N) int8 → (…, N) as f32 (exact int32 sums)."""
+    out = int8_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    return out.reshape(*xq.shape[:-1], wq.shape[-1]).float()
+
+
+def _int8_dense(x: torch.Tensor, wb: dict) -> torch.Tensor:
+    """y = (int8(x) @ w_q) · x_scale · w_scale, cast to x's dtype, + b —
+    the reference's order (the scales may be bf16-rounded by the compute
+    dtype cast, as there)."""
+    xq, xs = _dyn_quant_tokens(x)
+    y = _int8_matmul(xq, wb["w"]["q"]) * xs * wb["w"]["s"].reshape(-1).float()
+    return y.to(x.dtype) + wb["b"]
+
+
 def _dense(x: torch.Tensor, wb: dict) -> torch.Tensor:
     # matmul accumulates in f32 and rounds to x's dtype; the bias adds after
     # the rounding, as the reference's einsum(...).astype(x.dtype) + b
+    if _is_q(wb["w"]):
+        return _int8_dense(x, wb)
     return torch.matmul(x, wb["w"]) + wb["b"]
 
 
@@ -208,15 +260,23 @@ def transformer_layer(
     nh, hd = arch.num_heads, arch.head_dim
     attn, mlp = lp["attn"], lp["mlp"]
     # fused QKV with the reference's head-interleaved (h, nh, 3, hd) stack
+    quant = _is_q(attn["q"]["w"])
     w_qkv = torch.stack(
-        [attn[n]["w"].reshape(h, nh, hd) for n in ("q", "k", "v")], dim=2
-    )
+        [(attn[n]["w"]["q"] if quant else attn[n]["w"]).reshape(h, nh, hd)
+         for n in ("q", "k", "v")], dim=2
+    ).reshape(h, nh * 3 * hd)
     b_qkv = torch.stack(
         [attn[n]["b"].reshape(nh, hd) for n in ("q", "k", "v")], dim=1
     )
-    qkv = torch.matmul(hx, w_qkv.reshape(h, nh * 3 * hd)).reshape(
-        b, s, nh, 3, hd
-    ) + b_qkv
+    if quant:
+        s_qkv = torch.stack(
+            [attn[n]["w"]["s"].reshape(nh, hd) for n in ("q", "k", "v")], dim=1
+        ).float()
+        hq, hs = _dyn_quant_tokens(hx)
+        qkv = _int8_matmul(hq, w_qkv).reshape(b, s, nh, 3, hd)
+        qkv = (qkv * hs[..., None, None] * s_qkv).to(hx.dtype) + b_qkv
+    else:
+        qkv = torch.matmul(hx, w_qkv).reshape(b, s, nh, 3, hd) + b_qkv
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
     ctx = attention_reference(q, k, v, attention_mask).reshape(b, s, nh * hd)
     ctx = _dense(ctx, attn["o"])
@@ -242,18 +302,28 @@ def embed_inputs(
     arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION,
 ) -> torch.Tensor:
-    """Word + position (+ token type) embeddings and LN in f32, returned in
-    the compute dtype."""
+    """Word + position (+ token type) embeddings and LN, returned in the
+    compute dtype. The sum runs in the tables' dtype (bf16 tables add in
+    bf16, as the reference's code reads); an int8 table dequantizes its
+    gathered rows to f32."""
     s = input_ids.shape[1]
-    x = emb["word"][input_ids.long()]
-    x = x + emb["position"][None, :s, :]
+    x = _take(emb["word"], input_ids.long())
+    x = x + _take(emb["position"], slice(0, s))[None]
     if arch.has_token_type:
         if token_type_ids is None:
-            x = x + emb["token_type"][0]
+            x = x + _take(emb["token_type"], 0)
         else:
-            x = x + emb["token_type"][token_type_ids.long()]
+            x = x + _take(emb["token_type"], token_type_ids.long())
     x = _layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"], arch.layer_norm_eps)
     return x.to(precision.compute_dtype)
+
+
+def _take(table, idx):
+    """Rows of an embedding table; an int8 table gathers codes, then
+    dequantizes them with its per-column scale."""
+    if _is_q(table):
+        return table["q"][idx].float() * table["s"][0]
+    return table[idx]
 
 
 def encoder_forward(
@@ -281,13 +351,17 @@ def encoder_forward(
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
-        pooler_out = torch.tanh(x[:, 0, :].float() @ pw["w"] + pw["b"]).to(x.dtype)
+        w = dequant_weight(pw["w"]).float()
+        pooler_out = torch.tanh(x[:, 0, :].float() @ w + pw["b"]).to(x.dtype)
     return EncoderOutput(x, pooler_out)
 
 
 def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves → ``dtype`` (an int8 leaf's scale too, as the
+    reference casts it); int8 codes stay."""
     return {
-        k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+        k: _cast_tree(v, dtype) if isinstance(v, dict)
+        else v.to(dtype) if v.is_floating_point() else v
         for k, v in tree.items()
     }
 

@@ -6,9 +6,13 @@ projection → f32 L2 normalisation. ``save``/``load`` use the JAX package's
 directory layout (``arch.json`` + ``step_*/params.npz`` + ``vocab.txt``),
 so an encoder saved by either package loads in the other.
 
+``to_int8`` quantizes the weights for int8 serving (dense layers then run
+per-token activation quant and int8×int8→int32 products); a checkpoint
+saved in the int8 deployment format (``format: int8``) loads dequantized,
+as in the reference.
+
 Not ported yet: packed variable-length encode (``packed=True``; ``"auto"``
-runs bucketed, which gives the same vectors), int8 weights, long-context
-encode.
+runs bucketed, which gives the same vectors), long-context encode.
 """
 
 from __future__ import annotations
@@ -20,12 +24,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..compress.quantize import dequantize_params, quantize_params_int8
 from ..core import checkpoint as ckpt
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision, precision_for, resolve_device
 from ..data.batching import BUCKETS, LengthBucketBatcher
 from ..data.tokenization import load_tokenizer
-from .encoder import Encoder, encoder_forward
+from .encoder import (
+    Encoder, _cast_tree, dequant_weight, encoder_forward, params_from_jax,
+)
 from .pooling import pool
 
 
@@ -71,7 +78,7 @@ class SentenceEncoder(nn.Module):
         emb = pool(self.pooling, out.last_hidden_state, mask)
         if "projection" in params:
             pw = params["projection"]
-            emb = emb.float() @ pw["w"] + pw["b"]
+            emb = emb.float() @ dequant_weight(pw["w"]).float() + pw["b"]
         emb = emb.float()
         norm = torch.sqrt((emb * emb).sum(dim=-1, keepdim=True))
         return emb / norm.clamp_min(1e-12)
@@ -124,6 +131,21 @@ class SentenceEncoder(nn.Module):
                 out[idx] = emb
         return out if device_output else out.cpu().numpy()
 
+    def _set_params(self, params: dict) -> "SentenceEncoder":
+        self.encoder = Encoder(self.arch, params, self.precision)
+        return self
+
+    def to_int8(self) -> "SentenceEncoder":
+        """Quantize the weights to int8 for serving (inference only):
+        kernels and embedding tables become per-channel int8 with f32
+        scales; dense layers then quantize their input per token."""
+        return self._set_params(quantize_params_int8(self.params))
+
+    def to_bf16(self) -> "SentenceEncoder":
+        """Store the floating weights in bf16 (LayerNorm math stays f32 in
+        the forward)."""
+        return self._set_params(_cast_tree(self.params, torch.bfloat16))
+
     # ------------------------------------------------------------------
     # Persistence (the JAX package's layout)
     # ------------------------------------------------------------------
@@ -138,24 +160,25 @@ class SentenceEncoder(nn.Module):
 
     @classmethod
     def load(cls, path: str, bf16: bool = True, device="cuda") -> "SentenceEncoder":
-        from .encoder import params_from_jax
-
+        """Load a directory written by either package. A checkpoint in the
+        int8 deployment format dequantizes to bf16 (``bf16=True``) or f32
+        weights, as the reference does; a tree saved after ``to_int8``
+        keeps its int8 leaves."""
         with open(os.path.join(path, "arch.json")) as f:
             arch = EncoderArch.from_json(f.read())
         cdir = ckpt.latest_checkpoint(path)
         if cdir is None:
             raise FileNotFoundError(f"no step_* checkpoint under {path!r}")
         tree, _, meta = ckpt.restore_checkpoint_raw(cdir)
+        params = params_from_jax(tree, arch)
         if meta.get("format") == "int8" or meta.get("int8"):
-            raise NotImplementedError(
-                "int8 checkpoints are not ported yet (ROADMAP queue 1: int8 serving)"
-            )
+            params = dequantize_params(params, torch.bfloat16 if bf16 else torch.float32)
         try:
             tok = load_tokenizer(path)
         except FileNotFoundError:
             tok = None
         return cls(
-            params_from_jax(tree, arch),
+            params,
             arch,
             tokenizer=tok,
             pooling=meta.get("pooling", "mean"),

@@ -40,10 +40,17 @@ _SIGNATURES = {
     # q, corpus, corpus_bf16, Q, N, D, k, splits, rows_per_split,
     # part_s, part_i, out_s, out_i, stream
     "ts_cosine_topk": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, corpus (int8), scales, Q, N, D, k, splits, rows_per_split,
+    # part_s, part_i, out_s, out_i, stream
+    "ts_cosine_topk_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # q, probes, data, data_bf16, ids, B, D, U, C_tot, Mc, block_q, k,
     # width, slots, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P],
+    # q, probes, data (int8), scales, ids, B, D, U, C_tot, Mc, block_q, k,
+    # width, slots, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P],
 }
 
 

@@ -1,9 +1,13 @@
-"""Exact cosine top-k (kernel K2) and its plain version.
+"""Exact cosine top-k (kernel K2), its int8-corpus variant (kernel K3) and
+their plain versions.
 
 Port of ``text_similarity_tpu.ops.topk``: ``cosine_topk`` returns the exact
 top-k of ``queries · corpusᵀ`` ordered by (score desc, id asc) — among
 equal scores the lowest id wins, as the reference's merge rounds and
-``lax.top_k`` do.
+``lax.top_k`` do. ``cosine_topk_int8`` does the same over an int8 corpus
+with per-row scales, scoring ``(q · float(c_row)) × scale_row`` with the
+queries in f32 (the semantics of the reference's Pallas kernel
+``cosine_topk_pallas_int8``, on both devices).
 
 * ``cosine_topk_reference``: plain tensor code, chunked over the corpus like
   the reference's ``cosine_topk_xla``; selection uses stable sorts so ties
@@ -11,11 +15,13 @@ equal scores the lowest id wins, as the reference's merge rounds and
 * ``cosine_topk_cuda``: the hand-written CUDA kernel (``csrc/topk.cu``).
 * ``cosine_topk``: dispatches on the corpus's device — the kernel for a
   CUDA tensor, the plain version for a CPU tensor.
+* ``cosine_topk_int8_reference`` / ``cosine_topk_int8_cuda`` /
+  ``cosine_topk_int8``: the same three for K3 (``csrc/topk.cu``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,16 +57,20 @@ def cosine_topk_reference(
     corpus: torch.Tensor,   # (N, D) L2-normalized, f32 or bf16
     k: int = 10,
     chunk: int = 65536,
+    scales: Optional[torch.Tensor] = None,  # (N,) f32 for an int8 corpus
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: chunked f32 scores (products of bf16 values are
-    exact in f32) with a running (score desc, id asc) merge, so the full
-    (Q, N) score matrix never exists."""
-    q = _dot_dtype_queries(queries, corpus)
+    """Plain version of K2 (and of K3 with ``scales``): chunked f32 scores
+    (products of bf16 values are exact in f32; int8 codes widen exactly and
+    the row scale multiplies the dot) with a running (score desc, id asc)
+    merge, so the full (Q, N) score matrix never exists."""
+    q = queries.float() if scales is not None else _dot_dtype_queries(queries, corpus)
     n = corpus.shape[0]
     best_s = best_i = None
     for start in range(0, n, chunk):
         c = corpus[start:start + chunk].float()
         s = q @ c.T
+        if scales is not None:
+            s = s * scales[start:start + chunk].float()[None, :]
         # within a chunk ids increase with the column, so a stable sort
         # already breaks score ties toward the lowest id
         order = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
@@ -80,6 +90,16 @@ def cosine_topk_reference(
 def _check_k(k: int, n: int) -> None:
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} must be in [1, min(N={n}, {MAX_K})]")
+
+
+def _split_corpus(q_n: int, n: int) -> Tuple[int, int]:
+    """→ (splits, rows_per_split): ~2 CTAs on each of the 132 SMs, ≥ 512
+    rows (a multiple of 128) each."""
+    q_tiles = -(-q_n // 16)
+    splits = max(1, min(-(-264 // q_tiles), -(-n // 512)))
+    rows_per_split = -(-n // splits)
+    rows_per_split = -(-rows_per_split // 128) * 128
+    return -(-n // rows_per_split), rows_per_split
 
 
 def cosine_topk_cuda(
@@ -104,12 +124,7 @@ def cosine_topk_cuda(
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_s, out_i
-    q_tiles = -(-q_n // 16)
-    # split the corpus so ~2 CTAs land on each of the 132 SMs, ≥ 512 rows each
-    splits = max(1, min(-(-264 // q_tiles), -(-n // 512)))
-    rows_per_split = -(-n // splits)
-    rows_per_split = -(-rows_per_split // 128) * 128
-    splits = -(-n // rows_per_split)
+    splits, rows_per_split = _split_corpus(q_n, n)
     part_s = torch.empty((q_n, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((q_n, splits, k), dtype=torch.int32, device=dev)
     err = _cuda.lib().ts_cosine_topk(
@@ -137,3 +152,74 @@ def cosine_topk(
         return cosine_topk_cuda(queries.float().contiguous(), corpus.contiguous(), k)
     _check_k(k, corpus.shape[0])
     return cosine_topk_reference(queries, corpus, k)
+
+
+def cosine_topk_int8_reference(
+    queries: torch.Tensor,   # (Q, D) f32 L2-normalized
+    corpus_q: torch.Tensor,  # (N, D) int8
+    scales: torch.Tensor,    # (N,) f32 per-row scales
+    k: int = 10,
+    chunk: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: top-k of ``(q · float(c)) × scale`` by (score
+    desc, id asc), queries in f32 (not quantized)."""
+    return cosine_topk_reference(queries, corpus_q, k, chunk, scales=scales)
+
+
+def cosine_topk_int8_cuda(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,
+    scales: torch.Tensor,
+    k: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3 on the card. queries (Q, D) f32, corpus_q (N, D) int8,
+    scales (N,) f32, contiguous CUDA tensors; D a multiple of 32, k ≤ 256.
+    → (scores (Q, k) f32, ids (Q, k) int32)."""
+    _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
+    _cuda.require_cuda(corpus_q, "corpus_q", (torch.int8,), 2)
+    _cuda.require_cuda(scales, "scales", (torch.float32,), 1)
+    q_n, d = queries.shape
+    n = corpus_q.shape[0]
+    if corpus_q.shape[1] != d or d % 32 or d > 1024:
+        raise ValueError(f"dims: queries {d}, corpus {corpus_q.shape[1]} (need equal, %32, ≤1024)")
+    if scales.shape[0] != n:
+        raise ValueError(f"scales {tuple(scales.shape)} != ({n},)")
+    if not queries.device == corpus_q.device == scales.device:
+        raise ValueError("queries, corpus and scales must be on one device")
+    _check_k(k, n)
+    dev = corpus_q.device
+    out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    if q_n == 0:
+        return out_s, out_i
+    splits, rows_per_split = _split_corpus(q_n, n)
+    part_s = torch.empty((q_n, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q_n, splits, k), dtype=torch.int32, device=dev)
+    err = _cuda.lib().ts_cosine_topk_int8(
+        queries.data_ptr(), corpus_q.data_ptr(), scales.data_ptr(),
+        q_n, n, d, k, splits, rows_per_split,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "cosine_topk_int8 kernel")
+    cosine_topk_int8_cuda.launches += 1
+    return out_s, out_i
+
+
+cosine_topk_int8_cuda.launches = 0
+
+
+def cosine_topk_int8(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,
+    scales: torch.Tensor,
+    k: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over an int8 corpus (queries L2-normalized): K3 for a
+    CUDA corpus, the plain version for a CPU corpus."""
+    if corpus_q.is_cuda:
+        return cosine_topk_int8_cuda(
+            queries.float().contiguous(), corpus_q.contiguous(), scales.float().contiguous(), k
+        )
+    _check_k(k, corpus_q.shape[0])
+    return cosine_topk_int8_reference(queries, corpus_q, scales, k)

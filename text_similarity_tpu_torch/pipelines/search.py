@@ -3,11 +3,15 @@
 
 corpus texts → embeddings on the card → EmbeddingStore → brute-force
 search (kernel K2) below 100k documents, an IVF index (kernel K1) from
-100k up → per query ``[(document, score, corpus_id), ...]``.
+100k up → per query ``[(document, score, corpus_id), ...]``. An
+``index_config`` with ``quantize_int8=True`` builds int8 IVF slabs with a
+bf16 rescore copy (kernel K4 + rescore); with an int8 encoder
+(``SentenceEncoder.to_int8``) that is the int8 serving path.
 
-Not ported yet: removing documents, adding documents after the IVF index
-is built (the reference inserts into the built index), the mining
-pipeline and the sharded pipeline.
+Documents added after the IVF build go into the built index (no rebuild);
+``remove_documents`` tombstones the store and clears the index's slots.
+
+Not ported yet: the mining pipeline and the sharded pipeline.
 """
 
 from __future__ import annotations
@@ -77,19 +81,35 @@ class SemanticSearchPipeline:
             self.store = EmbeddingStore(cap, self.encoder.embedding_dim, device=self.device)
 
     def add_documents(self, texts: Sequence[str]) -> np.ndarray:
-        """Encode and append to the store; → the new corpus ids."""
-        if self.ivf is not None:
-            raise NotImplementedError(
-                "adding documents to a built IVF index is not ported yet "
-                "(ROADMAP queue 1: IVF add/remove)"
-            )
+        """Encode and append to the store; a built IVF index takes the new
+        rows in place, unless it was built over a tombstone remap (then it
+        is dropped and rebuilt at the next query). → the new corpus ids."""
         emb = self.encoder.encode(texts, batch_size=self.batch_size, device_output=True)
         self._ensure_store(len(texts))
         while self.store.size + len(texts) > self.store.capacity:
             self.store.grow(self.store.capacity * 2)
         ids = self.store.add(emb)
         self.corpus.extend(texts)
+        if self.ivf is not None and self._id_remap is None:
+            self.ivf.add(emb, start_id=int(ids[0]))
+        else:
+            self.ivf = None
         return ids
+
+    def remove_documents(self, ids: Sequence[int]) -> int:
+        """Tombstone the store rows and clear their IVF slots (no rebuild).
+        → how many of the rows were alive."""
+        n_removed = self.store.mark_deleted(ids)
+        if self.ivf is not None:
+            if self._id_remap is None:
+                self.ivf.remove(ids)
+            else:
+                # the index holds compacted ids: translate
+                remap = self._id_remap
+                want = np.asarray(ids)
+                pos = np.clip(np.searchsorted(remap, want), 0, len(remap) - 1)
+                self.ivf.remove(pos[remap[pos] == want])
+        return n_removed
 
     def _want_ivf(self) -> bool:
         if self.use_ivf is not None:
@@ -107,7 +127,8 @@ class SemanticSearchPipeline:
         else:
             self._id_remap = None
         cfg = self.index_config or IndexConfig.auto(int(data.shape[0]))
-        # bf16 slabs, as the reference's serving build
+        # bf16 slabs, as the reference's serving build (int8 slabs and a
+        # bf16 rescore copy when cfg.quantize_int8)
         self.ivf = IVFIndex.build(data, cfg, data_dtype=torch.bfloat16, device=self.device)
         logger.info(
             "built IVF index: %d rows, %d clusters (+%d overflow)",
