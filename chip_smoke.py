@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's semantic-search path on one NVIDIA card.
+"""Run the PyTorch port's semantic-search and long-document paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -44,10 +45,40 @@ Phases (any failure exits non-zero):
       K3 and K4 launch counters, zeroed just before, must rise. Printed:
       the mean cosine between the int8 and the bf16 encoder's embeddings of
       64 texts and the int8 encoder's sentences/s.
- 6. One JSON line ``{"kernels": [...]}`` for K1-K4: launches in the
-    pipeline window of their phase (4 or 5), time, plain time, bound and
-    library time at the phase-2/3/5 shapes.
- 7. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 6. long documents:
+    - K5 (flash attention forward) against its plain version at the
+      shapes the long encodes below give it, B 8 × S 4096 × H 12 with D 64
+      (roberta-base-long) and D 32 (minilm-l6), lengths 3001-4096, and at
+      B 3 × S 512 × D 32 with a zero-length row; f32 and bf16; window 0,
+      256 and 256 + global CLS;
+      q, k, v as views of a fused QKV; outputs on valid rows (f32 max |Δ| ≤
+      1e-4; bf16 max ≤ 1e-2, mean ≤ 5e-4), lse (≤ 1e-4), zero-length rows
+      exactly 0. Timed at the serving shape (B 8, S 4096, H 12, D 64, bf16;
+      window 256 + global CLS, and window 0) beside the plain version and
+      ``scaled_dot_product_attention`` with the equivalent boolean mask;
+    - roberta-base converted for long documents (random weights from a
+      seed, positions tiled to 4098, window 256, global CLS, bf16) encodes
+      128 documents joined from the phase-4 sentences (112 of 3000-4040
+      tokens, 16 of 600-980) with ``encode(max_len=4096, buckets=… 1024,
+      2048, 4096, batch_size=8)`` into an ``EmbeddingStore`` searched by
+      ``BruteForceIndex`` (K2). Gates: K5's launches in that encode = 12 ×
+      the batches at bucket 4096, and K2, zeroed with it, launches in the
+      search; 16 documents queried with their own text
+      find themselves in the top 10 at score ≥ 0.99 (≥ 95%); one batch of 8
+      documents through ``encoder_forward`` with ``attention_impl="auto"``
+      (K5) and ``"reference"`` on the card: last_hidden_state on valid rows
+      within ``AGREE_MEAN`` / ``AGREE_MAX``, pooled cosine ≥ 0.99, and
+      another document's rows at least 10 × ``AGREE_MEAN`` away (so the
+      gate can tell documents apart). Printed: docs/s, tokens/s and a
+      ``torch.profiler`` split of one 8 × 4096 encode (K5, GEMMs, the rest,
+      the device's idle share);
+    - window 0 on the path: minilm-l6 with positions tiled to 4096 encodes
+      16 long documents (K5 launches = 6 × batches at 4096; the same
+      agreement gate against its reference path).
+ 7. One JSON line ``{"kernels": [...]}`` for K1-K5: launches in the
+    pipeline window of their phase (4, 5 or 6), time, plain time, bound and
+    library time at the phase-2/3/5/6 shapes.
+ 8. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -410,11 +441,13 @@ def host_ms(torch, fn, reps=5):
     return (time.time() - t) / reps * 1e3
 
 
-def profile_split(torch, label, fn, card, top=8):
+def profile_split(torch, label, fn, card, top=8, groups=()):
     """One call of ``fn`` under ``torch.profiler`` → log its wall time, the
     device's busy and idle share of it (the sum of the device time of every
     kernel, one stream, over the wall time), and the ops that took the most
-    device time. The profiler's own overhead lengthens the wall time."""
+    device time; with ``groups`` ((label, name substrings), ...) also the
+    device time of each group and of the rest. The profiler's own overhead
+    lengthens the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -440,6 +473,15 @@ def profile_split(torch, label, fn, card, top=8):
     head = "; ".join(f"{key[:60]} x{n} {ms:.3f} ms" for ms, n, key in ops[:top])
     log(f"profile of {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top device ops: {head} [{card}]")
+    if groups:
+        split, rest = {}, busy
+        for name, keys in groups:
+            ms = sum(t for t, _, key in ops if any(w in key.lower() for w in keys))
+            split[name] = ms
+            rest -= ms
+        parts = "; ".join(f"{name} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in split.items())
+        log(f"profile of {label}, device time by group: {parts}; the rest {rest:.2f} ms "
+            f"({rest / busy:.1%}) [{card}]")
 
 
 def phase_pipeline(torch, card):
@@ -790,6 +832,303 @@ def phase_int8_pipeline(torch, card, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: long documents
+# ---------------------------------------------------------------------------
+
+LONG_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+# bf16 last_hidden_state, K5 path against the banded reference path, valid
+# rows: about 2.5x the largest readings on an H100 (roberta-base-long mean
+# 7.9e-3, max 0.117; minilm-l6 window 0 mean 2.8e-3, max 0.070), where
+# another document's rows differ by a mean of 0.52-0.63
+AGREE_MEAN, AGREE_MAX = 2e-2, 0.3
+FLASH_GROUPS = (("K5 flash_fwd", ("flash_fwd",)),
+                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def band_pairs(lens, window, global_cls):
+    """(query, key) pairs one head's attention needs: valid rows i < len
+    against valid keys j < len in the band |i − j| ≤ window (every valid key
+    at window 0), plus the CLS row and column with ``global_cls``."""
+    total = 0
+    for n in lens:
+        if n <= 0:
+            continue
+        if window <= 0:
+            total += n * n
+            continue
+        i = np.arange(n)
+        cnt = np.minimum(i + window, n - 1) - np.maximum(i - window, 0) + 1
+        if global_cls:
+            cnt[0] = n                  # the CLS row sees every valid key
+            cnt[1:] += i[1:] > window   # key 0 outside the band of row i
+        total += int(cnt.sum())
+    return total
+
+
+def flash_case(torch, q, k, v, lengths, window, cls):
+    """K5 and its plain version on one input → (max |Δ| and mean |Δ| of the
+    outputs on valid rows, max |Δ| of lse there, zero-length rows exactly
+    0)."""
+    from text_similarity_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_plain
+
+    out, lse = flash_attention_cuda(q, k, v, lengths, window, cls, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, lengths, window, cls, return_lse=True)
+    torch.cuda.synchronize()
+    valid = torch.arange(q.shape[1], device=q.device)[None, :] < lengths[:, None]
+    diff = (out.float() - ref.float()).abs()[valid]
+    lse_err = float((lse - ref_lse).abs().transpose(1, 2)[valid].max())
+    zero = lengths == 0
+    zero_ok = bool((out[zero] == 0).all()) and bool((lse[zero] == 0).all())
+    return float(diff.max()), float(diff.mean()), lse_err, zero_ok
+
+
+def phase_flash(torch, card):
+    """K5 against its plain version (B 8 × S 4096 × H 12, D 64 and D 32,
+    lengths 3001-4096; B 3 × S 512 × D 32 with a zero-length row; f32 and bf16;
+    window 0, 256, 256 + global CLS; q, k, v as views of a fused QKV), then
+    its times at the serving shape beside the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    long_lens = (4096, 3001, 4090, 3500, 3800, 3100, 4000, 3333)
+    for b, s, h, d, lens in ((8, 4096, 12, 64, long_lens), (8, 4096, 12, 32, long_lens),
+                             (3, 512, 12, 32, (512, 300, 0))):
+        qkv = torch.randn(b, s, h, 3, d, generator=g, device=dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = qkv.to(dtype)
+            q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+            for window, cls in ((0, False), (256, False), (256, True)):
+                err, mean, lse_err, zero_ok = flash_case(torch, q, k, v, lengths, window, cls)
+                worst = max(worst, err)
+                if dtype == torch.float32:
+                    ok = err <= 1e-4
+                else:
+                    ok = err <= 1e-2 and mean <= 5e-4
+                ok = ok and lse_err <= 1e-4 and zero_ok
+                log(f"K5 {str(dtype)[6:]} B={b} S={s} D={d} lens={lens} window={window} "
+                    f"cls={cls}: max|Δ| {err:.2e}, mean|Δ| {mean:.2e}, lse max|Δ| "
+                    f"{lse_err:.2e}, zero rows exact {zero_ok} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K5 disagrees with its plain version")
+
+    # times at the serving shape: roberta-base-long's attention, one batch
+    b, s, h, d = 8, 4096, 12, 64
+    x = torch.randn(b, s, h, 3, d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    times = {}
+    for window, cls in ((256, True), (0, False)):
+        allowed = None
+        if window:
+            allowed = (pos[:, None] - pos[None, :]).abs() <= window
+            allowed |= (pos[:, None] == 0) | (pos[None, :] == 0)
+        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, lengths, window, cls))
+        plain = time_ms(torch, lambda: flash_attention_plain(q, k, v, lengths, window, cls),
+                        iters=2, warmup=1)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed))
+        sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+                          .transpose(1, 2).float()
+                          - flash_attention_cuda(q, k, v, lengths, window, cls).float())
+                         .abs().max())
+        pairs = h * band_pairs([s] * b, window, cls)
+        n_bytes = 4 * b * s * h * d * 2 + b * 4
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * d * pairs, PEAK_BF16)
+        log(f"K5 times [{card}]: bf16 B={b} S={s} H={h} D={d} window={window} cls={cls}: kernel "
+            f"{ms:.3f} ms, plain {plain:.3f} ms, SDPA (bool mask) {lib:.3f} ms (max|Δ| vs "
+            f"kernel {sdpa_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, "
+            f"{4.0 * d * pairs / 1e9:.1f} GFLOP; {pairs} pairs)")
+        times[window] = (ms, plain, lib, b_ms, b_by)
+    ms, plain, lib, b_ms, b_by = times[256]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "text_similarity_tpu/ops/attention.py:253 (:272 with lse)",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"B={b} S={s} H={h} D={d} window=256 global CLS bf16",
+    }
+
+
+def long_documents(tok, sentences, rng, n_long, n_short):
+    """Documents joined from corpus sentences: n_long of 3000-4040 tokens,
+    then n_short of 600-980 (sentences are added until the drawn length is
+    reached; one adds at most 40 tokens)."""
+    counts = [len(r) for r in tok.tokenize_many(sentences)]
+    targets = list(rng.integers(3000, 4001, n_long)) + list(rng.integers(600, 941, n_short))
+    docs, pos = [], 0
+    for target in targets:
+        parts, n = [], 0
+        while n < target:
+            parts.append(sentences[pos % len(sentences)])
+            n += counts[pos % len(sentences)]
+            pos += 1
+        docs.append(" ".join(parts))
+    return docs
+
+
+def bucket_batches(enc, docs, batch_size, max_len=4096):
+    """(bucket, row lengths) of each batch that ``encode`` forms: rows
+    sorted by token length, grouped by batch_size, each batch padded to the
+    bucket of its longest row."""
+    from text_similarity_tpu_torch.data.batching import pick_bucket
+
+    lens = sorted(len(r) for r in enc._tokenize_rows(docs, max_len))
+    groups = [lens[i:i + batch_size] for i in range(0, len(lens), batch_size)]
+    return [(pick_bucket(rows[-1], LONG_BUCKETS), rows) for rows in groups]
+
+
+def path_agreement(torch, enc, texts, bucket=4096):
+    """One batch of texts padded to ``bucket`` through ``encoder_forward``
+    with attention_impl "auto" (K5 in every layer at 4096 on the card) and
+    "reference" (the banded reference) → (mean |Δ| and max |Δ| of
+    last_hidden_state on valid rows; the mean |Δ| between each document's
+    auto rows and the next document's reference rows, which is what an
+    answer for the wrong document would give; min cosine of the pooled
+    unit embeddings)."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.models import encoder_forward
+    from text_similarity_tpu_torch.models.pooling import pool
+
+    rows = enc._tokenize_rows(texts, bucket)
+    ids = np.full((len(rows), bucket), enc.tokenizer.pad_id, np.int32)
+    mask = np.zeros((len(rows), bucket), np.int32)
+    for r, row in enumerate(rows):
+        ids[r, :len(row)], mask[r, :len(row)] = row, 1
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    hidden, emb = {}, {}
+    with torch.no_grad():
+        for impl in ("auto", "reference"):
+            h = encoder_forward(enc.params, ids, mask, arch=enc.arch, precision=enc.precision,
+                                attention_impl=impl).last_hidden_state
+            hidden[impl] = h.float()
+            emb[impl] = F.normalize(pool(enc.pooling, h, mask).float(), dim=-1)
+    valid = mask.bool()
+    diff = (hidden["auto"] - hidden["reference"]).abs()[valid]
+    both = valid & valid.roll(1, 0)
+    control = (hidden["auto"] - hidden["reference"].roll(1, 0)).abs()[both]
+    cos = (emb["auto"] * emb["reference"]).sum(dim=1)
+    return float(diff.mean()), float(diff.max()), float(control.mean()), float(cos.min())
+
+
+def phase_long_documents(torch, card, ctx):
+    """roberta-base converted for 4096 tokens (positions tiled to 4098,
+    band 256, global CLS; random weights, bf16) encodes 128 documents with
+    the long-encode arguments into a store searched by K2; → K5's launches
+    in that encode (K2's launches in the search are gated here)."""
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+    from text_similarity_tpu_torch.models.hf_convert import extend_positions
+    from text_similarity_tpu_torch.ops.attention import flash_attention_cuda
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    rng = np.random.default_rng(6)
+    kw = dict(max_len=4096, buckets=LONG_BUCKETS, batch_size=8)
+    t0 = time.time()
+    docs = long_documents(tok, corpus[:24_000], rng, 112, 16)
+    arch = ARCH_PRESETS["roberta-base"]
+    params, arch = extend_positions(init_params(arch, torch.Generator().manual_seed(0)), arch, 4098)
+    arch = arch.replace(attention_window=256, window_global_cls=True)
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    batches = bucket_batches(enc, docs, 8)
+    n_4096 = sum(bucket == 4096 for bucket, _ in batches)
+    n_tokens = sum(sum(rows) for _, rows in batches)
+    log(f"long set-up: {len(docs)} documents ({n_tokens} tokens; batches of 8 at buckets "
+        f"{[bucket for bucket, _ in batches]}), roberta-base-long init "
+        f"{time.time() - t0:.1f} s")
+    enc.encode(docs[:8], **kw)           # warm the path outside the counted window
+
+    flash_attention_cuda.launches = 0
+    cosine_topk_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    emb = enc.encode(docs, device_output=True, **kw)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t
+    launches = flash_attention_cuda.launches
+    log(f"long encode [{card}]: {len(docs)} documents in {enc_s:.2f} s = "
+        f"{len(docs) / enc_s:.1f} docs/s, {n_tokens / enc_s:.0f} tokens/s (tokenize + "
+        f"roberta-base-long bf16); K5 launches {launches} (12 layers x {n_4096} batches at 4096)")
+
+    store = EmbeddingStore(len(docs), enc.embedding_dim, device="cuda")
+    store.add(emb)
+    index = BruteForceIndex(store)
+    picks = rng.choice(len(docs), 16, replace=False)
+    scores, ids = index.query(enc.encode([docs[j] for j in picks], device_output=True, **kw), k=10)
+    hits = sum(any(i == j and sc >= 0.99 for sc, i in zip(srow, irow))
+               for j, srow, irow in zip(picks, scores, ids))
+    k2_launches = cosine_topk_cuda.launches
+    n = len(docs)
+    cos = emb @ emb.T
+    log(f"long self-retrieval (K2 launches {k2_launches}): {hits}/16 documents find themselves "
+        f"in the top 10 at score "
+        f">= 0.99; mean cosine between distinct documents "
+        f"{float((cos.sum() - cos.diagonal().sum()) / (n * (n - 1))):.5f}")
+
+    # the same encoder through the banded reference on the card
+    rows = enc._tokenize_rows(docs, 4096)
+    long_idx = [j for j in range(n) if len(rows[j]) > 2048][:8]
+    agree = path_agreement(torch, enc, [docs[j] for j in long_idx])
+    log(f"K5 path against the reference path (8 documents at bucket 4096): last_hidden_state "
+        f"on valid rows mean|Δ| {agree[0]:.3e}, max|Δ| {agree[1]:.3e} (another document's "
+        f"rows: mean|Δ| {agree[2]:.3e}); pooled min cosine {agree[3]:.6f}")
+    profile_split(torch, "one 8 x 4096 roberta-base-long encode",
+                  lambda: enc.encode([docs[j] for j in long_idx], device_output=True, **kw),
+                  card, groups=FLASH_GROUPS)
+
+    # window 0 on the path: minilm-l6 with positions tiled to 4096, full attention
+    march = ARCH_PRESETS["minilm-l6"]
+    mparams, march = extend_positions(ctx["params"], march, 4096)
+    menc = SentenceEncoder(mparams, march, tokenizer=tok, device="cuda")
+    mdocs = [docs[j] for j in long_idx] + [docs[j] for j in range(n) if len(rows[j]) > 2048][8:16]
+    m_4096 = sum(bucket == 4096 for bucket, _ in bucket_batches(menc, mdocs, 8))
+    before = flash_attention_cuda.launches
+    torch.cuda.synchronize()
+    t = time.time()
+    memb = menc.encode(mdocs, device_output=True, **kw)
+    torch.cuda.synchronize()
+    m_s = time.time() - t
+    m_launches = flash_attention_cuda.launches - before
+    m_agree = path_agreement(torch, menc, mdocs[:8])
+    log(f"minilm-l6 at 4096, window 0 [{card}]: {len(mdocs)} documents in {m_s:.2f} s; K5 "
+        f"launches {m_launches} (6 layers x {m_4096} batches at 4096); against the reference "
+        f"path: last_hidden_state mean|Δ| {m_agree[0]:.3e}, max|Δ| {m_agree[1]:.3e} (another "
+        f"document's rows: mean|Δ| {m_agree[2]:.3e}); pooled min cosine {m_agree[3]:.6f}")
+
+    finite = bool(torch.isfinite(emb).all()) and bool(torch.isfinite(memb).all())
+    unit = float((emb.norm(dim=1) - 1).abs().max())
+    if not finite or emb.shape != (n, 768) or unit > 1e-4:
+        raise AssertionError(f"long embeddings: finite {finite}, shape {tuple(emb.shape)}, "
+                             f"max |norm - 1| {unit:.2e}")
+    if launches != 12 * n_4096 or n_4096 == 0:
+        raise AssertionError(f"K5 launched {launches} times, expected 12 x {n_4096}")
+    if k2_launches == 0:
+        raise AssertionError("K2 never launched in the search over the long-document store")
+    if m_launches != 6 * m_4096 or m_4096 == 0:
+        raise AssertionError(f"K5 (window 0) launched {m_launches} times, expected 6 x {m_4096}")
+    if hits < 0.95 * 16:
+        raise AssertionError(f"long self-retrieval {hits}/16 below 95%")
+    for name, (mean, worst, control, cos) in (("roberta-base-long", agree),
+                                                ("minilm-l6 window 0", m_agree)):
+        if mean > AGREE_MEAN or worst > AGREE_MAX or cos < 0.99:
+            raise AssertionError(f"{name}: the K5 path and the reference path disagree "
+                                 f"(mean|Δ| {mean:.3e}, max|Δ| {worst:.3e}, min cosine {cos:.6f})")
+        if control < 10 * AGREE_MEAN:
+            raise AssertionError(f"{name}: another document's rows differ by only {control:.3e}; "
+                                 f"the agreement gate could not tell them apart")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -824,7 +1163,9 @@ def main() -> int:
     k4 = phase_int8_ivf(torch, card, corpus, queries, exact)
     del corpus, queries, exact
     launches8 = phase_int8_pipeline(torch, card, ctx)
-    kernels = [k1, k2, k3, k4]
+    k5 = phase_flash(torch, card)
+    k5["launches"] = phase_long_documents(torch, card, ctx)
+    kernels = [k1, k2, k3, k4, k5]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
     for kern in (k3, k4):

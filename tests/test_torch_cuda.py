@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4),
-each held against its plain version, and the port's pipelines (bf16 and
-int8 serving) on the card against the same pipelines on the CPU.
+"""The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4,
+and the flash forward K5), each held against its plain version, and the
+port's pipelines (bf16 and int8 serving, long-document encode) on the card
+against the same pipelines on the CPU.
 
 Imports neither jax nor the JAX package, so it runs on a machine with a
 card and no JAX; without a card every test skips. On the card:
@@ -26,7 +27,9 @@ from text_similarity_tpu_torch.index.ivf import (
     ivf_scan_cuda,
     ivf_scan_reference,
 )
-from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward, init_params
+from text_similarity_tpu_torch.models.hf_convert import extend_positions
+from text_similarity_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_plain
 from text_similarity_tpu_torch.ops import topk as topk_mod
 from text_similarity_tpu_torch.ops.topk import (
     cosine_topk_cuda,
@@ -304,3 +307,126 @@ def test_int8_pipeline_on_card_matches_cpu(cuda, tmp_path):
     assert pipe(["a brand new document"], 1)[0][0][2] == new_id
     pipe.remove_documents([new_id])
     assert all(x[2] != new_id for x in pipe(["a brand new document"], 10)[0])
+
+
+# ---------------------------------------------------------------------------
+# K5: flash attention forward
+# ---------------------------------------------------------------------------
+
+def _qkv_views(cuda, b, s, h, d, dtype, seed=0):
+    """q, k, v as the encoder hands them over: views of one fused
+    (B, S, H, 3, D) tensor."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, s, h, 3, d, generator=g, device=cuda).to(dtype)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,global_cls", [(0, False), (256, False), (256, True), (24, True)])
+@pytest.mark.parametrize(
+    "d,s,lens", [(64, 1024, (1024, 701)), (32, 512, (512, 300, 0)), (128, 600, (600, 599, 64))]
+)
+def test_flash_kernel_matches_plain(cuda, dtype, window, global_cls, d, s, lens):
+    """K5 against its plain version on valid rows: f32 max |Δ| ≤ 1e-4; bf16
+    max ≤ 1e-2 and mean ≤ 5e-4 (p rounds to bf16 against a running max in
+    the kernel, a row max in the plain version); lse ≤ 1e-4; zero-length
+    rows exactly 0. S 600 is not a multiple of the 64-row blocks."""
+    q, k, v = _qkv_views(cuda, len(lens), s, 4, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
+    out, lse = flash_attention_cuda(q, k, v, lengths, window, global_cls, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, lengths, window, global_cls, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    valid = torch.arange(s, device=cuda)[None, :] < lengths[:, None]
+    diff = (out.float() - ref.float()).abs()[valid]
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float(diff.max()) <= 1e-2 and float(diff.mean()) <= 5e-4
+    assert float((lse - ref_lse).abs().transpose(1, 2)[valid].max()) <= 1e-4
+    zero = lengths == 0
+    assert bool((out[zero] == 0).all()) and bool((lse[zero] == 0).all())
+
+
+def test_flash_strided_views_match_contiguous(cuda):
+    """Views of the fused QKV and contiguous copies give the same bits."""
+    q, k, v = _qkv_views(cuda, 2, 512, 12, 64, torch.bfloat16, seed=1)
+    lengths = torch.tensor([512, 333], dtype=torch.int32, device=cuda)
+    a = flash_attention_cuda(q, k, v, lengths, 256, True)
+    b = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), lengths, 256, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_kernel_refuses_what_it_cannot_run(cuda):
+    """requires_grad (the backward, K6, is not ported), other head dims,
+    mixed dtypes, a non-contiguous last dim; no launch for any of them."""
+    q, k, v = _qkv_views(cuda, 1, 256, 2, 64, torch.float32, seed=2)
+    lengths = torch.tensor([256], dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
+    with pytest.raises(NotImplementedError):
+        flash_attention_cuda(q.clone().requires_grad_(), k, v, lengths)
+    x = torch.randn(1, 256, 2, 48, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(x, x, x, lengths)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k.to(torch.bfloat16), v, lengths)
+    with pytest.raises(ValueError):
+        t = q.transpose(2, 3)
+        flash_attention_cuda(t, t, t, lengths)
+    assert flash_attention_cuda.launches == before
+
+
+def _long_tiny(seed=0, vocab_size=1024):
+    """tiny-test made RoBERTa-like (position offset 2, pad id 1) with two
+    heads of 32 (K5 takes D 32, 64, 128), positions tiled to 4098, band 256
+    with a global CLS."""
+    arch = ARCH_PRESETS["tiny-test"].replace(
+        num_heads=2, position_offset=2, pad_token_id=1, type_vocab_size=1, vocab_size=vocab_size
+    )
+    params = init_params(arch, torch.Generator().manual_seed(seed))
+    params, arch = extend_positions(params, arch, 4098)
+    return params, arch.replace(attention_window=256, window_global_cls=True)
+
+
+def test_encoder_auto_runs_k5_at_4096_only(cuda):
+    """impl="auto" on the card: one K5 launch per layer at S 4096, none at
+    S 1024; at S 4096 the f32 embeddings match the banded reference's
+    (allclose 1e-4)."""
+    params, arch = _long_tiny()
+    tp = SentenceEncoder(params, arch, precision=FP32_PRECISION, device=cuda).params
+    rng = np.random.default_rng(3)
+    for s, want in ((4096, arch.num_layers), (1024, 0)):
+        ids = torch.from_numpy(rng.integers(5, arch.vocab_size, (2, s)).astype(np.int32)).to(cuda)
+        mask = torch.ones((2, s), dtype=torch.int32, device=cuda)
+        mask[1, s * 3 // 4:] = 0
+        before = flash_attention_cuda.launches
+        auto = encoder_forward(tp, ids, mask, arch=arch, precision=FP32_PRECISION)
+        assert flash_attention_cuda.launches == before + want
+        ref = encoder_forward(tp, ids, mask, arch=arch, precision=FP32_PRECISION,
+                              attention_impl="reference")
+        for b, n in enumerate((s, s * 3 // 4)):
+            torch.testing.assert_close(auto.last_hidden_state[b, :n], ref.last_hidden_state[b, :n],
+                                       atol=1e-4, rtol=0)
+
+
+def test_long_encode_on_card_matches_cpu(cuda):
+    """Documents of 600-4000 tokens through SentenceEncoder.encode with the
+    long-encode arguments: the card (K5 at bucket 4096) against the CPU
+    (the banded reference), f32, allclose 1e-4."""
+    rng = np.random.default_rng(4)
+    # letter-only words: one token each, so the documents hold these counts
+    words = [chr(97 + i % 26) + chr(97 + i // 26 % 26) + chr(97 + i // 676) for i in range(900)]
+    corpus = [" ".join(rng.choice(words, n)) for n in (4000, 3100, 650, 900)]
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=2000, min_freq=1))
+    params, arch = _long_tiny(seed=1, vocab_size=tok.vocab_size)
+    kw = dict(max_len=4096, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096), batch_size=2)
+    cpu = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION, device="cpu")
+    card = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION, device=cuda)
+    before = flash_attention_cuda.launches
+    got = card.encode(corpus, **kw)
+    # batches of two by length: (650, 900) at bucket 1024, (3100, 4000) at 4096
+    assert flash_attention_cuda.launches == before + arch.num_layers
+    np.testing.assert_allclose(got, cpu.encode(corpus, **kw), atol=1e-4)

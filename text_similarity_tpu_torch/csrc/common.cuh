@@ -1,4 +1,5 @@
-// Shared building blocks of the search kernels (topk.cu, ivf_scan.cu).
+// Shared building blocks of the search kernels (topk.cu, ivf_scan.cu); the
+// flash kernel (flash_fwd.cu) uses only its f32 loader (load16).
 //
 // * A 128-row × 16-query score tile: a CTA of 256 threads stages 128 rows
 //   of the corpus (or of an IVF slab; f32, bf16 or int8 codes) through

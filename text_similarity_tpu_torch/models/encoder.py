@@ -6,7 +6,15 @@ layers stacked on a leading axis — so a JAX parameter tree (as numpy)
 carries across with :func:`params_from_jax` and checkpoints are shared.
 :class:`Encoder` holds the tree as an ``nn.Module``; the forward is plain
 tensor code: embeddings + LN, then L post-LN blocks (fused head-interleaved
-QKV, exact attention, FFN), then the optional tanh pooler.
+QKV, attention, FFN), then the optional tanh pooler.
+
+Attention goes through ``ops.attention.multi_head_attention`` with the
+arch's ``attention_window`` / ``window_global_cls`` (Longformer-style band
+with a global CLS) and ``attention_impl="auto"``: on the card every layer
+at S ≥ 4096 (S % 128 == 0) runs the flash kernel K5, every shorter bucket
+the reference; on the CPU ``auto`` runs the reference, as the JAX package
+does there. RoBERTa-family archs (``position_offset``) number real tokens
+from ``pad_token_id + 1`` and give padding the pad row.
 
 Precision follows the reference: embeddings and LayerNorms in f32, layer
 matmuls in the compute dtype with f32 accumulation, softmax in f32.
@@ -17,9 +25,8 @@ with such kernels quantize their input per token and run an exact
 int8×int8→int32 product (``_int8_dense``, the fused QKV), embedding tables
 dequantize the gathered rows, the pooler dequantizes its kernel.
 
-Not ported yet: RoBERTa position offsets, ALBERT sharing and factorized
-embeddings, MoE, performer / windowed attention, head pruning, dropout
-(training).
+Not ported yet: ALBERT sharing and factorized embeddings, MoE, head-dim
+overrides, performer attention, head pruning, dropout (training).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch.nn.functional as F
 from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision
-from ..ops.attention import attention_reference
+from ..ops.attention import multi_head_attention
 
 
 class EncoderOutput(NamedTuple):
@@ -44,11 +51,9 @@ class EncoderOutput(NamedTuple):
 
 def _check_supported(arch: EncoderArch) -> None:
     unsupported = {
-        "position_offset": arch.position_offset,
         "share_layers": arch.share_layers,
         "embed_factor_size": arch.embed_factor_size,
         "num_experts": arch.num_experts,
-        "attention_window": arch.attention_window,
         "head_dim_override": arch.head_dim_override,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -57,7 +62,7 @@ def _check_supported(arch: EncoderArch) -> None:
     if bad:
         raise NotImplementedError(
             f"encoder options not ported yet: {', '.join(bad)} "
-            "(ROADMAP queue 1: RoBERTa/ALBERT variants, MoE, long context)"
+            "(ROADMAP queue 1: ALBERT, MoE, performer)"
         )
 
 
@@ -254,6 +259,7 @@ def transformer_layer(
     attention_mask: torch.Tensor,  # (B, S)
     *,
     arch: EncoderArch,
+    attention_impl: str = "auto",  # auto | flash | reference
 ) -> torch.Tensor:
     """One post-LN block: MHA + residual + LN, FFN + residual + LN."""
     b, s, h = hx.shape
@@ -278,7 +284,11 @@ def transformer_layer(
     else:
         qkv = torch.matmul(hx, w_qkv).reshape(b, s, nh, 3, hd) + b_qkv
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-    ctx = attention_reference(q, k, v, attention_mask).reshape(b, s, nh * hd)
+    # q, k, v stay strided views of the fused QKV: K5 reads them in place
+    ctx = multi_head_attention(
+        q, k, v, mask=attention_mask, impl=attention_impl,
+        window=arch.attention_window, window_global_cls=arch.window_global_cls,
+    ).reshape(b, s, nh * hd)
     ctx = _dense(ctx, attn["o"])
     hx1 = _layer_norm(
         hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
@@ -305,10 +315,17 @@ def embed_inputs(
     """Word + position (+ token type) embeddings and LN, returned in the
     compute dtype. The sum runs in the tables' dtype (bf16 tables add in
     bf16, as the reference's code reads); an int8 table dequantizes its
-    gathered rows to f32."""
+    gathered rows to f32. With ``arch.position_offset`` (RoBERTa) real
+    tokens take positions cumsum(mask) + pad_token_id and padding the pad
+    row, as the reference (``create_position_ids_from_input_ids``)."""
     s = input_ids.shape[1]
     x = _take(emb["word"], input_ids.long())
-    x = x + _take(emb["position"], slice(0, s))[None]
+    if arch.position_offset:
+        m = attention_mask.long()
+        pos_ids = torch.cumsum(m, dim=1) * m + arch.pad_token_id
+        x = x + _take(emb["position"], pos_ids)
+    else:
+        x = x + _take(emb["position"], slice(0, s))[None]
     if arch.has_token_type:
         if token_type_ids is None:
             x = x + _take(emb["token_type"], 0)
@@ -334,9 +351,11 @@ def encoder_forward(
     *,
     arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION,
+    attention_impl: str = "auto",
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
-    (the reference's ``lax.scan``), then the pooler when the arch has one."""
+    (the reference's ``lax.scan``), then the pooler when the arch has one.
+    ``attention_impl``: auto | flash | reference (see the module note)."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
@@ -347,7 +366,7 @@ def encoder_forward(
     layers = _cast_tree(params["layers"], precision.compute_dtype)
     for li in range(arch.num_layers):
         lp = _index_tree(layers, li)
-        x = transformer_layer(x, lp, attention_mask, arch=arch)
+        x = transformer_layer(x, lp, attention_mask, arch=arch, attention_impl=attention_impl)
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]

@@ -11,8 +11,16 @@ per-token activation quant and int8×int8→int32 products); a checkpoint
 saved in the int8 deployment format (``format: int8``) loads dequantized,
 as in the reference.
 
+Long documents: an encoder converted for long context (positions tiled by
+``models.hf_convert.extend_positions``, ``attention_window`` and
+``window_global_cls`` set, as a JAX-saved long encoder's ``arch.json``
+holds) encodes with ``encode(texts, max_len=4096, buckets=BUCKETS + (1024,
+2048, 4096), batch_size=8)``; on the card every 4096-token batch runs the
+flash kernel K5 in each layer (``encoder_forward``'s ``"auto"`` rule).
+
 Not ported yet: packed variable-length encode (``packed=True``; ``"auto"``
-runs bucketed, which gives the same vectors), long-context encode.
+runs bucketed, which gives the same vectors), ``encode_long`` (the
+context-parallel encode over a device mesh).
 """
 
 from __future__ import annotations

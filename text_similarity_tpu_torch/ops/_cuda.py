@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "ivf_scan.cu")
+SOURCES = ("topk.cu", "ivf_scan.cu", "flash_fwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,6 +36,8 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # q, corpus, corpus_bf16, Q, N, D, k, splits, rows_per_split,
     # part_s, part_i, out_s, out_i, stream
@@ -51,6 +53,11 @@ _SIGNATURES = {
     # width, slots, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
+    # q, k, v, out, lse (or NULL), lengths, bf16, B, S, H, D,
+    # q/k/v strides (batch, token, head) in elements, window, global_cls,
+    # scale, stream
+    "ts_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
 }
 
 
