@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's semantic-search and long-document paths on one
-NVIDIA card.
+"""Run the PyTorch port's semantic-search, long-document and training paths
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -75,10 +75,40 @@ Phases (any failure exits non-zero):
     - window 0 on the path: minilm-l6 with positions tiled to 4096 encodes
       16 long documents (K5 launches = 6 × batches at 4096; the same
       agreement gate against its reference path).
- 7. One JSON line ``{"kernels": [...]}`` for K1-K5: launches in the
-    pipeline window of their phase (4, 5 or 6), time, plain time, bound and
-    library time at the phase-2/3/5/6 shapes.
- 8. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 7. training:
+    - K6 (flash attention backward: dq, dk/dv) against its plain version
+      on K5's o and lse and a random do (nonzero on padded rows too), B 4 ×
+      S 4096 × H 12 with D 64 and D 32 (lengths 3001-4096) and B 3 × S 512
+      × D 32 with a zero-length row; f32 and bf16; window 0, 256, 256 +
+      global CLS; q, k, v as views of a fused QKV; every row (f32 |Δ| ≤
+      1e-4 · max(1, |ref|); bf16 |Δ| ≤ 2 · 2^-7 · max(1, |ref|), mean ≤
+      6e-7; zero-length rows exactly 0). Timed at the training shape (B 4, S 4096, H 12, D 64,
+      bf16; window 256 + global CLS, and window 0) beside the plain version
+      and SDPA's backward (forward + backward − forward, boolean mask);
+    - roberta-base-long (phase 6's conversion; f32 master weights, bf16
+      compute, dropout 0.1) trains on 16 pairs (a 3000-4000-token document,
+      the same sentences in another order) in batches of 4 at bucket 4096:
+      MNRL, ``make_optimizer(TrainConfig(lr=2e-5, warmup_ratio=0.1))``,
+      ``Trainer.execute`` with prefetch, two epochs (8 steps). Gates: K5
+      launches = 12 layers × 2 towers × 8 steps, K6 = 2 × that; losses
+      finite; the parameters unchanged by step 1 (lr 0) and changed by step
+      2. Printed: pairs/s, tokens/s, peak memory, a ``torch.profiler``
+      split of one step (K5, K6, GEMMs, the rest) and the optimizer step
+      alone;
+    - gradient agreement: a 2-layer cut of the same arch at full width, one
+      pair at 4096, the gradient of a fixed random projection of both
+      towers' token states through ``attention_impl="auto"`` (K5/K6) against
+      ``"reference"``: per leaf ‖Δg‖ / ‖g‖ ≤ 1e-3 (f32) and ≤ ``GRAD_BF16``
+      (bf16); another pair's gradient ≥ 10 × ``GRAD_BF16`` away;
+    - the short path: minilm-l6 with the CLI's defaults (32 pairs, max_len
+      128, the reference attention), cosine MSE on 64 synthetic pairs, 30
+      steps on one repeated batch at lr 1e-4 through the Trainer with
+      checkpoints: the loss falls; ``save`` → ``load`` gives the same
+      embeddings; K2 finds each saved document's own vector first.
+ 8. One JSON line ``{"kernels": [...]}`` for K1-K6: launches in the
+    pipeline window of their phase (4, 5, 6 or 7), time, plain time, bound
+    and library time at the phase-2/3/5/6/7 shapes.
+ 9. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -447,7 +477,8 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
     kernel, one stream, over the wall time), and the ops that took the most
     device time; with ``groups`` ((label, name substrings), ...) also the
     device time of each group and of the rest. The profiler's own overhead
-    lengthens the wall time."""
+    lengthens the wall time. → {group: device ms, "rest": ms, "busy": ms,
+    "wall": ms}, or None when the profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -468,20 +499,21 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
     if busy == 0:
         log(f"profile of {label}: wall {wall:.2f} ms; device time not measured "
             f"(the profiler recorded no device events) [{card}]")
-        return
+        return None
     ops.sort(reverse=True)
     head = "; ".join(f"{key[:60]} x{n} {ms:.3f} ms" for ms, n, key in ops[:top])
     log(f"profile of {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; top device ops: {head} [{card}]")
+    split, rest = {}, busy
+    for name, keys in groups:
+        ms = sum(t for t, _, key in ops if any(w in key.lower() for w in keys))
+        split[name] = ms
+        rest -= ms
     if groups:
-        split, rest = {}, busy
-        for name, keys in groups:
-            ms = sum(t for t, _, key in ops if any(w in key.lower() for w in keys))
-            split[name] = ms
-            rest -= ms
         parts = "; ".join(f"{name} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in split.items())
         log(f"profile of {label}, device time by group: {parts}; the rest {rest:.2f} ms "
             f"({rest / busy:.1%}) [{card}]")
+    return {**split, "rest": rest, "busy": busy, "wall": wall}
 
 
 def phase_pipeline(torch, card):
@@ -1129,6 +1161,445 @@ def phase_long_documents(torch, card, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training (K6)
+# ---------------------------------------------------------------------------
+
+TRAIN_BUCKET = 4096
+# K6 against its plain version, every row: |Δ| ≤ REL · max(1, |ref|) (dv
+# of the CLS key sums over 4096 rows and reaches |ref| ≈ 110). f32: 1e-4.
+# bf16: two bf16 ulps (2 · 2^-7), where the largest H100 reading is 4.7e-3
+# here and 6.7e-3 in the card tests (0.86 ulp: one rounding of ds, p or the
+# output turned the other way); mean |Δ| at 2.5x the largest reading, 2.4e-7
+K6_F32_REL, K6_BF16_REL, K6_BF16_MEAN = 1e-4, 2 * 2.0 ** -7, 6e-7
+# per-leaf relative gradient difference, K5/K6 path against the reference
+# path (2-layer roberta-base-long, one pair at 4096): bf16 at about 2.5x the
+# first H100 reading (worst leaf 1.23e-2, the key kernel; median 2.8e-3;
+# f32 2.7e-6), where another pair's gradient differs by 0.63
+GRAD_F32, GRAD_BF16 = 1e-3, 3e-2
+TRAIN_GROUPS = (("K5 flash_fwd", ("flash_fwd",)), ("K6 flash_bwd", ("flash_bwd",)),
+                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def k6_case(torch, q, k, v, lengths, window, cls, g):
+    """K5's o and lse and a random do (nonzero on padded rows too), then K6
+    and its plain version → (max |Δ|, mean |Δ|, largest |Δ| / max(1, |ref|))
+    over dq, dk, dv on every row, and zero-length rows exactly 0."""
+    from text_similarity_tpu_torch.ops.attention import (
+        flash_attention_backward_cuda, flash_attention_backward_plain, flash_attention_cuda,
+    )
+
+    out, lse = flash_attention_cuda(q, k, v, lengths, window, cls, return_lse=True)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    got = flash_attention_backward_cuda(q, k, v, lengths, out, lse, do, window, cls)
+    want = flash_attention_backward_plain(q, k, v, lengths, out, lse, do, window, cls)
+    torch.cuda.synchronize()
+    worst = mean = rel = 0.0
+    zero_ok = True
+    for x, y in zip(got, want):
+        diff = (x.float() - y.float()).abs()
+        worst = max(worst, float(diff.max()))
+        mean = max(mean, float(diff.mean()))
+        rel = max(rel, float((diff / y.float().abs().clamp_min(1.0)).max()))
+        zero_ok = zero_ok and bool((x[lengths == 0] == 0).all())
+    return worst, mean, rel, zero_ok
+
+
+def k6_pairs(lens, window, global_cls):
+    """The (query, key) pairs K6 computes for one head: every row i < S
+    (padded rows too: their lse is real) against the kept keys j < len."""
+    return sum(band_pairs([n], window, global_cls) for n in lens)
+
+
+def phase_flash_backward(torch, card):
+    """K6 against its plain version (B 4 × S 4096 × H 12 with D 64 and D 32,
+    lengths 3001-4096; B 3 × S 512 × D 32 with a zero-length row; f32 and
+    bf16; window 0, 256, 256 + global CLS; q, k, v as views of a fused QKV),
+    then its times at the training shape beside the plain version and SDPA's
+    backward."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.ops.attention import (
+        flash_attention_backward_cuda, flash_attention_backward_plain, flash_attention_cuda,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    long_lens = (4096, 3001, 3500, 4040)
+    for b, s, h, d, lens in ((4, 4096, 12, 64, long_lens), (4, 4096, 12, 32, long_lens),
+                             (3, 512, 12, 32, (512, 300, 0))):
+        qkv = torch.randn(b, s, h, 3, d, generator=g, device=dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = qkv.to(dtype)
+            q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+            for window, cls in ((0, False), (256, False), (256, True)):
+                err, mean, rel, zero_ok = k6_case(torch, q, k, v, lengths, window, cls, g)
+                worst = max(worst, err)
+                if dtype == torch.float32:
+                    ok = rel <= K6_F32_REL
+                else:
+                    ok = rel <= K6_BF16_REL and mean <= K6_BF16_MEAN
+                ok = ok and zero_ok
+                log(f"K6 {str(dtype)[6:]} B={b} S={s} D={d} lens={lens} window={window} "
+                    f"cls={cls}: dq/dk/dv max|Δ| {err:.3e}, mean|Δ| {mean:.3e}, max|Δ|/max(1,|ref|) "
+                    f"{rel:.3e}, zero rows exact {zero_ok} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("K6 disagrees with its plain version")
+
+    # times at the training shape: roberta-base-long's attention, 4 sequences
+    b, s, h, d = 4, TRAIN_BUCKET, 12, 64
+    x = torch.randn(b, s, h, 3, d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    do = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+    times = {}
+    for window, cls in ((256, True), (0, False)):
+        out, lse = flash_attention_cuda(q, k, v, lengths, window, cls, return_lse=True)
+        args = (q, k, v, lengths, out, lse, do, window, cls)
+        ms = time_ms(torch, lambda: flash_attention_backward_cuda(*args))
+        plain = time_ms(torch, lambda: flash_attention_backward_plain(*args), iters=2, warmup=1)
+        allowed = None
+        if window:
+            allowed = (pos[:, None] - pos[None, :]).abs() <= window
+            allowed |= (pos[:, None] == 0) | (pos[None, :] == 0)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        lib = time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd)
+        pairs = h * k6_pairs([s] * b, window, cls)
+        # the function reads q, k, v, o, do and lse once and writes dq, dk,
+        # dv once; per kept pair the backward needs five products of D
+        # multiply-adds (s = q·kᵀ, dp = do·vᵀ, dq, dk, dv): 10·D operations.
+        # The two kernels recompute s and dp once more (14·D), which the
+        # function itself does not need, so that is logged beside the bound.
+        n_bytes = 8 * b * s * h * d * 2 + b * h * s * 4 + b * 4
+        ops = 10.0 * d * pairs
+        b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
+        log(f"K6 times [{card}]: bf16 B={b} S={s} H={h} D={d} window={window} cls={cls}: "
+            f"kernels (dq + dk/dv, with the di reduction) {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
+            f"backward (fwd+bwd − fwd, bool mask) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP; {pairs} pairs); the kernels' own "
+            f"products with the recompute: {1.4 * ops / 1e9:.1f} GFLOP, "
+            f"{1.4 * ops / PEAK_BF16 * 1e3:.4f} ms")
+        times[window] = (ms, plain, lib, b_ms, b_by)
+    ms, plain, lib, b_ms, b_by = times[256]
+    return {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "text_similarity_tpu/ops/attention.py:469 (dq), :498 (dk/dv)",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"B={b} S={s} H={h} D={d} window=256 global CLS bf16",
+    }
+
+
+def document_pairs(tok, sentences, rng, n):
+    """n pairs (a document of 3000-4000 tokens joined from corpus
+    sentences, the same sentences in another order)."""
+    counts = [len(r) for r in tok.tokenize_many(sentences)]
+    pairs, pos = [], 0
+    for target in rng.integers(3000, 4001, n):
+        parts, total = [], 0
+        while total < target:
+            parts.append(sentences[pos % len(sentences)])
+            total += counts[pos % len(sentences)]
+            pos += 1
+        shuffled = [parts[j] for j in rng.permutation(len(parts))]
+        pairs.append((" ".join(parts), " ".join(shuffled)))
+    return pairs
+
+
+def flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(flat_leaves(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def zeros_like_tree(torch, tree):
+    return {k: zeros_like_tree(torch, v) if isinstance(v, dict) else torch.zeros_like(v)
+            for k, v in tree.items()}
+
+
+def long_arch_params(torch, layers=None):
+    """roberta-base converted as phase 6 converts it (random weights, seed
+    0; positions tiled to 4098; window 256, global CLS), optionally cut to
+    its first ``layers`` layers."""
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.models import init_params
+    from text_similarity_tpu_torch.models.hf_convert import extend_positions
+
+    arch = ARCH_PRESETS["roberta-base"]
+    params, arch = extend_positions(init_params(arch, torch.Generator().manual_seed(0)), arch, 4098)
+    arch = arch.replace(attention_window=256, window_global_cls=True)
+    if layers:
+        def cut(t):
+            return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:layers]
+
+        params["layers"] = cut(params["layers"])
+        arch = arch.replace(num_layers=layers)
+    return params, arch
+
+
+def phase_long_training(torch, card, ctx):
+    """roberta-base-long trains for two epochs of 4 batches (MNRL, 4 pairs
+    at bucket 4096) through ``Trainer.execute`` with prefetch, as
+    ``_run_bi_encoder_training`` composes the calls → (K5's and K6's
+    launches in that run, the pairs, the tokenizer)."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.attention import (
+        flash_attention_backward_cuda, flash_attention_cuda,
+    )
+    from text_similarity_tpu_torch.train import (
+        Trainer, init_train_state, make_bi_encoder_train_step, make_optimizer,
+    )
+    from text_similarity_tpu_torch.train.steps import batch_to
+
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    rng = np.random.default_rng(7)
+    t0 = time.time()
+    pairs = document_pairs(tok, corpus[:24_000], rng, 16)
+    params, arch = long_arch_params(torch)
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    batches = build_pair_batches(tok, pairs, np.zeros(len(pairs), np.float32), batch_size=4,
+                                 max_len=TRAIN_BUCKET)
+    widths = sorted({b["ids_a"].shape[1] for b in batches})
+    n_tokens = int(sum(b["mask_a"].sum() + b["mask_b"].sum() for b in batches))
+    cfg = TrainConfig(lr=2e-5, warmup_ratio=0.1)
+    epochs = 2
+    total = len(batches) * epochs
+    tx = make_optimizer(cfg, total, params_example={"encoder": enc.params})
+    state = init_train_state({"encoder": enc.params}, tx, seed=cfg.seed, device="cuda")
+    step = make_bi_encoder_train_step(arch, tx, loss_type="mnrl", pooling=enc.pooling)
+    log(f"long training set-up: {len(pairs)} pairs in {len(batches)} batches of 4 at widths "
+        f"{widths} ({n_tokens} real tokens an epoch), roberta-base-long (f32 master weights, bf16 "
+        f"compute, hidden dropout {arch.hidden_dropout}) {time.time() - t0:.1f} s")
+
+    snap = {k: v.detach().clone() for k, v in flat_leaves(state.params).items()}
+    seen = {"losses": [], "same": {}, "t": {}}
+
+    def watched(st, batch):
+        st, metrics = step(st, batch)
+        seen["losses"].append(metrics["loss"])
+        if st.step in (1, 2):
+            seen["same"][st.step] = all(torch.equal(v, snap[k])
+                                        for k, v in flat_leaves(st.params).items())
+        if st.step == len(batches):          # the end of the first epoch
+            torch.cuda.synchronize()
+            seen["t"]["epoch1"] = time.time()
+        return st, metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    flash_attention_backward_cuda.launches = 0
+    trainer = Trainer(watched, state, log_every=len(batches), device="cuda")
+    result = trainer.execute(lambda e: iter(batches), epochs=epochs)
+    torch.cuda.synchronize()
+    t_end = time.time()
+    launches = {"K5": flash_attention_cuda.launches, "K6": flash_attention_backward_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in seen["losses"]]
+    epoch2 = t_end - seen["t"]["epoch1"]
+    log(f"long training [{card}]: {total} steps, losses {[f'{x:.4f}' for x in losses]}; epoch 2 "
+        f"{epoch2:.3f} s = {len(pairs) / epoch2:.2f} pairs/s, {n_tokens / epoch2:.0f} tokens/s; "
+        f"peak memory {peak:.2f} GiB; launches {launches} (K5 expected 12 x 2 towers x {total} = "
+        f"{12 * 2 * total}, K6 2 x that); params unchanged by step 1: {seen['same'].get(1)}, "
+        f"by step 2: {seen['same'].get(2)}")
+
+    # where one step's time goes (after the counted run)
+    state = result["state"]
+    batch = batch_to(batches[0], torch.device("cuda"))
+    split = profile_split(torch, "one roberta-base-long training step (4 pairs at 4096)",
+                          lambda: step(state, batch), card, groups=TRAIN_GROUPS)
+    zeros = zeros_like_tree(torch, state.params)
+    opt_ms = time_ms(torch, lambda: tx.step(state.params, zeros, state.opt_state), iters=3, warmup=1)
+    n_params = sum(v.numel() for v in flat_leaves(state.params).values())
+    log(f"optimizer step alone (clip + AdamW over {n_params} parameters): {opt_ms:.3f} ms [{card}]")
+    if split is not None:
+        rest = split["rest"] - opt_ms
+        log(f"training step split [{card}]: K5 {split['K5 flash_fwd']:.2f} ms, K6 "
+            f"{split['K6 flash_bwd']:.2f} ms, GEMMs {split['GEMMs']:.2f} ms, optimizer "
+            f"{opt_ms:.2f} ms (timed alone), elementwise and the rest {rest:.2f} ms "
+            f"({rest / split['busy']:.1%}); device busy {split['busy']:.2f} of "
+            f"{split['wall']:.2f} ms wall, idle {1 - split['busy'] / split['wall']:.1%}")
+
+    if not all(np.isfinite(losses)) or len(losses) != total:
+        raise AssertionError(f"long training losses: {losses}")
+    if launches["K5"] != 12 * 2 * total or launches["K6"] != 2 * 12 * 2 * total:
+        raise AssertionError(f"K5/K6 launched {launches}, expected {12 * 2 * total} and "
+                             f"{2 * 12 * 2 * total}")
+    if seen["same"].get(1) is not True or seen["same"].get(2) is not False:
+        raise AssertionError(f"parameters after steps 1 and 2: unchanged {seen['same']} (step 1 "
+                             f"has lr 0 and must move nothing; step 2 must move them)")
+    return launches["K6"], pairs
+
+
+def phase_grad_agreement(torch, card, tok, pairs):
+    """A 2-layer cut of roberta-base-long at full width, one pair at 4096:
+    the gradient of a fixed random projection of both towers'
+    ``last_hidden_state`` (one random vector per position, valid tokens)
+    through ``attention_impl="auto"`` (K5 forward, K6 backward) against the
+    banded reference path, per leaf ‖g_auto − g_ref‖ / ‖g_ref‖, in f32 and
+    bf16; the gradient of another pair is the control. (With random
+    weights a pair loss is ill-conditioned here, since a document and its
+    shuffle pool to cosine 0.9996, and any loss of the pooled vectors gives
+    nearly the same gradient for every document.) A leaf whose gradient is
+    zero in exact arithmetic (the key bias: a shift shared by a row's
+    scores leaves the softmax alone) is measured against 1e-3 of the whole
+    gradient's norm instead of its own."""
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.models import encoder_forward
+    from text_similarity_tpu_torch.train.steps import batch_to, trainable, value_and_grad
+
+    dev = torch.device("cuda")
+    params, arch = long_arch_params(torch, layers=2)
+    leaves = trainable({"encoder": params}, dev)
+    w = torch.randn(TRAIN_BUCKET, arch.hidden_size,
+                    generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+
+    def projection_loss(p, batch, impl, precision):
+        total = 0.0
+        for side in ("a", "b"):
+            mask = batch[f"mask_{side}"]
+            h = encoder_forward(p["encoder"], batch[f"ids_{side}"], mask, arch=arch,
+                                precision=precision, attention_impl=impl).last_hidden_state
+            total = total + (h.float() * w * mask[..., None]).sum()
+        return total, {}
+
+    def grads(pair, impl, precision):
+        batch = build_pair_batches(tok, [pair], np.zeros(1, np.float32), batch_size=1,
+                                   max_len=TRAIN_BUCKET, shuffle=False)[0]
+        if batch["ids_a"].shape[1] != TRAIN_BUCKET:
+            raise AssertionError(f"the pair is not at bucket {TRAIN_BUCKET}")
+        loss, _, g = value_and_grad(projection_loss, leaves, batch_to(batch, dev), impl, precision)
+        return float(loss.detach()), {k: v.float() for k, v in flat_leaves(g).items()}
+
+    def rel(a, b):
+        """Per leaf ‖a − b‖ / ‖b‖ (‖b‖ floored at 1e-3 of the whole
+        gradient's norm; those leaves are named), and over all leaves."""
+        norms = {k: float(ref.norm()) for k, ref in b.items()}
+        whole = sum(n * n for n in norms.values()) ** 0.5
+        out, floored, num = {}, [], 0.0
+        for k, ref in b.items():
+            d = float((a[k] - ref).norm())
+            num += d * d
+            if norms[k] < 1e-3 * whole:
+                floored.append(k)
+            out[k] = d / max(norms[k], 1e-3 * whole)
+        return out, num ** 0.5 / whole, floored
+
+    readings = {}
+    for name, precision, limit in (("f32", FP32_PRECISION, GRAD_F32),
+                                   ("bf16", DEFAULT_PRECISION, GRAD_BF16)):
+        la, ga = grads(pairs[0], "auto", precision)
+        lr, gr = grads(pairs[0], "reference", precision)
+        per_leaf, whole, floored = rel(ga, gr)
+        worst_leaf = max(per_leaf, key=per_leaf.get)
+        log(f"gradient agreement {name} [{card}]: loss auto {la:.6f} reference {lr:.6f}; per leaf "
+            f"‖Δg‖/‖g‖ max {per_leaf[worst_leaf]:.3e} ({worst_leaf}), median "
+            f"{float(np.median(list(per_leaf.values()))):.3e}, all leaves {whole:.3e} (limit "
+            f"{limit}); against 1e-3 of the whole norm: {floored}")
+        readings[name] = (per_leaf[worst_leaf], limit)
+        if name == "bf16":
+            _, go = grads(pairs[1], "auto", precision)
+            ctrl_leaf, ctrl, _ = rel(go, gr)
+            log(f"gradient control (another pair against the reference's): all leaves "
+                f"{ctrl:.3e}, per leaf min {min(ctrl_leaf.values()):.3e} (the whole must be >= "
+                f"{10 * GRAD_BF16:.2e})")
+            readings["control"] = ctrl
+    for name in ("f32", "bf16"):
+        worst, limit = readings[name]
+        if worst > limit:
+            raise AssertionError(f"{name}: K5/K6 gradients differ from the reference path's by "
+                                 f"{worst:.3e} > {limit}")
+    if readings["control"] < 10 * GRAD_BF16:
+        raise AssertionError(f"another pair's gradient differs by only {readings['control']:.3e}; "
+                             f"the agreement gate could not tell pairs apart")
+
+
+def phase_short_training(torch, card, ctx):
+    """minilm-l6 (phase 4's weights) with the CLI's defaults: cosine MSE on
+    64 synthetic pairs (batches of 32 at max_len 128, the reference
+    attention), 30 steps on one repeated batch at lr 1e-4 through the
+    Trainer (best and final checkpoints in a temporary directory); then the
+    trained encoder is saved, loaded back and searched by K2."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+    from text_similarity_tpu_torch.train import (
+        Trainer, init_train_state, make_bi_encoder_train_step, make_optimizer,
+    )
+
+    import tempfile
+
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    rng = np.random.default_rng(8)
+    picks = rng.choice(len(corpus), 128, replace=False)
+    pairs = [(corpus[i], corpus[j]) for i, j in zip(picks[:64], picks[64:])]
+    scores = rng.random(64).astype(np.float32)
+    batch = build_pair_batches(tok, pairs, scores, batch_size=32, max_len=128)[0]
+    enc = SentenceEncoder(ctx["params"], ctx["enc"].arch, tokenizer=tok, device="cuda")
+    steps = 30
+    tx = make_optimizer(TrainConfig(lr=1e-4), steps, params_example={"encoder": enc.params})
+    state = init_train_state({"encoder": enc.params}, tx, device="cuda")
+    step = make_bi_encoder_train_step(enc.arch, tx, loss_type="cosine_mse", pooling=enc.pooling)
+    losses = []
+
+    def watched(st, b):
+        st, metrics = step(st, b)
+        losses.append(metrics["loss"])
+        return st, metrics
+
+    docs = [p[0] for p in pairs]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t = time.time()
+        trainer = Trainer(watched, state, save_path=os.path.join(tmp, "run"), log_every=10,
+                          device="cuda")
+        result = trainer.execute(lambda e: iter([batch] * steps), epochs=1)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        saved = sorted(os.listdir(os.path.join(tmp, "run")))
+        enc.params = result["state"].params["encoder"]
+        enc.save(os.path.join(tmp, "model"))
+        loaded = SentenceEncoder.load(os.path.join(tmp, "model"), device="cuda")
+        e_enc = enc.encode(docs, device_output=True)
+        e_load = loaded.encode(docs, device_output=True)
+    losses = [float(x) for x in losses]
+    store = EmbeddingStore(len(docs), enc.embedding_dim, device="cuda")
+    store.add(e_enc)
+    cosine_topk_cuda.launches = 0
+    top_s, top_i = BruteForceIndex(store).query(e_load, k=5)
+    first = int(sum(top_i[r, 0] == r for r in range(len(docs))))
+    k2 = cosine_topk_cuda.launches
+    same = float((e_enc - e_load).abs().max())
+    log(f"short training [{card}]: minilm-l6, 32 pairs x {steps} steps in {dt:.2f} s (Trainer "
+        f"with prefetch and async best/final checkpoints: {saved}); loss first {losses[0]:.5f}, "
+        f"last {losses[-1]:.5f}, min {min(losses):.5f}; saved -> loaded encoder max|Δ| of 64 "
+        f"embeddings {same:.2e}; K2 ({k2} launches) finds {first}/64 saved documents first")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the short-path loss did not fall: {losses[0]} -> {losses[-1]}")
+    if same > 1e-6 or first != len(docs) or k2 == 0:
+        raise AssertionError("the trained encoder did not survive save -> load -> search")
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -1165,7 +1636,11 @@ def main() -> int:
     launches8 = phase_int8_pipeline(torch, card, ctx)
     k5 = phase_flash(torch, card)
     k5["launches"] = phase_long_documents(torch, card, ctx)
-    kernels = [k1, k2, k3, k4, k5]
+    k6 = phase_flash_backward(torch, card)
+    k6["launches"], pairs = phase_long_training(torch, card, ctx)
+    phase_grad_agreement(torch, card, ctx["tok"], pairs)
+    phase_short_training(torch, card, ctx)
+    kernels = [k1, k2, k3, k4, k5, k6]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
     for kern in (k3, k4):

@@ -169,13 +169,14 @@ def test_auto_runs_the_reference_on_cpu(monkeypatch):
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The CPU takes the plain path only through ``flash_attention``; the
-    kernel's wrapper itself refuses a CPU tensor and any input that needs
-    a gradient (the backward, K6, is not ported)."""
+    kernel's wrapper itself refuses a CPU tensor and, under grad mode, any
+    input that needs a gradient (``flash_attention`` takes those through
+    its autograd Function, K5 then K6)."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(seed=5))
     lens = torch.tensor(LENS, dtype=torch.int32)
     before = flash_attention_cuda.launches
     with pytest.raises(ValueError):
         flash_attention_cuda(q, k, v, lens)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="does not track gradients"):
         flash_attention_cuda(q.requires_grad_(), k, v, lens)
     assert flash_attention_cuda.launches == before

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4,
-and the flash forward K5), each held against its plain version, and the
+the flash forward K5 and backward K6), each held against its plain version, and the
 port's pipelines (bf16 and int8 serving, long-document encode) on the card
 against the same pipelines on the CPU.
 
@@ -29,7 +29,13 @@ from text_similarity_tpu_torch.index.ivf import (
 )
 from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward, init_params
 from text_similarity_tpu_torch.models.hf_convert import extend_positions
-from text_similarity_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_plain
+from text_similarity_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_backward_cuda,
+    flash_attention_backward_plain,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from text_similarity_tpu_torch.ops import topk as topk_mod
 from text_similarity_tpu_torch.ops.topk import (
     cosine_topk_cuda,
@@ -361,12 +367,14 @@ def test_flash_strided_views_match_contiguous(cuda):
 
 
 def test_flash_kernel_refuses_what_it_cannot_run(cuda):
-    """requires_grad (the backward, K6, is not ported), other head dims,
-    mixed dtypes, a non-contiguous last dim; no launch for any of them."""
+    """Inputs that need a gradient under grad mode (the kernel's output
+    carries none: ``flash_attention`` runs K5 and K6 for them), other head
+    dims, mixed dtypes, a non-contiguous last dim; no launch for any of
+    them."""
     q, k, v = _qkv_views(cuda, 1, 256, 2, 64, torch.float32, seed=2)
     lengths = torch.tensor([256], dtype=torch.int32, device=cuda)
     before = flash_attention_cuda.launches
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         flash_attention_cuda(q.clone().requires_grad_(), k, v, lengths)
     x = torch.randn(1, 256, 2, 48, device=cuda)
     with pytest.raises(ValueError):
@@ -377,6 +385,151 @@ def test_flash_kernel_refuses_what_it_cannot_run(cuda):
         t = q.transpose(2, 3)
         flash_attention_cuda(t, t, t, lengths)
     assert flash_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K6: flash attention backward
+# ---------------------------------------------------------------------------
+
+# Limits on dq, dk, dv against the plain version, every row: |Δ| ≤ REL ·
+# max(1, |ref|), since dv of the CLS key sums p · do over all 4096 rows and
+# reaches |ref| ≈ 110. f32: 1e-4 (the two summation orders differ by 1.3e-4
+# there). bf16: two bf16 ulps (2 · 2^-7), where the largest reading on an
+# H100 is 6.7e-3, 0.86 ulp (one rounding of ds, p or the output turned the
+# other way); mean |Δ| at 2.5x the largest reading, 2.4e-7.
+K6_F32_REL, K6_BF16_REL, K6_BF16_MEAN = 1e-4, 2 * 2.0 ** -7, 6e-7
+
+
+def _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls, seed=0):
+    """q, k, v as views of a fused QKV, K5's o and lse, and a random do that
+    is nonzero on padded rows too."""
+    q, k, v = _qkv_views(cuda, b, s, h, d, dtype, seed=seed)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out, lse = flash_attention_cuda(q, k, v, lengths, window, global_cls, return_lse=True)
+    g = torch.Generator(device=cuda).manual_seed(seed + 100)
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+    return q, k, v, lengths, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,global_cls", [(0, False), (256, False), (256, True), (24, True)])
+@pytest.mark.parametrize(
+    "b,s,h,d,lens",
+    [(4, 4096, 12, 64, (4096, 3001, 3500, 4000)), (3, 512, 12, 32, (512, 300, 0)),
+     (2, 600, 4, 128, (600, 64))],
+)
+def test_flash_backward_kernel_matches_plain(cuda, dtype, window, global_cls, b, s, h, d, lens):
+    """K6 against its plain version on the same o and lse, every row: |Δ| ≤
+    ``K6_F32_REL`` (f32) or ``K6_BF16_REL`` (bf16) · max(1, |ref|), and for
+    bf16 the mean ≤ ``K6_BF16_MEAN``;
+    a zero-length row's gradients exactly 0; two launches a call. The
+    first shape is phase 7's training shape; S 600 is not a multiple of
+    the 64-row blocks."""
+    args = _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls)
+    before = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(*args, window, global_cls)
+    want = flash_attention_backward_plain(*args, window, global_cls)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_cuda.launches == before + 2
+    zero = args[3] == 0
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == args[0].shape and x.dtype == dtype and x.is_contiguous()
+        diff = (x.float() - y.float()).abs()
+        rel = diff / y.float().abs().clamp_min(1.0)
+        print(f"K6 {name} {str(dtype)[6:]} S={s} D={d} window={window} cls={global_cls}: "
+              f"max|Δ| {float(diff.max()):.3e} mean|Δ| {float(diff.mean()):.3e} "
+              f"max|Δ|/max(1,|ref|) {float(rel.max()):.3e} "
+              f"(max|ref| {float(y.float().abs().max()):.3e})")
+        if dtype == torch.float32:
+            assert float(rel.max()) <= K6_F32_REL, name
+        else:
+            assert float(rel.max()) <= K6_BF16_REL and float(diff.mean()) <= K6_BF16_MEAN, name
+        assert bool((x[zero] == 0).all()), name
+
+
+def test_flash_backward_is_deterministic_and_reads_views(cuda):
+    """Two runs give the same bits (no atomics), and views of the fused QKV
+    give the bits of contiguous copies."""
+    args = _k6_inputs(cuda, 2, 1024, 12, 64, torch.bfloat16, (1024, 700), 256, True, seed=3)
+    a = flash_attention_backward_cuda(*args, 256, True)
+    b = flash_attention_backward_cuda(*args, 256, True)
+    q, k, v = (t.contiguous() for t in args[:3])
+    c = flash_attention_backward_cuda(q, k, v, *args[3:], 256, True)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_flash_autograd_runs_k5_then_k6(cuda):
+    """``flash_attention`` with grad: one K5 launch forward, two K6
+    launches backward, and the gradients of the same loss through the
+    autograd Function on the CPU (the plain versions), f32, allclose
+    1e-4."""
+    q, k, v = (t.detach() for t in _qkv_views(cuda, 2, 256, 4, 32, torch.float32, seed=4))
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    mask[1, 200:] = 0
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_backward_cuda.launches
+        out = flash_attention(*leaves, mask.to(dev), window=24, global_cls=True)
+        (out.sin() * mask.to(dev)[:, :, None, None]).sum().backward()
+        if dev == "cuda":
+            assert flash_attention_cuda.launches == f0 + 1
+            assert flash_attention_backward_cuda.launches == b0 + 2
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for x, y in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The bi-encoder loss and its gradients at S 4096 (tiny long arch,
+    f32, no dropout): on the card every layer runs K5 forward and K6
+    backward (launches = layers × 2 towers, and twice that for K6), on the
+    CPU the banded reference. The losses agree to 1e-5 and every gradient
+    leaf to ‖Δg‖ ≤ 1e-3 · max(‖g‖, 1e-3 · ‖g of all leaves‖): the key bias's
+    gradient is zero in exact arithmetic, and the token-type row sums
+    gradients that cancel over 16k tokens."""
+    from text_similarity_tpu_torch.train.optim import _leaves
+    from text_similarity_tpu_torch.train.steps import bi_encoder_loss, trainable, value_and_grad
+
+    params, arch = _long_tiny(seed=2)
+    arch = arch.replace(hidden_dropout=0.0)
+    rng = np.random.default_rng(5)
+    s = 4096
+    batch = {}
+    for side, n in (("a", (4096, 3000)), ("b", (3500, 4096))):
+        mask = (np.arange(s)[None] < np.asarray(n)[:, None]).astype(np.int32)
+        batch[f"ids_{side}"] = (rng.integers(5, arch.vocab_size, (2, s)) * mask).astype(np.int32)
+        batch[f"mask_{side}"] = mask
+    batch["target"] = np.array([0.2, 0.9], np.float32)
+    batch["valid"] = np.ones(2, np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        leaves = trainable({"encoder": params}, torch.device(dev))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        f0, b0 = flash_attention_cuda.launches, flash_attention_backward_cuda.launches
+        loss, _, grads = value_and_grad(bi_encoder_loss, leaves, tb, arch=arch,
+                                        precision=FP32_PRECISION, deterministic=True)
+        if dev == "cuda":
+            assert flash_attention_cuda.launches == f0 + 2 * arch.num_layers
+            assert flash_attention_backward_cuda.launches == b0 + 4 * arch.num_layers
+        out[dev] = (float(loss.detach()), [g.cpu() for g in _leaves(grads)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    whole = float(torch.sqrt(sum((y * y).sum() for y in out["cpu"][1])))
+    for name, x, y in zip(_flat_names({"encoder": params}), out["cuda"][1], out["cpu"][1]):
+        floor = max(float(y.norm()), 1e-3 * whole)
+        assert float((x - y).norm()) <= 1e-3 * floor, name
+
+
+def _flat_names(tree, prefix=""):
+    """Leaf paths of a nested dict, in its order."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat_names(v, path)
+        else:
+            yield path
 
 
 def _long_tiny(seed=0, vocab_size=1024):

@@ -9,8 +9,11 @@ back to the CPU on its own.
 Ported so far: the semantic-search serving path — WordPiece tokenization,
 the BERT-class sentence encoder, the embedding store, brute-force and IVF
 top-k search and ``SemanticSearchPipeline`` (with add and remove on a built
-index) — and int8 serving: int8 weights (``SentenceEncoder.to_int8``), the
-int8 store and int8 IVF slabs with a bf16 rescore. The four search kernels
-(exact top-k and the IVF scan, each over float and int8 rows) are
-hand-written CUDA under ``csrc/``.
+index) — int8 serving: int8 weights (``SentenceEncoder.to_int8``), the
+int8 store and int8 IVF slabs with a bf16 rescore — long-document encode
+(windowed attention with a global CLS at 4096 tokens) and bi-encoder
+training (``train``: the pair losses, AdamW, the train step, the Trainer).
+The four search kernels (exact top-k and the IVF scan, each over float and
+int8 rows) and the flash forward and backward are hand-written CUDA under
+``csrc/``.
 """

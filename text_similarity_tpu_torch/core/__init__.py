@@ -1,4 +1,4 @@
-from .config import ARCH_PRESETS, EncoderArch, IndexConfig
+from .config import ARCH_PRESETS, EncoderArch, IndexConfig, TrainConfig
 from .precision import (
     DEFAULT_PRECISION,
     FP32_PRECISION,
@@ -11,6 +11,7 @@ __all__ = [
     "ARCH_PRESETS",
     "EncoderArch",
     "IndexConfig",
+    "TrainConfig",
     "DEFAULT_PRECISION",
     "FP32_PRECISION",
     "Precision",

@@ -1,11 +1,15 @@
 """Checkpoint layout shared with the JAX package.
 
 A checkpoint is a directory ``step_XXXXXXXX/`` holding ``params.npz`` (flat
-arrays keyed by ``/``-joined tree paths) and ``meta.json``; ``LATEST`` in
-the parent names the newest one. This module reads and writes that layout
-from plain nested dicts of numpy arrays or tensors, so checkpoints move
-between the two packages. Sharding metadata is not written; any that a JAX
-checkpoint carries is ignored.
+arrays keyed by ``/``-joined tree paths), optionally ``opt_state.npz`` (the
+optimizer state, the same way) and ``meta.json``; ``LATEST`` in the parent
+names the newest one. This module reads and writes that layout from plain
+nested dicts of numpy arrays, tensors or Python numbers, so parameters move
+between the two packages (a trained encoder saved here loads in the JAX
+package). The port's optimizer state has its own tree (``train.optim``),
+so an ``opt_state.npz`` resumes only in the package that wrote it.
+Sharding metadata is not written; any that a JAX checkpoint carries is
+ignored.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def save_checkpoint(
     path: str,
     params: dict,
+    opt_state: Optional[dict] = None,
     step: int = 0,
     meta: Optional[Dict[str, Any]] = None,
 ) -> str:
@@ -50,6 +55,8 @@ def save_checkpoint(
         shutil.rmtree(tmp_dir)
     os.makedirs(tmp_dir, exist_ok=True)
     np.savez(os.path.join(tmp_dir, "params.npz"), **_flatten(params))
+    if opt_state is not None:
+        np.savez(os.path.join(tmp_dir, "opt_state.npz"), **_flatten(opt_state))
     with open(os.path.join(tmp_dir, "meta.json"), "w") as f:
         json.dump({"step": step, "meta": meta or {}}, f, indent=2)
     if os.path.isdir(ckpt_dir):
@@ -90,3 +97,45 @@ def restore_checkpoint_raw(ckpt_dir: str) -> Tuple[dict, int, Dict[str, Any]]:
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         info = json.load(f)
     return tree, info["step"], info.get("meta", {})
+
+
+def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+    """The template's tree with each leaf read from ``flat``: a tensor leaf
+    becomes a tensor of its dtype on its device, a Python number a number
+    of its type."""
+    out = {}
+    for key, val in template.items():
+        path = f"{prefix}{_SEP}{key}" if prefix else str(key)
+        if isinstance(val, dict):
+            out[key] = _unflatten_into(val, flat, path)
+            continue
+        if path not in flat:
+            raise KeyError(f"checkpoint missing key {path!r}")
+        arr = flat[path]
+        if isinstance(val, torch.Tensor):
+            if tuple(arr.shape) != tuple(val.shape):
+                raise ValueError(f"{path}: shape {arr.shape} != template {tuple(val.shape)}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(val.device, val.dtype)
+        else:
+            out[key] = type(val)(arr.item())
+    return out
+
+
+def restore_checkpoint(
+    ckpt_dir: str,
+    params_template: dict,
+    opt_template: Optional[dict] = None,
+) -> Tuple[dict, Optional[dict], int, Dict[str, Any]]:
+    """→ (params, opt_state, step, meta) in the templates' structure,
+    dtypes and devices; opt_state is None without a template or without
+    ``opt_state.npz``."""
+    with np.load(os.path.join(ckpt_dir, "params.npz")) as z:
+        params = _unflatten_into(params_template, dict(z))
+    opt_state = None
+    opt_path = os.path.join(ckpt_dir, "opt_state.npz")
+    if opt_template is not None and os.path.exists(opt_path):
+        with np.load(opt_path) as z:
+            opt_state = _unflatten_into(opt_template, dict(z))
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        info = json.load(f)
+    return params, opt_state, info["step"], info.get("meta", {})

@@ -2,8 +2,8 @@
 
 ``EncoderArch`` keeps every field of the reference so that an ``arch.json``
 written by the JAX package (``EncoderArch.to_json``) reads back here
-unchanged. Mesh, train and run configs stay with the JAX package until the
-port needs them.
+unchanged. ``TrainConfig`` carries the optimizer's hyper-parameters;
+mesh and run configs stay with the JAX package until the port needs them.
 """
 
 from __future__ import annotations
@@ -142,3 +142,22 @@ class IndexConfig:
         if n >= 3_000_000:
             cap = max(8, (2 * n // c + 511) // 512 * 512)
         return cls(num_clusters=c, num_probes=probes, max_cluster_size=cap)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The optimizer's hyper-parameters, with the JAX package's names and
+    defaults: AdamW with no-decay groups, linear warmup then decay, global
+    norm clipping, gradient accumulation. The JAX config's run fields
+    (batch size, epochs, precision, evaluation) come with the CLI that reads
+    them; precision is the train step's ``precision`` argument."""
+
+    lr: float = 2e-5
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    warmup_ratio: float = 0.1
+    max_grad_norm: float = 1.0
+    grad_accum_steps: int = 1
+    seed: int = 0

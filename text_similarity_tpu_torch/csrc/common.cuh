@@ -1,5 +1,6 @@
 // Shared building blocks of the search kernels (topk.cu, ivf_scan.cu); the
-// flash kernel (flash_fwd.cu) uses only its f32 loader (load16).
+// flash kernels include it through flash_common.cuh and use only its f32
+// loader (load16).
 //
 // * A 128-row × 16-query score tile: a CTA of 256 threads stages 128 rows
 //   of the corpus (or of an IVF slab; f32, bf16 or int8 codes) through

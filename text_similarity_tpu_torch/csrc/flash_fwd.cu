@@ -6,11 +6,14 @@
 // _flash_kernel (the pallas_call sites :253 without and :272 with the lse
 // residual). For batch b, head h and query row i:
 //   s_ij = <q_i, k_j> · D^-1/2 with the operands in the input dtype and f32
-//   sums; keys j >= len[b] and, with window > 0, keys outside the band
-//   (unless global_cls and i == 0 or j == 0) get -1e9; an online softmax in
-//   f32 over the visited key blocks; p rounded to the input dtype before
-//   P·V, f32 sums; o_i = acc / l, and 0 where l == 0 (zero-length rows);
-//   lse_i = m + log l, and 0 where l == 0.
+//   sums over the kept keys (flash_common.cuh: j < len[b], and with
+//   window > 0 the band plus, with global_cls, the CLS row and column); an
+//   online softmax in f32 in which other pairs have p = 0; p rounded to the
+//   input dtype before P·V, f32 sums; o_i = acc / l, and 0 where l == 0 (a
+//   row with no kept key: zero-length rows); lse_i = m + log l, and 0 where
+//   l == 0. The Pallas kernel gives a padded row that meets no kept key in
+//   its visited blocks the mean of those blocks' V rows instead (its masked
+//   scores are finite); no valid row differs.
 //
 // Bound on the H100: at the serving shape (B 8, S 4096, H 12, D 64, bf16,
 // window 256 with global CLS) the kernel must move about 0.2 GB (q, k, v
@@ -28,8 +31,8 @@
 // accumulator in registers. It visits only the key blocks that meet the
 // band and lie below ceil(len / 64), plus key block 0 (the CLS column)
 // and, for the q-block that holds row 0, every valid key block: at window
-// 256 it reads O(S·w) keys, not O(S²). Padding query rows (i >= len) get
-// whatever their visited blocks give; nothing reads them. q, k and v are
+// 256 it reads O(S·w) keys, not O(S²). Padding query rows (i >= len) are
+// computed like valid ones; the backward (K6) reads their lse. q, k and v are
 // read through (batch, token, head) strides with the last dim contiguous,
 // so the encoder hands over views of its fused QKV without copies. The
 // q-blocks of row 0, the longest with global CLS, get the lowest CTA ids
@@ -46,13 +49,9 @@
 //    row-major, P transposed; thread (ty, tx) scores rows 4ty..4ty+3
 //    against keys 4tx..4tx+3 and accumulates output columns tx·D/16 .. of
 //    the same rows.
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;              // query rows per CTA
-constexpr int kBK = 64;              // keys per block
-constexpr float kNegInf = -1e9f;
 
 struct FlashArgs {
   const void* q;
@@ -67,93 +66,13 @@ struct FlashArgs {
   float scale;
 };
 
-// The key blocks a q-block visits (the Pallas kernel's lo / hi): blocks
-// it in [first, hi), block 0 standing in for it < lo (the CLS column).
-struct KeyBlocks {
-  int first, lo, hi;
-};
-
-__device__ __forceinline__ KeyBlocks key_blocks(int q0, int len, int window, bool global_cls) {
-  const int n_valid = (len + kBK - 1) / kBK;
-  KeyBlocks kb{0, 0, n_valid};
-  if (window > 0) {
-    kb.lo = max(q0 - window, 0) / kBK;
-    kb.hi = min((q0 + kBQ - 1 + window) / kBK + 1, n_valid);
-    kb.first = kb.lo;
-    if (global_cls) {
-      if (q0 == 0) kb.hi = n_valid;                        // the CLS row sees every key
-      if (kb.lo > 0 && kb.lo - 1 < kb.hi) kb.first = kb.lo - 1;   // visit block 0 first
-    }
-  }
-  return kb;
-}
-
-__device__ __forceinline__ bool kept(int row, int key, int len, int window, bool global_cls) {
-  bool keep = key < len;
-  if (window > 0)
-    keep = keep && (abs(row - key) <= window || (global_cls && (row == 0 || key == 0)));
-  return keep;
-}
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = (kBQ / 16) * 32;   // one warp per 16 query rows
-
-template <int D>
-constexpr int kRowWords = D / 2 + 4;           // 32-bit words per staged K or Q row
-constexpr int kVtWords = kBK / 2 + 4;          // 32-bit words per staged V^T row
-
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return 4 * ((size_t)(kBK + kBQ) * kRowWords<D> + (size_t)D * kVtWords);
-}
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 64 rows of one (b, h) slice (token stride ss) → dst row-major, kRowWords
-// words a row; rows >= S read as zeros.
-template <int D>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ base, long long ss,
-                                           int row0, int S, uint32_t* dst) {
-  constexpr int kChunks = D / 8;   // 16 bytes each
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      v = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * ss + c * 8));
-    *reinterpret_cast<uint4*>(dst + r * kRowWords<D> + c * 4) = v;
-  }
-}
-
-// 64 rows of V → dst transposed (dim-major, kVtWords words a dim row).
-template <int D>
-__device__ __forceinline__ void stage_vt(const __nv_bfloat16* __restrict__ base, long long ss,
-                                         int row0, int S, uint32_t* dst) {
-  constexpr int kChunks = D / 8;
-  __nv_bfloat16* dh = reinterpret_cast<__nv_bfloat16*>(dst);
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kMmaThreads) {
-    const int r = idx % kBK, c = idx / kBK;   // neighbouring threads: neighbouring keys
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      v = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * ss + c * 8));
-    const __nv_bfloat16* hv = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dh[(c * 8 + e) * (2 * kVtWords) + r] = hv[e];
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -172,13 +91,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 // of the 16×8 B tile, column g at k = 2t.. and 2t + 8.. .
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a) {
-  constexpr int kRW = kRowWords<D>;
   constexpr int kKSteps = D / 16;   // k-steps of the score product
   constexpr int kNTiles = D / 8;    // 8-column tiles of the output
   extern __shared__ __align__(16) uint32_t mma_smem[];
-  uint32_t* ks = mma_smem;          // kBK × kRW: K rows (bf16 pairs)
-  uint32_t* qs = ks + kBK * kRW;    // kBQ × kRW: Q rows, read once into registers
-  uint32_t* vts = qs + kBQ * kRW;   // D × kVtWords: V^T rows
+  uint32_t* ks = mma_smem;                   // kBK × kRowWords: K rows (bf16 pairs)
+  uint32_t* qs = ks + kBK * kRowWords<D>;    // kBQ × kRowWords: Q rows, read once into registers
+  uint32_t* vts = qs + kBQ * kRowWords<D>;   // D × kVtWords: V^T rows
 
   const int S = a.S, H = a.H;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -197,21 +115,14 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a)
   stage_rows<D>(qb, a.qss, q0, S, qs);
   __syncthreads();
   uint32_t qa[kKSteps][4];
-  const uint32_t* qw = qs + (warp * 16 + g) * kRW;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    qa[kk][0] = qw[kk * 8 + t];
-    qa[kk][1] = qw[8 * kRW + kk * 8 + t];
-    qa[kk][2] = qw[kk * 8 + 4 + t];
-    qa[kk][3] = qw[8 * kRW + kk * 8 + 4 + t];
-  }
+  load_a_frags<D>(qs, warp * 16, g, t, qa);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[kNTiles][4];
 #pragma unroll
   for (int n = 0; n < kNTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
-  const KeyBlocks blocks = key_blocks(q0, len, window, global_cls);
+  const Blocks blocks = key_blocks(q0, len, window, global_cls);
   for (int it = blocks.first; it < blocks.hi; ++it) {
     const int k0 = (it < blocks.lo ? 0 : it) * kBK;
     __syncthreads();   // the previous tiles are consumed
@@ -220,13 +131,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a)
     __syncthreads();
 
     float sc[kBK / 8][4];   // scores: 8 tiles of 8 keys
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      const uint32_t* kw = ks + (j * 8 + g) * kRW;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) mma_16816(sc[j], qa[kk], kw[kk * 8 + t], kw[kk * 8 + 4 + t]);
-    }
+    scores_16x64<D>(qa, ks, g, t, sc);
 
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -248,7 +153,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a)
     for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sc[j][e] = __expf(sc[j][e] - m[e >> 1]);
+        sc[j][e] = sc[j][e] == kNegInf ? 0.f : __expf(sc[j][e] - m[e >> 1]);
         rs[e >> 1] += sc[j][e];
       }
 #pragma unroll
@@ -258,21 +163,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a)
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
-
-    // P·V: the score tiles of keys 16kk.. and 16kk + 8.. are the A
-    // fragment of k-step kk, rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n) {
-        const uint32_t* vw = vts + (n * 8 + g) * kVtWords;
-        mma_16816(o[n], pa, vw[kk * 8 + t], vw[kk * 8 + 4 + t]);
-      }
-    }
+    // P·V: the score tiles, rounded to bf16, are the A fragments
+    accumulate_pv<D>(sc, vts, g, t, o);
   }
 
   bf16* out = static_cast<bf16*>(a.o);
@@ -388,7 +280,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashArgs a) 
     for (int c = 0; c < kCpt; ++c) acc[i][c] = 0.f;
   }
 
-  const KeyBlocks blocks = key_blocks(q0, len, window, global_cls);
+  const Blocks blocks = key_blocks(q0, len, window, global_cls);
   for (int it = blocks.first; it < blocks.hi; ++it) {
     const int k0 = (it < blocks.lo ? 0 : it) * kBK;
     __syncthreads();   // the previous tiles are consumed (and qt is staged)
@@ -428,7 +320,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashArgs a) 
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
+        s[i][j] = s[i][j] == kNegInf ? 0.f : expf(s[i][j] - m_new);
         rs += s[i][j];
       }
       l[i] = l[i] * alpha + row_sum16(rs);

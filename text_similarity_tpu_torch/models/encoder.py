@@ -1,4 +1,4 @@
-"""BERT-class transformer encoder (inference), port of
+"""BERT-class transformer encoder, port of
 ``text_similarity_tpu.models.encoder``.
 
 Parameters keep the JAX package's tree layout — a nested dict with the L
@@ -17,7 +17,18 @@ does there. RoBERTa-family archs (``position_offset``) number real tokens
 from ``pad_token_id + 1`` and give padding the pad row.
 
 Precision follows the reference: embeddings and LayerNorms in f32, layer
-matmuls in the compute dtype with f32 accumulation, softmax in f32.
+matmuls in the compute dtype with f32 accumulation, softmax in f32. The
+parameters stay f32 (master weights) and are cast to the compute dtype in
+the forward, so gradients arrive in f32.
+
+Training: ``encoder_forward(..., deterministic=False, generator=g)`` applies
+the reference's inverted dropout (``arch.hidden_dropout``) at its three
+places: after the embedding LayerNorm, on the attention output projection
+and on the FFN output, each mask drawn from the ``torch.Generator`` ``g`` in
+forward order (the JAX package folds its key per layer and site instead, so
+the masks differ; dropout never touches the attention probabilities, so
+flash stays exact). A tree of leaf tensors that require grad (the train
+state's) differentiates through every op, K5 / K6 included.
 
 int8 weights (``compress.quantize.quantize_params_int8``): a kernel or an
 embedding table may be a ``{"q": int8, "s": f32 scale}`` leaf. Dense layers
@@ -26,7 +37,7 @@ int8×int8→int32 product (``_int8_dense``, the fused QKV), embedding tables
 dequantize the gathered rows, the pooler dequantizes its kernel.
 
 Not ported yet: ALBERT sharing and factorized embeddings, MoE, head-dim
-overrides, performer attention, head pruning, dropout (training).
+overrides, performer attention, head pruning, ``remat``.
 """
 
 from __future__ import annotations
@@ -253,6 +264,20 @@ def _dense(x: torch.Tensor, wb: dict) -> torch.Tensor:
     return torch.matmul(x, wb["w"]) + wb["b"]
 
 
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], deterministic: bool
+) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 − rate (a
+    uniform draw from ``generator`` below 1 − rate) and scale it by 1 / (1 −
+    rate), in x's dtype; the identity when deterministic or rate is 0."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator (deterministic=False)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def transformer_layer(
     hx: torch.Tensor,              # (B, S, H) in the compute dtype
     lp: dict,                      # one layer's params (unstacked, cast)
@@ -260,8 +285,11 @@ def transformer_layer(
     *,
     arch: EncoderArch,
     attention_impl: str = "auto",  # auto | flash | reference
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """One post-LN block: MHA + residual + LN, FFN + residual + LN."""
+    """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
+    dropout on the attention output and the FFN output in training."""
     b, s, h = hx.shape
     nh, hd = arch.num_heads, arch.head_dim
     attn, mlp = lp["attn"], lp["mlp"]
@@ -289,14 +317,14 @@ def transformer_layer(
         q, k, v, mask=attention_mask, impl=attention_impl,
         window=arch.attention_window, window_global_cls=arch.window_global_cls,
     ).reshape(b, s, nh * hd)
-    ctx = _dense(ctx, attn["o"])
+    ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
     hx1 = _layer_norm(
         hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
         arch.layer_norm_eps,
     )
     ff = _dense(hx1, mlp["in"])
     ff = _act(arch.hidden_act)(ff.float()).to(hx1.dtype)
-    ff = _dense(ff, mlp["out"])
+    ff = dropout(_dense(ff, mlp["out"]), arch.hidden_dropout, generator, deterministic)
     return _layer_norm(
         hx1 + ff, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"],
         arch.layer_norm_eps,
@@ -311,9 +339,11 @@ def embed_inputs(
     *,
     arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Word + position (+ token type) embeddings and LN, returned in the
-    compute dtype. The sum runs in the tables' dtype (bf16 tables add in
+    """Word + position (+ token type) embeddings, LN and dropout, returned
+    in the compute dtype. The sum runs in the tables' dtype (bf16 tables add in
     bf16, as the reference's code reads); an int8 table dequantizes its
     gathered rows to f32. With ``arch.position_offset`` (RoBERTa) real
     tokens take positions cumsum(mask) + pad_token_id and padding the pad
@@ -332,6 +362,7 @@ def embed_inputs(
         else:
             x = x + _take(emb["token_type"], token_type_ids.long())
     x = _layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"], arch.layer_norm_eps)
+    x = dropout(x, arch.hidden_dropout, generator, deterministic)
     return x.to(precision.compute_dtype)
 
 
@@ -352,21 +383,26 @@ def encoder_forward(
     arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION,
     attention_impl: str = "auto",
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
     (the reference's ``lax.scan``), then the pooler when the arch has one.
-    ``attention_impl``: auto | flash | reference (see the module note)."""
+    ``attention_impl``: auto | flash | reference (see the module note).
+    ``deterministic=False`` applies dropout with masks from ``generator``."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
     x = embed_inputs(
         params["embeddings"], input_ids, attention_mask, token_type_ids,
-        arch=arch, precision=precision,
+        arch=arch, precision=precision, deterministic=deterministic, generator=generator,
     )
-    layers = _cast_tree(params["layers"], precision.compute_dtype)
-    for li in range(arch.num_layers):
-        lp = _index_tree(layers, li)
-        x = transformer_layer(x, lp, attention_mask, arch=arch, attention_impl=attention_impl)
+    layers = _unstack_tree(_cast_tree(params["layers"], precision.compute_dtype), arch.num_layers)
+    for lp in layers:
+        x = transformer_layer(
+            x, lp, attention_mask, arch=arch, attention_impl=attention_impl,
+            deterministic=deterministic, generator=generator,
+        )
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
@@ -385,11 +421,15 @@ def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
     }
 
 
-def _index_tree(tree: dict, i: int) -> dict:
-    return {
-        k: _index_tree(v, i) if isinstance(v, dict) else v[i]
+def _unstack_tree(tree: dict, n: int) -> list:
+    """A tree of (n, …) stacked leaves → n trees of (…) leaves. One
+    ``unbind`` a leaf, so the backward stacks the n gradients once (indexing
+    each layer would add n full-size zero tensors a leaf)."""
+    parts = {
+        k: _unstack_tree(v, n) if isinstance(v, dict) else v.unbind(0)
         for k, v in tree.items()
     }
+    return [{k: parts[k][i] for k in tree} for i in range(n)]
 
 
 class Encoder(nn.Module):

@@ -18,6 +18,10 @@ holds) encodes with ``encode(texts, max_len=4096, buckets=BUCKETS + (1024,
 2048, 4096), batch_size=8)``; on the card every 4096-token batch runs the
 flash kernel K5 in each layer (``encoder_forward``'s ``"auto"`` rule).
 
+Training: ``enc.params = state.params["encoder"]`` takes the trained
+weights back (as the JAX CLI does after ``Trainer.execute``) and ``save``
+writes them in the shared layout.
+
 Not ported yet: packed variable-length encode (``packed=True``; ``"auto"``
 runs bucketed, which gives the same vectors), ``encode_long`` (the
 context-parallel encode over a device mesh).
@@ -68,6 +72,14 @@ class SentenceEncoder(nn.Module):
     @property
     def params(self) -> dict:
         return self.encoder.tree()
+
+    @params.setter
+    def params(self, tree: dict) -> None:
+        """Take another parameter tree, e.g. a trained one
+        (``state.params["encoder"]``): copies of its leaves on the encoder's
+        device become the frozen weights, so later in-place optimizer steps
+        on the trained tree leave the encoder as it was."""
+        self._set_params(_tree_to(tree, self.device, copy=True))
 
     @property
     def embedding_dim(self) -> int:
@@ -195,8 +207,8 @@ class SentenceEncoder(nn.Module):
         )
 
 
-def _tree_to(tree: dict, device: torch.device) -> dict:
+def _tree_to(tree: dict, device: torch.device, copy: bool = False) -> dict:
     return {
-        k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+        k: _tree_to(v, device, copy) if isinstance(v, dict) else v.detach().to(device, copy=copy)
         for k, v in tree.items()
     }

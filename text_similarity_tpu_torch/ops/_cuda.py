@@ -24,8 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "ivf_scan.cu", "flash_fwd.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("topk.cu", "ivf_scan.cu", "flash_fwd.cu", "flash_bwd.cu")
+HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -58,6 +58,13 @@ _SIGNATURES = {
     # scale, stream
     "ts_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
+    # q, k, v, do, lse, di, dq, lengths, bf16, B, S, H, D, strides (12
+    # int64: q/k/v/do batch, token, head), window, global_cls, scale, stream
+    "ts_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P, _I, _I, _F, _P],
+    # the same with dk, dv in place of dq
+    "ts_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P, _I, _I, _F, _P],
 }
 
 

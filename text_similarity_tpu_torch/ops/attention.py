@@ -1,23 +1,28 @@
-"""Exact softmax attention: the plain reference path and the flash forward
-(kernel K5), port of ``text_similarity_tpu.ops.attention``.
+"""Exact softmax attention: the plain reference path, the flash forward
+(kernel K5) and the flash backward (kernel K6), port of
+``text_similarity_tpu.ops.attention``.
 
 * ``attention_reference``: plain tensor code, the path the JAX encoder
   takes below S = 4096. Scores are computed with f32 accumulation, masked
   with −1e9 (padding keys, and with ``window`` the band |i − j| ≤ window
   plus the global CLS row and column), materialised in bf16 when the
-  inputs are bf16, and normalised by an f32 softmax.
+  inputs are bf16, and normalised by an f32 softmax. Autograd
+  differentiates it.
 * ``flash_attention``: blockwise online-softmax attention with per-row key
   lengths, the same band and global CLS, and the optional log-sum-exp
   residual. On a CUDA tensor it launches the hand-written kernel K5
   (``csrc/flash_fwd.cu``, via ``flash_attention_cuda``); on a CPU tensor it
   runs ``flash_attention_plain``. Its numerics are the Pallas kernel's:
-  scores stay in f32 and p is rounded to the input dtype before P·V.
+  scores stay in f32 and p is rounded to the input dtype before P·V. With
+  grad enabled it runs through ``FlashAttentionFunction``: the forward
+  keeps o and lse, the backward is K6 (``csrc/flash_bwd.cu``, via
+  ``flash_attention_backward_cuda``) on a CUDA tensor and
+  ``flash_attention_backward_plain`` on a CPU tensor.
 * ``multi_head_attention``: the dispatch the encoder calls, with the JAX
   package's ``impl="auto"`` rule (``auto_impl``).
 
-Not ported yet: the flash backward (K6, with the training slice), the
-head-packed kernel (K7, ``impl="packed"``), causal and segment-masked
-attention, performer and the context-parallel strategies.
+Not ported yet: the head-packed kernel (K7, ``impl="packed"``), causal and
+segment-masked attention, performer and the context-parallel strategies.
 """
 
 from __future__ import annotations
@@ -162,24 +167,17 @@ def flash_attention_cuda(
     return_lse: bool = False,
 ):
     """Kernel K5 on the card. q, k, v may be strided views (the encoder's
-    fused QKV); D ∈ {32, 64, 128}. Inference only: the backward is kernel
-    K6, not ported. → out (B, S, H, D) contiguous in q's dtype, and lse
-    (B, H, S) f32 when asked."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention backward (kernel K6) is not ported yet; run "
-            "under torch.no_grad() or use impl='reference'"
+    fused QKV); D ∈ {32, 64, 128}. The kernel's output carries no
+    gradient, so inputs that need one are refused under grad mode: take
+    ``flash_attention``, whose autograd Function runs K5 and then K6. →
+    out (B, S, H, D) contiguous in q's dtype, and lse (B, H, S) f32 when
+    asked."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError(
+            "flash_attention_cuda does not track gradients; call flash_attention, "
+            "which runs K5 forward and K6 backward"
         )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_flash_operand(t, name, q)
-    _cuda.require_cuda(lengths, "lengths", (torch.int32,), 1)
-    b, s, h, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
-    if lengths.shape[0] != b or lengths.device != q.device:
-        raise ValueError(f"lengths must be ({b},) on q's device")
-    if window < 0:
-        raise ValueError(f"window={window} must be ≥ 0")
+    b, s, h, d = _check_flash_inputs(q, k, v, lengths, window)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     if b * s * h:
@@ -199,6 +197,149 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 
 
+def _check_flash_inputs(q, k, v, lengths, window) -> tuple:
+    """The checks K5 and K6 make → (B, S, H, D)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_flash_operand(t, name, q)
+    _cuda.require_cuda(lengths, "lengths", (torch.int32,), 1)
+    b, s, h, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
+    if lengths.shape[0] != b or lengths.device != q.device:
+        raise ValueError(f"lengths must be ({b},) on q's device")
+    if window < 0:
+        raise ValueError(f"window={window} must be ≥ 0")
+    return b, s, h, d
+
+
+# ---------------------------------------------------------------------------
+# Flash backward (kernel K6)
+# ---------------------------------------------------------------------------
+
+def flash_attention_backward_plain(
+    q: torch.Tensor,        # (B, S, H, D) f32 or bf16
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # (B,)
+    out: torch.Tensor,      # (B, S, H, D) the forward's output
+    lse: torch.Tensor,      # (B, H, S) f32, the forward's log-sum-exp
+    do: torch.Tensor,       # (B, S, H, D) the output's gradient
+    window: int = 0,
+    global_cls: bool = False,
+):
+    """Plain version of K6, the Pallas backward's arithmetic: di = Σ o·do
+    in f32; p = exp(s − lse) on the kept pairs and 0 elsewhere; ds = p ·
+    (do·vᵀ − di); ds rounded to the input dtype before ds·K and dsᵀ·Q, p
+    before pᵀ·dO; f32 sums; dq and dk scaled by D^-1/2 once at the end.
+    Every query row takes part, padded rows included: their lse is the
+    forward's, so a nonzero do there reaches dk and dv of valid keys, as
+    in the Pallas kernels. (Those kernels' own visit sets differ on two
+    kinds of padded row the port does not copy: rows that meet no kept
+    key in a visited block, and rows beyond every band under the global
+    CLS; training never sends do there, ROADMAP queue 3.) Query rows are
+    taken in chunks, as in ``flash_attention_plain``. → (dq, dk, dv),
+    each (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt, dot = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2)   # (B, H, S)
+    pos = torch.arange(s, device=dev)
+    key_ok = (pos[None, :] < lengths.to(dev)[:, None])[:, None, None, :]  # (B,1,1,S)
+    dq = torch.empty((b, h, s, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, h, s, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, h, s, d), dtype=torch.float32, device=dev)
+    chunk = max(1, (1 << 27) // max(1, b * h * s))
+    for r0 in range(0, s, chunk):
+        rows = pos[r0:r0 + chunk]
+        keep = key_ok
+        if window > 0:
+            keep = keep & _band(rows, pos, window, global_cls)[None, None]
+        scores = torch.matmul(qt[:, :, r0:r0 + chunk], kt.transpose(-1, -2)) * scale
+        p = torch.where(keep, torch.exp(scores - lse[:, :, r0:r0 + chunk, None]), 0.0)
+        dp = torch.matmul(dot[:, :, r0:r0 + chunk], vt.transpose(-1, -2))
+        ds = p * (dp - di[:, :, r0:r0 + chunk, None])
+        dq[:, :, r0:r0 + chunk] = torch.matmul(ds.to(k.dtype).float(), kt)
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dot[:, :, r0:r0 + chunk])
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qt[:, :, r0:r0 + chunk])
+    dq, dk = dq * scale, dk * scale
+    return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor,        # (B, S, H, D) CUDA, f32 or bf16; last dim contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32 CUDA
+    out: torch.Tensor,      # (B, S, H, D)
+    lse: torch.Tensor,      # (B, H, S) f32
+    do: torch.Tensor,       # (B, S, H, D)
+    window: int = 0,
+    global_cls: bool = False,
+):
+    """Kernel K6 on the card: di = Σ o·do as one torch reduction (the
+    reference takes it in XLA), then its two kernels, dq and dk/dv, each
+    counted in ``launches``. q, k, v and do may be strided views with the
+    last dim contiguous; D ∈ {32, 64, 128}. → (dq, dk, dv), each (B, S, H,
+    D) contiguous in q's dtype."""
+    b, s, h, d = _check_flash_inputs(q, k, v, lengths, window)
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"out and do must be {tuple(q.shape)}")
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or do.dtype != q.dtype:
+        do = do.contiguous().to(q.dtype)
+    _check_flash_operand(do, "do", q)
+    _cuda.require_cuda(lse, "lse", (torch.float32,), 3)
+    if tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"lse: shape {tuple(lse.shape)} (need {(b, h, s)})")
+    di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    if b * s * h:
+        lib = _cuda.lib()
+        strides = (ctypes.c_longlong * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]
+        )
+        common = (int(q.dtype == torch.bfloat16), b, s, h, d, strides, int(window),
+                  int(bool(global_cls)), ctypes.c_float(1.0 / math.sqrt(d)),
+                  _cuda.stream_handle(q.device))
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               di.data_ptr())
+        err = lib.ts_flash_bwd_dq(*ins, dq.data_ptr(), lengths.data_ptr(), *common)
+        _cuda.check(err, "flash backward dq kernel")
+        flash_attention_backward_cuda.launches += 1
+        err = lib.ts_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), lengths.data_ptr(), *common)
+        _cuda.check(err, "flash backward dk/dv kernel")
+        flash_attention_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward_cuda.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward (the JAX package's ``custom_vjp``
+    ``_flash_folded``): the forward runs K5 with the lse residual (its
+    plain version on a CPU tensor) and saves q, k, v, lengths, o and lse;
+    the backward runs K6 (its plain version on a CPU tensor). On a CUDA
+    tensor nothing falls back to the plain versions: a kernel launches or
+    raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, window: int, global_cls: bool):
+        fwd = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
+        out, lse = fwd(q, k, v, lengths, window=window, global_cls=global_cls, return_lse=True)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.window, ctx.global_cls = window, global_cls
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        cpu = q.device.type == "cpu"
+        bwd = flash_attention_backward_plain if cpu else flash_attention_backward_cuda
+        dq, dk, dv = bwd(q, k, v, lengths, out, lse, do, ctx.window, ctx.global_cls)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,
@@ -211,14 +352,21 @@ def flash_attention(
     """Blockwise exact attention (the JAX package's ``flash_attention``):
     the mask is reduced to per-sequence key lengths (padding sits at the
     end, as length-bucketed batching guarantees). K5 on a CUDA tensor, its
-    plain version on a CPU tensor. → out (B, S, H, D), plus lse (B, H, S)
-    with ``return_lse``."""
+    plain version on a CPU tensor; with grad enabled and an input that
+    needs a gradient, through ``FlashAttentionFunction`` (K6 backward).
+    → out (B, S, H, D), plus lse (B, H, S) with ``return_lse`` (no
+    gradient path)."""
     b, s = q.shape[:2]
     if mask is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     else:
         lengths = mask.sum(dim=1, dtype=torch.int32)
     global_cls = bool(global_cls and window > 0)
+    wants_grad = q.requires_grad or k.requires_grad or v.requires_grad
+    if torch.is_grad_enabled() and wants_grad:
+        if return_lse:
+            raise ValueError("return_lse is for inference; the lse has no gradient path")
+        return FlashAttentionFunction.apply(q, k, v, lengths, window, global_cls)
     fn = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
     return fn(q, k, v, lengths, window=window, global_cls=global_cls, return_lse=return_lse)
 
