@@ -45,6 +45,26 @@ Phases (any failure exits non-zero):
       K3 and K4 launch counters, zeroed just before, must rise. Printed:
       the mean cosine between the int8 and the bf16 encoder's embeddings of
       64 texts and the int8 encoder's sentences/s.
+ 5b. IVF options (the index's other layouts and scan modes), on the
+    phase-3 bf16 index, the phase-5 int8 + rescore index, a ``sentinel=True``
+    and a ``group=2`` bf16 build of the phase-3 corpus, 4096 queries with the
+    serving args (block_q 64, union_factor 1; approx_width 2048 at k = 10,
+    bench.py's 512 at k = 100): ``per_probe`` (bf16; int8 + rescore,
+    k_coarse 20), ``final_merge`` xla / xla_approx at k = 100 (bf16, int8 +
+    rescore), packed at k 10 and 100, ``dma_pipeline`` (buffers 2-4, k 10;
+    k 100), ``probes_per_step`` 2, 3, 4, the sentinel index at k 10 (the
+    idless scan) and 100 (K1 over 385-wide slabs) with one ``remove`` and one
+    ``add``, the grouped index at k 10, all through ``IVFIndex.query`` with
+    the launch counters zeroed just before; recall@10 (recall@100 at k =
+    100) against K2's exact answer ≥ 0.95 for every option; the removed row
+    never comes back, the added row finds itself; every new counter rises.
+    Then each kernel against its plain version at those shapes: K1-opt
+    per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200), K9
+    (unpacked scores within one 14-bit bin, overlap ≥ 0.99), K10 (buffers
+    2-4; ids equal K1's at approx_width = Mc bit for bit), K11a (P 2, 3, 4;
+    the same), K11b and K1 on the 385-wide slabs; f32 |Δscore| ≤ 1e-4 and
+    overlap ≥ 0.99 elsewhere; times beside K1's at the same k, and each
+    option's query rate.
  6. long documents:
     - K5 (flash attention forward) against its plain version at the
       shapes the long encodes below give it, B 8 × S 4096 × H 12 with D 64
@@ -105,9 +125,10 @@ Phases (any failure exits non-zero):
       steps on one repeated batch at lr 1e-4 through the Trainer with
       checkpoints: the loss falls; ``save`` → ``load`` gives the same
       embeddings; K2 finds each saved document's own vector first.
- 8. One JSON line ``{"kernels": [...]}`` for K1-K6: launches in the
-    pipeline window of their phase (4, 5, 6 or 7), time, plain time, bound
-    and library time at the phase-2/3/5/6/7 shapes.
+ 8. One JSON line ``{"kernels": [...]}`` for K1-K6, K1-opt (per_probe,
+    emit_acc), K9, K10, K11a and K11b: launches in the pipeline window of
+    their phase (4, 5, 5b, 6 or 7), time, plain time, bound and library time
+    at the phase-2/3/5/5b/6/7 shapes.
  9. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
@@ -270,15 +291,22 @@ def bench_corpus(torch, n, n_q, d=384, seed=0):
 def serving_plan(ivf, queries):
     """The probe plan ``IVFIndex.query`` makes with the pipeline's serving
     args (block_q 64, union_factor 1) → (sorted queries, probe list, order,
-    block_q): the inputs K1 gets on the main path."""
+    block_q): the inputs K1 gets on the main path (with the sentinel
+    layout's 1 appended to each query)."""
     from text_similarity_tpu_torch.index.ivf import _plan_probes, _round_up
 
     block_q = min(64, queries.shape[0])
-    probes = min(ivf.config.num_probes, ivf.num_base_clusters)
-    union = min(_round_up(probes, 8), ivf.num_base_clusters)
+    n_slabs = ivf.num_base_clusters // ivf.group
+    probes = min(ivf.config.num_probes, n_slabs)
+    union = min(_round_up(probes, 8), n_slabs)
     q_s, probe_list, order = _plan_probes(
-        queries, ivf.centroids, ivf.num_base_clusters, ivf.data_padded.shape[0], block_q, union
+        queries, ivf.centroids, ivf.num_base_clusters, ivf.data_padded.shape[0], block_q, union,
+        ivf.group,
     )
+    if ivf.sentinel:
+        import torch
+
+        q_s = torch.cat([q_s, q_s.new_ones((q_s.shape[0], 1))], dim=1).contiguous()
     return q_s, probe_list, order, block_q
 
 
@@ -353,7 +381,7 @@ def phase_ivf(torch, card):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k=10 {mode} bf16",
-    }, (corpus, queries, exact)
+    }, (corpus, queries, exact, ivf)
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +773,7 @@ def phase_int8_ivf(torch, card, corpus, queries, exact):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k_scan=20 {mode} int8",
-    }
+    }, ivf
 
 
 def phase_int8_pipeline(torch, card, ctx):
@@ -862,6 +890,335 @@ def phase_int8_pipeline(torch, card, ctx):
     if launches["cosine_topk_int8"] == 0 or launches["ivf_scan_int8"] == 0:
         raise AssertionError(f"an int8 kernel of the path never launched: {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the IVF index's other layouts and scan modes
+# ---------------------------------------------------------------------------
+
+K100_ARGS = dict(union_factor=1, block_q=64, approx_width=512)   # bench.py's k = 100 args
+QARGS = dict(union_factor=1, block_q=64, approx_width=2048)      # bench.py's k = 10 args
+
+
+def scan_bound(torch, ivf, probes, n_q, block_q, out_bytes, with_ids=True):
+    """K1's bound for a scan of ``probes`` (B/block_q, U): every valid slot
+    of the probed slabs read once (codes + scale for int8), the ids of
+    every probed slab (none for the idless scan), the queries once, the
+    mode's output; the dot products of every block against its valid slots
+    (bf16 tensor-core rate)."""
+    d = ivf.data_padded.shape[-1]
+    mc = ivf.data_padded.shape[1]
+    row = d * ivf.data_padded.element_size() + (4 if ivf.scales_padded is not None else 0)
+    slabs = torch.unique(probes)
+    valid = (ivf.ids_padded >= 0).sum(dim=1)
+    n_bytes = (int(valid[slabs].sum()) * row + (slabs.numel() * mc * 4 if with_ids else 0)
+               + n_q * d * 4 + out_bytes)
+    ops = 2.0 * block_q * d * float(valid[probes.long()].sum())
+    return bound_ms(n_bytes, ops, PEAK_BF16)
+
+
+def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None):
+    """A kernel's (scores, ids) against its plain version's: f32 |Δscore| ≤
+    1e-4 and id overlap ≥ 0.99 (phase 3's gate) → max |Δ|."""
+    ks, ki, rs, ri = (t.reshape(-1, t.shape[-1]).cpu().numpy() for t in (ks, ki, rs, ri))
+    # an empty result (−1) at rank j counts as its own id, so that tails agree
+    col = np.arange(ki.shape[1])
+    ki, ri = np.where(ki < 0, -1 - col, ki), np.where(ri < 0, -1 - col, ri)
+    fin = np.isfinite(rs)
+    err = float(np.abs(ks[fin] - rs[fin]).max()) if fin.any() else 0.0
+    ov = overlap(ki, ri)
+    ok = ov >= 0.99 and err <= 1e-4 and np.array_equal(np.isfinite(ks), fin)
+    times = f", kernel {ms:.3f} ms (K1 at the same k {k1_ms:.3f} ms)" if ms is not None else ""
+    log(f"{label}: overlap {ov:.4f}, max|Δscore| {err:.2e}{times} [{card}] "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
+    """Every scan option of ``IVFIndex.query`` on the phase-3 bf16 index, the
+    phase-5 int8 + rescore index, a sentinel and a group-2 bf16 build of the
+    same corpus: the options through ``query`` (the counted window), recall
+    against K2's exact top-10 / top-100, then each kernel (K1-opt, K9, K10,
+    K11a, K11b) against its plain version at the shapes ``query`` gives it,
+    timed beside K1. → the kernels' JSON entries."""
+    from text_similarity_tpu_torch.index import ivf_modes
+    from text_similarity_tpu_torch.index.ivf import (
+        IVFIndex, _round_up, ivf_scan_cuda, ivf_scan_reference,
+    )
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, l2_normalize
+
+    n, d = corpus.shape
+    n_q = queries.shape[0]
+    _, exact100 = cosine_topk_cuda(queries, corpus, 100)
+    exact10, exact100 = exact.cpu().numpy(), exact100.cpu().numpy()
+    builds = {}
+    for name, opts in (("sentinel", dict(sentinel=True)), ("group2", dict(group=2))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        builds[name] = IVFIndex.build(
+            corpus, ivf.config, data_dtype=torch.bfloat16, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0), **opts)
+        torch.cuda.synchronize()
+        b = builds[name]
+        log(f"IVF build {name} [{card}]: {time.time() - t0:.2f} s, slabs "
+            f"{tuple(b.data_padded.shape)} {str(b.data_padded.dtype)[6:]}, C={b.num_base_clusters} "
+            f"(+{b.num_overflow} overflow slabs), Mc={b.cluster_cap}")
+    sent, grp = builds["sentinel"], builds["group2"]
+    u_main = min(_round_up(min(ivf.config.num_probes, ivf.num_base_clusters), 8),
+                 ivf.num_base_clusters) + ivf.num_overflow
+    log(f"probe union U at 1M (with {ivf.num_overflow} overflow slabs): {u_main} "
+        f"(the packed fold needs U <= 64, Mc <= 2048: Mc={ivf.data_padded.shape[1]})")
+    if u_main > 64:
+        raise AssertionError("the bench index overflows the packed fold's 64 probes")
+
+    # --- the main path: IVFIndex.query with every option (counted window)
+    counters = [(ivf_scan_cuda, c) for c in (
+        "launches", "launches_int8", "launches_per_probe", "launches_per_probe_int8",
+        "launches_emit_acc", "launches_emit_acc_int8")] + [
+        (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches")
+        for m in ("packed", "dma", "multiprobe", "idless")]
+    q10 = dict(QARGS)
+    per_probe_args = dict(union_factor=1, block_q=64, per_probe=True)
+    cases = [
+        ("per_probe bf16 k=10", ivf, 10, per_probe_args),
+        ("per_probe int8 + rescore k=10 (k_coarse 20)", ivf8, 10, dict(per_probe_args, k_coarse=20)),
+        ("final_merge xla bf16 k=100", ivf, 100, dict(K100_ARGS, final_merge="xla")),
+        ("final_merge xla_approx bf16 k=100", ivf, 100, dict(K100_ARGS, final_merge="xla_approx")),
+        ("final_merge xla int8 + rescore k=100", ivf8, 100, dict(K100_ARGS, final_merge="xla")),
+        ("final_merge xla_approx int8 + rescore k=100", ivf8, 100,
+         dict(K100_ARGS, final_merge="xla_approx")),
+        ("final_merge packed k=10", ivf, 10, dict(q10, final_merge="packed")),
+        ("final_merge packed k=100", ivf, 100, dict(K100_ARGS, final_merge="packed")),
+        *[(f"dma_pipeline buffers {nb} k=10", ivf, 10, dict(q10, dma_pipeline=True, dma_buffers=nb))
+          for nb in (2, 3, 4)],
+        ("dma_pipeline k=100", ivf, 100, dict(K100_ARGS, dma_pipeline=True)),
+        *[(f"probes_per_step {p} k=10", ivf, 10, dict(q10, probes_per_step=p)) for p in (2, 3, 4)],
+        ("sentinel idless k=10", sent, 10, dict(q10, acc_slots=1)),
+        ("sentinel k=100 (K1 over D+1 slabs)", sent, 100, dict(K100_ARGS)),
+        ("group2 k=10", grp, 10, dict(q10)),
+    ]
+    rng = np.random.default_rng(5)
+    gone = int(exact10[0, 0])
+    new_row = l2_normalize(torch.from_numpy(rng.standard_normal((1, d)).astype(np.float32)).cuda())
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    results = []
+    for label, index, k, args in cases:
+        results.append((label, k, *index.query(queries, k=k, **args)))
+    sent.remove([gone])
+    _, after = sent.query(queries[:64], k=10, acc_slots=1, **q10)
+    new_id = int(sent.add(new_row, start_id=n)[0])
+    s_new, i_new = sent.query(new_row, k=10, acc_slots=1, **q10)
+    torch.cuda.synchronize()
+    counts = {f"{getattr(obj, '__name__', '')}.{attr}": getattr(obj, attr) for obj, attr in counters}
+    log(f"launches during the IVF options window: {counts}")
+
+    for label, k, s, i in results:
+        want = exact10 if k == 10 else exact100
+        rec = overlap(i.cpu().numpy(), want)
+        log(f"IVF {label}: recall@{k} vs exact {rec:.4f} (gate 0.95), scores finite "
+            f"{bool(torch.isfinite(s).all())} [{card}]")
+        if rec < 0.95:
+            raise AssertionError(f"IVF {label}: recall@{k} below 0.95")
+    ok_remove = not (after == gone).any().item()
+    ok_add = int(i_new[0, 0]) == new_id and float(s_new[0, 0]) >= 0.99
+    log(f"sentinel remove({gone}): absent from 64 queries' top 10 -> "
+        f"{'ok' if ok_remove else 'FAIL'}; add: new id {new_id} first at "
+        f"{float(s_new[0, 0]):.4f} -> {'ok' if ok_add else 'FAIL'}")
+    if not (ok_remove and ok_add):
+        raise AssertionError("remove / add on the sentinel index failed")
+    for key in ("ivf_scan_cuda.launches_per_probe", "ivf_scan_cuda.launches_per_probe_int8",
+                "ivf_scan_cuda.launches_emit_acc", "ivf_scan_cuda.launches_emit_acc_int8",
+                "ivf_scan_packed_cuda.launches", "ivf_scan_dma_cuda.launches",
+                "ivf_scan_multiprobe_cuda.launches", "ivf_scan_idless_cuda.launches",
+                "ivf_scan_cuda.launches"):
+        if counts[key] == 0:
+            raise AssertionError(f"{key} never launched on the IVF options path")
+
+    # --- each kernel against its plain version at the shapes query gives it
+    # (QARGS and K100_ARGS plan as the serving args: block_q 64, union_factor 1)
+    def timed(fn, plain_fn):
+        return (time_ms(torch, fn, iters=5, warmup=1),
+                time_ms(torch, plain_fn, iters=1, warmup=1))
+
+    mc = ivf.data_padded.shape[1]
+    qs, pl, _, bq = serving_plan(ivf, queries)
+    data, ids = ivf.data_padded, ivf.ids_padded
+    k1_10 = time_ms(torch, lambda: ivf_scan_cuda(qs, pl, data, ids, 10, bq, mc, 1), iters=5, warmup=1)
+    entries = []
+
+    def entry(name, source, replaces, err, ms, plain, bnd, shape, launches):
+        entries.append({"name": name, "route": "cuda", "source": f"text_similarity_tpu_torch/csrc/{source}",
+                        "replaces": f"text_similarity_tpu/index/ivf.py:{replaces}",
+                        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                        "shape": shape})
+        log(f"{name} [{card}]: {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), {ms / bnd[0]:.1f}x the bound; {shape}")
+
+    # K1-opt per_probe (bf16, and int8 at the rescore's k)
+    a = (qs, pl, data, ids, 10, bq)
+    ks, ki = ivf_scan_cuda(*a, per_probe=True)
+    rs, ri = ivf_scan_reference(*a, per_probe=True)
+    ms, plain = timed(lambda: ivf_scan_cuda(*a, per_probe=True),
+                      lambda: ivf_scan_reference(*a, per_probe=True))
+    err = check_pair("K1-opt per_probe bf16 k=10", ks, ki, rs, ri, card, ms, k1_10)
+    qs8, pl8, _, _ = serving_plan(ivf8, queries)
+    a8 = (qs8, pl8, ivf8.data_padded, ivf8.ids_padded, 10, bq)
+    ks, ki = ivf_scan_cuda(*a8, scales=ivf8.scales_padded, per_probe=True)
+    rs, ri = ivf_scan_reference(*a8, scales=ivf8.scales_padded, per_probe=True)
+    err = max(err, check_pair("K1-opt per_probe int8 k=10", ks, ki, rs, ri, card))
+    u = pl.shape[1]
+    entry("ivf_scan_per_probe", "ivf_scan.cu", "1945 (per_probe :1130-1132, :1238-1240, :1908-1917)",
+          err, ms, plain, scan_bound(torch, ivf, pl, n_q, bq, u * n_q * 10 * 8),
+          f"B={n_q} U={u} Mc={mc} D={d} k=10 bf16 -> (U, B, k); int8 checked too",
+          counts["ivf_scan_cuda.launches_per_probe"] + counts["ivf_scan_cuda.launches_per_probe_int8"])
+
+    # K1-opt emit_acc at k = 100 (bench's w 512 and the planned slots)
+    qs5, pl5 = qs, pl
+    w, slots = ivf.scan_mode(100, 512, final_merge="xla")
+    a = (qs5, pl5, data, ids, 100, bq, w, slots)
+    ks, ki = ivf_scan_cuda(*a, emit_acc=True)
+    rs, ri = ivf_scan_reference(*a, emit_acc=True)
+    ms, plain = timed(lambda: ivf_scan_cuda(*a, emit_acc=True),
+                      lambda: ivf_scan_reference(*a, emit_acc=True))
+    k1_100 = time_ms(torch, lambda: ivf_scan_cuda(*a), iters=5, warmup=1)
+    same = (ki == ri)
+    live = same & torch.isfinite(rs)
+    err = float((ks - rs)[live].abs().max())
+    log(f"K1-opt emit_acc bf16 k=100 w={w} S={slots}: accumulator entries equal "
+        f"{float(same.float().mean()):.5f}, max|Δscore| {err:.2e}, kernel {ms:.3f} ms "
+        f"(K1 at k=100 {k1_100:.3f} ms) [{card}]")
+    w8, s8 = ivf8.scan_mode(200, 512, final_merge="xla")
+    b8 = (qs8, pl8, ivf8.data_padded, ivf8.ids_padded, 200, bq, w8, s8)
+    ks8, ki8 = ivf_scan_cuda(*b8, scales=ivf8.scales_padded, emit_acc=True)
+    rs8, ri8 = ivf_scan_reference(*b8, scales=ivf8.scales_padded, emit_acc=True)
+    same8 = (ki8 == ri8)
+    live8 = same8 & torch.isfinite(rs8)
+    err8 = float((ks8 - rs8)[live8].abs().max())
+    log(f"K1-opt emit_acc int8 k_scan=200 w={w8} S={s8}: entries equal "
+        f"{float(same8.float().mean()):.5f}, max|Δscore| {err8:.2e} [{card}]")
+    if min(float(same.float().mean()), float(same8.float().mean())) < 0.99 or max(err, err8) > 1e-4:
+        raise AssertionError("K1-opt emit_acc disagrees with its plain version")
+    entry("ivf_scan_emit_acc", "ivf_scan.cu", "1945 (emit_acc :1212-1222, :1919)",
+          max(err, err8), ms, plain, scan_bound(torch, ivf, pl5, n_q, bq, n_q * slots * w * 8),
+          f"B={n_q} U={pl5.shape[1]} Mc={mc} D={d} w={w} S={slots} bf16 -> (B, S*w); int8 checked too",
+          counts["ivf_scan_cuda.launches_emit_acc"] + counts["ivf_scan_cuda.launches_emit_acc_int8"])
+
+    # K9 packed, k = 10 (w = Mc) and k = 100 (w 512, the planned slots)
+    bin_w = 1.0 / ivf_modes.PACK_SCALE + 1e-6
+    worst, main = 0.0, None
+    for k, args in ((10, QARGS), (100, K100_ARGS)):
+        qk, plk = qs, pl
+        wk, sk = ivf.scan_mode(k, args["approx_width"], final_merge="packed")
+        a = (qk, plk, data, ids, k, bq, wk, sk)
+        kp = ivf_modes.ivf_scan_packed_cuda(*a)
+        rp = ivf_modes.ivf_scan_packed_reference(*a)
+        ks, ki = ivf_modes._unpack_candidates(kp, plk, ids, bq)
+        rs, ri = ivf_modes._unpack_candidates(rp, plk, ids, bq)
+        ov = overlap(ki.cpu().numpy(), ri.cpu().numpy())
+        e = float((ks.sort(dim=1).values - rs.sort(dim=1).values).abs().max())
+        bits = float((kp == rp).float().mean())
+        ms = time_ms(torch, lambda: ivf_modes.ivf_scan_packed_cuda(*a), iters=5, warmup=1)
+        ok = ov >= 0.99 and e <= bin_w
+        log(f"K9 packed k={k} w={wk} S={sk}: overlap {ov:.4f}, unpacked max|Δscore| {e:.2e} "
+            f"(one bin {bin_w:.2e}), packets bit-equal {bits:.5f}, kernel {ms:.3f} ms "
+            f"(K1 at the same k {k1_10 if k == 10 else k1_100:.3f} ms) [{card}] -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K9 disagrees with its plain version")
+        worst = max(worst, e)
+        if k == 10:
+            plain = time_ms(torch, lambda: ivf_modes.ivf_scan_packed_reference(*a), iters=1, warmup=1)
+            main = (ms, plain, plk, wk, sk)
+    ms, plain, plk, wk, sk = main
+    entry("ivf_scan_packed", "ivf_modes.cu", "1505", worst, ms, plain,
+          scan_bound(torch, ivf, plk, n_q, bq, n_q * 10 * 4),
+          f"B={n_q} U={plk.shape[1]} Mc={mc} D={d} k=10 w={wk} S={sk} bf16 -> (B, k) packets",
+          counts["ivf_scan_packed_cuda.launches"])
+
+    # K10: full width, the planned slots, buffers 2-4; ids equal K1's at (Mc, S)
+    worst, main = 0.0, None
+    for k, nbs in ((10, (2, 3, 4)), (100, (2,))):
+        _, sk = ivf.scan_mode(k, dma_pipeline=True)
+        want = ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk)
+        rs, ri = ivf_modes.ivf_scan_dma_reference(qs, pl, data, ids, k, bq, sk)
+        k1_ms = time_ms(torch, lambda: ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk), iters=5, warmup=1)
+        for nb in nbs:
+            got = ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb)
+            bit = torch.equal(got[1], want[1])
+            ms = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb),
+                         iters=5, warmup=1)
+            worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} (ids equal K1's at "
+                                          f"w=Mc: {bit})", *got, rs, ri, card, ms, k1_ms))
+            if not bit:
+                raise AssertionError("K10's ids differ from K1's at the full-width plan")
+            if k == 10 and nb == 2:
+                plain = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_reference(
+                    qs, pl, data, ids, k, bq, sk), iters=1, warmup=1)
+                main = (ms, plain, sk)
+    ms, plain, sk = main
+    entry("ivf_scan_dma", "ivf_modes.cu", "1682", worst, ms, plain,
+          scan_bound(torch, ivf, pl, n_q, bq, n_q * 10 * 8),
+          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 S={sk} buffers 2 bf16 (3, 4 checked)",
+          counts["ivf_scan_dma_cuda.launches"])
+
+    # K11a: P = 2, 3 (the list padded), 4; ids equal K1's at (Mc, 1)
+    worst, main = 0.0, None
+    want = ivf_scan_cuda(qs, pl, data, ids, 10, bq, mc, 1)
+    for p in (2, 3, 4):
+        got = ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p)
+        rs, ri = ivf_modes.ivf_scan_multiprobe_reference(qs, pl, data, ids, 10, bq, p)
+        bit = torch.equal(got[1], want[1])
+        ms = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p),
+                     iters=5, warmup=1)
+        worst = max(worst, check_pair(f"K11a probes_per_step {p} k=10 (ids equal K1's at w=Mc: "
+                                      f"{bit})", *got, rs, ri, card, ms, k1_10))
+        if not bit:
+            raise AssertionError("K11a's ids differ from K1's at the full-width plan")
+        if p == 2:
+            plain = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_reference(
+                qs, pl, data, ids, 10, bq, 2), iters=1, warmup=1)
+            main = (ms, plain)
+    ms, plain = main
+    entry("ivf_scan_multiprobe", "ivf_modes.cu", "1870", worst, ms, plain,
+          scan_bound(torch, ivf, pl, n_q, bq, n_q * 10 * 8),
+          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 P=2 bf16 (3, 4 checked)",
+          counts["ivf_scan_multiprobe_cuda.launches"])
+
+    # K11b on the sentinel build (D+1 = 385), and K1 over its 385-wide slabs
+    qsn, pln, _, _ = serving_plan(sent, queries)
+    mcs = sent.data_padded.shape[1]
+    ws = sent.scan_mode(10, 2048, 1)[0]
+    a = (qsn, pln, sent.data_padded, 10, bq, ws)
+    ks, ki = ivf_modes.ivf_scan_idless_cuda(*a)
+    rs, ri = ivf_modes.ivf_scan_idless_reference(*a)
+    ms, plain = timed(lambda: ivf_modes.ivf_scan_idless_cuda(*a),
+                      lambda: ivf_modes.ivf_scan_idless_reference(*a))
+    k1_s = time_ms(torch, lambda: ivf_scan_cuda(qsn, pln, sent.data_padded, sent.ids_padded, 10,
+                                                bq, ws, 1), iters=5, warmup=1)
+    err = check_pair(f"K11b idless k=10 w={ws} D+1={d + 1}", ks, ki, rs, ri, card, ms, k1_s)
+    qsn5, pln5 = qsn, pln
+    w5, s5 = sent.scan_mode(100, 512, 0)
+    b5 = (qsn5, pln5, sent.data_padded, sent.ids_padded, 100, bq, w5, s5)
+    ks5, ki5 = ivf_scan_cuda(*b5)
+    rs5, ri5 = ivf_scan_reference(*b5)
+    check_pair(f"K1 over D+1={d + 1} slabs k=100 w={w5} S={s5}", ks5, ki5, rs5, ri5, card)
+    entry("ivf_scan_idless", "ivf_scan.cu", "1809", err, ms, plain,
+          scan_bound(torch, sent, pln, n_q, bq, n_q * 10 * 8, with_ids=False),
+          f"B={n_q} U={pln.shape[1]} Mc={mcs} D+1={d + 1} k=10 w={ws} bf16 -> flat slot ids",
+          counts["ivf_scan_idless_cuda.launches"])
+
+    # end to end: each option's query rate at 4096 queries
+    for label, index, k, args in cases:
+        if "buffers 3" in label or "buffers 4" in label or "xla_approx" in label:
+            continue
+        t_q = time_ms(torch, lambda: index.query(queries, k=k, **args), iters=2, warmup=1)
+        log(f"IVFIndex.query {label}: {t_q:.2f} ms = {n_q / t_q * 1e3:.0f} QPS [{card}]")
+    del builds, sent, grp
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -1628,11 +1985,12 @@ def main() -> int:
     log(f"kernels built in {time.time() - t:.1f} s")
 
     k2 = phase_topk(torch, card)
-    k1, (corpus, queries, exact) = phase_ivf(torch, card)
+    k1, (corpus, queries, exact, ivf) = phase_ivf(torch, card)
     launches, ctx = phase_pipeline(torch, card)
     k3 = phase_int8_topk(torch, card)
-    k4 = phase_int8_ivf(torch, card, corpus, queries, exact)
-    del corpus, queries, exact
+    k4, ivf8 = phase_int8_ivf(torch, card, corpus, queries, exact)
+    modes = phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact)
+    del corpus, queries, exact, ivf, ivf8
     launches8 = phase_int8_pipeline(torch, card, ctx)
     k5 = phase_flash(torch, card)
     k5["launches"] = phase_long_documents(torch, card, ctx)
@@ -1640,7 +1998,7 @@ def main() -> int:
     k6["launches"], pairs = phase_long_training(torch, card, ctx)
     phase_grad_agreement(torch, card, ctx["tok"], pairs)
     phase_short_training(torch, card, ctx)
-    kernels = [k1, k2, k3, k4, k5, k6]
+    kernels = [k1, k2, k3, k4, k5, k6, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
     for kern in (k3, k4):

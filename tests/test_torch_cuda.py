@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4,
-the flash forward K5 and backward K6), each held against its plain version, and the
+the flash forward K5 and backward K6, the IVF scan modes K1-opt, K9, K10,
+K11), each held against its plain version, and the
 port's pipelines (bf16 and int8 serving, long-document encode) on the card
 against the same pipelines on the CPU.
 
@@ -20,6 +21,7 @@ from text_similarity_tpu_torch.core.config import ARCH_PRESETS, IndexConfig
 from text_similarity_tpu_torch.core.precision import FP32_PRECISION
 from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
 from text_similarity_tpu_torch.index import ivf as ivf_mod
+from text_similarity_tpu_torch.index import ivf_modes
 from text_similarity_tpu_torch.index.ivf import (
     IVFIndex,
     _plan_probes,
@@ -583,3 +585,277 @@ def test_long_encode_on_card_matches_cpu(cuda):
     # batches of two by length: (650, 900) at bucket 1024, (3100, 4000) at 4096
     assert flash_attention_cuda.launches == before + arch.num_layers
     np.testing.assert_allclose(got, cpu.encode(corpus, **kw), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The IVF scan modes: K1-opt (per_probe, emit_acc), K9 (packed), K10 (copy
+# ring), K11a (several probes a step), K11b (idless)
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(cuda, dtype, d, mc=200, c_tot=12, u=6, block_q=8, b=24, seed=0,
+                 sentinel=False):
+    """Random unit slabs (C_tot, Mc, d) with ~10% empty slots, queries in
+    blocks of block_q and a probe list per block holding a −1 probe (block
+    0) and the last slab (an overflow slab). ``sentinel``: d counts the
+    trailing column (+2 live, 0 empty; the queries end in 1).
+    → (q, probes, data, ids, scales or None)."""
+    rng = np.random.default_rng(seed)
+    base = d - 1 if sentinel else d
+    x = _unit(rng.standard_normal((c_tot * mc, base)))
+    ids = np.arange(c_tot * mc, dtype=np.int32)
+    ids[rng.random(c_tot * mc) < 0.1] = -1
+    q = _unit(x[rng.integers(0, c_tot * mc, b)] + 0.2 * rng.standard_normal((b, base)))
+    if sentinel:
+        x = np.concatenate([x, np.where(ids >= 0, 2.0, 0.0)[:, None]], axis=1).astype(np.float32)
+        q = np.concatenate([q, np.ones((b, 1), np.float32)], axis=1)
+    probes = np.stack([rng.choice(c_tot - 1, u - 1, replace=False) for _ in range(b // block_q)])
+    probes = np.concatenate([probes, np.full((b // block_q, 1), c_tot - 1)], axis=1).astype(np.int32)
+    probes[0, 1] = -1
+    tx = torch.from_numpy(x).to(cuda)
+    scales = None
+    if dtype == torch.int8:
+        tx, scales = quantize_embeddings_int8(tx)
+        scales = scales.view(c_tot, mc).contiguous()
+    else:
+        tx = tx.to(dtype)
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(probes).to(cuda),
+            tx.view(c_tot, mc, d).contiguous(), torch.from_numpy(ids).view(c_tot, mc).to(cuda),
+            scales)
+
+
+def _agree_flat(ks, ki, rs, ri, dtype):
+    """A kernel's (…, k) result against its plain version's at k + 1:
+    scores allclose 1e-5; f32 and int8: ids equal at every rank whose plain
+    score differs by > 1e-5 from both neighbours, the (k+1)-th included (a
+    near-tie at the cut may go either way); bf16: overlap ≥ 0.99."""
+    k = ks.shape[-1]
+    ks, ki = (t.reshape(-1, k).cpu().numpy() for t in (ks, ki))
+    rs, ri = (t.reshape(-1, k + 1).cpu().numpy() for t in (rs, ri))
+    np.testing.assert_allclose(ks, rs[:, :k], atol=1e-5)
+    if dtype == torch.bfloat16:
+        # an empty result (−1) at rank j counts as its own id
+        col = np.arange(k)
+        assert _overlap(np.where(ki < 0, -1 - col, ki), np.where(ri[:, :k] < 0, -1 - col, ri[:, :k])) >= 0.99
+        return
+    with np.errstate(invalid="ignore"):
+        gap = np.minimum(np.abs(np.diff(rs, axis=1, prepend=np.inf))[:, :k],
+                         np.abs(np.diff(rs, axis=1)))
+    sep = gap > 1e-5
+    np.testing.assert_array_equal(ki[sep], ri[:, :k][sep])
+
+
+@pytest.mark.parametrize("dtype,d,sentinel", [
+    (dt, d, s) for dt in (torch.float32, torch.bfloat16, torch.int8)
+    for d, s in ((64, False), (65, False), (33, True), (385, True))
+    if not (dt == torch.int8 and s)           # the sentinel layout has no int8 form
+])
+def test_k1_opt_per_probe_matches_plain(cuda, dtype, d, sentinel):
+    """K1-opt per_probe: (U, B, k), each probe's exact top-k, −1 probes
+    empty; D+1 rows of no alignment."""
+    q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, sentinel=sentinel)
+    counter = "launches_per_probe_int8" if dtype == torch.int8 else "launches_per_probe"
+    before = getattr(ivf_scan_cuda, counter)
+    ks, ki = ivf_scan_cuda(q, probes, data, ids, 10, 8, scales=scales, per_probe=True)
+    rs, ri = ivf_scan_reference(q, probes, data, ids, 11, 8, scales=scales, per_probe=True)
+    torch.cuda.synchronize()
+    assert getattr(ivf_scan_cuda, counter) == before + 1
+    assert ks.shape == (6, 24, 10)
+    assert (ki[1, :8] == -1).all() and torch.isinf(ks[1, :8]).all()   # the −1 probe
+    _agree_flat(ks, ki, rs, ri, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d,mc,width,slots", [(64, 256, 128, 3), (385, 256, 256, 2),
+                                              (65, 200, 200, 1)])
+def test_k1_opt_emit_acc_matches_plain(cuda, dtype, d, mc, width, slots):
+    """K1-opt emit_acc: the raw (B, S·w) accumulator, slot-major; entries
+    equal (≥ 99% of ids, scores 1e-5 where the ids agree)."""
+    q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, mc=mc, seed=1)
+    counter = "launches_emit_acc_int8" if dtype == torch.int8 else "launches_emit_acc"
+    before = getattr(ivf_scan_cuda, counter)
+    ks, ki = ivf_scan_cuda(q, probes, data, ids, 10, 8, width, slots, scales, emit_acc=True)
+    rs, ri = ivf_scan_reference(q, probes, data, ids, 10, 8, width, slots, scales, emit_acc=True)
+    torch.cuda.synchronize()
+    assert getattr(ivf_scan_cuda, counter) == before + 1
+    assert ks.shape == (24, slots * width)
+    same = (ki == ri).cpu().numpy()
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(ks.cpu().numpy()[same], rs.cpu().numpy()[same], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [33, 65, 385])
+@pytest.mark.parametrize("width,k", [(128, 10), (200, 20)])
+def test_k11b_idless_matches_plain(cuda, dtype, d, width, k):
+    """K11b: no ids read, flat slot ids, empty slots score 0 and compete."""
+    mc = 256 if width == 128 else 200
+    q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, sentinel=True, seed=2)
+    before = ivf_modes.ivf_scan_idless_cuda.launches
+    ks, ki = ivf_modes.ivf_scan_idless_cuda(q, probes, data, k, 8, width)
+    rs, ri = ivf_modes.ivf_scan_idless_reference(q, probes, data, k + 1, 8, width)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_idless_cuda.launches == before + 1
+    _agree_flat(ks, ki, rs, ri, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [64, 33, 385])
+@pytest.mark.parametrize("per_step", [2, 3, 4, 6])
+def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
+    """K11a against its plain version, and bit for bit against K1's
+    deferred fold at width Mc, S = 1 (U = 6: P = 4 pads the list; P = 6 is
+    staged four slabs at a time)."""
+    q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, seed=3)
+    before = ivf_modes.ivf_scan_multiprobe_cuda.launches
+    ks, ki = ivf_modes.ivf_scan_multiprobe_cuda(q, probes, data, ids, 10, 8, per_step, scales)
+    rs, ri = ivf_modes.ivf_scan_multiprobe_reference(q, probes, data, ids, 11, 8, per_step, scales)
+    ws, wi = ivf_scan_cuda(q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_multiprobe_cuda.launches == before + 1
+    _agree_flat(ks, ki, rs, ri, dtype)
+    assert torch.equal(ki, wi) and torch.equal(ks, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 33, 65, 385])
+@pytest.mark.parametrize("mc,slots,k", [(200, 1, 10), (256, 2, 50), (136, 1, 20)])
+def test_k10_dma_matches_plain_and_k1(cuda, dtype, d, mc, slots, k):
+    """K10 at an Mc that is not a multiple of 128 (200, 136) and at 256
+    with two slots: against its plain version, bit for bit against K1 at
+    (approx_width = Mc, acc_slots = S), and the same for 2, 3, 4 buffers."""
+    q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=4)
+    before = ivf_modes.ivf_scan_dma_cuda.launches
+    got = [ivf_modes.ivf_scan_dma_cuda(q, probes, data, ids, k, 8, slots, n) for n in (2, 3, 4)]
+    rs, ri = ivf_modes.ivf_scan_dma_reference(q, probes, data, ids, k + 1, 8, slots)
+    ws, wi = ivf_scan_cuda(q, probes, data, ids, k, 8, mc, slots)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_dma_cuda.launches == before + 3
+    _agree_flat(*got[0], rs, ri, dtype)
+    for ks, ki in got:
+        assert torch.equal(ki, wi) and torch.equal(ks, ws)
+
+
+def test_k10_reads_nothing_past_the_slabs(cuda):
+    """bf16 rows of odd width end 2 bytes short of a 4-byte boundary: the
+    last slab's last row is copied without reading past the tensor."""
+    q, probes, data, ids, _ = _scan_inputs(cuda, torch.bfloat16, 33, mc=199, c_tot=3, u=3,
+                                           seed=5, sentinel=True)
+    assert data.numel() % 2 == 1      # the tensor ends 2 bytes past a 4-byte boundary
+    ks, ki = ivf_modes.ivf_scan_dma_cuda(q, probes, data, ids, 10, 8, 1, 2)
+    rs, ri = ivf_modes.ivf_scan_dma_reference(q, probes, data, ids, 11, 8, 1, 2)
+    torch.cuda.synchronize()
+    _agree_flat(ks, ki, rs, ri, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,mc,width,slots,k", [(64, 256, 128, 2, 50), (65, 200, 200, 1, 10),
+                                                (385, 256, 256, 3, 100)])
+def test_k9_packed_matches_plain(cuda, dtype, d, mc, width, slots, k):
+    """K9: packets from the f32 score; a score within ~1e-6 of a bin edge
+    may land in the neighbouring bin, so: unpacked scores within one bin,
+    ids overlap ≥ 0.99."""
+    from text_similarity_tpu_torch.index.ivf_modes import PACK_SCALE, _unpack_candidates
+
+    q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=6)
+    before = ivf_modes.ivf_scan_packed_cuda.launches
+    kp = ivf_modes.ivf_scan_packed_cuda(q, probes, data, ids, k, 8, width, slots)
+    rp = ivf_modes.ivf_scan_packed_reference(q, probes, data, ids, k, 8, width, slots)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_packed_cuda.launches == before + 1
+    ks, ki = (t.cpu().numpy() for t in _unpack_candidates(kp, probes, ids, 8))
+    rs, ri = (t.cpu().numpy() for t in _unpack_candidates(rp, probes, ids, 8))
+    assert _overlap(ki, ri) >= 0.99
+    np.testing.assert_allclose(np.sort(ks, 1), np.sort(rs, 1), atol=1.0 / PACK_SCALE + 1e-6)
+    assert (kp.cpu().numpy() == rp.cpu().numpy()).mean() >= 0.95
+
+
+def test_k9_rejects_wide_unions_and_slabs(cuda):
+    q, probes, data, ids, _ = _scan_inputs(cuda, torch.float32, 64, u=6)
+    wide = probes.repeat(1, 11)                       # U = 66 > 64
+    with pytest.raises(ValueError):
+        ivf_modes.ivf_scan_packed_cuda(q, wide.contiguous(), data, ids, 10, 8)
+    big = torch.zeros((2, 2056, 64), device=cuda)     # Mc > 2048
+    with pytest.raises(ValueError):
+        ivf_modes.ivf_scan_packed_cuda(q, probes.clamp(max=1).contiguous(), big,
+                                     torch.zeros((2, 2056), dtype=torch.int32, device=cuda),
+                                     10, 8)
+
+
+@pytest.mark.parametrize("layout", ["sentinel", "group2", "int8"])
+def test_query_options_on_card_match_cpu(cuda, monkeypatch, layout):
+    """IVFIndex.query with every option on one index, on the card and on
+    the CPU: each option launches a kernel (the plain versions refuse CUDA
+    tensors here) and returns the CPU's ids (overlap ≥ 0.99), scores 1e-4
+    (the packed fold: one bin)."""
+    q, x = _clustered()
+    opts = dict(sentinel=True) if layout == "sentinel" else (
+        dict(group=2) if layout == "group2" else {})
+    cfg = IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4, max_cluster_size=256,
+                      quantize_int8=layout == "int8")
+    cpu = IVFIndex.build(torch.from_numpy(x), cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu", **opts)
+    card = IVFIndex(
+        cpu.centroids.to(cuda), cpu.data_padded.to(cuda), cpu.ids_padded.to(cuda),
+        cpu.num_base_clusters, cfg,
+        scales_padded=None if cpu.scales_padded is None else cpu.scales_padded.to(cuda),
+        rescore_data=None if cpu.rescore_data is None else cpu.rescore_data.to(cuda),
+        group=cpu.group,
+    )
+    cases = [dict(per_probe=True), dict(approx_width=128, final_merge="xla", k=20),
+             dict(approx_width=256, probes_per_step=3)]
+    if layout != "int8":
+        cases += [dict(dma_pipeline=True, dma_buffers=3)]
+    if layout == "group2":
+        cases += [dict(approx_width=256, final_merge="packed")]
+    if layout == "sentinel":   # the idless scan (one slot), K1 over D+1 slabs
+        cases += [dict(approx_width=128, acc_slots=1), dict(approx_width=256),
+                  dict(approx_width=0)]
+    cases = [dict(dict(k=10, block_q=8, union_factor=1), **c) for c in cases]
+    tq = torch.from_numpy(q)
+    want = [cpu.query(tq, **args) for args in cases]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("scan_plain", "ivf_scan_packed_reference", "ivf_scan_dma_reference",
+                 "ivf_scan_multiprobe_reference", "ivf_scan_idless_reference"):
+        monkeypatch.setattr(ivf_modes, name, refuse)
+    monkeypatch.setattr(ivf_mod, "ivf_scan_reference", refuse)
+    for args, (rs, ri) in zip(cases, want):
+        counts = _mode_counts()
+        ks, ki = card.query(tq.to(cuda), **args)
+        torch.cuda.synchronize()
+        assert _mode_counts() != counts, args
+        assert _overlap(ki.cpu().numpy(), ri.numpy()) >= 0.99, args
+        tol = 1.0 / 8191.75 + 1e-6 if args.get("final_merge") == "packed" else 1e-4
+        np.testing.assert_allclose(ks.cpu().numpy(), rs.numpy(), atol=tol)
+
+
+def _mode_counts():
+    return (ivf_scan_cuda.launches, ivf_scan_cuda.launches_int8,
+            ivf_scan_cuda.launches_per_probe, ivf_scan_cuda.launches_per_probe_int8,
+            ivf_scan_cuda.launches_emit_acc, ivf_scan_cuda.launches_emit_acc_int8,
+            ivf_modes.ivf_scan_packed_cuda.launches, ivf_modes.ivf_scan_dma_cuda.launches,
+            ivf_modes.ivf_scan_multiprobe_cuda.launches, ivf_modes.ivf_scan_idless_cuda.launches)
+
+
+def test_sentinel_add_remove_on_card(cuda):
+    """remove on a sentinel index on the card zeroes the column (the idless
+    scan never returns the row), add writes +2 (the row finds itself)."""
+    q, x = _clustered()
+    ivf = IVFIndex.build(torch.from_numpy(x).to(cuda),
+                         IndexConfig(num_clusters=16, num_probes=4, kmeans_iters=4),
+                         sentinel=True, generator=torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    tq = torch.from_numpy(x[:8]).to(cuda)
+    before = ivf_modes.ivf_scan_idless_cuda.launches
+    args = dict(block_q=8, approx_width=128, acc_slots=1)
+    _, i = ivf.query(tq, k=5, **args)
+    assert (i[:, 0].cpu().numpy() == np.arange(8)).all()
+    assert ivf.remove(np.arange(8)) == 8
+    _, i = ivf.query(tq, k=5, **args)
+    assert not np.isin(i.cpu().numpy(), np.arange(8)).any()
+    new = ivf.add(tq[:4], start_id=4096)
+    _, i = ivf.query(tq[:4], k=1, **args)
+    assert (i[:, 0].cpu().numpy() == new).all()
+    assert ivf_modes.ivf_scan_idless_cuda.launches == before + 3

@@ -7,6 +7,9 @@
 //   shared memory, 32 dims at a time, converted to f32 (exactly); thread (row r, group g) accumulates the dot
 //   products of row r with queries g*8 .. g*8+7 in f32 on the CUDA cores,
 //   in a fixed order over the dims (so equal rows give bit-equal scores).
+//   Any D: rows whose byte length is not a multiple of 16 (the sentinel
+//   layout's D+1) load element by element, and the last chunk pads with
+//   zeros; the query tile then has a padded stride ldq ≥ round_up(D, 32).
 // * A warp-level exact top-k selector: a sorted list of KP = pow2 ≥ k
 //   (score, id) pairs plus a candidate buffer in shared memory. Candidates
 //   better than the current k-th enter the buffer; a full buffer is
@@ -74,29 +77,46 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   }
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// Query stride in shared memory for width D: a whole number of 32-dim
+// chunks, so the last chunk reads zeros past D.
+__host__ __device__ __forceinline__ int q_stride(int D) { return (D + kDC - 1) / kDC * kDC; }
+
 // Scores of tile rows [0, n_valid) (row r at rows + r*D) against the 16
-// queries in qs (row-major, stride D, already rounded). Thread
-// (r = tid % kRows, g = tid / kRows) gets acc[j] = <row r, query g*8+j>.
-// Rows ≥ n_valid read as zeros. Every thread of the CTA must call this.
-template <typename T>
+// queries in qs (row-major, stride ldq = q_stride(D), zero past D, already
+// rounded). Thread (r = tid % kRows, g = tid / kRows) gets acc[j] = <row r,
+// query g*8+j>. Rows ≥ n_valid read as zeros. Every thread of the CTA must
+// call this. kAnyD = false: D is a multiple of 32 (16-byte loads only).
+template <typename T, bool kAnyD = true>
 __device__ __forceinline__ void tile_scores(const T* __restrict__ rows, int n_valid,
-                                            int D, const float* qs, float* ct,
+                                            int D, const float* qs, int ldq, float* ct,
                                             float acc[kQPT]) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = kDC / kVec;
   const int tid = threadIdx.x;
   const int r = tid % kRows, g = tid / kRows;
+  // every row 16-byte aligned
+  const bool vec = !kAnyD || (D * sizeof(T)) % 16 == 0;
 #pragma unroll
   for (int j = 0; j < kQPT; ++j) acc[j] = 0.f;
   for (int d0 = 0; d0 < D; d0 += kDC) {
     for (int idx = tid; idx < kRows * kPerRow; idx += kThreads) {
       const int row = idx / kPerRow, v = idx % kPerRow;
+      const int dd = d0 + v * kVec;
+      const T* src = rows + (size_t)row * D + dd;
       float vals[kVec];
-      if (row < n_valid) {
-        load16(rows + (size_t)row * D + d0 + v * kVec, vals);
-      } else {
+      if (row < n_valid && vec && (!kAnyD || dd + kVec <= D)) {
+        load16(src, vals);
+      } else if (!kAnyD) {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) vals[e] = 0.f;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          vals[e] = row < n_valid && dd + e < D ? to_f32(src[e]) : 0.f;
       }
       float* dst = ct + row * kDCP + v * kVec;
 #pragma unroll
@@ -106,13 +126,13 @@ __device__ __forceinline__ void tile_scores(const T* __restrict__ rows, int n_va
     }
     __syncthreads();
     const float* crow = ct + r * kDCP;
-    const float* qg = qs + (size_t)(g * kQPT) * D + d0;
+    const float* qg = qs + (size_t)(g * kQPT) * ldq + d0;
 #pragma unroll
     for (int d = 0; d < kDC; d += 4) {
       const float4 c = *reinterpret_cast<const float4*>(crow + d);
 #pragma unroll
       for (int j = 0; j < kQPT; ++j) {
-        const float4 qv = *reinterpret_cast<const float4*>(qg + (size_t)j * D + d);
+        const float4 qv = *reinterpret_cast<const float4*>(qg + (size_t)j * ldq + d);
         acc[j] = fmaf(c.x, qv.x, acc[j]);
         acc[j] = fmaf(c.y, qv.y, acc[j]);
         acc[j] = fmaf(c.z, qv.z, acc[j]);

@@ -69,7 +69,7 @@ topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus,
   for (int row0 = row_begin; row0 < row_end; row0 += kRows) {
     const int nv = min(kRows, row_end - row0);
     float acc[kQPT];
-    tile_scores<T>(corpus + (size_t)row0 * D, nv, D, qs, ct, acc);
+    tile_scores<T, false>(corpus + (size_t)row0 * D, nv, D, qs, D, ct, acc);
     if constexpr (std::is_same_v<T, int8_t>) {
       const float sc = r < nv ? scales[row0 + r] : 0.f;
 #pragma unroll

@@ -1,5 +1,5 @@
 """IVF (inverted-file) ANN index with the block-union scan (kernels K1
-and K4).
+and K4, and the scan modes of ``ivf_modes.py``: K1-opt, K9, K10, K11).
 
 Port of ``text_similarity_tpu.index.ivf``:
 
@@ -9,25 +9,27 @@ Port of ``text_similarity_tpu.index.ivf``:
   every query scans. An int8 build (``IndexConfig.quantize_int8``) stores
   per-row int8 codes with (C_tot, Mc) f32 scales, and by default keeps a
   bf16 copy of the corpus (``rescore_data``, indexed by id) for the rescore.
-- **Query** (``_ivf_query_fused``): normalise, score the centroids, sort the
-  queries by their top-1 centroid (stable), give each ``block_q`` block of
-  sorted queries one probe list — the top-``union`` of the block-max
-  centroid scores, padding rows masked to −1e9 — append the overflow slabs,
-  scan (K1; K4 over int8 slabs), then, with a rescore copy, re-score the
-  scan's ``k_coarse`` (default 2k) candidates against it and keep the top
-  k; unsort.
-- The scan has two merge modes (see ``ivf_scan_reference``): exact, and the
-  deferred lane-class fold sized by ``_approx_merge_plan``.
+  ``group > 1`` stores ``group`` affinity-ordered clusters a slab ((C_tot /
+  g, g·Mc, D)); ``sentinel=True`` appends a column (+2 live, 0 dead) so
+  that a scan can run without ids (D+1 wide slabs).
+- **Query** (``_ivf_query_fused``): normalise, score the centroids (a
+  slab's score is its members' max), sort the queries by their top-1 slab
+  (stable), give each ``block_q`` block of sorted queries one probe list —
+  the top-``union`` of the block-max slab scores, padding rows masked to
+  −1e9 — append the overflow slabs, scan, then, with a rescore copy,
+  re-score the scan's ``k_coarse`` (default 2k) candidates against it and
+  keep the top k; unsort. The scan options of the reference: the exact
+  and deferred merges (K1 / K4), ``per_probe`` and ``final_merge`` "xla" /
+  "xla_approx" (K1-opt), "packed" (K9), ``dma_pipeline`` (K10),
+  ``probes_per_step`` (K11a) and, on a sentinel index, the idless scan
+  (K11b).
 - ``add`` inserts rows into free slots of their nearest clusters (new
-  overflow slabs for the rest), ``remove`` clears slots by id.
+  overflow slabs for the rest), ``remove`` clears slots by id (and the
+  sentinel column).
 
-``ivf_scan`` runs the CUDA kernel (``csrc/ivf_scan.cu``) on CUDA tensors and
-``ivf_scan_reference`` — the same block-union semantics in plain tensor
-code — on CPU tensors. ``query_xla`` keeps the reference's per-query probe
-semantics (its XLA path) as a second plain function for tests.
-
-Not ported yet: grouped slabs, the sentinel layout, and the scan options
-``per_probe``, ``probes_per_step``, ``final_merge``, ``dma_pipeline``.
+Each scan runs its CUDA kernel on CUDA tensors and its plain version on
+CPU tensors. ``query_xla`` keeps the reference's per-query probe semantics
+(its XLA path) as a second plain function for tests.
 """
 
 from __future__ import annotations
@@ -44,7 +46,18 @@ from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..ops import _cuda
 from ..ops.kmeans import assign_clusters_topk, kmeans
-from ..ops.topk import MAX_K, l2_normalize, select_topk
+from ..ops.topk import l2_normalize
+from .ivf_modes import (
+    _unpack_candidates,
+    check_scan_inputs,
+    data_kind,
+    ivf_scan_dma,
+    ivf_scan_idless,
+    ivf_scan_multiprobe,
+    ivf_scan_packed,
+    scan_plain,
+    scan_width as _scan_width,
+)
 from .store import bf16_to_bits, bits_to_bf16
 
 _BUILD_SCATTER_CHUNK = 1 << 20
@@ -84,13 +97,6 @@ def _approx_merge_plan(
 # The scan: plain version, kernel wrapper, dispatch
 # ---------------------------------------------------------------------------
 
-def _scan_width(mc: int, approx_width: int) -> int:
-    if not approx_width:
-        return 0
-    w = min(approx_width, mc)
-    return mc if mc % w else w
-
-
 def ivf_scan_reference(
     q: torch.Tensor,           # (B, D) f32, B a multiple of block_q
     probe_list: torch.Tensor,  # (B/block_q, U) int32 slab ids
@@ -101,6 +107,8 @@ def ivf_scan_reference(
     approx_width: int = 0,
     acc_slots: int = 1,
     scales: Optional[torch.Tensor] = None,  # (C_tot, Mc) f32 for int8 slabs
+    per_probe: bool = False,
+    emit_acc: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1, and of K4 with int8 slabs and ``scales`` (the
     reference's ``_ivf_body`` semantics).
@@ -114,48 +122,20 @@ def ivf_scan_reference(
       into lane class p mod w, which keeps its top-``acc_slots`` — a later
       entry ranks below an earlier one of equal score — and the top-k is
       taken over the S·w accumulator entries.
-    Top-k order is (score desc, id asc); missing results are (−inf, −1)."""
-    b, d = q.shape
-    c_tot, mc, _ = data.shape
-    w = _scan_width(mc, approx_width)
-    qd = q.float() if data.dtype == torch.float32 else q.to(torch.bfloat16).float()
-    out_s = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    neg = torch.tensor(float("-inf"), device=q.device)
-    for blk in range(probe_list.shape[0]):
-        rows = slice(blk * block_q, (blk + 1) * block_q)
-        slabs = probe_list[blk].long()
-        u = slabs.shape[0]
-        s = torch.einsum("qd,umd->qum", qd[rows], data[slabs].float())
-        if scales is not None:
-            s = s * scales[slabs][None]
-        cid = ids[slabs]
-        s = torch.where(cid[None] >= 0, s, neg)
-        bq = s.shape[0]
-        if w:
-            t = u * mc // w      # insertions per lane class, in (u, p) order
-            s = s.reshape(bq, t, w)
-            ci = cid.reshape(1, t, w).expand(bq, t, w)
-            order = torch.argsort(s, dim=1, descending=True, stable=True)[:, :acc_slots]
-            acc_s = torch.gather(s, 1, order)
-            acc_i = torch.gather(ci, 1, order)
-            if acc_s.shape[1] < acc_slots:
-                pad = acc_slots - acc_s.shape[1]
-                acc_s = torch.cat([acc_s, neg.expand(bq, pad, w)], dim=1)
-                acc_i = torch.cat([acc_i, torch.full_like(acc_i[:, :1], -1).expand(bq, pad, w)], dim=1)
-            acc_i = torch.where(acc_s == neg, torch.full_like(acc_i, -1), acc_i)
-            cand_s, cand_i = acc_s.reshape(bq, -1), acc_i.reshape(bq, -1)
-        else:
-            cand_s = s.reshape(bq, -1)
-            cand_i = torch.where(
-                cand_s == neg, -1, cid.reshape(1, -1)
-            ).to(torch.int32)
-        if cand_s.shape[1] < k:
-            pad = k - cand_s.shape[1]
-            cand_s = torch.cat([cand_s, neg.expand(bq, pad)], dim=1)
-            cand_i = torch.cat([cand_i, torch.full((bq, pad), -1, dtype=cand_i.dtype, device=q.device)], dim=1)
-        out_s[rows], out_i[rows] = select_topk(cand_s, cand_i.to(torch.int32), k)
-    return out_s, out_i
+    Top-k order is (score desc, id asc); missing results are (−inf, −1).
+    K1-opt: ``per_probe`` (exact only) → (U, B, k), each probe's own top-k;
+    ``emit_acc`` (deferred only) → the (B, S·w) accumulator, slot-major."""
+    w = _scan_width(data.shape[1], approx_width)
+    _check_mode(w, per_probe, emit_acc)
+    return scan_plain(q, probe_list, data, ids, k, block_q, w, acc_slots, scales,
+                      per_probe=per_probe, emit_acc=emit_acc)
+
+
+def _check_mode(w: int, per_probe: bool, emit_acc: bool) -> None:
+    if per_probe and w:
+        raise ValueError("approx_width and per_probe are exclusive")
+    if emit_acc and not w:
+        raise ValueError("emit_acc needs the deferred fold (approx_width > 0)")
 
 
 def ivf_scan_cuda(
@@ -168,50 +148,64 @@ def ivf_scan_cuda(
     approx_width: int = 0,
     acc_slots: int = 1,
     scales: Optional[torch.Tensor] = None,
+    per_probe: bool = False,
+    emit_acc: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1 (f32/bf16 slabs) or K4 (int8 slabs with ``scales``) on the
-    card; same contract as ``ivf_scan_reference``. q (B, D) f32,
-    probe_list (B/block_q, U) int32, data (C_tot, Mc, D), ids and scales
-    (C_tot, Mc) int32 / f32 — contiguous CUDA tensors; D a multiple of 32
-    (≤ 1024), k ≤ 256, acc_slots ≤ 4. The two kernels count their launches
-    apart (``ivf_scan_cuda.launches``, ``.launches_int8``)."""
-    _cuda.require_cuda(q, "q", (torch.float32,), 2)
-    _cuda.require_cuda(probe_list, "probe_list", (torch.int32,), 2)
-    _cuda.require_cuda(data, "data", (torch.float32, torch.bfloat16, torch.int8), 3)
-    _cuda.require_cuda(ids, "ids", (torch.int32,), 2)
+    card, in its merge, per-probe or raw-accumulator mode; same contract as
+    ``ivf_scan_reference``. q (B, D) f32, probe_list (B/block_q, U) int32,
+    data (C_tot, Mc, D), ids and scales (C_tot, Mc) int32 / f32 —
+    contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≤ 256, acc_slots
+    ≤ 4. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
+    ``.launches_int8`` (merge), ``.launches_per_probe[_int8]``,
+    ``.launches_emit_acc[_int8]``."""
+    check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
     int8 = data.dtype == torch.int8
-    if int8 != (scales is not None):
-        raise ValueError("int8 slabs need scales, and only int8 slabs take them")
     b, d = q.shape
-    c_tot, mc, dd = data.shape
+    c_tot, mc, _ = data.shape
     n_blocks, u = probe_list.shape
-    if dd != d or d % 32 or d > 1024:
-        raise ValueError(f"dims: q {d}, data {dd} (need equal, %32, ≤1024)")
-    if tuple(ids.shape) != (c_tot, mc):
-        raise ValueError(f"ids shape {tuple(ids.shape)} != {(c_tot, mc)}")
-    if int8:
-        _cuda.require_cuda(scales, "scales", (torch.float32,), 2)
-        if tuple(scales.shape) != (c_tot, mc):
-            raise ValueError(f"scales shape {tuple(scales.shape)} != {(c_tot, mc)}")
-    if block_q < 1 or b % block_q or n_blocks != b // block_q:
-        raise ValueError(f"B={b} must be n_blocks={n_blocks} × block_q={block_q}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} must be in [1, {MAX_K}]")
     w = _scan_width(mc, approx_width)
+    _check_mode(w, per_probe, emit_acc)
     slots = acc_slots if w else 0
     if w and not 1 <= slots <= 4:
         raise ValueError(f"acc_slots={acc_slots} must be in [1, 4]")
     width = w or mc
     dev = q.device
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    sc_ptr = scales.data_ptr() if int8 else None
+    suffix = "_int8" if int8 else ""
+    if emit_acc:
+        out_s = torch.empty((b, slots * w), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, slots * w), dtype=torch.int32, device=dev)
+        if b == 0:
+            return out_s, out_i
+        err = _cuda.lib().ts_ivf_scan_emit_acc(
+            q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data), sc_ptr,
+            ids.data_ptr(), b, d, u, c_tot, mc, block_q, w, slots,
+            out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
+        )
+        _cuda.check(err, "ivf_scan emit_acc kernel")
+        _count(f"launches_emit_acc{suffix}")
+        return out_s, out_i
+    rows = u * b if per_probe else b
+    out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    if per_probe:
+        out_s, out_i = out_s.view(u, b, k), out_i.view(u, b, k)
     if b == 0:
         return out_s, out_i
     n_ranges = -(-width // 128)
-    part_s = torch.empty((b, n_ranges, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, n_ranges, k), dtype=torch.int32, device=dev)
+    part_s = torch.empty((rows, n_ranges, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((rows, n_ranges, k), dtype=torch.int32, device=dev)
     outs = (part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             _cuda.stream_handle(dev))
+    if per_probe:
+        err = _cuda.lib().ts_ivf_scan_per_probe(
+            q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data), sc_ptr,
+            ids.data_ptr(), b, d, u, c_tot, mc, block_q, k, *outs,
+        )
+        _cuda.check(err, "ivf_scan per_probe kernel")
+        _count(f"launches_per_probe{suffix}")
+        return out_s, out_i
     dims = (b, d, u, c_tot, mc, block_q, k, width, slots)
     if int8:
         err = _cuda.lib().ts_ivf_scan_int8(
@@ -219,31 +213,84 @@ def ivf_scan_cuda(
             ids.data_ptr(), *dims, *outs,
         )
         _cuda.check(err, "ivf_scan_int8 kernel")
-        ivf_scan_cuda.launches_int8 += 1
     else:
         err = _cuda.lib().ts_ivf_scan(
             q.data_ptr(), probe_list.data_ptr(), data.data_ptr(),
             int(data.dtype == torch.bfloat16), ids.data_ptr(), *dims, *outs,
         )
         _cuda.check(err, "ivf_scan kernel")
-        ivf_scan_cuda.launches += 1
+    _count(f"launches{suffix}")
     return out_s, out_i
+
+
+def _count(counter: str) -> None:
+    setattr(ivf_scan_cuda, counter, getattr(ivf_scan_cuda, counter) + 1)
 
 
 ivf_scan_cuda.launches = 0
 ivf_scan_cuda.launches_int8 = 0
+ivf_scan_cuda.launches_per_probe = 0
+ivf_scan_cuda.launches_per_probe_int8 = 0
+ivf_scan_cuda.launches_emit_acc = 0
+ivf_scan_cuda.launches_emit_acc_int8 = 0
 
 
-def ivf_scan(q, probe_list, data, ids, k, block_q, approx_width=0, acc_slots=1, scales=None):
-    """K1 / K4: the CUDA kernel for CUDA slabs, the plain version for CPU
-    slabs."""
-    if data.is_cuda:
-        return ivf_scan_cuda(
-            q, probe_list, data, ids, k, block_q, approx_width, acc_slots, scales
-        )
-    return ivf_scan_reference(
-        q, probe_list, data, ids, k, block_q, approx_width, acc_slots, scales
-    )
+def ivf_scan(q, probe_list, data, ids, k, block_q, approx_width=0, acc_slots=1, scales=None,
+             per_probe=False, emit_acc=False):
+    """K1 / K4 / K1-opt: the CUDA kernel for CUDA slabs, the plain version
+    for CPU slabs."""
+    fn = ivf_scan_cuda if data.is_cuda else ivf_scan_reference
+    return fn(q, probe_list, data, ids, k, block_q, approx_width, acc_slots, scales,
+              per_probe=per_probe, emit_acc=emit_acc)
+
+
+# ---------------------------------------------------------------------------
+# Grouped slabs
+# ---------------------------------------------------------------------------
+
+def _affinity_group_perm(centroids: np.ndarray, group: int) -> np.ndarray:
+    """Permutation putting mutually similar clusters into consecutive
+    length-``group`` runs (hierarchical greedy max-similarity matching, as
+    the reference builds it). ``group`` a power of two dividing the cluster
+    count."""
+    c = centroids.shape[0]
+    if group & (group - 1):
+        raise ValueError("group must be a power of two")
+    if c % group:
+        raise ValueError("cluster count must be a multiple of group")
+    members = np.arange(c, dtype=np.int64)[:, None]      # (n_groups, size)
+    reps = centroids.astype(np.float64)
+    size = 1
+    while size < group:
+        n = reps.shape[0]
+        sims = reps @ reps.T
+        iu, ju = np.triu_indices(n, 1)
+        order = np.argsort(-sims[iu, ju], kind="stable")
+        used = np.zeros(n, bool)
+        pair_a = np.empty(n // 2, np.int64)
+        pair_b = np.empty(n // 2, np.int64)
+        got = 0
+        for a, b in zip(iu[order], ju[order]):
+            if used[a] or used[b]:
+                continue
+            used[a] = used[b] = True
+            pair_a[got], pair_b[got] = a, b
+            got += 1
+            if got == n // 2:
+                break
+        members = np.concatenate([members[pair_a], members[pair_b]], axis=1)
+        merged = reps[pair_a] + reps[pair_b]
+        reps = merged / np.maximum(np.linalg.norm(merged, axis=1, keepdims=True), 1e-9)
+        size *= 2
+    return members.reshape(-1)
+
+
+def _group_max(scores: torch.Tensor, group: int) -> torch.Tensor:
+    """(B, C) per-centroid sims → (B, C/group) per-slab probe scores."""
+    if group == 1:
+        return scores
+    b, c = scores.shape
+    return scores.reshape(b, c // group, group).amax(dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -252,16 +299,17 @@ def ivf_scan(q, probe_list, data, ids, k, block_q, approx_width=0, acc_slots=1, 
 
 def _plan_probes(
     queries: torch.Tensor, centroids: torch.Tensor, num_base: int, c_tot: int,
-    block_q: int, union: int,
+    block_q: int, union: int, group: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """normalize → pad to block_q → sort by top-1 centroid → block-max
-    union (+ overflow slabs) → (sorted padded queries, probe list, order)."""
+    """normalize → pad to block_q → sort by top-1 slab → block-max union
+    (+ overflow slabs) → (sorted padded queries, probe list, order).
+    ``c_tot`` counts slabs; a slab's score is its clusters' max."""
     q = l2_normalize(queries).float()
     b, d = q.shape
     pad_b = _round_up(b, block_q)
     if pad_b != b:
         q = torch.cat([q, q.new_zeros((pad_b - b, d))])
-    scores_flat = q @ centroids.float().T
+    scores_flat = _group_max(q @ centroids.float().T, group)
     if pad_b != b:
         # a zero padding row scores 0 against every centroid, which beats a
         # real query whose sims are all negative: keep it out of the union
@@ -271,8 +319,9 @@ def _plan_probes(
     q = q[order].contiguous()
     block_scores = scores_flat[order].reshape(pad_b // block_q, block_q, -1).amax(dim=1)
     probe_ids = torch.argsort(block_scores, dim=1, descending=True, stable=True)[:, :union]
-    if c_tot > num_base:
-        over = torch.arange(num_base, c_tot, device=q.device).expand(probe_ids.shape[0], -1)
+    n_base = num_base // group
+    if c_tot > n_base:
+        over = torch.arange(n_base, c_tot, device=q.device).expand(probe_ids.shape[0], -1)
         probe_ids = torch.cat([probe_ids, over], dim=1)
     return q, probe_ids.to(torch.int32).contiguous(), order
 
@@ -285,57 +334,130 @@ def _rescore(q, i_c, rescore_data, k: int):
     cand = rescore_data[i_c.long().clamp(0, rescore_data.shape[0] - 1)]
     es = torch.einsum("bd,bkd->bk", q.float(), cand.float())
     es = torch.where(i_c >= 0, es, torch.tensor(float("-inf"), device=es.device))
-    top = torch.argsort(es, dim=1, descending=True, stable=True)[:, :k]
-    return torch.gather(es, 1, top), torch.gather(i_c, 1, top)
+    return _top_by_position(es, i_c, k)
+
+
+def _top_by_position(s, i, k: int):
+    """``lax.top_k`` order: score desc, the lower position first among
+    equal scores (a stable sort, not ``torch.topk``)."""
+    top = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
+    return torch.gather(s, 1, top), torch.gather(i, 1, top)
 
 
 def _ivf_query_fused(
     queries, centroids, data_padded, ids_padded, num_base: int, k: int,
     block_q: int, union: int, approx_width: int = 0, acc_slots: int = 1,
-    scales_padded=None, rescore_data=None, k_scan: int = 0,
+    scales_padded=None, rescore_data=None, k_scan: int = 0, group: int = 1,
+    per_probe: bool = False, probes_per_step: int = 1, final_merge: str = "kernel",
+    dma_pipeline: bool = False, dma_buffers: int = 2,
 ):
     """plan → scan at ``k_scan`` (default k) → with ``rescore_data``, the
-    rescore of the scan's candidates down to k → unsort."""
+    rescore of the scan's candidates down to k → unsort. The scan is the
+    reference's branch for the options: per_probe (K1-opt, each probe's
+    top-k pooled and selected here), final_merge "packed" (K9), dma_pipeline
+    (K10), probes_per_step > 1 (K11a), the idless scan on a sentinel index
+    with a single-slot fold and the in-kernel merge (K11b), the raw
+    accumulator for final_merge "xla" / "xla_approx" (K1-opt; both take the
+    exact top-k here — the reference's ``approx_max_k`` is exact on its CPU
+    too), else K1 / K4. Sentinel slabs (D+1) take the queries with a 1
+    appended and their scores come back shifted by 2."""
     q, probe_ids, order = _plan_probes(
-        queries, centroids, num_base, data_padded.shape[0], block_q, union
+        queries, centroids, num_base, data_padded.shape[0], block_q, union, group
     )
-    s, i = ivf_scan(
-        q, probe_ids, data_padded, ids_padded, k_scan or k, block_q,
-        approx_width=approx_width, acc_slots=acc_slots, scales=scales_padded,
+    k_scan = k_scan or k
+    do_rescore = rescore_data is not None and k_scan > k
+    d, dw = q.shape[1], data_padded.shape[-1]
+    shift = 0.0
+    q_kern = q
+    if dw == d + 1:   # sentinel layout: live rows +2, dead slots 0
+        q_kern = torch.cat([q, q.new_ones((q.shape[0], 1))], dim=1).contiguous()
+        shift = 2.0
+    idless = (
+        dw == d + 1 and approx_width > 0 and not per_probe and probes_per_step == 1
+        and scales_padded is None and final_merge == "kernel" and acc_slots == 1
     )
-    if rescore_data is not None:
+    emit_acc = (
+        final_merge in ("xla", "xla_approx") and approx_width > 0
+        and not per_probe and probes_per_step == 1
+    )
+    if per_probe:
+        s_pp, i_pp = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k, block_q,
+                              scales=scales_padded, per_probe=True)
+        pool_s = s_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
+        pool_i = i_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
+        s, i = _top_by_position(pool_s, pool_i, min(k_scan, pool_s.shape[1]) if do_rescore else k)
+    elif final_merge == "packed":
+        if scales_padded is not None:
+            raise ValueError("packed fold does not support int8 scales")
+        if dw != d:
+            raise ValueError("packed fold is incompatible with sentinel")
+        out_p = ivf_scan_packed(q, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                                approx_width, max(acc_slots, 1))
+        s, i = _unpack_candidates(out_p, probe_ids, ids_padded, block_q)
+    elif dma_pipeline:
+        if scales_padded is not None:
+            raise ValueError("dma_pipeline does not support int8 scales")
+        s, i = ivf_scan_dma(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                            max(acc_slots, 1), dma_buffers)
+    elif idless:
+        s, i = ivf_scan_idless(q_kern, probe_ids, data_padded, k_scan, block_q, approx_width)
+        # flat slot ids → corpus ids with one (B, k) gather
+        ids_flat = ids_padded.reshape(-1)
+        i = torch.where(i >= 0, ids_flat[i.long().clamp(0, ids_flat.shape[0] - 1)], -1)
+    elif probes_per_step > 1:
+        if not approx_width:
+            raise ValueError("probes_per_step>1 needs the approx path")
+        s, i = ivf_scan_multiprobe(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                                   probes_per_step, scales_padded)
+    else:
+        s, i = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                        approx_width=approx_width,
+                        acc_slots=acc_slots if approx_width else 1,
+                        scales=scales_padded, emit_acc=emit_acc)
+        if emit_acc:
+            s, i = _top_by_position(s, i, k_scan)
+    if do_rescore:
         s, i = _rescore(q, i, rescore_data, k)
+    elif final_merge != "packed":
+        s = s - shift
     inv = torch.argsort(order)
     return s[inv], i[inv]
 
 
 def _ivf_query_xla(
     q, centroids, data_padded, ids_padded, num_base, k, probes, chunk_q=16,
-    scales_padded=None,
+    scales_padded=None, group=1,
 ):
     """Per-query probes (the reference's XLA path): each query scans its own
-    top-``probes`` clusters plus the overflow slabs (f32 queries; int8
-    scores × the slot's scale); ties go to the earlier (probe, slot)
+    top-``probes`` slabs plus the overflow slabs (f32 queries; int8 scores ×
+    the slot's scale; sentinel slabs take the query with a 1 appended and
+    the scores shift back by 2); ties go to the earlier (probe, slot)
     position, as ``lax.top_k`` does."""
     b, d = q.shape
-    c_tot, mc, _ = data_padded.shape
-    cscores = q.float() @ centroids.float().T
+    c_tot, mc, dw = data_padded.shape
+    n_base = num_base // group
+    cscores = _group_max(q.float() @ centroids.float().T, group)
+    shift = 0.0
+    q = q.float()
+    if dw == d + 1:
+        q = torch.cat([q, q.new_ones((b, 1))], dim=1)
+        shift = 2.0
     probe = torch.argsort(cscores, dim=1, descending=True, stable=True)[:, :probes]
-    if c_tot > num_base:
-        over = torch.arange(num_base, c_tot, device=q.device).expand(b, -1)
+    if c_tot > n_base:
+        over = torch.arange(n_base, c_tot, device=q.device).expand(b, -1)
         probe = torch.cat([probe, over], dim=1)
     out_s, out_i = [], []
     for st in range(0, b, chunk_q):
-        qc, pc = q[st:st + chunk_q].float(), probe[st:st + chunk_q]
+        qc, pc = q[st:st + chunk_q], probe[st:st + chunk_q]
         s = torch.einsum("qd,qpmd->qpm", qc, data_padded[pc].float())
         if scales_padded is not None:
             s = s * scales_padded[pc]
         cid = ids_padded[pc]
         s = torch.where(cid >= 0, s, torch.tensor(float("-inf"), device=q.device))
         s, cid = s.reshape(qc.shape[0], -1), cid.reshape(qc.shape[0], -1)
-        top = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
-        out_s.append(torch.gather(s, 1, top))
-        out_i.append(torch.gather(cid, 1, top))
+        ts, ti = _top_by_position(s, cid, k)
+        out_s.append(ts - shift)
+        out_i.append(ti)
     return torch.cat(out_s), torch.cat(out_i)
 
 
@@ -343,28 +465,34 @@ class IVFIndex:
     def __init__(
         self,
         centroids: torch.Tensor,     # (C, D)
-        data_padded: torch.Tensor,   # (C_tot, Mc, D), C_tot = C + overflow
-        ids_padded: torch.Tensor,    # (C_tot, Mc) int32, -1 = empty
+        data_padded: torch.Tensor,   # (C_tot/g, g·Mc, D or D+1), C_tot = C + overflow
+        ids_padded: torch.Tensor,    # (C_tot/g, g·Mc) int32, -1 = empty
         num_base_clusters: int,
         config: IndexConfig,
-        scales_padded: Optional[torch.Tensor] = None,  # (C_tot, Mc) f32, int8 slabs
+        scales_padded: Optional[torch.Tensor] = None,  # same shape, f32, int8 slabs
         rescore_data: Optional[torch.Tensor] = None,   # (N, D) rows by id
+        group: int = 1,              # clusters per stored slab
     ):
-        if data_padded.shape[-1] != centroids.shape[-1]:
-            raise NotImplementedError(
-                "the sentinel (D+1) slab layout is not ported yet"
-            )
         if (data_padded.dtype == torch.int8) != (scales_padded is not None):
             raise ValueError("int8 slabs need scales_padded, and only they take it")
+        if data_padded.shape[1] % group:
+            raise ValueError("slab width must be a multiple of group")
+        if group > 1 and num_base_clusters % group:
+            raise ValueError("num_base_clusters must be a multiple of group")
         self.centroids = centroids
         self.data_padded = data_padded
         self.ids_padded = ids_padded
         self.scales_padded = scales_padded
         self.rescore_data = rescore_data
+        self.group = group
+        self.cluster_cap = data_padded.shape[1] // group   # slots a cluster
         self.num_base_clusters = num_base_clusters
-        self.num_overflow = data_padded.shape[0] - num_base_clusters
+        self.num_overflow = data_padded.shape[0] - num_base_clusters // group
         self.config = config
         self.device = data_padded.device
+        # the sentinel layout, read from the shape: one trailing column, +2
+        # on live rows and 0 on empty or removed slots
+        self.sentinel = data_padded.shape[-1] == centroids.shape[-1] + 1
         # host mirror of the flat id map, kept by add()/remove() so that
         # repeated small adds do not read the whole map back; None until
         # the first add()
@@ -385,6 +513,8 @@ class IVFIndex:
         device="cuda",
         keep_rescore: Optional[bool] = None,   # default: on for int8 builds
         rescore_dtype=torch.bfloat16,
+        sentinel: bool = False,
+        group: int = 1,
     ) -> "IVFIndex":
         """Spill-balanced build: rows overflowing their cluster's Mc slots
         go to their 2nd/3rd nearest centroid's free slots; only the residue
@@ -393,12 +523,22 @@ class IVFIndex:
         to 512 when ≥ 1024 and to 8 otherwise. ``config.quantize_int8`` (or
         ``data_dtype=torch.int8``) stores per-row int8 codes and scales and,
         unless ``keep_rescore=False``, a ``rescore_dtype`` copy of the
-        corpus for the rescore."""
+        corpus for the rescore. ``sentinel`` appends the +2 column (not with
+        int8); ``group`` (a power of two) rounds the cluster count down to a
+        multiple of it, orders the centroids by ``_affinity_group_perm`` and
+        stores ``group`` clusters a slab, the overflow padded to a slab."""
         dev = resolve_device(device)
         corpus = torch.as_tensor(corpus).to(dev)
         n, d = corpus.shape
         c = min(config.num_clusters, max(n // 32, 1))
+        if group > 1:
+            if group & (group - 1):
+                raise ValueError("group must be a power of two")
+            c = max(group, c // group * group)
         centroids, _ = kmeans(corpus, c, iters=config.kmeans_iters, generator=generator)
+        if group > 1:
+            perm = _affinity_group_perm(centroids.cpu().numpy(), group)
+            centroids = centroids[torch.as_tensor(perm, device=dev)]
         spill_choices = min(spill_choices, c)
         choices = assign_clusters_topk(corpus, centroids, topk=spill_choices).T.cpu().numpy()
 
@@ -432,13 +572,18 @@ class IVFIndex:
         leftover = np.nonzero(slot_of_row < 0)[0]
         n_over = leftover.size
         e = (n_over + mc - 1) // mc if n_over else 0
+        e = _round_up(e, group)    # the overflow region pads to a slab boundary
         if n_over:
             slot_of_row[leftover] = c * mc + np.arange(n_over)
         c_tot = c + e
 
         is_int8 = config.quantize_int8 or data_dtype == torch.int8
+        if sentinel and is_int8:
+            raise ValueError("sentinel layout is incompatible with int8")
+        width = d + 1 if sentinel else d
         slot_dev = torch.as_tensor(slot_of_row, device=dev)
-        flat = torch.zeros((c_tot * mc, d), dtype=torch.int8 if is_int8 else data_dtype, device=dev)
+        flat = torch.zeros((c_tot * mc, width), dtype=torch.int8 if is_int8 else data_dtype,
+                           device=dev)
         sflat = torch.zeros((c_tot * mc,), dtype=torch.float32, device=dev) if is_int8 else None
         for i in range(0, n, _BUILD_SCATTER_CHUNK):
             j = min(i + _BUILD_SCATTER_CHUNK, n)
@@ -446,19 +591,21 @@ class IVFIndex:
                 # quantize per chunk: bounds the f32 transient to one chunk
                 flat[slot_dev[i:j]], sflat[slot_dev[i:j]] = quantize_embeddings_int8(corpus[i:j])
             else:
-                flat[slot_dev[i:j]] = corpus[i:j].to(data_dtype)
+                flat[slot_dev[i:j]] = _stored_rows(corpus[i:j], data_dtype, sentinel)
         ids_flat = np.full((c_tot * mc,), -1, np.int32)
         ids_flat[slot_of_row] = np.arange(n, dtype=np.int32)
         if keep_rescore is None:
             keep_rescore = is_int8
+        n_slabs = c_tot // group
         return cls(
             centroids=centroids,
-            data_padded=flat.view(c_tot, mc, d),
-            ids_padded=torch.as_tensor(ids_flat.reshape(c_tot, mc), device=dev),
+            data_padded=flat.view(n_slabs, group * mc, width),
+            ids_padded=torch.as_tensor(ids_flat.reshape(n_slabs, group * mc), device=dev),
             num_base_clusters=c,
             config=config,
-            scales_padded=sflat.view(c_tot, mc) if is_int8 else None,
+            scales_padded=sflat.view(n_slabs, group * mc) if is_int8 else None,
             rescore_data=corpus.to(rescore_dtype, copy=True) if keep_rescore else None,
+            group=group,
         )
 
     # ------------------------------------------------------------------
@@ -466,35 +613,20 @@ class IVFIndex:
     # ------------------------------------------------------------------
 
     def _probe_ids(self, queries: torch.Tensor, probes: int) -> torch.Tensor:
-        """(B, P) probe ids per query (base clusters only)."""
-        scores = queries.float() @ self.centroids.float().T
+        """(B, P) probe-slab ids per query (base slabs only); a slab's score
+        is the max of its member centroids' sims."""
+        scores = _group_max(queries.float() @ self.centroids.float().T, self.group)
         return torch.argsort(scores, dim=1, descending=True, stable=True)[:, :probes].to(torch.int32)
 
     def query_xla(self, queries, k: int = 10, probes: Optional[int] = None, chunk_q: int = 16):
         """Per-query probe semantics of the reference's XLA path (plain
         tensor code; the tests' second reference). No rescore, as there."""
-        probes = min(probes or self.config.num_probes, self.num_base_clusters)
+        probes = min(probes or self.config.num_probes, self.num_base_clusters // self.group)
         q = l2_normalize(torch.as_tensor(queries).to(self.device))
         return _ivf_query_xla(
             q, self.centroids, self.data_padded, self.ids_padded,
-            self.num_base_clusters, k, probes, chunk_q, self.scales_padded,
+            self.num_base_clusters, k, probes, chunk_q, self.scales_padded, self.group,
         )
-
-    def scan_mode(self, k: int, approx_width: int, acc_slots: int) -> Tuple[int, int]:
-        """The merge mode a scan at ``k`` candidates runs → (approx_width,
-        acc_slots); approx_width 0 is the exact merge. ``acc_slots=0``
-        sizes the fold with ``_approx_merge_plan`` (falling back to exact
-        when no slot count bounds the collision loss)."""
-        w = _scan_width(self.data_padded.shape[1], approx_width)
-        if w and acc_slots == 0:
-            w, acc_slots = _approx_merge_plan(k, self.data_padded.shape[1], w)
-        acc_slots = acc_slots or 1
-        if w and k > acc_slots * w:
-            raise ValueError(
-                f"k={k} exceeds the deferred accumulator ({acc_slots}×{w}); "
-                "pass approx_width=0 or more acc_slots"
-            )
-        return w, acc_slots
 
     def scan_k(self, k: int, k_coarse: int = 0) -> int:
         """Candidates the scan keeps for a top-k query: ``k_coarse`` when
@@ -506,18 +638,101 @@ class IVFIndex:
             k_coarse = 2 * k
         return k_coarse if k_coarse > k else k
 
+    def scan_mode(
+        self, k_scan: int, approx_width: int = 0, acc_slots: int = 0, per_probe: bool = False,
+        probes_per_step: int = 1, final_merge: str = "auto", dma_pipeline: bool = False,
+    ) -> Tuple[int, int]:
+        """The fold a query's scan at ``k_scan`` candidates runs, by the
+        reference's option rules (``IVFIndex.query``) → (approx_width,
+        acc_slots); approx_width 0 is the exact merge. ``acc_slots=0`` sizes
+        the fold with ``_approx_merge_plan`` (falling back to exact when no
+        slot count bounds the collision loss; to the capacity-gated plan for
+        an explicit final_merge; at full width for dma_pipeline). Unlike the
+        reference on a TPU, a dma_pipeline query never degrades for an Mc
+        that is not a multiple of 128: the CUDA K10 takes any Mc."""
+        if approx_width and per_probe:
+            raise ValueError("approx_width and per_probe are exclusive")
+        if final_merge not in ("auto", "kernel", "xla", "xla_approx", "packed"):
+            raise ValueError(f"final_merge={final_merge!r}")
+        explicit = final_merge in ("xla", "xla_approx", "packed")
+        if explicit and not (approx_width and not per_probe and probes_per_step == 1):
+            raise ValueError(
+                "final_merge='xla' needs the plain deferred-merge path "
+                "(approx_width > 0, no per_probe/probes_per_step)"
+            )
+        mc = self.data_padded.shape[1]
+        w = _scan_width(mc, approx_width)
+        if dma_pipeline:
+            # the DMA kernel always folds at full slab width with its own
+            # in-kernel merge
+            if final_merge not in ("auto", "kernel"):
+                raise ValueError(
+                    "dma_pipeline uses the in-kernel merge; "
+                    f"final_merge={final_merge!r} would be ignored"
+                )
+            if acc_slots == 0:
+                w_dma, acc_slots = _approx_merge_plan(k_scan, mc, mc)
+                if w_dma == 0:
+                    w_dma, acc_slots = _approx_merge_plan(k_scan, mc, mc, tol=None)
+                if w_dma == 0:
+                    raise ValueError(
+                        f"k={k_scan} too large for the full-width DMA fold "
+                        f"at Mc={mc}; use the default pipeline (exact merge)"
+                    )
+        elif w and acc_slots == 0 and not per_probe and probes_per_step == 1:
+            w_req = w
+            w, acc_slots = _approx_merge_plan(k_scan, mc, w_req)
+            if w == 0 and explicit:
+                w, acc_slots = _approx_merge_plan(k_scan, mc, w_req, tol=None)
+            if w == 0:
+                if explicit:
+                    raise ValueError(
+                        f"k={k_scan} is too large for the deferred accumulator at "
+                        f"cluster width {mc}; use approx_width=0 (exact merge) or a "
+                        "wider index"
+                    )
+                acc_slots = 1
+        acc_slots = acc_slots or 1
+        # the multiprobe and DMA kernels fold at full slab width Mc
+        guard_w = mc if (dma_pipeline or probes_per_step > 1) else w
+        if guard_w and w and k_scan > acc_slots * guard_w:
+            raise ValueError(
+                f"k={k_scan} exceeds the deferred accumulator "
+                f"({acc_slots}×{guard_w}); pass approx_width=0 or more acc_slots"
+            )
+        if (w and acc_slots > 1 and w % 128 and not dma_pipeline
+                and probes_per_step == 1 and final_merge != "packed"):
+            raise ValueError(
+                "acc_slots > 1 needs a 128-aligned approx_width"
+            )
+        return w, acc_slots
+
     def query(
         self, queries, k: int = 10, probes: Optional[int] = None,
         block_q: int = 32, union_factor: int = 3,
         approx_width: int = 0,     # >0: deferred lane-class fold of this width
         acc_slots: int = 0,        # 0 = sized by _approx_merge_plan
         k_coarse: int = 0,         # rescore pool (see scan_k)
+        per_probe: bool = False,   # each probe's exact top-k, merged here
+        probes_per_step: int = 1,  # >1 (deferred only): K11a, full width
+        final_merge: str = "auto",  # "kernel" | "xla" | "xla_approx" | "packed"
+        dma_pipeline: bool = False,  # K10: the cp.async copy-ring scan
+        dma_buffers: int = 2,        # its ring depth, 2-4
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """normalize → probe union → scan (K1, or K4 over int8 slabs, on the
-        card) → rescore against ``rescore_data`` when there is one → unsort.
-        → (scores (B, k) f32, ids (B, k) int32) on the index's device."""
-        n_slabs = self.num_base_clusters
+        """normalize → probe union → scan (K1 / K4, or the kernel of the
+        option: per_probe and final_merge "xla" / "xla_approx" K1-opt,
+        "packed" K9, dma_pipeline K10, probes_per_step K11a, the idless K11b
+        on a sentinel index with a single-slot fold) → rescore against
+        ``rescore_data`` when there is one → unsort, with the reference's
+        option rules. → (scores (B, k) f32, ids (B, k) int32) on the
+        index's device."""
+        n_slabs = self.num_base_clusters // self.group
         probes = min(probes or self.config.num_probes, n_slabs)
+        k_scan = self.scan_k(k, k_coarse)
+        approx_width, acc_slots = self.scan_mode(
+            k_scan, approx_width, acc_slots, per_probe, probes_per_step, final_merge,
+            dma_pipeline,
+        )
         q = torch.as_tensor(queries).to(self.device)
         b = q.shape[0]
         if b == 0:
@@ -525,14 +740,15 @@ class IVFIndex:
                     torch.empty((0, k), dtype=torch.int32, device=self.device))
         block_q = min(block_q, b)
         union = min(_round_up(probes * union_factor, 8), n_slabs)
-        k_scan = self.scan_k(k, k_coarse)
-        approx_width, acc_slots = self.scan_mode(k_scan, approx_width, acc_slots)
         s, i = _ivf_query_fused(
             q, self.centroids, self.data_padded, self.ids_padded,
             self.num_base_clusters, k, block_q, union,
             approx_width=approx_width, acc_slots=acc_slots,
             scales_padded=self.scales_padded, k_scan=k_scan,
             rescore_data=self.rescore_data if k_scan > k else None,
+            group=self.group, per_probe=per_probe, probes_per_step=probes_per_step,
+            final_merge="kernel" if final_merge == "auto" else final_merge,
+            dma_pipeline=dma_pipeline, dma_buffers=dma_buffers,
         )
         return s[:b], i[:b]
 
@@ -544,17 +760,21 @@ class IVFIndex:
         """Insert new (normalized) rows without a rebuild: each row takes
         the lowest free slot of its nearest cluster (2nd/3rd choice when
         full), the rest fill free overflow slots, then new overflow slabs
-        (scale 0 in their empty slots). An int8 index quantizes the rows;
-        a rescore copy grows to hold them. → the ids start_id … start_id+n-1."""
+        (a multiple of ``group`` clusters; scale 0 in their empty slots). An
+        int8 index quantizes the rows; a sentinel index writes their +2; a
+        rescore copy grows to hold them. → the ids start_id … start_id+n-1."""
         rows = torch.as_tensor(rows).to(self.device)
         n, d = rows.shape
-        mc = self.data_padded.shape[1]
-        c_tot = self.data_padded.shape[0]
+        g = self.group
+        mc = self.cluster_cap                    # slots of one cluster
+        dw = self.data_padded.shape[-1]          # d (+1 with the sentinel)
+        c_tot = self.data_padded.shape[0] * g    # clusters with the padding
         c = self.num_base_clusters
         topk = min(3, c)
         choices = assign_clusters_topk(rows, self.centroids, topk=topk).T.cpu().numpy()
         if self._ids_host is None or self._ids_host.size != self.ids_padded.numel():
             self._ids_host = self.ids_padded.reshape(-1).cpu().numpy().astype(np.int32)
+        # one row a cluster: grouped slabs keep the flat, cluster-major order
         ids_h = self._ids_host.reshape(-1, mc)
         # free slots per cluster: the actual holes (after remove() the live
         # count is no longer the next free offset); lowest first
@@ -581,36 +801,37 @@ class IVFIndex:
             slot[leftover[:take_n]] = c * mc + free[:take_n]
             leftover = leftover[take_n:]
             if leftover.size:
-                extra = (leftover.size + mc - 1) // mc
+                extra = _round_up((leftover.size + mc - 1) // mc, g)
                 slot[leftover] = c_tot * mc + np.arange(leftover.size)
 
         if extra:
             pad = extra * mc
+            n_slabs = (c_tot + extra) // g
             self.data_padded = torch.cat([
-                self.data_padded,
-                torch.zeros((extra, mc, d), dtype=self.data_padded.dtype, device=self.device),
-            ])
+                self.data_padded.reshape(-1, dw),
+                torch.zeros((pad, dw), dtype=self.data_padded.dtype, device=self.device),
+            ]).view(n_slabs, g * mc, dw)
             self.ids_padded = torch.cat([
-                self.ids_padded,
-                torch.full((extra, mc), -1, dtype=torch.int32, device=self.device),
-            ])
+                self.ids_padded.reshape(-1),
+                torch.full((pad,), -1, dtype=torch.int32, device=self.device),
+            ]).view(n_slabs, g * mc)
             if self.scales_padded is not None:
                 self.scales_padded = torch.cat([
-                    self.scales_padded,
-                    torch.zeros((extra, mc), dtype=torch.float32, device=self.device),
-                ])
+                    self.scales_padded.reshape(-1),
+                    torch.zeros((pad,), dtype=torch.float32, device=self.device),
+                ]).view(n_slabs, g * mc)
             c_tot += extra
-            self.num_overflow = c_tot - c
+            self.num_overflow = n_slabs - c // g
             self._ids_host = np.concatenate([self._ids_host, np.full(pad, -1, np.int32)])
 
         slot_dev = torch.as_tensor(slot, device=self.device)
-        flat = self.data_padded.view(-1, d)
+        flat = self.data_padded.view(-1, dw)
         if self.scales_padded is not None:
             q, sc = quantize_embeddings_int8(rows)
             flat[slot_dev] = q
             self.scales_padded.view(-1)[slot_dev] = sc
         else:
-            flat[slot_dev] = rows.to(flat.dtype)
+            flat[slot_dev] = _stored_rows(rows, flat.dtype, self.sentinel)
         new_ids = np.arange(start_id, start_id + n, dtype=np.int32)
         self.ids_padded.view(-1)[slot_dev] = torch.as_tensor(new_ids, device=self.device)
         self._ids_host[slot] = new_ids
@@ -630,8 +851,11 @@ class IVFIndex:
 
     def remove(self, remove_ids) -> int:
         """Clear the slots of the given ids (they then score −inf; the
-        rescore copy keeps its rows, the id mask covers them). → how many
-        slots were cleared."""
+        rescore copy keeps its rows, the id mask covers them). A sentinel
+        index also zeroes their column, so that the idless scan, which reads
+        no ids, scores them below every live row (their vectors stay, so
+        they can still fill a result's tail as (q·x − 2, −1), as in the
+        reference). → how many slots were cleared."""
         rem = np.unique(np.asarray(remove_ids, np.int64))
         if rem.size == 0:
             return 0
@@ -642,6 +866,8 @@ class IVFIndex:
         flat[hit] = -1
         if self._ids_host is not None:
             self._ids_host[np.isin(self._ids_host, rem) & (self._ids_host >= 0)] = -1
+        if self.sentinel:
+            self.data_padded.view(-1, self.data_padded.shape[-1])[hit, -1] = 0
         return n_removed
 
     # ------------------------------------------------------------------
@@ -665,7 +891,7 @@ class IVFIndex:
             num_base_clusters=self.num_base_clusters,
             num_clusters=self.config.num_clusters,
             num_probes=self.config.num_probes,
-            group=1,
+            group=self.group,
             **extra,
         )
 
@@ -675,8 +901,6 @@ class IVFIndex:
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path = path + ".npz"
         with np.load(path) as z:
-            if "group" in z.files and int(z["group"]) != 1:
-                raise NotImplementedError(f"{path}: grouped slabs are not ported yet")
             tag = str(z["data_dtype"]) if "data_dtype" in z.files else ""
             rd_tag = str(z["rescore_dtype"]) if "rescore_dtype" in z.files else ""
             cfg = IndexConfig(
@@ -696,7 +920,17 @@ class IVFIndex:
                     _from_npz(z["rescore_data"], rd_tag).to(dev)
                     if "rescore_data" in z.files else None
                 ),
+                group=int(z["group"]) if "group" in z.files else 1,
             )
+
+
+def _stored_rows(rows: torch.Tensor, dtype, sentinel: bool) -> torch.Tensor:
+    """Rows as the slabs store them: cast, and with the sentinel layout a
+    trailing +2."""
+    rows = rows.to(dtype)
+    if sentinel:
+        rows = torch.cat([rows, rows.new_full((rows.shape[0], 1), 2.0)], dim=1)
+    return rows
 
 
 def _to_npz(t: torch.Tensor) -> Tuple[np.ndarray, str]:

@@ -1,0 +1,491 @@
+"""The IVF scan's semantics in plain tensor code, and its other kernels:
+the packed fold (K9), the copy-ring scan (K10), several probes a step
+(K11a) and the idless scan of the sentinel layout (K11b).
+
+Port of the scan modes of ``text_similarity_tpu.index.ivf``. Every scan
+takes queries sorted and padded to ``block_q`` blocks (B, D) f32, a probe
+list (B/block_q, U) int32 shared by the queries of a block, slabs (C_tot,
+Mc, D) of f32, bf16 or int8 (D+1 wide in the sentinel layout) and their
+ids (C_tot, Mc) int32 (-1 = empty). Queries round to bf16 before the dot
+when the slabs are bf16 or int8; int8 scores are × the slot's scale after
+the dot; a probe id outside [0, C_tot) scans nothing.
+
+- ``scan_plain``: the plain block-union scan behind every ``*_reference``:
+  exact (top-k over every probed slot), the deferred lane-class fold
+  (slot p of probe u enters class p mod w, which keeps its top-S; a later
+  entry ranks below an earlier one of equal score), per probe, or the raw
+  accumulator. Top-k order is (score desc, id asc), missing results
+  (−inf, −1).
+- K9 ``ivf_scan_packed``: the fold over one int32 packet a candidate
+  (``_pack_candidates``) → (B, k) packets; ``_unpack_candidates`` turns
+  them into (score, id).
+- K10 ``ivf_scan_dma``: the deferred fold at full width Mc with S slots and
+  the in-kernel merge (the kernel streams its tiles through a ring of
+  ``n_buffers`` cp.async stages; the result equals K1's at
+  ``approx_width=Mc``).
+- K11a ``ivf_scan_multiprobe``: P probes a step, full-width single-slot
+  fold; the probe list is padded to a multiple of P by repeating its last
+  probe (a repeated probe changes nothing).
+- K11b ``ivf_scan_idless``: the single-slot deferred fold over D+1 slabs
+  without ids: slot id = probe · Mc + position, no slot masked (the
+  sentinel column scores dead slots 0) → flat slot ids.
+
+Each ``*_cuda`` wrapper launches its kernel (``csrc/ivf_modes.cu``,
+``csrc/ivf_scan.cu``) on CUDA tensors and counts its launches; each
+dispatcher takes the plain version only for CPU slabs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import _cuda
+from ..ops.topk import MAX_K, select_topk
+
+MAX_D = 1025                    # 1024 wide, +1 for the sentinel column
+STAGED_PROBES = 4              # slabs K11a stages a step at most
+PACK_SCORE_BITS = 14            # fixed-point cosine resolution ~1.2e-4
+PACK_U_BITS = 6                 # probe index within the block union (≤ 64)
+PACK_POS_BITS = 11              # row position within the slab (Mc ≤ 2048)
+PACK_SCALE = (1 << PACK_SCORE_BITS) / 2.0 - 0.25   # (s+1)·scale ≤ 2^14 − 1
+
+_NEG = float("-inf")
+
+
+def scan_width(mc: int, approx_width: int) -> int:
+    """The fold width a requested ``approx_width`` gives at slab width Mc
+    (0 = the exact merge): clamped to Mc, and Mc when it does not divide."""
+    if not approx_width:
+        return 0
+    w = min(approx_width, mc)
+    return mc if mc % w else w
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _dot_queries(q: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    return q.float() if data.dtype == torch.float32 else q.to(torch.bfloat16).float()
+
+
+def _probe_scores(qb, slabs, data, ids, scales):
+    """Scores of a block's queries against its probed slabs → (s (bq, U,
+    Mc) f32, slot ids (U, Mc)). ``ids=None`` is the idless scan: flat slot
+    ids, no slot masked; otherwise slots with id < 0 score −inf. Probes
+    outside [0, C_tot) have no live slot."""
+    c_tot, mc, _ = data.shape
+    valid = (slabs >= 0) & (slabs < c_tot)
+    safe = torch.where(valid, slabs, torch.zeros_like(slabs))
+    s = torch.einsum("qd,umd->qum", qb, data[safe].float())
+    if scales is not None:
+        s = s * scales[safe][None]
+    if ids is None:
+        cid = safe[:, None] * mc + torch.arange(mc, device=qb.device)[None]
+        cid = torch.where(valid[:, None], cid, -1).to(torch.int32)
+        return torch.where(valid[None, :, None], s, _NEG), cid
+    cid = torch.where(valid[:, None], ids[safe], -1)
+    return torch.where(cid[None] >= 0, s, _NEG), cid
+
+
+def _fold(s, cid, w: int, slots: int):
+    """The lane-class fold of (bq, U, Mc) scores: insertion t of class c is
+    slot (u, p) with p mod w = c, in (u, p) order; each class keeps its
+    top-``slots`` (a stable sort: the earlier of equal scores first) →
+    (acc_s, acc_i) (bq, slots, w); empty entries (−inf, −1)."""
+    bq = s.shape[0]
+    t = s.shape[1] * s.shape[2] // w
+    s = s.reshape(bq, t, w)
+    ci = cid.reshape(1, t, w).expand(bq, t, w)
+    order = torch.argsort(s, dim=1, descending=True, stable=True)[:, :slots]
+    acc_s, acc_i = torch.gather(s, 1, order), torch.gather(ci, 1, order)
+    if t < slots:
+        acc_s = torch.cat([acc_s, s.new_full((bq, slots - t, w), _NEG)], dim=1)
+        acc_i = torch.cat([acc_i, acc_i.new_full((bq, slots - t, w), -1)], dim=1)
+    return acc_s, torch.where(acc_s == _NEG, -1, acc_i).to(torch.int32)
+
+
+def _select(cand_s, cand_i, k: int):
+    """Top-k by (score desc, id asc) of (bq, n) candidates; −inf entries
+    carry id −1; fewer than k candidates pad with (−inf, −1)."""
+    cand_i = torch.where(cand_s == _NEG, -1, cand_i).to(torch.int32)
+    if cand_s.shape[1] < k:
+        pad = k - cand_s.shape[1]
+        cand_s = torch.cat([cand_s, cand_s.new_full((cand_s.shape[0], pad), _NEG)], dim=1)
+        cand_i = torch.cat([cand_i, cand_i.new_full((cand_i.shape[0], pad), -1)], dim=1)
+    return select_topk(cand_s, cand_i, k)
+
+
+def scan_plain(
+    q: torch.Tensor, probe_list: torch.Tensor, data: torch.Tensor,
+    ids: Optional[torch.Tensor], k: int, block_q: int, width: int = 0,
+    slots: int = 1, scales: Optional[torch.Tensor] = None,
+    per_probe: bool = False, emit_acc: bool = False,
+):
+    """The block-union scan in plain tensor code (``width`` = the fold
+    width, 0 = exact). → (B, k) scores and ids; ``per_probe``: (U, B, k),
+    each probe's exact top-k; ``emit_acc``: the (B, slots·width)
+    accumulator, slot s at columns s·width … s·width + width − 1."""
+    b = q.shape[0]
+    n_blocks, u = probe_list.shape
+    qd = _dot_queries(q, data)
+    if per_probe:
+        shape = (u, b, k)
+    elif emit_acc:
+        shape = (b, slots * width)
+    else:
+        shape = (b, k)
+    out_s = torch.empty(shape, dtype=torch.float32, device=q.device)
+    out_i = torch.empty(shape, dtype=torch.int32, device=q.device)
+    for blk in range(n_blocks):
+        rows = slice(blk * block_q, (blk + 1) * block_q)
+        s, cid = _probe_scores(qd[rows], probe_list[blk].long(), data, ids, scales)
+        if per_probe:
+            for j in range(u):
+                out_s[j, rows], out_i[j, rows] = _select(s[:, j], cid[j][None].expand_as(s[:, j]), k)
+            continue
+        if width:
+            acc_s, acc_i = _fold(s, cid, width, slots)
+            cand_s, cand_i = acc_s.reshape(s.shape[0], -1), acc_i.reshape(s.shape[0], -1)
+            if emit_acc:
+                out_s[rows], out_i[rows] = cand_s, cand_i
+                continue
+        else:
+            cand_s = s.reshape(s.shape[0], -1)
+            cand_i = cid.reshape(1, -1).expand_as(cand_s)
+        out_s[rows], out_i[rows] = _select(cand_s, cand_i, k)
+    return out_s, out_i
+
+
+def _pack_candidates(s, u, off, block_q: int, width: int):
+    """(score, probe u, position off + lane) → one int32 packet:
+    [30:17] = score14, [16:11] = u, [10:0] = pos, as the reference packs
+    them (score14 = clamp((s + 1) · PACK_SCALE, 0, 2^14 − 1), truncated)."""
+    s14 = torch.clamp((s + 1.0) * PACK_SCALE, 0.0, float((1 << PACK_SCORE_BITS) - 1))
+    s14 = s14.to(torch.int32)
+    pos = off + torch.arange(width, dtype=torch.int32, device=s.device).expand(block_q, width)
+    return (s14 << (PACK_U_BITS + PACK_POS_BITS)) | (u << PACK_POS_BITS) | pos
+
+
+def _unpack_candidates(out_p, probe_list, ids_padded, block_q: int):
+    """(B, k) packets → (scores f32, corpus ids int32); packet 0 is
+    (−inf, −1)."""
+    b = out_p.shape[0]
+    pos = out_p & ((1 << PACK_POS_BITS) - 1)
+    u = (out_p >> PACK_POS_BITS) & ((1 << PACK_U_BITS) - 1)
+    s14 = out_p >> (PACK_U_BITS + PACK_POS_BITS)
+    scores = s14.float() / PACK_SCALE - 1.0
+    block = torch.arange(b, device=out_p.device)[:, None] // block_q
+    slab = probe_list.long()[block, u.long()]
+    ids = ids_padded[slab, pos.long()]
+    empty = out_p == 0
+    return torch.where(empty, _NEG, scores), torch.where(empty, -1, ids).to(torch.int32)
+
+
+def _packed_width(u: int, mc: int, k: int, approx_width: int, acc_slots: int) -> int:
+    if u > (1 << PACK_U_BITS):
+        raise ValueError("packed fold needs a probe union <= 64")
+    if mc > (1 << PACK_POS_BITS):
+        raise ValueError("packed fold needs Mc <= 2048")
+    w = scan_width(mc, approx_width) or mc
+    if k > acc_slots * w:
+        raise ValueError("k exceeds acc_slots * approx_width")
+    if acc_slots > 1 and w % 128:
+        raise ValueError("acc_slots > 1 needs a 128-aligned width")
+    return w
+
+
+def ivf_scan_packed_reference(
+    q, probe_list, data, ids, k: int, block_q: int, approx_width: int = 0,
+    acc_slots: int = 1,
+) -> torch.Tensor:
+    """Plain version of K9: every probed slot becomes a packet (dead slots
+    0), lane class p mod w keeps its ``acc_slots`` largest packets, the
+    result is the k largest packets of the accumulator (packets are unique,
+    so no tie rule is needed; missing results are 0) → (B, k) int32."""
+    n_blocks, u = probe_list.shape
+    mc = data.shape[1]
+    w = _packed_width(u, mc, k, approx_width, acc_slots)
+    qd = _dot_queries(q, data)
+    out = torch.empty((q.shape[0], k), dtype=torch.int32, device=q.device)
+    probe_u = torch.arange(u, dtype=torch.int32, device=q.device)[None, :, None]
+    for blk in range(n_blocks):
+        rows = slice(blk * block_q, (blk + 1) * block_q)
+        s, cid = _probe_scores(qd[rows], probe_list[blk].long(), data, ids, None)
+        bq = s.shape[0]
+        p = _pack_candidates(s.reshape(bq * u, mc), 0, 0, bq * u, mc).reshape(bq, u, mc)
+        p = torch.where(cid[None] >= 0, p | (probe_u << PACK_POS_BITS), 0)
+        p = p.reshape(bq, u * mc // w, w)
+        acc = torch.sort(p, dim=1, descending=True).values[:, :acc_slots]
+        if acc.shape[1] < acc_slots:
+            acc = torch.cat([acc, acc.new_zeros((bq, acc_slots - acc.shape[1], w))], dim=1)
+        out[rows] = torch.sort(acc.reshape(bq, -1), dim=1, descending=True).values[:, :k]
+    return out
+
+
+def _check_dma(k: int, mc: int, acc_slots: int, n_buffers: int) -> None:
+    if not 2 <= n_buffers <= 4:
+        raise ValueError(f"dma_buffers={n_buffers} must be in [2, 4]")
+    if k > acc_slots * mc:
+        raise ValueError("k exceeds acc_slots * Mc")
+    if acc_slots > 1 and mc % 128:
+        raise ValueError("acc_slots > 1 needs a 128-aligned Mc")
+
+
+def ivf_scan_dma_reference(
+    q, probe_list, data, ids, k: int, block_q: int, acc_slots: int = 1,
+    n_buffers: int = 2,
+):
+    """Plain version of K10: the deferred fold at width Mc with
+    ``acc_slots`` slots and the k-round merge (``n_buffers`` is the
+    kernel's copy depth and changes nothing here)."""
+    mc = data.shape[1]
+    _check_dma(k, mc, acc_slots, n_buffers)
+    return scan_plain(q, probe_list, data, ids, k, block_q, mc, acc_slots)
+
+
+def pad_probes(probe_list: torch.Tensor, per_step: int) -> torch.Tensor:
+    """Pad the probe list to a multiple of ``per_step`` by repeating its
+    last probe (rescanning a slab is a no-op for the strict-> fold)."""
+    u = probe_list.shape[1]
+    if u % per_step == 0:
+        return probe_list
+    pad = per_step - u % per_step
+    return torch.cat([probe_list, probe_list[:, -1:].expand(-1, pad)], dim=1).contiguous()
+
+
+def _check_multiprobe(k: int, mc: int, per_step: int) -> None:
+    if per_step < 1:
+        raise ValueError(f"probes_per_step={per_step} must be ≥ 1")
+    if k > mc:
+        raise ValueError("k exceeds the full-width single-slot accumulator (Mc)")
+
+
+def ivf_scan_multiprobe_reference(
+    q, probe_list, data, ids, k: int, block_q: int, probes_per_step: int,
+    scales=None,
+):
+    """Plain version of K11a: the probe list padded to a multiple of
+    ``probes_per_step``, then the single-slot fold at width Mc and the
+    k-round merge."""
+    mc = data.shape[1]
+    _check_multiprobe(k, mc, probes_per_step)
+    return scan_plain(q, pad_probes(probe_list, probes_per_step), data, ids, k, block_q,
+                      mc, 1, scales)
+
+
+def ivf_scan_idless_reference(q, probe_list, data, k: int, block_q: int, approx_width: int):
+    """Plain version of K11b: the single-slot fold of width
+    ``approx_width`` over every slot (no ids read, none masked), ids =
+    flat slot ids probe · Mc + position; the merge breaks ties on the
+    lowest flat slot id."""
+    w = scan_width(data.shape[1], approx_width)
+    if not w:
+        raise ValueError("the idless scan needs approx_width > 0")
+    if k > w:
+        raise ValueError("k exceeds the single-slot accumulator width")
+    return scan_plain(q, probe_list, data, None, k, block_q, w, 1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def check_scan_inputs(q, probe_list, data, ids, k: int, block_q: int, scales=None,
+                      dtypes=(torch.float32, torch.bfloat16, torch.int8)) -> None:
+    """The checks every IVF scan wrapper makes on what it hands a kernel."""
+    _cuda.require_cuda(q, "q", (torch.float32,), 2)
+    _cuda.require_cuda(probe_list, "probe_list", (torch.int32,), 2)
+    _cuda.require_cuda(data, "data", dtypes, 3)
+    b, d = q.shape
+    c_tot, mc, dd = data.shape
+    if ids is not None:
+        _cuda.require_cuda(ids, "ids", (torch.int32,), 2)
+        if tuple(ids.shape) != (c_tot, mc):
+            raise ValueError(f"ids shape {tuple(ids.shape)} != {(c_tot, mc)}")
+    if (data.dtype == torch.int8) != (scales is not None):
+        raise ValueError("int8 slabs need scales, and only int8 slabs take them")
+    if scales is not None:
+        _cuda.require_cuda(scales, "scales", (torch.float32,), 2)
+        if tuple(scales.shape) != (c_tot, mc):
+            raise ValueError(f"scales shape {tuple(scales.shape)} != {(c_tot, mc)}")
+    if dd != d or not 1 <= d <= MAX_D:
+        raise ValueError(f"dims: q {d}, data {dd} (need equal, ≤ {MAX_D})")
+    if block_q < 1 or b % block_q or probe_list.shape[0] != b // block_q:
+        raise ValueError(f"B={b} must be n_blocks={probe_list.shape[0]} × block_q={block_q}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} must be in [1, {MAX_K}]")
+
+
+def data_kind(data: torch.Tensor) -> int:
+    """The kernels' slab type code: 0 f32, 1 bf16, 2 int8."""
+    return {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[data.dtype]
+
+
+def _outputs(shape, dev):
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def ivf_scan_packed_cuda(
+    q, probe_list, data, ids, k: int, block_q: int, approx_width: int = 0,
+    acc_slots: int = 1,
+) -> torch.Tensor:
+    """Kernel K9 on the card; same contract as
+    ``ivf_scan_packed_reference`` (f32 / bf16 slabs, U ≤ 64, Mc ≤ 2048,
+    acc_slots ≤ 4). Counts ``ivf_scan_packed_cuda.launches``."""
+    check_scan_inputs(q, probe_list, data, ids, k, block_q,
+                      dtypes=(torch.float32, torch.bfloat16))
+    b, d = q.shape
+    c_tot, mc, _ = data.shape
+    u = probe_list.shape[1]
+    w = _packed_width(u, mc, k, approx_width, acc_slots)
+    if not 1 <= acc_slots <= 4:
+        raise ValueError(f"acc_slots={acc_slots} must be in [1, 4]")
+    dev = q.device
+    out = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out
+    part_s, part_i = _outputs((b, -(-w // 128), k), dev)
+    sel_s, sel_i = _outputs((b, k), dev)
+    err = _cuda.lib().ts_ivf_scan_packed(
+        q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
+        ids.data_ptr(), b, d, u, c_tot, mc, block_q, k, w, acc_slots,
+        part_s.data_ptr(), part_i.data_ptr(), sel_s.data_ptr(), sel_i.data_ptr(),
+        out.data_ptr(), _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "ivf_scan_packed kernel")
+    ivf_scan_packed_cuda.launches += 1
+    return out
+
+
+ivf_scan_packed_cuda.launches = 0
+
+
+def ivf_scan_dma_cuda(
+    q, probe_list, data, ids, k: int, block_q: int, acc_slots: int = 1,
+    n_buffers: int = 2,
+):
+    """Kernel K10 on the card; same contract as ``ivf_scan_dma_reference``
+    (f32 / bf16 slabs, any Mc, D ≤ 1025, acc_slots ≤ 4, n_buffers 2-4).
+    Counts ``ivf_scan_dma_cuda.launches``."""
+    check_scan_inputs(q, probe_list, data, ids, k, block_q,
+                      dtypes=(torch.float32, torch.bfloat16))
+    b, d = q.shape
+    c_tot, mc, _ = data.shape
+    _check_dma(k, mc, acc_slots, n_buffers)
+    if not 1 <= acc_slots <= 4:
+        raise ValueError(f"acc_slots={acc_slots} must be in [1, 4]")
+    dev = q.device
+    out_s, out_i = _outputs((b, k), dev)
+    if b == 0:
+        return out_s, out_i
+    part_s, part_i = _outputs((b, -(-mc // 128), k), dev)
+    err = _cuda.lib().ts_ivf_scan_dma(
+        q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
+        data.numel() * data.element_size(), ids.data_ptr(), b, d, probe_list.shape[1],
+        c_tot, mc, block_q, k, acc_slots, n_buffers, part_s.data_ptr(), part_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "ivf_scan_dma kernel")
+    ivf_scan_dma_cuda.launches += 1
+    return out_s, out_i
+
+
+ivf_scan_dma_cuda.launches = 0
+
+
+def ivf_scan_multiprobe_cuda(
+    q, probe_list, data, ids, k: int, block_q: int, probes_per_step: int,
+    scales=None,
+):
+    """Kernel K11a on the card; same contract as
+    ``ivf_scan_multiprobe_reference`` (f32, bf16 or int8 + scales). The
+    kernel stages up to four slabs a step: a larger ``probes_per_step``
+    runs four at a time on the list padded further with its last probe,
+    which leaves the fold, hence the result, as it is. Counts
+    ``ivf_scan_multiprobe_cuda.launches``."""
+    check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
+    b, d = q.shape
+    c_tot, mc, _ = data.shape
+    _check_multiprobe(k, mc, probes_per_step)
+    staged = min(probes_per_step, STAGED_PROBES)
+    probe_list = pad_probes(pad_probes(probe_list, probes_per_step), staged)
+    dev = q.device
+    out_s, out_i = _outputs((b, k), dev)
+    if b == 0:
+        return out_s, out_i
+    part_s, part_i = _outputs((b, -(-mc // 128), k), dev)
+    err = _cuda.lib().ts_ivf_scan_multiprobe(
+        q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data),
+        scales.data_ptr() if scales is not None else None, ids.data_ptr(), b, d,
+        probe_list.shape[1], staged, c_tot, mc, block_q, k,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "ivf_scan_multiprobe kernel")
+    ivf_scan_multiprobe_cuda.launches += 1
+    return out_s, out_i
+
+
+ivf_scan_multiprobe_cuda.launches = 0
+
+
+def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width: int):
+    """Kernel K11b on the card; same contract as
+    ``ivf_scan_idless_reference`` (f32 / bf16 slabs). Counts
+    ``ivf_scan_idless_cuda.launches``."""
+    check_scan_inputs(q, probe_list, data, None, k, block_q,
+                      dtypes=(torch.float32, torch.bfloat16))
+    b, d = q.shape
+    c_tot, mc, _ = data.shape
+    w = scan_width(mc, approx_width)
+    if not w:
+        raise ValueError("the idless scan needs approx_width > 0")
+    if k > w:
+        raise ValueError("k exceeds the single-slot accumulator width")
+    if c_tot * mc >= 2 ** 31:
+        raise ValueError("flat slot ids need C_tot · Mc < 2^31")
+    dev = q.device
+    out_s, out_i = _outputs((b, k), dev)
+    if b == 0:
+        return out_s, out_i
+    part_s, part_i = _outputs((b, -(-w // 128), k), dev)
+    err = _cuda.lib().ts_ivf_scan_idless(
+        q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
+        b, d, probe_list.shape[1], c_tot, mc, block_q, k, w,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "ivf_scan_idless kernel")
+    ivf_scan_idless_cuda.launches += 1
+    return out_s, out_i
+
+
+ivf_scan_idless_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the kernel for CUDA slabs, the plain version for CPU slabs
+# ---------------------------------------------------------------------------
+
+def ivf_scan_packed(q, probe_list, data, ids, k, block_q, approx_width=0, acc_slots=1):
+    fn = ivf_scan_packed_cuda if data.is_cuda else ivf_scan_packed_reference
+    return fn(q, probe_list, data, ids, k, block_q, approx_width, acc_slots)
+
+
+def ivf_scan_dma(q, probe_list, data, ids, k, block_q, acc_slots=1, n_buffers=2):
+    fn = ivf_scan_dma_cuda if data.is_cuda else ivf_scan_dma_reference
+    return fn(q, probe_list, data, ids, k, block_q, acc_slots, n_buffers)
+
+
+def ivf_scan_multiprobe(q, probe_list, data, ids, k, block_q, probes_per_step, scales=None):
+    fn = ivf_scan_multiprobe_cuda if data.is_cuda else ivf_scan_multiprobe_reference
+    return fn(q, probe_list, data, ids, k, block_q, probes_per_step, scales)
+
+
+def ivf_scan_idless(q, probe_list, data, k, block_q, approx_width):
+    fn = ivf_scan_idless_cuda if data.is_cuda else ivf_scan_idless_reference
+    return fn(q, probe_list, data, k, block_q, approx_width)

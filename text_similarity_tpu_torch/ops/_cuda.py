@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "ivf_scan.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu")
 HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,6 +53,30 @@ _SIGNATURES = {
     # width, slots, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
+    # q, probes, data, data_kind (0 f32, 1 bf16, 2 int8), scales (or NULL),
+    # ids, B, D, U, C_tot, Mc, block_q, k, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_per_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P],
+    # q, probes, data, data_kind, scales, ids, B, D, U, C_tot, Mc, block_q,
+    # width, slots, out_s, out_i, stream
+    "ts_ivf_scan_emit_acc": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P],
+    # q, probes, data, data_bf16, B, D, U, C_tot, Mc, block_q, k, width,
+    # part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_idless": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
+    # q, probes, data, data_bf16, ids, B, D, U, C_tot, Mc, block_q, k, width,
+    # slots, part_s, part_i, sel_s, sel_i, out_p, stream
+    "ts_ivf_scan_packed": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P],
+    # q, probes, data, data_bf16, data_bytes, ids, B, D, U, C_tot, Mc,
+    # block_q, k, slots, n_buf, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_dma": [_P, _P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P],
+    # q, probes, data, data_kind, scales, ids, B, D, U, P, C_tot, Mc,
+    # block_q, k, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_multiprobe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P],
     # q, k, v, out, lse (or NULL), lengths, bf16, B, S, H, D,
     # q/k/v strides (batch, token, head) in elements, window, global_cls,
     # scale, stream
