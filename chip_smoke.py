@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's semantic-search, long-document and training paths
-on one NVIDIA card.
+"""Run the PyTorch port's semantic-search, long-document, training and
+packed-encode paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -11,6 +11,15 @@ Phases (any failure exits non-zero):
  2. K2 (exact cosine top-k) against its plain version at N = 100,003 ragged,
     D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora with
     duplicated rows.
+ 2b. K8 (certified two-pass top-k) through ``cosine_topk_2pass`` at phase
+    2's shapes (f32 and bf16, Q ∈ {1, 7, 256}, k ∈ {10, 20}) with its
+    counters zeroed just before: both passes launch on every call; each
+    call against the plain version (f32 ids equal where scores are
+    separated, |Δ| ≤ 1e-5; bf16 overlap ≥ 0.99, |Δ| ≤ 1e-4) and against
+    K2; pass A and pass B alone against their plain versions; a collision
+    corpus (two near-copies 2048 rows apart) must fall back to K2 once and
+    keep both copies. Timed at Q = 256, k = 10 beside K2 and
+    ``torch.topk(q @ cᵀ)``.
  3. K1 (IVF scan) against its plain version on a 1M × 384 IVF index built
     on the card from the bench recipe (4096 gaussian centres ×3 + unit
     noise; queries = corpus rows + 0.1 noise), bf16 slabs,
@@ -25,6 +34,11 @@ Phases (any failure exits non-zero):
     the queries whose own slab was in their block's shared probe list).
     Both kernels' launch counters must rise during this phase, and each
     kernel must agree with its plain version at the pipeline's shapes.
+    ``encode``'s ``packed="auto"`` packs these sentences; the corpus also
+    runs with ``packed=False``: both rates, the host time of
+    ``pack_sequences``, and the routes' unit embeddings (1 − min cosine
+    ≤ 1.5e-5, max |Δ| ≤ 3.5e-3, the next document's embedding as the
+    control); the 64-text encode on both routes.
  5. int8 serving:
     - K3 (int8 top-k) against its plain version at N = 100,003 ragged,
       D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, duplicated rows; timed at
@@ -80,7 +94,7 @@ Phases (any failure exits non-zero):
       seed, positions tiled to 4098, window 256, global CLS, bf16) encodes
       128 documents joined from the phase-4 sentences (112 of 3000-4040
       tokens, 16 of 600-980) with ``encode(max_len=4096, buckets=… 1024,
-      2048, 4096, batch_size=8)`` into an ``EmbeddingStore`` searched by
+      2048, 4096, batch_size=8, packed=False)`` into an ``EmbeddingStore`` searched by
       ``BruteForceIndex`` (K2). Gates: K5's launches in that encode = 12 ×
       the batches at bucket 4096, and K2, zeroed with it, launches in the
       search; 16 documents queried with their own text
@@ -125,11 +139,25 @@ Phases (any failure exits non-zero):
       steps on one repeated batch at lr 1e-4 through the Trainer with
       checkpoints: the loss falls; ``save`` → ``load`` gives the same
       embeddings; K2 finds each saved document's own vector first.
- 8. One JSON line ``{"kernels": [...]}`` for K1-K6, K1-opt (per_probe,
-    emit_acc), K9, K10, K11a and K11b: launches in the pipeline window of
-    their phase (4, 5, 5b, 6 or 7), time, plain time, bound and library time
-    at the phase-2/3/5/5b/6/7 shapes.
- 9. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 8. head-packed attention:
+    - K7 against its plain version on every row (padded query rows too),
+      B 64 × S 128 × H 12, D 32 and 64, ragged lengths with a zero-length
+      row, f32 and bf16, q, k, v as views of a fused QKV (f32 max |Δ| ≤
+      1e-4; bf16 max ≤ 1e-2, mean ≤ 5e-4; zero-length rows exactly 0);
+      timed at B 128 × S 128 × H 12 × D 32 bf16 beside the plain version
+      and SDPA with a boolean key mask;
+    - minilm-l6 (phase 4's weights) runs ``encoder_forward`` with
+      ``attention_impl="packed"`` over 2,048 texts in length-bucketed
+      batches of 128 at 32 / 64 / 128, K7's counter zeroed just before (it
+      must read 6 × the batches); last_hidden_state on valid rows against
+      the reference path within ``PACKED_AGREE_MEAN`` / ``PACKED_AGREE_MAX``,
+      pooled cosine ≥ 0.99, another row ≥ 10 × the mean limit away; a
+      ``torch.profiler`` split of one pass.
+ 9. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+    emit_acc), K9, K10, K11a and K11b: launches in the counted window of
+    their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
+    library time at the phase-2/2b/3/5/5b/6/7/8 shapes.
+ 10. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -205,20 +233,38 @@ def separated_ids_equal(ki, ri, rs, tol=1e-5) -> bool:
 # Phase 2: K2
 # ---------------------------------------------------------------------------
 
-def phase_topk(torch, card):
-    from text_similarity_tpu_torch.ops.topk import (
-        cosine_topk_cuda, cosine_topk_reference, l2_normalize,
-    )
+def topk_inputs(torch, seed=2, n=100_003, d=384):
+    """Phase 2's corpus (unit rows, 256 of them with two exact copies in
+    the second half) and 256 queries near the copied rows."""
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
-    n, d = 100_003, 384
+    g = torch.Generator(device=dev).manual_seed(seed)
     corpus = l2_normalize(torch.randn(n, d, generator=g, device=dev))
     src = torch.randperm(n // 2, generator=g, device=dev)[:256]
     dst = n // 2 + torch.randperm(n - n // 2, generator=g, device=dev)[:512]
     corpus[dst[:256]] = corpus[src]
     corpus[dst[256:]] = corpus[src]       # three copies: exact ties
     queries = l2_normalize(corpus[src] + 0.05 * torch.randn(256, d, generator=g, device=dev))
+    return corpus, queries
+
+
+def agree_topk(ks, ki, rs, ri, exact):
+    """(max |Δscore|, ok, detail): f32 ids equal where scores are separated
+    and |Δ| ≤ 1e-5; bf16 overlap ≥ 0.99 and |Δ| ≤ 1e-4."""
+    ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+    err = float(np.abs(ks - rs).max())
+    if exact:
+        return err, err <= 1e-5 and separated_ids_equal(ki, ri, rs), f"ids equal {np.mean(ki == ri):.4f}"
+    ov = overlap(ki, ri)
+    return err, err <= 1e-4 and ov >= 0.99, f"overlap {ov:.4f}"
+
+
+def phase_topk(torch, card):
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+
+    corpus, queries = topk_inputs(torch)
+    n, d = corpus.shape
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         c = corpus.to(dtype).contiguous()
@@ -227,17 +273,8 @@ def phase_topk(torch, card):
             for k in (10, 20):
                 ks, ki = cosine_topk_cuda(q, c, k)
                 rs, ri = cosine_topk_reference(q, c, k)
-                torch.cuda.synchronize()
-                ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
-                err = float(np.abs(ks - rs).max())
+                err, ok, detail = agree_topk(ks, ki, rs, ri, dtype == torch.float32)
                 worst = max(worst, err)
-                if dtype == torch.float32:
-                    ok = err <= 1e-5 and separated_ids_equal(ki, ri, rs)
-                    detail = f"ids equal {np.mean(ki == ri):.4f}"
-                else:
-                    ov = overlap(ki, ri)
-                    ok = err <= 1e-4 and ov >= 0.99
-                    detail = f"overlap {ov:.4f}"
                 log(f"K2 {str(dtype)[6:]} Q={q_n} k={k}: max|Δscore| {err:.2e}, {detail}"
                     f" -> {'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -263,6 +300,160 @@ def phase_topk(torch, card):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "shape": f"Q=256 N={n} D={d} k=10 f32",
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: K8 (the certified two-pass top-k)
+# ---------------------------------------------------------------------------
+
+def collision_inputs(torch, n=100_003, d=384, q_n=8):
+    """The reference's collision recipe at phase 2's size: two near-copies
+    of the query's target 2048 rows apart share a lane class, so pass A
+    hides one of them and the call must fall back to K2."""
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    corpus = 0.01 * torch.randn(n, d, generator=g, device=dev)
+    target = torch.randn(d, generator=g, device=dev)
+    corpus[5] = target + 0.001 * torch.randn(d, generator=g, device=dev)
+    corpus[5 + 2048] = target + 0.001 * torch.randn(d, generator=g, device=dev)
+    return l2_normalize(corpus), l2_normalize(target[None].repeat(q_n, 1))
+
+
+def k8_counts(topk):
+    return {"fold": topk.topk_2pass_fold_cuda.launches,
+            "count": topk.topk_2pass_count_cuda.launches,
+            "fallbacks": topk.cosine_topk_2pass.fallbacks,
+            "cosine_topk (fallback)": topk.cosine_topk_cuda.launches}
+
+
+def phase_topk_2pass(torch, card):
+    """K8 through its entry point ``cosine_topk_2pass`` at phase 2's shapes
+    (Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora), counted; then
+    each call against the plain version and K2, each pass against its plain
+    version, the collision corpus (must fall back), and the times at Q 256,
+    k 10 beside K2 and ``torch.topk(q @ cᵀ)``. → the two kernels' rows."""
+    from text_similarity_tpu_torch.ops import topk
+
+    corpus, queries = topk_inputs(torch)
+    n, d = corpus.shape
+    corpora = {dt: corpus.to(dt).contiguous() for dt in (torch.float32, torch.bfloat16)}
+    cases = [(dt, q_n, k) for dt in corpora for q_n in (1, 7, 256) for k in (10, 20)]
+
+    # the path: the entry point on every case, with the counters zeroed
+    topk.topk_2pass_fold_cuda.launches = topk.topk_2pass_count_cuda.launches = 0
+    topk.cosine_topk_cuda.launches = topk.cosine_topk_2pass.fallbacks = 0
+    results = {}
+    for dt, q_n, k in cases:
+        before = topk.cosine_topk_2pass.fallbacks
+        out = topk.cosine_topk_2pass(queries[:q_n].contiguous(), corpora[dt], k)
+        results[(dt, q_n, k)] = (*out, topk.cosine_topk_2pass.fallbacks > before)
+    torch.cuda.synchronize()
+    launches = k8_counts(topk)
+    log(f"launches during the K8 path ({len(cases)} calls of cosine_topk_2pass): {launches}")
+    if launches["fold"] != len(cases) or launches["count"] != len(cases):
+        raise AssertionError(f"K8's passes launched {launches}, expected {len(cases)} each")
+
+    worst = {"fold": 0.0, "count": 0.0}
+    for (dt, q_n, k), (ks, ki, fell) in results.items():
+        q, c, exact = queries[:q_n].contiguous(), corpora[dt], dt == torch.float32
+        before = topk.cosine_topk_2pass.fallbacks
+        rs, ri = topk.cosine_topk_2pass_reference(q, c, k)
+        plain_fell = topk.cosine_topk_2pass.fallbacks > before
+        es, ei = topk.cosine_topk_cuda(q, c, k)
+        fs, fi = topk.topk_2pass_fold_cuda(q, c, k)
+        ps, pi = topk.topk_2pass_fold_plain(q, c, k, 2048)
+        # pass B at thresholds halfway across the first gap wider than 1e-5
+        # at or below the exact k-th score: no score lies near them (copied
+        # rows tie exactly, and two summation orders may split such a tie)
+        ts, _ = topk.cosine_topk_reference(q, c, k + 8)
+        at = (ts[:, k - 1:-1] - ts[:, k:] > 1e-5).int().argmax(dim=1) + k - 1
+        rows = torch.arange(q_n, device=q.device)
+        thr = 0.5 * (ts[rows, at] + ts[rows, at + 1])
+        cnt = topk.topk_2pass_count_cuda(q, c, thr)
+        pcnt = topk.topk_2pass_count_plain(q, c, thr, 2048)
+        s = topk._dot_dtype_queries(q, c) @ c.float().T
+        near = ((s - thr[:, None]).abs() <= 1e-5).sum(dim=1)
+        cnt_err = int((cnt - pcnt).abs().max())
+        count_ok = bool(((cnt - pcnt).abs() <= near).all())
+        err, ok, detail = agree_topk(ks, ki, rs, ri, exact)
+        _, ok_k2, detail_k2 = agree_topk(ks, ki, es, ei, exact)
+        ferr, ok_fold, detail_fold = agree_topk(fs, fi, ps, pi, exact)
+        worst["fold"] = max(worst["fold"], err, ferr)
+        worst["count"] = max(worst["count"], float(cnt_err))
+        ok = ok and ok_k2 and ok_fold and count_ok and fell == plain_fell
+        log(f"K8 {str(dt)[6:]} Q={q_n} k={k}: fell back {fell} (plain {plain_fell}); against "
+            f"the plain version max|Δscore| {err:.2e}, {detail}; against K2 {detail_k2}; pass A "
+            f"alone max|Δ| {ferr:.2e}, {detail_fold}; pass B alone max|Δcount| {cnt_err} "
+            f"at thresholds between scores -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K8 disagrees with its plain version or with K2, or falls "
+                                 "back where the plain version does not")
+
+    # the collision corpus: the certification must fail and K2 answer
+    cc, cq = collision_inputs(torch)
+    for dt in (torch.float32, torch.bfloat16):
+        c = cc.to(dt).contiguous()
+        before = k8_counts(topk)
+        ks, ki = topk.cosine_topk_2pass(cq, c, 10)
+        torch.cuda.synchronize()
+        delta = {key: v - before[key] for key, v in k8_counts(topk).items()}
+        before = topk.cosine_topk_2pass.fallbacks
+        rs, ri = topk.cosine_topk_2pass_reference(cq, c, 10)
+        plain_fell = topk.cosine_topk_2pass.fallbacks > before
+        err, ok, detail = agree_topk(ks, ki, rs, ri, dt == torch.float32)
+        both = all({5, 5 + 2048} <= set(row) for row in ki.cpu().tolist())
+        ok = (ok and both and delta["fallbacks"] == 1 and delta["cosine_topk (fallback)"] == 1
+              and plain_fell)
+        log(f"K8 collision corpus {str(dt)[6:]} (Q=8, k=10): launches {delta}; the plain version "
+            f"fell back {plain_fell}; both near-copies in every row {both}; against the plain "
+            f"version max|Δscore| {err:.2e}, {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K8 did not fall back to K2 on the collision corpus")
+
+    # times at the main shape: f32 corpus, Q = 256, k = 10
+    q, c, k = queries.contiguous(), corpora[torch.float32], 10
+    qn = q.shape[0]
+    fs, _ = topk.topk_2pass_fold_cuda(q, c, k)
+    thr = fs[:, k - 1].clone()
+
+    def passes():
+        out_s, _ = topk.topk_2pass_fold_cuda(q, c, k)
+        t = out_s[:, k - 1].clone()
+        cnt = topk.topk_2pass_count_cuda(q, c, t)
+        return bool((cnt == (out_s > t[:, None]).sum(dim=1, dtype=torch.int32)).all())
+
+    certified = passes()
+    ms_fold = time_ms(torch, lambda: topk.topk_2pass_fold_cuda(q, c, k))
+    ms_count = time_ms(torch, lambda: topk.topk_2pass_count_cuda(q, c, thr))
+    ms_passes = time_ms(torch, passes)
+    ms_call = time_ms(torch, lambda: topk.cosine_topk_2pass(q, c, k))
+    ms_k2 = time_ms(torch, lambda: topk.cosine_topk_cuda(q, c, k))
+    plain_fold = time_ms(torch, lambda: topk.topk_2pass_fold_plain(q, c, k, 2048), iters=3, warmup=1)
+    plain_count = time_ms(torch, lambda: topk.topk_2pass_count_plain(q, c, thr, 2048),
+                          iters=3, warmup=1)
+    lib = time_ms(torch, lambda: torch.topk(q @ c.T, k, dim=1))
+    q7 = queries[:7].contiguous()
+    ms_q7 = time_ms(torch, lambda: topk.cosine_topk_2pass(q7, c, k))
+    ops = 2.0 * qn * n * d
+    fold_b, fold_by = bound_ms(qn * d * 4 + n * d * 4 + qn * k * 8, ops, PEAK_F32)
+    count_b, count_by = bound_ms(qn * d * 4 + n * d * 4 + qn * 8, ops, PEAK_F32)
+    log(f"K8 times [{card}]: f32 Q={qn} N={n} k={k}: pass A {ms_fold:.3f} ms (plain "
+        f"{plain_fold:.3f}), pass B {ms_count:.3f} ms (plain {plain_count:.3f}), both passes + "
+        f"the certification {ms_passes:.3f} ms (certified: {certified}); cosine_topk_2pass "
+        f"{ms_call:.3f} ms with its fallback; K2 {ms_k2:.3f} ms; torch.topk(q@cT) {lib:.3f} ms; "
+        f"bound {fold_b:.4f} ms ({fold_by}) a pass; Q=7 call {ms_q7:.3f} ms")
+    row = {"route": "cuda", "source": "text_similarity_tpu_torch/csrc/topk_2pass.cu",
+           "shape": f"Q={qn} N={n} D={d} k={k} f32"}
+    return [
+        {"name": "topk_2pass_fold", **row, "replaces": "text_similarity_tpu/ops/topk.py:445",
+         "launches": launches["fold"], "max_abs_err": worst["fold"], "ms": ms_fold,
+         "plain_ms": plain_fold, "bound_ms": fold_b, "bound_by": fold_by, "library_ms": lib},
+        {"name": "topk_2pass_count", **row, "replaces": "text_similarity_tpu/ops/topk.py:474",
+         "launches": launches["count"], "max_abs_err": worst["count"], "ms": ms_count,
+         "plain_ms": plain_count, "bound_ms": count_b, "bound_by": count_by, "library_ms": None},
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -544,8 +735,54 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
     return {**split, "rest": rest, "busy": busy, "wall": wall}
 
 
+# bf16 unit embeddings of the 120k corpus, packed route against bucketed:
+# about 2.5x the first readings on an H100 (1 − min cosine 6e-6, max|Δ|
+# 1.349e-3), where another document's embedding (the control) differs by
+# far more: distinct documents' mean cosine is 0.9691
+PACK_AGREE_COS, PACK_AGREE_MAX = 1.5e-5, 3.5e-3
+
+
+def packed_vs_bucketed(torch, enc, corpus, rows, emb_auto, card):
+    """The corpus encode bucketed (``packed=False``) beside the ``"auto"``
+    route's embeddings ``emb_auto``: its rate, the host time of the packing
+    layout alone, and the two routes' agreement (1 − min cosine of the unit
+    embeddings and max |Δ| within PACK_AGREE_*), with the bucketed vectors
+    rolled by one document as the control, which must lie 100× beyond the
+    cosine limit."""
+    from text_similarity_tpu_torch.data import (
+        BUCKETS, pack_sequences, packing_efficiency, pick_bucket,
+    )
+
+    torch.cuda.synchronize()
+    t = time.time()
+    emb = enc.encode(corpus, batch_size=128, device_output=True, packed=False)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t
+    width = pick_bucket(max(len(r) for r in rows), BUCKETS)
+    t = time.time()
+    packed = pack_sequences(rows, width, pad_id=enc.tokenizer.pad_id)
+    pack_s = time.time() - t
+    cos = (emb * emb_auto).sum(dim=1)
+    worst = float((emb - emb_auto).abs().max())
+    other = emb.roll(1, dims=0)
+    ctl_cos = float((other * emb_auto).sum(dim=1).min())
+    ctl_max = float((other - emb_auto).abs().max())
+    gap = 1.0 - float(cos.min())
+    ok = gap <= PACK_AGREE_COS and worst <= PACK_AGREE_MAX and 1.0 - ctl_cos >= 100 * PACK_AGREE_COS
+    log(f"encode 120000 docs, packed=False [{card}]: {enc_s:.1f} s = {len(corpus) / enc_s:.0f} "
+        f"sentences/s; pack_sequences alone {pack_s * 1e3:.0f} ms ({packed['ids'].shape[0]} rows of "
+        f"{width}, {packing_efficiency(packed):.1%} tokens); the two routes' unit embeddings: min "
+        f"cosine {float(cos.min()):.7f} (1 − min {gap:.2e}), mean {float(cos.mean()):.7f}, max|Δ| "
+        f"{worst:.3e} (limits {PACK_AGREE_COS:.1e}, {PACK_AGREE_MAX:.1e}); control, the next "
+        f"document's: min cosine {ctl_cos:.5f}, max|Δ| {ctl_max:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"packed and bucketed encodes disagree (1 − min cosine {gap:.2e}, "
+                             f"max|Δ| {worst:.3e}) or the control does not separate them")
+
+
 def phase_pipeline(torch, card):
     from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.data import BUCKETS, pack_sequences, pick_bucket
     from text_similarity_tpu_torch.data.tokenization import (
         WordPieceTokenizer, train_wordpiece_vocab,
     )
@@ -573,8 +810,12 @@ def phase_pipeline(torch, card):
     big = SemanticSearchPipeline(enc, corpus=corpus, device="cuda")
     torch.cuda.synchronize()
     enc_s = time.time() - t
+    rows = enc._tokenize_rows(corpus, 256)
+    routes = {True: "packed", False: "bucketed"}
     log(f"encode 120000 docs: {enc_s:.1f} s = {len(corpus) / enc_s:.0f} sentences/s "
-        f"(tokenize + minilm-l6 bf16) [{card}]")
+        f"(tokenize + minilm-l6 bf16; packed='auto' took the "
+        f"{routes[enc.use_packed(rows, big.batch_size, BUCKETS)]} route) [{card}]")
+    packed_vs_bucketed(torch, enc, corpus, rows, big.store.view[:len(corpus)], card)
     sample = big.store.view[:2000]
     cos = sample @ sample.T
     log(f"random-weight embeddings: mean cosine between distinct documents "
@@ -604,6 +845,13 @@ def phase_pipeline(torch, card):
     qe = _pad_pow2(enc.encode(q64, device_output=True))
     mc = big.ivf.data_padded.shape[1]
     enc_ms = host_ms(torch, lambda: enc.encode(q64, device_output=True))
+    bucketed_ms = host_ms(torch, lambda: enc.encode(q64, device_output=True, packed=False))
+    rows64 = enc._tokenize_rows(q64, 256)
+    width64 = pick_bucket(max(len(r) for r in rows64), BUCKETS)
+    pack_ms = host_ms(torch, lambda: pack_sequences(rows64, width64, pad_id=enc.tokenizer.pad_id))
+    log(f"64-text encode [{card}]: packed='auto' ({routes[enc.use_packed(rows64, 128, BUCKETS)]}) "
+        f"{enc_ms:.2f} ms = {64 / enc_ms * 1e3:.0f} sentences/s, packed=False {bucketed_ms:.2f} ms "
+        f"= {64 / bucketed_ms * 1e3:.0f} sentences/s; pack_sequences alone {pack_ms:.3f} ms")
     for label, pipe, search in (
         ("ivf pipeline", big, lambda: big.ivf.query(
             qe, k=10, block_q=64, union_factor=1, approx_width=2048 if mc >= 1024 else 0)),
@@ -645,19 +893,10 @@ def phase_pipeline(torch, card):
 def phase_int8_topk(torch, card):
     """K3 against its plain version, and its times, at the phase-2 shapes."""
     from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
-    from text_similarity_tpu_torch.ops.topk import (
-        cosine_topk_int8_cuda, cosine_topk_int8_reference, l2_normalize,
-    )
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_int8_cuda, cosine_topk_int8_reference
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    n, d = 100_003, 384
-    corpus = l2_normalize(torch.randn(n, d, generator=g, device=dev))
-    src = torch.randperm(n // 2, generator=g, device=dev)[:256]
-    dst = n // 2 + torch.randperm(n - n // 2, generator=g, device=dev)[:512]
-    corpus[dst[:256]] = corpus[src]
-    corpus[dst[256:]] = corpus[src]       # three copies: exact ties
-    queries = l2_normalize(corpus[src] + 0.05 * torch.randn(256, d, generator=g, device=dev))
+    corpus, queries = topk_inputs(torch, seed=3)
+    n, d = corpus.shape
     codes, scales = quantize_embeddings_int8(corpus)
     worst = 0.0
     for q_n in (1, 7, 256):
@@ -1422,7 +1661,10 @@ def phase_long_documents(torch, card, ctx):
 
     tok, corpus = ctx["tok"], ctx["corpus"]
     rng = np.random.default_rng(6)
-    kw = dict(max_len=4096, buckets=LONG_BUCKETS, batch_size=8)
+    # packed=False: "auto" already runs the windowed model bucketed, but it
+    # could pack the window-0 minilm-l6 below, whose 4096-wide packed rows
+    # would run segment-masked plain attention instead of K5
+    kw = dict(max_len=4096, buckets=LONG_BUCKETS, batch_size=8, packed=False)
     t0 = time.time()
     docs = long_documents(tok, corpus[:24_000], rng, 112, 16)
     arch = ARCH_PRESETS["roberta-base"]
@@ -1957,6 +2199,162 @@ def phase_short_training(torch, card, ctx):
         raise AssertionError("the trained encoder did not survive save -> load -> search")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: head-packed attention (K7)
+# ---------------------------------------------------------------------------
+
+PACKED_BUCKETS = (32, 64, 128)
+# bf16 last_hidden_state of minilm-l6, the K7 path against the reference
+# path, valid rows: about 2.5x the first readings on an H100 (mean 3.13e-3,
+# max 0.094), where another row's states differ by a mean of 0.61
+PACKED_AGREE_MEAN, PACKED_AGREE_MAX = 8e-3, 0.25
+
+
+def phase_packed_attention(torch, card):
+    """K7 against its plain version on every row (B 64 × S 128 × H 12, D 32
+    and 64, ragged lengths with a full and a zero-length row, f32 and bf16;
+    q, k, v as views of a fused QKV), then its time at B 128 × S 128 × H 12
+    × D 32 bf16 beside the plain version and SDPA with a boolean key mask.
+    → K7's row."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda, packed_attention_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    lengths = torch.randint(1, 129, (64,), generator=g, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = 128, 0
+    worst = 0.0
+    for d in (32, 64):
+        qkv = torch.randn(64, 128, 12, 3, d, generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = qkv.to(dtype)
+            q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+            out = packed_attention_cuda(q, k, v, lengths)
+            ref = packed_attention_plain(q, k, v, lengths)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err, mean = float(diff.max()), float(diff.mean())
+            zero_ok = bool((out[lengths == 0] == 0).all())
+            worst = max(worst, err)
+            ok = (err <= 1e-4 if dtype == torch.float32 else err <= 1e-2 and mean <= 5e-4) and zero_ok
+            log(f"K7 {str(dtype)[6:]} B=64 S=128 H=12 D={d} (every row, padded ones too): max|Δ| "
+                f"{err:.2e}, mean|Δ| {mean:.2e}, zero-length row exact {zero_ok} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("K7 disagrees with its plain version")
+
+    b, s, h, d = 128, 128, 12, 32
+    x = torch.randn(b, s, h, 3, d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+    lengths = torch.randint(16, s + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    key_ok = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # a call takes about 0.1 ms: three alternating rounds of 100 calls each,
+    # the median round kept (10-call windows moved K7 by a third between runs)
+    rounds = [(time_ms(torch, lambda: packed_attention_cuda(q, k, v, lengths), 100, 10),
+               time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok),
+                       100, 10))
+              for _ in range(3)]
+    ms, lib = (float(np.median(r)) for r in zip(*rounds))
+    plain = time_ms(torch, lambda: packed_attention_plain(q, k, v, lengths), iters=3, warmup=1)
+    sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok).transpose(1, 2)
+                      .float() - packed_attention_cuda(q, k, v, lengths).float()).abs().max())
+    # q read and o written in full (padded query rows are computed), K and V
+    # only for the valid keys j < len, and the lengths
+    n_valid = float(lengths.sum())
+    n_bytes = 2 * b * s * h * d * 2 + 2 * n_valid * h * d * 2 + b * 4
+    ops = 4.0 * d * h * s * n_valid                 # every query row against its valid keys
+    b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
+    log(f"K7 times [{card}]: bf16 B={b} S={s} H={h} D={d} (lengths 16-128): kernel {ms:.4f} ms, "
+        f"plain {plain:.3f} ms, SDPA (bool key mask) {lib:.4f} ms (max|Δ| vs kernel "
+        f"{sdpa_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP); rounds (kernel, SDPA): "
+        f"{', '.join(f'({x:.4f}, {y:.4f})' for x, y in rounds)}")
+    return {
+        "name": "packed_attention", "route": "cuda",
+        "source": "text_similarity_tpu_torch/csrc/packed_attention.cu",
+        "replaces": "text_similarity_tpu/ops/attention.py:684",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "shape": f"B={b} S={s} H={h} D={d} bf16, lengths 16-128",
+    }
+
+
+def phase_packed_encode(torch, card, ctx):
+    """minilm-l6 (phase 4's bf16 weights) runs ``encoder_forward`` with
+    ``attention_impl="packed"`` over phase 4's sentences and joins of three
+    of them, in length-bucketed batches of 128 at 32 / 64 / 128, with K7's
+    counter zeroed just before; the same batches through the reference
+    attention; last_hidden_state on valid rows and the pooled embeddings
+    compared. → K7's launches in that encode."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.data import LengthBucketBatcher
+    from text_similarity_tpu_torch.models import encoder_forward, mean_pool
+    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda
+
+    enc, corpus = ctx["enc"], ctx["corpus"]
+    texts = corpus[:1792] + [" ".join(corpus[j:j + 3]) for j in range(2000, 2768, 3)]
+    rows = enc._tokenize_rows(texts, 128)
+    batcher = LengthBucketBatcher(128, buckets=PACKED_BUCKETS, shuffle_batches=False)
+    batches = []
+    for batch in batcher.batches(rows, pad_id=enc.tokenizer.pad_id):
+        sel = batch["valid"]
+        batches.append((torch.from_numpy(batch["ids"][sel]).cuda(),
+                        torch.from_numpy(batch["mask"][sel]).cuda()))
+    widths = sorted({int(ids.shape[1]) for ids, _ in batches})
+
+    def forward(impl):
+        with torch.no_grad():
+            params = enc.params
+            return [encoder_forward(params, ids, mask, arch=enc.arch, precision=enc.precision,
+                                    attention_impl=impl).last_hidden_state
+                    for ids, mask in batches]
+
+    forward("packed")                     # warm the path outside the counted window
+    packed_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    packed = forward("packed")
+    torch.cuda.synchronize()
+    packed_s = time.time() - t
+    launches = packed_attention_cuda.launches
+    t = time.time()
+    ref = forward("reference")
+    torch.cuda.synchronize()
+    ref_s = time.time() - t
+
+    diffs, control, cos = [], [], []
+    for (_, mask), a, r in zip(batches, packed, ref):
+        valid = mask.bool()
+        diffs.append((a.float() - r.float()).abs()[valid])
+        both = valid & valid.roll(1, 0)
+        control.append((a.float() - r.float().roll(1, 0)).abs()[both])
+        ea, er = (F.normalize(mean_pool(x, mask).float(), dim=-1) for x in (a, r))
+        cos.append((ea * er).sum(dim=1))
+    diff, control, cos = torch.cat(diffs), float(torch.cat(control).mean()), float(torch.cat(cos).min())
+    mean, worst = float(diff.mean()), float(diff.max())
+    log(f"minilm-l6 packed attention [{card}]: {len(texts)} texts in {len(batches)} batches at "
+        f"widths {widths}: K7 path {packed_s * 1e3:.1f} ms, reference path {ref_s * 1e3:.1f} ms "
+        f"(encoder_forward, host clock); K7 launches {launches} (6 layers x {len(batches)} "
+        f"batches); last_hidden_state on valid rows mean|Δ| {mean:.3e}, max|Δ| {worst:.3e} "
+        f"(another row's: mean|Δ| {control:.3e}); pooled min cosine {cos:.6f}")
+    profile_split(torch, "one minilm-l6 packed-attention pass over those batches",
+                  lambda: forward("packed"), card,
+                  groups=(("K7 packed_attn", ("packed_attn",)),
+                          ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass"))))
+    if launches != 6 * len(batches):
+        raise AssertionError(f"K7 launched {launches} times, expected 6 x {len(batches)}")
+    if mean > PACKED_AGREE_MEAN or worst > PACKED_AGREE_MAX or cos < 0.99:
+        raise AssertionError(f"the K7 path and the reference path disagree (mean|Δ| {mean:.3e}, "
+                             f"max|Δ| {worst:.3e}, min cosine {cos:.6f})")
+    if control < 10 * PACKED_AGREE_MEAN:
+        raise AssertionError(f"another row's states differ by only {control:.3e}; the agreement "
+                             f"gate could not tell rows apart")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -1985,6 +2383,7 @@ def main() -> int:
     log(f"kernels built in {time.time() - t:.1f} s")
 
     k2 = phase_topk(torch, card)
+    k8 = phase_topk_2pass(torch, card)
     k1, (corpus, queries, exact, ivf) = phase_ivf(torch, card)
     launches, ctx = phase_pipeline(torch, card)
     k3 = phase_int8_topk(torch, card)
@@ -1998,7 +2397,9 @@ def main() -> int:
     k6["launches"], pairs = phase_long_training(torch, card, ctx)
     phase_grad_agreement(torch, card, ctx["tok"], pairs)
     phase_short_training(torch, card, ctx)
-    kernels = [k1, k2, k3, k4, k5, k6, *modes]
+    k7 = phase_packed_attention(torch, card)
+    k7["launches"] = phase_packed_encode(torch, card, ctx)
+    kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
     for kern in (k3, k4):

@@ -151,7 +151,8 @@ def test_auto_rule(seq_len, on_cuda, with_head_mask):
 
 def test_auto_runs_the_reference_on_cpu(monkeypatch):
     """On the CPU ``auto`` takes the reference (as the JAX package does),
-    ``impl="flash"`` the plain K5; flash refuses a head mask."""
+    ``impl="flash"`` the plain K5; flash refuses a head mask, packed a head
+    mask, a window (with or without the global CLS) and segment ids."""
     import text_similarity_tpu_torch.ops.attention as attn
 
     q, k, v = (torch.from_numpy(x) for x in _qkv(seed=4, s=256))
@@ -163,8 +164,17 @@ def test_auto_runs_the_reference_on_cpu(monkeypatch):
     assert calls == ["plain"]
     with pytest.raises(ValueError):
         multi_head_attention(q, k, v, head_mask=torch.ones(H), impl="flash")
-    with pytest.raises(ValueError):
-        multi_head_attention(q, k, v, impl="packed")
+    # the packed guards (the reference's): no head mask, no window, no
+    # global CLS, no segment ids
+    q4, k4, v4 = (torch.from_numpy(x) for x in _qkv(seed=4, s=64, h=4))
+    with pytest.raises(ValueError, match="head_mask"):
+        multi_head_attention(q4, k4, v4, head_mask=torch.ones(4), impl="packed")
+    with pytest.raises(ValueError, match="window"):
+        multi_head_attention(q4, k4, v4, impl="packed", window=16)
+    with pytest.raises(ValueError, match="window"):
+        multi_head_attention(q4, k4, v4, impl="packed", window=16, window_global_cls=True)
+    with pytest.raises(ValueError, match="segment_ids"):
+        multi_head_attention(q4, k4, v4, impl="packed", segment_ids=torch.ones(B, 64, dtype=torch.int32))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card (K1, K2 and their int8 variants K3, K4,
 the flash forward K5 and backward K6, the IVF scan modes K1-opt, K9, K10,
-K11), each held against its plain version, and the
-port's pipelines (bf16 and int8 serving, long-document encode) on the card
-against the same pipelines on the CPU.
+K11, the packed attention K7 and the two-pass top-k K8), each held against
+its plain version, and the port's pipelines (bf16 and int8 serving,
+long-document encode, packed encode) on the card against the same
+pipelines on the CPU.
 
 Imports neither jax nor the JAX package, so it runs on a machine with a
 card and no JAX; without a card every test skips. On the card:
@@ -32,19 +33,30 @@ from text_similarity_tpu_torch.index.ivf import (
 from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward, init_params
 from text_similarity_tpu_torch.models.hf_convert import extend_positions
 from text_similarity_tpu_torch.ops.attention import (
+    attention_reference,
     flash_attention,
     flash_attention_backward_cuda,
     flash_attention_backward_plain,
     flash_attention_cuda,
     flash_attention_plain,
+    multi_head_attention,
+    packed_attention,
+    packed_attention_cuda,
+    packed_attention_plain,
 )
 from text_similarity_tpu_torch.ops import topk as topk_mod
 from text_similarity_tpu_torch.ops.topk import (
+    cosine_topk_2pass,
+    cosine_topk_2pass_reference,
     cosine_topk_cuda,
     cosine_topk_int8,
     cosine_topk_int8_cuda,
     cosine_topk_int8_reference,
     cosine_topk_reference,
+    topk_2pass_count_cuda,
+    topk_2pass_count_plain,
+    topk_2pass_fold_cuda,
+    topk_2pass_fold_plain,
 )
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
 
@@ -859,3 +871,195 @@ def test_sentinel_add_remove_on_card(cuda):
     _, i = ivf.query(tq[:4], k=1, **args)
     assert (i[:, 0].cpu().numpy() == new).all()
     assert ivf_modes.ivf_scan_idless_cuda.launches == before + 3
+
+
+# ---------------------------------------------------------------------------
+# K7: packed attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(12, 32), (12, 64), (2, 128)])
+@pytest.mark.parametrize("s,lens", [(128, (128, 77, 0, 1)), (200, (200, 64, 65, 0))])
+def test_k7_matches_plain(cuda, dtype, h, d, s, lens):
+    """K7 against its plain version on every row, padded query rows
+    included: f32 max |Δ| ≤ 1e-4; bf16 max ≤ 1e-2 and mean ≤ 5e-4 (p / l
+    rounds to bf16 from scores summed in another order); zero-length rows
+    exactly 0; one launch. S 200 is not a multiple of the 64-row blocks."""
+    q, k, v = _qkv_views(cuda, len(lens), s, h, d, dtype, seed=d + s)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = packed_attention_cuda.launches
+    out = packed_attention_cuda(q, k, v, lengths)
+    ref = packed_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float(diff.max()) <= 1e-2 and float(diff.mean()) <= 5e-4
+    assert bool((out[lengths == 0] == 0).all())
+
+
+def test_k7_autograd_and_dispatch(cuda):
+    """``multi_head_attention(impl="packed")`` on the card launches K7 once;
+    with inputs that need a gradient the Function's forward is K7 and its
+    gradients are autograd's of ``attention_reference`` with the mask (f32,
+    1e-5); views of the fused QKV and contiguous copies give the same bits."""
+    q, k, v = _qkv_views(cuda, 3, 96, 4, 32, torch.float32, seed=3)
+    mask = (torch.arange(96, device=cuda)[None] < torch.tensor([[96], [40], [7]], device=cuda))
+    mask = mask.to(torch.int32)
+    before = packed_attention_cuda.launches
+    out = multi_head_attention(q, k, v, mask, impl="packed")
+    same = packed_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 mask.sum(dim=1, dtype=torch.int32))
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches == before + 2 and torch.equal(out, same)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(packed_attention(*leaves, mask), leaves, do)
+    assert packed_attention_cuda.launches == before + 3
+    ref_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref_leaves, mask), ref_leaves, do)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-5)
+
+
+def test_k7_refuses_what_it_cannot_run(cuda):
+    """CPU tensors, a head count that does not fill 128 / D groups, other
+    head dims, and inputs that need a gradient under grad mode: no launch."""
+    q, k, v = _qkv_views(cuda, 1, 64, 4, 32, torch.float32, seed=4)
+    lengths = torch.tensor([64], dtype=torch.int32, device=cuda)
+    before = packed_attention_cuda.launches
+    with pytest.raises(ValueError):
+        packed_attention_cuda(q.cpu(), k.cpu(), v.cpu(), lengths.cpu())
+    x = torch.randn(1, 64, 3, 32, device=cuda)
+    with pytest.raises(ValueError):
+        packed_attention_cuda(x, x, x, lengths)
+    x = torch.randn(1, 64, 4, 48, device=cuda)
+    with pytest.raises(ValueError):
+        packed_attention_cuda(x, x, x, lengths)
+    with pytest.raises(ValueError):
+        packed_attention_cuda(q.clone().requires_grad_(), k, v, lengths)
+    assert packed_attention_cuda.launches == before
+
+
+def test_encoder_packed_impl_on_card(cuda):
+    """``encoder_forward(attention_impl="packed")`` launches K7 once a layer
+    and agrees with the reference impl on valid rows (f32, 1e-4)."""
+    arch = ARCH_PRESETS["tiny-test"].replace(num_heads=4, hidden_size=128, intermediate_size=256)
+    params = SentenceEncoder(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                             precision=FP32_PRECISION, device=cuda).params
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(5, arch.vocab_size, (4, 64)).astype(np.int32)).to(cuda)
+    lens = torch.tensor([64, 30, 5, 1], device=cuda)
+    mask = (torch.arange(64, device=cuda)[None] < lens[:, None]).to(torch.int32)
+    before = packed_attention_cuda.launches
+    got = encoder_forward(params, ids, mask, arch=arch, precision=FP32_PRECISION,
+                          attention_impl="packed").last_hidden_state
+    want = encoder_forward(params, ids, mask, arch=arch, precision=FP32_PRECISION,
+                           attention_impl="reference").last_hidden_state
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches == before + arch.num_layers
+    valid = mask.bool()
+    assert float((got - want).abs()[valid].max()) <= 1e-4
+
+
+def test_packed_encode_on_card_matches_cpu(cuda):
+    """``encode`` under ``packed="auto"`` packs short texts on the card as on
+    the CPU; f32 embeddings allclose 1e-4, ``device_output`` on the card."""
+    texts = _corpus(40, seed=3)
+    vocab = train_wordpiece_vocab(texts, vocab_size=400, min_freq=1)
+    tok = WordPieceTokenizer(vocab)
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(1))
+    cpu = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION, device="cpu")
+    card = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION, device=cuda)
+    rows = cpu._tokenize_rows(texts, 64)
+    assert cpu.use_packed(rows, 128, (16, 32, 64))
+    want = cpu.encode(texts, max_len=64, buckets=(16, 32, 64))
+    got = card.encode(texts, max_len=64, buckets=(16, 32, 64), device_output=True)
+    assert got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K8: the certified two-pass top-k
+# ---------------------------------------------------------------------------
+
+def _k8_counts():
+    return (topk_2pass_fold_cuda.launches, topk_2pass_count_cuda.launches,
+            cosine_topk_2pass.fallbacks, cosine_topk_cuda.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 20])
+@pytest.mark.parametrize("q_n", [1, 7, 33])
+@pytest.mark.parametrize("block_c", [2048, 1000])
+def test_k8_matches_plain(cuda, dtype, k, q_n, block_c):
+    """K8 against its plain version on N = 10,007 (not a multiple of
+    block_c) with tied rows: the fast path (one launch of each pass, no
+    fallback), scores 1e-5, f32 ids equal where scores are separated, bf16
+    overlap ≥ 0.99; each pass against its plain version too (the fold's
+    winners as K2's test; the count exact at thresholds between scores)."""
+    rng = np.random.default_rng(7)
+    x = _unit(rng.standard_normal((10_007, 64)))
+    src = rng.choice(5000, q_n, replace=False)
+    x[5000 + np.arange(q_n)] = x[src]
+    q = _unit(x[src] + 0.05 * rng.standard_normal((q_n, 64)))
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    before = _k8_counts()
+    ks, ki = cosine_topk_2pass(tq, tx, k=k, block_c=block_c)
+    torch.cuda.synchronize()
+    fold, count, falls, k2 = (a - b for a, b in zip(_k8_counts(), before))
+    assert (fold, count) == (1, 1) and falls == k2
+    rs, ri = cosine_topk_2pass_reference(tq, tx, k=k, block_c=block_c)
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+    fs, fi = topk_2pass_fold_cuda(tq, tx, k, block_c)
+    ps, pi = topk_2pass_fold_plain(tq, tx, k, block_c)
+    _assert_agree(fs, fi, ps, pi, dtype == torch.float32)
+    thr = torch.from_numpy(rng.uniform(0.1, 0.5, q_n).astype(np.float32)).to(cuda)
+    assert torch.equal(topk_2pass_count_cuda(tq, tx, thr, block_c),
+                       topk_2pass_count_plain(tq, tx, thr, block_c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_collision_falls_back_to_k2(cuda, dtype):
+    """Two near-copies of the query block_c rows apart share a lane class:
+    the certification fails, the call falls back to K2 (one launch), and
+    both copies are in the answer, which equals K2's."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4096, 64)).astype(np.float32) * 0.01
+    target = rng.standard_normal(64).astype(np.float32)
+    x[5] = target + 0.001 * rng.standard_normal(64)
+    x[5 + 2048] = target + 0.001 * rng.standard_normal(64)
+    x = _unit(x)
+    q = _unit(np.repeat(target[None], 8, axis=0))
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    before = _k8_counts()
+    ks, ki = cosine_topk_2pass(tq, tx, k=10)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k8_counts(), before)) == (1, 1, 1, 1)
+    es, ei = cosine_topk_cuda(tq, tx, 10)
+    assert torch.equal(ki, ei) and torch.equal(ks, es)
+    for row in ki.cpu().numpy():
+        assert {5, 5 + 2048} <= set(row)
+
+
+def test_k8_refuses_what_it_cannot_run(cuda):
+    """CPU tensors, D not a multiple of 32, k above 256, a block_c out of
+    range: no launch."""
+    x = torch.nn.functional.normalize(torch.randn(1000, 64, device=cuda), dim=1)
+    q = x[:4].contiguous()
+    before = _k8_counts()
+    with pytest.raises(ValueError):
+        topk_2pass_fold_cuda(q.cpu(), x.cpu(), 5)
+    with pytest.raises(ValueError):
+        topk_2pass_count_cuda(q.cpu(), x.cpu(), torch.zeros(4), 2048)
+    with pytest.raises(ValueError):
+        topk_2pass_fold_cuda(q[:, :40].contiguous(), x[:, :40].contiguous(), 5)
+    with pytest.raises(ValueError):
+        topk_2pass_fold_cuda(q, x, 257)
+    with pytest.raises(ValueError):
+        topk_2pass_fold_cuda(q, x, 5, block_c=0)
+    assert _k8_counts() == before

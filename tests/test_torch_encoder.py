@@ -143,7 +143,8 @@ def test_tokenizer_matches_jax(saved_jax_encoder):
 
 
 def test_load_jax_saved_encoder_and_encode(saved_jax_encoder):
-    """JAX save → port load → encode: allclose 1e-4 in f32, rows L2-unit."""
+    """JAX save → port load → encode (bucketed, and packed=True against the
+    JAX packed encode): allclose 1e-4 in f32, rows L2-unit."""
     path, jenc, texts = saved_jax_encoder
     enc = SentenceEncoder.load(path, bf16=False, device="cpu")
     je = np.asarray(jenc.encode(texts, batch_size=32, packed=False))
@@ -154,8 +155,9 @@ def test_load_jax_saved_encoder_and_encode(saved_jax_encoder):
     dev = enc.encode(texts[:3], device_output=True)
     assert isinstance(dev, torch.Tensor) and dev.shape == (3, enc.embedding_dim)
     assert enc.encode([]).shape == (0, enc.embedding_dim)
-    with pytest.raises(NotImplementedError):
-        enc.encode(texts, packed=True)
+    np.testing.assert_allclose(
+        enc.encode(texts, packed=True), np.asarray(jenc.encode(texts, packed=True)), atol=1e-4
+    )
 
 
 def test_port_saved_encoder_loads_in_jax(saved_jax_encoder, tmp_path):

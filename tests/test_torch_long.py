@@ -144,7 +144,9 @@ def test_jax_saved_long_encoder_loads_and_encodes(tmp_path):
     """A long encoder (arch.json with max_position 514, attention_window 16,
     window_global_cls) saved by the JAX package, loaded by the port, encodes
     mixed-length texts with the long-encode arguments: allclose 1e-4 in f32
-    against the JAX encode (bucketed: packed=False)."""
+    against the JAX encode (bucketed: packed=False). The port's "auto" runs
+    a windowed model bucketed where the reference's rule (which reads no
+    window) packs these texts, and packed=True raises."""
     texts = _documents(40)
     jtok = JaxTokenizer(train_wordpiece_vocab(texts, vocab_size=800, min_freq=1))
     jp, jarch, _ = _long_model(seed=4, vocab_size=jtok.vocab_size)
@@ -161,3 +163,10 @@ def test_jax_saved_long_encoder_loads_and_encodes(tmp_path):
     assert min(lens) < 16 and max(lens) > 256     # several buckets
     np.testing.assert_allclose(got, want, atol=1e-4)
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+    rows = enc._tokenize_rows(texts, 512)
+    assert not enc.use_packed(rows, 8, LONG_BUCKETS)
+    flat = SentenceEncoder(enc.params, enc.arch.replace(attention_window=0), tokenizer=enc.tokenizer,
+                           device="cpu")
+    assert flat.use_packed(rows, 8, LONG_BUCKETS)    # the reference's rule packs them
+    with pytest.raises(ValueError, match="window"):
+        enc.encode(texts, packed=True, **kw)

@@ -1,4 +1,5 @@
 from .batching import BUCKETS, LengthBucketBatcher, pick_bucket
+from .packing import pack_pair_arrays, pack_sequences, packing_efficiency
 from .pairs import build_pair_batches
 from .tokenization import WordPieceTokenizer, load_tokenizer, train_wordpiece_vocab
 
@@ -6,6 +7,9 @@ __all__ = [
     "BUCKETS",
     "LengthBucketBatcher",
     "pick_bucket",
+    "pack_pair_arrays",
+    "pack_sequences",
+    "packing_efficiency",
     "build_pair_batches",
     "WordPieceTokenizer",
     "load_tokenizer",

@@ -7,7 +7,7 @@ from .encoder import (
     params_from_jax,
     transformer_layer,
 )
-from .pooling import cls_pool, max_pool, mean_pool
+from .pooling import cls_pool, max_pool, mean_pool, segment_first_pool, segment_mean_pool
 from .sentence_encoder import SentenceEncoder
 
 __all__ = [
@@ -21,5 +21,7 @@ __all__ = [
     "cls_pool",
     "max_pool",
     "mean_pool",
+    "segment_first_pool",
+    "segment_mean_pool",
     "SentenceEncoder",
 ]

@@ -13,8 +13,14 @@ arch's ``attention_window`` / ``window_global_cls`` (Longformer-style band
 with a global CLS) and ``attention_impl="auto"``: on the card every layer
 at S ≥ 4096 (S % 128 == 0) runs the flash kernel K5, every shorter bucket
 the reference; on the CPU ``auto`` runs the reference, as the JAX package
-does there. RoBERTa-family archs (``position_offset``) number real tokens
-from ``pad_token_id + 1`` and give padding the pad row.
+does there. ``attention_impl="packed"`` runs the head-packed kernel K7 in
+every layer (no window). RoBERTa-family archs (``position_offset``) number
+real tokens from ``pad_token_id + 1`` and give padding the pad row.
+
+Packed rows (``data.packing``): ``segment_ids`` give the block-diagonal
+attention mask (the reference path) and ``position_ids`` the positions
+restarting at 0 in each segment (shifted by ``pad_token_id + 1`` for
+RoBERTa, padding on the pad row).
 
 Precision follows the reference: embeddings and LayerNorms in f32, layer
 matmuls in the compute dtype with f32 accumulation, softmax in f32. The
@@ -284,9 +290,10 @@ def transformer_layer(
     attention_mask: torch.Tensor,  # (B, S)
     *,
     arch: EncoderArch,
-    attention_impl: str = "auto",  # auto | flash | reference
+    attention_impl: str = "auto",  # auto | flash | packed | reference
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
 ) -> torch.Tensor:
     """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
     dropout on the attention output and the FFN output in training."""
@@ -316,6 +323,7 @@ def transformer_layer(
     ctx = multi_head_attention(
         q, k, v, mask=attention_mask, impl=attention_impl,
         window=arch.attention_window, window_global_cls=arch.window_global_cls,
+        segment_ids=segment_ids,
     ).reshape(b, s, nh * hd)
     ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
     hx1 = _layer_norm(
@@ -341,16 +349,26 @@ def embed_inputs(
     precision: Precision = DEFAULT_PRECISION,
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    position_ids: Optional[torch.Tensor] = None,  # (B, S) packed rows' positions
 ) -> torch.Tensor:
     """Word + position (+ token type) embeddings, LN and dropout, returned
     in the compute dtype. The sum runs in the tables' dtype (bf16 tables add in
     bf16, as the reference's code reads); an int8 table dequantizes its
     gathered rows to f32. With ``arch.position_offset`` (RoBERTa) real
     tokens take positions cumsum(mask) + pad_token_id and padding the pad
-    row, as the reference (``create_position_ids_from_input_ids``)."""
+    row, as the reference (``create_position_ids_from_input_ids``). Given
+    ``position_ids`` (0-based in each packed segment), real tokens take
+    those, shifted to ``p + pad_token_id + 1`` with ``position_offset``,
+    and padding the pad row."""
     s = input_ids.shape[1]
     x = _take(emb["word"], input_ids.long())
-    if arch.position_offset:
+    if position_ids is not None:
+        pos_ids = position_ids.long()
+        if arch.position_offset:
+            m = attention_mask.long()
+            pos_ids = (pos_ids + arch.pad_token_id + 1) * m + arch.pad_token_id * (1 - m)
+        x = x + _take(emb["position"], pos_ids)
+    elif arch.position_offset:
         m = attention_mask.long()
         pos_ids = torch.cumsum(m, dim=1) * m + arch.pad_token_id
         x = x + _take(emb["position"], pos_ids)
@@ -385,23 +403,28 @@ def encoder_forward(
     attention_impl: str = "auto",
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    segment_ids: Optional[torch.Tensor] = None,   # (B, S): packed rows
+    position_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
     (the reference's ``lax.scan``), then the pooler when the arch has one.
-    ``attention_impl``: auto | flash | reference (see the module note).
-    ``deterministic=False`` applies dropout with masks from ``generator``."""
+    ``attention_impl``: auto | flash | packed | reference (see the module
+    note). ``deterministic=False`` applies dropout with masks from
+    ``generator``. ``segment_ids`` / ``position_ids``: a packed layout
+    (``data.packing.pack_sequences``)."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
     x = embed_inputs(
         params["embeddings"], input_ids, attention_mask, token_type_ids,
         arch=arch, precision=precision, deterministic=deterministic, generator=generator,
+        position_ids=position_ids,
     )
     layers = _unstack_tree(_cast_tree(params["layers"], precision.compute_dtype), arch.num_layers)
     for lp in layers:
         x = transformer_layer(
             x, lp, attention_mask, arch=arch, attention_impl=attention_impl,
-            deterministic=deterministic, generator=generator,
+            deterministic=deterministic, generator=generator, segment_ids=segment_ids,
         )
     pooler_out = None
     if arch.has_pooler and "pooler" in params:

@@ -1,5 +1,6 @@
 """Pooling strategies turning token states into sentence embeddings (port of
-``text_similarity_tpu.models.pooling``: masked mean, CLS, masked max)."""
+``text_similarity_tpu.models.pooling``: masked mean, CLS, masked max, and
+the per-segment mean and first-token pools of packed rows)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,41 @@ def max_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.bool()[..., None]
     filled = torch.where(m, hidden.float(), torch.full_like(hidden, neg, dtype=torch.float32))
     return filled.amax(dim=1).to(hidden.dtype)
+
+
+def segment_mean_pool(
+    hidden: torch.Tensor,    # (B, S, H)
+    segments: torch.Tensor,  # (B, S) 1-based segment tag per token, 0 = pad
+    max_segments: int,       # segment slots per row (the layout's owners width)
+) -> torch.Tensor:
+    """Per-segment masked mean of packed rows (``data.packing``) → (B,
+    max_segments, H) in hidden's dtype; empty slots come out zero. One f32
+    (B,S,M)×(B,S,H) product over a one-hot of the tags, divided by the
+    token count clamped at 1e-9, as the reference's einsum."""
+    tags = torch.arange(1, max_segments + 1, dtype=segments.dtype, device=segments.device)
+    oh = (segments[:, :, None] == tags[None, None, :]).float()
+    summed = torch.einsum("bsm,bsh->bmh", oh, hidden.float())
+    count = oh.sum(dim=1).clamp_min(1e-9)    # (B, M)
+    return (summed / count[..., None]).to(hidden.dtype)
+
+
+def segment_first_pool(
+    hidden: torch.Tensor,    # (B, S, H)
+    segments: torch.Tensor,  # (B, S) 1-based segment tag per token, 0 = pad
+    max_segments: int,
+) -> torch.Tensor:
+    """Per-segment first-token (CLS) pool of packed rows: slot m holds the
+    hidden state at the first position tagged m + 1 → (B, max_segments, H);
+    empty slots come out zero."""
+    b, s, _ = hidden.shape
+    pos = torch.arange(s, device=segments.device)
+    tags = torch.arange(1, max_segments + 1, dtype=segments.dtype, device=segments.device)
+    is_m = segments[:, :, None] == tags[None, None, :]                       # (B, S, M)
+    first = torch.where(is_m, pos[None, :, None], s).amin(dim=1)              # (B, M)
+    gathered = torch.gather(
+        hidden, 1, first.clamp(max=s - 1)[:, :, None].expand(-1, -1, hidden.shape[2])
+    )
+    return torch.where((first < s)[:, :, None], gathered, torch.zeros((), dtype=hidden.dtype))
 
 
 POOLERS = {

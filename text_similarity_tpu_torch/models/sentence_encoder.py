@@ -1,8 +1,8 @@
 """SentenceEncoder — the user-facing embedding model (port of
 ``text_similarity_tpu.models.sentence_encoder``).
 
-tokenize → length-bucketed batches → encoder → pooling → optional
-projection → f32 L2 normalisation. ``save``/``load`` use the JAX package's
+tokenize → length-bucketed batches (or packed rows) → encoder → pooling →
+optional projection → f32 L2 normalisation. ``save``/``load`` use the JAX package's
 directory layout (``arch.json`` + ``step_*/params.npz`` + ``vocab.txt``),
 so an encoder saved by either package loads in the other.
 
@@ -22,9 +22,21 @@ Training: ``enc.params = state.params["encoder"]`` takes the trained
 weights back (as the JAX CLI does after ``Trainer.execute``) and ``save``
 writes them in the shared layout.
 
-Not ported yet: packed variable-length encode (``packed=True``; ``"auto"``
-runs bucketed, which gives the same vectors), ``encode_long`` (the
-context-parallel encode over a device mesh).
+Packed encode (``data.packing``): several short texts share one row of a
+bucket's width behind a block-diagonal attention mask, with positions
+restarting in each segment and a per-segment mean pool. ``encode`` takes
+that route under the reference's ``packed="auto"`` rule (more than 8 texts,
+mean pooling, bucketed tokens ≥ ``PACK_AUTO_RATIO`` × the packed estimate),
+so both packages route a call alike; the embeddings equal the bucketed
+ones up to the order of float sums. One deliberate divergence: a windowed
+model (``attention_window > 0``) never packs, where the reference's rule
+reads no window. A packed row would band by row position and give the
+global CLS to its first segment only, and segment masking runs the plain
+attention at the row's full width; so ``"auto"`` runs such a model
+bucketed and ``packed=True`` raises.
+
+Not ported yet: ``encode_long`` (the context-parallel encode over a device
+mesh).
 """
 
 from __future__ import annotations
@@ -40,12 +52,13 @@ from ..compress.quantize import dequantize_params, quantize_params_int8
 from ..core import checkpoint as ckpt
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision, precision_for, resolve_device
-from ..data.batching import BUCKETS, LengthBucketBatcher
+from ..data.batching import BUCKETS, LengthBucketBatcher, pick_bucket
+from ..data.packing import pack_sequences
 from ..data.tokenization import load_tokenizer
 from .encoder import (
     Encoder, _cast_tree, dequant_weight, encoder_forward, params_from_jax,
 )
-from .pooling import pool
+from .pooling import pool, segment_mean_pool
 
 
 class SentenceEncoder(nn.Module):
@@ -85,23 +98,106 @@ class SentenceEncoder(nn.Module):
     def embedding_dim(self) -> int:
         return self.arch.embedding_size
 
-    @torch.no_grad()
-    def embed_tokens(self, ids, mask) -> torch.Tensor:
-        """Embed a pre-tokenized (B, L) batch → (B, D) normalized f32 on
-        the encoder's device."""
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32).to(self.device)
-        mask = torch.as_tensor(np.asarray(mask), dtype=torch.int32).to(self.device)
-        params = self.params
-        out = encoder_forward(
-            params, ids, mask, arch=self.arch, precision=self.precision
-        )
-        emb = pool(self.pooling, out.last_hidden_state, mask)
+    def _as_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32).to(self.device)
+
+    @staticmethod
+    def _project_normalize(params: dict, emb: torch.Tensor) -> torch.Tensor:
+        """Optional projection head, then f32 L2 normalisation."""
         if "projection" in params:
             pw = params["projection"]
             emb = emb.float() @ dequant_weight(pw["w"]).float() + pw["b"]
         emb = emb.float()
         norm = torch.sqrt((emb * emb).sum(dim=-1, keepdim=True))
         return emb / norm.clamp_min(1e-12)
+
+    @torch.no_grad()
+    def embed_tokens(self, ids, mask) -> torch.Tensor:
+        """Embed a pre-tokenized (B, L) batch → (B, D) normalized f32 on
+        the encoder's device."""
+        ids, mask = self._as_device(ids), self._as_device(mask)
+        params = self.params
+        out = encoder_forward(
+            params, ids, mask, arch=self.arch, precision=self.precision
+        )
+        return self._project_normalize(params, pool(self.pooling, out.last_hidden_state, mask))
+
+    @torch.no_grad()
+    def embed_tokens_packed(self, ids, segments, positions, max_segments: int = 0) -> torch.Tensor:
+        """Embed a packed (R, W) layout (``pack_sequences``) → (R, M, D)
+        normalized f32 on the encoder's device: slot (r, m) holds the
+        embedding of the row's m-th packed sequence, zeros for an empty
+        slot. M is ``max_segments``, or the largest segment tag."""
+        self._check_packable()
+        m = max_segments or int(np.max(np.asarray(segments)))
+        ids, segments, positions = (self._as_device(x) for x in (ids, segments, positions))
+        params = self.params
+        out = encoder_forward(
+            params, ids, (segments > 0).to(torch.int32), arch=self.arch,
+            precision=self.precision, segment_ids=segments, position_ids=positions,
+        )
+        return self._project_normalize(params, segment_mean_pool(out.last_hidden_state, segments, m))
+
+    def encode_packed(
+        self,
+        texts: Sequence[str],
+        width: int = 128,
+        rows_per_batch: int = 256,
+        max_len: int = 128,
+        max_segments: int = 0,   # 0: the layout's own slot count
+        device_output: bool = False,
+    ):
+        """Encode texts through greedy packing into rows of ``width``
+        tokens → (N, D) normalized f32, row i for texts[i] (as ``encode``)."""
+        row_ids = self._tokenize_rows(texts, max_len)
+        return self._encode_packed_rows(
+            row_ids, len(texts), width=width, rows_per_batch=rows_per_batch,
+            max_segments=max_segments, device_output=device_output,
+        )
+
+    def _encode_packed_rows(
+        self,
+        row_ids,
+        n_texts: int,
+        width: int,
+        rows_per_batch: int = 256,
+        max_segments: int = 0,
+        device_output: bool = False,
+        round_segments: bool = False,
+    ):
+        """Pack pre-tokenized rows and embed them, ``rows_per_batch`` packed
+        rows a forward → (N, D). With ``round_segments`` the derived slot
+        count rounds up to a power of two, as the reference's serving calls
+        do. Empty slots land in one extra trash row of the output."""
+        self._check_packable()
+        packed = pack_sequences(row_ids, width, pad_id=self.tokenizer.pad_id)
+        m = max_segments or int(packed["owners"].shape[1])
+        if round_segments and not max_segments and m > 1:
+            m = 1 << (m - 1).bit_length()
+        if packed["owners"].shape[1] > m:
+            raise ValueError(
+                f"layout needs {packed['owners'].shape[1]} segment slots, max_segments={m}"
+            )
+        out = torch.zeros((n_texts + 1, self.embedding_dim), dtype=torch.float32, device=self.device)
+        for st in range(0, packed["ids"].shape[0], rows_per_batch):
+            chunk = {key: packed[key][st:st + rows_per_batch]
+                     for key in ("ids", "segments", "positions", "owners")}
+            emb = self.embed_tokens_packed(chunk["ids"], chunk["segments"], chunk["positions"], m)
+            ow = chunk["owners"]
+            ow = np.pad(ow, ((0, 0), (0, m - ow.shape[1])), constant_values=-1)
+            idx = torch.as_tensor(np.where(ow >= 0, ow, n_texts).reshape(-1)).to(self.device)
+            out[idx] = emb.reshape(-1, self.embedding_dim)
+        out = out[:n_texts]
+        return out if device_output else out.cpu().numpy()
+
+    def _check_packable(self) -> None:
+        if self.pooling != "mean":
+            raise ValueError("packed encode supports mean pooling only")
+        if self.arch.attention_window > 0:
+            raise ValueError(
+                "packed encode does not support a windowed model (attention_window="
+                f"{self.arch.attention_window}): encode it with packed=False"
+            )
 
     def forward(self, ids, mask) -> torch.Tensor:
         return self.embed_tokens(ids, mask)
@@ -116,6 +212,28 @@ class SentenceEncoder(nn.Module):
             for r in body
         ]
 
+    # bucketed batches must cost at least this many times the packed
+    # layout's tokens before "auto" packs (the reference's constant)
+    PACK_AUTO_RATIO = 1.3
+
+    def use_packed(self, row_ids, batch_size: int, buckets: Sequence[int]) -> bool:
+        """The reference's ``packed="auto"`` rule: more than 8 rows, mean
+        pooling, and the bucketed tokens (same-bucket groups of
+        ``batch_size`` rows, tail batches counted full) ≥ PACK_AUTO_RATIO ×
+        the packed estimate (rows of the widest row's bucket, filled to
+        98%). Unlike the reference, a windowed model never packs."""
+        if self.pooling != "mean" or self.arch.attention_window > 0 or len(row_ids) <= 8:
+            return False
+        lens = np.asarray([len(r) for r in row_ids], np.int64)
+        width = pick_bucket(int(lens.max()), buckets)
+        blens = np.asarray([pick_bucket(int(n), buckets) for n in lens])
+        bucket_tokens = 0
+        for b in np.unique(blens):
+            n_batches = -(-int((blens == b).sum()) // batch_size)
+            bucket_tokens += n_batches * batch_size * int(b)
+        est_rows = -(-int(lens.sum()) // int(width * 0.98))
+        return bucket_tokens >= self.PACK_AUTO_RATIO * est_rows * width
+
     def encode(
         self,
         texts: Sequence[str],
@@ -127,28 +245,29 @@ class SentenceEncoder(nn.Module):
     ):
         """Encode texts → (N, D) f32 normalized embeddings, in input order:
         a numpy array, or a tensor on the encoder's device with
-        ``device_output=True``. Batches are length-sorted and padded to a
-        bucket. ``packed="auto"`` runs bucketed (the packed layout gives
-        the same vectors); ``packed=True`` is not ported yet."""
-        if packed is True:
-            raise NotImplementedError(
-                "packed encode is not ported yet (ROADMAP queue 1: packed "
-                "var-length encode); use packed=False or 'auto'"
-            )
+        ``device_output=True``. ``packed``: True packs the texts into rows
+        of the widest text's bucket (mean pooling, no attention window);
+        False runs length-sorted batches, each padded to a bucket; "auto"
+        packs when :meth:`use_packed` says so."""
         n = len(texts)
-        out = torch.zeros((n, self.embedding_dim), dtype=torch.float32, device=self.device)
-        if n:
-            row_ids = self._tokenize_rows(texts, max_len)
-            batcher = LengthBucketBatcher(
-                batch_size, buckets=buckets, shuffle_batches=False
+        if n == 0:
+            out = torch.zeros((0, self.embedding_dim), dtype=torch.float32, device=self.device)
+            return out if device_output else out.cpu().numpy()
+        row_ids = self._tokenize_rows(texts, max_len)
+        if packed is True or (packed == "auto" and self.use_packed(row_ids, batch_size, buckets)):
+            width = pick_bucket(max(len(r) for r in row_ids), buckets)
+            return self._encode_packed_rows(
+                row_ids, n, width=width, device_output=device_output, round_segments=True,
             )
-            for batch in batcher.batches(row_ids, pad_id=self.tokenizer.pad_id):
-                sel = batch["valid"]
-                # padding rows of the tail batch are dropped before the
-                # forward: rows are independent, so this changes no vector
-                emb = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
-                idx = torch.as_tensor(batch["index"][sel]).to(self.device)
-                out[idx] = emb
+        out = torch.zeros((n, self.embedding_dim), dtype=torch.float32, device=self.device)
+        batcher = LengthBucketBatcher(batch_size, buckets=buckets, shuffle_batches=False)
+        for batch in batcher.batches(row_ids, pad_id=self.tokenizer.pad_id):
+            sel = batch["valid"]
+            # padding rows of the tail batch are dropped before the
+            # forward: rows are independent, so this changes no vector
+            emb = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
+            idx = torch.as_tensor(batch["index"][sel]).to(self.device)
+            out[idx] = emb
         return out if device_output else out.cpu().numpy()
 
     def _set_params(self, params: dict) -> "SentenceEncoder":

@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
+           "packed_attention.cu", "topk_2pass.cu")
 HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -89,6 +90,15 @@ _SIGNATURES = {
     # the same with dk, dv in place of dq
     "ts_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _I, _I, _F, _P],
+    # q, k, v, out, lengths, bf16, B, S, H, D, q/k/v strides (batch,
+    # token, head) in elements, scale, stream
+    "ts_packed_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # q, corpus, corpus_bf16, Q, N, D, k, block_c, splits, blocks_per_split,
+    # win_s, win_i, out_s, out_i, stream
+    "ts_topk_2pass_fold": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, corpus, corpus_bf16, thr, Q, N, D, splits, rows_per_split, cnt, stream
+    "ts_topk_2pass_count": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

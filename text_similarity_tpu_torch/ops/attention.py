@@ -1,13 +1,14 @@
 """Exact softmax attention: the plain reference path, the flash forward
-(kernel K5) and the flash backward (kernel K6), port of
-``text_similarity_tpu.ops.attention``.
+(kernel K5), the flash backward (kernel K6) and the head-packed attention
+(kernel K7), port of ``text_similarity_tpu.ops.attention``.
 
 * ``attention_reference``: plain tensor code, the path the JAX encoder
-  takes below S = 4096. Scores are computed with f32 accumulation, masked
-  with −1e9 (padding keys, and with ``window`` the band |i − j| ≤ window
-  plus the global CLS row and column), materialised in bf16 when the
-  inputs are bf16, and normalised by an f32 softmax. Autograd
-  differentiates it.
+  takes below S = 4096 and for packed rows. Scores are computed with f32
+  accumulation, masked with −1e9 (padding keys; with ``segment_ids`` every
+  key of another segment, the block-diagonal mask of packed rows; with
+  ``window`` the band |i − j| ≤ window plus the global CLS row and column),
+  materialised in bf16 when the inputs are bf16, and normalised by an f32
+  softmax. Autograd differentiates it.
 * ``flash_attention``: blockwise online-softmax attention with per-row key
   lengths, the same band and global CLS, and the optional log-sum-exp
   residual. On a CUDA tensor it launches the hand-written kernel K5
@@ -18,11 +19,19 @@
   keeps o and lse, the backward is K6 (``csrc/flash_bwd.cu``, via
   ``flash_attention_backward_cuda``) on a CUDA tensor and
   ``flash_attention_backward_plain`` on a CPU tensor.
+* ``packed_attention``: exact attention over per-row key lengths (Σ mask),
+  the function of the reference's head-packed kernel: every query row,
+  padded ones included, attends to the keys j < len; p is normalised, then
+  rounded to the input dtype before P·V. On a CUDA tensor it launches K7
+  (``csrc/packed_attention.cu``, via ``packed_attention_cuda``), on a CPU
+  tensor ``packed_attention_plain``; with grad enabled it runs through
+  ``PackedAttentionFunction``, whose backward is autograd of
+  ``attention_reference`` with the mask, as the reference's ``custom_vjp``.
 * ``multi_head_attention``: the dispatch the encoder calls, with the JAX
-  package's ``impl="auto"`` rule (``auto_impl``).
+  package's ``impl="auto"`` rule (``auto_impl``) and its guards.
 
-Not ported yet: the head-packed kernel (K7, ``impl="packed"``), causal and
-segment-masked attention, performer and the context-parallel strategies.
+Not ported yet: causal attention, performer and the context-parallel
+strategies.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ def attention_reference(
     head_mask: Optional[torch.Tensor] = None,  # (H,) multiplier per head
     window: int = 0,           # > 0: banded attention, |i − j| ≤ window
     global_cls: bool = True,   # with window: position 0 global both ways
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S): a token sees only
+                                                 # keys of its own segment
 ) -> torch.Tensor:
     d = q.shape[-1]
     s = q.shape[1]
@@ -73,6 +84,9 @@ def attention_reference(
             torch.full((), NEG_INF, dtype=torch.float32, device=logits.device),
         )
         logits = logits + bias
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        logits = torch.where(same, logits, NEG_INF)
     if window > 0:
         pos = torch.arange(s, device=logits.device)
         logits = torch.where(_band(pos, pos, window, global_cls), logits, NEG_INF)
@@ -371,12 +385,145 @@ def flash_attention(
     return fn(q, k, v, lengths, window=window, global_cls=global_cls, return_lse=return_lse)
 
 
-def auto_impl(seq_len: int, on_cuda: bool, head_mask: Optional[torch.Tensor] = None) -> str:
+# ---------------------------------------------------------------------------
+# Head-packed attention (kernel K7)
+# ---------------------------------------------------------------------------
+
+def packed_attention_plain(
+    q: torch.Tensor,        # (B, S, H, D) f32 or bf16
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) valid keys per sequence
+) -> torch.Tensor:
+    """Plain version of K7, the Pallas kernel's arithmetic: s = q·kᵀ (input
+    dtype, f32 sums) × D^-1/2; keys j ≥ len[b] get −1e9 and weight exactly
+    0 (``where(s > −1e9 / 2, exp(s − m), 0)``); p / l with l = 1 where it
+    is 0 (a zero-length row gives 0); p rounded to v's dtype before P·V,
+    f32 sums; the output in q's dtype. Every query row is computed, padded
+    ones included. Query rows are taken in chunks, as in
+    ``flash_attention_plain``. → (B, S, H, D)."""
+    b, s, h, d = q.shape
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt = (x.transpose(1, 2).float() for x in (q, k, v))
+    key_ok = (torch.arange(s, device=dev)[None, :] < lengths.to(dev)[:, None])[:, None, None, :]
+    out = torch.empty((b, h, s, d), dtype=torch.float32, device=dev)
+    chunk = max(1, (1 << 27) // max(1, b * h * s))
+    for r0 in range(0, s, chunk):
+        scores = torch.matmul(qt[:, :, r0:r0 + chunk], kt.transpose(-1, -2)) * scale
+        scores = torch.where(key_ok, scores, NEG_INF)
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.where(scores > NEG_INF / 2, torch.exp(scores - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(l == 0, torch.ones_like(l), l)
+        out[:, :, r0:r0 + chunk] = torch.matmul(p.to(v.dtype).float(), vt)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _check_packed_head_dim(q: torch.Tensor, head_dim: Optional[int] = None) -> int:
+    """The reference's shape rule: D = head_dim divides 128 and the heads
+    fill whole 128-lane groups (H % (128 / D) == 0) → D."""
+    h, d = q.shape[2], q.shape[3]
+    if head_dim is not None and d != head_dim:
+        raise ValueError(f"head dim {d} != head_dim={head_dim}")
+    if 128 % d or h % (128 // d):
+        raise ValueError(f"packed attention needs D | 128 and H % (128 / D) == 0 (H {h}, D {d})")
+    return d
+
+
+def packed_attention_cuda(
+    q: torch.Tensor,        # (B, S, H, D) CUDA, f32 or bf16; last dim contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32 CUDA
+) -> torch.Tensor:
+    """Kernel K7 on the card. q, k, v may be strided views (the encoder's
+    fused QKV); D ∈ {32, 64, 128} with H % (128 / D) == 0. The kernel's
+    output carries no gradient, so inputs that need one are refused under
+    grad mode: take ``packed_attention``. → (B, S, H, D) contiguous in q's
+    dtype."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError(
+            "packed_attention_cuda does not track gradients; call packed_attention, "
+            "whose autograd Function runs K7 forward"
+        )
+    b, s, h, d = _check_flash_inputs(q, k, v, lengths, 0)
+    _check_packed_head_dim(q)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if b * s * h:
+        err = _cuda.lib().ts_packed_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lengths.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, s, h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            ctypes.c_float(1.0 / math.sqrt(d)), _cuda.stream_handle(q.device),
+        )
+        _cuda.check(err, "packed attention kernel")
+        packed_attention_cuda.launches += 1
+    return out
+
+
+packed_attention_cuda.launches = 0
+
+
+class PackedAttentionFunction(torch.autograd.Function):
+    """Packed attention with its backward (the JAX package's ``custom_vjp``
+    ``_packed_core``): the forward runs K7 (its plain version on a CPU
+    tensor) and saves q, k, v and the mask; the backward is autograd of
+    ``attention_reference`` with that mask, recomputed — the reference's
+    backward is XLA's, not a kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, mask):
+        fwd = packed_attention_plain if q.device.type == "cpu" else packed_attention_cuda
+        ctx.save_for_backward(q, k, v, mask)
+        return fwd(q, k, v, lengths)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = attention_reference(*leaves, mask)
+            dq, dk, dv = torch.autograd.grad(out, leaves, do)
+        return dq, dk, dv, None, None
+
+
+def packed_attention(
+    q: torch.Tensor,  # (B, S, H, D), D | 128, H % (128 / D) == 0
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,  # (B, S); only Σ mask per row is read
+    head_dim: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact attention over per-row key lengths (the JAX package's
+    ``packed_attention``): len[b] = Σ mask[b], and key j is valid iff j <
+    len[b] — a mask that is not a prefix gives another answer than
+    ``attention_reference``, as in the reference. K7 on a CUDA tensor, its
+    plain version on a CPU tensor; with grad enabled and an input that
+    needs a gradient, through ``PackedAttentionFunction``. → (B, S, H, D)."""
+    _check_packed_head_dim(q, head_dim)
+    b, s = q.shape[:2]
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.int32, device=q.device)
+    lengths = mask.sum(dim=1, dtype=torch.int32)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return PackedAttentionFunction.apply(q, k, v, lengths, mask)
+    fn = packed_attention_plain if q.device.type == "cpu" else packed_attention_cuda
+    return fn(q, k, v, lengths)
+
+
+def auto_impl(
+    seq_len: int,
+    on_cuda: bool,
+    head_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> str:
     """The JAX package's ``impl="auto"`` rule (``ops/attention.py:863-870``):
     flash on the accelerator (here: a CUDA tensor) when there is no head
-    mask, S % 128 == 0 and S ≥ 4096; otherwise the reference. (The rule
-    also needs no segment ids; the port has no packed attention yet.)"""
-    use_flash = on_cuda and head_mask is None and seq_len % 128 == 0 and seq_len >= 4096
+    mask and no segment ids, S % 128 == 0 and S ≥ 4096; otherwise the
+    reference. It never picks the packed kernel."""
+    use_flash = (on_cuda and head_mask is None and segment_ids is None
+                 and seq_len % 128 == 0 and seq_len >= 4096)
     return "flash" if use_flash else "reference"
 
 
@@ -386,21 +533,38 @@ def multi_head_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     head_mask: Optional[torch.Tensor] = None,
-    impl: str = "auto",        # auto | flash | reference
+    impl: str = "auto",        # auto | flash | packed | reference
     window: int = 0,
     window_global_cls: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
 ) -> torch.Tensor:
     """Dispatching MHA: ``auto`` resolves through :func:`auto_impl`, so on
     the CPU it runs the reference, as the JAX package does there; only an
-    explicit ``impl="flash"`` runs K5's plain version on the CPU."""
+    explicit ``impl="flash"`` / ``"packed"`` runs K5's / K7's plain version
+    on the CPU. Segment ids go with auto or the reference only; flash and
+    packed refuse a head mask, packed a window or the global CLS."""
+    if segment_ids is not None and impl not in ("auto", "reference"):
+        raise ValueError(
+            "segment_ids (packed batches) is only supported by the reference/auto attention path"
+        )
     if impl == "auto":
-        impl = auto_impl(q.shape[1], q.is_cuda, head_mask)
+        impl = auto_impl(q.shape[1], q.is_cuda, head_mask, segment_ids)
+    if impl == "packed":
+        if head_mask is not None:
+            raise ValueError("packed attention does not support head_mask")
+        if window or window_global_cls:
+            raise ValueError(
+                "packed attention does not support sliding windows; use impl='flash' "
+                "or 'reference' for windowed models"
+            )
+        return packed_attention(q, k, v, mask, head_dim=q.shape[3])
     if impl == "flash":
         if head_mask is not None:
             raise ValueError("flash attention does not support head_mask")
         return flash_attention(q, k, v, mask, window=window, global_cls=window_global_cls)
     if impl == "reference":
         return attention_reference(
-            q, k, v, mask, head_mask, window=window, global_cls=window_global_cls
+            q, k, v, mask, head_mask, window=window, global_cls=window_global_cls,
+            segment_ids=segment_ids,
         )
-    raise ValueError(f"attention impl {impl!r}: the port has auto, flash and reference")
+    raise ValueError(f"attention impl {impl!r}: the port has auto, flash, packed and reference")

@@ -17,6 +17,17 @@ queries in f32 (the semantics of the reference's Pallas kernel
   CUDA tensor, the plain version for a CPU tensor.
 * ``cosine_topk_int8_reference`` / ``cosine_topk_int8_cuda`` /
   ``cosine_topk_int8``: the same three for K3 (``csrc/topk.cu``).
+* ``cosine_topk_2pass``: the certified two-pass top-k (kernel K8, the
+  reference's ``cosine_topk_pallas_2pass``). Pass A keeps, per lane class
+  (corpus position mod ``block_c``), the best score and its id (strict >,
+  so the lower id wins a tie), then k merge rounds pick the top k of those
+  winners; pass B counts the corpus scores strictly above the k-th. When a
+  query's count differs from its count among the reported k, a class hid a
+  winner and the whole call falls back to K2's exact answer. On a CUDA
+  tensor both passes are kernels (``csrc/topk_2pass.cu``:
+  ``topk_2pass_fold_cuda``, ``topk_2pass_count_cuda``) and the fallback is
+  ``cosine_topk_cuda``; on a CPU tensor their plain versions
+  (``cosine_topk_2pass_reference``).
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 from . import _cuda
 
 MAX_K = 256   # the kernel's selector holds at most 256 winners per query
+_INT_MAX = 2**31 - 1
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -223,3 +235,193 @@ def cosine_topk_int8(
         )
     _check_k(k, corpus_q.shape[0])
     return cosine_topk_int8_reference(queries, corpus_q, scales, k)
+
+
+# ---------------------------------------------------------------------------
+# Certified two-pass top-k (kernel K8)
+# ---------------------------------------------------------------------------
+
+def exact_merge_rounds(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
+    """k rounds of (row max → lowest id among the maxima → mask that
+    (score, id)) over the candidates, the reference's
+    ``_exact_merge_rounds``; a masked candidate keeps its id. → ((Q, k)
+    scores, (Q, k) int32 ids)."""
+    cand = cand_s.clone()
+    new_s = torch.zeros((cand.shape[0], k), dtype=torch.float32, device=cand.device)
+    new_i = torch.zeros((cand.shape[0], k), dtype=torch.int32, device=cand.device)
+    for r in range(k):
+        m = cand.amax(dim=1)
+        hit = cand == m[:, None]
+        picked = torch.where(hit, cand_i, _INT_MAX).amin(dim=1)
+        new_s[:, r] = m
+        new_i[:, r] = picked
+        cand = torch.where(hit & (cand_i == picked[:, None]), -torch.inf, cand)
+    return new_s, new_i
+
+
+def _block_scores(q: torch.Tensor, corpus: torch.Tensor, start: int, block_c: int) -> torch.Tensor:
+    """Scores of corpus rows [start, start + block_c), with −inf for rows
+    past the corpus → (Q, block_c) f32. Both plain passes take their scores
+    from here, so pass B counts the very scores pass A folded."""
+    s = q @ corpus[start:start + block_c].float().T
+    pad = block_c - s.shape[1]
+    return torch.nn.functional.pad(s, (0, pad), value=-torch.inf) if pad else s
+
+
+def topk_2pass_fold_plain(queries, corpus, k: int, block_c: int):
+    """Plain version of K8's pass A: per lane class (position mod
+    ``block_c``) the running best (score, id) over the corpus blocks, strict
+    > (empty classes hold (−inf, −1)), then ``exact_merge_rounds`` → ((Q,
+    k) f32, (Q, k) int32)."""
+    q = _dot_dtype_queries(queries, corpus)
+    acc_s = torch.full((q.shape[0], block_c), -torch.inf, device=q.device)
+    acc_i = torch.full((q.shape[0], block_c), -1, dtype=torch.int32, device=q.device)
+    col = torch.arange(block_c, dtype=torch.int32, device=q.device)
+    for start in range(0, corpus.shape[0], block_c):
+        s = _block_scores(q, corpus, start, block_c)
+        upd = s > acc_s
+        acc_s = torch.where(upd, s, acc_s)
+        acc_i = torch.where(upd, col + start, acc_i)
+    return exact_merge_rounds(acc_s, acc_i, k)
+
+
+def topk_2pass_count_plain(queries, corpus, thr: torch.Tensor, block_c: int) -> torch.Tensor:
+    """Plain version of K8's pass B: per query, the number of corpus scores
+    strictly above ``thr`` → (Q,) int32."""
+    q = _dot_dtype_queries(queries, corpus)
+    cnt = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    for start in range(0, corpus.shape[0], block_c):
+        cnt += (_block_scores(q, corpus, start, block_c) > thr[:, None]).sum(dim=1, dtype=torch.int32)
+    return cnt
+
+
+def _check_2pass(queries, corpus, k: int, block_c: int) -> None:
+    _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
+    _cuda.require_cuda(corpus, "corpus", (torch.float32, torch.bfloat16), 2)
+    d = queries.shape[1]
+    if corpus.shape[1] != d or d % 32 or d > 1024:
+        raise ValueError(f"dims: queries {d}, corpus {corpus.shape[1]} (need equal, %32, ≤1024)")
+    if queries.device != corpus.device:
+        raise ValueError("queries and corpus must be on one device")
+    if not 1 <= block_c <= 16384:
+        raise ValueError(f"block_c={block_c} must be in [1, 16384]")
+    _check_k(k, corpus.shape[0])
+
+
+def _fold_splits(q_n: int, n: int, block_c: int):
+    """→ (splits, corpus blocks a split): about two CTAs on each of the 132
+    SMs over the (16-query tile, 128-class tile, split) grid."""
+    n_blocks = -(-n // block_c)
+    tiles = -(-q_n // 16) * -(-block_c // 128)
+    splits = max(1, min(-(-264 // tiles), n_blocks))
+    per = -(-n_blocks // splits)
+    return -(-n_blocks // per), per
+
+
+def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
+    """K8's pass A on the card: the class fold (CTAs over 16 queries × 128
+    classes × a run of corpus blocks, winners to device memory), then one
+    CTA a query runs the k merge rounds over its ``block_c`` classes.
+    queries (Q, D) f32, corpus (N, D) f32 or bf16, contiguous CUDA; D a
+    multiple of 32. → ((Q, k) f32, (Q, k) int32)."""
+    _check_2pass(queries, corpus, k, block_c)
+    q_n, d = queries.shape
+    n = corpus.shape[0]
+    dev = corpus.device
+    out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    if q_n == 0:
+        return out_s, out_i
+    splits, per = _fold_splits(q_n, n, block_c)
+    win_s = torch.empty((splits, q_n, block_c), dtype=torch.float32, device=dev)
+    win_i = torch.empty((splits, q_n, block_c), dtype=torch.int32, device=dev)
+    err = _cuda.lib().ts_topk_2pass_fold(
+        queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+        q_n, n, d, k, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "two-pass top-k fold kernel")
+    topk_2pass_fold_cuda.launches += 1
+    return out_s, out_i
+
+
+topk_2pass_fold_cuda.launches = 0
+
+
+def topk_2pass_count_cuda(queries, corpus, thr: torch.Tensor, block_c: int = 2048):
+    """K8's pass B on the card: CTAs over (16-query tile, corpus split)
+    count the scores strictly above each query's ``thr`` and add their
+    counts with integer atomics (exact, order-free). The scores are pass
+    A's, bit for bit (the same tile product in the same order over the
+    dims). → (Q,) int32."""
+    _check_2pass(queries, corpus, 1, block_c)
+    _cuda.require_cuda(thr, "thr", (torch.float32,), 1)
+    q_n, d = queries.shape
+    n = corpus.shape[0]
+    if thr.shape[0] != q_n:
+        raise ValueError(f"thr {tuple(thr.shape)} != ({q_n},)")
+    cnt = torch.zeros(q_n, dtype=torch.int32, device=corpus.device)
+    if q_n == 0:
+        return cnt
+    splits, rows_per_split = _split_corpus(q_n, n)
+    err = _cuda.lib().ts_topk_2pass_count(
+        queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+        thr.data_ptr(), q_n, n, d, splits, rows_per_split, cnt.data_ptr(),
+        _cuda.stream_handle(corpus.device),
+    )
+    _cuda.check(err, "two-pass top-k count kernel")
+    topk_2pass_count_cuda.launches += 1
+    return cnt
+
+
+topk_2pass_count_cuda.launches = 0
+
+
+def _two_pass(queries, corpus, k, block_c, fold, count, exact):
+    out_s, out_i = fold(queries, corpus, k, block_c)
+    thr = out_s[:, k - 1].clone()        # its own (aligned) allocation
+    cnt = count(queries, corpus, thr, block_c)
+    cnt_rep = (out_s > thr[:, None]).sum(dim=1, dtype=torch.int32)
+    if bool((cnt == cnt_rep).all()):      # one host sync a call
+        return out_s, out_i
+    cosine_topk_2pass.fallbacks += 1
+    return exact(queries, corpus, k)
+
+
+def cosine_topk_2pass_reference(queries, corpus, k: int = 10, block_c: int = 2048):
+    """Plain version of K8: pass A and pass B plain, the certification,
+    and the fallback to K2's plain version. → ((Q, k) f32, (Q, k) int32)."""
+    _check_k(k, corpus.shape[0])
+    return _two_pass(queries, corpus, k, block_c, topk_2pass_fold_plain,
+                     topk_2pass_count_plain, cosine_topk_reference)
+
+
+def cosine_topk_2pass(
+    queries: torch.Tensor,  # (Q, D) L2-normalized
+    corpus: torch.Tensor,   # (N, D) L2-normalized, f32 or bf16
+    k: int = 10,
+    block_q: int = 256,
+    block_c: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Certified two-pass exact top-k (the reference's
+    ``cosine_topk_pallas_2pass``): the kernels for a CUDA corpus, the plain
+    versions for a CPU corpus. ``block_c`` sets the lane classes and so
+    which calls fall back. ``block_q`` is accepted only so that calls
+    written for the reference's signature still work: nothing reads it
+    (the port's CTAs take 16 queries, and K2 takes no block size). Dots in
+    f32 for an f32 corpus, in bf16 (queries rounded) for a bf16 one, f32
+    sums.
+
+    Where the reference decides between its two branches on the device
+    (``lax.cond``), the port reads the certification on the host: one
+    synchronisation a call. Each fallback adds one to
+    ``cosine_topk_2pass.fallbacks``. → ((Q, k) f32, (Q, k) int32)."""
+    del block_q
+    if corpus.is_cuda:
+        # both passes' kernels, the certification, K2 on the card where it fails
+        return _two_pass(queries.float().contiguous(), corpus.contiguous(), k, block_c,
+                         topk_2pass_fold_cuda, topk_2pass_count_cuda, cosine_topk_cuda)
+    return cosine_topk_2pass_reference(queries, corpus, k, block_c)
+
+
+cosine_topk_2pass.fallbacks = 0
