@@ -156,7 +156,9 @@ Phases (any failure exits non-zero):
  9. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
-    library time at the phase-2/2b/3/5/5b/6/7/8 shapes.
+    library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
+    window 256 + CLS in ``ms`` / ``library_ms`` / ``bound_ms`` and window 0
+    in ``ms_window0`` / ``library_ms_window0`` / ``bound_ms_window0``.
  10. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
@@ -1581,6 +1583,8 @@ def phase_flash(torch, card):
         "replaces": "text_similarity_tpu/ops/attention.py:253 (:272 with lse)",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "ms_window0": times[0][0], "library_ms_window0": times[0][2],
+        "bound_ms_window0": times[0][3],
         "shape": f"B={b} S={s} H={h} D={d} window=256 global CLS bf16",
     }
 
@@ -1886,7 +1890,7 @@ def phase_flash_backward(torch, card):
         ops = 10.0 * d * pairs
         b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
         log(f"K6 times [{card}]: bf16 B={b} S={s} H={h} D={d} window={window} cls={cls}: "
-            f"kernels (dq + dk/dv, with the di reduction) {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
+            f"kernels (dq with di, then dk/dv) {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
             f"backward (fwd+bwd − fwd, bool mask) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP; {pairs} pairs); the kernels' own "
             f"products with the recompute: {1.4 * ops / 1e9:.1f} GFLOP, "
@@ -1899,6 +1903,8 @@ def phase_flash_backward(torch, card):
         "replaces": "text_similarity_tpu/ops/attention.py:469 (dq), :498 (dk/dv)",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        "ms_window0": times[0][0], "library_ms_window0": times[0][2],
+        "bound_ms_window0": times[0][3],
         "shape": f"B={b} S={s} H={h} D={d} window=256 global CLS bf16",
     }
 

@@ -333,25 +333,33 @@ def test_int8_pipeline_on_card_matches_cpu(cuda, tmp_path):
 # K5: flash attention forward
 # ---------------------------------------------------------------------------
 
-def _qkv_views(cuda, b, s, h, d, dtype, seed=0):
+def _qkv_views(cuda, b, s, h, d, dtype, seed=0, tail=0):
     """q, k, v as the encoder hands them over: views of one fused
-    (B, S, H, 3, D) tensor."""
+    (B, S, H, 3, D) tensor; with ``tail`` > 0, of the first S tokens of a
+    (B, S + tail, H, 3, D) one, so the batch stride is not S × the token
+    stride."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    qkv = torch.randn(b, s, h, 3, d, generator=g, device=cuda).to(dtype)
+    qkv = torch.randn(b, s + tail, h, 3, d, generator=g, device=cuda).to(dtype)[:, :s]
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,global_cls", [(0, False), (256, False), (256, True), (24, True)])
 @pytest.mark.parametrize(
-    "d,s,lens", [(64, 1024, (1024, 701)), (32, 512, (512, 300, 0)), (128, 600, (600, 599, 64))]
+    "d,s,lens,tail",
+    [(64, 1024, (1024, 701), 0), (32, 512, (512, 300, 0), 0), (128, 600, (600, 599, 64), 0),
+     (64, 4096, (4096, 3968, 3969, 1), 0), (32, 4096, (4096, 3969), 0), (128, 4096, (4096, 1), 0),
+     (64, 1000, (1000, 640), 24)],
 )
-def test_flash_kernel_matches_plain(cuda, dtype, window, global_cls, d, s, lens):
+def test_flash_kernel_matches_plain(cuda, dtype, window, global_cls, d, s, lens, tail):
     """K5 against its plain version on valid rows: f32 max |Δ| ≤ 1e-4; bf16
     max ≤ 1e-2 and mean ≤ 5e-4 (p rounds to bf16 against a running max in
     the kernel, a row max in the plain version); lse ≤ 1e-4; zero-length
-    rows exactly 0. S 600 is not a multiple of the 64-row blocks."""
-    q, k, v = _qkv_views(cuda, len(lens), s, 4, d, dtype)
+    rows exactly 0. S 600 and 1000 are not multiples of the 64- or 128-row
+    tiles; lengths 3968 and 3969 end on a 128-row tile edge and one past
+    it; ``tail`` slices a longer fused QKV (batch stride ≠ S × token
+    stride, for the TMA tensor maps)."""
+    q, k, v = _qkv_views(cuda, len(lens), s, 4, d, dtype, tail=tail)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     before = flash_attention_cuda.launches
     out, lse = flash_attention_cuda(q, k, v, lengths, window, global_cls, return_lse=True)
@@ -414,10 +422,10 @@ def test_flash_kernel_refuses_what_it_cannot_run(cuda):
 K6_F32_REL, K6_BF16_REL, K6_BF16_MEAN = 1e-4, 2 * 2.0 ** -7, 6e-7
 
 
-def _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls, seed=0):
+def _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls, seed=0, tail=0):
     """q, k, v as views of a fused QKV, K5's o and lse, and a random do that
     is nonzero on padded rows too."""
-    q, k, v = _qkv_views(cuda, b, s, h, d, dtype, seed=seed)
+    q, k, v = _qkv_views(cuda, b, s, h, d, dtype, seed=seed, tail=tail)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     out, lse = flash_attention_cuda(q, k, v, lengths, window, global_cls, return_lse=True)
     g = torch.Generator(device=cuda).manual_seed(seed + 100)
@@ -428,18 +436,23 @@ def _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,global_cls", [(0, False), (256, False), (256, True), (24, True)])
 @pytest.mark.parametrize(
-    "b,s,h,d,lens",
-    [(4, 4096, 12, 64, (4096, 3001, 3500, 4000)), (3, 512, 12, 32, (512, 300, 0)),
-     (2, 600, 4, 128, (600, 64))],
+    "b,s,h,d,lens,tail",
+    [(4, 4096, 12, 64, (4096, 3001, 3500, 4000), 0), (3, 512, 12, 32, (512, 300, 0), 0),
+     (2, 600, 4, 128, (600, 64), 0), (4, 4096, 4, 64, (4096, 3968, 3969, 1), 0),
+     (2, 4096, 4, 32, (4096, 3969), 0), (2, 4096, 4, 128, (4096, 1), 0),
+     (2, 1000, 4, 64, (1000, 640), 24)],
 )
-def test_flash_backward_kernel_matches_plain(cuda, dtype, window, global_cls, b, s, h, d, lens):
+def test_flash_backward_kernel_matches_plain(cuda, dtype, window, global_cls, b, s, h, d, lens,
+                                             tail):
     """K6 against its plain version on the same o and lse, every row: |Δ| ≤
     ``K6_F32_REL`` (f32) or ``K6_BF16_REL`` (bf16) · max(1, |ref|), and for
     bf16 the mean ≤ ``K6_BF16_MEAN``;
     a zero-length row's gradients exactly 0; two launches a call. The
-    first shape is phase 7's training shape; S 600 is not a multiple of
-    the 64-row blocks."""
-    args = _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls)
+    first shape is phase 7's training shape; S 600 and 1000 are not
+    multiples of the 64- or 128-row tiles; lengths 3968 and 3969 end on a
+    128-row tile edge and one past it; ``tail`` slices a longer fused QKV
+    (batch stride ≠ S × token stride, for the TMA tensor maps)."""
+    args = _k6_inputs(cuda, b, s, h, d, dtype, lens, window, global_cls, tail=tail)
     before = flash_attention_backward_cuda.launches
     got = flash_attention_backward_cuda(*args, window, global_cls)
     want = flash_attention_backward_plain(*args, window, global_cls)

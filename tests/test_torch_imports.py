@@ -110,3 +110,14 @@ def test_cpu_only_when_asked():
     enc = SentenceEncoder(params, arch, precision=FP32_PRECISION, device="cpu")
     assert enc.device.type == "cpu"
     assert next(enc.parameters()).device.type == "cpu"
+
+
+def test_build_hash_covers_every_kernel_source():
+    """Every ``*.cu`` under ``csrc/`` is compiled (``_cuda.SOURCES``) and
+    every ``*.cuh`` is hashed (``_cuda.HEADERS``): a source or header the
+    build hash missed would let an edited tree reuse a stale library."""
+    from text_similarity_tpu_torch.ops import _cuda
+
+    on_disk = {p.name for p in _cuda.CSRC.iterdir()}
+    assert {n for n in on_disk if n.endswith(".cu")} == set(_cuda.SOURCES)
+    assert {n for n in on_disk if n.endswith(".cuh")} == set(_cuda.HEADERS)

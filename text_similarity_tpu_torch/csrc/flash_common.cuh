@@ -1,7 +1,10 @@
-// Building blocks shared by the flash forward (flash_fwd.cu, kernel K5) and
-// backward (flash_bwd.cu, kernel K6): 64-row blocks, the kept (query, key)
-// pairs, the key blocks a q-block visits, and the bf16 mma.sync fragments
-// with their shared-memory staging.
+// Building blocks shared by the flash forward (flash_fwd.cu, kernel K5),
+// backward (flash_bwd.cu, kernel K6) and the head-packed attention
+// (packed_attention.cu, kernel K7): the kept (query, key) pairs, the blocks
+// a tile visits (for any tile sizes), whether a block needs the mask at
+// all, and the 64-row mma.sync bf16 fragments with their shared-memory
+// staging (K7 and nothing else; K5's and K6's bf16 paths use wgmma,
+// hopper.cuh).
 //
 // Kept pairs: key j of sequence b is kept for query row i when j < len[b]
 // and, with window > 0, |i - j| <= window or (global_cls and (i == 0 or
@@ -11,13 +14,14 @@
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows per block
+constexpr int kBQ = 64;              // query rows per block (K7, and the f32 paths)
 constexpr int kBK = 64;              // keys per block
 constexpr float kNegInf = -1e9f;
-constexpr int kMmaThreads = (kBQ / 16) * 32;   // bf16 kernels: one warp per 16 rows
+constexpr int kMmaThreads = (kBQ / 16) * 32;   // mma.sync kernels: one warp per 16 rows
 
 // The blocks a CTA visits: blocks it in [first, hi), block 0 standing in
 // for it < lo (the CLS column, or the CLS row in the backward's dk/dv).
@@ -25,16 +29,17 @@ struct Blocks {
   int first, lo, hi;
 };
 
-// The key blocks that hold every kept key of query rows [q0, q0 + kBQ):
-// the band's blocks below ceil(len / kBK), key block 0 once more when the
-// band leaves it out (global CLS), every valid block for the q-block of
-// row 0 (global CLS) or at window 0.
+// The key blocks (BK keys each) that hold every kept key of query rows
+// [q0, q0 + BQ): the band's blocks below ceil(len / BK), key block 0 once
+// more when the band leaves it out (global CLS), every valid block for the
+// tile of row 0 (global CLS) or at window 0.
+template <int BQ, int BK>
 __device__ __forceinline__ Blocks key_blocks(int q0, int len, int window, bool global_cls) {
-  const int n_valid = (len + kBK - 1) / kBK;
+  const int n_valid = (len + BK - 1) / BK;
   Blocks kb{0, 0, n_valid};
   if (window > 0) {
-    kb.lo = max(q0 - window, 0) / kBK;
-    kb.hi = min((q0 + kBQ - 1 + window) / kBK + 1, n_valid);
+    kb.lo = max(q0 - window, 0) / BK;
+    kb.hi = min((q0 + BQ - 1 + window) / BK + 1, n_valid);
     kb.first = kb.lo;
     if (global_cls && n_valid > 0) {
       if (q0 == 0) kb.hi = n_valid;                 // the CLS row sees every key
@@ -45,6 +50,56 @@ __device__ __forceinline__ Blocks key_blocks(int q0, int len, int window, bool g
     }
   }
   return kb;
+}
+
+// The q-blocks (BQ rows each) whose rows meet a kept pair of keys [k0, k0
+// + BK) (all rows below S, padded rows included): every q-block at window
+// 0 or for the key block of key 0 with the global CLS; else the band's
+// q-blocks, plus q-block 0 (the CLS row) first with the global CLS.
+template <int BQ, int BK>
+__device__ __forceinline__ Blocks query_blocks(int k0, int S, int window, bool global_cls) {
+  const int n_qb = (S + BQ - 1) / BQ;
+  Blocks qb{0, 0, n_qb};
+  if (window > 0 && !(global_cls && k0 == 0)) {
+    qb.lo = max(k0 - window, 0) / BQ;
+    qb.hi = min((k0 + BK - 1 + window) / BQ + 1, n_qb);
+    qb.first = global_cls && qb.lo > 0 ? qb.lo - 1 : qb.lo;
+  }
+  return qb;
+}
+
+// The (b·h, tile) of this CTA in a 1-D grid of BH · n_tiles CTAs. The
+// tiles of one head take neighbouring ids, so the CTAs on the card at once
+// cover a few heads and read each head's keys and values (or queries and
+// output gradients) from L2 rather than from device memory. With the
+// global CLS the tile of row 0 (or of key 0) of every head, the one that
+// visits every block, takes the lowest ids and starts first.
+__device__ __forceinline__ void cta_tile(int n_tiles, int BH, bool cls_first, int& bh,
+                                         int& tile) {
+  int id = blockIdx.x;
+  if (cls_first) {
+    if (id < BH) {
+      bh = id;
+      tile = 0;
+      return;
+    }
+    id -= BH;
+    bh = id / (n_tiles - 1);
+    tile = 1 + id % (n_tiles - 1);
+  } else {
+    bh = id / n_tiles;
+    tile = id % n_tiles;
+  }
+}
+
+// Whether some pair of rows [q0, q0 + nq) and keys [k0, k0 + nk) is not
+// kept: the keys cross len, or (window > 0) the block is not wholly inside
+// the band. The global CLS only adds pairs to those of the band, so a
+// block wholly inside the band (block 0 included) keeps every pair; only
+// the other blocks run kept().
+__device__ __forceinline__ bool needs_mask(int q0, int nq, int k0, int nk, int len, int window) {
+  if (k0 + nk > len) return true;
+  return window > 0 && (q0 + nq - 1 - k0 > window || k0 + nk - 1 - q0 > window);
 }
 
 __device__ __forceinline__ bool kept(int row, int key, int len, int window, bool global_cls) {
@@ -69,11 +124,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint3
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 64 rows of one (b, h) slice (token stride ss) → dst row-major, kRowWords
@@ -145,10 +195,10 @@ __device__ __forceinline__ void accumulate_pv(const float c[kBK / 8][4], const u
                                               int g, int t, float acc[D / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(c[2 * kk][0], c[2 * kk][1]),
-                            pack_bf16(c[2 * kk][2], c[2 * kk][3]),
-                            pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                            pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+    const uint32_t pa[4] = {pack_bf16x2(c[2 * kk][0], c[2 * kk][1]),
+                            pack_bf16x2(c[2 * kk][2], c[2 * kk][3]),
+                            pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+                            pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3])};
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const uint32_t* w = xt + (n * 8 + g) * kVtWords;

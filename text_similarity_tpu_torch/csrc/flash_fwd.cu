@@ -18,37 +18,49 @@
 // Bound on the H100: at the serving shape (B 8, S 4096, H 12, D 64, bf16,
 // window 256 with global CLS) the kernel must move about 0.2 GB (q, k, v
 // read once, o written once) and do about 50 GFLOP (4·D per (q, k) pair in
-// the band): at the bf16 tensor-core rate that is bound by bytes (about
-// 0.06 ms); at window 0 and full length, by operations (about 412 GFLOP,
-// 0.42 ms). This version stays about ten times above both bounds
-// (PERF.md): each key block's tiles are loaded and staged before any
-// product starts (no copy pipeline), mma.sync issues below wgmma's rate,
-// and every score costs an exp on the special-function units.
+// the band): bound by bytes, about 0.06 ms. At window 0 and full length it
+// is bound by operations: about 412 GFLOP, 0.42 ms at the bf16 tensor-core
+// rate. Besides the products every score costs an FMA, an exp2 on the
+// special-function units (16 a clock an SM: at D 64 as long as the score's
+// 2·D multiply-adds take on the tensor cores), a max, an add and half a
+// bf16 pack, so the softmax has to run beside the tensor cores, not after
+// them. PERF.md §6 has the measured times (tools/flash_ab.py).
 //
 // Design. The TPU grid walks the key blocks of one q-block in order and
-// carries (m, l, acc) in VMEM. Here one CTA owns one (b·h, 64-row q-block)
-// and loops over its key blocks of 64 itself, with m, l and the output
+// carries (m, l, acc) in VMEM. Here one CTA owns one (b·h, 128-row q-tile)
+// and loops over its key blocks itself, with m, l and the output
 // accumulator in registers. It visits only the key blocks that meet the
-// band and lie below ceil(len / 64), plus key block 0 (the CLS column)
-// and, for the q-block that holds row 0, every valid key block: at window
+// band and lie below ceil(len / Bk), plus key block 0 (the CLS column)
+// and, for the tile that holds row 0, every valid key block: at window
 // 256 it reads O(S·w) keys, not O(S²). Padding query rows (i >= len) are
-// computed like valid ones; the backward (K6) reads their lse. q, k and v are
-// read through (batch, token, head) strides with the last dim contiguous,
-// so the encoder hands over views of its fused QKV without copies. The
-// q-blocks of row 0, the longest with global CLS, get the lowest CTA ids
-// and start first.
-//  * bf16 (the serving path): 4 warps on the tensor cores, mma.sync
-//    m16n8k16 with bf16 operands and f32 accumulators; each warp owns 16
-//    query rows, keeps its Q fragments in registers and turns its score
-//    accumulators into the A fragments of P·V (rounded to bf16) without
-//    going through shared memory. K is staged row-major and V transposed,
-//    as bf16 with rows padded by 16 bytes so fragment loads hit distinct
-//    banks.
-//  * f32 (exact, no TF32): 256 threads on the CUDA cores. Q and K are
-//    staged transposed as f32 (a float4 holds 4 rows of one dim), V
-//    row-major, P transposed; thread (ty, tx) scores rows 4ty..4ty+3
-//    against keys 4tx..4tx+3 and accumulates output columns tx·D/16 .. of
-//    the same rows.
+// computed like valid ones; the backward (K6) reads their lse. q, k and v
+// are read through (batch, token, head) strides with the last dim
+// contiguous, so the encoder hands over views of its fused QKV without
+// copies. The grid is 1-D and head-major (flash_common.cuh cta_tile): the
+// CTAs on the card at once share a few heads' K and V through L2 (about
+// 15% off window 0, PERF.md §6); with the global CLS the tiles of row 0,
+// the longest, get the lowest CTA ids and start first.
+//  * bf16 (the serving path): warp-specialised, 288 threads. One producer
+//    warp issues TMA loads (hopper.cuh: 4-D tensor maps over (D, H, S, B),
+//    zeros past S) of the Q tile once and of K and V into a ring of
+//    kStages stages of Bk keys (128 at D <= 64, 64 at D 128), each stage
+//    guarded by a full and an empty mbarrier. Two consumer warpgroups own
+//    64 query rows each and share every K/V stage, so a tile of K and V
+//    feeds 128 rows: S = Q·Kᵀ is one wgmma SS chain (Q and K K-major, as
+//    they lie in memory); the online softmax runs on the accumulator
+//    fragments with exp2 and scale·log2 e folded into one FMA, and only a
+//    block that crosses len or leaves the band runs kept(); P, rounded to
+//    bf16 in registers, is the A operand of a wgmma RS chain against V as
+//    an MN-major B, so nothing is transposed or staged by threads. While
+//    one warpgroup runs its softmax the other's products keep the tensor
+//    cores busy. (Overlapping a warpgroup's own softmax with its P·V, as
+//    K6 does, and exp2 on the FMA pipe for half the scores were both
+//    slower here: PERF.md §6.)
+//  * f32 (exact, no TF32): 256 threads on the CUDA cores, 64-row blocks.
+//    Q and K are staged transposed as f32 (a float4 holds 4 rows of one
+//    dim), V row-major, P transposed; thread (ty, tx) scores rows
+//    4ty..4ty+3 against keys 4tx..4tx+3 and accumulates output columns
+//    tx·D/16 .. of the same rows.
 #include "flash_common.cuh"
 
 namespace {
@@ -67,12 +79,25 @@ struct FlashArgs {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
+constexpr int kConsumers = 2;                           // warpgroups of 64 query rows
+constexpr int kTileRows = 64 * kConsumers;              // query rows a CTA
+constexpr int kHopperThreads = 128 * kConsumers + 32;   // and one producer warp
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return 4 * ((size_t)(kBK + kBQ) * kRowWords<D> + (size_t)D * kVtWords);
+__host__ __device__ constexpr int fwd_keys() { return D <= 64 ? 128 : 64; }   // Bk
+
+struct __align__(64) FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {   // Q; K and V stages; barriers; alignment slack
+  return 2 * (size_t)D * (kTileRows + 2 * kStages * fwd_keys<D>()) + 8 * (1 + 2 * kStages) + 1024;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -85,101 +110,153 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Fragment layout (PTX m16n8k16): lane = 4g + t holds, of a 16×8 f32
-// accumulator, rows g and g + 8 at columns 2t, 2t + 1 (c[0..1] and
-// c[2..3]); of the 16×16 A tile, rows g and g + 8 at k = 2t.. and 2t + 8..;
-// of the 16×8 B tile, column g at k = 2t.. and 2t + 8.. .
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const FlashArgs a) {
-  constexpr int kKSteps = D / 16;   // k-steps of the score product
-  constexpr int kNTiles = D / 8;    // 8-column tiles of the output
-  extern __shared__ __align__(16) uint32_t mma_smem[];
-  uint32_t* ks = mma_smem;                   // kBK × kRowWords: K rows (bf16 pairs)
-  uint32_t* qs = ks + kBK * kRowWords<D>;    // kBQ × kRowWords: Q rows, read once into registers
-  uint32_t* vts = qs + kBQ * kRowWords<D>;   // D × kVtWords: V^T rows
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ FwdMaps maps, const FlashArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = fwd_keys<D>();
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(align_1024(fwd_smem));
+  bf16* ks = qs + kTileRows * D;       // kStages tiles of BK × D
+  bf16* vs = ks + kStages * BK * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * BK * D);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
   const int S = a.S, H = a.H;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kBQ;
-  const int len = min(a.lengths[b], S);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0 and row0 + 8
   const int window = a.window;
   const bool global_cls = a.global_cls != 0;
-  using bf16 = __nv_bfloat16;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
+  int bh, tile;
+  cta_tile((S + kTileRows - 1) / kTileRows, (int)gridDim.x / ((S + kTileRows - 1) / kTileRows),
+           global_cls, bh, tile);
+  const int b = bh / H, h = bh % H;
+  const int q0 = tile * kTileRows;
+  const int len = min(a.lengths[b], S);
+  const Blocks blocks = key_blocks<kTileRows, BK>(q0, len, window, global_cls);
+  const int n_it = max(blocks.hi - blocks.first, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  stage_rows<D>(qb, a.qss, q0, S, qs);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * kConsumers);   // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qa[kKSteps][4];
-  load_a_frags<D>(qs, warp * 16, g, t, qa);
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[kNTiles][4];
-#pragma unroll
-  for (int n = 0; n < kNTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const Blocks blocks = key_blocks(q0, len, window, global_cls);
-  for (int it = blocks.first; it < blocks.hi; ++it) {
-    const int k0 = (it < blocks.lo ? 0 : it) * kBK;
-    __syncthreads();   // the previous tiles are consumed
-    stage_rows<D>(kb, a.kss, k0, S, ks);
-    stage_vt<D>(vb, a.vss, k0, S, vts);
-    __syncthreads();
-
-    float sc[kBK / 8][4];   // scores: 8 tiles of 8 keys
-    scores_16x64<D>(qa, ks, g, t, sc);
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8, key = k0 + j * 8 + 2 * t + (e & 1);
-        sc[j][e] = kept(row, key, len, window, global_cls) ? sc[j][e] * a.scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+  if (warp == 4 * kConsumers) {   // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, kTileRows * D * 2);
+      tma_rows<D>(qs, &maps.q, q_full, kTileRows, q0, h, b);
+      for (int i = 0; i < n_it; ++i) {
+        const int st = i % kStages, it = blocks.first + i;
+        const int k0 = (it < blocks.lo ? 0 : it) * BK;
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * BK * D * 2);
+        tma_rows<D>(ks + st * BK * D, &maps.k, &full[st], BK, k0, h, b);
+        tma_rows<D>(vs + st * BK * D, &maps.v, &full[st], BK, k0, h, b);
       }
-    float alpha[2], rs[2] = {0.f, 0.f};
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wq0 .. wq0 + 63; this thread's rows row0
+  // and row0 + 8, columns 8j + 2t, 8j + 2t + 1 of every accumulator
+  const int wg = warp / 4;
+  const int wq0 = q0 + 64 * wg;
+  const int row0 = wq0 + (warp % 4) * 16 + lane / 4, t = lane % 4;
+  const float c = a.scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_it; ++i) {
+    const int st = i % kStages, it = blocks.first + i;
+    const int k0 = (it < blocks.lo ? 0 : it) * BK;
+    const bf16* kt = ks + st * BK * D;
+    const bf16* vt = vs + st * BK * D;
+    mbar_wait(&full[st], (i / kStages) & 1);
+
+    wgmma_fence();   // S = Q·Kᵀ
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK, 0>(s, desc_k_major<D>(qs, kTileRows, 64 * wg, kk),
+                      desc_k_major<D>(kt, BK, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (needs_mask(wq0, 64, k0, BK, len, window)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e >> 1) * 8, key = k0 + 8 * j + 2 * t + (e & 1);
+          if (!kept(row, key, len, window, global_cls)) s[4 * j + e] = -INFINITY;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    float base[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
+      mx[r] = quad_max(mx[r]);
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * c;   // no kept key yet: p = 0
+      alpha[r] = fast_exp2(m[r] * c - base[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sc[j][e] = sc[j][e] == kNegInf ? 0.f : __expf(sc[j][e] - m[e >> 1]);
-        rs[e >> 1] += sc[j][e];
+        const int r = e >> 1;
+        s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], c, -base[r]));
+        l[r] += s[4 * j + e];
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n + 0] *= alpha[0]; o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1]; o[4 * n + 3] *= alpha[1];
     }
-    // P·V: the score tiles, rounded to bf16, are the A fragments
-    accumulate_pv<D>(sc, vts, g, t, o);
+
+    uint32_t pa[BK / 16][4];   // P rounded to bf16: the A operand, read asynchronously
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(s, kk, pa[kk]);
+    wgmma_fence();   // O += P·V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, 1>(o, pa[kk], desc_mn_major<D>(vt, BK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
 
   bf16* out = static_cast<bf16*>(a.o);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
+    const float lr = quad_sum(l[r]);
     if (row >= S) continue;
-    const float li = l[r] == 0.f ? 1.f : l[r];
+    const float li = lr == 0.f ? 1.f : lr;
     bf16* orow = out + (((long long)b * S + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(o[n][2 * r] / li, o[n][2 * r + 1] / li);
+          __floats2bfloat162_rn(o[4 * n + 2 * r] / li, o[4 * n + 2 * r + 1] / li);
     if (a.lse != nullptr && t == 0)
-      a.lse[(long long)bh * S + row] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+      a.lse[(long long)bh * S + row] = lr > 0.f ? m[r] * a.scale + logf(lr) : 0.f;
   }
 }
 
@@ -280,7 +357,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashArgs a) 
     for (int c = 0; c < kCpt; ++c) acc[i][c] = 0.f;
   }
 
-  const Blocks blocks = key_blocks(q0, len, window, global_cls);
+  const Blocks blocks = key_blocks<kBQ, kBK>(q0, len, window, global_cls);
   for (int it = blocks.first; it < blocks.hi; ++it) {
     const int k0 = (it < blocks.lo ? 0 : it) * kBK;
     __syncthreads();   // the previous tiles are consumed (and qt is staged)
@@ -362,20 +439,37 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const FlashArgs a) 
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, const FlashArgs& a, int B,
-                   cudaStream_t st) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D>
+cudaError_t launch_bf16(const FlashArgs& a, int B, cudaStream_t st) {
+  FwdMaps maps;
+  cudaError_t err = rows_map(&maps.q, a.q, B, a.S, a.H, D, a.qsb, a.qss, a.qsh, kTileRows);
+  if (err == cudaSuccess)
+    err = rows_map(&maps.k, a.k, B, a.S, a.H, D, a.ksb, a.kss, a.ksh, fwd_keys<D>());
+  if (err == cudaSuccess)
+    err = rows_map(&maps.v, a.v, B, a.S, a.H, D, a.vsb, a.vss, a.vsh, fwd_keys<D>());
+  if (err == cudaSuccess) err = set_smem(flash_fwd_bf16<D>, fwd_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * a.H * ((a.S + kTileRows - 1) / kTileRows));
+  flash_fwd_bf16<D><<<grid, kHopperThreads, fwd_smem_bytes<D>(), st>>>(maps, a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const FlashArgs& a, int B, cudaStream_t st) {
+  cudaError_t err = set_smem(flash_fwd_f32<D>, f32_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   const dim3 grid(B * a.H, (a.S + kBQ - 1) / kBQ);
-  kernel<<<grid, threads, smem, st>>>(a);
+  flash_fwd_f32<D><<<grid, kF32Threads, f32_smem_bytes<D>(), st>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dtype(const FlashArgs& a, int B, bool bf16, cudaStream_t st) {
-  if (bf16) return launch(flash_fwd_bf16<D>, kMmaThreads, mma_smem_bytes<D>(), a, B, st);
-  return launch(flash_fwd_f32<D>, kF32Threads, f32_smem_bytes<D>(), a, B, st);
+  return bf16 ? launch_bf16<D>(a, B, st) : launch_f32<D>(a, B, st);
 }
 
 }  // namespace

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
            "packed_attention.cu", "topk_2pass.cu")
-HEADERS = ("common.cuh", "flash_common.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -83,12 +83,13 @@ _SIGNATURES = {
     # scale, stream
     "ts_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P],
-    # q, k, v, do, lse, di, dq, lengths, bf16, B, S, H, D, strides (12
-    # int64: q/k/v/do batch, token, head), window, global_cls, scale, stream
-    "ts_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # q, k, v, do, out, lse, di (written by dq, read by dk/dv), dq,
+    # lengths, bf16, B, S, H, D, strides (15 int64: q/k/v/do/out batch,
+    # token, head), window, global_cls, scale, stream
+    "ts_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P, _I, _I, _F, _P],
     # the same with dk, dv in place of dq
-    "ts_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "ts_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _I, _I, _F, _P],
     # q, k, v, out, lengths, bf16, B, S, H, D, q/k/v strides (batch,
     # token, head) in elements, scale, stream

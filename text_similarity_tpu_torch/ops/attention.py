@@ -291,32 +291,37 @@ def flash_attention_backward_cuda(
     window: int = 0,
     global_cls: bool = False,
 ):
-    """Kernel K6 on the card: di = Σ o·do as one torch reduction (the
-    reference takes it in XLA), then its two kernels, dq and dk/dv, each
-    counted in ``launches``. q, k, v and do may be strided views with the
-    last dim contiguous; D ∈ {32, 64, 128}. → (dq, dk, dv), each (B, S, H,
-    D) contiguous in q's dtype."""
+    """Kernel K6 on the card: its two kernels, dq (which also takes di =
+    Σ o·do of its rows, the reduction the reference leaves to XLA, and
+    writes it for the next) and dk/dv, each counted in ``launches``. q, k,
+    v, out and do may be strided views with the last dim contiguous; D ∈
+    {32, 64, 128}. → (dq, dk, dv), each (B, S, H, D) contiguous in q's
+    dtype."""
     b, s, h, d = _check_flash_inputs(q, k, v, lengths, window)
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"out and do must be {tuple(q.shape)}")
     if do.stride(-1) != 1 or do.data_ptr() % 16 or do.dtype != q.dtype:
         do = do.contiguous().to(q.dtype)
+    if out.stride(-1) != 1 or out.data_ptr() % 16 or out.dtype != q.dtype:
+        out = out.contiguous().to(q.dtype)
     _check_flash_operand(do, "do", q)
+    _check_flash_operand(out, "out", q)
     _cuda.require_cuda(lse, "lse", (torch.float32,), 3)
     if tuple(lse.shape) != (b, h, s):
         raise ValueError(f"lse: shape {tuple(lse.shape)} (need {(b, h, s)})")
-    di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     if b * s * h:
         lib = _cuda.lib()
-        strides = (ctypes.c_longlong * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]
+        strides = (ctypes.c_longlong * 15)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *out.stride()[:3],
         )
         common = (int(q.dtype == torch.bfloat16), b, s, h, d, strides, int(window),
                   int(bool(global_cls)), ctypes.c_float(1.0 / math.sqrt(d)),
                   _cuda.stream_handle(q.device))
-        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-               di.data_ptr())
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+               lse.data_ptr(), di.data_ptr())
         err = lib.ts_flash_bwd_dq(*ins, dq.data_ptr(), lengths.data_ptr(), *common)
         _cuda.check(err, "flash backward dq kernel")
         flash_attention_backward_cuda.launches += 1
