@@ -10,16 +10,20 @@ Phases (any failure exits non-zero):
     source, started together).
  2. K2 (exact cosine top-k) against its plain version at N = 100,003 ragged,
     D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora with
-    duplicated rows.
+    duplicated rows; timed at Q 1, 8 and 64 (the pipeline's padded request
+    sizes) and 256, each beside ``torch.topk(q @ cᵀ)`` and its bound.
  2b. K8 (certified two-pass top-k) through ``cosine_topk_2pass`` at phase
-    2's shapes (f32 and bf16, Q ∈ {1, 7, 256}, k ∈ {10, 20}) with its
-    counters zeroed just before: both passes launch on every call; each
-    call against the plain version (f32 ids equal where scores are
-    separated, |Δ| ≤ 1e-5; bf16 overlap ≥ 0.99, |Δ| ≤ 1e-4) and against
-    K2; pass A and pass B alone against their plain versions; a collision
-    corpus (two near-copies 2048 rows apart) must fall back to K2 once and
-    keep both copies. Timed at Q = 256, k = 10 beside K2 and
-    ``torch.topk(q @ cᵀ)``.
+    2's shapes (f32 and bf16, Q ∈ {1, 7, 256}, k ∈ {10, 20}) and at Q 1024,
+    k 10, with its counters zeroed just before: pass A launches on every
+    call, pass B over pass A's kept scores on the phase-2 shapes and on the
+    score tile at Q 1024 (scores over 256 MiB); each call against the plain
+    version (f32 ids equal where scores are separated, |Δ| ≤ 1e-5; bf16
+    overlap ≥ 0.99, |Δ| ≤ 1e-4) and against K2, falling back exactly where
+    the plain version does; pass A and both pass Bs alone against their
+    plain versions, pass A's kept scores equal to K2's bit for bit; a
+    collision corpus (two near-copies 2048 rows apart) must fall back to K2
+    once and keep both copies. Timed at Q = 256, k = 10 beside K2 and
+    ``torch.topk(q @ cᵀ)``, each pass with its bound.
  3. K1 (IVF scan) against its plain version on a 1M × 384 IVF index built
     on the card from the bench recipe (4096 gaussian centres ×3 + unit
     noise; queries = corpus rows + 0.1 noise), bf16 slabs,
@@ -158,7 +162,10 @@ Phases (any failure exits non-zero):
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
     window 256 + CLS in ``ms`` / ``library_ms`` / ``bound_ms`` and window 0
-    in ``ms_window0`` / ``library_ms_window0`` / ``bound_ms_window0``.
+    in ``ms_window0`` / ``library_ms_window0`` / ``bound_ms_window0``; K2
+    carries Q 1, 8, 64 and 256 in ``ms_by_q`` / ``bound_ms_by_q`` /
+    ``library_ms_by_q``; K8's pass B has two rows (over the kept scores, and
+    on the score tile).
  10. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
@@ -290,10 +297,22 @@ def phase_topk(torch, card):
     b_ms, b_by = bound_ms(qn * d * 4 + n * d * 4 + qn * k * 8, 2.0 * qn * n * d, PEAK_F32)
     corpus_bf16 = corpus.to(torch.bfloat16)
     ms_bf16 = time_ms(torch, lambda: cosine_topk_cuda(q, corpus_bf16, k))
-    ms_q1 = time_ms(torch, lambda: cosine_topk_cuda(q[:1], corpus, k))
+    # the pipeline's padded request sizes (BruteForceIndex pads Q to a power
+    # of two) beside the table's Q 256, each with its bound and the library
+    by_q, bound_by_q, lib_by_q = {}, {}, {}
+    for q_n in (1, 8, 64, 256):
+        qq = q[:q_n].contiguous()
+        by_q[q_n] = ms if q_n == qn else time_ms(torch, lambda: cosine_topk_cuda(qq, corpus, k))
+        lib_by_q[q_n] = lib if q_n == qn else time_ms(
+            torch, lambda: torch.topk(qq @ corpus.T, k, dim=1))
+        bound_by_q[q_n] = bound_ms(q_n * d * 4 + n * d * 4 + q_n * k * 8, 2.0 * q_n * n * d,
+                                   PEAK_F32)
     log(f"K2 times [{card}]: f32 Q=256 k=10 kernel {ms:.3f} ms, plain {plain:.3f} ms, "
         f"torch.topk(q@cT) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"bf16 corpus {ms_bf16:.3f} ms; Q=1 {ms_q1:.3f} ms")
+        f"bf16 corpus {ms_bf16:.3f} ms")
+    for q_n in (1, 8, 64, 256):
+        log(f"K2 f32 Q={q_n} k=10 [{card}]: kernel {by_q[q_n]:.4f} ms, torch.topk(q@cT) "
+            f"{lib_by_q[q_n]:.4f} ms, bound {bound_by_q[q_n][0]:.4f} ms ({bound_by_q[q_n][1]})")
     return {
         "name": "cosine_topk", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/topk.cu",
@@ -301,6 +320,8 @@ def phase_topk(torch, card):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "shape": f"Q=256 N={n} D={d} k=10 f32",
+        "ms_by_q": by_q, "bound_ms_by_q": {q_n: b for q_n, (b, _) in bound_by_q.items()},
+        "library_ms_by_q": lib_by_q, "ms_bf16": ms_bf16,
     }
 
 
@@ -324,27 +345,37 @@ def collision_inputs(torch, n=100_003, d=384, q_n=8):
 
 
 def k8_counts(topk):
+    kept = topk.topk_2pass_count_cuda.launches_scores
     return {"fold": topk.topk_2pass_fold_cuda.launches,
-            "count": topk.topk_2pass_count_cuda.launches,
+            "count": topk.topk_2pass_count_cuda.launches - kept,
+            "count (scores)": kept,
             "fallbacks": topk.cosine_topk_2pass.fallbacks,
             "cosine_topk (fallback)": topk.cosine_topk_cuda.launches}
 
 
 def phase_topk_2pass(torch, card):
     """K8 through its entry point ``cosine_topk_2pass`` at phase 2's shapes
-    (Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora), counted; then
-    each call against the plain version and K2, each pass against its plain
-    version, the collision corpus (must fall back), and the times at Q 256,
-    k 10 beside K2 and ``torch.topk(q @ cᵀ)``. → the two kernels' rows."""
+    (Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora; pass B counts
+    over pass A's kept scores) and at Q 1024, k 10 (scores over 256 MiB:
+    pass B on the score tile), counted; then each call against the plain
+    version and K2, each pass against its plain version (pass A's kept
+    scores equal K2's bit for bit), the collision corpus (must fall back),
+    and the times at Q 256, k 10 beside K2 and ``torch.topk(q @ cᵀ)``. →
+    the three kernels' rows."""
     from text_similarity_tpu_torch.ops import topk
 
     corpus, queries = topk_inputs(torch)
     n, d = corpus.shape
+    g = torch.Generator(device=corpus.device).manual_seed(5)
+    queries = torch.cat([queries, topk.l2_normalize(
+        corpus[:768] + 0.05 * torch.randn(768, d, generator=g, device=corpus.device))])
     corpora = {dt: corpus.to(dt).contiguous() for dt in (torch.float32, torch.bfloat16)}
     cases = [(dt, q_n, k) for dt in corpora for q_n in (1, 7, 256) for k in (10, 20)]
+    cases += [(dt, 1024, 10) for dt in corpora]
 
     # the path: the entry point on every case, with the counters zeroed
     topk.topk_2pass_fold_cuda.launches = topk.topk_2pass_count_cuda.launches = 0
+    topk.topk_2pass_count_cuda.launches_scores = 0
     topk.cosine_topk_cuda.launches = topk.cosine_topk_2pass.fallbacks = 0
     results = {}
     for dt, q_n, k in cases:
@@ -354,10 +385,12 @@ def phase_topk_2pass(torch, card):
     torch.cuda.synchronize()
     launches = k8_counts(topk)
     log(f"launches during the K8 path ({len(cases)} calls of cosine_topk_2pass): {launches}")
-    if launches["fold"] != len(cases) or launches["count"] != len(cases):
-        raise AssertionError(f"K8's passes launched {launches}, expected {len(cases)} each")
+    if (launches["fold"] != len(cases) or launches["count (scores)"] != len(cases) - 2
+            or launches["count"] != 2):
+        raise AssertionError(f"K8's passes launched {launches}, expected {len(cases)} folds, "
+                             f"{len(cases) - 2} counts over kept scores and 2 on the tile")
 
-    worst = {"fold": 0.0, "count": 0.0}
+    worst = {"fold": 0.0, "count": 0.0, "count (scores)": 0.0}
     for (dt, q_n, k), (ks, ki, fell) in results.items():
         q, c, exact = queries[:q_n].contiguous(), corpora[dt], dt == torch.float32
         before = topk.cosine_topk_2pass.fallbacks
@@ -379,16 +412,27 @@ def phase_topk_2pass(torch, card):
         near = ((s - thr[:, None]).abs() <= 1e-5).sum(dim=1)
         cnt_err = int((cnt - pcnt).abs().max())
         count_ok = bool(((cnt - pcnt).abs() <= near).all())
+        # pass A's kept scores: K2's bit for bit at K2's ids, and pass B over
+        # them counts what the tile's pass B counts
+        _, _, kept = topk._fold_cuda(q, c, k, 2048, True)
+        same_bits = bool(torch.equal(torch.gather(kept, 1, ei.long()), es))
+        scnt = topk.topk_2pass_count_cuda(q, c, thr, scores=kept)
+        scnt_err = int((scnt - pcnt).abs().max())
+        count_ok = (count_ok and same_bits and torch.equal(scnt, cnt)
+                    and torch.equal(scnt, topk.topk_2pass_count_scores_plain(kept, thr, n)))
+        del kept, s
         err, ok, detail = agree_topk(ks, ki, rs, ri, exact)
         _, ok_k2, detail_k2 = agree_topk(ks, ki, es, ei, exact)
         ferr, ok_fold, detail_fold = agree_topk(fs, fi, ps, pi, exact)
         worst["fold"] = max(worst["fold"], err, ferr)
         worst["count"] = max(worst["count"], float(cnt_err))
+        worst["count (scores)"] = max(worst["count (scores)"], float(scnt_err))
         ok = ok and ok_k2 and ok_fold and count_ok and fell == plain_fell
         log(f"K8 {str(dt)[6:]} Q={q_n} k={k}: fell back {fell} (plain {plain_fell}); against "
             f"the plain version max|Δscore| {err:.2e}, {detail}; against K2 {detail_k2}; pass A "
-            f"alone max|Δ| {ferr:.2e}, {detail_fold}; pass B alone max|Δcount| {cnt_err} "
-            f"at thresholds between scores -> {'ok' if ok else 'FAIL'}")
+            f"alone max|Δ| {ferr:.2e}, {detail_fold}, its kept scores K2's bit for bit "
+            f"{same_bits}; pass B alone max|Δcount| {cnt_err} (over the kept scores "
+            f"{scnt_err}) at thresholds between scores -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("K8 disagrees with its plain version or with K2, or falls "
                                  "back where the plain version does not")
@@ -415,46 +459,60 @@ def phase_topk_2pass(torch, card):
             raise AssertionError("K8 did not fall back to K2 on the collision corpus")
 
     # times at the main shape: f32 corpus, Q = 256, k = 10
-    q, c, k = queries.contiguous(), corpora[torch.float32], 10
+    q, c, k = queries[:256].contiguous(), corpora[torch.float32], 10
     qn = q.shape[0]
-    fs, _ = topk.topk_2pass_fold_cuda(q, c, k)
+    fs, _, kept = topk._fold_cuda(q, c, k, 2048, True)
     thr = fs[:, k - 1].clone()
 
     def passes():
-        out_s, _ = topk.topk_2pass_fold_cuda(q, c, k)
-        t = out_s[:, k - 1].clone()
-        cnt = topk.topk_2pass_count_cuda(q, c, t)
+        out_s, _, t, cnt = topk._passes_cuda(q, c, k, 2048)
         return bool((cnt == (out_s > t[:, None]).sum(dim=1, dtype=torch.int32)).all())
 
     certified = passes()
-    ms_fold = time_ms(torch, lambda: topk.topk_2pass_fold_cuda(q, c, k))
+    ms_fold = time_ms(torch, lambda: topk._fold_cuda(q, c, k, 2048, True))
+    ms_fold_alone = time_ms(torch, lambda: topk.topk_2pass_fold_cuda(q, c, k))
     ms_count = time_ms(torch, lambda: topk.topk_2pass_count_cuda(q, c, thr))
+    ms_count_scores = time_ms(torch, lambda: topk.topk_2pass_count_cuda(q, c, thr, scores=kept))
     ms_passes = time_ms(torch, passes)
     ms_call = time_ms(torch, lambda: topk.cosine_topk_2pass(q, c, k))
     ms_k2 = time_ms(torch, lambda: topk.cosine_topk_cuda(q, c, k))
     plain_fold = time_ms(torch, lambda: topk.topk_2pass_fold_plain(q, c, k, 2048), iters=3, warmup=1)
     plain_count = time_ms(torch, lambda: topk.topk_2pass_count_plain(q, c, thr, 2048),
                           iters=3, warmup=1)
+    plain_count_scores = time_ms(torch, lambda: topk.topk_2pass_count_scores_plain(kept, thr, n))
     lib = time_ms(torch, lambda: torch.topk(q @ c.T, k, dim=1))
     q7 = queries[:7].contiguous()
     ms_q7 = time_ms(torch, lambda: topk.cosine_topk_2pass(q7, c, k))
     ops = 2.0 * qn * n * d
     fold_b, fold_by = bound_ms(qn * d * 4 + n * d * 4 + qn * k * 8, ops, PEAK_F32)
     count_b, count_by = bound_ms(qn * d * 4 + n * d * 4 + qn * 8, ops, PEAK_F32)
-    log(f"K8 times [{card}]: f32 Q={qn} N={n} k={k}: pass A {ms_fold:.3f} ms (plain "
-        f"{plain_fold:.3f}), pass B {ms_count:.3f} ms (plain {plain_count:.3f}), both passes + "
-        f"the certification {ms_passes:.3f} ms (certified: {certified}); cosine_topk_2pass "
-        f"{ms_call:.3f} ms with its fallback; K2 {ms_k2:.3f} ms; torch.topk(q@cT) {lib:.3f} ms; "
-        f"bound {fold_b:.4f} ms ({fold_by}) a pass; Q=7 call {ms_q7:.3f} ms")
+    # pass B over the kept scores reads them once: 4·Q·N bytes
+    stream_b, stream_by = bound_ms(qn * n * 4 + qn * 8, qn * n, PEAK_F32)
+    log(f"K8 times [{card}]: f32 Q={qn} N={n} k={k}: pass A {ms_fold:.3f} ms keeping its "
+        f"{qn * n * 4 / 1e6:.1f} MB of scores ({ms_fold_alone:.3f} without; plain "
+        f"{plain_fold:.3f}), pass B over them {ms_count_scores:.4f} ms (plain "
+        f"{plain_count_scores:.4f}; bound {stream_b:.4f} ms, {stream_by}), pass B on the score "
+        f"tile {ms_count:.3f} ms (plain {plain_count:.3f}); both passes + the certification "
+        f"{ms_passes:.3f} ms (certified: {certified}); cosine_topk_2pass {ms_call:.3f} ms with "
+        f"its fallback; K2 {ms_k2:.3f} ms; torch.topk(q@cT) {lib:.3f} ms; bound "
+        f"{fold_b:.4f} ms ({fold_by}) a pass on the tile; Q=7 call {ms_q7:.3f} ms")
+    del kept
     row = {"route": "cuda", "source": "text_similarity_tpu_torch/csrc/topk_2pass.cu",
            "shape": f"Q={qn} N={n} D={d} k={k} f32"}
     return [
         {"name": "topk_2pass_fold", **row, "replaces": "text_similarity_tpu/ops/topk.py:445",
          "launches": launches["fold"], "max_abs_err": worst["fold"], "ms": ms_fold,
-         "plain_ms": plain_fold, "bound_ms": fold_b, "bound_by": fold_by, "library_ms": lib},
+         "ms_without_scores": ms_fold_alone, "plain_ms": plain_fold, "bound_ms": fold_b,
+         "bound_by": fold_by, "library_ms": lib, "ms_passes_certified": ms_passes,
+         "ms_call": ms_call},
         {"name": "topk_2pass_count", **row, "replaces": "text_similarity_tpu/ops/topk.py:474",
          "launches": launches["count"], "max_abs_err": worst["count"], "ms": ms_count,
          "plain_ms": plain_count, "bound_ms": count_b, "bound_by": count_by, "library_ms": None},
+        {"name": "topk_2pass_count_scores", **row,
+         "replaces": "text_similarity_tpu/ops/topk.py:474",
+         "launches": launches["count (scores)"], "max_abs_err": worst["count (scores)"],
+         "ms": ms_count_scores, "plain_ms": plain_count_scores, "bound_ms": stream_b,
+         "bound_by": stream_by, "library_ms": None},
     ]
 
 

@@ -1076,3 +1076,125 @@ def test_k8_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError):
         topk_2pass_fold_cuda(q, x, 5, block_c=0)
     assert _k8_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The score tile of K2 and K8 (csrc/score_tile.cuh): QT 16, 64 and 128
+# ---------------------------------------------------------------------------
+
+def _tile_data(q_n, d, seed=8):
+    """N = 10,007 unit rows (not a multiple of 128) with a copy of each
+    query's source row (exact ties, one reference chunk); queries near
+    those rows."""
+    rng = np.random.default_rng(seed)
+    x = _unit(rng.standard_normal((10_007, d)))
+    src = rng.choice(5000, q_n, replace=False)
+    x[5000 + np.arange(q_n)] = x[src]
+    return _unit(x[src] + 0.05 * rng.standard_normal((q_n, d))), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("d", [32, 384, 1024])
+@pytest.mark.parametrize("q_n", [1, 63, 64, 65, 129, 256])
+def test_score_tile_k2_matches_plain(cuda, dtype, k, d, q_n):
+    """K2 on every query tile (QT 16, 64, 128 by Q, capped by k) and D,
+    against its plain version: scores 1e-5, f32 ids equal where separated,
+    bf16 overlap ≥ 0.99."""
+    q, x = _tile_data(q_n, d)
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    ks, ki = cosine_topk_cuda(tq, tx, k=k)
+    rs, ri = cosine_topk_reference(tq, tx, k=k)
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("d", [32, 384, 1024])
+@pytest.mark.parametrize("q_n", [1, 63, 64, 65, 129, 256])
+def test_score_tile_k8_matches_plain(cuda, dtype, k, d, q_n):
+    """K8 on every query tile and D against its plain version: the call
+    (falling back exactly where the plain version does), pass A alone, and
+    pass B on the tile and over pass A's kept scores (exact counts at
+    thresholds between scores)."""
+    q, x = _tile_data(q_n, d)
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    falls = cosine_topk_2pass.fallbacks
+    ks, ki = cosine_topk_2pass(tq, tx, k=k)
+    fell = cosine_topk_2pass.fallbacks - falls
+    rs, ri = cosine_topk_2pass_reference(tq, tx, k=k)
+    assert cosine_topk_2pass.fallbacks - falls - fell == fell
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+    fs, fi = topk_2pass_fold_cuda(tq, tx, k)
+    ps, pi = topk_2pass_fold_plain(tq, tx, k, 2048)
+    _assert_agree(fs, fi, ps, pi, dtype == torch.float32)
+    # thresholds halfway between the plain scores at the k-th rank and the
+    # next, where that gap is wide: no score lies near them
+    es, _ = cosine_topk_reference(tq, tx, k=k + 1)
+    wide = (es[:, k - 1] - es[:, k]) > 1e-4
+    thr = torch.where(wide, 0.5 * (es[:, k - 1] + es[:, k]), torch.full_like(es[:, 0], 2.0))
+    want = topk_2pass_count_plain(tq, tx, thr, 2048)
+    assert torch.equal(topk_2pass_count_cuda(tq, tx, thr), want)
+    _, _, kept = topk_mod._fold_cuda(tq, tx, k, 2048, True)
+    assert torch.equal(topk_2pass_count_cuda(tq, tx, thr, scores=kept), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_answer_independent_of_q(cuda, dtype):
+    """A query's K2 scores and ids are equal bit for bit in calls of 1, 64
+    and 256 queries (query tiles 16, 64 and 128)."""
+    q, x = _tile_data(256, 384, seed=9)
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    s256, i256 = cosine_topk_cuda(tq, tx, 10)
+    for q_n in (1, 64):
+        s, i = cosine_topk_cuda(tq[:q_n].contiguous(), tx, 10)
+        assert torch.equal(s, s256[:q_n]) and torch.equal(i, i256[:q_n])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_n", [1, 64, 256])
+def test_k8_scores_equal_k2_bit_for_bit(cuda, dtype, q_n):
+    """Pass A's scores (its reported winners and every score it keeps for
+    pass B) equal K2's for the same (query, row) bit for bit, and pass B
+    over them counts exactly what pass B on the tile counts."""
+    q, x = _tile_data(q_n, 384, seed=10)
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda, dtype)
+    es, ei = cosine_topk_cuda(tq, tx, 10)
+    fs, fi, kept = topk_mod._fold_cuda(tq, tx, 10, 2048, True)
+    assert torch.equal(torch.gather(kept, 1, ei.long()), es)
+    assert torch.equal(torch.gather(kept, 1, fi.long()), fs)
+    thr = fs[:, 9].clone()
+    assert torch.equal(topk_2pass_count_cuda(tq, tx, thr, scores=kept),
+                       topk_2pass_count_cuda(tq, tx, thr))
+
+
+def test_k8_pass_b_routes(cuda, monkeypatch):
+    """cosine_topk_2pass counts over pass A's kept scores where they fit
+    _SCORES_MAX and on the score tile where they do not; both give the
+    same answer."""
+    q, x = _tile_data(64, 384, seed=11)
+    tq, tx = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    count, kept = topk_2pass_count_cuda.launches, topk_2pass_count_cuda.launches_scores
+    a = cosine_topk_2pass(tq, tx, 10)
+    assert (topk_2pass_count_cuda.launches - count,
+            topk_2pass_count_cuda.launches_scores - kept) == (1, 1)
+    monkeypatch.setattr(topk_mod, "_SCORES_MAX", 64 * x.shape[0] - 1)
+    b = cosine_topk_2pass(tq, tx, 10)
+    assert (topk_2pass_count_cuda.launches - count,
+            topk_2pass_count_cuda.launches_scores - kept) == (2, 1)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k8_count_over_scores_refuses_bad_inputs(cuda):
+    """Kept scores of the wrong shape, a row stride not a multiple of 4 or
+    shorter than N, or on the CPU: no launch."""
+    x = torch.nn.functional.normalize(torch.randn(100, 64, device=cuda), dim=1)
+    q, thr = x[:4].contiguous(), torch.zeros(4, device=cuda)
+    before = topk_2pass_count_cuda.launches
+    for bad in (torch.zeros(4, 98, device=cuda), torch.zeros(4, 102, device=cuda),
+                torch.zeros(3, 100, device=cuda)):
+        with pytest.raises(ValueError):
+            topk_2pass_count_cuda(q, x, thr, scores=bad)
+    with pytest.raises(ValueError):
+        topk_2pass_count_cuda(q, x, thr, scores=torch.zeros(4, 100))
+    assert topk_2pass_count_cuda.launches == before

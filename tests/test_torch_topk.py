@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from text_similarity_tpu.ops.topk import cosine_topk_pallas, cosine_topk_xla
+from text_similarity_tpu_torch.ops import topk as topk_mod
 from text_similarity_tpu_torch.ops.topk import (
     cosine_topk,
     cosine_topk_cuda,
@@ -107,3 +108,44 @@ def test_select_topk_order():
 def test_l2_normalize():
     x = torch.tensor([[3.0, 4.0], [0.0, 0.0]])
     np.testing.assert_allclose(l2_normalize(x).numpy(), [[0.6, 0.8], [0.0, 0.0]])
+
+
+_PLAN_Q = [1, 2, 7, 8, 15, 16, 17, 33, 63, 64, 65, 100, 128, 129, 255, 256, 257, 500, 1000,
+           1024, 2047, 4096]
+_PLAN_N = [1, 127, 128, 129, 1000, 10_007, 16_897, 100_003, 1_000_001]
+
+
+@pytest.mark.parametrize("k", [1, 10, 33, 100, 256])
+def test_score_tile_planner_covers_rows_and_fills_the_card(k):
+    """K2's grid (and K8's count, k 1): for every Q in 1 … 4096 and ragged
+    N, the query tile follows Q (16 / 64 / 128, capped by k's selectors),
+    the splits are whole 128-row tiles that cover rows [0, N) exactly once,
+    and the grid has at least 132 CTAs wherever the (query tile, 128-row
+    tile) pairs allow."""
+    for q_n in _PLAN_Q:
+        for n in _PLAN_N:
+            qt, splits, rows = topk_mod._plan_topk(q_n, n, k)
+            assert qt == min(16 if q_n <= 16 else 64 if q_n <= 64 else 128,
+                             128 if k <= 32 else 64 if k <= 64 else 16)
+            assert rows % 128 == 0
+            covered = np.zeros(n, dtype=np.int64)
+            for s in range(splits):
+                covered[s * rows:min(n, (s + 1) * rows)] += 1
+            assert (covered == 1).all() and splits * rows - n < rows
+            q_tiles = -(-q_n // qt)
+            assert q_tiles * splits >= min(132, q_tiles * -(-n // 128)), (q_n, n, k)
+
+
+@pytest.mark.parametrize("block_c", [1, 100, 1000, 2048, 16384])
+def test_fold_planner_covers_blocks_and_fills_the_card(block_c):
+    """K8's fold grid (query tile, 128-class tile, split): the splits are
+    runs of whole corpus blocks that cover every block exactly once, and
+    the grid has at least 132 CTAs wherever the blocks allow."""
+    for q_n in _PLAN_Q:
+        for n in _PLAN_N:
+            qt, splits, per = topk_mod._plan_fold(q_n, n, block_c)
+            blocks = -(-n // block_c)
+            assert qt == (16 if q_n <= 16 else 64 if q_n <= 64 else 128)
+            assert (splits - 1) * per < blocks <= splits * per
+            base = -(-q_n // qt) * -(-block_c // 128)
+            assert base * splits >= min(132, base * blocks), (q_n, n, block_c)

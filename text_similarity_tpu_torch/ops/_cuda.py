@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
            "packed_attention.cu", "topk_2pass.cu")
-HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh", "score_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -100,6 +100,11 @@ _SIGNATURES = {
     "ts_topk_2pass_fold": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # q, corpus, corpus_bf16, thr, Q, N, D, splits, rows_per_split, cnt, stream
     "ts_topk_2pass_count": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # the fold's arguments, then scores (Q, ld) f32 and ld, then stream
+    "ts_topk_2pass_fold_scores": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _P, _I, _P],
+    # scores, ld, thr, Q, N, cnt, stream
+    "ts_topk_2pass_count_scores": [_P, _I, _P, _I, _I, _P, _P],
 }
 
 

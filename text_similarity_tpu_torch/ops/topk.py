@@ -12,7 +12,8 @@ queries in f32 (the semantics of the reference's Pallas kernel
 * ``cosine_topk_reference``: plain tensor code, chunked over the corpus like
   the reference's ``cosine_topk_xla``; selection uses stable sorts so ties
   keep the lowest id (``torch.topk`` promises no tie order).
-* ``cosine_topk_cuda``: the hand-written CUDA kernel (``csrc/topk.cu``).
+* ``cosine_topk_cuda``: the hand-written CUDA kernel (``csrc/topk.cu`` on the
+  score tile of ``csrc/score_tile.cuh``).
 * ``cosine_topk``: dispatches on the corpus's device — the kernel for a
   CUDA tensor, the plain version for a CPU tensor.
 * ``cosine_topk_int8_reference`` / ``cosine_topk_int8_cuda`` /
@@ -26,12 +27,15 @@ queries in f32 (the semantics of the reference's Pallas kernel
   winner and the whole call falls back to K2's exact answer. On a CUDA
   tensor both passes are kernels (``csrc/topk_2pass.cu``:
   ``topk_2pass_fold_cuda``, ``topk_2pass_count_cuda``) and the fallback is
-  ``cosine_topk_cuda``; on a CPU tensor their plain versions
+  ``cosine_topk_cuda``; where the (Q, N) scores fit ``_SCORES_MAX``, pass
+  A keeps them and pass B counts over them instead of computing them
+  again. On a CPU tensor their plain versions
   (``cosine_topk_2pass_reference``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -105,13 +109,56 @@ def _check_k(k: int, n: int) -> None:
 
 
 def _split_corpus(q_n: int, n: int) -> Tuple[int, int]:
-    """→ (splits, rows_per_split): ~2 CTAs on each of the 132 SMs, ≥ 512
-    rows (a multiple of 128) each."""
+    """K3's grid (16-query CTAs) → (splits, rows_per_split): ~2 CTAs on
+    each of the 132 SMs, ≥ 512 rows (a multiple of 128) each."""
     q_tiles = -(-q_n // 16)
     splits = max(1, min(-(-264 // q_tiles), -(-n // 512)))
     rows_per_split = -(-n // splits)
     rows_per_split = -(-rows_per_split // 128) * 128
     return -(-n // rows_per_split), rows_per_split
+
+
+_SMS = 132   # streaming multiprocessors of an H100 SXM
+
+
+def _qtile(q_n: int, k: int = 1) -> int:
+    """The query tile (QT) of the score-tile kernels (K2, K8's passes) for
+    ``q_n`` queries: 16 up to 16 queries, 64 up to 64, 128 above; K2's is
+    capped by k, since each query's selector takes 2·kp (score, id) pairs
+    of shared memory (kp = pow2 ≥ max(k, 32)). Mirrors ``qt_for`` of
+    ``csrc/score_tile.cuh``, which picks the kernel; here it sizes the grid."""
+    qt = 16 if q_n <= 16 else 64 if q_n <= 64 else 128
+    kp = max(32, 1 << (k - 1).bit_length())
+    return min(qt, 128 if kp <= 32 else 64 if kp <= 64 else 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def _runs(base: int, units: int) -> Tuple[int, int]:
+    """Cut ``units`` (128-row tiles, or corpus blocks) into runs of equal
+    length, one CTA a run for each of ``base`` CTAs (query tiles × class
+    tiles) → (runs, units a run). A score-tile CTA holds an SM, so the
+    length taken is the one with the fewest waves of 132 CTAs × units a
+    run, among those that give at least 132 CTAs where base × units
+    allows (ties: fewer runs)."""
+    need = min(_SMS, base * units)
+    best = None
+    for runs in range(1, min(units, -(-4 * _SMS // base)) + 1):
+        per = -(-units // runs)
+        got = -(-units // per)
+        if base * got < need:
+            continue
+        cost = (-(-base * got // _SMS) * per, got)
+        if best is None or cost < best[0]:
+            best = (cost, got, per)
+    return best[1], best[2]
+
+
+def _plan_topk(q_n: int, n: int, k: int = 1) -> Tuple[int, int, int]:
+    """K2's and K8's count grid → (QT, splits, rows_per_split): splits of
+    whole 128-row tiles (the last one ragged)."""
+    qt = _qtile(q_n, k)
+    splits, per = _runs(-(-q_n // qt), -(-n // 128))
+    return qt, splits, per * 128
 
 
 def cosine_topk_cuda(
@@ -136,7 +183,7 @@ def cosine_topk_cuda(
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_s, out_i
-    splits, rows_per_split = _split_corpus(q_n, n)
+    _, splits, rows_per_split = _plan_topk(q_n, n, k)
     part_s = torch.empty((q_n, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((q_n, splits, k), dtype=torch.int32, device=dev)
     err = _cuda.lib().ts_cosine_topk(
@@ -308,22 +355,18 @@ def _check_2pass(queries, corpus, k: int, block_c: int) -> None:
     _check_k(k, corpus.shape[0])
 
 
-def _fold_splits(q_n: int, n: int, block_c: int):
-    """→ (splits, corpus blocks a split): about two CTAs on each of the 132
-    SMs over the (16-query tile, 128-class tile, split) grid."""
-    n_blocks = -(-n // block_c)
-    tiles = -(-q_n // 16) * -(-block_c // 128)
-    splits = max(1, min(-(-264 // tiles), n_blocks))
-    per = -(-n_blocks // splits)
-    return -(-n_blocks // per), per
+def _plan_fold(q_n: int, n: int, block_c: int) -> Tuple[int, int, int]:
+    """K8's fold grid → (QT, splits, corpus blocks a split) over the
+    (query tile, 128-class tile, split) CTAs."""
+    qt = _qtile(q_n)
+    splits, per = _runs(-(-q_n // qt) * -(-block_c // 128), -(-n // block_c))
+    return qt, splits, per
 
 
-def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
-    """K8's pass A on the card: the class fold (CTAs over 16 queries × 128
-    classes × a run of corpus blocks, winners to device memory), then one
-    CTA a query runs the k merge rounds over its ``block_c`` classes.
-    queries (Q, D) f32, corpus (N, D) f32 or bf16, contiguous CUDA; D a
-    multiple of 32. → ((Q, k) f32, (Q, k) int32)."""
+def _fold_cuda(queries, corpus, k: int, block_c: int, keep_scores: bool):
+    """K8's pass A on the card → (out_s, out_i, scores): with
+    ``keep_scores``, every score the fold computes also goes to a (Q,
+    round_up(N, 4)) f32 scratch (4·Q·N bytes) for the streaming pass B."""
     _check_2pass(queries, corpus, k, block_c)
     q_n, d = queries.shape
     n = corpus.shape[0]
@@ -331,39 +374,75 @@ def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     if q_n == 0:
-        return out_s, out_i
-    splits, per = _fold_splits(q_n, n, block_c)
+        return out_s, out_i, None
+    _, splits, per = _plan_fold(q_n, n, block_c)
     win_s = torch.empty((splits, q_n, block_c), dtype=torch.float32, device=dev)
     win_i = torch.empty((splits, q_n, block_c), dtype=torch.int32, device=dev)
-    err = _cuda.lib().ts_topk_2pass_fold(
-        queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-        q_n, n, d, k, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
-    )
+    args = (queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+            q_n, n, d, k, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr())
+    scores = None
+    if keep_scores:
+        ld = -(-n // 4) * 4
+        scores = torch.empty((q_n, ld), dtype=torch.float32, device=dev)
+        err = _cuda.lib().ts_topk_2pass_fold_scores(*args, scores.data_ptr(), ld,
+                                                    _cuda.stream_handle(dev))
+    else:
+        err = _cuda.lib().ts_topk_2pass_fold(*args, _cuda.stream_handle(dev))
     _cuda.check(err, "two-pass top-k fold kernel")
     topk_2pass_fold_cuda.launches += 1
+    return out_s, out_i, scores
+
+
+def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
+    """K8's pass A on the card: the class fold (CTAs over QT queries × 128
+    classes × a run of corpus blocks on the score tile, QT = 16, 64 or 128
+    by Q; winners to device memory), then one CTA a query runs the k merge
+    rounds over its ``block_c`` classes.
+    queries (Q, D) f32, corpus (N, D) f32 or bf16, contiguous CUDA; D a
+    multiple of 32. → ((Q, k) f32, (Q, k) int32)."""
+    out_s, out_i, _ = _fold_cuda(queries, corpus, k, block_c, False)
     return out_s, out_i
 
 
 topk_2pass_fold_cuda.launches = 0
 
 
-def topk_2pass_count_cuda(queries, corpus, thr: torch.Tensor, block_c: int = 2048):
-    """K8's pass B on the card: CTAs over (16-query tile, corpus split)
-    count the scores strictly above each query's ``thr`` and add their
-    counts with integer atomics (exact, order-free). The scores are pass
-    A's, bit for bit (the same tile product in the same order over the
-    dims). → (Q,) int32."""
+def topk_2pass_count_cuda(queries, corpus, thr: torch.Tensor, block_c: int = 2048,
+                          scores: Optional[torch.Tensor] = None):
+    """K8's pass B on the card: per query, the number of corpus scores
+    strictly above ``thr`` → (Q,) int32, counts added with integer atomics
+    (exact, order-free). Without ``scores``, CTAs over (QT-query tile,
+    corpus split) compute the scores again on the score tile: pass A's and
+    K2's bit for bit (one fmaf chain over the dims in order). With
+    ``scores``, pass A's kept (Q, ld) f32 scores (ld ≥ N, a multiple of 4),
+    a streaming kernel counts over them, bound by reading them once. Each
+    launch adds one to ``topk_2pass_count_cuda.launches``; a launch of the
+    streaming kernel also to ``topk_2pass_count_cuda.launches_scores``."""
     _check_2pass(queries, corpus, 1, block_c)
     _cuda.require_cuda(thr, "thr", (torch.float32,), 1)
     q_n, d = queries.shape
     n = corpus.shape[0]
     if thr.shape[0] != q_n:
         raise ValueError(f"thr {tuple(thr.shape)} != ({q_n},)")
+    if scores is not None:
+        _cuda.require_cuda(scores, "scores", (torch.float32,), 2)
+        if (scores.shape[0] != q_n or scores.shape[1] % 4 or scores.shape[1] < n
+                or q_n > 65535):
+            raise ValueError(f"scores {tuple(scores.shape)} for Q {q_n}, N {n}")
     cnt = torch.zeros(q_n, dtype=torch.int32, device=corpus.device)
     if q_n == 0:
         return cnt
-    splits, rows_per_split = _split_corpus(q_n, n)
+    if scores is not None:
+        err = _cuda.lib().ts_topk_2pass_count_scores(
+            scores.data_ptr(), scores.shape[1], thr.data_ptr(), q_n, n, cnt.data_ptr(),
+            _cuda.stream_handle(corpus.device),
+        )
+        _cuda.check(err, "two-pass top-k count kernel (kept scores)")
+        topk_2pass_count_cuda.launches += 1
+        topk_2pass_count_cuda.launches_scores += 1
+        return cnt
+    _, splits, rows_per_split = _plan_topk(q_n, n)
     err = _cuda.lib().ts_topk_2pass_count(
         queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
         thr.data_ptr(), q_n, n, d, splits, rows_per_split, cnt.data_ptr(),
@@ -375,12 +454,41 @@ def topk_2pass_count_cuda(queries, corpus, thr: torch.Tensor, block_c: int = 204
 
 
 topk_2pass_count_cuda.launches = 0
+topk_2pass_count_cuda.launches_scores = 0
 
 
-def _two_pass(queries, corpus, k, block_c, fold, count, exact):
-    out_s, out_i = fold(queries, corpus, k, block_c)
+# Pass B counts over pass A's kept scores where they take at most this many
+# f32 values (256 MiB), else it recomputes them on the score tile.
+_SCORES_MAX = 1 << 26
+
+
+def topk_2pass_count_scores_plain(scores: torch.Tensor, thr: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K8's pass B over kept scores: per query, the number
+    of the first ``n`` scores of its row strictly above ``thr`` → (Q,)
+    int32."""
+    return (scores[:, :n] > thr[:, None]).sum(dim=1, dtype=torch.int32)
+
+
+def _passes_cuda(queries, corpus, k: int, block_c: int):
+    """Both passes on the card → (out_s, out_i, thr, count). Where the (Q, N)
+    scores fit ``_SCORES_MAX``, pass A keeps them and pass B counts over
+    them; else pass B computes them again on the score tile (bit for bit
+    pass A's)."""
+    n = corpus.shape[0]
+    keep = 0 < queries.shape[0] <= 65535 and queries.shape[0] * n <= _SCORES_MAX
+    out_s, out_i, scores = _fold_cuda(queries, corpus, k, block_c, keep)
     thr = out_s[:, k - 1].clone()        # its own (aligned) allocation
-    cnt = count(queries, corpus, thr, block_c)
+    return out_s, out_i, thr, topk_2pass_count_cuda(queries, corpus, thr, block_c, scores)
+
+
+def _passes_plain(queries, corpus, k: int, block_c: int):
+    out_s, out_i = topk_2pass_fold_plain(queries, corpus, k, block_c)
+    thr = out_s[:, k - 1].clone()
+    return out_s, out_i, thr, topk_2pass_count_plain(queries, corpus, thr, block_c)
+
+
+def _two_pass(queries, corpus, k, block_c, passes, exact):
+    out_s, out_i, thr, cnt = passes(queries, corpus, k, block_c)
     cnt_rep = (out_s > thr[:, None]).sum(dim=1, dtype=torch.int32)
     if bool((cnt == cnt_rep).all()):      # one host sync a call
         return out_s, out_i
@@ -392,8 +500,7 @@ def cosine_topk_2pass_reference(queries, corpus, k: int = 10, block_c: int = 204
     """Plain version of K8: pass A and pass B plain, the certification,
     and the fallback to K2's plain version. → ((Q, k) f32, (Q, k) int32)."""
     _check_k(k, corpus.shape[0])
-    return _two_pass(queries, corpus, k, block_c, topk_2pass_fold_plain,
-                     topk_2pass_count_plain, cosine_topk_reference)
+    return _two_pass(queries, corpus, k, block_c, _passes_plain, cosine_topk_reference)
 
 
 def cosine_topk_2pass(
@@ -408,7 +515,8 @@ def cosine_topk_2pass(
     versions for a CPU corpus. ``block_c`` sets the lane classes and so
     which calls fall back. ``block_q`` is accepted only so that calls
     written for the reference's signature still work: nothing reads it
-    (the port's CTAs take 16 queries, and K2 takes no block size). Dots in
+    (the port's CTAs take QT = 16, 64 or 128 queries by Q, and K2 takes no
+    block size). Dots in
     f32 for an f32 corpus, in bf16 (queries rounded) for a bf16 one, f32
     sums.
 
@@ -420,7 +528,7 @@ def cosine_topk_2pass(
     if corpus.is_cuda:
         # both passes' kernels, the certification, K2 on the card where it fails
         return _two_pass(queries.float().contiguous(), corpus.contiguous(), k, block_c,
-                         topk_2pass_fold_cuda, topk_2pass_count_cuda, cosine_topk_cuda)
+                         _passes_cuda, cosine_topk_cuda)
     return cosine_topk_2pass_reference(queries, corpus, k, block_c)
 
 

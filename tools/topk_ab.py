@@ -1,0 +1,106 @@
+"""Times the exact top-k kernels of one source tree on the card at
+chip_smoke.py's phase-2 shapes (N 100,003 × D 384, k 10, the corpus with
+copied rows): K2 at Q 1, 8, 64 and 256 (f32) and at Q 256 over a bf16
+corpus, K3 at Q 256 (int8 corpus), K8's fold and count at Q 256 alone
+(and, where the tree has them, the fold keeping its scores and the count
+over them), both passes with the certification as the call runs them, and
+the call ``cosine_topk_2pass`` (which falls back to K2 at Q 256). To
+compare two commits on one card, unpack the other with ``git archive``
+into a git-ignored directory and run, from the repository root, in turns:
+
+    python3 tools/topk_ab.py <other tree>
+    python3 tools/topk_ab.py .
+    python3 tools/topk_ab.py .
+    python3 tools/topk_ab.py <other tree>
+
+Each run builds that tree's kernels (into its own ``_build/``) and prints
+one line ``AB <tree> <card> ...`` with the mean time of a launch over 50
+launches (CUDA events, after 5 warm-up launches); with ``--library`` it
+also prints a line ``LIB`` with ``torch.topk(q @ cᵀ)`` (``torch.topk((q @
+c.float()ᵀ) · s)`` for K3) at each shape and each shape's bound: the
+larger of its bytes (inputs read once, outputs written once) over 3.35
+TB/s and its f32 operations (2·Q·N·D) over 67 TFLOP/s.
+"""
+
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(tree: str, library: bool) -> None:
+    sys.path.insert(0, os.path.abspath(tree))
+    sys.path.insert(1, REPO)
+    import torch
+
+    import chip_smoke as cs
+    from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
+    from text_similarity_tpu_torch.ops import topk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus, queries = cs.topk_inputs(torch)
+    n, d = corpus.shape
+    corpus_bf16 = corpus.to(torch.bfloat16)
+    codes, scales = quantize_embeddings_int8(corpus)
+    k = 10
+
+    def t(fn):
+        return cs.time_ms(torch, fn, iters=50, warmup=5)
+
+    def passes(q):
+        # the call's own two passes where the tree has them (pass B over the
+        # kept scores), else the fold and the tile's count
+        if hasattr(topk, "_passes_cuda"):
+            out_s, _, thr, cnt = topk._passes_cuda(q, corpus, k, 2048)
+        else:
+            out_s, _ = topk.topk_2pass_fold_cuda(q, corpus, k)
+            thr = out_s[:, k - 1].clone()
+            cnt = topk.topk_2pass_count_cuda(q, corpus, thr)
+        return bool((cnt == (out_s > thr[:, None]).sum(dim=1, dtype=torch.int32)).all())
+
+    q = queries.contiguous()
+    thr = topk.topk_2pass_fold_cuda(q, corpus, k)[0][:, k - 1].clone()
+    times, lib, bounds = {}, {}, {}
+    for q_n in (1, 8, 64, 256):
+        qq = queries[:q_n].contiguous()
+        times[f"K2 Q={q_n}"] = t(lambda: topk.cosine_topk_cuda(qq, corpus, k))
+        lib[f"K2 Q={q_n}"] = lambda qq=qq: torch.topk(qq @ corpus.T, k, dim=1)
+        bounds[f"K2 Q={q_n}"] = cs.bound_ms(q_n * d * 4 + n * d * 4 + q_n * k * 8,
+                                            2.0 * q_n * n * d, cs.PEAK_F32)
+    times["K2 bf16 Q=256"] = t(lambda: topk.cosine_topk_cuda(q, corpus_bf16, k))
+    lib["K2 bf16 Q=256"] = lambda: torch.topk(q.to(torch.bfloat16).float() @ corpus_bf16.float().T,
+                                              k, dim=1)
+    bounds["K2 bf16 Q=256"] = cs.bound_ms(256 * d * 4 + n * d * 2 + 256 * k * 8,
+                                          2.0 * 256 * n * d, cs.PEAK_F32)
+    times["K3 Q=256"] = t(lambda: topk.cosine_topk_int8_cuda(q, codes, scales, k))
+    lib["K3 Q=256"] = lambda: torch.topk((q @ codes.float().T) * scales, k, dim=1)
+    bounds["K3 Q=256"] = cs.bound_ms(256 * d * 4 + n * d + n * 4 + 256 * k * 8,
+                                     2.0 * 256 * n * d, cs.PEAK_F32)
+    times["K8 fold Q=256"] = t(lambda: topk.topk_2pass_fold_cuda(q, corpus, k))
+    times["K8 count Q=256"] = t(lambda: topk.topk_2pass_count_cuda(q, corpus, thr))
+    if hasattr(topk, "_fold_cuda"):
+        _, _, kept = topk._fold_cuda(q, corpus, k, 2048, True)
+        times["K8 fold keeping scores Q=256"] = t(
+            lambda: topk._fold_cuda(q, corpus, k, 2048, True))
+        times["K8 count over scores Q=256"] = t(
+            lambda: topk.topk_2pass_count_cuda(q, corpus, thr, scores=kept))
+        bounds["K8 count over scores Q=256"] = cs.bound_ms(256 * n * 4 + 256 * 8, 256 * n,
+                                                           cs.PEAK_F32)
+    times["K8 passes+cert Q=256"] = t(lambda: passes(q))
+    times["K8 call Q=256"] = t(lambda: topk.cosine_topk_2pass(q, corpus, k))
+    ops = 2.0 * 256 * n * d
+    bounds["K8 fold Q=256"] = cs.bound_ms(256 * d * 4 + n * d * 4 + 256 * k * 8, ops, cs.PEAK_F32)
+    bounds["K8 count Q=256"] = cs.bound_ms(256 * d * 4 + n * d * 4 + 256 * 8, ops, cs.PEAK_F32)
+    card = cs.card_line()
+    print("AB", tree, card, " | ".join(f"{key}: {v:.4f} ms" for key, v in times.items()),
+          flush=True)
+    if library:
+        print("LIB", card, " | ".join(
+            f"{key}: {t(fn):.4f} ms" for key, fn in lib.items()), flush=True)
+        print("BOUND", " | ".join(
+            f"{key}: {b:.4f} ms ({by})" for key, (b, by) in bounds.items()), flush=True)
+
+
+if __name__ == "__main__":
+    args = [a for a in sys.argv[1:] if a != "--library"]
+    main(args[0] if args else ".", "--library" in sys.argv[1:])
