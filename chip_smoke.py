@@ -45,8 +45,11 @@ Phases (any failure exits non-zero):
     control); the 64-text encode on both routes.
  5. int8 serving:
     - K3 (int8 top-k) against its plain version at N = 100,003 ragged,
-      D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, duplicated rows; timed at
-      Q = 256, k = 10 beside ``torch.topk((q @ c.float().T) * s, k)``;
+      D = 384, Q ∈ {1, 7, 8, 64, 256} (query tiles 16, 64 and 128), k ∈
+      {10, 20}, duplicated rows (|Δscore| ≤ 1e-5, ids equal where the
+      scores are separated); timed at
+      Q 1, 8, 64 (the pipeline's padded request sizes) and 256, k = 10,
+      each beside ``torch.topk((q @ c.float().T) * s, k)`` and its bound;
     - K4 (int8 IVF scan) against its plain version on an int8 index of the
       phase-3 corpus (``IndexConfig.auto(1M)``, ``quantize_int8=True``, bf16
       rescore copy), 4096 queries with the serving args: k = 10 raw, the
@@ -59,8 +62,10 @@ Phases (any failure exits non-zero):
       self-retrieval gate, one ``add_documents`` (the new document finds
       itself) and one ``remove_documents`` (the removed id never comes
       back) on the built index, one ``BruteForceIndex`` query over an
-      ``EmbeddingStore(quantized=True)`` of 2,000 of those embeddings. The
-      K3 and K4 launch counters, zeroed just before, must rise. Printed:
+      ``EmbeddingStore(quantized=True)`` of 2,000 of those embeddings (its
+      answer, K3 at Q 64, against the plain version under phase 5's K3
+      gate). The K3 and K4 launch counters, zeroed just before, must rise.
+      Printed:
       the mean cosine between the int8 and the bf16 encoder's embeddings of
       64 texts and the int8 encoder's sentences/s.
  5b. IVF options (the index's other layouts and scan modes), on the
@@ -148,24 +153,32 @@ Phases (any failure exits non-zero):
       B 64 × S 128 × H 12, D 32 and 64, ragged lengths with a zero-length
       row, f32 and bf16, q, k, v as views of a fused QKV (f32 max |Δ| ≤
       1e-4; bf16 max ≤ 1e-2, mean ≤ 5e-4; zero-length rows exactly 0);
-      timed at B 128 × S 128 × H 12 × D 32 bf16 beside the plain version
-      and SDPA with a boolean key mask;
+      timed at B 128 × S 128 × H 12 × D 32 bf16 (which must take the
+      one-sweep kernel, as the kernel library reports its choice) beside
+      the plain version and SDPA with a boolean key mask, the kernel and
+      SDPA as the host calls them (the median of three rounds of 100
+      calls) and on the device (100 calls in a CUDA graph);
     - minilm-l6 (phase 4's weights) runs ``encoder_forward`` with
       ``attention_impl="packed"`` over 2,048 texts in length-bucketed
-      batches of 128 at 32 / 64 / 128, K7's counter zeroed just before (it
-      must read 6 × the batches); last_hidden_state on valid rows against
+      batches of 128 at 32 / 64 / 128, K7's counters zeroed just before (it
+      must read 6 × the batches, all of them on the one-sweep kernel, which
+      bf16 takes at S ≤ 128; the library's choice for each width printed);
+      last_hidden_state on valid rows against
       the reference path within ``PACKED_AGREE_MEAN`` / ``PACKED_AGREE_MAX``,
       pooled cosine ≥ 0.99, another row ≥ 10 × the mean limit away; a
-      ``torch.profiler`` split of one pass.
+      ``torch.profiler`` split of one pass, with K7's share of its device
+      time and its kernels' names.
  9. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
     window 256 + CLS in ``ms`` / ``library_ms`` / ``bound_ms`` and window 0
     in ``ms_window0`` / ``library_ms_window0`` / ``bound_ms_window0``; K2
-    carries Q 1, 8, 64 and 256 in ``ms_by_q`` / ``bound_ms_by_q`` /
-    ``library_ms_by_q``; K8's pass B has two rows (over the kept scores, and
-    on the score tile).
+    and K3 carry Q 1, 8, 64 and 256 in ``ms_by_q`` / ``bound_ms_by_q`` /
+    ``library_ms_by_q``; K7 its timed ``path`` and, beside its times as
+    the host calls it, its device times in a CUDA graph (``device_ms`` /
+    ``library_device_ms``); K8's pass B has two rows (over the kept scores,
+    and on the score tile).
  10. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
@@ -215,6 +228,39 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 100, replays: int = 3) -> float:
+    """The device's time for one call of ``fn``: ``iters`` calls captured in
+    one CUDA graph (after three warm-up calls on a side stream), replayed
+    once to warm, then ``replays`` times between two CUDA events; the time
+    over ``replays`` × ``iters``. The host's cost of a call (the wrapper's
+    checks, allocations and the launch itself), which ``time_ms`` also
+    measures where it exceeds the kernel's, is left out: a graph launches
+    its kernels back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def bound_ms(n_bytes: float, ops: float, peak_ops: float):
@@ -757,7 +803,8 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
     device time; with ``groups`` ((label, name substrings), ...) also the
     device time of each group and of the rest. The profiler's own overhead
     lengthens the wall time. → {group: device ms, "rest": ms, "busy": ms,
-    "wall": ms}, or None when the profiler saw no device events."""
+    "wall": ms, "kernels": {device op name: launches}}, or None when the
+    profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -792,7 +839,8 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
         parts = "; ".join(f"{name} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in split.items())
         log(f"profile of {label}, device time by group: {parts}; the rest {rest:.2f} ms "
             f"({rest / busy:.1%}) [{card}]")
-    return {**split, "rest": rest, "busy": busy, "wall": wall}
+    return {**split, "rest": rest, "busy": busy, "wall": wall,
+            "kernels": {key: n for _, n, key in ops}}
 
 
 # bf16 unit embeddings of the 120k corpus, packed route against bucketed:
@@ -959,7 +1007,9 @@ def phase_int8_topk(torch, card):
     n, d = corpus.shape
     codes, scales = quantize_embeddings_int8(corpus)
     worst = 0.0
-    for q_n in (1, 7, 256):
+    # Q 8 and 64 are the pipeline's padded request sizes (query tiles 16 and
+    # 64), 256 the 128-query tile, 1 and 7 a tile only partly filled
+    for q_n in (1, 7, 8, 64, 256):
         q = queries[:q_n].contiguous()
         for k in (10, 20):
             ks, ki = cosine_topk_int8_cuda(q, codes, scales, k)
@@ -974,16 +1024,23 @@ def phase_int8_topk(torch, card):
             if not ok:
                 raise AssertionError("K3 disagrees with its plain version")
     q, k = queries.contiguous(), 10
-    ms = time_ms(torch, lambda: cosine_topk_int8_cuda(q, codes, scales, k))
     plain = time_ms(torch, lambda: cosine_topk_int8_reference(q, codes, scales, k),
                     iters=3, warmup=1)
-    lib = time_ms(torch, lambda: torch.topk((q @ codes.float().T) * scales, k, dim=1))
-    qn = q.shape[0]
-    b_ms, b_by = bound_ms(qn * d * 4 + n * d + n * 4 + qn * k * 8, 2.0 * qn * n * d, PEAK_F32)
-    ms_q1 = time_ms(torch, lambda: cosine_topk_int8_cuda(q[:1], codes, scales, k))
+    # the pipeline's padded request sizes (the int8 store below 100k
+    # documents) and the table's Q 256, each with its bound and the library
+    by_q, bound_by_q, lib_by_q = {}, {}, {}
+    for q_n in (1, 8, 64, 256):
+        qq = q[:q_n].contiguous()
+        by_q[q_n] = time_ms(torch, lambda: cosine_topk_int8_cuda(qq, codes, scales, k))
+        lib_by_q[q_n] = time_ms(torch, lambda: torch.topk((qq @ codes.float().T) * scales, k, dim=1))
+        bound_by_q[q_n] = bound_ms(q_n * d * 4 + n * d + n * 4 + q_n * k * 8, 2.0 * q_n * n * d,
+                                   PEAK_F32)
+        log(f"K3 int8 Q={q_n} k=10 [{card}]: kernel {by_q[q_n]:.4f} ms, "
+            f"torch.topk((q@c.float()T)*s) {lib_by_q[q_n]:.4f} ms, bound "
+            f"{bound_by_q[q_n][0]:.4f} ms ({bound_by_q[q_n][1]})")
+    ms, lib, (b_ms, b_by) = by_q[256], lib_by_q[256], bound_by_q[256]
     log(f"K3 times [{card}]: int8 Q=256 k=10 kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"torch.topk((q@c.float()T)*s) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"Q=1 {ms_q1:.3f} ms")
+        f"torch.topk((q@c.float()T)*s) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/topk.cu",
@@ -991,6 +1048,8 @@ def phase_int8_topk(torch, card):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "shape": f"Q=256 N={n} D={d} k=10 int8",
+        "ms_by_q": by_q, "bound_ms_by_q": {q_n: b for q_n, (b, _) in bound_by_q.items()},
+        "library_ms_by_q": lib_by_q,
     }
 
 
@@ -1084,7 +1143,7 @@ def phase_int8_pipeline(torch, card, ctx):
     from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
     from text_similarity_tpu_torch.models import SentenceEncoder
     from text_similarity_tpu_torch.ops.topk import (
-        cosine_topk_cuda, cosine_topk_int8_cuda, cosine_topk_int8_reference,
+        cosine_topk_cuda, cosine_topk_int8_cuda, cosine_topk_int8_reference, l2_normalize,
     )
     from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
     from text_similarity_tpu_torch.pipelines.search import _pad_pow2
@@ -1146,8 +1205,17 @@ def phase_int8_pipeline(torch, card, ctx):
         f"remove_documents({gone}): absent from its own query's top 10 -> "
         f"{'ok' if ok_remove else 'FAIL'}")
     self_hits = int(sum(i_b[r, 0] == r and s_b[r, 0] >= 0.99 for r in range(64)))
+    # the counted K3 launch (Q 64, 2k over-fetch) against its plain version
+    # on the same store: BruteForceIndex.query's answer is the first k of it
+    rs_b, ri_b = cosine_topk_int8_reference(l2_normalize(qb).float(), store8.view,
+                                            store8.scales_view, 20)
+    rs_b, ri_b = rs_b[:, :10].cpu().numpy(), ri_b[:, :10].cpu().numpy()
+    err_b = float(np.abs(s_b - rs_b).max())
+    ok_b = err_b <= 1e-5 and separated_ids_equal(i_b, ri_b, rs_b)
     log(f"BruteForceIndex over an int8 store of 2000 embeddings: {self_hits}/64 verbatim "
-        f"queries first at score >= 0.99")
+        f"queries first at score >= 0.99; its answer (K3, Q 64) against the plain version: "
+        f"max|Δscore| {err_b:.2e}, ids equal {np.mean(i_b == ri_b):.4f} -> "
+        f"{'ok' if ok_b else 'FAIL'}")
 
     enc8_ms = host_ms(torch, lambda: enc8.encode(q64, device_output=True))
     qe = _pad_pow2(e8)
@@ -1186,6 +1254,8 @@ def phase_int8_pipeline(torch, card, ctx):
         raise AssertionError("add_documents / remove_documents on the int8 index failed")
     if self_hits < 0.95 * 64:
         raise AssertionError(f"int8 brute-force self-retrieval {self_hits}/64 below 95%")
+    if not ok_b:
+        raise AssertionError("BruteForceIndex's int8 answer (K3) disagrees with its plain version")
     if launches["cosine_topk_int8"] == 0 or launches["ivf_scan_int8"] == 0:
         raise AssertionError(f"an int8 kernel of the path never launched: {launches}")
     return launches
@@ -2282,7 +2352,9 @@ def phase_packed_attention(torch, card):
     → K7's row."""
     import torch.nn.functional as F
 
-    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda, packed_attention_plain
+    from text_similarity_tpu_torch.ops.attention import (
+        packed_attention_cuda, packed_attention_path, packed_attention_plain,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
@@ -2314,13 +2386,20 @@ def phase_packed_attention(torch, card):
     lengths = torch.randint(16, s + 1, (b,), generator=g, device=dev, dtype=torch.int32)
     key_ok = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    # a call takes about 0.1 ms: three alternating rounds of 100 calls each,
-    # the median round kept (10-call windows moved K7 by a third between runs)
+    path = packed_attention_path(s, q.dtype)
+    if path != "one sweep":
+        raise AssertionError(f"bf16 K7 at S {s} runs {path}, not the one-sweep kernel")
+    # the kernel and SDPA as the host calls them: the median of three
+    # alternating rounds of 100 calls; a call takes about the host's cost
+    # of making it (about 0.05 ms), so both are also timed on the device,
+    # 100 calls in a CUDA graph
     rounds = [(time_ms(torch, lambda: packed_attention_cuda(q, k, v, lengths), 100, 10),
                time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok),
                        100, 10))
               for _ in range(3)]
     ms, lib = (float(np.median(r)) for r in zip(*rounds))
+    dev_ms = graph_ms(torch, lambda: packed_attention_cuda(q, k, v, lengths))
+    lib_dev_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok))
     plain = time_ms(torch, lambda: packed_attention_plain(q, k, v, lengths), iters=3, warmup=1)
     sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok).transpose(1, 2)
                       .float() - packed_attention_cuda(q, k, v, lengths).float()).abs().max())
@@ -2330,11 +2409,12 @@ def phase_packed_attention(torch, card):
     n_bytes = 2 * b * s * h * d * 2 + 2 * n_valid * h * d * 2 + b * 4
     ops = 4.0 * d * h * s * n_valid                 # every query row against its valid keys
     b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
-    log(f"K7 times [{card}]: bf16 B={b} S={s} H={h} D={d} (lengths 16-128): kernel {ms:.4f} ms, "
-        f"plain {plain:.3f} ms, SDPA (bool key mask) {lib:.4f} ms (max|Δ| vs kernel "
-        f"{sdpa_err:.2e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.2f} GFLOP); rounds (kernel, SDPA): "
-        f"{', '.join(f'({x:.4f}, {y:.4f})' for x, y in rounds)}")
+    log(f"K7 times [{card}]: bf16 B={b} S={s} H={h} D={d} (lengths 16-128), "
+        f"{path}: kernel {ms:.4f} ms a call, plain {plain:.3f} ms, SDPA "
+        f"(bool key mask) {lib:.4f} ms a call (max|Δ| vs kernel {sdpa_err:.2e}), bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); rounds "
+        f"(kernel, SDPA): {', '.join(f'({x:.4f}, {y:.4f})' for x, y in rounds)}; on the device "
+        f"(CUDA graph): kernel {dev_ms:.4f} ms, SDPA {lib_dev_ms:.4f} ms")
     return {
         "name": "packed_attention", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/packed_attention.cu",
@@ -2342,6 +2422,7 @@ def phase_packed_attention(torch, card):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         "shape": f"B={b} S={s} H={h} D={d} bf16, lengths 16-128",
+        "path": path, "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
     }
 
 
@@ -2356,7 +2437,7 @@ def phase_packed_encode(torch, card, ctx):
 
     from text_similarity_tpu_torch.data import LengthBucketBatcher
     from text_similarity_tpu_torch.models import encoder_forward, mean_pool
-    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda
+    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda, packed_attention_path
 
     enc, corpus = ctx["enc"], ctx["corpus"]
     texts = corpus[:1792] + [" ".join(corpus[j:j + 3]) for j in range(2000, 2768, 3)]
@@ -2377,13 +2458,13 @@ def phase_packed_encode(torch, card, ctx):
                     for ids, mask in batches]
 
     forward("packed")                     # warm the path outside the counted window
-    packed_attention_cuda.launches = 0
+    packed_attention_cuda.launches = packed_attention_cuda.launches_one_sweep = 0
     torch.cuda.synchronize()
     t = time.time()
     packed = forward("packed")
     torch.cuda.synchronize()
     packed_s = time.time() - t
-    launches = packed_attention_cuda.launches
+    launches, one_sweep = packed_attention_cuda.launches, packed_attention_cuda.launches_one_sweep
     t = time.time()
     ref = forward("reference")
     torch.cuda.synchronize()
@@ -2402,14 +2483,26 @@ def phase_packed_encode(torch, card, ctx):
     log(f"minilm-l6 packed attention [{card}]: {len(texts)} texts in {len(batches)} batches at "
         f"widths {widths}: K7 path {packed_s * 1e3:.1f} ms, reference path {ref_s * 1e3:.1f} ms "
         f"(encoder_forward, host clock); K7 launches {launches} (6 layers x {len(batches)} "
-        f"batches); last_hidden_state on valid rows mean|Δ| {mean:.3e}, max|Δ| {worst:.3e} "
+        f"batches), {one_sweep} of them on the one-sweep kernel (the kernel library's choice: "
+        f"{', '.join(f'S {w}: {packed_attention_path(w, torch.bfloat16)}' for w in widths)}); "
+        f"last_hidden_state on valid rows mean|Δ| {mean:.3e}, max|Δ| {worst:.3e} "
         f"(another row's: mean|Δ| {control:.3e}); pooled min cosine {cos:.6f}")
-    profile_split(torch, "one minilm-l6 packed-attention pass over those batches",
-                  lambda: forward("packed"), card,
-                  groups=(("K7 packed_attn", ("packed_attn",)),
-                          ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass"))))
+    split = profile_split(torch, "one minilm-l6 packed-attention pass over those batches",
+                          lambda: forward("packed"), card,
+                          groups=(("K7 packed_attn", ("packed_attn",)),
+                                  ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass"))))
+    if split is not None:
+        k7 = {key: n for key, n in split["kernels"].items() if "packed_attn" in key}
+        log(f"K7's share of the minilm-l6 packed-attention pass: {split['K7 packed_attn']:.3f} ms "
+            f"of {split['busy']:.3f} ms device time "
+            f"({split['K7 packed_attn'] / split['busy']:.1%}), wall {split['wall']:.2f} ms; "
+            f"its kernels as the profiler names them: "
+            f"{'; '.join(f'{key} x{n}' for key, n in k7.items())} [{card}]")
     if launches != 6 * len(batches):
         raise AssertionError(f"K7 launched {launches} times, expected 6 x {len(batches)}")
+    # bf16 at S ≤ 128 (every width here) takes the one-sweep kernel
+    if one_sweep != launches:
+        raise AssertionError(f"K7's one-sweep kernel launched {one_sweep} of {launches} times")
     if mean > PACKED_AGREE_MEAN or worst > PACKED_AGREE_MAX or cos < 0.99:
         raise AssertionError(f"the K7 path and the reference path disagree (mean|Δ| {mean:.3e}, "
                              f"max|Δ| {worst:.3e}, min cosine {cos:.6f})")

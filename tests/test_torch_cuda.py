@@ -892,25 +892,52 @@ def test_sentinel_add_remove_on_card(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,d", [(12, 32), (12, 64), (2, 128)])
-@pytest.mark.parametrize("s,lens", [(128, (128, 77, 0, 1)), (200, (200, 64, 65, 0))])
+@pytest.mark.parametrize("s,lens", [(128, (128, 77, 0, 1)), (200, (200, 64, 65, 0)),
+                                    (1, (1, 0)), (16, (16, 0, 1, 9)), (127, (127, 0, 1, 100)),
+                                    (129, (129, 0, 1, 128))])
 def test_k7_matches_plain(cuda, dtype, h, d, s, lens):
     """K7 against its plain version on every row, padded query rows
     included: f32 max |Δ| ≤ 1e-4; bf16 max ≤ 1e-2 and mean ≤ 5e-4 (p / l
     rounds to bf16 from scores summed in another order); zero-length rows
-    exactly 0; one launch. S 200 is not a multiple of the 64-row blocks."""
+    exactly 0; one launch, on the one-sweep kernel (as the kernel library
+    reports its choice) exactly for bf16 at S ≤ 128 (S 128 and 129 sit on
+    either side of that boundary). S 1, 16, 127 and 200 are not multiples
+    of the 64-row blocks; q, k and v are views of a fused QKV."""
     q, k, v = _qkv_views(cuda, len(lens), s, h, d, dtype, seed=d + s)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     before = packed_attention_cuda.launches
+    one = packed_attention_cuda.launches_one_sweep
     out = packed_attention_cuda(q, k, v, lengths)
     ref = packed_attention_plain(q, k, v, lengths)
     torch.cuda.synchronize()
     assert packed_attention_cuda.launches == before + 1
+    assert packed_attention_cuda.launches_one_sweep - one == (dtype == torch.bfloat16 and s <= 128)
     assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.float32:
         assert float(diff.max()) <= 1e-4
     else:
         assert float(diff.max()) <= 1e-2 and float(diff.mean()) <= 5e-4
+    assert bool((out[lengths == 0] == 0).all())
+
+
+@pytest.mark.parametrize("b,s,h,d", [(64, 128, 12, 32), (48, 100, 4, 128), (512, 16, 12, 32)])
+def test_k7_one_sweep_walks_many_heads(cuda, b, s, h, d):
+    """A grid of more (b, h) CTAs of the one-sweep kernel than fit on the
+    card at once, lengths from 0 to S: every row against the plain version
+    (bf16 max ≤ 1e-2, mean ≤ 5e-4), zero-length rows exactly 0, and the
+    one-sweep kernel the one that ran."""
+    q, k, v = _qkv_views(cuda, b, s, h, d, torch.bfloat16, seed=b + s)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    lengths = torch.randint(0, s + 1, (b,), generator=g, device=cuda, dtype=torch.int32)
+    lengths[0], lengths[-1] = 0, s
+    one = packed_attention_cuda.launches_one_sweep
+    out = packed_attention_cuda(q, k, v, lengths)
+    ref = packed_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches_one_sweep == one + 1
+    diff = (out.float() - ref.float()).abs()
+    assert float(diff.max()) <= 1e-2 and float(diff.mean()) <= 5e-4
     assert bool((out[lengths == 0] == 0).all())
 
 
@@ -1079,7 +1106,7 @@ def test_k8_refuses_what_it_cannot_run(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The score tile of K2 and K8 (csrc/score_tile.cuh): QT 16, 64 and 128
+# The score tile of K2, K3 and K8 (csrc/score_tile.cuh): QT 16, 64 and 128
 # ---------------------------------------------------------------------------
 
 def _tile_data(q_n, d, seed=8):
@@ -1137,6 +1164,59 @@ def test_score_tile_k8_matches_plain(cuda, dtype, k, d, q_n):
     assert torch.equal(topk_2pass_count_cuda(tq, tx, thr), want)
     _, _, kept = topk_mod._fold_cuda(tq, tx, k, 2048, True)
     assert torch.equal(topk_2pass_count_cuda(tq, tx, thr, scores=kept), want)
+
+
+@pytest.mark.parametrize("k", [1, 10, 256])
+@pytest.mark.parametrize("d", [32, 384, 1024])
+@pytest.mark.parametrize("q_n", [1, 63, 64, 65, 129, 256])
+def test_score_tile_k3_matches_plain(cuda, k, d, q_n):
+    """K3 on every query tile (QT 16, 64, 128 by Q, capped by k) and D, N
+    10,007 (not a multiple of 128) with exact ties, against its plain
+    version: scores 1e-5, ids equal where separated; one launch."""
+    q, x = _tile_data(q_n, d)
+    tq = torch.from_numpy(q).to(cuda)
+    codes, scales = quantize_embeddings_int8(torch.from_numpy(x).to(cuda))
+    before = cosine_topk_int8_cuda.launches
+    ks, ki = cosine_topk_int8_cuda(tq, codes, scales, k=k)
+    rs, ri = cosine_topk_int8_reference(tq, codes, scales, k=k)
+    torch.cuda.synchronize()
+    assert cosine_topk_int8_cuda.launches == before + 1
+    _assert_agree(ks, ki, rs, ri, True)
+
+
+def test_k3_answer_independent_of_q(cuda):
+    """A query's K3 scores and ids are equal bit for bit in calls of 1, 64
+    and 256 queries (query tiles 16, 64 and 128)."""
+    q, x = _tile_data(256, 384, seed=9)
+    tq = torch.from_numpy(q).to(cuda)
+    codes, scales = quantize_embeddings_int8(torch.from_numpy(x).to(cuda))
+    s256, i256 = cosine_topk_int8_cuda(tq, codes, scales, 10)
+    for q_n in (1, 64):
+        s, i = cosine_topk_int8_cuda(tq[:q_n].contiguous(), codes, scales, 10)
+        assert torch.equal(s, s256[:q_n]) and torch.equal(i, i256[:q_n])
+
+
+@pytest.mark.parametrize("q_n", [1, 64, 256])
+def test_k3_scores_equal_k2_bit_for_bit(cuda, q_n):
+    """K3's scores equal K2's scores over the widened codes
+    (``codes.float()``) times the row scales in f32, bit for bit: on 250
+    rows K2 at k = N gives every such score; on N 10,007 pass A's kept
+    scores (K2's bits) do, and K3's answer is the exact top-10 of their
+    products by (score desc, id asc)."""
+    q, x = _tile_data(q_n, 384, seed=12)
+    tq = torch.from_numpy(q).to(cuda)
+    codes, scales = quantize_embeddings_int8(torch.from_numpy(x).to(cuda))
+    n = 250
+    s2, i2 = cosine_topk_cuda(tq, codes[:n].float(), n)
+    raw = torch.empty((q_n, n), device=cuda).scatter_(1, i2.long(), s2)
+    s3, i3 = cosine_topk_int8_cuda(tq, codes[:n].contiguous(), scales[:n].contiguous(), n)
+    assert torch.equal(torch.gather(raw * scales[None, :n], 1, i3.long()), s3)
+    _, _, kept = topk_mod._fold_cuda(tq, codes.float(), 10, 2048, True)
+    want = kept[:, :x.shape[0]] * scales[None, :]
+    ids = torch.arange(x.shape[0], dtype=torch.int32, device=cuda).expand(q_n, -1)
+    ws, wi = topk_mod.select_topk(want, ids, 10)
+    ks, ki = cosine_topk_int8_cuda(tq, codes, scales, 10)
+    assert torch.equal(ks, ws) and torch.equal(ki, wi)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -115,16 +115,55 @@ _PLAN_Q = [1, 2, 7, 8, 15, 16, 17, 33, 63, 64, 65, 100, 128, 129, 255, 256, 257,
 _PLAN_N = [1, 127, 128, 129, 1000, 10_007, 16_897, 100_003, 1_000_001]
 
 
-@pytest.mark.parametrize("k", [1, 10, 33, 100, 256])
-def test_score_tile_planner_covers_rows_and_fills_the_card(k):
-    """K2's grid (and K8's count, k 1): for every Q in 1 … 4096 and ragged
-    N, the query tile follows Q (16 / 64 / 128, capped by k's selectors),
-    the splits are whole 128-row tiles that cover rows [0, N) exactly once,
-    and the grid has at least 132 CTAs wherever the (query tile, 128-row
-    tile) pairs allow."""
+class _GridRecorder:
+    """Stands in for the kernel library: records the (splits, rows a
+    split) that K3's wrapper hands to ``ts_cosine_topk_int8``."""
+
+    def __init__(self):
+        self.grids = []
+
+    def ts_cosine_topk_int8(self, *args):
+        self.grids.append((args[7], args[8]))
+        return 0
+
+
+def _k3_wrapper_grid(monkeypatch):
+    """→ a function (q_n, n, k) → (QT, splits, rows) as K3's wrapper plans
+    them, the library replaced by a recorder (no card needed)."""
+    rec = _GridRecorder()
+    monkeypatch.setattr(topk_mod._cuda, "lib", lambda: rec)
+    monkeypatch.setattr(topk_mod._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(topk_mod._cuda, "stream_handle", lambda dev: 0)
+    corpora = {}
+
+    def grid(q_n, n, k):
+        if n not in corpora:
+            corpora[n] = (torch.empty((n, 32), dtype=torch.int8), torch.empty(n))
+        codes, scales = corpora[n]
+        topk_mod.cosine_topk_int8_cuda(torch.empty((q_n, 32)), codes, scales, k)
+        return (topk_mod._qtile(q_n, k), *rec.grids.pop())
+
+    return grid
+
+
+_PLAN_K = (1, 10, 33, 100, 256)
+
+
+@pytest.mark.parametrize("kernel,k", [pytest.param("K2", k, id=str(k)) for k in _PLAN_K]
+                         + [pytest.param("K3", k, id=f"K3-{k}") for k in _PLAN_K])
+def test_score_tile_planner_covers_rows_and_fills_the_card(kernel, k, monkeypatch):
+    """K2's grid (and K8's count, k 1), and K3's as its wrapper hands it to
+    the kernel: for every Q in 1 … 4096 and ragged N, the query tile
+    follows Q (16 / 64 / 128, capped by k's selectors), the splits are
+    whole 128-row tiles that cover rows [0, N) exactly once, and the grid
+    has at least 132 CTAs wherever the (query tile, 128-row tile) pairs
+    allow."""
+    plan = topk_mod._plan_topk if kernel == "K2" else _k3_wrapper_grid(monkeypatch)
     for q_n in _PLAN_Q:
         for n in _PLAN_N:
-            qt, splits, rows = topk_mod._plan_topk(q_n, n, k)
+            if kernel == "K3" and k > n:
+                continue   # the wrapper refuses k > N
+            qt, splits, rows = plan(q_n, n, k)
             assert qt == min(16 if q_n <= 16 else 64 if q_n <= 64 else 128,
                              128 if k <= 32 else 64 if k <= 64 else 16)
             assert rows % 128 == 0

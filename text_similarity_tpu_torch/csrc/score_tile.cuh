@@ -1,5 +1,6 @@
 // The score tile of the exact top-k kernels K2 (topk.cu, f32 and bf16
-// corpora) and K8 (topk_2pass.cu, fold and count), designed for the H100.
+// corpora), K3 (topk.cu, int8 corpus) and K8 (topk_2pass.cu, fold and
+// count), designed for the H100.
 //
 // A CTA of 256 threads computes the scores of a 128-row × QT-query tile,
 // QT ∈ {16, 64, 128}, in f32 on the CUDA cores. An f32 corpus must stay
@@ -27,6 +28,13 @@
 //   reference casts them to the corpus dtype): the thread that copied a
 //   query piece rounds it in place once its copy has landed, before the
 //   step's barrier publishes it.
+// * An int8 corpus (K3) widens once a stage, not at every read: a row's 16
+//   codes land by one cp.async in the first 16 bytes of the 64 that their
+//   f32 values take in an f32 stage, and the thread that copied them
+//   widens them in place (exactly) once its copy has landed, before the
+//   step's barrier. The FMA loop then reads f32 rows as for an f32 corpus,
+//   at one conversion a code instead of one a code and query group. The
+//   queries stay f32, as the reference keeps them.
 // * The same bits everywhere. Every score is one fmaf chain over d = 0 …
 //   D − 1 in order, from 0, whatever QT, the tile's position or the kernel:
 //   K2's scores, K8's fold scores and K8's count scores are equal bit for
@@ -63,20 +71,29 @@ struct TileShape<64> { static constexpr int RM = 8, QN = 4, kStep = 32, kStages 
 template <>
 struct TileShape<16> { static constexpr int RM = 4, QN = 2, kStep = 32, kStages = 3; };
 
+// The type a corpus value takes in a stage: an int8 code is widened to f32
+// there (widen_own_codes); f32 and bf16 values stay as copied.
+template <typename T>
+struct Staged { using type = T; };
+template <>
+struct Staged<int8_t> { using type = float; };
+
 template <typename T, int QT>
 struct ScoreTile {
+  using C = typename Staged<T>::type;
   static constexpr int RM = TileShape<QT>::RM, QN = TileShape<QT>::QN;
   static constexpr int RG = kTileRows / RM;   // row groups
   static constexpr int QG = QT / QN;          // query groups
   static_assert(RG * QG == kTileThreads, "one thread per (row group, query group)");
   static constexpr int kStep = TileShape<QT>::kStep, kStages = TileShape<QT>::kStages;
-  static constexpr int kCStride = kStep + 16 / (int)sizeof(T);   // elements
+  static constexpr int kVec = 16 / (int)sizeof(T);               // values a 16-byte copy
+  static constexpr int kCStride = kStep + 16 / (int)sizeof(C);   // staged values a row
   static constexpr int kQStride = kStep + 4;                     // floats
-  static constexpr int kCorpusBytes = kTileRows * kCStride * (int)sizeof(T);
+  static constexpr int kCorpusBytes = kTileRows * kCStride * (int)sizeof(C);
   static constexpr int kQueryBytes = QT * kQStride * 4;
   static constexpr int kStageBytes = kCorpusBytes + kQueryBytes;
   static constexpr int kRingBytes = kStages * kStageBytes;
-  static constexpr int kCPiecesPerRow = kStep * (int)sizeof(T) / 16;
+  static constexpr int kCPiecesPerRow = kStep / kVec;
   static constexpr int kCPieces = kTileRows * kCPiecesPerRow;   // 16-byte copies a stage
   static constexpr int kQPieces = QT * kStep / 4;
   // A warp covers 8 query groups × 4 row groups: 8 queries and 4 rows
@@ -114,12 +131,12 @@ __device__ __forceinline__ void load_stage(unsigned char* stage, const float* __
                                            int Q, int q0, const T* __restrict__ corpus, int D,
                                            int row0, int nv, int d0) {
   using S = ScoreTile<T, QT>;
-  constexpr int kVec = 16 / sizeof(T);
   for (int p = threadIdx.x; p < S::kCPieces; p += kTileThreads) {
     const int row = p / S::kCPiecesPerRow, v = p % S::kCPiecesPerRow;
     const bool ok = row < nv;
-    const T* src = ok ? corpus + (size_t)(row0 + row) * D + d0 + v * kVec : corpus;
-    ring_copy16(stage + (row * S::kCStride + v * kVec) * sizeof(T), src, ok);
+    const T* src = ok ? corpus + (size_t)(row0 + row) * D + d0 + v * S::kVec : corpus;
+    // an int8 piece lands at the start of its 16 values' f32 slot
+    ring_copy16(stage + (row * S::kCStride + v * S::kVec) * sizeof(typename S::C), src, ok);
   }
   float* qs = reinterpret_cast<float*>(stage + S::kCorpusBytes);
   for (int p = threadIdx.x; p < S::kQPieces; p += kTileThreads) {
@@ -145,6 +162,30 @@ __device__ __forceinline__ void round_own_queries(unsigned char* stage) {
     x.z = round_bf16(x.z);
     x.w = round_bf16(x.w);
     *v = x;
+  }
+}
+
+// int8 corpus: widen this thread's own pieces of a landed stage in place,
+// 16 codes (16 bytes) → 16 f32 (the piece's 64-byte slot). Only this
+// thread copied into the slot; it reads the codes before it writes, both
+// through int4 so that the compiler keeps that order.
+__device__ __forceinline__ int widen_code(int word, int byte) {
+  return __float_as_int((float)(int8_t)((word >> (8 * byte)) & 0xff));
+}
+
+template <int QT>
+__device__ __forceinline__ void widen_own_codes(unsigned char* stage) {
+  using S = ScoreTile<int8_t, QT>;
+  float* cs = reinterpret_cast<float*>(stage);
+  for (int p = threadIdx.x; p < S::kCPieces; p += kTileThreads) {
+    int4* slot = reinterpret_cast<int4*>(cs + (p / S::kCPiecesPerRow) * S::kCStride +
+                                         (p % S::kCPiecesPerRow) * 16);
+    const int4 raw = slot[0];
+    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)   // byte b of word e is code 4e + b (little-endian)
+      slot[e] = make_int4(widen_code(w[e], 0), widen_code(w[e], 1), widen_code(w[e], 2),
+                          widen_code(w[e], 3));
   }
 }
 
@@ -255,9 +296,10 @@ __device__ __forceinline__ void score_tiles(const float* __restrict__ q, int Q, 
     ring_wait<S::kStages - 2>();
     unsigned char* stage = ring + (s % S::kStages) * S::kStageBytes;
     if constexpr (std::is_same_v<T, __nv_bfloat16>) round_own_queries<QT>(stage);
+    if constexpr (std::is_same_v<T, int8_t>) widen_own_codes<QT>(stage);
     __syncthreads();   // stage s landed for all; stage s - 1 read by all
     copy_step(s + S::kStages - 1);
-    stage_fma<QT>(stage, rg, qg, acc, static_cast<const T*>(nullptr));
+    stage_fma<QT>(stage, rg, qg, acc, static_cast<const typename S::C*>(nullptr));
     if (++c == n_chunks) {
       epi(t, acc);
       c = 0;

@@ -8,10 +8,11 @@
 //
 // K3 replaces cosine_topk_pallas_int8 → _topk_int8_kernel: the same top-k
 // of (q · float(c_row)) × scale_row, with f32 queries (not quantized) and
-// the int8 codes widened exactly to f32, an f32 dot (f32 FMAs, no TF32),
-// then the row's scale. It reads a quarter of K2's f32 bytes (N·D int8 +
-// N·4 scale bytes), so it is operation-bound on the CUDA cores at any
-// batch above a few queries.
+// the int8 codes widened exactly to f32, one f32 fmaf chain over the dims
+// (no TF32), then one f32 multiply by the row's scale: the reference's
+// order, dot then scale. It reads a quarter of K2's f32 bytes (N·D int8 +
+// N·4 scale bytes: 0.0116 ms at Q 1 × N 100,003 × D 384), so it is
+// operation-bound on the CUDA cores above a few queries (0.29 ms at Q 256).
 //
 // Bound on the H100: an f32 corpus must stay exact (no TF32), so the dot
 // products run on the CUDA cores and the kernel is operation-bound there
@@ -20,122 +21,30 @@
 // bound by reading the corpus once (N·D·4 bytes at 3.35 TB/s: 0.046 ms).
 //
 // Design. CTAs are unordered, so the corpus is split. Pass 1 runs CTAs over
-// (query tile, corpus split); pass 2 reduces the (Q, splits, k) partials to
-// (Q, k) (K2: merge_runs; K3: merge_partials of common.cuh). The wrapper sizes the splits so the grid
-// fills the 132 SMs in whole waves, even for a single query.
-//  * K2 (f32 and bf16 corpora) runs on score_tile.cuh: a 128-row × QT-query
-//    register-blocked tile fed by a cp.async ring, QT = 16, 64 or 128 by Q
-//    (qt_for), so at Q 256 the corpus is staged twice instead of 16 times
-//    and shared memory no longer binds the product (what does: the note of
-//    score_tile.cuh). A finished tile's score becomes a candidate only if it
-//    beats its query's current k-th (score, id), so after the first tiles a
-//    tile gives a query a candidate or two; warp w merges the candidates of
-//    queries w, w + 8, …: for k ≤ 32 into a list of 32 held one a lane
-//    (insertion by ballot, or a bitonic sort and merge of shuffles for a
-//    larger batch), for larger k through the warp selector of common.cuh.
-//    Pass 2 (merge_runs, one CTA a query) takes the same two paths. QT is
-//    capped by k, since each query's selector holds 2·kp pairs in shared
-//    memory.
-//  * K3 (int8) keeps the first design: common.cuh's 128-row × 16-query tile
-//    staged by plain loads (topk_pass1<int8_t>), 16 queries a CTA.
+// (query tile, corpus split); pass 2 (merge_runs, one CTA a query) reduces
+// the (Q, splits, k) partials to (Q, k). The wrapper sizes the splits so
+// the grid fills the 132 SMs in whole waves, even for a single query.
+// Both kernels run on score_tile.cuh: a 128-row × QT-query register-blocked
+// tile fed by a cp.async ring, QT = 16, 64 or 128 by Q (qt_for), so at Q
+// 256 the corpus is staged twice instead of 16 times and shared memory no
+// longer binds the product (what does: the note of score_tile.cuh). An
+// int8 stage is widened to f32 once, by the threads that copied it, so
+// K3's FMA loop is K2's over an f32 corpus, and K3's raw dots equal K2's
+// over the widened codes bit for bit. A finished tile's score (K3: times
+// the row's scale) becomes a candidate only if it beats its query's
+// current k-th (score, id), so after the first tiles a tile gives a query
+// a candidate or two; warp w merges the candidates of queries w, w + 8, …:
+// for k ≤ 32 into a list of 32 held one a lane (insertion by ballot, or a
+// bitonic sort and merge of shuffles for a larger batch), for larger k
+// through the warp selector of common.cuh. Pass 2 takes the same two
+// paths. QT is capped by k, since each query's selector holds 2·kp pairs
+// in shared memory.
 #include "common.cuh"
 #include "score_tile.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-topk_pass1(const float* __restrict__ q, const T* __restrict__ corpus,
-           const float* __restrict__ scales, int Q, int N, int D, int k,
-           int rows_per_split, int splits, float* __restrict__ part_s,
-           int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = kp_for(k);
-  float* qs = reinterpret_cast<float*>(smem);        // kQTile × D
-  float* ct = qs + kQTile * D;                       // kRows × kDCP
-  float* sc = ct + kRows * kDCP;                     // kQTile × kRows
-  float* sel_f = sc + kQTile * kRows;                // kQTile × 2kp
-  int* sel_i = reinterpret_cast<int*>(sel_f + kQTile * 2 * kp);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kQTile;
-  const int split = blockIdx.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-
-  for (int idx = tid; idx < kQTile * D; idx += kThreads) {
-    const int qi = idx / D;
-    const float v = (q0 + qi < Q) ? q[(size_t)(q0 + qi) * D + idx % D] : 0.f;
-    // bf16 rows: queries rounded to bf16, as the reference; f32 and int8
-    // rows: f32 queries
-    qs[idx] = std::is_same_v<T, __nv_bfloat16> ? round_bf16(v) : v;
-  }
-  Selector sel[kQPW];
-#pragma unroll
-  for (int a = 0; a < kQPW; ++a) {
-    const int ql = warp + a * kWarps;
-    sel_init(sel[a], sel_f + ql * 2 * kp, sel_i + ql * 2 * kp, k, lane);
-  }
-  __syncthreads();
-
-  const int r = tid % kRows, g = tid / kRows;
-  for (int row0 = row_begin; row0 < row_end; row0 += kRows) {
-    const int nv = min(kRows, row_end - row0);
-    float acc[kQPT];
-    tile_scores<T, false>(corpus + (size_t)row0 * D, nv, D, qs, D, ct, acc);
-    if constexpr (std::is_same_v<T, int8_t>) {
-      const float sc = r < nv ? scales[row0 + r] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kQPT; ++j) acc[j] *= sc;
-    }
-#pragma unroll
-    for (int j = 0; j < kQPT; ++j) sc[(g * kQPT + j) * kRows + r] = acc[j];
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kQPW; ++a) {
-      const int ql = warp + a * kWarps;
-      if (q0 + ql >= Q) continue;  // warp-uniform
-      for (int base = 0; base < nv; base += 32) {
-        const int rr = base + lane;
-        const bool has = rr < nv;
-        sel_push(sel[a], has, has ? sc[ql * kRows + rr] : -INFINITY, row0 + rr, lane);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < kQPW; ++a) {
-    const int ql = warp + a * kWarps;
-    if (q0 + ql >= Q) continue;
-    sel_flush(sel[a], lane);
-    const size_t o = ((size_t)(q0 + ql) * splits + split) * k;
-    for (int j = lane; j < k; j += 32) {
-      part_s[o + j] = sel[a].ls[j];
-      part_i[o + j] = sel[a].li[j];
-    }
-  }
-}
-
-template <typename T>
-cudaError_t run_topk(const float* q, const T* corpus, const float* scales, int Q, int N,
-                     int D, int k, int splits, int rows_per_split, float* part_s,
-                     int* part_i, float* out_s, int* out_i, cudaStream_t st) {
-  const int kp = host_kp_for(k);
-  const size_t smem =
-      sizeof(float) * ((size_t)kQTile * D + kRows * kDCP + kQTile * kRows) +
-      (size_t)kQTile * 2 * kp * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_pass1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Q + kQTile - 1) / kQTile, splits);
-  topk_pass1<T><<<grid, kThreads, smem, st>>>(q, corpus, scales, Q, N, D, k,
-                                              rows_per_split, splits, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_merge(part_s, part_i, Q, splits, k, out_s, out_i, st);
-}
-
-// K2's per-query selection state in shared memory, behind the copy ring:
+// The per-query selection state (K2, K3) in shared memory, behind the copy ring:
 // for each of the CTA's QT queries a selector's list and buffer (2·kp
 // (score, id) pairs), its (n, threshold) and the current tile's candidates.
 struct TileSelect {
@@ -284,16 +193,18 @@ __device__ __forceinline__ void push_candidates(const TileSelect& ts, int q_here
   }
 }
 
-// K2's pass 1 on the score tile: CTA (query tile of QT, corpus split) →
-// part_s / part_i (Q, splits, k). A finished tile's score becomes a
+// K2's and K3's pass 1 on the score tile: CTA (query tile of QT, corpus
+// split) → part_s / part_i (Q, splits, k). A finished tile's score (K3:
+// times the row's scale) becomes a
 // candidate only if it beats its query's current k-th (score, id), which
 // the query's list publishes in shared memory; warp w then merges the
 // candidates of queries w, w + 8, … (push_candidates). After the first
 // tiles few scores pass, so the selection costs little beside the product.
 template <typename T, int QT>
 __global__ void __launch_bounds__(kTileThreads, 1)
-topk_tile_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q, int N, int D,
-                int k, int rows_per_split, int splits, float* __restrict__ part_s,
+topk_tile_pass1(const float* __restrict__ q, const T* __restrict__ corpus,
+                const float* __restrict__ scales, int Q, int N, int D, int k,
+                int rows_per_split, int splits, float* __restrict__ part_s,
                 int* __restrict__ part_i) {
   using S = ScoreTile<T, QT>;
   extern __shared__ __align__(16) unsigned char tile_smem[];
@@ -319,6 +230,16 @@ topk_tile_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q
   auto epi = [&](int t, float (&acc)[S::RM][S::QN]) {
     const int row0 = row_begin + t * kTileRows;
     const int nv = min(kTileRows, row_end - row0);
+    if constexpr (std::is_same_v<T, int8_t>) {
+      // K3: the dot, then one f32 multiply by the row's scale
+#pragma unroll
+      for (int i = 0; i < S::RM; ++i) {
+        const int r = rg + S::RG * i;
+        const float sc = r < nv ? scales[row0 + r] : 0.f;
+#pragma unroll
+        for (int j = 0; j < S::QN; ++j) acc[i][j] *= sc;
+      }
+    }
     // the thresholds were last written before the previous ring step's
     // barrier, the candidate counts reset there too
 #pragma unroll
@@ -359,11 +280,11 @@ topk_tile_pass1(const float* __restrict__ q, const T* __restrict__ corpus, int Q
   }
 }
 
-// K2's pass 2: one CTA a query reduces its (splits, k) partials to k. Each
-// warp takes every 8th run of 32 partials, with the next run's loads in
-// flight while it takes one (k ≤ 32: warp_merge32 into a list in registers;
-// else its own selector); warp 0 then takes the other warps' lists. Exact
-// whatever the order, by (score desc, id asc).
+// K2's and K3's pass 2: one CTA a query reduces its (splits, k) partials
+// to k. Each warp takes every 8th run of 32 partials, with the next run's
+// loads in flight while it takes one (k ≤ 32: warp_merge32 into a list in
+// registers; else its own selector); warp 0 then takes the other warps'
+// lists. Exact whatever the order, by (score desc, id asc).
 __global__ void __launch_bounds__(kTileThreads)
 merge_runs(const float* __restrict__ part_s, const int* __restrict__ part_i, int P, int k,
            float* __restrict__ out_s, int* __restrict__ out_i) {
@@ -429,36 +350,37 @@ merge_runs(const float* __restrict__ part_s, const int* __restrict__ part_i, int
 }
 
 template <typename T, int QT>
-cudaError_t launch_tile_pass1(const float* q, const T* corpus, int Q, int N, int D, int k,
-                              int splits, int rows_per_split, float* part_s, int* part_i,
-                              cudaStream_t st) {
+cudaError_t launch_tile_pass1(const float* q, const T* corpus, const float* scales, int Q, int N,
+                              int D, int k, int splits, int rows_per_split, float* part_s,
+                              int* part_i, cudaStream_t st) {
   const size_t smem = ScoreTile<T, QT>::kRingBytes + TileSelect::bytes(QT, host_kp_for(k));
   cudaError_t err = cudaFuncSetAttribute(topk_tile_pass1<T, QT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + QT - 1) / QT, splits);
-  topk_tile_pass1<T, QT><<<grid, kTileThreads, smem, st>>>(q, corpus, Q, N, D, k,
-                                                           rows_per_split, splits, part_s, part_i);
+  topk_tile_pass1<T, QT><<<grid, kTileThreads, smem, st>>>(
+      q, corpus, scales, Q, N, D, k, rows_per_split, splits, part_s, part_i);
   return cudaGetLastError();
 }
 
+// scales: the int8 corpus's per-row scales (K3), nullptr for K2.
 template <typename T>
-cudaError_t run_tile_topk(const float* q, const T* corpus, int Q, int N, int D, int k,
-                          int splits, int rows_per_split, float* part_s, int* part_i,
-                          float* out_s, int* out_i, cudaStream_t st) {
+cudaError_t run_tile_topk(const float* q, const T* corpus, const float* scales, int Q, int N,
+                          int D, int k, int splits, int rows_per_split, float* part_s,
+                          int* part_i, float* out_s, int* out_i, cudaStream_t st) {
   cudaError_t err;
   switch (qt_for(Q, k)) {
     case 16:
-      err = launch_tile_pass1<T, 16>(q, corpus, Q, N, D, k, splits, rows_per_split, part_s,
-                                     part_i, st);
+      err = launch_tile_pass1<T, 16>(q, corpus, scales, Q, N, D, k, splits, rows_per_split,
+                                     part_s, part_i, st);
       break;
     case 64:
-      err = launch_tile_pass1<T, 64>(q, corpus, Q, N, D, k, splits, rows_per_split, part_s,
-                                     part_i, st);
+      err = launch_tile_pass1<T, 64>(q, corpus, scales, Q, N, D, k, splits, rows_per_split,
+                                     part_s, part_i, st);
       break;
     default:
-      err = launch_tile_pass1<T, 128>(q, corpus, Q, N, D, k, splits, rows_per_split, part_s,
-                                      part_i, st);
+      err = launch_tile_pass1<T, 128>(q, corpus, scales, Q, N, D, k, splits, rows_per_split,
+                                      part_s, part_i, st);
   }
   if (err != cudaSuccess) return err;
   const size_t smem = (size_t)kTileWarps * 2 * host_kp_for(k) * (sizeof(float) + sizeof(int));
@@ -474,9 +396,9 @@ extern "C" int ts_cosine_topk(const float* q, const void* corpus, int corpus_bf1
                               float* out_s, int* out_i, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (corpus_bf16)
-    return (int)run_tile_topk(q, static_cast<const __nv_bfloat16*>(corpus), Q, N, D, k,
-                              splits, rows_per_split, part_s, part_i, out_s, out_i, st);
-  return (int)run_tile_topk(q, static_cast<const float*>(corpus), Q, N, D, k, splits,
+    return (int)run_tile_topk(q, static_cast<const __nv_bfloat16*>(corpus), nullptr, Q, N, D,
+                              k, splits, rows_per_split, part_s, part_i, out_s, out_i, st);
+  return (int)run_tile_topk(q, static_cast<const float*>(corpus), nullptr, Q, N, D, k, splits,
                             rows_per_split, part_s, part_i, out_s, out_i, st);
 }
 
@@ -485,6 +407,6 @@ extern "C" int ts_cosine_topk_int8(const float* q, const int8_t* corpus,
                                    const float* scales, int Q, int N, int D, int k,
                                    int splits, int rows_per_split, float* part_s,
                                    int* part_i, float* out_s, int* out_i, void* stream) {
-  return (int)run_topk(q, corpus, scales, Q, N, D, k, splits, rows_per_split, part_s,
-                       part_i, out_s, out_i, reinterpret_cast<cudaStream_t>(stream));
+  return (int)run_tile_topk(q, corpus, scales, Q, N, D, k, splits, rows_per_split, part_s,
+                            part_i, out_s, out_i, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -95,6 +95,8 @@ _SIGNATURES = {
     # token, head) in elements, scale, stream
     "ts_packed_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # bf16, S → 1 where ts_packed_attention runs the one-sweep kernel
+    "ts_packed_attention_one_sweep": [_I, _I],
     # q, corpus, corpus_bf16, Q, N, D, k, block_c, splits, blocks_per_split,
     # win_s, win_i, out_s, out_i, stream
     "ts_topk_2pass_fold": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -23,7 +23,8 @@
   the function of the reference's head-packed kernel: every query row,
   padded ones included, attends to the keys j < len; p is normalised, then
   rounded to the input dtype before P·V. On a CUDA tensor it launches K7
-  (``csrc/packed_attention.cu``, via ``packed_attention_cuda``), on a CPU
+  (``csrc/packed_attention.cu``, via ``packed_attention_cuda``: one sweep
+  over the keys for bf16 at S ≤ 128, two sweeps otherwise), on a CPU
   tensor ``packed_attention_plain``; with grad enabled it runs through
   ``PackedAttentionFunction``, whose backward is autograd of
   ``attention_reference`` with the mask, as the reference's ``custom_vjp``.
@@ -37,6 +38,7 @@ strategies.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -436,6 +438,15 @@ def _check_packed_head_dim(q: torch.Tensor, head_dim: Optional[int] = None) -> i
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def packed_attention_path(s: int, dtype: torch.dtype) -> str:
+    """The K7 kernel that ``packed_attention_cuda`` launches for rows of
+    ``s`` tokens in ``dtype``, as the kernel library chooses it: "one
+    sweep" (bf16 at S ≤ 128) or "two sweeps". Needs the library built."""
+    one = _cuda.lib().ts_packed_attention_one_sweep(int(dtype == torch.bfloat16), s)
+    return "one sweep" if one else "two sweeps"
+
+
 def packed_attention_cuda(
     q: torch.Tensor,        # (B, S, H, D) CUDA, f32 or bf16; last dim contiguous
     k: torch.Tensor,
@@ -443,9 +454,13 @@ def packed_attention_cuda(
     lengths: torch.Tensor,  # (B,) int32 CUDA
 ) -> torch.Tensor:
     """Kernel K7 on the card. q, k, v may be strided views (the encoder's
-    fused QKV); D ∈ {32, 64, 128} with H % (128 / D) == 0. The kernel's
-    output carries no gradient, so inputs that need one are refused under
-    grad mode: take ``packed_attention``. → (B, S, H, D) contiguous in q's
+    fused QKV); D ∈ {32, 64, 128} with H % (128 / D) == 0. The C entry
+    point runs the one-sweep kernel for bf16 at S ≤ 128, the two-sweep
+    kernels otherwise (``packed_attention_path`` asks it which); a launch
+    of the one-sweep kernel also adds one to
+    ``packed_attention_cuda.launches_one_sweep``. The kernel's output
+    carries no gradient, so inputs that need one are refused under grad
+    mode: take ``packed_attention``. → (B, S, H, D) contiguous in q's
     dtype."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise ValueError(
@@ -464,10 +479,13 @@ def packed_attention_cuda(
         )
         _cuda.check(err, "packed attention kernel")
         packed_attention_cuda.launches += 1
+        if packed_attention_path(s, q.dtype) == "one sweep":
+            packed_attention_cuda.launches_one_sweep += 1
     return out
 
 
 packed_attention_cuda.launches = 0
+packed_attention_cuda.launches_one_sweep = 0
 
 
 class PackedAttentionFunction(torch.autograd.Function):

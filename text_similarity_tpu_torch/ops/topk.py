@@ -17,7 +17,8 @@ queries in f32 (the semantics of the reference's Pallas kernel
 * ``cosine_topk``: dispatches on the corpus's device — the kernel for a
   CUDA tensor, the plain version for a CPU tensor.
 * ``cosine_topk_int8_reference`` / ``cosine_topk_int8_cuda`` /
-  ``cosine_topk_int8``: the same three for K3 (``csrc/topk.cu``).
+  ``cosine_topk_int8``: the same three for K3 (``csrc/topk.cu``, on the
+  same score tile with an int8 loader).
 * ``cosine_topk_2pass``: the certified two-pass top-k (kernel K8, the
   reference's ``cosine_topk_pallas_2pass``). Pass A keeps, per lane class
   (corpus position mod ``block_c``), the best score and its id (strict >,
@@ -108,22 +109,13 @@ def _check_k(k: int, n: int) -> None:
         raise ValueError(f"k={k} must be in [1, min(N={n}, {MAX_K})]")
 
 
-def _split_corpus(q_n: int, n: int) -> Tuple[int, int]:
-    """K3's grid (16-query CTAs) → (splits, rows_per_split): ~2 CTAs on
-    each of the 132 SMs, ≥ 512 rows (a multiple of 128) each."""
-    q_tiles = -(-q_n // 16)
-    splits = max(1, min(-(-264 // q_tiles), -(-n // 512)))
-    rows_per_split = -(-n // splits)
-    rows_per_split = -(-rows_per_split // 128) * 128
-    return -(-n // rows_per_split), rows_per_split
-
-
 _SMS = 132   # streaming multiprocessors of an H100 SXM
 
 
 def _qtile(q_n: int, k: int = 1) -> int:
-    """The query tile (QT) of the score-tile kernels (K2, K8's passes) for
-    ``q_n`` queries: 16 up to 16 queries, 64 up to 64, 128 above; K2's is
+    """The query tile (QT) of the score-tile kernels (K2, K3, K8's passes)
+    for ``q_n`` queries: 16 up to 16 queries, 64 up to 64, 128 above; K2's
+    and K3's is
     capped by k, since each query's selector takes 2·kp (score, id) pairs
     of shared memory (kp = pow2 ≥ max(k, 32)). Mirrors ``qt_for`` of
     ``csrc/score_tile.cuh``, which picks the kernel; here it sizes the grid."""
@@ -154,7 +146,7 @@ def _runs(base: int, units: int) -> Tuple[int, int]:
 
 
 def _plan_topk(q_n: int, n: int, k: int = 1) -> Tuple[int, int, int]:
-    """K2's and K8's count grid → (QT, splits, rows_per_split): splits of
+    """K2's, K3's and K8's count grid → (QT, splits, rows_per_split): splits of
     whole 128-row tiles (the last one ragged)."""
     qt = _qtile(q_n, k)
     splits, per = _runs(-(-q_n // qt), -(-n // 128))
@@ -231,8 +223,14 @@ def cosine_topk_int8_cuda(
     scales: torch.Tensor,
     k: int = 10,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K3 on the card. queries (Q, D) f32, corpus_q (N, D) int8,
-    scales (N,) f32, contiguous CUDA tensors; D a multiple of 32, k ≤ 256.
+    """Kernel K3 on the card: K2's score tile and merge (``csrc/topk.cu`` on
+    ``csrc/score_tile.cuh``, the grid of ``_plan_topk``) over int8 codes,
+    each stage's codes widened to f32 once in shared memory; a score is
+    the fmaf chain over the dims in order (f32 queries, not quantized)
+    times the row's scale, so it equals K2's score over ``c.float()``
+    times ``scale`` bit for bit and does not depend on Q.
+    queries (Q, D) f32, corpus_q (N, D) int8, scales (N,) f32, contiguous
+    CUDA tensors; D a multiple of 32, k ≤ 256.
     → (scores (Q, k) f32, ids (Q, k) int32)."""
     _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
     _cuda.require_cuda(corpus_q, "corpus_q", (torch.int8,), 2)
@@ -251,7 +249,7 @@ def cosine_topk_int8_cuda(
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
     if q_n == 0:
         return out_s, out_i
-    splits, rows_per_split = _split_corpus(q_n, n)
+    _, splits, rows_per_split = _plan_topk(q_n, n, k)
     part_s = torch.empty((q_n, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((q_n, splits, k), dtype=torch.int32, device=dev)
     err = _cuda.lib().ts_cosine_topk_int8(

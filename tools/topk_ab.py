@@ -1,7 +1,7 @@
 """Times the exact top-k kernels of one source tree on the card at
 chip_smoke.py's phase-2 shapes (N 100,003 × D 384, k 10, the corpus with
 copied rows): K2 at Q 1, 8, 64 and 256 (f32) and at Q 256 over a bf16
-corpus, K3 at Q 256 (int8 corpus), K8's fold and count at Q 256 alone
+corpus, K3 at Q 1, 8, 64 and 256 (int8 corpus), K8's fold and count at Q 256 alone
 (and, where the tree has them, the fold keeping its scores and the count
 over them), both passes with the certification as the call runs them, and
 the call ``cosine_topk_2pass`` (which falls back to K2 at Q 256). To
@@ -14,12 +14,16 @@ into a git-ignored directory and run, from the repository root, in turns:
     python3 tools/topk_ab.py <other tree>
 
 Each run builds that tree's kernels (into its own ``_build/``) and prints
-one line ``AB <tree> <card> ...`` with the mean time of a launch over 50
-launches (CUDA events, after 5 warm-up launches); with ``--library`` it
-also prints a line ``LIB`` with ``torch.topk(q @ cᵀ)`` (``torch.topk((q @
-c.float()ᵀ) · s)`` for K3) at each shape and each shape's bound: the
-larger of its bytes (inputs read once, outputs written once) over 3.35
-TB/s and its f32 operations (2·Q·N·D) over 67 TFLOP/s.
+one line ``AB <tree> <card> ...`` with the mean time of a call over 50
+calls (CUDA events, after 5 warm-up calls), and one line ``DEV`` with the
+device's time of a K2 and a K3 call, 100 calls in a CUDA graph (no host
+cost between launches: ``chip_smoke.graph_ms``); with ``--library`` it
+also prints lines ``LIB`` and ``LIBDEV`` with ``torch.topk(q @ cᵀ)``
+(``torch.topk((q @ c.float()ᵀ) · s)`` for K3) at each shape, timed both
+ways, and each shape's bound: the larger of its bytes (inputs read once,
+outputs written once) over 3.35 TB/s and its f32 operations (2·Q·N·D)
+over 67 TFLOP/s. The timing helpers come from this checkout's
+``chip_smoke.py``, the kernels from the tree named.
 """
 
 import os
@@ -29,11 +33,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main(tree: str, library: bool) -> None:
-    sys.path.insert(0, os.path.abspath(tree))
-    sys.path.insert(1, REPO)
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs   # this checkout's timing and bounds, whatever the tree
+
+    sys.path.insert(0, os.path.abspath(tree))   # the kernels of the tree under test
     import torch
 
-    import chip_smoke as cs
     from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
     from text_similarity_tpu_torch.ops import topk
 
@@ -46,6 +51,8 @@ def main(tree: str, library: bool) -> None:
 
     def t(fn):
         return cs.time_ms(torch, fn, iters=50, warmup=5)
+
+    graphed = {}   # key → the call again, for the device time of a CUDA graph of it
 
     def passes(q):
         # the call's own two passes where the tree has them (pass B over the
@@ -64,6 +71,7 @@ def main(tree: str, library: bool) -> None:
     for q_n in (1, 8, 64, 256):
         qq = queries[:q_n].contiguous()
         times[f"K2 Q={q_n}"] = t(lambda: topk.cosine_topk_cuda(qq, corpus, k))
+        graphed[f"K2 Q={q_n}"] = lambda qq=qq: topk.cosine_topk_cuda(qq, corpus, k)
         lib[f"K2 Q={q_n}"] = lambda qq=qq: torch.topk(qq @ corpus.T, k, dim=1)
         bounds[f"K2 Q={q_n}"] = cs.bound_ms(q_n * d * 4 + n * d * 4 + q_n * k * 8,
                                             2.0 * q_n * n * d, cs.PEAK_F32)
@@ -72,10 +80,13 @@ def main(tree: str, library: bool) -> None:
                                               k, dim=1)
     bounds["K2 bf16 Q=256"] = cs.bound_ms(256 * d * 4 + n * d * 2 + 256 * k * 8,
                                           2.0 * 256 * n * d, cs.PEAK_F32)
-    times["K3 Q=256"] = t(lambda: topk.cosine_topk_int8_cuda(q, codes, scales, k))
-    lib["K3 Q=256"] = lambda: torch.topk((q @ codes.float().T) * scales, k, dim=1)
-    bounds["K3 Q=256"] = cs.bound_ms(256 * d * 4 + n * d + n * 4 + 256 * k * 8,
-                                     2.0 * 256 * n * d, cs.PEAK_F32)
+    for q_n in (1, 8, 64, 256):
+        qq = queries[:q_n].contiguous()
+        times[f"K3 Q={q_n}"] = t(lambda: topk.cosine_topk_int8_cuda(qq, codes, scales, k))
+        graphed[f"K3 Q={q_n}"] = lambda qq=qq: topk.cosine_topk_int8_cuda(qq, codes, scales, k)
+        lib[f"K3 Q={q_n}"] = lambda qq=qq: torch.topk((qq @ codes.float().T) * scales, k, dim=1)
+        bounds[f"K3 Q={q_n}"] = cs.bound_ms(q_n * d * 4 + n * d + n * 4 + q_n * k * 8,
+                                            2.0 * q_n * n * d, cs.PEAK_F32)
     times["K8 fold Q=256"] = t(lambda: topk.topk_2pass_fold_cuda(q, corpus, k))
     times["K8 count Q=256"] = t(lambda: topk.topk_2pass_count_cuda(q, corpus, thr))
     if hasattr(topk, "_fold_cuda"):
@@ -94,9 +105,13 @@ def main(tree: str, library: bool) -> None:
     card = cs.card_line()
     print("AB", tree, card, " | ".join(f"{key}: {v:.4f} ms" for key, v in times.items()),
           flush=True)
+    print("DEV", tree, card, " | ".join(
+        f"{key}: {cs.graph_ms(torch, fn):.4f} ms" for key, fn in graphed.items()), flush=True)
     if library:
         print("LIB", card, " | ".join(
             f"{key}: {t(fn):.4f} ms" for key, fn in lib.items()), flush=True)
+        print("LIBDEV", card, " | ".join(
+            f"{key}: {cs.graph_ms(torch, fn):.4f} ms" for key, fn in lib.items()), flush=True)
         print("BOUND", " | ".join(
             f"{key}: {b:.4f} ms ({by})" for key, (b, by) in bounds.items()), flush=True)
 
