@@ -36,8 +36,10 @@ Phases (any failure exits non-zero):
     5 and 64 verbatim corpus sentences; each must find itself in its top 10
     at score ≥ 0.99 (≥ 95% of queries; on a multi-query IVF request, of
     the queries whose own slab was in their block's shared probe list).
-    Both kernels' launch counters must rise during this phase, and each
-    kernel must agree with its plain version at the pipeline's shapes.
+    Both kernels' launch counters must rise during this phase, every K1
+    launch must run on the wgmma tile, and each kernel must agree with its
+    plain version at the pipeline's shapes: K1 at a 1-, 5- and 64-text
+    request (block_q 1, 8 and 64: the tile's 8- and 64-query forms).
     ``encode``'s ``packed="auto"`` packs these sentences; the corpus also
     runs with ``packed=False``: both rates, the host time of
     ``pack_sequences``, and the routes' unit embeddings (1 − min cosine
@@ -64,8 +66,9 @@ Phases (any failure exits non-zero):
       back) on the built index, one ``BruteForceIndex`` query over an
       ``EmbeddingStore(quantized=True)`` of 2,000 of those embeddings (its
       answer, K3 at Q 64, against the plain version under phase 5's K3
-      gate). The K3 and K4 launch counters, zeroed just before, must rise.
-      Printed:
+      gate). The K3 and K4 launch counters, zeroed just before, must rise,
+      every K4 launch on the wgmma tile; K4 at a 1-, 5- and 64-text request
+      against its plain version as K1 in phase 4. Printed:
       the mean cosine between the int8 and the bf16 encoder's embeddings of
       64 texts and the int8 encoder's sentences/s.
  5b. IVF options (the index's other layouts and scan modes), on the
@@ -84,8 +87,10 @@ Phases (any failure exits non-zero):
     Then each kernel against its plain version at those shapes: K1-opt
     per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200), K9
     (unpacked scores within one 14-bit bin, overlap ≥ 0.99), K10 (buffers
-    2-4; ids equal K1's at approx_width = Mc bit for bit), K11a (P 2, 3, 4;
-    the same), K11b and K1 on the 385-wide slabs; f32 |Δscore| ≤ 1e-4 and
+    2-4; ids equal, bit for bit, those of K1's CUDA-core fold, emit_acc +
+    top-k, at approx_width = Mc), K11a (P 2, 3, 4;
+    the same), K11b and K1 on the 385-wide slabs (its CUDA-core kernel, bit
+    for bit equal to that kernel's fold); f32 |Δscore| ≤ 1e-4 and
     overlap ≥ 0.99 elsewhere; times beside K1's at the same k, and each
     option's query rate.
  6. long documents:
@@ -607,6 +612,52 @@ def serving_plan(ivf, queries):
     return q_s, probe_list, order, block_q
 
 
+def scan_path(ivf, q_s, probes, block_q, k, w, slots):
+    """Which kernel K1 / K4 take for a merge-mode scan (the kernel library's
+    plan) and, on the wgmma tile, what it meets: the share of probed slots
+    that are live and of its 64-lane tiles that it skips as empty."""
+    from text_similarity_tpu_torch.index.ivf import tile_occupancy, tile_plan_cuda
+    from text_similarity_tpu_torch.index.ivf_modes import data_kind
+
+    mc = ivf.data_padded.shape[1]
+    plan = tile_plan_cuda(data_kind(ivf.data_padded), q_s.shape[1], mc, block_q, k, w or mc,
+                          slots if w else 0)
+    if plan is None:
+        return "CUDA-core kernel", plan
+    live, skipped = tile_occupancy(probes, ivf.ids_padded, w or mc)
+    return (f"wgmma tile (nq {plan.nq}, {plan.nwg} warpgroups of N {plan.n}, {plan.stages} "
+            f"stages; probed slots live {live:.1%}, tiles skipped {skipped:.1%})"), plan
+
+
+def scan_at_requests(torch, ivf, encode, texts, k, kernel, card):
+    """K1 / K4 at the pipeline's request shapes: 1, 5 and 64 of ``texts``,
+    encoded and padded as the pipeline pads them, through ``serving_plan``
+    (block_q 1, 8 and 64) in the scan mode ``IVFIndex.query`` takes with
+    the pipeline's args; each held to the plain version at phase 3's gate
+    (|Δscore| ≤ 1e-4, overlap ≥ 0.99) and counted on the wgmma tile."""
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    mc = ivf.data_padded.shape[1]
+    k_scan = ivf.scan_k(k)
+    w, slots = ivf.scan_mode(k_scan, 2048 if mc >= 1024 else 0, 0)
+    counter = "launches_tile" if ivf.scales_padded is None else "launches_tile_int8"
+    for n in (1, 5, 64):
+        qs, probes, _, block_q = serving_plan(ivf, _pad_pow2(encode(texts[:n])))
+        args = (qs, probes, ivf.data_padded, ivf.ids_padded, k_scan, block_q, w, slots)
+        path, plan = scan_path(ivf, qs, probes, block_q, k_scan, w, slots)
+        tiles = getattr(ivf_scan_cuda, counter)
+        ks, ki = ivf_scan_cuda(*args, scales=ivf.scales_padded)
+        rs, ri = ivf_scan_reference(*args, scales=ivf.scales_padded)
+        torch.cuda.synchronize()
+        if plan is None or getattr(ivf_scan_cuda, counter) != tiles + 1:
+            raise AssertionError(f"{kernel} at a {n}-text request did not run on the wgmma "
+                                 f"tile: {path}")
+        check_pair(f"{kernel} at a {n}-text request (block_q {block_q}, k_scan {k_scan}, "
+                   f"{f'deferred w={w} S={slots}' if w else 'exact'}, on the {path})",
+                   ks, ki, rs, ri, card)
+
+
 def phase_ivf(torch, card):
     from text_similarity_tpu_torch.core.config import IndexConfig
     from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda, ivf_scan_reference
@@ -628,22 +679,27 @@ def phase_ivf(torch, card):
         f"(+{ivf.num_overflow} overflow), Mc={mc}, probes={cfg.num_probes}")
 
     q_s, probes, _, block_q = serving_plan(ivf, queries)
-    worst, main = 0.0, None
+    worst, main, times = 0.0, None, {}
     for k, aw in ((10, 2048), (100, 2048), (10, 0)):
         w, slots = ivf.scan_mode(k, aw, 0)
         mode = f"deferred w={w} S={slots}" if w else "exact"
         args = (q_s, probes, ivf.data_padded, ivf.ids_padded, k, block_q, w, slots)
+        path, plan = scan_path(ivf, q_s, probes, block_q, k, w, slots)
+        tiles = ivf_scan_cuda.launches_tile
         ks, ki = ivf_scan_cuda(*args)
         rs, ri = ivf_scan_reference(*args)
         torch.cuda.synchronize()
+        if plan is None or ivf_scan_cuda.launches_tile != tiles + 1:
+            raise AssertionError(f"K1 (bf16, D {d}) did not run on the wgmma tile: {path}")
         ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
         err = float(np.abs(ks - rs).max())
         worst = max(worst, err)
         ov = overlap(ki, ri)
         ok = ov >= 0.99 and err <= 1e-4
         ms = time_ms(torch, lambda: ivf_scan_cuda(*args), iters=5, warmup=1)
-        log(f"K1 Mc={mc} k={k} mode {mode}: overlap {ov:.4f}, max|Δscore| {err:.2e}, "
-            f"kernel {ms:.3f} ms [{card}] -> {'ok' if ok else 'FAIL'}")
+        times[f"k{k}" if w else f"k{k}_exact"] = ms
+        log(f"K1 Mc={mc} k={k} mode {mode} on the {path}: overlap {ov:.4f}, max|Δscore| "
+            f"{err:.2e}, kernel {ms:.3f} ms [{card}] -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("K1 disagrees with its plain version")
         if k == 10 and w:
@@ -673,11 +729,12 @@ def phase_ivf(torch, card):
     log(f"K1 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
     return {
         "name": "ivf_scan", "route": "cuda",
-        "source": "text_similarity_tpu_torch/csrc/ivf_scan.cu",
+        "source": "text_similarity_tpu_torch/csrc/ivf_tile.cu",
         "replaces": "text_similarity_tpu/index/ivf.py:1945",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k=10 {mode} bf16",
+        "path": "wgmma tile", "ms_k100": times["k100"], "ms_exact": times["k10_exact"],
     }, (corpus, queries, exact, ivf)
 
 
@@ -895,7 +952,7 @@ def phase_pipeline(torch, card):
         WordPieceTokenizer, train_wordpiece_vocab,
     )
     from text_similarity_tpu_torch.index import BruteForceIndex
-    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
     from text_similarity_tpu_torch.models import SentenceEncoder, init_params
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
     from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
@@ -939,13 +996,14 @@ def phase_pipeline(torch, card):
     small(corpus[:1], 10)
 
     cosine_topk_cuda.launches = 0
-    ivf_scan_cuda.launches = 0
+    ivf_scan_cuda.launches = ivf_scan_cuda.launches_tile = 0
     serve_requests(torch, big, "ivf pipeline (120000 docs)", len(corpus), [1] * 20 + [5, 64],
                    rng, results, requests)
     serve_requests(torch, small, "brute pipeline (2000 docs)", 2000, [1, 5, 64],
                    rng, results, requests)
     launches = {"cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
-    log(f"launches during the pipeline phase: {launches}")
+    k1_tile = ivf_scan_cuda.launches_tile
+    log(f"launches during the pipeline phase: {launches}, K1 on the wgmma tile {k1_tile}")
 
     # repeated 64-query requests on both paths, and where their time goes:
     # encode alone, search alone (the index's query on encoded rows)
@@ -972,24 +1030,20 @@ def phase_pipeline(torch, card):
     # the kernels against their plain versions at the pipeline's shapes
     ks, ki = cosine_topk_cuda(qe, small.store.view.contiguous(), 20)
     rs, ri = cosine_topk_reference(qe, small.store.view, 20)
-    ivf = big.ivf
-    w, slots = ivf.scan_mode(10, 2048 if mc >= 1024 else 0, 0)
-    qs, probes, _, block_q = serving_plan(ivf, qe)
-    args = (qs, probes, ivf.data_padded, ivf.ids_padded, 10, block_q, w, slots)
-    ks2, ki2 = ivf_scan_cuda(*args)
-    rs2, ri2 = ivf_scan_reference(*args)
     torch.cuda.synchronize()
-    ov1, ov2 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), overlap(ki2.cpu().numpy(), ri2.cpu().numpy())
-    e1 = float((ks - rs).abs().max())
-    e2 = float((ks2 - rs2).abs().max())
-    log(f"at pipeline shapes: K2 (64x{small.store.size}, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}; "
-        f"K1 (64 queries, {'deferred' if w else 'exact'}) overlap {ov2:.4f} max|Δ| {e2:.2e}")
-    if min(ov1, ov2) < 0.99 or max(e1, e2) > 1e-4:
-        raise AssertionError("a kernel disagrees with its plain version at pipeline shapes")
+    ov1, e1 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), float((ks - rs).abs().max())
+    log(f"at pipeline shapes: K2 (64x{small.store.size}, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}")
+    if ov1 < 0.99 or e1 > 1e-4:
+        raise AssertionError("K2 disagrees with its plain version at pipeline shapes")
+    scan_at_requests(torch, big.ivf, lambda t: enc.encode(t, device_output=True), q64, 10, "K1",
+                     card)
 
     gate_requests(torch, results, requests, card)
     if launches["cosine_topk"] == 0 or launches["ivf_scan"] == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if k1_tile != launches["ivf_scan"]:
+        raise AssertionError(f"K1 ran {k1_tile} of its {launches['ivf_scan']} launches on the "
+                             f"wgmma tile")
     return launches, {"corpus": corpus, "tok": tok, "params": params, "enc": enc,
                       "bf16_store": big.store}
 
@@ -1075,15 +1129,19 @@ def phase_int8_ivf(torch, card, corpus, queries, exact):
         f"{str(ivf.rescore_data.dtype)[6:]}")
 
     q_s, probes, _, block_q = serving_plan(ivf, queries)
-    worst, main = 0.0, None
+    worst, main, times = 0.0, None, {}
     for label, k_scan, aw in (("k=10 raw", 10, 2048), ("k=10 rescore scan", 20, 2048),
                               ("k=10 rescore scan, exact", 20, 0)):
         w, slots = ivf.scan_mode(k_scan, aw, 0)
         mode = f"deferred w={w} S={slots}" if w else "exact"
         args = (q_s, probes, ivf.data_padded, ivf.ids_padded, k_scan, block_q, w, slots)
+        path, plan = scan_path(ivf, q_s, probes, block_q, k_scan, w, slots)
+        tiles = ivf_scan_cuda.launches_tile_int8
         ks, ki = ivf_scan_cuda(*args, scales=ivf.scales_padded)
         rs, ri = ivf_scan_reference(*args, scales=ivf.scales_padded)
         torch.cuda.synchronize()
+        if plan is None or ivf_scan_cuda.launches_tile_int8 != tiles + 1:
+            raise AssertionError(f"K4 (D {d}) did not run on the wgmma tile: {path}")
         ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
         err = float(np.abs(ks - rs).max())
         worst = max(worst, err)
@@ -1091,8 +1149,10 @@ def phase_int8_ivf(torch, card, corpus, queries, exact):
         ok = ov >= 0.99 and err <= 1e-4
         ms = time_ms(torch, lambda: ivf_scan_cuda(*args, scales=ivf.scales_padded),
                      iters=5, warmup=1)
-        log(f"K4 Mc={mc} {label} (k_scan {k_scan}) mode {mode}: overlap {ov:.4f}, "
-            f"max|Δscore| {err:.2e}, kernel {ms:.3f} ms [{card}] -> {'ok' if ok else 'FAIL'}")
+        times[label] = ms
+        log(f"K4 Mc={mc} {label} (k_scan {k_scan}) mode {mode} on the {path}: overlap "
+            f"{ov:.4f}, max|Δscore| {err:.2e}, kernel {ms:.3f} ms [{card}] -> "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("K4 disagrees with its plain version")
         if k_scan == 20 and w:
@@ -1126,11 +1186,12 @@ def phase_int8_ivf(torch, card, corpus, queries, exact):
     log(f"K4 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
     return {
         "name": "ivf_scan_int8", "route": "cuda",
-        "source": "text_similarity_tpu_torch/csrc/ivf_scan.cu",
+        "source": "text_similarity_tpu_torch/csrc/ivf_tile.cu",
         "replaces": "text_similarity_tpu/index/ivf.py:1945 (_ivf_kernel_int8 :1709)",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={n_q} U={args[1].shape[1]} Mc={mc} D={d} k_scan=20 {mode} int8",
+        "path": "wgmma tile", "ms_exact": times["k=10 rescore scan, exact"],
     }, ivf
 
 
@@ -1140,7 +1201,7 @@ def phase_int8_pipeline(torch, card, ctx):
 
     from text_similarity_tpu_torch.core.config import IndexConfig
     from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
-    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
     from text_similarity_tpu_torch.models import SentenceEncoder
     from text_similarity_tpu_torch.ops.topk import (
         cosine_topk_cuda, cosine_topk_int8_cuda, cosine_topk_int8_reference, l2_normalize,
@@ -1182,7 +1243,7 @@ def phase_int8_pipeline(torch, card, ctx):
     gone = int(rng.integers(0, len(corpus)))
 
     results, requests = {}, []
-    for counter in ("launches", "launches_int8"):
+    for counter in ("launches", "launches_int8", "launches_tile", "launches_tile_int8"):
         setattr(ivf_scan_cuda, counter, 0)
     cosine_topk_cuda.launches = 0
     cosine_topk_int8_cuda.launches = 0
@@ -1196,7 +1257,8 @@ def phase_int8_pipeline(torch, card, ctx):
     launches = {"cosine_topk_int8": cosine_topk_int8_cuda.launches,
                 "ivf_scan_int8": ivf_scan_cuda.launches_int8,
                 "cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
-    log(f"launches during the int8 pipeline window: {launches}")
+    k4_tile = ivf_scan_cuda.launches_tile_int8
+    log(f"launches during the int8 pipeline window: {launches}, K4 on the wgmma tile {k4_tile}")
 
     ok_add = bool(found) and found[0][2] == new_id and found[0][1] >= 0.99
     ok_remove = all(d != gone for _, _, d in after)
@@ -1233,21 +1295,13 @@ def phase_int8_pipeline(torch, card, ctx):
     # the kernels against their plain versions at the int8 pipeline's shapes
     ks, ki = cosine_topk_int8_cuda(qb, store8.view, store8.scales_view, 20)
     rs, ri = cosine_topk_int8_reference(qb, store8.view, store8.scales_view, 20)
-    mc = ivf.data_padded.shape[1]
-    k_scan = ivf.scan_k(10)
-    w, slots = ivf.scan_mode(k_scan, 2048 if mc >= 1024 else 0, 0)
-    qs, probes, _, block_q = serving_plan(ivf, qe)
-    args = (qs, probes, ivf.data_padded, ivf.ids_padded, k_scan, block_q, w, slots)
-    ks2, ki2 = ivf_scan_cuda(*args, scales=ivf.scales_padded)
-    rs2, ri2 = ivf_scan_reference(*args, scales=ivf.scales_padded)
     torch.cuda.synchronize()
-    ov1, ov2 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), overlap(ki2.cpu().numpy(), ri2.cpu().numpy())
-    e1, e2 = float((ks - rs).abs().max()), float((ks2 - rs2).abs().max())
-    log(f"at int8 pipeline shapes: K3 (64x2000, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}; "
-        f"K4 (64 queries, k_scan {k_scan}, {'deferred' if w else 'exact'}) overlap {ov2:.4f} "
-        f"max|Δ| {e2:.2e}")
-    if min(ov1, ov2) < 0.99 or max(e1, e2) > 1e-4:
-        raise AssertionError("an int8 kernel disagrees with its plain version at pipeline shapes")
+    ov1, e1 = overlap(ki.cpu().numpy(), ri.cpu().numpy()), float((ks - rs).abs().max())
+    log(f"at int8 pipeline shapes: K3 (64x2000, k=20) overlap {ov1:.4f} max|Δ| {e1:.2e}")
+    if ov1 < 0.99 or e1 > 1e-4:
+        raise AssertionError("K3 disagrees with its plain version at pipeline shapes")
+    scan_at_requests(torch, ivf, lambda t: enc8.encode(t, device_output=True), q64, 10, "K4",
+                     card)
 
     gate_requests(torch, results, requests, card)
     if not (ok_add and ok_remove):
@@ -1258,6 +1312,9 @@ def phase_int8_pipeline(torch, card, ctx):
         raise AssertionError("BruteForceIndex's int8 answer (K3) disagrees with its plain version")
     if launches["cosine_topk_int8"] == 0 or launches["ivf_scan_int8"] == 0:
         raise AssertionError(f"an int8 kernel of the path never launched: {launches}")
+    if k4_tile != launches["ivf_scan_int8"]:
+        raise AssertionError(f"K4 ran {k4_tile} of its {launches['ivf_scan_int8']} launches on "
+                             f"the wgmma tile")
     return launches
 
 
@@ -1284,6 +1341,17 @@ def scan_bound(torch, ivf, probes, n_q, block_q, out_bytes, with_ids=True):
                + n_q * d * 4 + out_bytes)
     ops = 2.0 * block_q * d * float(valid[probes.long()].sum())
     return bound_ms(n_bytes, ops, PEAK_BF16)
+
+
+def k1_core_fold(q, probes, data, ids, k, block_q, width, slots):
+    """K1's deferred fold on its CUDA-core kernel, whatever the slabs: K1-opt
+    emit_acc's raw accumulator (the same pass and fmaf chain as K10 and
+    K11a), then its exact top-k by (score desc, id asc) → (scores, ids)."""
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.index.ivf_modes import _select
+
+    acc_s, acc_i = ivf_scan_cuda(q, probes, data, ids, k, block_q, width, slots, emit_acc=True)
+    return _select(acc_s, acc_i, k)
 
 
 def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None):
@@ -1508,11 +1576,12 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"B={n_q} U={plk.shape[1]} Mc={mc} D={d} k=10 w={wk} S={sk} bf16 -> (B, k) packets",
           counts["ivf_scan_packed_cuda.launches"])
 
-    # K10: full width, the planned slots, buffers 2-4; ids equal K1's at (Mc, S)
+    # K10: full width, the planned slots, buffers 2-4; ids equal those of
+    # K1's CUDA-core fold at (Mc, S)
     worst, main = 0.0, None
     for k, nbs in ((10, (2, 3, 4)), (100, (2,))):
         _, sk = ivf.scan_mode(k, dma_pipeline=True)
-        want = ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk)
+        want = k1_core_fold(qs, pl, data, ids, k, bq, mc, sk)
         rs, ri = ivf_modes.ivf_scan_dma_reference(qs, pl, data, ids, k, bq, sk)
         k1_ms = time_ms(torch, lambda: ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk), iters=5, warmup=1)
         for nb in nbs:
@@ -1520,10 +1589,12 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
             bit = torch.equal(got[1], want[1])
             ms = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb),
                          iters=5, warmup=1)
-            worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} (ids equal K1's at "
-                                          f"w=Mc: {bit})", *got, rs, ri, card, ms, k1_ms))
+            worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} (ids equal K1's "
+                                          f"CUDA-core fold at w=Mc: {bit})", *got, rs, ri, card,
+                                          ms, k1_ms))
             if not bit:
-                raise AssertionError("K10's ids differ from K1's at the full-width plan")
+                raise AssertionError("K10's ids differ from K1's CUDA-core fold at the full-width "
+                                     "plan")
             if k == 10 and nb == 2:
                 plain = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_reference(
                     qs, pl, data, ids, k, bq, sk), iters=1, warmup=1)
@@ -1534,19 +1605,22 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 S={sk} buffers 2 bf16 (3, 4 checked)",
           counts["ivf_scan_dma_cuda.launches"])
 
-    # K11a: P = 2, 3 (the list padded), 4; ids equal K1's at (Mc, 1)
+    # K11a: P = 2, 3 (the list padded), 4; ids equal those of K1's CUDA-core
+    # fold at (Mc, 1)
     worst, main = 0.0, None
-    want = ivf_scan_cuda(qs, pl, data, ids, 10, bq, mc, 1)
+    want = k1_core_fold(qs, pl, data, ids, 10, bq, mc, 1)
     for p in (2, 3, 4):
         got = ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p)
         rs, ri = ivf_modes.ivf_scan_multiprobe_reference(qs, pl, data, ids, 10, bq, p)
         bit = torch.equal(got[1], want[1])
         ms = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p),
                      iters=5, warmup=1)
-        worst = max(worst, check_pair(f"K11a probes_per_step {p} k=10 (ids equal K1's at w=Mc: "
-                                      f"{bit})", *got, rs, ri, card, ms, k1_10))
+        worst = max(worst, check_pair(f"K11a probes_per_step {p} k=10 (ids equal K1's "
+                                      f"CUDA-core fold at w=Mc: {bit})", *got, rs, ri, card, ms,
+                                      k1_10))
         if not bit:
-            raise AssertionError("K11a's ids differ from K1's at the full-width plan")
+            raise AssertionError("K11a's ids differ from K1's CUDA-core fold at the full-width "
+                                 "plan")
         if p == 2:
             plain = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_reference(
                 qs, pl, data, ids, 10, bq, 2), iters=1, warmup=1)
@@ -1574,7 +1648,13 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
     b5 = (qsn5, pln5, sent.data_padded, sent.ids_padded, 100, bq, w5, s5)
     ks5, ki5 = ivf_scan_cuda(*b5)
     rs5, ri5 = ivf_scan_reference(*b5)
-    check_pair(f"K1 over D+1={d + 1} slabs k=100 w={w5} S={s5}", ks5, ki5, rs5, ri5, card)
+    fold5 = k1_core_fold(*b5)
+    bit5 = torch.equal(ks5, fold5[0]) and torch.equal(ki5, fold5[1])
+    check_pair(f"K1 over D+1={d + 1} slabs k=100 w={w5} S={s5} (its CUDA-core kernel; equal to "
+               f"that kernel's fold, emit_acc + top-k, bit for bit: {bit5})", ks5, ki5, rs5, ri5,
+               card)
+    if not bit5:
+        raise AssertionError("K1's CUDA-core merge differs from its own fold (emit_acc + top-k)")
     entry("ivf_scan_idless", "ivf_scan.cu", "1809", err, ms, plain,
           scan_bound(torch, sent, pln, n_q, bq, n_q * 10 * 8, with_ids=False),
           f"B={n_q} U={pln.shape[1]} Mc={mcs} D+1={d + 1} k=10 w={ws} bf16 -> flat slot ids",

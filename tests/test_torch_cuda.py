@@ -613,6 +613,213 @@ def test_long_encode_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K1 (bf16 slabs) and K4 on the wgmma tile (csrc/ivf_tile.cu)
+# ---------------------------------------------------------------------------
+
+def _tile_inputs(cuda, dtype, d=384, mc=1024, c_tot=20, u=6, block_q=8, b=16, seed=0,
+                 fill=None):
+    """Random unit slabs (C_tot, Mc, d), each filled from the front to its
+    own count (by default 0 for slab 1, 1..5% for slabs 2-4, else
+    10-90%), then interior holes; queries near live rows in blocks of
+    block_q; each block probes u − 2 slabs, slab 1 (wholly empty), a −1
+    probe and C_tot + 3 (both outside [0, C_tot): skipped).
+    → (q, probes, data, ids, scales or None)."""
+    rng = np.random.default_rng(seed)
+    x = _unit(rng.standard_normal((c_tot * mc, d)))
+    if fill is None:
+        fill = rng.uniform(0.1, 0.9, c_tot)
+        fill[1] = 0.0
+        fill[2:5] = rng.uniform(0.01, 0.05, 3)
+    ids = np.full((c_tot, mc), -1, np.int32)
+    for c in range(c_tot):
+        n = int(round(fill[c] * mc))
+        ids[c, :n] = c * mc + np.arange(n)
+    ids[(rng.random((c_tot, mc)) < 0.05) & (ids >= 0)] = -1     # interior holes
+    live = np.flatnonzero(ids.reshape(-1) >= 0)
+    q = _unit(x[rng.choice(live, b)] + 0.2 * rng.standard_normal((b, d)))
+    n_blocks = b // block_q
+    others = [c for c in range(c_tot) if c != 1]
+    probes = np.stack([rng.choice(others, u - 2, replace=False) for _ in range(n_blocks)])
+    outside = np.where(np.arange(n_blocks) % 2, c_tot + 3, -1)
+    extra = np.stack([np.ones(n_blocks, np.int64), outside], axis=1)
+    probes = np.concatenate([probes, extra], axis=1).astype(np.int32)
+    tx = torch.from_numpy(x).to(cuda)
+    scales = None
+    if dtype == torch.int8:
+        tx, scales = quantize_embeddings_int8(tx)
+        scales = scales.view(c_tot, mc).contiguous()
+    else:
+        tx = tx.to(dtype)
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(probes).to(cuda),
+            tx.view(c_tot, mc, d).contiguous(), torch.from_numpy(ids).to(cuda), scales)
+
+
+def _tile_launches(dtype):
+    return ivf_scan_cuda.launches_tile_int8 if dtype == torch.int8 else ivf_scan_cuda.launches_tile
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("block_q", [1, 8, 64])
+@pytest.mark.parametrize("width,slots,k", [
+    (0, 0, 10), (0, 0, 20), (0, 0, 100), (0, 0, 256),
+    (1024, 1, 10), (1024, 2, 20), (1024, 2, 100), (256, 1, 10), (256, 3, 100), (128, 4, 256),
+])
+def test_ivf_tile_matches_plain(cuda, dtype, block_q, width, slots, k):
+    """K1 (bf16) and K4 on the wgmma tile at D 384, Mc 1024, in the exact
+    mode and the deferred mode at w = Mc and w < Mc, S 1-4, k 10-256,
+    over mostly empty and wholly empty slabs and probes outside [0,
+    C_tot): against their plain versions (scores 1e-5; int8 ids equal at
+    separated ranks, bf16 overlap ≥ 0.99)."""
+    q, probes, data, ids, scales = _tile_inputs(cuda, dtype, block_q=block_q, b=2 * block_q,
+                                                seed=block_q + slots)
+    kind = 2 if dtype == torch.int8 else 1
+    w = width or 1024
+    assert ivf_mod.tile_plan_cuda(kind, 384, 1024, block_q, k, w, slots) is not None
+    args = (q, probes, data, ids, k, block_q, width, slots or 1)
+    before, tiles = ivf_scan_cuda.launches + ivf_scan_cuda.launches_int8, _tile_launches(dtype)
+    ks, ki = ivf_scan_cuda(*args, scales=scales)
+    rs, ri = ivf_scan_reference(*args, scales=scales)
+    torch.cuda.synchronize()
+    assert ivf_scan_cuda.launches + ivf_scan_cuda.launches_int8 == before + 1
+    assert _tile_launches(dtype) == tiles + 1
+    _assert_agree(ks, ki, rs, ri, dtype == torch.int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("width,slots", [(0, 0), (1024, 1), (1024, 2)])
+def test_ivf_tile_mostly_empty_slabs(cuda, dtype, width, slots):
+    """Slabs 0-3% full (and one empty) at block_q 64: most tiles are
+    skipped; the answer equals the plain version's, tails (−inf, −1)
+    included."""
+    fill = np.random.default_rng(9).uniform(0.0, 0.03, 20)
+    fill[1] = 0.0
+    q, probes, data, ids, scales = _tile_inputs(cuda, dtype, block_q=64, b=128, seed=9, fill=fill)
+    args = (q, probes, data, ids, 20, 64, width, slots or 1)
+    tiles = _tile_launches(dtype)
+    ks, ki = ivf_scan_cuda(*args, scales=scales)
+    rs, ri = ivf_scan_reference(*args, scales=scales)
+    torch.cuda.synchronize()
+    assert _tile_launches(dtype) == tiles + 1
+    _assert_agree(ks, ki, rs, ri, dtype == torch.int8)
+    assert torch.equal(ki < 0, ri < 0)
+    _, skipped = ivf_mod.tile_occupancy(probes, ids, width or 1024)
+    assert skipped > 0.8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_ivf_tile_probes_outside_the_slabs(cuda, dtype):
+    """Probe ids outside [0, C_tot) scan nothing: a list of only such
+    probes returns (−inf, −1) everywhere."""
+    q, _, data, ids, scales = _tile_inputs(cuda, dtype, block_q=8, b=16)
+    probes = torch.tensor([[-1, 20, 1 << 20], [-5, 21, 20]], dtype=torch.int32, device=cuda)
+    for width, slots in ((0, 1), (1024, 2)):
+        ks, ki = ivf_scan_cuda(q, probes, data, ids, 10, 8, width, slots, scales)
+        torch.cuda.synchronize()
+        assert torch.isneginf(ks).all() and (ki == -1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_ivf_tile_after_remove_and_add(cuda, dtype):
+    """An index (D 384, Mc ≥ 1024) after remove() of rows at the front of
+    its slabs, and after add() of rows that fill those holes and slots
+    past the old fronts: the tile sees the ids, not the build's fill
+    counts, and agrees with the plain version each time."""
+    q, x = _clustered(n=4096, d=384, centers=8, q=64)
+    ivf = IVFIndex.build(
+        torch.from_numpy(x).to(cuda),
+        IndexConfig(num_clusters=4, num_probes=2, kmeans_iters=4,
+                    quantize_int8=dtype == torch.int8),
+        data_dtype=torch.bfloat16, generator=torch.Generator(device=cuda).manual_seed(0),
+        device=cuda,
+    )
+    mc = ivf.data_padded.shape[1]
+    assert mc >= 1024 and ivf.data_padded.dtype == dtype
+    qs, probes, _ = _plan_probes(torch.from_numpy(q).to(cuda), ivf.centroids,
+                                 ivf.num_base_clusters, ivf.data_padded.shape[0], 64, 4)
+    front = ivf.ids_padded[:, :200]
+    gone = front[front >= 0].cpu().numpy()
+    assert ivf.remove(gone) == gone.size
+
+    def check():
+        for width, slots, k in ((0, 1, 10), (mc, 1, 10), (mc, 2, 20)):
+            args = (qs, probes, ivf.data_padded, ivf.ids_padded, k, 64, width, slots)
+            tiles = _tile_launches(dtype)
+            ks, ki = ivf_scan_cuda(*args, scales=ivf.scales_padded)
+            rs, ri = ivf_scan_reference(*args, scales=ivf.scales_padded)
+            torch.cuda.synchronize()
+            assert _tile_launches(dtype) == tiles + 1
+            _assert_agree(ks, ki, rs, ri, dtype == torch.int8)
+            assert not np.isin(ki.cpu().numpy(), gone).any()
+
+    check()
+    rng = np.random.default_rng(3)
+    new = _unit(x[rng.choice(4096, gone.size + 300)] + 0.05 * rng.standard_normal((gone.size + 300, 384)))
+    ivf.add(torch.from_numpy(new).to(cuda), start_id=10_000)
+    check()
+
+
+def test_ivf_tile_kernel_choice(cuda):
+    """The kernel library's plan (the launcher's and the counters' rule):
+    the main path's bf16 and int8 scans (D 384, block_q 64, deferred and
+    exact) take the tile with 64 queries a CTA in two warpgroups of N 32;
+    the pipeline's 1- and 5-text requests (block_q 1 and 8) one warpgroup
+    of N 8; block_q 9-16 two of N 8, 17 the 64-query tile; the exact
+    mode's k 256 fewer queries beside its selectors. f32 slabs, D not a
+    multiple of 64 (the sentinel's 385), D 1024 and Mc % 4 ≠ 0 take the
+    CUDA-core kernel. An f32 scan and a D-385 bf16 scan run there and count
+    no tile launch."""
+    plan = ivf_mod.tile_plan_cuda
+    for kind, k, width, slots in ((1, 10, 1536, 1), (1, 100, 512, 2), (1, 10, 1536, 0),
+                                  (2, 20, 1536, 2), (2, 20, 1536, 0)):
+        p = plan(kind, 384, 1536, 64, k, width, slots)
+        assert p[:3] == (64, 2, 32) and 2 <= p.stages <= 4 and p.smem <= 232448
+    for kind, mc, k in ((1, 544, 10), (2, 552, 20)):
+        for block_q in (1, 8):
+            assert plan(kind, 384, mc, block_q, k, mc, 0)[:3] == (8, 1, 8)
+    assert plan(1, 384, 1024, 16, 10, 1024, 1)[:3] == (16, 2, 8)
+    assert plan(2, 384, 1024, 17, 10, 1024, 1)[:3] == (64, 2, 32)
+    assert plan(1, 384, 1536, 64, 256, 1536, 0).nq < 64
+    for args in ((0, 384, 1536, 64, 10, 1536, 1), (0, 384, 1536, 64, 10, 1536, 0),
+                 (1, 385, 1536, 64, 10, 1536, 1), (2, 385, 1536, 64, 10, 1536, 0),
+                 (1, 1024, 1536, 64, 10, 1536, 1), (2, 384, 202, 8, 10, 202, 0)):
+        assert plan(*args) is None, args
+    for dtype, d in ((torch.float32, 384), (torch.bfloat16, 385)):
+        q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=256)
+        before, tiles = ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile
+        ivf_scan_cuda(q, probes, data, ids, 10, 8, 256, 1)
+        assert ivf_scan_cuda.launches == before + 1 and ivf_scan_cuda.launches_tile == tiles
+
+
+@pytest.mark.parametrize("width,slots", [(0, 0), (256, 1)])
+def test_k4_equals_k1_over_widened_codes(cuda, width, slots):
+    """K4's scores are K1's over ``codes.to(bf16)`` slabs × the slot's
+    scale, bit for bit: both run the same bf16 product (K1's A from
+    shared memory, K4's widened in registers). Exact mode with k 256 over
+    two probed slabs of at most 128 live rows returns every live slot;
+    the deferred fold at one slot keeps one a lane class."""
+    q, _, codes, ids, scales = _tile_inputs(cuda, torch.int8, mc=256, c_tot=6, block_q=8, b=16,
+                                            fill=np.array([0.4, 0.0, 0.45, 0.3, 0.5, 0.2]))
+    probes = torch.tensor([[0, 2], [3, 5]], dtype=torch.int32, device=cuda)
+    args = (q, probes, codes, ids, 256, 8, width, slots or 1)
+    s4, i4 = ivf_scan_cuda(*args, scales=scales)
+    s1, i1 = ivf_scan_cuda(q, probes, codes.to(torch.bfloat16), ids, 256, 8, width, slots or 1)
+    torch.cuda.synchronize()
+    s4, i4, s1, i1 = (t.cpu().numpy() for t in (s4, i4, s1, i1))
+    ids_h, sc_h = ids.cpu().numpy().reshape(-1), scales.cpu().numpy().reshape(-1)
+    scale_of = dict(zip(ids_h[ids_h >= 0].tolist(), sc_h[ids_h >= 0].tolist()))
+    for r in range(q.shape[0]):
+        got = {int(i): s for s, i in zip(s4[r], i4[r]) if i >= 0}
+        raw = {int(i): s for s, i in zip(s1[r], i1[r]) if i >= 0}
+        if width == 0:   # every live slot of the block's two slabs
+            n_live = int((ids[probes[r // 8].long()] >= 0).sum())
+            assert set(got) == set(raw) and len(got) == n_live
+        both = set(got) & set(raw)
+        assert both
+        for i in both:
+            assert got[i] == np.float32(raw[i]) * np.float32(scale_of[i]), (r, i)
+
+
+# ---------------------------------------------------------------------------
 # The IVF scan modes: K1-opt (per_probe, emit_acc), K9 (packed), K10 (copy
 # ring), K11a (several probes a step), K11b (idless)
 # ---------------------------------------------------------------------------
@@ -667,6 +874,32 @@ def _agree_flat(ks, ki, rs, ri, dtype):
                          np.abs(np.diff(rs, axis=1)))
     sep = gap > 1e-5
     np.testing.assert_array_equal(ki[sep], ri[:, :k][sep])
+
+
+def _k1_core_fold(q, probes, data, ids, k, block_q, width, slots, scales=None):
+    """K1's deferred fold on the CUDA-core kernel, whatever the slabs: the
+    raw accumulator of K1-opt emit_acc (the same pass, the same fmaf chain
+    as K1 off the wgmma tile), then its exact top-k by (score desc, id
+    asc), missing results (−inf, −1)."""
+    acc_s, acc_i = ivf_scan_cuda(q, probes, data, ids, k, block_q, width, slots, scales,
+                                 emit_acc=True)
+    return ivf_modes._select(acc_s, acc_i, k)
+
+
+def _agree_k1(ks, ki, q, probes, data, ids, k, block_q, width, slots, scales=None):
+    """A scan's (B, k) against K1's merge at the same plan, whichever
+    kernel runs K1: scores allclose 1e-5, ids overlap ≥ 0.99; and bit for
+    bit where K1 runs its CUDA-core kernel (f32 slabs, D not a multiple of
+    64), whose fold is the same pass and fmaf chain."""
+    ws, wi = ivf_scan_cuda(q, probes, data, ids, k, block_q, width, slots, scales)
+    mc = data.shape[1]
+    if ivf_mod.tile_plan_cuda(ivf_modes.data_kind(data), q.shape[1], mc, block_q, k,
+                              width or mc, slots if width else 0) is None:
+        assert torch.equal(ki, wi) and torch.equal(ks, ws)
+    np.testing.assert_allclose(ks.cpu().numpy(), ws.cpu().numpy(), atol=1e-5)
+    col = np.arange(k)
+    ki, wi = ki.cpu().numpy(), wi.cpu().numpy()
+    assert _overlap(np.where(ki < 0, -1 - col, ki), np.where(wi < 0, -1 - col, wi)) >= 0.99
 
 
 @pytest.mark.parametrize("dtype,d,sentinel", [
@@ -727,18 +960,20 @@ def test_k11b_idless_matches_plain(cuda, dtype, d, width, k):
 @pytest.mark.parametrize("d", [64, 33, 385])
 @pytest.mark.parametrize("per_step", [2, 3, 4, 6])
 def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
-    """K11a against its plain version, and bit for bit against K1's
-    deferred fold at width Mc, S = 1 (U = 6: P = 4 pads the list; P = 6 is
-    staged four slabs at a time)."""
+    """K11a against its plain version, bit for bit against K1's CUDA-core
+    deferred fold at width Mc, S = 1, and against K1 itself (bit for bit
+    where K1 runs the CUDA-core kernel: f32, D 33 and 385; U = 6: P = 4
+    pads the list; P = 6 is staged four slabs at a time)."""
     q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, seed=3)
     before = ivf_modes.ivf_scan_multiprobe_cuda.launches
     ks, ki = ivf_modes.ivf_scan_multiprobe_cuda(q, probes, data, ids, 10, 8, per_step, scales)
     rs, ri = ivf_modes.ivf_scan_multiprobe_reference(q, probes, data, ids, 11, 8, per_step, scales)
-    ws, wi = ivf_scan_cuda(q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
+    ws, wi = _k1_core_fold(q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_multiprobe_cuda.launches == before + 1
     _agree_flat(ks, ki, rs, ri, dtype)
     assert torch.equal(ki, wi) and torch.equal(ks, ws)
+    _agree_k1(ks, ki, q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -746,18 +981,21 @@ def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
 @pytest.mark.parametrize("mc,slots,k", [(200, 1, 10), (256, 2, 50), (136, 1, 20)])
 def test_k10_dma_matches_plain_and_k1(cuda, dtype, d, mc, slots, k):
     """K10 at an Mc that is not a multiple of 128 (200, 136) and at 256
-    with two slots: against its plain version, bit for bit against K1 at
-    (approx_width = Mc, acc_slots = S), and the same for 2, 3, 4 buffers."""
+    with two slots: against its plain version, bit for bit against K1's
+    CUDA-core fold at (approx_width = Mc, acc_slots = S), against K1
+    itself (bit for bit where K1 runs the CUDA-core kernel: f32, D 33, 65
+    and 385), and the same for 2, 3, 4 buffers."""
     q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=4)
     before = ivf_modes.ivf_scan_dma_cuda.launches
     got = [ivf_modes.ivf_scan_dma_cuda(q, probes, data, ids, k, 8, slots, n) for n in (2, 3, 4)]
     rs, ri = ivf_modes.ivf_scan_dma_reference(q, probes, data, ids, k + 1, 8, slots)
-    ws, wi = ivf_scan_cuda(q, probes, data, ids, k, 8, mc, slots)
+    ws, wi = _k1_core_fold(q, probes, data, ids, k, 8, mc, slots)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_dma_cuda.launches == before + 3
     _agree_flat(*got[0], rs, ri, dtype)
     for ks, ki in got:
         assert torch.equal(ki, wi) and torch.equal(ks, ws)
+    _agree_k1(*got[0], q, probes, data, ids, k, 8, mc, slots)
 
 
 def test_k10_reads_nothing_past_the_slabs(cuda):

@@ -1,7 +1,12 @@
 """Kernel K1 (IVF block-union scan) and the IVF index: a JAX-built index
 loads into the port, and the port's plain scan is held against the JAX
-Pallas kernel (interpret mode) in the exact and deferred merge modes. The
-CUDA kernel is held against the plain scan in test_torch_cuda.py."""
+Pallas kernel (interpret mode) in the exact and deferred merge modes; the
+property the wgmma tile's skip of empty tiles relies on (empty slots'
+rows change nothing), and how the merge wrapper follows the kernel
+library's plan. The CUDA kernel is held against the plain scan in
+test_torch_cuda.py."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -13,11 +18,18 @@ import jax.numpy as jnp
 from text_similarity_tpu.core.config import IndexConfig as JaxIndexConfig
 from text_similarity_tpu.index.ivf import IVFIndex as JaxIVFIndex
 from text_similarity_tpu.index.ivf import _approx_merge_plan as jax_plan
+from text_similarity_tpu.index.ivf import _ivf_query_pallas
 from text_similarity_tpu.ops.topk import cosine_topk_xla
 from text_similarity_tpu_torch.core.config import IndexConfig
+from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
 from text_similarity_tpu_torch.index.ivf import (
+    TILE_ROWS,
     IVFIndex,
+    TilePlan,
     _approx_merge_plan,
+    ivf_scan_reference,
+    tile_occupancy,
+    tile_part_width,
 )
 
 
@@ -150,3 +162,200 @@ def test_port_build_recall_close_to_jax():
     r_port = _overlap(exact, ti.numpy())
     assert abs(r_port - r_jax) <= 0.02, (r_port, r_jax)
     assert r_port >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# The wgmma tile (K1 bf16, K4): what its skip of empty tiles relies on, and
+# how the wrapper sizes its partial results by the library's plan
+# ---------------------------------------------------------------------------
+
+def _holey_slabs(dtype, c_tot=6, mc=256, d=64, seed=0):
+    """Slabs filled from the front to a count of their own (one empty, one
+    full), with interior holes; queries near live rows, 2 blocks of 4; a
+    probe list per block that holds the empty slab. → numpy (q, probes,
+    data (f32 values of the stored type), ids, scales or None), and the
+    empty slots' mask."""
+    rng = np.random.default_rng(seed)
+    x = _unit(rng.standard_normal((c_tot * mc, d)))
+    fill = np.array([0.9, 0.0, 0.3, 1.0, 0.55, 0.12])[:c_tot]
+    ids = np.full((c_tot, mc), -1, np.int32)
+    for c in range(c_tot):
+        n = int(fill[c] * mc)
+        ids[c, :n] = c * mc + np.arange(n)
+    ids[(rng.random((c_tot, mc)) < 0.1) & (ids >= 0)] = -1            # interior holes
+    live = np.flatnonzero(ids.reshape(-1) >= 0)
+    q = _unit(x[rng.choice(live, 8)] + 0.1 * rng.standard_normal((8, d)))
+    probes = np.array([[0, 1, 2, 3], [4, 5, 1, 0]], np.int32)
+    scales = None
+    if dtype == "int8":
+        codes, sc = quantize_embeddings_int8(torch.from_numpy(x))
+        data, scales = codes.numpy().reshape(c_tot, mc, d), sc.numpy().reshape(c_tot, mc)
+    else:
+        data = x.reshape(c_tot, mc, d)
+    return q, probes, data, ids, scales, ids < 0
+
+
+def _pallas_scan(q, probes, data, ids, scales, dtype, width, slots, k=10):
+    jd = jnp.asarray(data, jnp.int8 if dtype == "int8" else jnp.bfloat16)
+    js = None if scales is None else jnp.asarray(scales)
+    s, i = _ivf_query_pallas(jnp.asarray(q), jnp.asarray(probes), jd, jnp.asarray(ids), js, k, 4,
+                             interpret=True, approx_width=width, acc_slots=slots)
+    return np.asarray(s), np.asarray(i)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("width,slots", [(0, 1), (128, 1), (128, 2)])
+def test_empty_slots_rows_change_nothing(dtype, width, slots):
+    """The property the tile's skip rests on: with trailing and interior
+    empty slots (and a wholly empty probed slab), the Pallas scan in
+    interpret mode gives the same (scores, ids) when the rows of those
+    slots are changed, in the exact mode and the deferred fold at S 1 and
+    2 — so a tile of empty slots can go unread. The port's plain scan
+    agrees with it on both (scores 1e-5; int8 ids equal, bf16 overlap ≥
+    0.99)."""
+    q, probes, data, ids, scales, empty = _holey_slabs(dtype)
+    rng = np.random.default_rng(1)
+    changed = data.copy()
+    if dtype == "int8":
+        changed[empty] = rng.integers(-127, 128, changed[empty].shape)
+        sc2 = scales.copy()
+        sc2[empty] = rng.uniform(0.0, 10.0, sc2[empty].shape).astype(np.float32)
+    else:
+        changed[empty] = 4.0 * rng.standard_normal(changed[empty].shape)
+        sc2 = None
+    a = _pallas_scan(q, probes, data, ids, scales, dtype, width, slots)
+    b = _pallas_scan(q, probes, changed, ids, sc2, dtype, width, slots)
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(a[0], b[0])
+    td = torch.from_numpy(changed).to(torch.int8 if dtype == "int8" else torch.bfloat16)
+    ts, ti = ivf_scan_reference(
+        torch.from_numpy(q), torch.from_numpy(probes), td, torch.from_numpy(ids), 10, 4, width,
+        slots, None if sc2 is None else torch.from_numpy(sc2))
+    np.testing.assert_allclose(ts.numpy(), a[0], atol=1e-5)
+    if dtype == "int8":
+        np.testing.assert_array_equal(ti.numpy(), a[1])
+    else:
+        assert _overlap(ti.numpy(), a[1]) >= 0.99
+
+
+class _ScanRecorder:
+    """Stands in for the kernel library: answers ``ts_ivf_scan_tile_plan``
+    with a plan (or none, the CUDA-core kernel) and records what the
+    merge wrapper asks it and hands each entry point."""
+
+    def __init__(self, plan):
+        self.plan, self.asked, self.calls = plan, [], []
+
+    def ts_ivf_scan_tile_plan(self, *args):
+        self.asked.append(args[:7])
+        if self.plan is None:
+            return 0
+        (ctypes.c_int * 5).from_address(args[7])[:] = list(self.plan)
+        return 1
+
+    def __getattr__(self, name):
+        if not name.startswith("ts_ivf_scan"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+class _EmptyRecorder:
+    """Stands in for ``torch`` in ``index.ivf``: records the shape of every
+    buffer the wrapper allocates."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, shape, **kw):
+        self.shapes.append(tuple(shape))
+        return torch.empty(shape, **kw)
+
+
+_PLAN = TilePlan(64, 2, 32, 3, 205392)
+_DTYPES = {0: torch.float32, 1: torch.bfloat16, 2: torch.int8}
+
+
+@pytest.mark.parametrize("kind,d,mc,block_q,k,aw,acc,taken,width,slots,n_part", [
+    # the main path (bf16, int8; D 384, block_q 64): the tile's 64-lane
+    # ranges, each handing the merge its raw 64·S fold entries or its top-k
+    (1, 384, 1536, 64, 10, 2048, 1, True, 1536, 1, 24 * 64),
+    (1, 384, 1536, 64, 100, 512, 2, True, 512, 2, 8 * 128),
+    (1, 384, 1536, 64, 10, 0, 1, True, 1536, 0, 24 * 10),
+    (2, 384, 1536, 64, 20, 2048, 2, True, 1536, 2, 24 * 128),
+    (2, 384, 1536, 64, 20, 0, 1, True, 1536, 0, 24 * 20),
+    # the pipeline's requests: 1, 5 (padded to 8) texts, exact below Mc 1024;
+    # a width that is not a multiple of 64 ends in a partial range
+    (1, 384, 544, 1, 10, 0, 1, True, 544, 0, 9 * 10),
+    (1, 384, 544, 8, 10, 0, 1, True, 544, 0, 9 * 10),
+    (2, 384, 552, 1, 20, 0, 1, True, 552, 0, 9 * 20),
+    (2, 384, 552, 8, 20, 0, 1, True, 552, 0, 9 * 20),
+    # S 3-4, a width that does not divide Mc (folds at Mc), k 256
+    (1, 384, 1024, 16, 100, 256, 3, True, 256, 3, 4 * 192),
+    (2, 384, 1024, 17, 10, 128, 4, True, 128, 4, 2 * 256),
+    (1, 384, 1536, 64, 10, 1000, 1, True, 1536, 1, 24 * 64),
+    (1, 384, 1536, 64, 256, 0, 1, True, 1536, 0, 24 * 256),
+    # the CUDA-core kernel: its 128-lane blocks' top-k each
+    (0, 384, 1536, 64, 10, 2048, 1, False, 1536, 1, 12 * 10),
+    (0, 384, 1536, 64, 10, 0, 1, False, 1536, 0, 12 * 10),
+    (1, 385, 1536, 64, 100, 512, 2, False, 512, 2, 4 * 100),
+    (1, 385, 200, 8, 10, 200, 1, False, 200, 1, 2 * 10),
+    (2, 384, 202, 8, 10, 0, 1, False, 202, 0, 2 * 10),
+])
+def test_merge_wrapper_follows_the_library_plan(kind, d, mc, block_q, k, aw, acc, taken, width,
+                                                slots, n_part, monkeypatch):
+    """``ivf_scan_cuda`` in a merge mode, the library replaced by a
+    recorder (no card needed): it asks the library's plan with the fold
+    (width, S; Mc and 0 in the exact mode), sizes the partial results by
+    the kernel that plan names (the tile's 64-lane ranges, else the
+    CUDA-core kernel's 128-lane blocks), hands the entry point of the slab
+    type the same shape, and counts a tile launch only where the plan took
+    the shape."""
+    from text_similarity_tpu_torch.index import ivf as ivf_mod
+
+    rec, alloc = _ScanRecorder(_PLAN if taken else None), _EmptyRecorder()
+    monkeypatch.setattr(ivf_mod._cuda, "lib", lambda: rec)
+    monkeypatch.setattr(ivf_mod._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(ivf_mod._cuda, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(ivf_mod, "torch", alloc)
+    for counter in ("launches", "launches_int8", "launches_tile", "launches_tile_int8"):
+        monkeypatch.setattr(ivf_mod.ivf_scan_cuda, counter, 0)
+    b, u, c_tot = 2 * block_q, 3, 2
+    data = torch.zeros((c_tot, mc, d), dtype=_DTYPES[kind])
+    ids = torch.zeros((c_tot, mc), dtype=torch.int32)
+    scales = torch.ones((c_tot, mc)) if kind == 2 else None
+    probes = torch.zeros((2, u), dtype=torch.int32)
+    ivf_mod.ivf_scan_cuda(torch.zeros((b, d)), probes, data, ids, k, block_q, aw, acc, scales)
+    assert rec.asked == [(kind, d, mc, block_q, k, width, slots)]
+    (name, args), = rec.calls
+    assert name == ("ts_ivf_scan_int8" if kind == 2 else "ts_ivf_scan")
+    assert args[3] == (scales.data_ptr() if kind == 2 else int(kind == 1))
+    assert args[5:14] == (b, d, u, c_tot, mc, block_q, k, width, slots)
+    assert alloc.shapes == [(b, k), (b, k), (b, n_part), (b, n_part)]
+    assert tile_part_width(width, k, slots) == n_part or not taken
+    suffix = "_int8" if kind == 2 else ""
+    fn = ivf_mod.ivf_scan_cuda
+    assert (getattr(fn, f"launches{suffix}"), getattr(fn, f"launches_tile{suffix}")) == (1, int(taken))
+
+
+def test_tile_occupancy_counts_live_slots_and_empty_tiles():
+    """tile_occupancy over a hand-made layout: slab 0 holds 70 live slots
+    (tiles 0, 1 of 4 at width 256), slab 1 none, slab 2 one live slot in
+    its last tile; probes outside [0, C_tot) count in neither share. At
+    width 128 (2 chunks, 2 ranges) the same slots fall in other tiles."""
+    ids = np.full((3, 256), -1, np.int32)
+    ids[0, :70] = np.arange(70)
+    ids[2, 255] = 999
+    probes = torch.tensor([[0, 1], [2, -1], [7, 0]], dtype=torch.int32)
+    live, skipped = tile_occupancy(probes, torch.from_numpy(ids), 256)
+    assert live == pytest.approx((70 + 0 + 1 + 70) / (4 * 256))
+    assert skipped == pytest.approx(1 - (2 + 0 + 1 + 2) / (4 * 4))
+    live, skipped = tile_occupancy(probes, torch.from_numpy(ids), 128)
+    assert skipped == pytest.approx(1 - (2 + 0 + 1 + 2) / (4 * 4))
+    # a width that is not a multiple of 64: its last range is 8 lanes wide
+    ids = np.full((1, 200), -1, np.int32)
+    ids[0, 195] = 5
+    _, skipped = tile_occupancy(torch.zeros((1, 1), dtype=torch.int32), torch.from_numpy(ids), 200)
+    assert TILE_ROWS == 64 and skipped == pytest.approx(1 - 1 / 4)

@@ -17,7 +17,10 @@
 //   id asc): among equal scores the lowest id wins, as in the reference's
 //   _exact_merge_rounds (ops/topk.py).
 // * merge_partials: the second pass that reduces (rows, P, k) per-CTA
-//   partial top-k lists to (rows, k) with the same selector.
+//   partial top-k lists (or any rows of candidates) to (rows, k) with the
+//   same selector.
+// * warp_merge32: a batch of 32 candidates into a list of 32 held one a
+//   lane, in registers, by bitonic networks of shuffles (k ≤ 32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -257,10 +260,44 @@ __device__ __forceinline__ void sel_push(Selector& s, bool has, float sc, int id
   __syncwarp();
 }
 
-// Second pass: rows × (P partial lists of k) → rows × k, one warp a row.
+// One compare-exchange of a bitonic network across the lanes: the lane
+// keeps the better of its (score, id) and its partner's, or the worse.
+__device__ __forceinline__ void lane_exchange(float& s, int& id, int stride, bool keep_better) {
+  const float os = __shfl_xor_sync(0xffffffffu, s, stride);
+  const int oi = __shfl_xor_sync(0xffffffffu, id, stride);
+  if (keep_better ? better(os, oi, s, id) : better(s, id, os, oi)) {
+    s = os;
+    id = oi;
+  }
+}
+
+// k ≤ 32: merge a batch of 32 candidates (one a lane, any order) into a
+// list of 32 held one a lane, best first, in registers: sort the batch
+// with a bitonic network of shuffles, keep the better of list[i] and
+// batch[31 − i] (the best 32 of both, a bitonic sequence), merge it. Every
+// batch merges at once, so the published threshold is always exact.
+__device__ __forceinline__ void warp_merge32(float& ls, int& li, float s, int id, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      lane_exchange(s, id, stride, ((lane & size) == 0) == ((lane & stride) == 0));
+  const float rs = __shfl_sync(0xffffffffu, s, 31 - lane);
+  const int ri = __shfl_sync(0xffffffffu, id, 31 - lane);
+  if (better(rs, ri, ls, li)) {
+    ls = rs;
+    li = ri;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+    lane_exchange(ls, li, stride, (lane & stride) == 0);
+}
+
+// Second pass: rows × (total candidates, e.g. P partial lists of k) → rows
+// × k, one warp a row.
 __global__ void __launch_bounds__(32 * kMergeWarps)
 merge_partials(const float* __restrict__ part_s, const int* __restrict__ part_i,
-               int rows, int P, int k, float* __restrict__ out_s,
+               int rows, int total, int k, float* __restrict__ out_s,
                int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kp = kp_for(k);
@@ -271,7 +308,6 @@ merge_partials(const float* __restrict__ part_s, const int* __restrict__ part_i,
   int* ibase = reinterpret_cast<int*>(smem) + kMergeWarps * 2 * kp + warp * 2 * kp;
   Selector s;
   sel_init(s, fbase, ibase, k, lane);
-  const int total = P * k;
   const float* ps = part_s + (size_t)row * total;
   const int* pi = part_i + (size_t)row * total;
   for (int base = 0; base < total; base += 32) {
@@ -292,13 +328,21 @@ inline int host_kp_for(int k) {
   return kp;
 }
 
+// rows × `total` candidates (part_*, row-major) → rows × k
+inline cudaError_t launch_merge_rows(const float* part_s, const int* part_i, int rows,
+                                     int total, int k, float* out_s, int* out_i,
+                                     cudaStream_t st) {
+  const size_t smem = (size_t)kMergeWarps * 4 * host_kp_for(k) * 4;
+  merge_partials<<<(rows + kMergeWarps - 1) / kMergeWarps, 32 * kMergeWarps, smem,
+                   st>>>(part_s, part_i, rows, total, k, out_s, out_i);
+  return cudaGetLastError();
+}
+
+// rows × (P partial lists of k) → rows × k
 inline cudaError_t launch_merge(const float* part_s, const int* part_i, int rows,
                                 int P, int k, float* out_s, int* out_i,
                                 cudaStream_t st) {
-  const size_t smem = (size_t)kMergeWarps * 4 * host_kp_for(k) * 4;
-  merge_partials<<<(rows + kMergeWarps - 1) / kMergeWarps, 32 * kMergeWarps, smem,
-                   st>>>(part_s, part_i, rows, P, k, out_s, out_i);
-  return cudaGetLastError();
+  return launch_merge_rows(part_s, part_i, rows, P * k, k, out_s, out_i, st);
 }
 
 }  // namespace

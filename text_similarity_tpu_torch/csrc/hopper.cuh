@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash kernels K5 and K6, written
-// from PTX: TMA tensor maps over a (B, S, H, D) view, the mbarrier ring,
-// wgmma shared-memory descriptors, wgmma.mma_async m64nNk16 bf16 → f32 in
-// its SS form (both operands in shared memory) and its RS form (A in
-// registers), and the fences around them.
+// Hopper (sm_90a) building blocks of the flash kernels K5 and K6 and the
+// IVF tile scan (ivf_tile.cu), written from PTX: TMA tensor maps over a
+// (B, S, H, D) view (and any 2-D / 3-D map), the mbarrier ring, wgmma
+// shared-memory descriptors, wgmma.mma_async m64nNk16 bf16 → f32 (N 8, 32,
+// 64, 128) in its SS form (both operands in shared memory) and its RS form (A
+// in registers), and the fences around them.
 //
 // Tiles. A tile of `rows` token rows of one (b, h) slice lands in shared
 // memory as D / W sub-tiles of rows × W bf16 (W = min(D, 64)), one TMA box
@@ -73,6 +74,22 @@ inline cudaError_t rows_map(CUtensorMap* map, const void* base, int B, int S, in
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map of `rank` dims (innermost first) over `base`: strides in bytes for
+// dims 1 .. rank − 1, box `box`, the given swizzle, zeros past every edge.
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                             const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                             const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_tiled_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -152,6 +169,26 @@ __device__ __forceinline__ void tma_rows(__nv_bfloat16* dst, const CUtensorMap* 
   constexpr int W = sub_width(D);
 #pragma unroll
   for (int j = 0; j < D / W; ++j) tma_load_4d(dst + j * rows * W, map, bar, j * W, h, row0, b);
+}
+
+// The box of a 2-D / 3-D `map` at the given coordinates → dst, completing
+// on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -241,6 +278,18 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // Each wgmma reads a k-step of 16; scale_d 0 overwrites d, 1 adds to it.
 // TransB 0: B is K-major; 1: B is MN-major.
 template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, %7;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -296,6 +345,18 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
 }
 
 template <int TransB>
@@ -359,7 +420,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 32) wgmma_ss_n32<TransB>(d, da, db, scale_d);
+  if constexpr (N == 8) wgmma_ss_n8<TransB>(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n32<TransB>(d, da, db, scale_d);
   else if constexpr (N == 64) wgmma_ss_n64<TransB>(d, da, db, scale_d);
   else wgmma_ss_n128<TransB>(d, da, db, scale_d);
 }
@@ -371,7 +433,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 32) wgmma_rs_n32<TransB>(d, a, db, scale_d);
+  if constexpr (N == 8) wgmma_rs_n8<TransB>(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32<TransB>(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64<TransB>(d, a, db, scale_d);
   else wgmma_rs_n128<TransB>(d, a, db, scale_d);
 }

@@ -32,11 +32,17 @@
 // the result holds flat slot ids that the caller translates.
 // D need not be a multiple of 32 (the sentinel layout's D+1 rows).
 //
+// K1 with bf16 slabs and K4 run on the tensor cores (ivf_tile.cu) wherever
+// ivf_tile_plan takes the shape (D a multiple of 64 that shared memory
+// holds, Mc a multiple of 4). The CUDA-core kernel below runs the rest, as
+// ts_ivf_scan / ts_ivf_scan_int8 choose by shape: f32 slabs (exact f32, no
+// TF32), the other D (the sentinel layout's D + 1 among them) and Mc; and
+// K1-opt and K11b, whose modes the tile does not have.
+//
 // Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
 // query block (int8: U·Mc·(D + 4) plus the ids); the arithmetic
-// (2·B·U·Mc·D) runs here on the CUDA cores in f32, so the kernel is
-// operation-bound far above the card's bf16 tensor rate. A wgmma / TMA
-// pipeline is later work.
+// (2·B·U·Mc·D) runs here on the CUDA cores in f32, so this kernel is
+// operation-bound far above the card's bf16 tensor rate.
 //
 // Design: the TPU accumulator is block_q × S·w × 8 bytes (1 MB at 64 ×
 // 2048 × 2), far over 227 KB of shared memory. Here a CTA takes 16 queries
@@ -50,6 +56,7 @@
 // slabs are bf16 or int8, as the reference does; slots with id < 0 score
 // −inf.
 #include "common.cuh"
+#include "ivf_tile.cuh"
 
 namespace {
 
@@ -333,22 +340,34 @@ int dispatch_kind(int data_kind, int slots, const float* q, const int* probes, c
 
 // slots = 0: exact merge over slab positions (width must equal Mc);
 // slots = S ≥ 1: deferred lane-class fold of width `width` (Mc % width == 0).
+// The wgmma tile where ivf_tile_plan takes the shape (part_*: (B,
+// ceil(width / 64), k)), else the CUDA-core kernel (part_*: (B,
+// ceil(width / 128), k)); ts_ivf_scan_tile_plan tells the caller which.
 extern "C" int ts_ivf_scan(const float* q, const int* probes, const void* data,
                            int data_bf16, const int* ids, int B, int D, int U,
                            int C_tot, int Mc, int block_q, int k, int width, int slots,
                            float* part_s, int* part_i, float* out_s, int* out_i,
                            void* stream) {
-  return dispatch_kind<kMerge>(data_bf16 ? 1 : 0, slots, q, probes, data, nullptr, ids, B, D, U,
-                               C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i,
-                               stream);
+  const int kind = data_bf16 ? 1 : 0;
+  IvfTilePlan plan;
+  if (ivf_tile_plan(kind, D, Mc, block_q, k, width, slots, &plan))
+    return ivf_tile_scan(kind, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc, block_q, k,
+                         width, slots, part_s, part_i, out_s, out_i, stream);
+  return dispatch_kind<kMerge>(kind, slots, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc,
+                               block_q, k, width, part_s, part_i, out_s, out_i, stream);
 }
 
-// K4: int8 slabs with per-slot f32 scales (C_tot, Mc); modes as above.
+// K4: int8 slabs with per-slot f32 scales (C_tot, Mc); modes and kernel
+// choice as above.
 extern "C" int ts_ivf_scan_int8(const float* q, const int* probes, const int8_t* data,
                                 const float* scales, const int* ids, int B, int D, int U,
                                 int C_tot, int Mc, int block_q, int k, int width,
                                 int slots, float* part_s, int* part_i, float* out_s,
                                 int* out_i, void* stream) {
+  IvfTilePlan plan;
+  if (ivf_tile_plan(2, D, Mc, block_q, k, width, slots, &plan))
+    return ivf_tile_scan(2, q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width,
+                         slots, part_s, part_i, out_s, out_i, stream);
   return dispatch_kind<kMerge>(2, slots, q, probes, data, scales, ids, B, D, U, C_tot, Mc,
                                block_q, k, width, part_s, part_i, out_s, out_i, stream);
 }

@@ -97,39 +97,6 @@ struct TileSelect {
   }
 };
 
-// One compare-exchange of a bitonic network across the lanes: the lane
-// keeps the better of its (score, id) and its partner's, or the worse.
-__device__ __forceinline__ void lane_exchange(float& s, int& id, int stride, bool keep_better) {
-  const float os = __shfl_xor_sync(0xffffffffu, s, stride);
-  const int oi = __shfl_xor_sync(0xffffffffu, id, stride);
-  if (keep_better ? better(os, oi, s, id) : better(s, id, os, oi)) {
-    s = os;
-    id = oi;
-  }
-}
-
-// k ≤ 32: merge a batch of 32 candidates (one a lane, any order) into a
-// list of 32 held one a lane, best first, in registers: sort the batch
-// with a bitonic network of shuffles, keep the better of list[i] and
-// batch[31 − i] (the best 32 of both, a bitonic sequence), merge it. Every
-// batch merges at once, so the published threshold is always exact.
-__device__ __forceinline__ void warp_merge32(float& ls, int& li, float s, int id, int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1)
-      lane_exchange(s, id, stride, ((lane & size) == 0) == ((lane & stride) == 0));
-  const float rs = __shfl_sync(0xffffffffu, s, 31 - lane);
-  const int ri = __shfl_sync(0xffffffffu, id, 31 - lane);
-  if (better(rs, ri, ls, li)) {
-    ls = rs;
-    li = ri;
-  }
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1)
-    lane_exchange(ls, li, stride, (lane & stride) == 0);
-}
-
 constexpr int kInsertMax = 6;   // candidates a query inserts one by one
 
 // Warp w takes the tile's candidates of queries w, w + 8, … < q_here: for

@@ -34,9 +34,10 @@ CPU tensors. ``query_xla`` keeps the reference's per-query probe semantics
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,6 +139,67 @@ def _check_mode(w: int, per_probe: bool, emit_acc: bool) -> None:
         raise ValueError("emit_acc needs the deferred fold (approx_width > 0)")
 
 
+# ---------------------------------------------------------------------------
+# K1 / K4 on the wgmma tile (csrc/ivf_tile.cu): its plan, what it reads
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 64                 # slab rows a tile, lanes a CTA (wgmma's M)
+
+
+class TilePlan(NamedTuple):
+    """The wgmma tile's launch plan for a merge-mode scan, as
+    ``ivf_tile_plan`` of ``csrc/ivf_tile.cu`` decides it."""
+
+    nq: int       # queries a CTA: the block's 8, 16 or 64 (padded with zeros)
+    nwg: int      # consumer warpgroups (they split the CTA's queries)
+    n: int        # queries a warpgroup: wgmma's N
+    stages: int   # copy-ring stages
+    smem: int     # dynamic shared memory, bytes
+
+
+def tile_part_width(width: int, k: int, slots: int) -> int:
+    """Entries a query that the tile hands the merge pass: the deferred
+    fold's raw 64·S accumulator entries of each 64-lane range, or the exact
+    mode's top-k of each range."""
+    return -(-width // TILE_ROWS) * (slots * TILE_ROWS if slots else k)
+
+
+def tile_plan_cuda(kind: int, d: int, mc: int, block_q: int, k: int, width: int,
+                   slots: int) -> Optional[TilePlan]:
+    """The plan ``ts_ivf_scan`` / ``ts_ivf_scan_int8`` take for a merge-mode
+    scan (slab kind 0 f32, 1 bf16, 2 int8; ``width`` the fold width, Mc in
+    the exact mode; ``slots`` 0 exact, else S), as the kernel library
+    decides it; None where its CUDA-core kernel runs: f32 slabs, D not a
+    multiple of 64 or too wide for shared memory, Mc not a multiple of 4.
+    Its partial results take ``tile_part_width`` entries a query."""
+    out = (ctypes.c_int * 5)()
+    if not _cuda.lib().ts_ivf_scan_tile_plan(kind, d, mc, block_q, k, width, slots,
+                                             ctypes.addressof(out)):
+        return None
+    return TilePlan(*out)
+
+
+def tile_occupancy(probe_list: torch.Tensor, ids: torch.Tensor, width: int) -> Tuple[float, float]:
+    """What a tile scan of ``probe_list`` (B/block_q, U) over slabs with
+    ``ids`` (C_tot, Mc) meets: the share of its probed slots that are live
+    (id ≥ 0), and the share of its 64-lane tiles that it skips because
+    every slot in them is empty (probe ids outside [0, C_tot) scan
+    nothing and count in neither)."""
+    c_tot, mc = ids.shape
+    n_ranges = -(-width // TILE_ROWS)
+    live = (ids >= 0).view(c_tot, mc // width, width)
+    pad = n_ranges * TILE_ROWS - width
+    if pad:
+        live = torch.cat([live, live.new_zeros((c_tot, mc // width, pad))], dim=2)
+    tile_live = live.view(c_tot, mc // width, n_ranges, TILE_ROWS).any(dim=3)
+    p = probe_list.long().reshape(-1)
+    p = p[(p >= 0) & (p < c_tot)]
+    if p.numel() == 0:
+        return 0.0, 0.0
+    live_slots = float((ids[p] >= 0).sum())
+    return live_slots / (p.numel() * mc), 1.0 - float(tile_live[p].float().mean())
+
+
 def ivf_scan_cuda(
     q: torch.Tensor,
     probe_list: torch.Tensor,
@@ -156,8 +218,11 @@ def ivf_scan_cuda(
     ``ivf_scan_reference``. q (B, D) f32, probe_list (B/block_q, U) int32,
     data (C_tot, Mc, D), ids and scales (C_tot, Mc) int32 / f32 —
     contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≤ 256, acc_slots
-    ≤ 4. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
-    ``.launches_int8`` (merge), ``.launches_per_probe[_int8]``,
+    ≤ 4. The merge mode runs on the wgmma tile where the kernel library's
+    plan takes the shape (``tile_plan_cuda``), else on the CUDA-core
+    kernel. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
+    ``.launches_int8`` (merge; those on the tile also in
+    ``.launches_tile[_int8]``), ``.launches_per_probe[_int8]``,
     ``.launches_emit_acc[_int8]``."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
     int8 = data.dtype == torch.int8
@@ -193,9 +258,10 @@ def ivf_scan_cuda(
         out_s, out_i = out_s.view(u, b, k), out_i.view(u, b, k)
     if b == 0:
         return out_s, out_i
-    n_ranges = -(-width // 128)
-    part_s = torch.empty((rows, n_ranges, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((rows, n_ranges, k), dtype=torch.int32, device=dev)
+    plan = None if per_probe else tile_plan_cuda(data_kind(data), d, mc, block_q, k, width, slots)
+    n_part = tile_part_width(width, k, slots) if plan else -(-width // 128) * k
+    part_s = torch.empty((rows, n_part), dtype=torch.float32, device=dev)
+    part_i = torch.empty((rows, n_part), dtype=torch.int32, device=dev)
     outs = (part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             _cuda.stream_handle(dev))
     if per_probe:
@@ -220,6 +286,8 @@ def ivf_scan_cuda(
         )
         _cuda.check(err, "ivf_scan kernel")
     _count(f"launches{suffix}")
+    if plan:
+        _count(f"launches_tile{suffix}")
     return out_s, out_i
 
 
@@ -229,6 +297,8 @@ def _count(counter: str) -> None:
 
 ivf_scan_cuda.launches = 0
 ivf_scan_cuda.launches_int8 = 0
+ivf_scan_cuda.launches_tile = 0
+ivf_scan_cuda.launches_tile_int8 = 0
 ivf_scan_cuda.launches_per_probe = 0
 ivf_scan_cuda.launches_per_probe_int8 = 0
 ivf_scan_cuda.launches_emit_acc = 0

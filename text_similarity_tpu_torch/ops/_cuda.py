@@ -24,9 +24,9 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
+SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_tile.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
            "packed_attention.cu", "topk_2pass.cu")
-HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh", "score_tile.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh", "score_tile.cuh", "ivf_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -54,6 +54,9 @@ _SIGNATURES = {
     # width, slots, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
+    # data_kind (0 f32, 1 bf16, 2 int8), D, Mc, block_q, k, width, slots,
+    # out (5 ints: nq, nwg, n, stages, shared bytes) → 1 where the wgmma tile runs
+    "ts_ivf_scan_tile_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # q, probes, data, data_kind (0 f32, 1 bf16, 2 int8), scales (or NULL),
     # ids, B, D, U, C_tot, Mc, block_q, k, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_per_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,21 @@
-"""Times K1 (k 10 and 100, deferred; exact), K4 and K2 of one source tree
-on the card at chip_smoke.py's shapes (the 1M × 384 bench corpus, 4096
-queries, the serving args; K2 at Q 256 × N 100,003). To compare two
-commits on one card, unpack the other with ``git archive`` into a
+"""Times K1 and K4 of one source tree on the card, with K2 as a control:
+
+- at chip_smoke.py's shapes: the 1M × 384 bench corpus,
+  ``IndexConfig.auto(1M)``, 4096 queries with the serving args (block_q 64,
+  union_factor 1): K1 at k 10 and k 100 (deferred, w = Mc, the planned
+  slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact;
+  ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10 and int8 + rescore;
+- at the pipeline's request shapes: chip_smoke.py phase 4's index of
+  120,000 synthetic documents (minilm-l6 with random weights, bf16 slabs)
+  and phase 5's (the same encoder in int8, int8 slabs), requests of 1, 5
+  and 64 stored documents as ``serving_plan`` hands them to the scan
+  (block_q 1, 8, 64; the pipeline's approx_width rule, k 10, int8 k_scan
+  20);
+- K2 at Q 256 × N 100,003.
+
+The pipeline's embeddings are encoded once and kept in
+``_archive/ab_cache/`` (git-ignored) for the runs that follow. To compare
+two commits on one card, unpack the other with ``git archive`` into a
 git-ignored directory and run, from the repository root, in turns:
 
     python3 tools/ivf_scan_ab.py <other tree>
@@ -17,7 +31,36 @@ import dataclasses
 import os
 import sys
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE = os.path.join(REPO, "_archive", "ab_cache")
+
+
+def pipeline_embeddings(torch, cs, int8: bool):
+    """Phase 4's (bf16) or phase 5's (int8 encoder) stored embeddings of
+    the 120,000-document corpus, encoded once and cached."""
+    path = os.path.join(CACHE, f"pipeline_{'int8' if int8 else 'bf16'}.pt")
+    if os.path.exists(path):
+        return torch.load(path).cuda()
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.data.tokenization import (
+        WordPieceTokenizer, train_wordpiece_vocab,
+    )
+    from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+    from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+
+    corpus = cs.synthetic_corpus(120_000)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=30522))
+    arch = ARCH_PRESETS["minilm-l6"]
+    enc = SentenceEncoder(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                          tokenizer=tok, device="cuda")
+    if int8:
+        enc = enc.to_int8()
+    view = SemanticSearchPipeline(enc, corpus=corpus, device="cuda").store.view
+    os.makedirs(CACHE, exist_ok=True)
+    torch.save(view.cpu(), path)
+    return view
 
 
 def main(tree: str) -> None:
@@ -27,35 +70,56 @@ def main(tree: str) -> None:
 
     import chip_smoke as cs
     from text_similarity_tpu_torch.core.config import IndexConfig
-    from text_similarity_tpu_torch.index.ivf import (
-        IVFIndex, _plan_probes, _round_up, ivf_scan_cuda,
-    )
+    from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)   # noqa: E731
+    times = {}
+
+    def scan_ms(ivf, qs, pl, k, bq, w, s, iters):
+        return cs.time_ms(torch, lambda: ivf_scan_cuda(qs, pl, ivf.data_padded, ivf.ids_padded, k,
+                                                       bq, w, s, ivf.scales_padded),
+                          iters=iters, warmup=2)
+
+    # the pipeline's request shapes
+    rng = np.random.default_rng(4)
+    for int8 in (False, True):
+        emb = pipeline_embeddings(torch, cs, int8)
+        cfg = dataclasses.replace(IndexConfig.auto(emb.shape[0]), quantize_int8=int8)
+        ivf = IVFIndex.build(emb, cfg, data_dtype=torch.bfloat16, generator=gen(), device="cuda")
+        mc = ivf.data_padded.shape[1]
+        k = ivf.scan_k(10)
+        w, s = ivf.scan_mode(k, 2048 if mc >= 1024 else 0, 0)
+        for b in (1, 5, 64):
+            q = _pad_pow2(emb[torch.as_tensor(rng.choice(emb.shape[0], b), device="cuda")].float())
+            qs, pl, _, bq = cs.serving_plan(ivf, q)
+            times[f"{'K4' if int8 else 'K1'} pipeline B={b} (bq {bq} U {pl.shape[1]} Mc {mc} "
+                  f"k {k} w {w} S {s})"] = scan_ms(ivf, qs, pl, k, bq, w, s, 50)
+        del ivf, emb
+
+    # the 1M bench shapes
     n, n_q = 1_000_000, 4096
     corpus, queries = cs.bench_corpus(torch, n, n_q)
     cfg = IndexConfig.auto(n)
-    times = {}
+    qargs = dict(k=10, block_q=64, union_factor=1, approx_width=2048)
     for int8 in (False, True):
-        ivf = IVFIndex.build(
-            corpus, dataclasses.replace(cfg, quantize_int8=int8), data_dtype=torch.bfloat16,
-            generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
-        )
-        union = min(_round_up(min(cfg.num_probes, ivf.num_base_clusters), 8), ivf.num_base_clusters)
-        qs, pl, _ = _plan_probes(queries, ivf.centroids, ivf.num_base_clusters,
-                                 ivf.data_padded.shape[0], 64, union)
+        ivf = IVFIndex.build(corpus, dataclasses.replace(cfg, quantize_int8=int8),
+                             data_dtype=torch.bfloat16, generator=gen(), device="cuda")
+        qs, pl, _, bq = cs.serving_plan(ivf, queries)
         mc = ivf.data_padded.shape[1]
-        runs = ((20, mc, 2),) if int8 else ((10, mc, 1), (100, mc, 2), (10, 0, 1))
+        runs = ((20, mc, 2), (20, 0, 1)) if int8 else ((10, mc, 1), (100, mc, 2), (10, 0, 1))
         for k, w, s in runs:
-            times[f"{'K4' if int8 else 'K1'} k={k} w={w} S={s}"] = cs.time_ms(
-                torch, lambda: ivf_scan_cuda(qs, pl, ivf.data_padded, ivf.ids_padded, k, 64, w, s,
-                                             ivf.scales_padded),
-                iters=10, warmup=2)
+            times[f"{'K4' if int8 else 'K1'} 1M k={k} w={w} S={s}"] = scan_ms(ivf, qs, pl, k, bq, w,
+                                                                              s, 10)
+        q_ms = cs.time_ms(torch, lambda: ivf.query(queries, **qargs), iters=5, warmup=1)
+        times[f"query 4096 {'int8 + rescore' if int8 else 'bf16'} k=10 "
+              f"({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
         del ivf
     q256, c100k = queries[:256].contiguous(), corpus[:100_003].contiguous()
     times["K2 Q=256 N=100003"] = cs.time_ms(torch, lambda: cosine_topk_cuda(q256, c100k, 10))
-    print("AB", tree, cs.card_line(), " | ".join(f"{k}: {v:.3f} ms" for k, v in times.items()),
+    print("AB", tree, cs.card_line(), " | ".join(f"{k}: {v:.4f} ms" for k, v in times.items()),
           flush=True)
 
 
