@@ -87,12 +87,15 @@ Phases (any failure exits non-zero):
     Then each kernel against its plain version at those shapes: K1-opt
     per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200), K9
     (unpacked scores within one 14-bit bin, overlap ≥ 0.99), K10 (buffers
-    2-4; ids equal, bit for bit, those of K1's CUDA-core fold, emit_acc +
-    top-k, at approx_width = Mc), K11a (P 2, 3, 4;
-    the same), K11b and K1 on the 385-wide slabs (its CUDA-core kernel, bit
-    for bit equal to that kernel's fold); f32 |Δscore| ≤ 1e-4 and
-    overlap ≥ 0.99 elsewhere; times beside K1's at the same k, and each
-    option's query rate.
+    2-4 at k 10, 2 at k 100, on K1's wgmma tile: equal to K1 at
+    approx_width = Mc bit for bit, and within 1e-5 (overlap ≥ 0.99) of K1's
+    CUDA-core fold, emit_acc + top-k), K11a (P 2, 3, 4; ids equal, bit for
+    bit, those of K1's CUDA-core fold), K11b on the wgmma tile (its
+    counter's share of probed tiles skipped as all zero) and K1 on the
+    385-wide slabs (its CUDA-core kernel, bit for bit equal to that
+    kernel's fold); f32 |Δscore| ≤ 1e-4 and overlap ≥ 0.99 elsewhere;
+    every K10 and K11b launch of the options window on the tile; times
+    beside K1's at the same k, and each option's query rate.
  6. long documents:
     - K5 (flash attention forward) against its plain version at the
       shapes the long encodes below give it, B 8 × S 4096 × H 12 with D 64
@@ -1354,9 +1357,10 @@ def k1_core_fold(q, probes, data, ids, k, block_q, width, slots):
     return _select(acc_s, acc_i, k)
 
 
-def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None):
-    """A kernel's (scores, ids) against its plain version's: f32 |Δscore| ≤
-    1e-4 and id overlap ≥ 0.99 (phase 3's gate) → max |Δ|."""
+def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None, tol=1e-4):
+    """A kernel's (scores, ids) against its plain version's (or another
+    kernel's): f32 |Δscore| ≤ tol (phase 3's 1e-4 by default) and id
+    overlap ≥ 0.99 → max |Δ|."""
     ks, ki, rs, ri = (t.reshape(-1, t.shape[-1]).cpu().numpy() for t in (ks, ki, rs, ri))
     # an empty result (−1) at rank j counts as its own id, so that tails agree
     col = np.arange(ki.shape[1])
@@ -1364,7 +1368,7 @@ def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None):
     fin = np.isfinite(rs)
     err = float(np.abs(ks[fin] - rs[fin]).max()) if fin.any() else 0.0
     ov = overlap(ki, ri)
-    ok = ov >= 0.99 and err <= 1e-4 and np.array_equal(np.isfinite(ks), fin)
+    ok = ov >= 0.99 and err <= tol and np.array_equal(np.isfinite(ks), fin)
     times = f", kernel {ms:.3f} ms (K1 at the same k {k1_ms:.3f} ms)" if ms is not None else ""
     log(f"{label}: overlap {ov:.4f}, max|Δscore| {err:.2e}{times} [{card}] "
         f"-> {'ok' if ok else 'FAIL'}")
@@ -1415,7 +1419,9 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
         "launches", "launches_int8", "launches_per_probe", "launches_per_probe_int8",
         "launches_emit_acc", "launches_emit_acc_int8")] + [
         (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches")
-        for m in ("packed", "dma", "multiprobe", "idless")]
+        for m in ("packed", "dma", "multiprobe", "idless")] + [
+        (ivf_modes.ivf_scan_dma_cuda, "launches_tile"),
+        (ivf_modes.ivf_scan_idless_cuda, "launches_tile")]
     q10 = dict(QARGS)
     per_probe_args = dict(union_factor=1, block_q=64, per_probe=True)
     cases = [
@@ -1473,6 +1479,13 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
                 "ivf_scan_cuda.launches"):
         if counts[key] == 0:
             raise AssertionError(f"{key} never launched on the IVF options path")
+    # K10 on the bf16 index and K11b on the sentinel build run the wgmma tile
+    for m in ("dma", "idless"):
+        on_tile = counts[f"ivf_scan_{m}_cuda.launches_tile"]
+        log(f"ivf_scan_{m}_cuda: {on_tile} of {counts[f'ivf_scan_{m}_cuda.launches']} launches "
+            f"on the wgmma tile (csrc/ivf_tile.cu)")
+        if on_tile != counts[f"ivf_scan_{m}_cuda.launches"]:
+            raise AssertionError(f"ivf_scan_{m}_cuda left the wgmma tile on the options path")
 
     # --- each kernel against its plain version at the shapes query gives it
     # (QARGS and K100_ARGS plan as the serving args: block_q 64, union_factor 1)
@@ -1576,34 +1589,44 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"B={n_q} U={plk.shape[1]} Mc={mc} D={d} k=10 w={wk} S={sk} bf16 -> (B, k) packets",
           counts["ivf_scan_packed_cuda.launches"])
 
-    # K10: full width, the planned slots, buffers 2-4; ids equal those of
-    # K1's CUDA-core fold at (Mc, S)
-    worst, main = 0.0, None
+    # K10: full width, the planned slots, buffers 2-4, on K1's wgmma tile:
+    # equal to K1 at (Mc, S) bit for bit (the same tile), within 1e-5 of
+    # K1's CUDA-core fold
+    worst, main, k10_ms = 0.0, None, {}
     for k, nbs in ((10, (2, 3, 4)), (100, (2,))):
         _, sk = ivf.scan_mode(k, dma_pipeline=True)
-        want = k1_core_fold(qs, pl, data, ids, k, bq, mc, sk)
+        k1 = ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk)
+        core = k1_core_fold(qs, pl, data, ids, k, bq, mc, sk)
         rs, ri = ivf_modes.ivf_scan_dma_reference(qs, pl, data, ids, k, bq, sk)
         k1_ms = time_ms(torch, lambda: ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk), iters=5, warmup=1)
         for nb in nbs:
+            tiles = ivf_modes.ivf_scan_dma_cuda.launches_tile
             got = ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb)
-            bit = torch.equal(got[1], want[1])
+            if ivf_modes.ivf_scan_dma_cuda.launches_tile == tiles:
+                raise AssertionError("K10 left the wgmma tile at the main path's shape")
+            stages = ivf_modes.tile_plan_cuda(1, d, mc, bq, k, mc, sk, nb).stages
+            bit = torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+            near = check_pair(f"K10 against K1's CUDA-core fold at w=Mc k={k} S={sk} buffers {nb}",
+                              *got, *core, card, tol=1e-5)
             ms = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb),
                          iters=5, warmup=1)
-            worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} (ids equal K1's "
-                                          f"CUDA-core fold at w=Mc: {bit})", *got, rs, ri, card,
-                                          ms, k1_ms))
+            k10_ms[f"k{k}_buffers{nb}"] = ms
+            worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} on the wgmma tile "
+                                          f"(ivf_tile.cu), {stages} stages (equal to K1 at (Mc, S) "
+                                          f"bit for bit: {bit}; K1's CUDA-core fold within "
+                                          f"{near:.2e})", *got, rs, ri, card, ms, k1_ms))
             if not bit:
-                raise AssertionError("K10's ids differ from K1's CUDA-core fold at the full-width "
-                                     "plan")
+                raise AssertionError("K10 differs from K1 at (approx_width = Mc, acc_slots = S)")
             if k == 10 and nb == 2:
                 plain = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_reference(
                     qs, pl, data, ids, k, bq, sk), iters=1, warmup=1)
                 main = (ms, plain, sk)
     ms, plain, sk = main
-    entry("ivf_scan_dma", "ivf_modes.cu", "1682", worst, ms, plain,
+    entry("ivf_scan_dma", "ivf_tile.cu", "1682", worst, ms, plain,
           scan_bound(torch, ivf, pl, n_q, bq, n_q * 10 * 8),
-          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 S={sk} buffers 2 bf16 (3, 4 checked)",
-          counts["ivf_scan_dma_cuda.launches"])
+          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 S={sk} buffers 2 bf16 on the wgmma tile "
+          f"(3, 4 and k=100 timed too)", counts["ivf_scan_dma_cuda.launches"])
+    entries[-1]["ms_by_case"] = k10_ms
 
     # K11a: P = 2, 3 (the list padded), 4; ids equal those of K1's CUDA-core
     # fold at (Mc, 1)
@@ -1631,18 +1654,29 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 P=2 bf16 (3, 4 checked)",
           counts["ivf_scan_multiprobe_cuda.launches"])
 
-    # K11b on the sentinel build (D+1 = 385), and K1 over its 385-wide slabs
+    # K11b on the sentinel build (D+1 = 385) on the wgmma tile, its
+    # skipped share, and K1 over its 385-wide slabs
     qsn, pln, _, _ = serving_plan(sent, queries)
     mcs = sent.data_padded.shape[1]
     ws = sent.scan_mode(10, 2048, 1)[0]
     a = (qsn, pln, sent.data_padded, 10, bq, ws)
-    ks, ki = ivf_modes.ivf_scan_idless_cuda(*a)
+    zt = sent.zero_tiles
+    tile_counts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tiles = ivf_modes.ivf_scan_idless_cuda.launches_tile
+    ks, ki = ivf_modes.ivf_scan_idless_cuda(*a, zt, tile_counts)
     rs, ri = ivf_modes.ivf_scan_idless_reference(*a)
-    ms, plain = timed(lambda: ivf_modes.ivf_scan_idless_cuda(*a),
+    on_tile = ivf_modes.ivf_scan_idless_cuda.launches_tile > tiles
+    listed, skipped = (int(v) for v in tile_counts.cpu())
+    ms, plain = timed(lambda: ivf_modes.ivf_scan_idless_cuda(*a, zt),
                       lambda: ivf_modes.ivf_scan_idless_reference(*a))
     k1_s = time_ms(torch, lambda: ivf_scan_cuda(qsn, pln, sent.data_padded, sent.ids_padded, 10,
                                                 bq, ws, 1), iters=5, warmup=1)
-    err = check_pair(f"K11b idless k=10 w={ws} D+1={d + 1}", ks, ki, rs, ri, card, ms, k1_s)
+    err = check_pair(f"K11b idless k=10 w={ws} D+1={d + 1} on the "
+                     f"{'wgmma tile (ivf_tile.cu)' if on_tile else 'CUDA-core kernel (ivf_scan.cu)'}: "
+                     f"{skipped} of {listed} probed tiles skipped "
+                     f"({skipped / max(listed, 1):.1%}, all rows zero)", ks, ki, rs, ri, card, ms, k1_s)
+    if not on_tile:
+        raise AssertionError("K11b left the wgmma tile on the sentinel build")
     qsn5, pln5 = qsn, pln
     w5, s5 = sent.scan_mode(100, 512, 0)
     b5 = (qsn5, pln5, sent.data_padded, sent.ids_padded, 100, bq, w5, s5)
@@ -1655,9 +1689,10 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
                card)
     if not bit5:
         raise AssertionError("K1's CUDA-core merge differs from its own fold (emit_acc + top-k)")
-    entry("ivf_scan_idless", "ivf_scan.cu", "1809", err, ms, plain,
+    entry("ivf_scan_idless", "ivf_tile.cu", "1809", err, ms, plain,
           scan_bound(torch, sent, pln, n_q, bq, n_q * 10 * 8, with_ids=False),
-          f"B={n_q} U={pln.shape[1]} Mc={mcs} D+1={d + 1} k=10 w={ws} bf16 -> flat slot ids",
+          f"B={n_q} U={pln.shape[1]} Mc={mcs} D+1={d + 1} k=10 w={ws} bf16 -> flat slot ids, on "
+          f"the wgmma tile, {skipped / max(listed, 1):.3f} of its probed tiles skipped",
           counts["ivf_scan_idless_cuda.launches"])
 
     # end to end: each option's query rate at 4096 queries

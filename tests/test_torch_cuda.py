@@ -945,15 +945,118 @@ def test_k1_opt_emit_acc_matches_plain(cuda, dtype, d, mc, width, slots):
 @pytest.mark.parametrize("d", [33, 65, 385])
 @pytest.mark.parametrize("width,k", [(128, 10), (200, 20)])
 def test_k11b_idless_matches_plain(cuda, dtype, d, width, k):
-    """K11b: no ids read, flat slot ids, empty slots score 0 and compete."""
+    """K11b: no ids read, flat slot ids, empty slots score 0 and compete.
+    bf16 at D + 1 = 65 and 385 runs the wgmma tile (Mc 256 at w 128; Mc
+    200 at w 200: a last tile of 8 rows); f32 and D + 1 = 33 the CUDA-core
+    kernel."""
     mc = 256 if width == 128 else 200
     q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, sentinel=True, seed=2)
-    before = ivf_modes.ivf_scan_idless_cuda.launches
+    on_tile = dtype == torch.bfloat16 and d != 33
+    before, tiles = ivf_modes.ivf_scan_idless_cuda.launches, ivf_modes.ivf_scan_idless_cuda.launches_tile
     ks, ki = ivf_modes.ivf_scan_idless_cuda(q, probes, data, k, 8, width)
     rs, ri = ivf_modes.ivf_scan_idless_reference(q, probes, data, k + 1, 8, width)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_idless_cuda.launches == before + 1
+    assert ivf_modes.ivf_scan_idless_cuda.launches_tile == tiles + int(on_tile)
+    assert (ivf_modes.tile_plan_cuda(ivf_modes.SENTINEL_KIND, d, mc, 8, k, width, 1) is not None
+            ) == (d != 33)
     _agree_flat(ks, ki, rs, ri, dtype)
+
+
+def _sentinel_slabs(cuda, d, mc, c_tot=10, b=32, seed=12):
+    """bf16 sentinel slabs (C_tot, Mc, d = D + 1) built to exercise K11b's
+    skip: slab 0 full; slab 1 never written (all zero); slab 2 live in its
+    first 40 rows, the rest zero (whole zero tiles); slab 3 rows 0-63
+    removed (vectors kept, +2 gone: a tile with no live row that is not
+    zero) and 4 live rows after them; slab 4 live only in its last 8 rows;
+    the last slab live to its end (its last tile is the tensor's last
+    bytes); the others half full. Queries near slabs 0, 2 and 3's rows (the
+    last column 1), in blocks of 8: block 0 probes the full and the mixed
+    slabs, block 1 slabs 1, 3 (removed rows), 4 and a −1 (fewer live rows
+    than k: zeros and removed rows fill the tails), block 2 every slab,
+    block 3 slabs 2 and 4 twice. → (q, probes, data, the flat slot ids of
+    the live and of the removed rows)."""
+    rng = np.random.default_rng(seed)
+    base = d - 1
+    x = _unit(rng.standard_normal((c_tot * mc, base))).reshape(c_tot, mc, base)
+    live = np.zeros((c_tot, mc), bool)
+    written = np.zeros((c_tot, mc), bool)
+    live[0] = True
+    live[2, :40] = True
+    written[3, :64] = True
+    live[3, 64:68] = True
+    live[4, mc - 8:] = True
+    live[c_tot - 1, mc // 2:] = True
+    for c in range(5, c_tot - 1):
+        live[c, : mc // 2] = True
+    written |= live
+    data = np.where(written[..., None], x, 0.0)
+    data = np.concatenate([data, np.where(live, 2.0, 0.0)[..., None]], axis=2)
+    src = np.concatenate([x[0, :8], x[2, :8], x[3, :8], x[3, 64:72]])
+    q = _unit(src + 0.1 * rng.standard_normal(src.shape))
+    q = np.concatenate([q, np.ones((b, 1))], axis=1).astype(np.float32)
+    probes = np.array([[0, 2, 5, 6], [1, 3, 4, -1], [c_tot - 1, 1, 3, 0], [2, 4, 2, 4]], np.int32)
+    flat = np.arange(c_tot * mc).reshape(c_tot, mc)
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(probes).to(cuda),
+            torch.from_numpy(data.astype(np.float32)).to(cuda).to(torch.bfloat16).contiguous(),
+            flat[live], flat[written & ~live])
+
+
+def _expected_tile_counts(probes, zmap, mc, w):
+    """(tiles of valid probes, tiles whose rows all lie in zero 64-row
+    tiles) that the tile walks: each block's probes × chunks × 64-lane
+    ranges."""
+    listed = skipped = 0
+    for row in probes.cpu().numpy():
+        for c in row:
+            if not 0 <= c < zmap.shape[0]:
+                continue
+            for ch in range(mc // w):
+                for r0 in range(0, w, 64):
+                    lo = ch * w + r0
+                    hi = lo + min(64, w - r0) - 1
+                    listed += 1
+                    skipped += int(zmap[c, lo // 64] and zmap[c, hi // 64])
+    return listed, skipped
+
+
+@pytest.mark.parametrize("d", [65, 385])
+@pytest.mark.parametrize("mc,width,k", [(256, 256, 100), (256, 128, 100), (200, 200, 100),
+                                        (456, 152, 100), (1536, 1536, 20)])
+def test_k11b_tile_skips_zero_tiles_exactly(cuda, d, mc, width, k):
+    """K11b on the wgmma tile over whole zero tiles, a wholly zero probed
+    slab, removed rows in tiles with no live row, a block whose probes hold
+    fewer live rows than k (zeros and removed rows fill its tails), w < Mc
+    and Mc % 64 ≠ 0 (the last slab's last tile copied short): against the
+    plain version (scores 1e-5; ids equal where the plain scores are
+    separated, and at every exact 0, where both break ties by the lowest
+    flat id); the kernel's counter equals the tiles of valid probes and
+    the zero tiles among them, and the map the wrapper builds equals the
+    index's."""
+    q, probes, data, live, removed = _sentinel_slabs(cuda, d, mc)
+    zmap = ivf_modes.zero_tile_map(data)
+    counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tiles = ivf_modes.ivf_scan_idless_cuda.launches_tile
+    ks, ki = ivf_modes.ivf_scan_idless_cuda(q, probes, data, k, 8, width, zmap, counts)
+    ks2, ki2 = ivf_modes.ivf_scan_idless_cuda(q, probes, data, k, 8, width)   # builds the map
+    rs, ri = ivf_modes.ivf_scan_idless_reference(q, probes, data, k + 1, 8, width)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_idless_cuda.launches_tile == tiles + 2
+    assert torch.equal(ks, ks2) and torch.equal(ki, ki2)
+    listed, skipped = _expected_tile_counts(probes, zmap.cpu().numpy(), mc, width)
+    assert tuple(counts.cpu().tolist()) == (listed, skipped) and skipped > 0
+    ks_h, ki_h, rs_h, ri_h = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+    np.testing.assert_allclose(ks_h, rs_h[:, :k], atol=1e-5)
+    with np.errstate(invalid="ignore"):
+        gap = np.minimum(np.abs(np.diff(rs_h, axis=1, prepend=np.inf))[:, :k],
+                         np.abs(np.diff(rs_h, axis=1)))
+    check = (gap > 1e-5) | ((rs_h[:, :k] == 0) & (ks_h == 0))
+    np.testing.assert_array_equal(ki_h[check], ri_h[:, :k][check])
+    # block 1 holds 12 live rows: removed rows (q·x) and, past them at k
+    # 100, never-written slots (0) fill its tails
+    tail_i, tail_s = ki_h[8:16, 12:], ks_h[8:16, 12:]
+    assert not np.isin(tail_i, live).any() and np.isin(tail_i, removed).any()
+    assert k < 100 or (tail_s == 0).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -977,25 +1080,53 @@ def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 33, 65, 385])
-@pytest.mark.parametrize("mc,slots,k", [(200, 1, 10), (256, 2, 50), (136, 1, 20)])
+@pytest.mark.parametrize("d", [64, 33, 65, 385, 384])
+@pytest.mark.parametrize("mc,slots,k", [(200, 1, 10), (256, 2, 50), (136, 1, 20),
+                                        (1536, 3, 100), (256, 4, 50), (1536, 1, 10)])
 def test_k10_dma_matches_plain_and_k1(cuda, dtype, d, mc, slots, k):
-    """K10 at an Mc that is not a multiple of 128 (200, 136) and at 256
-    with two slots: against its plain version, bit for bit against K1's
-    CUDA-core fold at (approx_width = Mc, acc_slots = S), against K1
-    itself (bit for bit where K1 runs the CUDA-core kernel: f32, D 33, 65
-    and 385), and the same for 2, 3, 4 buffers."""
+    """K10 at an Mc that is not a multiple of 128 (200, 136), at 256 and
+    1536 with 1-4 slots, for 2, 3, 4 buffers: against its plain version and
+    K1 at (approx_width = Mc, acc_slots = S). bf16 at D 64 and 384 runs K1's
+    wgmma tile (counted in ``launches_tile``): its result equals
+    ``ivf_scan_cuda``'s at (Mc, S) bit for bit, and K1's CUDA-core fold
+    within 1e-5 (overlap ≥ 0.99). f32 and D 33, 65, 385 run the CUDA-core
+    copy ring: bit for bit K1's CUDA-core fold."""
     q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=4)
+    on_tile = ivf_mod.tile_plan_cuda(ivf_modes.data_kind(data), d, mc, 8, k, mc, slots) is not None
+    assert on_tile == (dtype == torch.bfloat16 and d % 64 == 0)
     before = ivf_modes.ivf_scan_dma_cuda.launches
+    tiles = ivf_modes.ivf_scan_dma_cuda.launches_tile
     got = [ivf_modes.ivf_scan_dma_cuda(q, probes, data, ids, k, 8, slots, n) for n in (2, 3, 4)]
     rs, ri = ivf_modes.ivf_scan_dma_reference(q, probes, data, ids, k + 1, 8, slots)
     ws, wi = _k1_core_fold(q, probes, data, ids, k, 8, mc, slots)
+    ts, ti = ivf_scan_cuda(q, probes, data, ids, k, 8, mc, slots)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_dma_cuda.launches == before + 3
+    assert ivf_modes.ivf_scan_dma_cuda.launches_tile == tiles + (3 if on_tile else 0)
     _agree_flat(*got[0], rs, ri, dtype)
+    col = np.arange(k)
     for ks, ki in got:
-        assert torch.equal(ki, wi) and torch.equal(ks, ws)
+        if on_tile:
+            assert torch.equal(ki, ti) and torch.equal(ks, ts)
+            np.testing.assert_allclose(ks.cpu().numpy(), ws.cpu().numpy(), atol=1e-5)
+            a, b = ki.cpu().numpy(), wi.cpu().numpy()
+            assert _overlap(np.where(a < 0, -1 - col, a), np.where(b < 0, -1 - col, b)) >= 0.99
+        else:
+            assert torch.equal(ki, wi) and torch.equal(ks, ws)
     _agree_k1(*got[0], q, probes, data, ids, k, 8, mc, slots)
+
+
+def test_k10_ring_depth_follows_buffers(cuda):
+    """K10's ring is ``n_buffers`` stages deep, capped by what shared
+    memory holds beside the queries: at the main path's shape (bf16, D
+    384, Mc 1536, block_q 64) 2, 3 and 3 stages for 2, 3 and 4 buffers —
+    the tile's own depth for K1 there."""
+    own = ivf_mod.tile_plan_cuda(1, 384, 1536, 64, 10, 1536, 1).stages
+    assert own == 3
+    for nb in (2, 3, 4):
+        for k, s in ((10, 1), (100, 2)):
+            plan = ivf_mod.tile_plan_cuda(1, 384, 1536, 64, k, 1536, s, nb)
+            assert plan.stages == min(nb, own) and plan[:3] == (64, 2, 32)
 
 
 def test_k10_reads_nothing_past_the_slabs(cuda):

@@ -2,9 +2,9 @@
 loads into the port, and the port's plain scan is held against the JAX
 Pallas kernel (interpret mode) in the exact and deferred merge modes; the
 property the wgmma tile's skip of empty tiles relies on (empty slots'
-rows change nothing), and how the merge wrapper follows the kernel
-library's plan. The CUDA kernel is held against the plain scan in
-test_torch_cuda.py."""
+rows change nothing), and how the merge wrapper and the K10 / K11b
+wrappers follow the kernel library's plan. The CUDA kernel is held
+against the plain scan in test_torch_cuda.py."""
 
 import ctypes
 
@@ -25,12 +25,12 @@ from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
 from text_similarity_tpu_torch.index.ivf import (
     TILE_ROWS,
     IVFIndex,
-    TilePlan,
     _approx_merge_plan,
     ivf_scan_reference,
     tile_occupancy,
     tile_part_width,
 )
+from text_similarity_tpu_torch.index.ivf_modes import TilePlan
 
 
 def _unit(a):
@@ -338,6 +338,86 @@ def test_merge_wrapper_follows_the_library_plan(kind, d, mc, block_q, k, aw, acc
     suffix = "_int8" if kind == 2 else ""
     fn = ivf_mod.ivf_scan_cuda
     assert (getattr(fn, f"launches{suffix}"), getattr(fn, f"launches_tile{suffix}")) == (1, int(taken))
+
+
+class _ModeRecorder(_ScanRecorder):
+    """The same stand-in, also recording the ring depth asked for."""
+
+    def __init__(self, plan):
+        super().__init__(plan)
+        self.depths = []
+
+    def ts_ivf_scan_tile_plan(self, *args):
+        self.depths.append(args[8])
+        return super().ts_ivf_scan_tile_plan(*args)
+
+
+@pytest.mark.parametrize("mode,kind,d,mc,aw,slots,k,n_buf,taken,width,n_part", [
+    # K10 at the main path (bf16, D 384, Mc 1536): the tile at width Mc,
+    # its ring at most n_buffers deep
+    ("dma", 1, 384, 1536, 0, 1, 10, 2, True, 1536, 24 * 64),
+    ("dma", 1, 384, 1536, 0, 1, 10, 4, True, 1536, 24 * 64),
+    ("dma", 1, 384, 1536, 0, 2, 100, 3, True, 1536, 24 * 128),
+    ("dma", 1, 64, 200, 0, 1, 20, 2, True, 200, 4 * 64),
+    # the CUDA-core copy-ring kernel: its 128-lane blocks' top-k each
+    ("dma", 0, 384, 1536, 0, 1, 10, 2, False, 1536, 12 * 10),
+    ("dma", 1, 385, 1536, 0, 2, 100, 4, False, 1536, 12 * 100),
+    # K11b on the sentinel rows (D + 1 = 385; w = Mc or w < Mc): the tile
+    # reads the zero-tile map, built here when the caller passes none
+    ("idless", 3, 385, 1536, 2048, 1, 10, 0, True, 1536, 24 * 64),
+    ("idless", 3, 385, 1536, 512, 1, 10, 0, True, 512, 8 * 64),
+    ("idless", 3, 65, 200, 200, 1, 20, 0, True, 200, 4 * 64),
+    ("idless", 3, 33, 200, 200, 1, 20, 0, False, 200, 2 * 20),
+    # f32 slabs never ask: the CUDA-core kernel
+    ("idless", 0, 385, 1536, 2048, 1, 10, 0, False, 1536, 12 * 10),
+])
+def test_mode_wrappers_follow_the_library_plan(mode, kind, d, mc, aw, slots, k, n_buf, taken,
+                                               width, n_part, monkeypatch):
+    """``ivf_scan_dma_cuda`` (K10) and ``ivf_scan_idless_cuda`` (K11b), the
+    library replaced by a recorder: each asks the plan of its mode (K10: K1's
+    deferred fold at width Mc with S slots, its ring at most ``n_buffers``
+    deep; K11b: the sentinel kind 3 at its fold width, one slot; f32 slabs
+    do not ask), sizes the partial results by the kernel that plan names
+    (the tile's 64·S entries a 64-lane range, else the CUDA-core kernel's
+    top-k a 128-lane block), hands K11b's tile the zero-tile map (none to
+    the CUDA-core kernel) and counts a tile launch only where the plan took
+    the shape."""
+    from text_similarity_tpu_torch.index import ivf_modes
+
+    rec, alloc = _ModeRecorder(_PLAN if taken else None), _EmptyRecorder()
+    monkeypatch.setattr(ivf_modes._cuda, "lib", lambda: rec)
+    monkeypatch.setattr(ivf_modes._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(ivf_modes._cuda, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(ivf_modes, "torch", alloc)
+    fn = ivf_modes.ivf_scan_dma_cuda if mode == "dma" else ivf_modes.ivf_scan_idless_cuda
+    for counter in ("launches", "launches_tile"):
+        monkeypatch.setattr(fn, counter, 0)
+    b, block_q, c_tot = 128, 64, 3
+    data = torch.zeros((c_tot, mc, d), dtype=torch.float32 if kind == 0 else torch.bfloat16)
+    ids = torch.zeros((c_tot, mc), dtype=torch.int32)
+    probes = torch.zeros((2, 4), dtype=torch.int32)
+    q = torch.zeros((b, d))
+    if mode == "dma":
+        fn(q, probes, data, ids, k, block_q, slots, n_buf)
+        name, want_args = "ts_ivf_scan_dma", (b, d, 4, c_tot, mc, block_q, k, slots, n_buf)
+    else:
+        fn(q, probes, data, k, block_q, aw)
+        name, want_args = "ts_ivf_scan_idless", (b, d, 4, c_tot, mc, block_q, k, width)
+    if kind == 0 and mode == "idless":
+        assert rec.asked == []
+    else:
+        assert rec.asked == [(kind, d, mc, block_q, k, width, slots)]
+        assert rec.depths == [n_buf]
+    (called, args), = rec.calls
+    assert called == name
+    if mode == "dma":
+        assert args[6:15] == want_args
+    else:
+        assert args[6:14] == want_args
+        assert (args[4] is not None) == taken and args[5] is None   # the map; no counts
+    assert alloc.shapes[-2:] == [(b, n_part), (b, n_part)]
+    assert tile_part_width(width, k, slots) == n_part or not taken
+    assert (fn.launches, fn.launches_tile) == (1, int(taken))
 
 
 def test_tile_occupancy_counts_live_slots_and_empty_tiles():

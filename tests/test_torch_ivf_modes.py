@@ -24,6 +24,8 @@ from text_similarity_tpu.index.ivf import _pack_candidates as jax_pack
 from text_similarity_tpu.index.ivf import _unpack_candidates as jax_unpack
 from text_similarity_tpu.ops.topk import cosine_topk_xla
 from text_similarity_tpu_torch.core.config import IndexConfig
+from text_similarity_tpu_torch.index import ivf as ivf_mod
+from text_similarity_tpu_torch.index import ivf_modes
 from text_similarity_tpu_torch.index.ivf import (
     IVFIndex,
     _affinity_group_perm,
@@ -32,12 +34,14 @@ from text_similarity_tpu_torch.index.ivf import (
 )
 from text_similarity_tpu_torch.index.ivf_modes import (
     PACK_SCALE,
+    TILE_ROWS,
     _pack_candidates,
     _unpack_candidates,
     ivf_scan_dma,
     ivf_scan_idless,
     ivf_scan_multiprobe,
     ivf_scan_packed,
+    zero_tile_map,
 )
 
 BIN = 1.0 / PACK_SCALE + 1e-6     # one 14-bit score bin of the packed fold
@@ -308,6 +312,188 @@ def test_add_remove_match_jax(saved, corpus, name):
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         assert not np.isin(ti.numpy(), gone).any()
         assert (ti.numpy()[len(q):, 0] == np.arange(4096, 4104)).all()
+
+
+# ---------------------------------------------------------------------------
+# The idless scan's skip rule (K11b on the wgmma tile): the zero-tile map
+# and why it, and not the ids, decides which tiles go unread
+# ---------------------------------------------------------------------------
+
+def _zero_tiles_by_rows(data):
+    """The map by its definition: (data == 0).all over each 64-row tile of
+    each slab (the last one shorter where Mc % 64 ≠ 0)."""
+    d = data.float().numpy()
+    c_tot, mc, _ = d.shape
+    zero_row = (d == 0).all(axis=2)
+    return np.array([[zero_row[c, t:t + TILE_ROWS].all() for t in range(0, mc, TILE_ROWS)]
+                     for c in range(c_tot)], np.uint8)
+
+
+def _hand_sentinel_index(dtype=torch.float32):
+    """Two clusters (slabs 0, 1) and an overflow slab of Mc 120 (tiles of
+    64 and 56 rows), D 8 + 1: slab 0 holds 64 live rows near e0 (tile 1
+    all zero), slab 1 holds 64 live rows that are zero vectors (+2 only)
+    near nothing, slab 2 nothing."""
+    rng = np.random.default_rng(0)
+    d, mc = 8, 120
+    cent = np.eye(2, d, dtype=np.float32)
+    data = np.zeros((3, mc, d + 1), np.float32)
+    ids = np.full((3, mc), -1, np.int32)
+    data[0, :64, :d] = _unit(cent[0] + 0.1 * rng.standard_normal((64, d)))
+    data[0, :64, d] = 2.0
+    data[1, :64, d] = 2.0
+    ids[0, :64] = np.arange(64)
+    ids[1, :64] = np.arange(64, 128)
+    return IVFIndex(torch.from_numpy(cent), torch.from_numpy(data).to(dtype),
+                    torch.from_numpy(ids), 2, IndexConfig(num_clusters=2, num_probes=2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_tile_map_tracks_the_slabs(dtype, tmp_path):
+    """A sentinel index keeps the map of its all-zero 64-row tiles, equal
+    to (data == 0).all over each tile: after the build (and the
+    constructor: a JAX-built index), after remove() (a removed zero vector
+    loses its +2: its tile becomes all zero), after add() (a row lands in
+    an all-zero tile) and after save / load. Other layouts keep none."""
+    tivf = _hand_sentinel_index(dtype)
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), _zero_tiles_by_rows(tivf.data_padded))
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), [[0, 1], [0, 1], [1, 1]])
+    assert tivf.remove(np.arange(64, 128)) == 64
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), [[0, 1], [1, 1], [1, 1]])
+    row = _unit(np.eye(1, 8, dtype=np.float32) + 0.01)
+    assert tivf.add(torch.from_numpy(row), start_id=500)[0] == 500
+    assert int(tivf.ids_padded[0, 64]) == 500          # slab 0's first free slot: tile 1
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), [[0, 0], [1, 1], [1, 1]])
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), _zero_tiles_by_rows(tivf.data_padded))
+    tivf.save(str(tmp_path / "s.npz"))
+    back = IVFIndex.load(str(tmp_path / "s.npz"), device="cpu")
+    np.testing.assert_array_equal(back.zero_tiles.numpy(), tivf.zero_tiles.numpy())
+    _, x = _clustered(n=1024, d=16, centers=8)
+    built = IVFIndex.build(torch.from_numpy(x), IndexConfig(num_clusters=8, num_probes=2,
+                                                            kmeans_iters=2),
+                           generator=torch.Generator().manual_seed(0), sentinel=True,
+                           device="cpu")
+    np.testing.assert_array_equal(built.zero_tiles.numpy(), _zero_tiles_by_rows(built.data_padded))
+    assert built.zero_tiles.shape == (built.data_padded.shape[0], -(-built.cluster_cap // 64))
+    plain = IVFIndex.build(torch.from_numpy(x), IndexConfig(num_clusters=8, num_probes=2,
+                                                            kmeans_iters=2), device="cpu")
+    assert plain.zero_tiles is None
+
+
+def _idless_with_skips(skip, value):
+    """The idless scan's plain version with the scores of every 64-row tile
+    marked in ``skip`` (C_tot, ceil(Mc / 64)) replaced by ``value`` before
+    the fold: 0.0 is the tile kernel's rule for all-zero tiles (a constant
+    0 folded in the tile's place), −inf a rule that leaves the tile out."""
+
+    def scan(q, probe_list, data, k, block_q, approx_width, zero_tiles=None):
+        mc = data.shape[1]
+        w = ivf_modes.scan_width(mc, approx_width)
+        qd = ivf_modes._dot_queries(q, data)
+        tile_of = torch.arange(mc) // TILE_ROWS
+        out_s = torch.empty((q.shape[0], k))
+        out_i = torch.empty((q.shape[0], k), dtype=torch.int32)
+        for blk in range(probe_list.shape[0]):
+            rows = slice(blk * block_q, (blk + 1) * block_q)
+            slabs = probe_list[blk].long()
+            s, cid = ivf_modes._probe_scores(qd[rows], slabs, data, None, None)
+            marked = skip[slabs.clamp(0, data.shape[0] - 1)][:, tile_of]      # (U, Mc)
+            s = torch.where(marked[None], torch.tensor(value), s)
+            acc_s, acc_i = ivf_modes._fold(s, cid, w, 1)
+            out_s[rows], out_i[rows] = ivf_modes._select(
+                acc_s.reshape(s.shape[0], -1), acc_i.reshape(s.shape[0], -1), k)
+        return out_s, out_i
+
+    return scan
+
+
+def _tails_pair(keep):
+    """A JAX-built sentinel index (8 clusters of a 512-row corpus, rows 0-7
+    near the queries and the rest far from them; Mc 112: several slabs end
+    in an all-zero tile) with every row but ``keep`` removed, and the
+    port's copy of it: queries 0-7 find only 5 live rows in their top 10,
+    so removed rows (q·x − 2) and never-written slots (−2) fill the
+    tails."""
+    rng = np.random.default_rng(4)
+    e = _unit(rng.standard_normal((1, 32)))
+    x = _unit(np.where(np.arange(512)[:, None] < 8, e, -e) + 0.05 * rng.standard_normal((512, 32)))
+    jivf = JaxIVFIndex.build(jnp.asarray(x), JaxIndexConfig(num_clusters=8, num_probes=8),
+                             key=jax.random.PRNGKey(0), sentinel=True)
+    tivf = IVFIndex(torch.from_numpy(np.array(jivf.centroids)),
+                    torch.from_numpy(np.array(jivf.data_padded)),
+                    torch.from_numpy(np.array(jivf.ids_padded)),
+                    jivf.num_base_clusters, IndexConfig(num_clusters=8, num_probes=8))
+    gone = np.setdiff1d(np.arange(512), keep)
+    assert tivf.remove(gone) == jivf.remove(gone) == gone.size
+    return jivf, tivf, x[:8]
+
+
+@pytest.mark.parametrize("case", ["tails", "far_tails", "saved"])
+def test_idless_constant_zero_for_zero_tiles_matches_pallas(saved, corpus, monkeypatch, case):
+    """The rule K11b's tile follows: every 64-row tile whose rows are all
+    zero scores a constant 0 in its place in the fold, unread. Through
+    ``IVFIndex.query`` the answer equals the Pallas idless kernel's in
+    interpret mode (ids equal, scores 1e-5), on the tail cases (fewer live
+    rows than k, near the queries or far from them) and on the saved
+    sentinel index (overflow slabs end in zero tiles)."""
+    if case != "saved":
+        jivf, tivf, q = _tails_pair(np.arange(5) + (100 if case == "far_tails" else 0))
+        args = dict(k=10, block_q=8, approx_width=256, acc_slots=1)
+    else:
+        jivf, tivf = _pair(saved, "sentinel")
+        q = corpus[0]
+        args = dict(k=10, block_q=8, union_factor=1, approx_width=128, acc_slots=1)
+    zmap = tivf.zero_tiles.bool()
+    assert zmap.any()
+    monkeypatch.setattr(ivf_mod, "ivf_scan_idless", _idless_with_skips(zmap, 0.0))
+    js, ji = jivf.query(jnp.asarray(q), impl="pallas", **args)
+    ts, ti = tivf.query(torch.from_numpy(q), **args)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+
+
+def test_idless_skip_by_ids_would_change_the_tails(monkeypatch):
+    """Why the tile does not skip by ids (K1's rule, which reads a tile of
+    only empty slots as −inf): in the idless scan dead slots compete. On
+    the tail case the Pallas kernel returns removed rows (q·x − 2) and
+    never-written slots (−2) after the 5 live rows; leaving out every tile
+    whose ids are all < 0 drops them, and the answer is no longer the
+    reference's: here the 5 live rows lie far from the queries and the
+    removed rows near them fill tiles with no live id. The zero-tile rule
+    gives the reference's answer."""
+    jivf, tivf, q = _tails_pair(np.arange(100, 105))
+    args = dict(k=10, block_q=8, approx_width=256, acc_slots=1)
+    js, ji = (np.asarray(t) for t in jivf.query(jnp.asarray(q), impl="pallas", **args))
+    c_tot, mc = tivf.ids_padded.shape
+    n_t = -(-mc // TILE_ROWS)
+    dead = torch.nn.functional.pad(tivf.ids_padded < 0, (0, n_t * TILE_ROWS - mc), value=True)
+    by_ids = dead.view(c_tot, n_t, TILE_ROWS).all(dim=2)
+    assert by_ids.any() and not torch.equal(by_ids, tivf.zero_tiles.bool())
+    monkeypatch.setattr(ivf_mod, "ivf_scan_idless", _idless_with_skips(by_ids, float("-inf")))
+    ts, ti = (t.numpy() for t in tivf.query(torch.from_numpy(q), **args))
+    assert not (np.array_equal(ti, ji) and np.allclose(ts, js, atol=1e-5))
+    monkeypatch.setattr(ivf_mod, "ivf_scan_idless",
+                        _idless_with_skips(tivf.zero_tiles.bool(), 0.0))
+    ts, ti = (t.numpy() for t in tivf.query(torch.from_numpy(q), **args))
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, atol=1e-5)
+
+
+def test_zero_tile_map_of_the_saved_layout(saved):
+    """The map of a JAX-saved sentinel index, as the port loads it, equals
+    its definition, and ``zero_tile_map`` itself takes any slab type and
+    an Mc that is not a multiple of 64."""
+    _, tivf = _pair(saved, "sentinel")
+    np.testing.assert_array_equal(tivf.zero_tiles.numpy(), _zero_tiles_by_rows(tivf.data_padded))
+    rng = np.random.default_rng(2)
+    data = np.zeros((3, 200, 5), np.float32)
+    data[0, 3, 1] = 1.0
+    data[1, 199, 4] = -0.5          # the short last tile (rows 192-199)
+    data[2, 64:128] = rng.standard_normal((64, 5))
+    for dt in (torch.float32, torch.bfloat16):
+        got = zero_tile_map(torch.from_numpy(data).to(dt))
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), [[0, 1, 1, 1], [1, 1, 1, 0], [1, 0, 1, 1]])
 
 
 # ---------------------------------------------------------------------------

@@ -16,17 +16,27 @@
 //
 // K10 replaces _ivf_query_pallas_dma → _ivf_kernel_dma (:1533-1627): the
 // reference copies each probed slab and its ids into VMEM through a ring of
-// n_buffers async copies while the previous slab is scored. Here the copied
-// tile is one (probe, 32-dim chunk) of a CTA's 128 rows, and a ring of
-// n_buffers (2-4) stages of cp.async keeps the copy of tile t + n − 1 in
-// flight while tile t is scored (the probe's 128 ids ride with its first
-// chunk). The rows are copied as raw bytes: 16-byte copies where every row
-// starts 16-byte aligned (D · sizeof(T) % 16 == 0), else 4-byte copies from
-// the 4-byte boundary below each row segment, read back at that offset (the
-// sentinel layout's D+1 rows need no alignment of the global stride). The
-// fold and the merge are K1's deferred mode at width Mc with S slots, and
-// the dot runs in K1's order over the dims, so K10's ids equal K1's at
-// (approx_width = Mc, acc_slots = S) bit for bit.
+// n_buffers async copies while the previous slab is scored, and folds at
+// the slab's full width Mc into acc_slots slots, merged once at the end.
+// That is K1's deferred mode at (approx_width = Mc, acc_slots = S), which
+// ivf_tile.cu computes on the tensor cores: where ivf_tile_plan takes the
+// shape (bf16 slabs, D a multiple of 64, Mc a multiple of 4),
+// ts_ivf_scan_dma runs that tile at width Mc with S slots, its TMA +
+// mbarrier ring n_buffers stages deep, capped by what shared memory holds
+// beside the block's queries (3 stages at D 384, so 3 and 4 buffers run
+// alike there); its result equals K1's at (Mc, S) bit for bit. Other shapes
+// (f32 slabs, any other D, the sentinel layout's D + 1 among them, Mc % 4
+// ≠ 0) run ivf_dma_pass1 below, on the CUDA cores: the copied tile is one
+// (probe, 32-dim chunk) of a CTA's 128 rows, and a ring of n_buffers
+// stages of cp.async keeps the copy of tile t + n − 1 in flight while tile
+// t is scored (the probe's 128 ids ride with its first chunk). The rows
+// are copied as raw bytes: 16-byte copies where every row starts 16-byte
+// aligned (D · sizeof(T) % 16 == 0), else 4-byte copies from the 4-byte
+// boundary below each row segment, read back at that offset (the sentinel
+// layout's D+1 rows need no alignment of the global stride). Its dot runs
+// in the order of K1's CUDA-core kernel over the dims, so its ids equal
+// that kernel's deferred fold at (Mc, S) bit for bit (K1 itself sums in
+// wgmma's order on the tile).
 //
 // K11a replaces _ivf_kernel_multiprobe (:1248-1301): P probes a step (up to
 // 4; the wrapper stages a larger P four at a time, which changes nothing in
@@ -40,8 +50,10 @@
 //
 // Bound on the H100: as K1, the slab bytes of the probed slabs against
 // 2·B·U·Mc·D f32 FMAs on the CUDA cores: operation-bound well above the
-// byte bound. A wgmma pipeline is later work.
+// byte bound (K10 on the tile: K1's, bound by the bytes of its live tiles).
+// A wgmma pipeline for K9 and K11a is later work.
 #include "common.cuh"
+#include "ivf_tile.cuh"
 
 namespace {
 
@@ -687,8 +699,11 @@ extern "C" int ts_ivf_scan_packed(const float* q, const int* probes, const void*
 }
 
 // K10: the copy-ring scan at full width Mc with `slots` slots (f32 / bf16);
-// n_buf stages (2-4); data_bytes = the whole slab tensor's size (the 4-byte
-// copies never read past it).
+// n_buf stages (2-4). On the wgmma tile where ivf_tile_plan takes the shape
+// (part_*: (B, ceil(Mc / 64), 64·S); the ring at most n_buf deep), else
+// ivf_dma_pass1 (part_*: (B, ceil(Mc / 128), k)); ts_ivf_scan_tile_plan
+// with max_stages n_buf tells the caller which. data_bytes = the whole slab
+// tensor's size (ivf_dma_pass1's 4-byte copies never read past it).
 extern "C" int ts_ivf_scan_dma(const float* q, const int* probes, const void* data,
                                int data_bf16, long long data_bytes, const int* ids, int B, int D,
                                int U, int C_tot, int Mc, int block_q, int k, int slots,
@@ -696,6 +711,10 @@ extern "C" int ts_ivf_scan_dma(const float* q, const int* probes, const void* da
                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (n_buf < 2 || n_buf > 4) return (int)cudaErrorInvalidValue;
+  IvfTilePlan plan;
+  if (data_bf16 && ivf_tile_plan(1, D, Mc, block_q, k, Mc, slots, n_buf, &plan))
+    return ivf_tile_scan(1, q, probes, data, nullptr, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
+                         block_q, k, Mc, slots, n_buf, part_s, part_i, out_s, out_i, stream);
 #define TS_DMA(T_, S_) run_dma<T_, S_>(q, probes, static_cast<const T_*>(data), data_bytes, ids, \
                                        B, D, U, C_tot, Mc, block_q, k, n_buf, part_s, part_i,   \
                                        out_s, out_i, st)

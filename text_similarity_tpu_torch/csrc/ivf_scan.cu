@@ -34,10 +34,12 @@
 //
 // K1 with bf16 slabs and K4 run on the tensor cores (ivf_tile.cu) wherever
 // ivf_tile_plan takes the shape (D a multiple of 64 that shared memory
-// holds, Mc a multiple of 4). The CUDA-core kernel below runs the rest, as
-// ts_ivf_scan / ts_ivf_scan_int8 choose by shape: f32 slabs (exact f32, no
-// TF32), the other D (the sentinel layout's D + 1 among them) and Mc; and
-// K1-opt and K11b, whose modes the tile does not have.
+// holds, Mc a multiple of 4), and so does K11b over bf16 sentinel rows of
+// D' + 1 columns (D' a multiple of 64, Mc and the width multiples of 8).
+// The CUDA-core kernel below runs the rest, as ts_ivf_scan /
+// ts_ivf_scan_int8 / ts_ivf_scan_idless choose by shape: f32 slabs (exact
+// f32, no TF32), the other D (K1 over the sentinel layout's D + 1 among
+// them), Mc and widths; and K1-opt, whose modes the tile does not have.
 //
 // Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
 // query block (int8: U·Mc·(D + 4) plus the ids); the arithmetic
@@ -350,9 +352,9 @@ extern "C" int ts_ivf_scan(const float* q, const int* probes, const void* data,
                            void* stream) {
   const int kind = data_bf16 ? 1 : 0;
   IvfTilePlan plan;
-  if (ivf_tile_plan(kind, D, Mc, block_q, k, width, slots, &plan))
-    return ivf_tile_scan(kind, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc, block_q, k,
-                         width, slots, part_s, part_i, out_s, out_i, stream);
+  if (ivf_tile_plan(kind, D, Mc, block_q, k, width, slots, 0, &plan))
+    return ivf_tile_scan(kind, q, probes, data, nullptr, ids, nullptr, nullptr, B, D, U, C_tot,
+                         Mc, block_q, k, width, slots, 0, part_s, part_i, out_s, out_i, stream);
   return dispatch_kind<kMerge>(kind, slots, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc,
                                block_q, k, width, part_s, part_i, out_s, out_i, stream);
 }
@@ -365,9 +367,9 @@ extern "C" int ts_ivf_scan_int8(const float* q, const int* probes, const int8_t*
                                 int slots, float* part_s, int* part_i, float* out_s,
                                 int* out_i, void* stream) {
   IvfTilePlan plan;
-  if (ivf_tile_plan(2, D, Mc, block_q, k, width, slots, &plan))
-    return ivf_tile_scan(2, q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width,
-                         slots, part_s, part_i, out_s, out_i, stream);
+  if (ivf_tile_plan(2, D, Mc, block_q, k, width, slots, 0, &plan))
+    return ivf_tile_scan(2, q, probes, data, scales, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
+                         block_q, k, width, slots, 0, part_s, part_i, out_s, out_i, stream);
   return dispatch_kind<kMerge>(2, slots, q, probes, data, scales, ids, B, D, U, C_tot, Mc,
                                block_q, k, width, part_s, part_i, out_s, out_i, stream);
 }
@@ -395,10 +397,22 @@ extern "C" int ts_ivf_scan_emit_acc(const float* q, const int* probes, const voi
 }
 
 // K11b: idless deferred scan (S = 1) → flat slot ids (probe · Mc + position).
+// bf16 rows of D = D' + 1 columns with D' a multiple of 64, Mc and width
+// multiples of 8 take the wgmma tile (ivf_tile.cu; part_*: (B, ceil(width
+// / 64), 64), zero_tiles read, counts added to when not null); the rest
+// (f32, other D, Mc, width) the CUDA-core kernel (part_*: (B, ceil(width /
+// 128), k); zero_tiles and counts unused). ts_ivf_scan_tile_plan(3, ...)
+// tells the caller which.
 extern "C" int ts_ivf_scan_idless(const float* q, const int* probes, const void* data,
-                                  int data_bf16, int B, int D, int U, int C_tot, int Mc,
-                                  int block_q, int k, int width, float* part_s, int* part_i,
-                                  float* out_s, int* out_i, void* stream) {
+                                  int data_bf16, const unsigned char* zero_tiles, int* counts,
+                                  int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+                                  int width, float* part_s, int* part_i, float* out_s,
+                                  int* out_i, void* stream) {
+  IvfTilePlan plan;
+  if (data_bf16 && ivf_tile_plan(3, D, Mc, block_q, k, width, 1, 0, &plan))
+    return ivf_tile_scan(3, q, probes, data, nullptr, nullptr, zero_tiles, counts, B, D, U,
+                         C_tot, Mc, block_q, k, width, 1, 0, part_s, part_i, out_s, out_i,
+                         stream);
   return dispatch_kind<kIdless>(data_bf16 ? 1 : 0, 1, q, probes, data, nullptr, nullptr, B, D,
                                 U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i,
                                 stream);

@@ -67,7 +67,51 @@
 // of 64 (a TMA box is 64 dims: 128-byte rows in the 128B swizzle, and
 // wgmma steps 16 dims), up to what shared memory holds (512 at bf16); Mc
 // a multiple of 4 (the ids' and scales' row pitch must be 16 bytes). D
-// 384, the main path's, is taken; the sentinel layout's D + 1 is not.
+// 384, the main path's, is taken.
+//
+// The same tile runs two scan modes of ivf_modes.cu's kernels:
+// * K10, the copy-ring scan (ts_ivf_scan_dma, text_similarity_tpu/index/
+//   ivf.py _ivf_kernel_dma): K1's deferred fold at width Mc with S slots,
+//   its ring depth the call's n_buffers (2-4), capped by what shared
+//   memory holds beside the queries (3 stages at D 384).
+// * K11b, the idless scan of the sentinel layout (ts_ivf_scan_idless,
+//   _ivf_kernel_idless): bf16 rows of D + 1 columns, the last +2 on live
+//   rows and 0 on dead ones; no ids are read: slot id = slab · Mc +
+//   position and no slot is masked; one slot a lane class (S 1), width w.
+//   - Copy. A row is 2(D + 1) bytes, not a multiple of 16, so no tensor
+//     map spans the slabs; but 8 rows are, so a tile of 64 rows (fewer in
+//     a last partial range) starts 16-byte aligned wherever Mc and w are
+//     multiples of 8, and lands by one cp.async.bulk as raw bytes.
+//   - Repack. Odd rows start 2 bytes past a word: fragments gathered from
+//     the raw rows would conflict about 4-way (a row is 192.5 words) and
+//     need two loads each, in both warpgroups. So the consumers first
+//     rewrite the raw rows once, a warp a row, into the 128B-swizzled tile
+//     that K1's SS product reads (consecutive words in, one swizzled
+//     128-byte row out: no bank conflict), then run K1's product over D
+//     dims. The last column's product q[D]·x[D] (both bf16: exact in f32)
+//     is added after the dot, as K4 applies its scale, so the sum differs
+//     from the reference's only in its order. The repack sits in the CTA's
+//     critical path between the copy and the product, fenced by two
+//     barriers of the consumer warpgroups a tile (the raw stage is free
+//     after the first, the repacked tile after the second); it waits on
+//     its loads' latency, so a warp issues all of a row's loads before its
+//     stores. With the queries (48 KB at 64 × 384), the repacked tile (48
+//     KB) and two raw stages (2 × 48.1 KB) the ring holds two stages.
+//   - Skip. A dead slot is not −inf here: a never-written slot is a row of
+//     zeros and scores exactly 0, which displaces −inf and any negative
+//     entry of the fold; a removed slot keeps its vector and scores q·x.
+//     So a tile is skipped only if all its rows are zero: a map with one
+//     byte a (slab, 64-row tile), 1 where every row is zero (the index
+//     keeps it beside the slabs), read in the liveness pass in place of
+//     K1's ids. A skipped tile is not copied or multiplied: its constant 0
+//     is folded, with its flat slot ids, in its place in the probe order
+//     (an S-1 fold is a running max where a strictly greater score wins,
+//     so the order decides among equal scores). Every row of such a tile
+//     would score exactly ±0, which compares as 0: the answer is the one
+//     the product gives. An optional counter adds (tiles of valid probes,
+//     tiles skipped) for the caller.
+//   Other sentinel shapes (f32, D not a multiple of 64, Mc or w not a
+//   multiple of 8, S ≠ 1) stay on ivf_scan.cu's CUDA-core kernel.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "ivf_tile.cuh"
@@ -80,7 +124,15 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxThreads = 2 * 128 + 32;
 constexpr size_t kSmemBudget = 232448;
 
+constexpr int kSentinel = 3;         // data kind of K11b's raw sentinel rows
+
+// The slab type of K11b's tile: bf16 rows of D + 1 columns, read raw.
+struct SentinelRows {};
+
+// A ring stage: a tile and its ids (and scales); for K11b the raw rows.
+// D counts the dot's dims (the sentinel rows hold one more).
 size_t tile_stage_bytes(int kind, int D) {
+  if (kind == kSentinel) return ((size_t)kTileM * (D + 1) * 2 + 127) / 128 * 128;
   const size_t data = (size_t)kTileM * D * (kind == 2 ? 1 : 2);
   return (data + (kind == 2 ? 512 : 256) + 1023) / 1024 * 1024;   // + ids (+ scales)
 }
@@ -92,10 +144,12 @@ __host__ __device__ size_t tile_epi_bytes(int nq, int kp) {
 }
 
 // The exact mode keeps its selection beside the ring; the deferred mode
-// keeps none (its entries go to the merge pass).
+// keeps none (its entries go to the merge pass). K11b adds the repacked
+// tile and the queries' last column.
 size_t tile_smem(int kind, int D, int nq, int kp, int slots, int stages) {
   const size_t ring = (size_t)stages * tile_stage_bytes(kind, D);
-  const size_t body = slots == 0 ? ring + tile_epi_bytes(nq, kp) : ring;
+  size_t body = slots == 0 ? ring + tile_epi_bytes(nq, kp) : ring;
+  if (kind == kSentinel) body += (size_t)kTileM * D * 2 + (size_t)nq * 4;
   return 1024 + (size_t)nq * D * 2 + body + (size_t)kWin * 9 + 2 * kMaxStages * 8 + 16;
 }
 
@@ -105,7 +159,11 @@ struct TileArgs {
   const int* ids;
   float* part_s;
   int* part_i;
+  const unsigned char* raw;    // K11b: the sentinel slabs
+  const unsigned char* zero;   // K11b: 1 a (slab, 64-row tile) whose rows are all zero
+  int* counts;                 // K11b, or null: += (tiles of valid probes, tiles skipped)
   int D, U, C_tot, Mc, block_q, k, kp, width, n_ranges, n_sub, nq, nwg, stages, stage_bytes;
+  int n_mt;                    // K11b: 64-row tiles a slab in the zero map
 };
 
 struct __align__(64) TileMaps {
@@ -299,6 +357,70 @@ struct LiveGroup {
   }
 };
 
+// K11b's liveness of a window: each thread takes tiles b = tid, tid +
+// blockDim, …; a probe outside [0, C_tot) leaves its tiles out (live 0);
+// a tile whose rows lie in all-zero 64-row tiles of its slab is listed as
+// (−1 − slab, row): folded as a constant 0, never copied.
+__device__ __forceinline__ void idless_live(const TileArgs& a, int blk, int t0, int win,
+                                            int chunks, int r0, int lanes, int2* list,
+                                            unsigned char* live) {
+  for (int b = threadIdx.x; b < win; b += blockDim.x) {
+    const int c = a.probes[(size_t)blk * a.U + (t0 + b) / chunks];
+    const int row = ((t0 + b) % chunks) * a.width + r0;
+    const bool valid = c >= 0 && c < a.C_tot;
+    bool zero = false;
+    if (valid) {
+      const unsigned char* z = a.zero + (size_t)c * a.n_mt;
+      zero = z[row / kTileM] && z[(row + lanes - 1) / kTileM];
+    }
+    live[b] = valid;
+    list[b] = make_int2(zero ? -1 - c : c, row);
+  }
+}
+
+// K11b: rows 0 .. lanes − 1 of a raw stage (a row every 2(D + 1) bytes, so
+// odd rows start 2 bytes past a word) → the swizzled K-major tile that
+// tile_dot reads (D / 64 sub-tiles of 64 rows × 128 bytes, 16-byte piece c
+// of row r at c ^ (r & 7), as TMA lays them), dims 0 .. D − 1. A warp takes
+// a row: lane i reads word i of each sub-tile's span of the row (and word
+// i + 1 where the row is 2 bytes off a word): consecutive words, so no two
+// lanes share a bank; the funnel shift puts dims 2i, 2i + 1 in one word,
+// and the warp writes one swizzled 128-byte row. All of a row's loads are
+// issued before its stores (D ≤ 64 · kMaxSub): the repack waits on load
+// latency, not on shared memory's bandwidth, so a load and a store a
+// sub-tile in turn held K11b markedly longer.
+constexpr int kMaxSub = 8;
+
+__device__ __forceinline__ void repack_rows(const unsigned char* raw, unsigned char* swz, int D,
+                                            int lanes, int cw, int n_cw, int lane) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(raw);
+  const int n_sub = D / 64;
+  for (int r = cw; r < lanes; r += n_cw) {
+    const int b0 = r * 2 * (D + 1);
+    const uint32_t* src = words + (b0 >> 2) + lane;
+    unsigned char* dst = swz + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4;
+    uint32_t v[kMaxSub];
+    if (b0 & 2) {   // warp-uniform
+#pragma unroll
+      for (int j = 0; j < kMaxSub; ++j)
+        if (j < n_sub) v[j] = __funnelshift_r(src[32 * j], src[32 * j + 1], 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxSub; ++j)
+        if (j < n_sub) v[j] = src[32 * j];
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j)
+      if (j < n_sub) *reinterpret_cast<uint32_t*>(dst + j * (kTileM * 128)) = v[j];
+  }
+}
+
+// The consumer warpgroups together (named barrier 3; the producer warp is
+// not in it).
+__device__ __forceinline__ void cons_sync(int n_threads) {
+  asm volatile("bar.sync 3, %0;\n" ::"r"(n_threads) : "memory");
+}
+
 // Exact mode, k ≤ 32: query ql's n candidates into its list of 32 (in
 // shared memory between tiles, one entry a lane here), best first: a few
 // by insertion at their rank, more by warp_merge32; then its k-th is
@@ -360,6 +482,7 @@ template <typename T, int S, int N>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ivf_tile_kernel(const __grid_constant__ TileMaps maps, const TileArgs a) {
   constexpr bool kInt8 = std::is_same_v<T, int8_t>;
+  constexpr bool kIdless = std::is_same_v<T, SentinelRows>;
   constexpr int kS = S > 0 ? S : 1;
   extern __shared__ __align__(1024) unsigned char ivf_tile_smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -372,14 +495,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int qn = min(a.nq, a.block_q - sub * a.nq);
   const int chunks = a.Mc / a.width;
   const int n_tiles = a.U * chunks;
-  const int data_bytes = kTileM * a.D * (int)sizeof(T);
+  const int data_bytes = kIdless ? 0 : kTileM * a.D * (int)sizeof(T);
+  const int row_bytes = 2 * (a.D + 1);   // K11b's raw rows
 
   unsigned char* qs = align_1024(ivf_tile_smem);
-  unsigned char* ring = qs + (size_t)a.nq * a.D * 2;
+  unsigned char* swz = qs + (size_t)a.nq * a.D * 2;   // K11b: the repacked tile
+  unsigned char* ring = swz + (kIdless ? (size_t)kTileM * a.D * 2 : 0);
   const size_t ring_bytes = (size_t)a.stages * a.stage_bytes;
   const size_t epi_bytes = tile_epi_bytes(a.nq, a.kp);
   unsigned char* epi = ring + ring_bytes;   // exact mode only
-  unsigned char* body_end = ring + ring_bytes + (S == 0 ? epi_bytes : 0);
+  float* qlast = reinterpret_cast<float*>(ring + ring_bytes);   // K11b: q[D] a query
+  unsigned char* body_end =
+      ring + ring_bytes + (S == 0 ? epi_bytes : 0) + (kIdless ? (size_t)a.nq * 4 : 0);
   int2* list = reinterpret_cast<int2*>(body_end);          // (slab, row) of a window's tiles
   unsigned char* live = reinterpret_cast<unsigned char*>(list + kWin);
   uint64_t* full = reinterpret_cast<uint64_t*>(live + kWin);
@@ -394,40 +521,59 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     mbar_fence_init();
   }
-  // window 0's first liveness group is read while the queries load
   const int win0 = min(kWin, n_tiles);
   constexpr int kLive = LiveGroup::kTiles;
   LiveGroup grp;
-  grp.load(a, blk, 0, win0, warp * kLive, chunks, r0, lanes, lane);
-  // the CTA's queries rounded to bf16 → the B operand (zeros past qn),
-  // kQLoads pieces of 8 dims a thread in flight at once
-  constexpr int kQLoads = 4;
+  // K1 / K4: window 0's first liveness group is read while the queries load
+  if constexpr (!kIdless) grp.load(a, blk, 0, win0, warp * kLive, chunks, r0, lanes, lane);
   const int pieces = a.D / 8, n_pieces = a.nq * pieces;
-  for (int p0 = tid; p0 < n_pieces; p0 += kQLoads * blockDim.x) {
-    float4 x[kQLoads][2];
+  if constexpr (kIdless) {
+    // rows of D + 1 floats (no 16-byte pitch): the first D dims rounded to
+    // bf16 → the B operand, the last → qlast (zeros past qn)
+    const int ldq = a.D + 1;
+    for (int p = tid; p < n_pieces; p += blockDim.x) {
+      const int qi = p / pieces, c = p % pieces;
+      float x[8];
 #pragma unroll
-    for (int b = 0; b < kQLoads; ++b) {
-      const int p = p0 + b * blockDim.x, qi = p / pieces;
-      x[b][0] = x[b][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (p < n_pieces && qi < qn) {
-        const float4* src = reinterpret_cast<const float4*>(
-            a.q + (size_t)(qrow0 + qi) * a.D + 8 * (p % pieces));
-        x[b][0] = __ldg(src);
-        x[b][1] = __ldg(src + 1);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kQLoads; ++b) {
-      const int p = p0 + b * blockDim.x, qi = p / pieces, c = p % pieces;
-      if (p >= n_pieces) break;
+      for (int e = 0; e < 8; ++e)
+        x[e] = qi < qn ? __ldg(a.q + (size_t)(qrow0 + qi) * ldq + 8 * c + e) : 0.f;
       *reinterpret_cast<uint4*>(qs + (size_t)(c >> 3) * a.nq * 128 + qi * 128 +
                                 (((c & 7) ^ (qi & 7)) << 4)) =
-          make_uint4(pack_bf16x2(x[b][0].x, x[b][0].y), pack_bf16x2(x[b][0].z, x[b][0].w),
-                     pack_bf16x2(x[b][1].x, x[b][1].y), pack_bf16x2(x[b][1].z, x[b][1].w));
+          make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]), pack_bf16x2(x[4], x[5]),
+                     pack_bf16x2(x[6], x[7]));
+    }
+    for (int qi = tid; qi < a.nq; qi += blockDim.x)
+      qlast[qi] = qi < qn ? round_bf16(__ldg(a.q + (size_t)(qrow0 + qi) * ldq + a.D)) : 0.f;
+  } else {
+    // the CTA's queries rounded to bf16 → the B operand (zeros past qn),
+    // kQLoads pieces of 8 dims a thread in flight at once
+    constexpr int kQLoads = 4;
+    for (int p0 = tid; p0 < n_pieces; p0 += kQLoads * blockDim.x) {
+      float4 x[kQLoads][2];
+#pragma unroll
+      for (int b = 0; b < kQLoads; ++b) {
+        const int p = p0 + b * blockDim.x, qi = p / pieces;
+        x[b][0] = x[b][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p < n_pieces && qi < qn) {
+          const float4* src = reinterpret_cast<const float4*>(
+              a.q + (size_t)(qrow0 + qi) * a.D + 8 * (p % pieces));
+          x[b][0] = __ldg(src);
+          x[b][1] = __ldg(src + 1);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kQLoads; ++b) {
+        const int p = p0 + b * blockDim.x, qi = p / pieces, c = p % pieces;
+        if (p >= n_pieces) break;
+        *reinterpret_cast<uint4*>(qs + (size_t)(c >> 3) * a.nq * 128 + qi * 128 +
+                                  (((c & 7) ^ (qi & 7)) << 4)) =
+            make_uint4(pack_bf16x2(x[b][0].x, x[b][0].y), pack_bf16x2(x[b][0].z, x[b][0].w),
+                       pack_bf16x2(x[b][1].x, x[b][1].y), pack_bf16x2(x[b][1].z, x[b][1].w));
+      }
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  grp.store(a, 0, win0, warp * kLive, chunks, r0, lane, list, live);
+  if constexpr (!kIdless) grp.store(a, 0, win0, warp * kLive, chunks, r0, lane, list, live);
   if constexpr (S == 0) {
     if (warp < n_cons_warps)
       for (int ql = warp; ql < a.nq; ql += n_cons_warps) sel.init(ql, lane);
@@ -449,123 +595,206 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       acc_s[p][s] = -INFINITY;
       acc_i[p][s] = -1;
     }
+  float qd[N / 4];   // K11b: q[D] of this thread's queries, entry p at 2·(p >> 2) + (p & 1)
+  if constexpr (kIdless) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) qd[2 * j + e] = qlast[n0 + 8 * j + 2 * t + e];
+  }
 
   int it = 0;   // live tiles through the ring so far
+  int n_listed = 0, n_zero = 0;   // K11b's counts (warp 0)
   for (int t0 = 0; t0 < n_tiles; t0 += kWin) {
     const int win = min(kWin, n_tiles - t0);
-    // liveness of the window's other groups (window 0's first: above)
-    for (int b0 = warp * kLive + (t0 == 0 ? n_warps * kLive : 0); b0 < win;
-         b0 += n_warps * kLive) {
-      grp.load(a, blk, t0, win, b0, chunks, r0, lanes, lane);
-      grp.store(a, t0, win, b0, chunks, r0, lane, list, live);
+    if constexpr (kIdless) {
+      idless_live(a, blk, t0, win, chunks, r0, lanes, list, live);
+    } else {
+      // liveness of the window's other groups (window 0's first: above)
+      for (int b0 = warp * kLive + (t0 == 0 ? n_warps * kLive : 0); b0 < win;
+           b0 += n_warps * kLive) {
+        grp.load(a, blk, t0, win, b0, chunks, r0, lanes, lane);
+        grp.store(a, t0, win, b0, chunks, r0, lane, list, live);
+      }
     }
     __syncthreads();
-    if (warp == 0) {   // keep the live tiles, in order
+    if (warp == 0) {   // keep the live (K11b: the listed) tiles, in order
       int n = 0;
       for (int b0 = 0; b0 < win; b0 += 32) {
         const int tt = b0 + lane;
         const bool on = tt < win && live[tt];
         const int2 cr = on ? list[tt] : make_int2(0, 0);
         const unsigned m = __ballot_sync(0xffffffffu, on);
+        if constexpr (kIdless) n_zero += __popc(__ballot_sync(0xffffffffu, on && cr.x < 0));
         __syncwarp();
         if (on) list[n + __popc(m & ((1u << lane) - 1u))] = cr;
         n += __popc(m);
         __syncwarp();
       }
       if (lane == 0) *n_live_s = n;
+      if constexpr (kIdless) n_listed += n;
     }
     __syncthreads();
     const int n_live = *n_live_s;
 
-    if (producer) {
-      if (lane == 0) {
+    if constexpr (kIdless) {
+      // K11b: the listed tiles in order; an all-zero one (slab −1 − c) is
+      // neither copied nor multiplied: its rows fold a constant 0
+      if (producer) {
+        if (lane == 0) {
+          for (int i = 0; i < n_live; ++i) {
+            const int2 cr = list[i];
+            if (cr.x < 0) continue;
+            const int st = it % a.stages;
+            mbar_wait(&empty[st], ((it / a.stages) & 1) ^ 1);
+            ++it;
+            const uint32_t bytes = (uint32_t)lanes * row_bytes;
+            unsigned char* sp = ring + (size_t)st * a.stage_bytes;
+            mbar_arrive_expect_tx(&full[st], bytes);
+            bulk_load(sp, a.raw + ((size_t)cr.x * a.Mc + cr.y) * row_bytes, bytes, &full[st]);
+          }
+        }
+        __syncwarp();
+      } else {
+        for (int i = 0; i < n_live; ++i) {
+          const int2 cr = list[i];
+          // flat slot ids; rows past the range's lanes are never offered
+          const int base = (cr.x < 0 ? -1 - cr.x : cr.x) * a.Mc + cr.y;
+          int rid[2];
+          rid[0] = R0 < lanes ? base + R0 : -1;
+          rid[1] = R0 + 8 < lanes ? base + R0 + 8 : -1;
+          if (cr.x >= 0) {
+            const int st = it % a.stages;
+            mbar_wait(&full[st], (it / a.stages) & 1);
+            ++it;
+            const unsigned char* sp = ring + (size_t)st * a.stage_bytes;
+            float xl[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              xl[h] = rid[h] >= 0 ? __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                                        sp + (size_t)(R0 + 8 * h) * row_bytes + 2 * a.D))
+                                  : 0.f;
+            repack_rows(sp, swz, a.D, lanes, warp, n_cons_warps, lane);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            cons_sync(32 * n_cons_warps);   // the tile is repacked; the raw stage is read
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[st]);
+            tile_dot<N>(acc, swz, qs, a.nq, n0, a.D, R0, t,
+                        static_cast<const __nv_bfloat16*>(nullptr));
+            cons_sync(32 * n_cons_warps);   // both products have read the repacked tile
+#pragma unroll
+            for (int p = 0; p < N / 2; ++p)   // the last column after the dot
+              acc[p] = fmaf(qd[2 * (p >> 2) + (p & 1)], xl[(p >> 1) & 1], acc[p]);
+          }
+          // the fold (S 1), every row of the lanes offered
+#pragma unroll
+          for (int p = 0; p < N / 2; ++p) {
+            const int di = rid[(p >> 1) & 1];
+            const float ds = cr.x >= 0 ? acc[p] : 0.f;
+            if (di >= 0 && ds > acc_s[p][0]) {
+              acc_s[p][0] = ds;
+              acc_i[p][0] = di;
+            }
+          }
+        }
+      }
+    } else {
+      if (producer) {
+        if (lane == 0) {
+          for (int i = 0; i < n_live; ++i) {
+            const int st = (it + i) % a.stages;
+            mbar_wait(&empty[st], (((it + i) / a.stages) & 1) ^ 1);
+            unsigned char* sp = ring + (size_t)st * a.stage_bytes;
+            const int2 cr = list[i];
+            mbar_arrive_expect_tx(&full[st], data_bytes + (kInt8 ? 512 : 256));
+            for (int j = 0; j < a.D / 64; ++j)
+              tma_load_3d(sp + j * (kTileM * 64 * (int)sizeof(T)), &maps.data, &full[st], j * 64,
+                          cr.y, cr.x);
+            tma_load_2d(sp + data_bytes, &maps.ids, &full[st], cr.y, cr.x);
+            if constexpr (kInt8)
+              tma_load_2d(sp + data_bytes + 256, &maps.scales, &full[st], cr.y, cr.x);
+          }
+        }
+        __syncwarp();
+      } else {
         for (int i = 0; i < n_live; ++i) {
           const int st = (it + i) % a.stages;
-          mbar_wait(&empty[st], (((it + i) / a.stages) & 1) ^ 1);
-          unsigned char* sp = ring + (size_t)st * a.stage_bytes;
-          const int2 cr = list[i];
-          mbar_arrive_expect_tx(&full[st], data_bytes + (kInt8 ? 512 : 256));
-          for (int j = 0; j < a.D / 64; ++j)
-            tma_load_3d(sp + j * (kTileM * 64 * (int)sizeof(T)), &maps.data, &full[st], j * 64,
-                        cr.y, cr.x);
-          tma_load_2d(sp + data_bytes, &maps.ids, &full[st], cr.y, cr.x);
-          if constexpr (kInt8)
-            tma_load_2d(sp + data_bytes + 256, &maps.scales, &full[st], cr.y, cr.x);
-        }
-      }
-      __syncwarp();
-    } else {
-      for (int i = 0; i < n_live; ++i) {
-        const int st = (it + i) % a.stages;
-        mbar_wait(&full[st], ((it + i) / a.stages) & 1);
-        const unsigned char* sp = ring + (size_t)st * a.stage_bytes;
-        const int* sid = reinterpret_cast<const int*>(sp + data_bytes);
-        int rid[2];
-        rid[0] = R0 < lanes ? sid[R0] : -1;
-        rid[1] = R0 + 8 < lanes ? sid[R0 + 8] : -1;
-        float rsc[2] = {1.f, 1.f};
-        if constexpr (kInt8) {
-          const float* ssc = reinterpret_cast<const float*>(sp + data_bytes + 256);
-          rsc[0] = ssc[R0];
-          rsc[1] = ssc[R0 + 8];
-        }
-        tile_dot<N>(acc, sp, qs, a.nq, n0, a.D, R0, t, static_cast<const T*>(nullptr));
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[st]);
-        if constexpr (kInt8) {
-#pragma unroll
-          for (int p = 0; p < N / 2; ++p) acc[p] *= rsc[(p >> 1) & 1];   // dot, then × scale
-        }
-        if constexpr (S > 0) {
-          // the fold: a later entry displaces only on a strictly greater
-          // score; an empty slot (−inf) never does, so it is not offered
-#pragma unroll
-          for (int p = 0; p < N / 2; ++p) {
-            int di = rid[(p >> 1) & 1];
-            if (di < 0) continue;
-            float ds = acc[p];
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              if (ds > acc_s[p][s]) {
-                const float ts = acc_s[p][s];
-                const int ti = acc_i[p][s];
-                acc_s[p][s] = ds;
-                acc_i[p][s] = di;
-                ds = ts;
-                di = ti;
+          mbar_wait(&full[st], ((it + i) / a.stages) & 1);
+          const unsigned char* sp = ring + (size_t)st * a.stage_bytes;
+          const int* sid = reinterpret_cast<const int*>(sp + data_bytes);
+          int rid[2];
+          rid[0] = R0 < lanes ? sid[R0] : -1;
+          rid[1] = R0 + 8 < lanes ? sid[R0 + 8] : -1;
+          float rsc[2] = {1.f, 1.f};
+          if constexpr (kInt8) {
+            const float* ssc = reinterpret_cast<const float*>(sp + data_bytes + 256);
+            rsc[0] = ssc[R0];
+            rsc[1] = ssc[R0 + 8];
+          }
+          tile_dot<N>(acc, sp, qs, a.nq, n0, a.D, R0, t, static_cast<const T*>(nullptr));
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[st]);
+          if constexpr (kInt8) {
+  #pragma unroll
+            for (int p = 0; p < N / 2; ++p) acc[p] *= rsc[(p >> 1) & 1];   // dot, then × scale
+          }
+          if constexpr (S > 0) {
+            // the fold: a later entry displaces only on a strictly greater
+            // score; an empty slot (−inf) never does, so it is not offered
+  #pragma unroll
+            for (int p = 0; p < N / 2; ++p) {
+              int di = rid[(p >> 1) & 1];
+              if (di < 0) continue;
+              float ds = acc[p];
+  #pragma unroll
+              for (int s = 0; s < S; ++s) {
+                if (ds > acc_s[p][s]) {
+                  const float ts = acc_s[p][s];
+                  const int ti = acc_i[p][s];
+                  acc_s[p][s] = ds;
+                  acc_i[p][s] = di;
+                  ds = ts;
+                  di = ti;
+                }
               }
             }
-          }
-        } else {
-          // candidates: scores above their query's current k-th
-#pragma unroll
-          for (int p = 0; p < N / 2; ++p) {
-            const int ql = n0 + 8 * (p >> 2) + 2 * t + (p & 1);
-            const int id = rid[(p >> 1) & 1];
-            if (ql >= qn || id < 0) continue;
-            if (better(acc[p], id, sel.ts[ql], sel.ti[ql])) {
-              const int pos = atomicAdd(sel.cn + ql, 1);
-              sel.cs[ql * kTileM + pos] = acc[p];
-              sel.ci[ql * kTileM + pos] = id;
+          } else {
+            // candidates: scores above their query's current k-th
+  #pragma unroll
+            for (int p = 0; p < N / 2; ++p) {
+              const int ql = n0 + 8 * (p >> 2) + 2 * t + (p & 1);
+              const int id = rid[(p >> 1) & 1];
+              if (ql >= qn || id < 0) continue;
+              if (better(acc[p], id, sel.ts[ql], sel.ti[ql])) {
+                const int pos = atomicAdd(sel.cn + ql, 1);
+                sel.cs[ql * kTileM + pos] = acc[p];
+                sel.ci[ql * kTileM + pos] = id;
+              }
             }
+            wg_sync(wg);
+            for (int ql = n0 + wl; ql < n0 + N && ql < qn; ql += 4) {
+              const int n = sel.cn[ql];
+              if (n == 0) continue;   // warp-uniform
+              if (a.kp == 32)
+                push_list32(sel, ql, n, a.k, lane);
+              else
+                push_selector(sel, ql, n, lane);
+            }
+            wg_sync(wg);
           }
-          wg_sync(wg);
-          for (int ql = n0 + wl; ql < n0 + N && ql < qn; ql += 4) {
-            const int n = sel.cn[ql];
-            if (n == 0) continue;   // warp-uniform
-            if (a.kp == 32)
-              push_list32(sel, ql, n, a.k, lane);
-            else
-              push_selector(sel, ql, n, lane);
-          }
-          wg_sync(wg);
         }
       }
+      it += n_live;
     }
-    it += n_live;
     __syncthreads();
   }
   if (producer) return;
+  if constexpr (kIdless) {
+    if (a.counts != nullptr && tid == 0) {
+      atomicAdd(a.counts, n_listed);
+      atomicAdd(a.counts + 1, n_zero);
+    }
+  }
 
   if constexpr (S > 0) {
     // the raw accumulator entries, (query, range, slot, lane) → part: the
@@ -615,34 +844,43 @@ cudaError_t launch_n(const TileMaps& maps, const TileArgs& a, dim3 grid, size_t 
 
 template <typename T>
 cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes, const T* data,
-                     const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
-                     int block_q, int k, int width, int slots, float* part_s, int* part_i,
-                     float* out_s, int* out_i, cudaStream_t st) {
+                     const float* scales, const int* ids, const unsigned char* zero, int* counts,
+                     int B, int D, int U, int C_tot, int Mc, int block_q, int k, int width,
+                     int slots, float* part_s, int* part_i, float* out_s, int* out_i,
+                     cudaStream_t st) {
   constexpr bool kInt8 = std::is_same_v<T, int8_t>;
-  TileMaps maps;
-  const cuuint64_t ddims[3] = {(cuuint64_t)D, (cuuint64_t)Mc, (cuuint64_t)C_tot};
-  const cuuint64_t dstrides[2] = {(cuuint64_t)D * sizeof(T), (cuuint64_t)Mc * D * sizeof(T)};
-  const cuuint32_t dbox[3] = {64, kTileM, 1};
-  cudaError_t err = tiled_map(
-      &maps.data, kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-      data, ddims, dstrides, dbox, kInt8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
-  const cuuint64_t idims[2] = {(cuuint64_t)Mc, (cuuint64_t)C_tot};
-  const cuuint64_t istrides[1] = {(cuuint64_t)Mc * 4};
-  const cuuint32_t ibox[2] = {kTileM, 1};
-  if (err == cudaSuccess)
-    err = tiled_map(&maps.ids, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, ids, idims, istrides, ibox,
-                    CU_TENSOR_MAP_SWIZZLE_NONE);
-  maps.scales = maps.ids;   // read only with int8 slabs
-  if (err == cudaSuccess && kInt8)
-    err = tiled_map(&maps.scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scales, idims, istrides,
-                    ibox, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (err != cudaSuccess) return err;
+  constexpr bool kIdless = std::is_same_v<T, SentinelRows>;
+  TileMaps maps{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (!kIdless) {
+    const cuuint64_t ddims[3] = {(cuuint64_t)D, (cuuint64_t)Mc, (cuuint64_t)C_tot};
+    const cuuint64_t dstrides[2] = {(cuuint64_t)D * sizeof(T), (cuuint64_t)Mc * D * sizeof(T)};
+    const cuuint32_t dbox[3] = {64, kTileM, 1};
+    err = tiled_map(&maps.data,
+                    kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                    data, ddims, dstrides, dbox,
+                    kInt8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+    const cuuint64_t idims[2] = {(cuuint64_t)Mc, (cuuint64_t)C_tot};
+    const cuuint64_t istrides[1] = {(cuuint64_t)Mc * 4};
+    const cuuint32_t ibox[2] = {kTileM, 1};
+    if (err == cudaSuccess)
+      err = tiled_map(&maps.ids, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, ids, idims, istrides, ibox,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+    maps.scales = maps.ids;   // read only with int8 slabs
+    if (err == cudaSuccess && kInt8)
+      err = tiled_map(&maps.scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scales, idims, istrides,
+                      ibox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
   TileArgs a;
   a.q = q;
   a.probes = probes;
   a.ids = ids;
   a.part_s = part_s;
   a.part_i = part_i;
+  a.raw = reinterpret_cast<const unsigned char*>(data);
+  a.zero = zero;
+  a.counts = counts;
   a.D = D;
   a.U = U;
   a.C_tot = C_tot;
@@ -656,16 +894,21 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
   a.nq = plan.nq;
   a.nwg = plan.nwg;
   a.stages = plan.stages;
-  a.stage_bytes = (int)tile_stage_bytes(kInt8 ? 2 : 1, D);
+  a.stage_bytes = (int)tile_stage_bytes(kIdless ? kSentinel : kInt8 ? 2 : 1, D);
+  a.n_mt = (Mc + kTileM - 1) / kTileM;
   // range-major: range 0 of every query block first (the heaviest CTAs)
   const dim3 grid((B / block_q) * a.n_sub, a.n_ranges);
-  switch (slots) {
-    case 0: err = launch_n<T, 0>(maps, a, grid, plan.smem, st); break;
-    case 1: err = launch_n<T, 1>(maps, a, grid, plan.smem, st); break;
-    case 2: err = launch_n<T, 2>(maps, a, grid, plan.smem, st); break;
-    case 3: err = launch_n<T, 3>(maps, a, grid, plan.smem, st); break;
-    case 4: err = launch_n<T, 4>(maps, a, grid, plan.smem, st); break;
-    default: return cudaErrorInvalidValue;
+  if constexpr (kIdless) {
+    err = launch_n<T, 1>(maps, a, grid, plan.smem, st);
+  } else {
+    switch (slots) {
+      case 0: err = launch_n<T, 0>(maps, a, grid, plan.smem, st); break;
+      case 1: err = launch_n<T, 1>(maps, a, grid, plan.smem, st); break;
+      case 2: err = launch_n<T, 2>(maps, a, grid, plan.smem, st); break;
+      case 3: err = launch_n<T, 3>(maps, a, grid, plan.smem, st); break;
+      case 4: err = launch_n<T, 4>(maps, a, grid, plan.smem, st); break;
+      default: return cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return err;
   return launch_merge_rows(part_s, part_i, B, a.n_ranges * (slots ? slots * kTileM : k), k,
@@ -675,16 +918,26 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
 }  // namespace
 
 // Queries a CTA: the block's (8, 16 or 64), fewer where shared memory
-// cannot hold the selection state beside the ring; two to four stages.
+// cannot hold the selection state beside the ring; two stages to
+// max_stages (0: kMaxStages), as many as shared memory holds.
 bool ivf_tile_plan(int data_kind, int D, int Mc, int block_q, int k, int width, int slots,
-                   IvfTilePlan* plan) {
-  if (data_kind != 1 && data_kind != 2) return false;
-  if (D < 64 || D % 64 || Mc % 4 || block_q < 1 || width < 1 || Mc % width) return false;
+                   int max_stages, IvfTilePlan* plan) {
+  if (data_kind < 1 || data_kind > kSentinel) return false;
+  if (block_q < 1 || width < 1 || Mc % width) return false;
   if (k < 1 || k > kMaxK || slots < 0 || slots > 4) return false;
+  if (data_kind == kSentinel) {
+    // D + 1 columns; 16-byte aligned tiles of 8-row multiples; one slot
+    --D;
+    if (Mc % 8 || width % 8 || slots != 1 || D > 64 * kMaxSub) return false;
+  } else if (Mc % 4) {
+    return false;
+  }
+  if (D < 64 || D % 64) return false;
   const int kp = host_kp_for(k);
+  const int top = max_stages > 0 ? (max_stages < kMaxStages ? max_stages : kMaxStages) : kMaxStages;
   int nq = block_q <= 8 ? 8 : block_q <= 16 ? 16 : 64;
   for (;;) {
-    int stages = kMaxStages;
+    int stages = top;
     while (stages >= 2 && tile_smem(data_kind, D, nq, kp, slots, stages) > kSmemBudget) --stages;
     if (stages >= 2) {
       plan->nq = nq;
@@ -700,28 +953,38 @@ bool ivf_tile_plan(int data_kind, int D, int Mc, int block_q, int k, int width, 
 }
 
 int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* data,
-                  const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
-                  int block_q, int k, int width, int slots, float* part_s, int* part_i,
+                  const float* scales, const int* ids, const unsigned char* zero_tiles,
+                  int* counts, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+                  int width, int slots, int max_stages, float* part_s, int* part_i,
                   float* out_s, int* out_i, void* stream) {
   IvfTilePlan plan;
-  if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, &plan))
+  if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, max_stages, &plan))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (data_kind == kSentinel) {
+    if (reinterpret_cast<uintptr_t>(data) % 16) return (int)cudaErrorMisalignedAddress;
+    return (int)run_tile(plan, q, probes, static_cast<const SentinelRows*>(data), nullptr,
+                         nullptr, zero_tiles, counts, B, D - 1, U, C_tot, Mc, block_q, k, width,
+                         slots, part_s, part_i, out_s, out_i, st);
+  }
   if (data_kind == 2)
-    return (int)run_tile(plan, q, probes, static_cast<const int8_t*>(data), scales, ids, B, D, U,
-                         C_tot, Mc, block_q, k, width, slots, part_s, part_i, out_s, out_i, st);
-  return (int)run_tile(plan, q, probes, static_cast<const __nv_bfloat16*>(data), nullptr, ids, B,
-                       D, U, C_tot, Mc, block_q, k, width, slots, part_s, part_i, out_s, out_i,
-                       st);
+    return (int)run_tile(plan, q, probes, static_cast<const int8_t*>(data), scales, ids, nullptr,
+                         nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, part_s, part_i,
+                         out_s, out_i, st);
+  return (int)run_tile(plan, q, probes, static_cast<const __nv_bfloat16*>(data), nullptr, ids,
+                       nullptr, nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, part_s,
+                       part_i, out_s, out_i, st);
 }
 
-// The plan the merge entry points take for a shape: 1 and out = (nq, nwg,
-// n, stages, shared bytes) where the wgmma tile runs, 0 where the CUDA-core
-// kernel of ivf_scan.cu runs (data_kind 0 f32, 1 bf16, 2 int8).
+// The plan the scan entry points take for a shape: 1 and out = (nq, nwg,
+// n, stages, shared bytes) where the wgmma tile runs, 0 where a CUDA-core
+// kernel runs (data_kind 0 f32, 1 bf16, 2 int8, 3 bf16 sentinel rows of D
+// columns scanned without ids; max_stages the ring depth asked for, 0 for
+// the tile's own).
 extern "C" int ts_ivf_scan_tile_plan(int data_kind, int D, int Mc, int block_q, int k,
-                                     int width, int slots, int* out) {
+                                     int width, int slots, int* out, int max_stages) {
   IvfTilePlan plan;
-  if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, &plan)) return 0;
+  if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, max_stages, &plan)) return 0;
   out[0] = plan.nq;
   out[1] = plan.nwg;
   out[2] = plan.n;

@@ -1,7 +1,8 @@
 // The IVF block-union scan on Hopper's tensor cores (ivf_tile.cu), as the
-// merge entry points of ivf_scan.cu (ts_ivf_scan, ts_ivf_scan_int8) reach
-// it. The kernel choice lives here: ivf_tile_plan says whether the wgmma
-// tile takes a shape, and ivf_tile_scan launches it.
+// merge entry points of ivf_scan.cu (ts_ivf_scan, ts_ivf_scan_int8, and
+// ts_ivf_scan_idless for K11b) and ivf_modes.cu's ts_ivf_scan_dma (K10)
+// reach it. The kernel choice lives here: ivf_tile_plan says whether the
+// wgmma tile takes a shape, and ivf_tile_scan launches it.
 #pragma once
 
 #include <stddef.h>
@@ -14,14 +15,21 @@ struct IvfTilePlan {
   size_t smem;
 };
 
-// data_kind 1 bf16, 2 int8 (f32 slabs, kind 0, never take the tile) →
-// true and *plan where the tile takes the call.
+// data_kind 1 bf16, 2 int8, 3 the sentinel layout's bf16 rows scanned
+// without ids (K11b; D counts the rows' D + 1 columns; f32 slabs, kind 0,
+// never take the tile) → true and *plan where the tile takes the call, its
+// ring at most max_stages deep (0: the tile's own depth).
 bool ivf_tile_plan(int data_kind, int D, int Mc, int block_q, int k, int width, int slots,
-                   IvfTilePlan* plan);
+                   int max_stages, IvfTilePlan* plan);
 
 // Both passes (tile scan, merge of the lane ranges) on the stream; the
-// shape must have a plan. part_* hold (B, ceil(width / 64), k).
+// shape must have a plan. part_* hold (B, ceil(width / 64), 64·S), or k
+// in the exact mode. Kind 3 reads zero_tiles ((C_tot, ceil(Mc / 64))
+// bytes, 1 where a 64-row tile's rows are all zero) in place of ids, adds
+// (tiles of valid probes, tiles skipped) to counts when it is not null,
+// and needs 16-byte aligned slabs.
 int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* data,
-                  const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
-                  int block_q, int k, int width, int slots, float* part_s, int* part_i,
+                  const float* scales, const int* ids, const unsigned char* zero_tiles,
+                  int* counts, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+                  int width, int slots, int max_stages, float* part_s, int* part_i,
                   float* out_s, int* out_i, void* stream);

@@ -34,10 +34,9 @@ CPU tensors. ``query_xla`` keeps the reference's per-query probe semantics
 
 from __future__ import annotations
 
-import ctypes
 import math
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from ..ops import _cuda
 from ..ops.kmeans import assign_clusters_topk, kmeans
 from ..ops.topk import l2_normalize
 from .ivf_modes import (
+    TILE_ROWS,
     _unpack_candidates,
     check_scan_inputs,
     data_kind,
@@ -58,6 +58,9 @@ from .ivf_modes import (
     ivf_scan_packed,
     scan_plain,
     scan_width as _scan_width,
+    tile_part_width,
+    tile_plan_cuda,
+    zero_tile_map,
 )
 from .store import bf16_to_bits, bits_to_bf16
 
@@ -140,44 +143,9 @@ def _check_mode(w: int, per_probe: bool, emit_acc: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1 / K4 on the wgmma tile (csrc/ivf_tile.cu): its plan, what it reads
+# K1 / K4 on the wgmma tile (csrc/ivf_tile.cu; its plan: ivf_modes.py): what
+# it reads
 # ---------------------------------------------------------------------------
-
-TILE_ROWS = 64                 # slab rows a tile, lanes a CTA (wgmma's M)
-
-
-class TilePlan(NamedTuple):
-    """The wgmma tile's launch plan for a merge-mode scan, as
-    ``ivf_tile_plan`` of ``csrc/ivf_tile.cu`` decides it."""
-
-    nq: int       # queries a CTA: the block's 8, 16 or 64 (padded with zeros)
-    nwg: int      # consumer warpgroups (they split the CTA's queries)
-    n: int        # queries a warpgroup: wgmma's N
-    stages: int   # copy-ring stages
-    smem: int     # dynamic shared memory, bytes
-
-
-def tile_part_width(width: int, k: int, slots: int) -> int:
-    """Entries a query that the tile hands the merge pass: the deferred
-    fold's raw 64·S accumulator entries of each 64-lane range, or the exact
-    mode's top-k of each range."""
-    return -(-width // TILE_ROWS) * (slots * TILE_ROWS if slots else k)
-
-
-def tile_plan_cuda(kind: int, d: int, mc: int, block_q: int, k: int, width: int,
-                   slots: int) -> Optional[TilePlan]:
-    """The plan ``ts_ivf_scan`` / ``ts_ivf_scan_int8`` take for a merge-mode
-    scan (slab kind 0 f32, 1 bf16, 2 int8; ``width`` the fold width, Mc in
-    the exact mode; ``slots`` 0 exact, else S), as the kernel library
-    decides it; None where its CUDA-core kernel runs: f32 slabs, D not a
-    multiple of 64 or too wide for shared memory, Mc not a multiple of 4.
-    Its partial results take ``tile_part_width`` entries a query."""
-    out = (ctypes.c_int * 5)()
-    if not _cuda.lib().ts_ivf_scan_tile_plan(kind, d, mc, block_q, k, width, slots,
-                                             ctypes.addressof(out)):
-        return None
-    return TilePlan(*out)
-
 
 def tile_occupancy(probe_list: torch.Tensor, ids: torch.Tensor, width: int) -> Tuple[float, float]:
     """What a tile scan of ``probe_list`` (B/block_q, U) over slabs with
@@ -419,7 +387,7 @@ def _ivf_query_fused(
     block_q: int, union: int, approx_width: int = 0, acc_slots: int = 1,
     scales_padded=None, rescore_data=None, k_scan: int = 0, group: int = 1,
     per_probe: bool = False, probes_per_step: int = 1, final_merge: str = "kernel",
-    dma_pipeline: bool = False, dma_buffers: int = 2,
+    dma_pipeline: bool = False, dma_buffers: int = 2, zero_tiles=None,
 ):
     """plan → scan at ``k_scan`` (default k) → with ``rescore_data``, the
     rescore of the scan's candidates down to k → unsort. The scan is the
@@ -430,7 +398,8 @@ def _ivf_query_fused(
     accumulator for final_merge "xla" / "xla_approx" (K1-opt; both take the
     exact top-k here — the reference's ``approx_max_k`` is exact on its CPU
     too), else K1 / K4. Sentinel slabs (D+1) take the queries with a 1
-    appended and their scores come back shifted by 2."""
+    appended and their scores come back shifted by 2; ``zero_tiles`` is
+    their ``zero_tile_map``, which K11b reads in place of ids."""
     q, probe_ids, order = _plan_probes(
         queries, centroids, num_base, data_padded.shape[0], block_q, union, group
     )
@@ -470,7 +439,8 @@ def _ivf_query_fused(
         s, i = ivf_scan_dma(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
                             max(acc_slots, 1), dma_buffers)
     elif idless:
-        s, i = ivf_scan_idless(q_kern, probe_ids, data_padded, k_scan, block_q, approx_width)
+        s, i = ivf_scan_idless(q_kern, probe_ids, data_padded, k_scan, block_q, approx_width,
+                               zero_tiles)
         # flat slot ids → corpus ids with one (B, k) gather
         ids_flat = ids_padded.reshape(-1)
         i = torch.where(i >= 0, ids_flat[i.long().clamp(0, ids_flat.shape[0] - 1)], -1)
@@ -563,10 +533,19 @@ class IVFIndex:
         # the sentinel layout, read from the shape: one trailing column, +2
         # on live rows and 0 on empty or removed slots
         self.sentinel = data_padded.shape[-1] == centroids.shape[-1] + 1
+        # derived from the slabs, never saved: their 64-row tiles that are
+        # all zero (never-written slots), which the idless scan (K11b) skips;
+        # add() and remove() refresh it
+        self.zero_tiles: Optional[torch.Tensor] = None
+        self._refresh_zero_tiles()
         # host mirror of the flat id map, kept by add()/remove() so that
         # repeated small adds do not read the whole map back; None until
         # the first add()
         self._ids_host: Optional[np.ndarray] = None
+
+    def _refresh_zero_tiles(self) -> None:
+        if self.sentinel:
+            self.zero_tiles = zero_tile_map(self.data_padded)
 
     # ------------------------------------------------------------------
     # Build
@@ -818,7 +797,7 @@ class IVFIndex:
             rescore_data=self.rescore_data if k_scan > k else None,
             group=self.group, per_probe=per_probe, probes_per_step=probes_per_step,
             final_merge="kernel" if final_merge == "auto" else final_merge,
-            dma_pipeline=dma_pipeline, dma_buffers=dma_buffers,
+            dma_pipeline=dma_pipeline, dma_buffers=dma_buffers, zero_tiles=self.zero_tiles,
         )
         return s[:b], i[:b]
 
@@ -905,6 +884,7 @@ class IVFIndex:
         new_ids = np.arange(start_id, start_id + n, dtype=np.int32)
         self.ids_padded.view(-1)[slot_dev] = torch.as_tensor(new_ids, device=self.device)
         self._ids_host[slot] = new_ids
+        self._refresh_zero_tiles()
         if self.rescore_data is not None:
             need = start_id + n
             have = self.rescore_data.shape[0]
@@ -938,6 +918,7 @@ class IVFIndex:
             self._ids_host[np.isin(self._ids_host, rem) & (self._ids_host >= 0)] = -1
         if self.sentinel:
             self.data_padded.view(-1, self.data_padded.shape[-1])[hit, -1] = 0
+            self._refresh_zero_tiles()
         return n_removed
 
     # ------------------------------------------------------------------

@@ -21,23 +21,26 @@ the dot; a probe id outside [0, C_tot) scans nothing.
   them into (score, id).
 - K10 ``ivf_scan_dma``: the deferred fold at full width Mc with S slots and
   the in-kernel merge (the kernel streams its tiles through a ring of
-  ``n_buffers`` cp.async stages; the result equals K1's at
-  ``approx_width=Mc``).
+  ``n_buffers`` stages: K1's wgmma tile where its plan takes the shape;
+  the result equals K1's at ``approx_width=Mc``).
 - K11a ``ivf_scan_multiprobe``: P probes a step, full-width single-slot
   fold; the probe list is padded to a multiple of P by repeating its last
   probe (a repeated probe changes nothing).
 - K11b ``ivf_scan_idless``: the single-slot deferred fold over D+1 slabs
   without ids: slot id = probe · Mc + position, no slot masked (the
-  sentinel column scores dead slots 0) → flat slot ids.
+  sentinel column scores dead slots 0) → flat slot ids. On the wgmma tile
+  the kernel skips the 64-row tiles whose rows are all zero
+  (``zero_tile_map``): they would score exactly 0, which it folds instead.
 
 Each ``*_cuda`` wrapper launches its kernel (``csrc/ivf_modes.cu``,
-``csrc/ivf_scan.cu``) on CUDA tensors and counts its launches; each
-dispatcher takes the plain version only for CPU slabs.
+``csrc/ivf_scan.cu``, ``csrc/ivf_tile.cu``) on CUDA tensors and counts its
+launches; each dispatcher takes the plain version only for CPU slabs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,6 +55,7 @@ PACK_POS_BITS = 11              # row position within the slab (Mc ≤ 2048)
 PACK_SCALE = (1 << PACK_SCORE_BITS) / 2.0 - 0.25   # (s+1)·scale ≤ 2^14 − 1
 
 _NEG = float("-inf")
+_MAP_CHUNK = 1 << 26            # slab elements a step of zero_tile_map reduces
 
 
 def scan_width(mc: int, approx_width: int) -> int:
@@ -290,6 +294,69 @@ def ivf_scan_idless_reference(q, probe_list, data, k: int, block_q: int, approx_
 
 
 # ---------------------------------------------------------------------------
+# The wgmma tile (csrc/ivf_tile.cu): its plan, and the zero-tile map that
+# K11b reads in place of ids
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 64                 # slab rows a tile, lanes a CTA (wgmma's M)
+SENTINEL_KIND = 3              # the tile's slab kind for K11b's raw sentinel rows
+
+
+class TilePlan(NamedTuple):
+    """The wgmma tile's launch plan for a scan, as ``ivf_tile_plan`` of
+    ``csrc/ivf_tile.cu`` decides it."""
+
+    nq: int       # queries a CTA: the block's 8, 16 or 64 (padded with zeros)
+    nwg: int      # consumer warpgroups (they split the CTA's queries)
+    n: int        # queries a warpgroup: wgmma's N
+    stages: int   # copy-ring stages
+    smem: int     # dynamic shared memory, bytes
+
+
+def tile_part_width(width: int, k: int, slots: int) -> int:
+    """Entries a query that the tile hands the merge pass: the deferred
+    fold's raw 64·S accumulator entries of each 64-lane range, or the exact
+    mode's top-k of each range."""
+    return -(-width // TILE_ROWS) * (slots * TILE_ROWS if slots else k)
+
+
+def tile_plan_cuda(kind: int, d: int, mc: int, block_q: int, k: int, width: int,
+                   slots: int, max_stages: int = 0) -> Optional[TilePlan]:
+    """The plan a scan's entry point takes (slab kind 0 f32, 1 bf16, 2 int8,
+    ``SENTINEL_KIND`` the idless scan of bf16 sentinel rows, ``d`` their
+    D + 1 columns; ``width`` the fold width, Mc in the exact mode; ``slots``
+    0 exact, else S; ``max_stages`` the ring depth asked for, 0 for the
+    tile's own), as the kernel library decides it; None where a CUDA-core
+    kernel runs: f32 slabs, D (D + 1 for the sentinel rows) not a multiple
+    of 64 or too wide for shared memory, Mc not a multiple of 4 (8 for the
+    sentinel rows, and their width too). Its partial results take
+    ``tile_part_width`` entries a query."""
+    out = (ctypes.c_int * 5)()
+    if not _cuda.lib().ts_ivf_scan_tile_plan(kind, d, mc, block_q, k, width, slots,
+                                             ctypes.addressof(out), max_stages):
+        return None
+    return TilePlan(*out)
+
+
+def zero_tile_map(data: torch.Tensor) -> torch.Tensor:
+    """(C_tot, Mc, D') slabs → (C_tot, ceil(Mc / 64)) uint8: 1 where every
+    row of a slab's 64-row tile (its last one may be shorter) is all zero.
+    In the sentinel layout those are never-written slots, which the idless
+    scan scores exactly 0, so K11b folds a constant 0 for such a tile
+    without reading it. One pass over the slabs on their device, a few
+    slabs at a time."""
+    c_tot, mc, dw = data.shape
+    n_t = -(-mc // TILE_ROWS)
+    step = max(1, _MAP_CHUNK // (mc * dw))
+    parts = []
+    for c0 in range(0, c_tot, step):
+        nz = (data[c0:c0 + step] != 0).any(dim=2)
+        nz = torch.nn.functional.pad(nz, (0, n_t * TILE_ROWS - mc))
+        parts.append((~nz.view(nz.shape[0], n_t, TILE_ROWS).any(dim=2)).to(torch.uint8))
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -370,7 +437,11 @@ def ivf_scan_dma_cuda(
 ):
     """Kernel K10 on the card; same contract as ``ivf_scan_dma_reference``
     (f32 / bf16 slabs, any Mc, D ≤ 1025, acc_slots ≤ 4, n_buffers 2-4).
-    Counts ``ivf_scan_dma_cuda.launches``."""
+    Where the kernel library's plan takes the shape (``tile_plan_cuda`` at
+    width Mc with S slots, its ring at most ``n_buffers`` deep: bf16 slabs,
+    D a multiple of 64, Mc a multiple of 4) it runs K1's wgmma tile, else
+    the CUDA-core copy-ring kernel. Counts ``ivf_scan_dma_cuda.launches``,
+    those on the tile also in ``.launches_tile``."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q,
                       dtypes=(torch.float32, torch.bfloat16))
     b, d = q.shape
@@ -382,7 +453,9 @@ def ivf_scan_dma_cuda(
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
-    part_s, part_i = _outputs((b, -(-mc // 128), k), dev)
+    plan = tile_plan_cuda(data_kind(data), d, mc, block_q, k, mc, acc_slots, n_buffers)
+    n_part = tile_part_width(mc, k, acc_slots) if plan else -(-mc // 128) * k
+    part_s, part_i = _outputs((b, n_part), dev)
     err = _cuda.lib().ts_ivf_scan_dma(
         q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
         data.numel() * data.element_size(), ids.data_ptr(), b, d, probe_list.shape[1],
@@ -391,10 +464,13 @@ def ivf_scan_dma_cuda(
     )
     _cuda.check(err, "ivf_scan_dma kernel")
     ivf_scan_dma_cuda.launches += 1
+    if plan:
+        ivf_scan_dma_cuda.launches_tile += 1
     return out_s, out_i
 
 
 ivf_scan_dma_cuda.launches = 0
+ivf_scan_dma_cuda.launches_tile = 0
 
 
 def ivf_scan_multiprobe_cuda(
@@ -433,10 +509,20 @@ def ivf_scan_multiprobe_cuda(
 ivf_scan_multiprobe_cuda.launches = 0
 
 
-def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width: int):
+def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width: int,
+                         zero_tiles: Optional[torch.Tensor] = None,
+                         counts: Optional[torch.Tensor] = None):
     """Kernel K11b on the card; same contract as
-    ``ivf_scan_idless_reference`` (f32 / bf16 slabs). Counts
-    ``ivf_scan_idless_cuda.launches``."""
+    ``ivf_scan_idless_reference`` (f32 / bf16 slabs). Where the kernel
+    library's plan takes the shape (``tile_plan_cuda(SENTINEL_KIND, ...)``:
+    bf16 rows of D + 1 columns with D a multiple of 64, Mc and the fold
+    width multiples of 8, 16-byte aligned slabs) it runs the wgmma tile,
+    which skips the 64-row tiles that ``zero_tiles`` (``zero_tile_map`` of
+    the slabs; built here when None) marks all zero; else the CUDA-core
+    kernel. ``counts``, an int32 (2,) CUDA tensor, gains (tiles of valid
+    probes, tiles skipped) where the tile runs. Counts
+    ``ivf_scan_idless_cuda.launches``, those on the tile also in
+    ``.launches_tile``."""
     check_scan_inputs(q, probe_list, data, None, k, block_q,
                       dtypes=(torch.float32, torch.bfloat16))
     b, d = q.shape
@@ -452,19 +538,40 @@ def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
-    part_s, part_i = _outputs((b, -(-w // 128), k), dev)
+    plan = None
+    if data.dtype == torch.bfloat16:
+        plan = tile_plan_cuda(SENTINEL_KIND, d, mc, block_q, k, w, 1)
+    zero_ptr = counts_ptr = None
+    if plan:
+        if zero_tiles is None:
+            zero_tiles = zero_tile_map(data)
+        _cuda.require_cuda(zero_tiles, "zero_tiles", (torch.uint8,), 2)
+        if tuple(zero_tiles.shape) != (c_tot, -(-mc // TILE_ROWS)):
+            raise ValueError(f"zero_tiles shape {tuple(zero_tiles.shape)} != "
+                             f"{(c_tot, -(-mc // TILE_ROWS))}")
+        zero_ptr = zero_tiles.data_ptr()
+        if counts is not None:
+            _cuda.require_cuda(counts, "counts", (torch.int32,), 1)
+            if counts.numel() != 2:
+                raise ValueError("counts holds (tiles of valid probes, tiles skipped)")
+            counts_ptr = counts.data_ptr()
+    n_part = tile_part_width(w, k, 1) if plan else -(-w // 128) * k
+    part_s, part_i = _outputs((b, n_part), dev)
     err = _cuda.lib().ts_ivf_scan_idless(
         q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
-        b, d, probe_list.shape[1], c_tot, mc, block_q, k, w,
+        zero_ptr, counts_ptr, b, d, probe_list.shape[1], c_tot, mc, block_q, k, w,
         part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "ivf_scan_idless kernel")
     ivf_scan_idless_cuda.launches += 1
+    if plan:
+        ivf_scan_idless_cuda.launches_tile += 1
     return out_s, out_i
 
 
 ivf_scan_idless_cuda.launches = 0
+ivf_scan_idless_cuda.launches_tile = 0
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +593,9 @@ def ivf_scan_multiprobe(q, probe_list, data, ids, k, block_q, probes_per_step, s
     return fn(q, probe_list, data, ids, k, block_q, probes_per_step, scales)
 
 
-def ivf_scan_idless(q, probe_list, data, k, block_q, approx_width):
-    fn = ivf_scan_idless_cuda if data.is_cuda else ivf_scan_idless_reference
-    return fn(q, probe_list, data, k, block_q, approx_width)
+def ivf_scan_idless(q, probe_list, data, k, block_q, approx_width, zero_tiles=None):
+    """K11b: the kernel for CUDA slabs (``zero_tiles`` the index's map, or
+    None to build it), the plain version for CPU slabs (it reads no map)."""
+    if data.is_cuda:
+        return ivf_scan_idless_cuda(q, probe_list, data, k, block_q, approx_width, zero_tiles)
+    return ivf_scan_idless_reference(q, probe_list, data, k, block_q, approx_width)

@@ -54,9 +54,10 @@ _SIGNATURES = {
     # width, slots, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
-    # data_kind (0 f32, 1 bf16, 2 int8), D, Mc, block_q, k, width, slots,
-    # out (5 ints: nq, nwg, n, stages, shared bytes) → 1 where the wgmma tile runs
-    "ts_ivf_scan_tile_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
+    # data_kind (0 f32, 1 bf16, 2 int8, 3 bf16 sentinel rows, idless), D, Mc,
+    # block_q, k, width, slots, out (5 ints: nq, nwg, n, stages, shared
+    # bytes), max_stages (0: the tile's own) → 1 where the wgmma tile runs
+    "ts_ivf_scan_tile_plan": [_I, _I, _I, _I, _I, _I, _I, _P, _I],
     # q, probes, data, data_kind (0 f32, 1 bf16, 2 int8), scales (or NULL),
     # ids, B, D, U, C_tot, Mc, block_q, k, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_per_probe": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -65,9 +66,9 @@ _SIGNATURES = {
     # width, slots, out_s, out_i, stream
     "ts_ivf_scan_emit_acc": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P],
-    # q, probes, data, data_bf16, B, D, U, C_tot, Mc, block_q, k, width,
-    # part_s, part_i, out_s, out_i, stream
-    "ts_ivf_scan_idless": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, probes, data, data_bf16, zero_tiles (or NULL), counts (or NULL), B,
+    # D, U, C_tot, Mc, block_q, k, width, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_idless": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P],
     # q, probes, data, data_bf16, ids, B, D, U, C_tot, Mc, block_q, k, width,
     # slots, part_s, part_i, sel_s, sel_i, out_p, stream

@@ -1,10 +1,15 @@
-"""Times K1 and K4 of one source tree on the card, with K2 as a control:
+"""Times K1, K4, K10 and K11b of one source tree on the card, with K2 as a
+control:
 
 - at chip_smoke.py's shapes: the 1M × 384 bench corpus,
   ``IndexConfig.auto(1M)``, 4096 queries with the serving args (block_q 64,
   union_factor 1): K1 at k 10 and k 100 (deferred, w = Mc, the planned
-  slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact;
-  ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10 and int8 + rescore;
+  slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact; K10
+  (``dma_pipeline``) at k 10 with 2, 3 and 4 buffers and at k 100 (its
+  planned slots); K11b (the idless scan) at k 10 on a ``sentinel=True``
+  build of the same corpus (2048 × 1536 × 385, w = Mc);
+  ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10, int8 + rescore,
+  ``dma_pipeline`` and the sentinel index's idless scan;
 - at the pipeline's request shapes: chip_smoke.py phase 4's index of
   120,000 synthetic documents (minilm-l6 with random weights, bf16 slabs)
   and phase 5's (the same encoder in int8, int8 slabs), requests of 1, 5
@@ -70,6 +75,7 @@ def main(tree: str) -> None:
 
     import chip_smoke as cs
     from text_similarity_tpu_torch.core.config import IndexConfig
+    from text_similarity_tpu_torch.index import ivf_modes
     from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
     from text_similarity_tpu_torch.pipelines.search import _pad_pow2
@@ -116,7 +122,30 @@ def main(tree: str) -> None:
         q_ms = cs.time_ms(torch, lambda: ivf.query(queries, **qargs), iters=5, warmup=1)
         times[f"query 4096 {'int8 + rescore' if int8 else 'bf16'} k=10 "
               f"({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+        if not int8:   # K10 (dma_pipeline) on the bf16 index: phase 5b's cases
+            for k, nb in ((10, 2), (10, 3), (10, 4), (100, 2)):
+                s = ivf.scan_mode(k, dma_pipeline=True)[1]
+                times[f"K10 1M k={k} S={s} buffers {nb}"] = cs.time_ms(
+                    torch, lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, ivf.data_padded,
+                                                               ivf.ids_padded, k, bq, s, nb),
+                    iters=10, warmup=2)
+            q_ms = cs.time_ms(torch, lambda: ivf.query(queries, dma_pipeline=True, **qargs),
+                              iters=5, warmup=1)
+            times[f"query 4096 dma_pipeline k=10 ({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
         del ivf
+    # K11b on a sentinel build of the same corpus (phase 5b's case)
+    sent = IVFIndex.build(corpus, cfg, data_dtype=torch.bfloat16, generator=gen(), device="cuda",
+                          sentinel=True)
+    qs, pl, _, bq = cs.serving_plan(sent, queries)
+    w = sent.scan_mode(10, 2048, 1)[0]
+    # the index's zero-tile map where the tree keeps one (read, not rebuilt, by each call)
+    extra = {"zero_tiles": sent.zero_tiles} if getattr(sent, "zero_tiles", None) is not None else {}
+    times[f"K11b 1M sentinel k=10 w={w}"] = cs.time_ms(
+        torch, lambda: ivf_modes.ivf_scan_idless_cuda(qs, pl, sent.data_padded, 10, bq, w, **extra),
+        iters=10, warmup=2)
+    q_ms = cs.time_ms(torch, lambda: sent.query(queries, acc_slots=1, **qargs), iters=5, warmup=1)
+    times[f"query 4096 sentinel idless k=10 ({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+    del sent
     q256, c100k = queries[:256].contiguous(), corpus[:100_003].contiguous()
     times["K2 Q=256 N=100003"] = cs.time_ms(torch, lambda: cosine_topk_cuda(q256, c100k, 10))
     print("AB", tree, cs.card_line(), " | ".join(f"{k}: {v:.4f} ms" for k, v in times.items()),
