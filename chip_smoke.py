@@ -85,17 +85,18 @@ Phases (any failure exits non-zero):
     100) against K2's exact answer ≥ 0.95 for every option; the removed row
     never comes back, the added row finds itself; every new counter rises.
     Then each kernel against its plain version at those shapes: K1-opt
-    per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200), K9
-    (unpacked scores within one 14-bit bin, overlap ≥ 0.99), K10 (buffers
-    2-4 at k 10, 2 at k 100, on K1's wgmma tile: equal to K1 at
-    approx_width = Mc bit for bit, and within 1e-5 (overlap ≥ 0.99) of K1's
-    CUDA-core fold, emit_acc + top-k), K11a (P 2, 3, 4; ids equal, bit for
-    bit, those of K1's CUDA-core fold), K11b on the wgmma tile (its
-    counter's share of probed tiles skipped as all zero) and K1 on the
-    385-wide slabs (its CUDA-core kernel, bit for bit equal to that
-    kernel's fold); f32 |Δscore| ≤ 1e-4 and overlap ≥ 0.99 elsewhere;
-    every K10 and K11b launch of the options window on the tile; times
-    beside K1's at the same k, and each option's query rate.
+    per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200, on
+    K1's wgmma tile: its entries after the exact select equal K1 on the
+    tile at the same (w, S) bit for bit; both timed), K9 (unpacked scores
+    within one 14-bit bin, overlap ≥ 0.99), K10 (buffers 2-4 at k 10, 2 at
+    k 100) and K11a (P 2, 3, 4, each timed), both on K1's wgmma tile and
+    equal, bit for bit, to K1 at approx_width = Mc and to emit_acc + the
+    exact select there, K11b on the wgmma tile (its counter's share of
+    probed tiles skipped as all zero) and K1 on the 385-wide slabs (its
+    CUDA-core kernel, bit for bit equal to that kernel's fold, emit_acc +
+    top-k); f32 |Δscore| ≤ 1e-4 and overlap ≥ 0.99 elsewhere; every
+    emit_acc, K10, K11a and K11b launch of the options window on the tile;
+    times beside K1's at the same k, and each option's query rate.
  6. long documents:
     - K5 (flash attention forward) against its plain version at the
       shapes the long encodes below give it, B 8 × S 4096 × H 12 with D 64
@@ -1346,10 +1347,12 @@ def scan_bound(torch, ivf, probes, n_q, block_q, out_bytes, with_ids=True):
     return bound_ms(n_bytes, ops, PEAK_BF16)
 
 
-def k1_core_fold(q, probes, data, ids, k, block_q, width, slots):
-    """K1's deferred fold on its CUDA-core kernel, whatever the slabs: K1-opt
-    emit_acc's raw accumulator (the same pass and fmaf chain as K10 and
-    K11a), then its exact top-k by (score desc, id asc) → (scores, ids)."""
+def emit_acc_select(q, probes, data, ids, k, block_q, width, slots):
+    """K1-opt emit_acc's raw accumulator at (width, S), then its exact
+    top-k by (score desc, id asc) → (scores, ids). Where the wgmma tile
+    takes the shape, emit_acc is K1's deferred mode on the tile, so this is
+    K1 on the tile bit for bit; elsewhere it is K1's CUDA-core emit_acc
+    kernel (the same pass and fmaf chain as K1's CUDA-core fold)."""
     from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
     from text_similarity_tpu_torch.index.ivf_modes import _select
 
@@ -1357,10 +1360,14 @@ def k1_core_fold(q, probes, data, ids, k, block_q, width, slots):
     return _select(acc_s, acc_i, k)
 
 
-def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None, tol=1e-4):
-    """A kernel's (scores, ids) against its plain version's (or another
-    kernel's): f32 |Δscore| ≤ tol (phase 3's 1e-4 by default) and id
-    overlap ≥ 0.99 → max |Δ|."""
+def bit_equal(a, b) -> bool:
+    """Two (scores, ids) results equal bit for bit."""
+    return a[0].equal(b[0]) and a[1].equal(b[1])
+
+
+def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None):
+    """A kernel's (scores, ids) against its plain version's: f32 |Δscore| ≤
+    1e-4 (phase 3's gate) and id overlap ≥ 0.99 → max |Δ|."""
     ks, ki, rs, ri = (t.reshape(-1, t.shape[-1]).cpu().numpy() for t in (ks, ki, rs, ri))
     # an empty result (−1) at rank j counts as its own id, so that tails agree
     col = np.arange(ki.shape[1])
@@ -1368,7 +1375,7 @@ def check_pair(label, ks, ki, rs, ri, card, ms=None, k1_ms=None, tol=1e-4):
     fin = np.isfinite(rs)
     err = float(np.abs(ks[fin] - rs[fin]).max()) if fin.any() else 0.0
     ov = overlap(ki, ri)
-    ok = ov >= 0.99 and err <= tol and np.array_equal(np.isfinite(ks), fin)
+    ok = ov >= 0.99 and err <= 1e-4 and np.array_equal(np.isfinite(ks), fin)
     times = f", kernel {ms:.3f} ms (K1 at the same k {k1_ms:.3f} ms)" if ms is not None else ""
     log(f"{label}: overlap {ov:.4f}, max|Δscore| {err:.2e}{times} [{card}] "
         f"-> {'ok' if ok else 'FAIL'}")
@@ -1417,11 +1424,12 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
     # --- the main path: IVFIndex.query with every option (counted window)
     counters = [(ivf_scan_cuda, c) for c in (
         "launches", "launches_int8", "launches_per_probe", "launches_per_probe_int8",
-        "launches_emit_acc", "launches_emit_acc_int8")] + [
+        "launches_emit_acc", "launches_emit_acc_int8", "launches_emit_acc_tile",
+        "launches_emit_acc_tile_int8")] + [
         (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches")
         for m in ("packed", "dma", "multiprobe", "idless")] + [
-        (ivf_modes.ivf_scan_dma_cuda, "launches_tile"),
-        (ivf_modes.ivf_scan_idless_cuda, "launches_tile")]
+        (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches_tile")
+        for m in ("dma", "multiprobe", "idless")]
     q10 = dict(QARGS)
     per_probe_args = dict(union_factor=1, block_q=64, per_probe=True)
     cases = [
@@ -1479,13 +1487,17 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
                 "ivf_scan_cuda.launches"):
         if counts[key] == 0:
             raise AssertionError(f"{key} never launched on the IVF options path")
-    # K10 on the bf16 index and K11b on the sentinel build run the wgmma tile
-    for m in ("dma", "idless"):
-        on_tile = counts[f"ivf_scan_{m}_cuda.launches_tile"]
-        log(f"ivf_scan_{m}_cuda: {on_tile} of {counts[f'ivf_scan_{m}_cuda.launches']} launches "
-            f"on the wgmma tile (csrc/ivf_tile.cu)")
-        if on_tile != counts[f"ivf_scan_{m}_cuda.launches"]:
-            raise AssertionError(f"ivf_scan_{m}_cuda left the wgmma tile on the options path")
+    # emit_acc (bf16 and int8), K10 and K11a on the bf16 index and K11b on
+    # the sentinel build run the wgmma tile
+    tile_counts = [("K1-opt emit_acc", sum(counts[f"ivf_scan_cuda.launches_emit_acc_tile{x}"]
+                                           for x in ("", "_int8")),
+                    sum(counts[f"ivf_scan_cuda.launches_emit_acc{x}"] for x in ("", "_int8")))]
+    tile_counts += [(f"ivf_scan_{m}_cuda", counts[f"ivf_scan_{m}_cuda.launches_tile"],
+                     counts[f"ivf_scan_{m}_cuda.launches"]) for m in ("dma", "multiprobe", "idless")]
+    for name, on_tile, launched in tile_counts:
+        log(f"{name}: {on_tile} of {launched} launches on the wgmma tile (csrc/ivf_tile.cu)")
+        if on_tile != launched:
+            raise AssertionError(f"{name} left the wgmma tile on the options path")
 
     # --- each kernel against its plain version at the shapes query gives it
     # (QARGS and K100_ARGS plan as the serving args: block_q 64, union_factor 1)
@@ -1526,36 +1538,50 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"B={n_q} U={u} Mc={mc} D={d} k=10 bf16 -> (U, B, k); int8 checked too",
           counts["ivf_scan_cuda.launches_per_probe"] + counts["ivf_scan_cuda.launches_per_probe_int8"])
 
-    # K1-opt emit_acc at k = 100 (bench's w 512 and the planned slots)
-    qs5, pl5 = qs, pl
+    # K1-opt emit_acc at k = 100 (bench's w 512 and the planned slots) and,
+    # int8, at the rescore's k_scan 200, on the wgmma tile: after the exact
+    # select, equal to K1 on the tile at the same (w, S) bit for bit
     w, slots = ivf.scan_mode(100, 512, final_merge="xla")
-    a = (qs5, pl5, data, ids, 100, bq, w, slots)
+    a = (qs, pl, data, ids, 100, bq, w, slots)
+    w8, s8 = ivf8.scan_mode(200, 512, final_merge="xla")
+    b8 = (qs8, pl8, ivf8.data_padded, ivf8.ids_padded, 200, bq, w8, s8, ivf8.scales_padded)
+    tiles = ivf_scan_cuda.launches_emit_acc_tile + ivf_scan_cuda.launches_emit_acc_tile_int8
     ks, ki = ivf_scan_cuda(*a, emit_acc=True)
+    ks8, ki8 = ivf_scan_cuda(*b8, emit_acc=True)
+    if ivf_scan_cuda.launches_emit_acc_tile + ivf_scan_cuda.launches_emit_acc_tile_int8 != tiles + 2:
+        raise AssertionError("K1-opt emit_acc left the wgmma tile at the main path's shape")
+    bits = (bit_equal(ivf_modes._select(ks, ki, 100), ivf_scan_cuda(*a)),
+            bit_equal(ivf_modes._select(ks8, ki8, 200), ivf_scan_cuda(*b8)))
     rs, ri = ivf_scan_reference(*a, emit_acc=True)
+    rs8, ri8 = ivf_scan_reference(*b8, emit_acc=True)
     ms, plain = timed(lambda: ivf_scan_cuda(*a, emit_acc=True),
                       lambda: ivf_scan_reference(*a, emit_acc=True))
+    ms8 = time_ms(torch, lambda: ivf_scan_cuda(*b8, emit_acc=True), iters=5, warmup=1)
     k1_100 = time_ms(torch, lambda: ivf_scan_cuda(*a), iters=5, warmup=1)
-    same = (ki == ri)
-    live = same & torch.isfinite(rs)
-    err = float((ks - rs)[live].abs().max())
-    log(f"K1-opt emit_acc bf16 k=100 w={w} S={slots}: accumulator entries equal "
-        f"{float(same.float().mean()):.5f}, max|Δscore| {err:.2e}, kernel {ms:.3f} ms "
-        f"(K1 at k=100 {k1_100:.3f} ms) [{card}]")
-    w8, s8 = ivf8.scan_mode(200, 512, final_merge="xla")
-    b8 = (qs8, pl8, ivf8.data_padded, ivf8.ids_padded, 200, bq, w8, s8)
-    ks8, ki8 = ivf_scan_cuda(*b8, scales=ivf8.scales_padded, emit_acc=True)
-    rs8, ri8 = ivf_scan_reference(*b8, scales=ivf8.scales_padded, emit_acc=True)
-    same8 = (ki8 == ri8)
-    live8 = same8 & torch.isfinite(rs8)
-    err8 = float((ks8 - rs8)[live8].abs().max())
-    log(f"K1-opt emit_acc int8 k_scan=200 w={w8} S={s8}: entries equal "
-        f"{float(same8.float().mean()):.5f}, max|Δscore| {err8:.2e} [{card}]")
-    if min(float(same.float().mean()), float(same8.float().mean())) < 0.99 or max(err, err8) > 1e-4:
+    errs = []
+    for label, tms, (es, ei, gs, gi) in (
+            (f"bf16 k=100 w={w} S={slots}", ms, (ks, ki, rs, ri)),
+            (f"int8 k_scan=200 w={w8} S={s8}", ms8, (ks8, ki8, rs8, ri8))):
+        same = ei == gi
+        errs.append((float(same.float().mean()),
+                     float((es - gs)[same & torch.isfinite(gs)].abs().max())))
+        log(f"K1-opt emit_acc {label} on the wgmma tile: accumulator entries equal "
+            f"{errs[-1][0]:.5f}, max|Δscore| {errs[-1][1]:.2e}, kernel {tms:.3f} ms [{card}]")
+    log(f"K1-opt emit_acc + exact select equal to K1 on the wgmma tile at the same (w, S) bit "
+        f"for bit: bf16 {bits[0]}, int8 {bits[1]} (K1 at k=100 {k1_100:.3f} ms) [{card}]")
+    if min(e[0] for e in errs) < 0.99 or max(e[1] for e in errs) > 1e-4:
         raise AssertionError("K1-opt emit_acc disagrees with its plain version")
-    entry("ivf_scan_emit_acc", "ivf_scan.cu", "1945 (emit_acc :1212-1222, :1919)",
-          max(err, err8), ms, plain, scan_bound(torch, ivf, pl5, n_q, bq, n_q * slots * w * 8),
-          f"B={n_q} U={pl5.shape[1]} Mc={mc} D={d} w={w} S={slots} bf16 -> (B, S*w); int8 checked too",
+    if not all(bits):
+        raise AssertionError("K1-opt emit_acc + select differs from K1 on the wgmma tile")
+    entry("ivf_scan_emit_acc", "ivf_tile.cu", "1945 (emit_acc :1212-1222, :1919)",
+          max(e[1] for e in errs), ms, plain, scan_bound(torch, ivf, pl, n_q, bq, n_q * slots * w * 8),
+          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} w={w} S={slots} bf16 -> (B, S*w) on the wgmma "
+          f"tile; int8 k_scan 200 timed too",
           counts["ivf_scan_cuda.launches_emit_acc"] + counts["ivf_scan_cuda.launches_emit_acc_int8"])
+    entries[-1]["ms_by_case"] = {"bf16_k100": ms, "int8_k200": ms8}
+    entries[-1]["bound_ms_by_case"] = {
+        "bf16_k100": entries[-1]["bound_ms"],
+        "int8_k200": scan_bound(torch, ivf8, pl8, n_q, bq, n_q * s8 * w8 * 8)[0]}
 
     # K9 packed, k = 10 (w = Mc) and k = 100 (w 512, the planned slots)
     bin_w = 1.0 / ivf_modes.PACK_SCALE + 1e-6
@@ -1590,13 +1616,13 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           counts["ivf_scan_packed_cuda.launches"])
 
     # K10: full width, the planned slots, buffers 2-4, on K1's wgmma tile:
-    # equal to K1 at (Mc, S) bit for bit (the same tile), within 1e-5 of
-    # K1's CUDA-core fold
+    # equal to K1 at (Mc, S) and to emit_acc + the exact select there (the
+    # same tile), bit for bit
     worst, main, k10_ms = 0.0, None, {}
     for k, nbs in ((10, (2, 3, 4)), (100, (2,))):
         _, sk = ivf.scan_mode(k, dma_pipeline=True)
         k1 = ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk)
-        core = k1_core_fold(qs, pl, data, ids, k, bq, mc, sk)
+        fold = emit_acc_select(qs, pl, data, ids, k, bq, mc, sk)
         rs, ri = ivf_modes.ivf_scan_dma_reference(qs, pl, data, ids, k, bq, sk)
         k1_ms = time_ms(torch, lambda: ivf_scan_cuda(qs, pl, data, ids, k, bq, mc, sk), iters=5, warmup=1)
         for nb in nbs:
@@ -1605,17 +1631,15 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
             if ivf_modes.ivf_scan_dma_cuda.launches_tile == tiles:
                 raise AssertionError("K10 left the wgmma tile at the main path's shape")
             stages = ivf_modes.tile_plan_cuda(1, d, mc, bq, k, mc, sk, nb).stages
-            bit = torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
-            near = check_pair(f"K10 against K1's CUDA-core fold at w=Mc k={k} S={sk} buffers {nb}",
-                              *got, *core, card, tol=1e-5)
+            bit, bit_fold = bit_equal(got, k1), bit_equal(got, fold)
             ms = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids, k, bq, sk, nb),
                          iters=5, warmup=1)
             k10_ms[f"k{k}_buffers{nb}"] = ms
             worst = max(worst, check_pair(f"K10 dma k={k} S={sk} buffers {nb} on the wgmma tile "
-                                          f"(ivf_tile.cu), {stages} stages (equal to K1 at (Mc, S) "
-                                          f"bit for bit: {bit}; K1's CUDA-core fold within "
-                                          f"{near:.2e})", *got, rs, ri, card, ms, k1_ms))
-            if not bit:
+                                          f"(ivf_tile.cu), {stages} stages (bit for bit equal to K1 "
+                                          f"at (Mc, S): {bit}; to emit_acc + select: {bit_fold})",
+                                          *got, rs, ri, card, ms, k1_ms))
+            if not (bit and bit_fold):
                 raise AssertionError("K10 differs from K1 at (approx_width = Mc, acc_slots = S)")
             if k == 10 and nb == 2:
                 plain = time_ms(torch, lambda: ivf_modes.ivf_scan_dma_reference(
@@ -1628,31 +1652,37 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
           f"(3, 4 and k=100 timed too)", counts["ivf_scan_dma_cuda.launches"])
     entries[-1]["ms_by_case"] = k10_ms
 
-    # K11a: P = 2, 3 (the list padded), 4; ids equal those of K1's CUDA-core
-    # fold at (Mc, 1)
-    worst, main = 0.0, None
-    want = k1_core_fold(qs, pl, data, ids, 10, bq, mc, 1)
+    # K11a: P = 2, 3 (the list padded), 4, on K1's wgmma tile: equal to K1
+    # at (Mc, 1) and to emit_acc + the exact select there, bit for bit
+    worst, main, k11a_ms = 0.0, None, {}
+    k1 = ivf_scan_cuda(qs, pl, data, ids, 10, bq, mc, 1)
+    fold = emit_acc_select(qs, pl, data, ids, 10, bq, mc, 1)
     for p in (2, 3, 4):
+        tiles = ivf_modes.ivf_scan_multiprobe_cuda.launches_tile
         got = ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p)
+        if ivf_modes.ivf_scan_multiprobe_cuda.launches_tile == tiles:
+            raise AssertionError("K11a left the wgmma tile at the main path's shape")
         rs, ri = ivf_modes.ivf_scan_multiprobe_reference(qs, pl, data, ids, 10, bq, p)
-        bit = torch.equal(got[1], want[1])
+        bit, bit_fold = bit_equal(got, k1), bit_equal(got, fold)
         ms = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10, bq, p),
                      iters=5, warmup=1)
-        worst = max(worst, check_pair(f"K11a probes_per_step {p} k=10 (ids equal K1's "
-                                      f"CUDA-core fold at w=Mc: {bit})", *got, rs, ri, card, ms,
+        k11a_ms[f"P{p}"] = ms
+        worst = max(worst, check_pair(f"K11a probes_per_step {p} k=10 on the wgmma tile "
+                                      f"(ivf_tile.cu) (bit for bit equal to K1 at (Mc, 1): {bit}; "
+                                      f"to emit_acc + select: {bit_fold})", *got, rs, ri, card, ms,
                                       k1_10))
-        if not bit:
-            raise AssertionError("K11a's ids differ from K1's CUDA-core fold at the full-width "
-                                 "plan")
+        if not (bit and bit_fold):
+            raise AssertionError("K11a differs from K1 at (approx_width = Mc, acc_slots = 1)")
         if p == 2:
             plain = time_ms(torch, lambda: ivf_modes.ivf_scan_multiprobe_reference(
                 qs, pl, data, ids, 10, bq, 2), iters=1, warmup=1)
             main = (ms, plain)
     ms, plain = main
-    entry("ivf_scan_multiprobe", "ivf_modes.cu", "1870", worst, ms, plain,
+    entry("ivf_scan_multiprobe", "ivf_tile.cu", "1870", worst, ms, plain,
           scan_bound(torch, ivf, pl, n_q, bq, n_q * 10 * 8),
-          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 P=2 bf16 (3, 4 checked)",
+          f"B={n_q} U={pl.shape[1]} Mc={mc} D={d} k=10 P=2 bf16 on the wgmma tile (3, 4 timed too)",
           counts["ivf_scan_multiprobe_cuda.launches"])
+    entries[-1]["ms_by_case"] = k11a_ms
 
     # K11b on the sentinel build (D+1 = 385) on the wgmma tile, its
     # skipped share, and K1 over its 385-wide slabs
@@ -1682,8 +1712,8 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
     b5 = (qsn5, pln5, sent.data_padded, sent.ids_padded, 100, bq, w5, s5)
     ks5, ki5 = ivf_scan_cuda(*b5)
     rs5, ri5 = ivf_scan_reference(*b5)
-    fold5 = k1_core_fold(*b5)
-    bit5 = torch.equal(ks5, fold5[0]) and torch.equal(ki5, fold5[1])
+    fold5 = emit_acc_select(*b5)
+    bit5 = bit_equal((ks5, ki5), fold5)
     check_pair(f"K1 over D+1={d + 1} slabs k=100 w={w5} S={s5} (its CUDA-core kernel; equal to "
                f"that kernel's fold, emit_acc + top-k, bit for bit: {bit5})", ks5, ki5, rs5, ri5,
                card)

@@ -32,6 +32,7 @@ from text_similarity_tpu_torch.index.ivf import (
 )
 from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward, init_params
 from text_similarity_tpu_torch.models.hf_convert import extend_positions
+from text_similarity_tpu_torch.ops import _cuda
 from text_similarity_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
@@ -876,30 +877,26 @@ def _agree_flat(ks, ki, rs, ri, dtype):
     np.testing.assert_array_equal(ki[sep], ri[:, :k][sep])
 
 
-def _k1_core_fold(q, probes, data, ids, k, block_q, width, slots, scales=None):
-    """K1's deferred fold on the CUDA-core kernel, whatever the slabs: the
-    raw accumulator of K1-opt emit_acc (the same pass, the same fmaf chain
-    as K1 off the wgmma tile), then its exact top-k by (score desc, id
-    asc), missing results (−inf, −1)."""
+def _emit_acc_select(q, probes, data, ids, k, block_q, width, slots, scales=None):
+    """K1-opt emit_acc's raw accumulator at (width, S), then its exact
+    top-k by (score desc, id asc), missing results (−inf, −1). Where the
+    kernel library's plan takes the shape (bf16 or int8 slabs, D a multiple
+    of 64, Mc a multiple of 4) emit_acc runs K1's deferred mode on the
+    wgmma tile, so this equals K1 on the tile at (width, S) bit for bit;
+    elsewhere it is K1's CUDA-core fold (the same pass, the same fmaf
+    chain)."""
     acc_s, acc_i = ivf_scan_cuda(q, probes, data, ids, k, block_q, width, slots, scales,
                                  emit_acc=True)
     return ivf_modes._select(acc_s, acc_i, k)
 
 
 def _agree_k1(ks, ki, q, probes, data, ids, k, block_q, width, slots, scales=None):
-    """A scan's (B, k) against K1's merge at the same plan, whichever
-    kernel runs K1: scores allclose 1e-5, ids overlap ≥ 0.99; and bit for
-    bit where K1 runs its CUDA-core kernel (f32 slabs, D not a multiple of
-    64), whose fold is the same pass and fmaf chain."""
+    """A scan's (B, k) against K1's merge at the same plan, bit for bit:
+    where the kernel library's plan takes the shape both run K1's wgmma
+    tile (the same product, the same fold), elsewhere both run the
+    CUDA-core fold (the same pass and fmaf chain)."""
     ws, wi = ivf_scan_cuda(q, probes, data, ids, k, block_q, width, slots, scales)
-    mc = data.shape[1]
-    if ivf_mod.tile_plan_cuda(ivf_modes.data_kind(data), q.shape[1], mc, block_q, k,
-                              width or mc, slots if width else 0) is None:
-        assert torch.equal(ki, wi) and torch.equal(ks, ws)
-    np.testing.assert_allclose(ks.cpu().numpy(), ws.cpu().numpy(), atol=1e-5)
-    col = np.arange(k)
-    ki, wi = ki.cpu().numpy(), wi.cpu().numpy()
-    assert _overlap(np.where(ki < 0, -1 - col, ki), np.where(wi < 0, -1 - col, wi)) >= 0.99
+    assert torch.equal(ki, wi) and torch.equal(ks, ws)
 
 
 @pytest.mark.parametrize("dtype,d,sentinel", [
@@ -924,21 +921,51 @@ def test_k1_opt_per_probe_matches_plain(cuda, dtype, d, sentinel):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("d,mc,width,slots", [(64, 256, 128, 3), (385, 256, 256, 2),
-                                              (65, 200, 200, 1)])
+                                              (65, 200, 200, 1), (64, 200, 200, 2),
+                                              (384, 1536, 512, 3)])
 def test_k1_opt_emit_acc_matches_plain(cuda, dtype, d, mc, width, slots):
     """K1-opt emit_acc: the raw (B, S·w) accumulator, slot-major; entries
-    equal (≥ 99% of ids, scores 1e-5 where the ids agree)."""
+    equal (≥ 99% of ids, scores 1e-5 where the ids agree). bf16 and int8
+    at D 64 and 384 run the wgmma tile's deferred mode (counted in
+    ``launches_emit_acc_tile[_int8]``; w 200 ends in a range of 8 lanes,
+    (384, 1536, 512, 3) is phase 5b's shape): there emit_acc plus the
+    exact select equals K1 on the tile at (w, S) bit for bit, and an
+    output one query longer keeps its last row (no lane class at or past
+    w is written). f32 and D 65, 385 run the CUDA-core kernel."""
     q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, mc=mc, seed=1)
-    counter = "launches_emit_acc_int8" if dtype == torch.int8 else "launches_emit_acc"
-    before = getattr(ivf_scan_cuda, counter)
+    kind = ivf_modes.data_kind(data)
+    on_tile = ivf_mod.tile_plan_cuda(kind, d, mc, 8, 1, width, slots) is not None
+    assert on_tile == (dtype != torch.float32 and d % 64 == 0)
+    suffix = "_int8" if dtype == torch.int8 else ""
+    before = getattr(ivf_scan_cuda, f"launches_emit_acc{suffix}")
+    tiles = getattr(ivf_scan_cuda, f"launches_emit_acc_tile{suffix}")
     ks, ki = ivf_scan_cuda(q, probes, data, ids, 10, 8, width, slots, scales, emit_acc=True)
     rs, ri = ivf_scan_reference(q, probes, data, ids, 10, 8, width, slots, scales, emit_acc=True)
     torch.cuda.synchronize()
-    assert getattr(ivf_scan_cuda, counter) == before + 1
+    assert getattr(ivf_scan_cuda, f"launches_emit_acc{suffix}") == before + 1
+    assert getattr(ivf_scan_cuda, f"launches_emit_acc_tile{suffix}") == tiles + int(on_tile)
     assert ks.shape == (24, slots * width)
     same = (ki == ri).cpu().numpy()
     assert same.mean() >= 0.99
     np.testing.assert_allclose(ks.cpu().numpy()[same], rs.cpu().numpy()[same], atol=1e-5)
+    if not on_tile:
+        return
+    for k in (10, 100):
+        ws, wi = ivf_scan_cuda(q, probes, data, ids, k, 8, width, slots, scales)
+        es, ei = ivf_modes._select(ks, ki, k)
+        assert torch.equal(ei, wi) and torch.equal(es, ws), k
+    b, n = ks.shape
+    buf_s = torch.full((b + 1, n), float("nan"), device=cuda)
+    buf_i = torch.full((b + 1, n), -7, dtype=torch.int32, device=cuda)
+    err = _cuda.lib().ts_ivf_scan_emit_acc(
+        q.data_ptr(), probes.data_ptr(), data.data_ptr(), kind,
+        scales.data_ptr() if scales is not None else None, ids.data_ptr(), b, d,
+        probes.shape[1], data.shape[0], mc, 8, width, slots, buf_s.data_ptr(), buf_i.data_ptr(),
+        _cuda.stream_handle(q.device))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(buf_s[:b], ks) and torch.equal(buf_i[:b], ki)
+    assert torch.isnan(buf_s[b]).all() and (buf_i[b] == -7).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1063,20 +1090,27 @@ def test_k11b_tile_skips_zero_tiles_exactly(cuda, d, mc, width, k):
 @pytest.mark.parametrize("d", [64, 33, 385])
 @pytest.mark.parametrize("per_step", [2, 3, 4, 6])
 def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
-    """K11a against its plain version, bit for bit against K1's CUDA-core
-    deferred fold at width Mc, S = 1, and against K1 itself (bit for bit
-    where K1 runs the CUDA-core kernel: f32, D 33 and 385; U = 6: P = 4
-    pads the list; P = 6 is staged four slabs at a time)."""
+    """K11a against its plain version, and bit for bit against K1 at width
+    Mc, S = 1 over the unpadded list, and against emit_acc + the exact
+    select at (Mc, 1) (U = 6: P = 4 pads the list to 8). K11a runs K1 at
+    (Mc, 1): bf16 and int8 at D 64 on the wgmma tile (counted in
+    ``launches_tile``), where emit_acc runs too; f32 and D 33, 385 on K1's
+    CUDA-core kernel, held to the CUDA-core emit_acc + select."""
     q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, seed=3)
+    mc = data.shape[1]
+    on_tile = ivf_mod.tile_plan_cuda(ivf_modes.data_kind(data), d, mc, 8, 10, mc, 1) is not None
+    assert on_tile == (dtype != torch.float32 and d == 64)
     before = ivf_modes.ivf_scan_multiprobe_cuda.launches
+    tiles = ivf_modes.ivf_scan_multiprobe_cuda.launches_tile
     ks, ki = ivf_modes.ivf_scan_multiprobe_cuda(q, probes, data, ids, 10, 8, per_step, scales)
     rs, ri = ivf_modes.ivf_scan_multiprobe_reference(q, probes, data, ids, 11, 8, per_step, scales)
-    ws, wi = _k1_core_fold(q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
+    ws, wi = _emit_acc_select(q, probes, data, ids, 10, 8, mc, 1, scales)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_multiprobe_cuda.launches == before + 1
+    assert ivf_modes.ivf_scan_multiprobe_cuda.launches_tile == tiles + int(on_tile)
     _agree_flat(ks, ki, rs, ri, dtype)
     assert torch.equal(ki, wi) and torch.equal(ks, ws)
-    _agree_k1(ks, ki, q, probes, data, ids, 10, 8, data.shape[1], 1, scales)
+    _agree_k1(ks, ki, q, probes, data, ids, 10, 8, mc, 1, scales)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1085,12 +1119,12 @@ def test_k11a_multiprobe_matches_plain_and_k1(cuda, dtype, d, per_step):
                                         (1536, 3, 100), (256, 4, 50), (1536, 1, 10)])
 def test_k10_dma_matches_plain_and_k1(cuda, dtype, d, mc, slots, k):
     """K10 at an Mc that is not a multiple of 128 (200, 136), at 256 and
-    1536 with 1-4 slots, for 2, 3, 4 buffers: against its plain version and
-    K1 at (approx_width = Mc, acc_slots = S). bf16 at D 64 and 384 runs K1's
-    wgmma tile (counted in ``launches_tile``): its result equals
-    ``ivf_scan_cuda``'s at (Mc, S) bit for bit, and K1's CUDA-core fold
-    within 1e-5 (overlap ≥ 0.99). f32 and D 33, 65, 385 run the CUDA-core
-    copy ring: bit for bit K1's CUDA-core fold."""
+    1536 with 1-4 slots, for 2, 3, 4 buffers: against its plain version,
+    and bit for bit against K1 at (approx_width = Mc, acc_slots = S) and
+    against emit_acc + the exact select there. K10 runs K1 at (Mc, S):
+    bf16 at D 64 and 384 on the wgmma tile (counted in ``launches_tile``),
+    where emit_acc runs too; f32 and D 33, 65, 385 on K1's CUDA-core
+    kernel, held to the CUDA-core emit_acc + select."""
     q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=4)
     on_tile = ivf_mod.tile_plan_cuda(ivf_modes.data_kind(data), d, mc, 8, k, mc, slots) is not None
     assert on_tile == (dtype == torch.bfloat16 and d % 64 == 0)
@@ -1098,22 +1132,14 @@ def test_k10_dma_matches_plain_and_k1(cuda, dtype, d, mc, slots, k):
     tiles = ivf_modes.ivf_scan_dma_cuda.launches_tile
     got = [ivf_modes.ivf_scan_dma_cuda(q, probes, data, ids, k, 8, slots, n) for n in (2, 3, 4)]
     rs, ri = ivf_modes.ivf_scan_dma_reference(q, probes, data, ids, k + 1, 8, slots)
-    ws, wi = _k1_core_fold(q, probes, data, ids, k, 8, mc, slots)
-    ts, ti = ivf_scan_cuda(q, probes, data, ids, k, 8, mc, slots)
+    ws, wi = _emit_acc_select(q, probes, data, ids, k, 8, mc, slots)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_dma_cuda.launches == before + 3
     assert ivf_modes.ivf_scan_dma_cuda.launches_tile == tiles + (3 if on_tile else 0)
     _agree_flat(*got[0], rs, ri, dtype)
-    col = np.arange(k)
     for ks, ki in got:
-        if on_tile:
-            assert torch.equal(ki, ti) and torch.equal(ks, ts)
-            np.testing.assert_allclose(ks.cpu().numpy(), ws.cpu().numpy(), atol=1e-5)
-            a, b = ki.cpu().numpy(), wi.cpu().numpy()
-            assert _overlap(np.where(a < 0, -1 - col, a), np.where(b < 0, -1 - col, b)) >= 0.99
-        else:
-            assert torch.equal(ki, wi) and torch.equal(ks, ws)
-    _agree_k1(*got[0], q, probes, data, ids, k, 8, mc, slots)
+        assert torch.equal(ki, wi) and torch.equal(ks, ws)
+        _agree_k1(ks, ki, q, probes, data, ids, k, 8, mc, slots)
 
 
 def test_k10_ring_depth_follows_buffers(cuda):
@@ -1131,7 +1157,7 @@ def test_k10_ring_depth_follows_buffers(cuda):
 
 def test_k10_reads_nothing_past_the_slabs(cuda):
     """bf16 rows of odd width end 2 bytes short of a 4-byte boundary: the
-    last slab's last row is copied without reading past the tensor."""
+    last slab's last row is read without reading past the tensor."""
     q, probes, data, ids, _ = _scan_inputs(cuda, torch.bfloat16, 33, mc=199, c_tot=3, u=3,
                                            seed=5, sentinel=True)
     assert data.numel() % 2 == 1      # the tensor ends 2 bytes past a 4-byte boundary

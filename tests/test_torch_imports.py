@@ -121,3 +121,33 @@ def test_build_hash_covers_every_kernel_source():
     on_disk = {p.name for p in _cuda.CSRC.iterdir()}
     assert {n for n in on_disk if n.endswith(".cu")} == set(_cuda.SOURCES)
     assert {n for n in on_disk if n.endswith(".cuh")} == set(_cuda.HEADERS)
+
+
+def test_ctypes_signatures_match_the_sources():
+    """Every ``extern "C"`` entry point of ``csrc/`` has a ctypes signature
+    in ``_cuda._SIGNATURES`` of the same arity and argument kinds (pointer,
+    int, long long, float), and no signature names a missing entry: ctypes
+    would otherwise pass a call's arguments shifted, unseen until the card
+    runs it."""
+    import ctypes
+    import re
+
+    from text_similarity_tpu_torch.ops import _cuda
+
+    def kind(param: str):
+        if "*" in param:
+            return ctypes.c_void_p
+        for prefix, t in (("long long", ctypes.c_longlong), ("float", ctypes.c_float),
+                          ("int", ctypes.c_int)):
+            if param.startswith(prefix):
+                return t
+        raise AssertionError(f"unknown parameter type: {param}")
+
+    defs = {}
+    for src in _cuda.SOURCES:
+        text = (_cuda.CSRC / src).read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)\s*\{', text):
+            defs[m.group(1)] = [kind(p.strip()) for p in m.group(2).split(",")]
+    assert set(defs) == set(_cuda._SIGNATURES)
+    for name, argtypes in _cuda._SIGNATURES.items():
+        assert argtypes == defs[name], name

@@ -359,7 +359,7 @@ class _ModeRecorder(_ScanRecorder):
     ("dma", 1, 384, 1536, 0, 1, 10, 4, True, 1536, 24 * 64),
     ("dma", 1, 384, 1536, 0, 2, 100, 3, True, 1536, 24 * 128),
     ("dma", 1, 64, 200, 0, 1, 20, 2, True, 200, 4 * 64),
-    # the CUDA-core copy-ring kernel: its 128-lane blocks' top-k each
+    # K1's CUDA-core kernel: its 128-lane blocks' top-k each
     ("dma", 0, 384, 1536, 0, 1, 10, 2, False, 1536, 12 * 10),
     ("dma", 1, 385, 1536, 0, 2, 100, 4, False, 1536, 12 * 100),
     # K11b on the sentinel rows (D + 1 = 385; w = Mc or w < Mc): the tile
@@ -370,18 +370,27 @@ class _ModeRecorder(_ScanRecorder):
     ("idless", 3, 33, 200, 200, 1, 20, 0, False, 200, 2 * 20),
     # f32 slabs never ask: the CUDA-core kernel
     ("idless", 0, 385, 1536, 2048, 1, 10, 0, False, 1536, 12 * 10),
+    # K11a (n_buf here is P): K1's fold at width Mc with one slot, the
+    # tile's own ring (else K1's CUDA-core kernel), over the probe list
+    # padded to a multiple of P
+    ("multiprobe", 1, 384, 1536, 0, 1, 10, 2, True, 1536, 24 * 64),
+    ("multiprobe", 2, 384, 1536, 0, 1, 20, 3, True, 1536, 24 * 64),
+    ("multiprobe", 1, 64, 200, 0, 1, 10, 4, True, 200, 4 * 64),
+    ("multiprobe", 0, 384, 1536, 0, 1, 10, 2, False, 1536, 12 * 10),
+    ("multiprobe", 1, 385, 1536, 0, 1, 10, 6, False, 1536, 12 * 10),
 ])
 def test_mode_wrappers_follow_the_library_plan(mode, kind, d, mc, aw, slots, k, n_buf, taken,
                                                width, n_part, monkeypatch):
-    """``ivf_scan_dma_cuda`` (K10) and ``ivf_scan_idless_cuda`` (K11b), the
-    library replaced by a recorder: each asks the plan of its mode (K10: K1's
-    deferred fold at width Mc with S slots, its ring at most ``n_buffers``
-    deep; K11b: the sentinel kind 3 at its fold width, one slot; f32 slabs
-    do not ask), sizes the partial results by the kernel that plan names
-    (the tile's 64·S entries a 64-lane range, else the CUDA-core kernel's
-    top-k a 128-lane block), hands K11b's tile the zero-tile map (none to
-    the CUDA-core kernel) and counts a tile launch only where the plan took
-    the shape."""
+    """``ivf_scan_dma_cuda`` (K10), ``ivf_scan_idless_cuda`` (K11b) and
+    ``ivf_scan_multiprobe_cuda`` (K11a), the library replaced by a
+    recorder: each asks the plan of its mode (K10: K1's deferred fold at
+    width Mc with S slots, its ring at most ``n_buffers`` deep; K11b: the
+    sentinel kind 3 at its fold width, one slot, f32 slabs do not ask;
+    K11a: width Mc, one slot, the tile's own ring), sizes the partial
+    results by the kernel that plan names (the tile's 64·S entries a
+    64-lane range, else the CUDA-core kernel's top-k a 128-lane block),
+    hands K11b's tile the zero-tile map (none to the CUDA-core kernel),
+    hands K11a the list padded to a multiple of P and counts a tile launch only where the plan took the shape."""
     from text_similarity_tpu_torch.index import ivf_modes
 
     rec, alloc = _ModeRecorder(_PLAN if taken else None), _EmptyRecorder()
@@ -389,17 +398,22 @@ def test_mode_wrappers_follow_the_library_plan(mode, kind, d, mc, aw, slots, k, 
     monkeypatch.setattr(ivf_modes._cuda, "require_cuda", lambda *a: None)
     monkeypatch.setattr(ivf_modes._cuda, "stream_handle", lambda dev: 0)
     monkeypatch.setattr(ivf_modes, "torch", alloc)
-    fn = ivf_modes.ivf_scan_dma_cuda if mode == "dma" else ivf_modes.ivf_scan_idless_cuda
+    fn = getattr(ivf_modes, f"ivf_scan_{mode}_cuda")
     for counter in ("launches", "launches_tile"):
         monkeypatch.setattr(fn, counter, 0)
     b, block_q, c_tot = 128, 64, 3
-    data = torch.zeros((c_tot, mc, d), dtype=torch.float32 if kind == 0 else torch.bfloat16)
+    data = torch.zeros((c_tot, mc, d), dtype=_DTYPES.get(kind, torch.bfloat16))   # 3: bf16 rows
     ids = torch.zeros((c_tot, mc), dtype=torch.int32)
+    scales = torch.ones((c_tot, mc)) if kind == 2 else None
     probes = torch.zeros((2, 4), dtype=torch.int32)
     q = torch.zeros((b, d))
     if mode == "dma":
         fn(q, probes, data, ids, k, block_q, slots, n_buf)
         name, want_args = "ts_ivf_scan_dma", (b, d, 4, c_tot, mc, block_q, k, slots, n_buf)
+    elif mode == "multiprobe":
+        fn(q, probes, data, ids, k, block_q, n_buf, scales)
+        u = {2: 4, 3: 6, 4: 4, 6: 6}[n_buf]
+        name, want_args = "ts_ivf_scan_multiprobe", (b, d, u, n_buf, c_tot, mc, block_q, k)
     else:
         fn(q, probes, data, k, block_q, aw)
         name, want_args = "ts_ivf_scan_idless", (b, d, 4, c_tot, mc, block_q, k, width)
@@ -407,17 +421,67 @@ def test_mode_wrappers_follow_the_library_plan(mode, kind, d, mc, aw, slots, k, 
         assert rec.asked == []
     else:
         assert rec.asked == [(kind, d, mc, block_q, k, width, slots)]
-        assert rec.depths == [n_buf]
+        assert rec.depths == [0 if mode == "multiprobe" else n_buf]
     (called, args), = rec.calls
     assert called == name
     if mode == "dma":
-        assert args[6:15] == want_args
+        assert args[5:14] == want_args
+    elif mode == "multiprobe":
+        assert args[6:14] == want_args
+        assert args[3] == kind and (args[4] is not None) == (kind == 2)   # kind, scales
     else:
         assert args[6:14] == want_args
         assert (args[4] is not None) == taken and args[5] is None   # the map; no counts
     assert alloc.shapes[-2:] == [(b, n_part), (b, n_part)]
     assert tile_part_width(width, k, slots) == n_part or not taken
     assert (fn.launches, fn.launches_tile) == (1, int(taken))
+
+
+@pytest.mark.parametrize("kind,d,mc,block_q,aw,acc,taken,width", [
+    # phase 5b's emit_acc (bench's k 100 args: w 512, S 3; int8 too)
+    (1, 384, 1536, 64, 512, 3, True, 512),
+    (2, 384, 1536, 64, 512, 3, True, 512),
+    # a width that is not a multiple of 64; one that does not divide Mc
+    (1, 64, 200, 8, 200, 2, True, 200),
+    (2, 384, 1024, 16, 1000, 1, True, 1024),
+    # the CUDA-core kernel: f32 slabs, the sentinel's D + 1
+    (0, 384, 1536, 64, 512, 3, False, 512),
+    (1, 385, 1536, 64, 512, 2, False, 512),
+])
+def test_emit_acc_wrapper_follows_the_library_plan(kind, d, mc, block_q, aw, acc, taken, width,
+                                                   monkeypatch):
+    """``ivf_scan_cuda(..., emit_acc=True)``, the library replaced by a
+    recorder: it asks the plan of the deferred fold at (w, S) with k 1 (no
+    selection runs), allocates only the (B, S·w) outputs (no partial
+    results: neither kernel runs a merge pass), hands
+    ``ts_ivf_scan_emit_acc`` the shape and counts a tile launch only where
+    the plan took it."""
+    from text_similarity_tpu_torch.index import ivf as ivf_mod
+
+    rec, alloc = _ScanRecorder(_PLAN if taken else None), _EmptyRecorder()
+    monkeypatch.setattr(ivf_mod._cuda, "lib", lambda: rec)
+    monkeypatch.setattr(ivf_mod._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(ivf_mod._cuda, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(ivf_mod, "torch", alloc)
+    suffix = "_int8" if kind == 2 else ""
+    fn = ivf_mod.ivf_scan_cuda
+    for counter in (f"launches_emit_acc{suffix}", f"launches_emit_acc_tile{suffix}"):
+        monkeypatch.setattr(fn, counter, 0)
+    b, u, c_tot = 2 * block_q, 3, 2
+    data = torch.zeros((c_tot, mc, d), dtype=_DTYPES[kind])
+    ids = torch.zeros((c_tot, mc), dtype=torch.int32)
+    scales = torch.ones((c_tot, mc)) if kind == 2 else None
+    probes = torch.zeros((2, u), dtype=torch.int32)
+    out = fn(torch.zeros((b, d)), probes, data, ids, 10, block_q, aw, acc, scales, emit_acc=True)
+    assert rec.asked == [(kind, d, mc, block_q, 1, width, acc)]
+    (name, args), = rec.calls
+    assert name == "ts_ivf_scan_emit_acc"
+    assert args[3] == kind and (args[4] is not None) == (kind == 2)
+    assert args[6:14] == (b, d, u, c_tot, mc, block_q, width, acc)
+    assert alloc.shapes == [(b, acc * width), (b, acc * width)]
+    assert out[0].shape == (b, acc * width)
+    assert (getattr(fn, f"launches_emit_acc{suffix}"),
+            getattr(fn, f"launches_emit_acc_tile{suffix}")) == (1, int(taken))
 
 
 def test_tile_occupancy_counts_live_slots_and_empty_tiles():

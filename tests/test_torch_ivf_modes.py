@@ -212,6 +212,16 @@ def test_emit_acc_matches_pallas(saved, corpus, final_merge, name, k, acc_slots)
                         final_merge=final_merge))
 
 
+@pytest.mark.parametrize("final_merge", ["xla", "xla_approx"])
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+def test_emit_acc_partial_range_matches_pallas(saved, corpus, final_merge, name):
+    """K1-opt emit_acc at a fold width that is not a multiple of 64 (32 of
+    Mc 256: the wgmma tile's one range holds 32 lane classes of its 64
+    rows), one slot: the same answer as the Pallas kernel's."""
+    q, _ = corpus
+    _agree(name, *_both(saved, name, q, approx_width=32, acc_slots=1, final_merge=final_merge))
+
+
 @pytest.mark.parametrize("name,k,width", [
     ("f32", 10, 256), ("f32", 50, 128), ("bf16", 10, 256), ("group2", 20, 128),
 ])
@@ -588,6 +598,26 @@ def test_full_width_modes_equal_k1_plain(saved, corpus, name):
     want = ivf_scan(qs, probes, data, ids, 10, 8, mc, 1)
     for per_step in (2, 3, 4):
         got = ivf_scan_multiprobe(qs, probes, data, ids, 10, 8, per_step)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("width,slots", [(128, 1), (128, 3), (0, 1), (0, 3)])
+def test_emit_acc_select_equals_k1_plain(saved, corpus, name, width, slots):
+    """emit_acc's plain version followed by the exact select is K1's plain
+    version at the same (w, S), bit for bit (width 0: w = Mc), the
+    identity by which the card tests hold emit_acc on the wgmma tile to K1
+    on the tile."""
+    q, _ = corpus
+    _, tivf = _pair(saved, name)
+    qs, probes, _ = _plan(tivf, q)
+    data, ids, scales = tivf.data_padded, tivf.ids_padded, tivf.scales_padded
+    w = width or data.shape[1]
+    acc_s, acc_i = ivf_scan(qs, probes, data, ids, 10, 8, w, slots, scales, emit_acc=True)
+    assert acc_s.shape == (qs.shape[0], slots * w)
+    for k in (10, 50):
+        want = ivf_scan(qs, probes, data, ids, k, 8, w, slots, scales)
+        got = ivf_modes._select(acc_s, acc_i, k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

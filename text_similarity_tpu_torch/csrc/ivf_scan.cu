@@ -32,14 +32,16 @@
 // the result holds flat slot ids that the caller translates.
 // D need not be a multiple of 32 (the sentinel layout's D+1 rows).
 //
-// K1 with bf16 slabs and K4 run on the tensor cores (ivf_tile.cu) wherever
-// ivf_tile_plan takes the shape (D a multiple of 64 that shared memory
-// holds, Mc a multiple of 4), and so does K11b over bf16 sentinel rows of
-// D' + 1 columns (D' a multiple of 64, Mc and the width multiples of 8).
-// The CUDA-core kernel below runs the rest, as ts_ivf_scan /
-// ts_ivf_scan_int8 / ts_ivf_scan_idless choose by shape: f32 slabs (exact
-// f32, no TF32), the other D (K1 over the sentinel layout's D + 1 among
-// them), Mc and widths; and K1-opt, whose modes the tile does not have.
+// K1 with bf16 slabs and K4, and emit_acc over both, run on the tensor
+// cores (ivf_tile.cu) wherever ivf_tile_plan takes the shape (D a multiple
+// of 64 that shared memory holds, Mc a multiple of 4), and so does K11b
+// over bf16 sentinel rows of D' + 1 columns (D' a multiple of 64, Mc and
+// the width multiples of 8). The CUDA-core kernel below runs the rest, as
+// ts_ivf_scan / ts_ivf_scan_int8 (through ivf_k1_scan, which ivf_modes.cu's
+// K10 and K11a call too) / ts_ivf_scan_emit_acc / ts_ivf_scan_idless
+// choose by shape: f32 slabs (exact f32, no TF32), the
+// other D (the sentinel layout's D + 1 among them), Mc and widths; and
+// per_probe, whose mode the tile does not have.
 //
 // Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
 // query block (int8: U·Mc·(D + 4) plus the ids); the arithmetic
@@ -340,6 +342,21 @@ int dispatch_kind(int data_kind, int slots, const float* q, const int* probes, c
 
 }  // namespace
 
+// K1 / K4 at one shape: the wgmma tile where ivf_tile_plan takes it (its
+// ring at most max_stages deep), else the CUDA-core kernel.
+int ivf_k1_scan(int data_kind, const float* q, const int* probes, const void* data,
+                const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
+                int block_q, int k, int width, int slots, int max_stages, float* part_s,
+                int* part_i, float* out_s, int* out_i, void* stream) {
+  IvfTilePlan plan;
+  if (ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, max_stages, &plan))
+    return ivf_tile_scan(data_kind, q, probes, data, scales, ids, nullptr, nullptr, B, D, U,
+                         C_tot, Mc, block_q, k, width, slots, max_stages, part_s, part_i, out_s,
+                         out_i, stream);
+  return dispatch_kind<kMerge>(data_kind, slots, q, probes, data, scales, ids, B, D, U, C_tot,
+                               Mc, block_q, k, width, part_s, part_i, out_s, out_i, stream);
+}
+
 // slots = 0: exact merge over slab positions (width must equal Mc);
 // slots = S ≥ 1: deferred lane-class fold of width `width` (Mc % width == 0).
 // The wgmma tile where ivf_tile_plan takes the shape (part_*: (B,
@@ -350,13 +367,8 @@ extern "C" int ts_ivf_scan(const float* q, const int* probes, const void* data,
                            int C_tot, int Mc, int block_q, int k, int width, int slots,
                            float* part_s, int* part_i, float* out_s, int* out_i,
                            void* stream) {
-  const int kind = data_bf16 ? 1 : 0;
-  IvfTilePlan plan;
-  if (ivf_tile_plan(kind, D, Mc, block_q, k, width, slots, 0, &plan))
-    return ivf_tile_scan(kind, q, probes, data, nullptr, ids, nullptr, nullptr, B, D, U, C_tot,
-                         Mc, block_q, k, width, slots, 0, part_s, part_i, out_s, out_i, stream);
-  return dispatch_kind<kMerge>(kind, slots, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc,
-                               block_q, k, width, part_s, part_i, out_s, out_i, stream);
+  return ivf_k1_scan(data_bf16 ? 1 : 0, q, probes, data, nullptr, ids, B, D, U, C_tot, Mc,
+                     block_q, k, width, slots, 0, part_s, part_i, out_s, out_i, stream);
 }
 
 // K4: int8 slabs with per-slot f32 scales (C_tot, Mc); modes and kernel
@@ -366,12 +378,8 @@ extern "C" int ts_ivf_scan_int8(const float* q, const int* probes, const int8_t*
                                 int C_tot, int Mc, int block_q, int k, int width,
                                 int slots, float* part_s, int* part_i, float* out_s,
                                 int* out_i, void* stream) {
-  IvfTilePlan plan;
-  if (ivf_tile_plan(2, D, Mc, block_q, k, width, slots, 0, &plan))
-    return ivf_tile_scan(2, q, probes, data, scales, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
-                         block_q, k, width, slots, 0, part_s, part_i, out_s, out_i, stream);
-  return dispatch_kind<kMerge>(2, slots, q, probes, data, scales, ids, B, D, U, C_tot, Mc,
-                               block_q, k, width, part_s, part_i, out_s, out_i, stream);
+  return ivf_k1_scan(2, q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k, width,
+                     slots, 0, part_s, part_i, out_s, out_i, stream);
 }
 
 // K1-opt per_probe: exact top-k of each probe → out (U, B, k); part holds
@@ -385,12 +393,20 @@ extern "C" int ts_ivf_scan_per_probe(const float* q, const int* probes, const vo
                                   Mc, block_q, k, Mc, part_s, part_i, out_s, out_i, stream);
 }
 
-// K1-opt emit_acc: the deferred fold's accumulator → out (B, slots·width).
+// K1-opt emit_acc: the deferred fold's accumulator → out (B, slots·width),
+// slot s at columns s·width … s·width + width − 1; no merge. data_kind 0
+// f32, 1 bf16, 2 int8 + scales. The wgmma tile's deferred mode where
+// ivf_tile_plan takes the shape (ts_ivf_scan_tile_plan(kind, D, Mc,
+// block_q, 1, width, slots) tells the caller), else the CUDA-core kernel.
 extern "C" int ts_ivf_scan_emit_acc(const float* q, const int* probes, const void* data,
                                     int data_kind, const float* scales, const int* ids,
                                     int B, int D, int U, int C_tot, int Mc, int block_q,
                                     int width, int slots, float* out_s, int* out_i,
                                     void* stream) {
+  IvfTilePlan plan;
+  if (data_kind <= 2 && ivf_tile_plan(data_kind, D, Mc, block_q, 1, width, slots, 0, &plan))
+    return ivf_tile_emit(data_kind, q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q,
+                         width, slots, out_s, out_i, stream);
   return dispatch_kind<kEmitAcc>(data_kind, slots, q, probes, data, scales, ids, B, D, U,
                                  C_tot, Mc, block_q, 1, width, out_s, out_i, nullptr, nullptr,
                                  stream);

@@ -69,11 +69,22 @@
 // a multiple of 4 (the ids' and scales' row pitch must be 16 bytes). D
 // 384, the main path's, is taken.
 //
-// The same tile runs two scan modes of ivf_modes.cu's kernels:
+// The same tile runs K1-opt emit_acc (ts_ivf_scan_emit_acc through
+// ivf_tile_emit, the reference's _ivf_body with emit_acc,
+// ivf.py:1212-1222): K1's deferred fold at (w, S), written raw in the
+// reference's slot-major order, entry (query, slot s, lane class c) at
+// part[(query · S + s) · w + c], with no merge pass (the caller selects);
+// lane classes at or past w (the last range's rows past its lanes) are
+// not written. And three scan modes of ivf_modes.cu's entries:
+// * K11a, several probes a step (ts_ivf_scan_multiprobe, _ivf_kernel_
+//   multiprobe), through ivf_k1_scan as K1's other shapes: K1's deferred
+//   fold at width Mc with one slot over the probe list padded with its
+//   last probe (re-folding a slab changes nothing under the strict >
+//   fold), at the tile's own ring depth.
 // * K10, the copy-ring scan (ts_ivf_scan_dma, text_similarity_tpu/index/
-//   ivf.py _ivf_kernel_dma): K1's deferred fold at width Mc with S slots,
-//   its ring depth the call's n_buffers (2-4), capped by what shared
-//   memory holds beside the queries (3 stages at D 384).
+//   ivf.py _ivf_kernel_dma), likewise: K1's deferred fold at width Mc with
+//   S slots, its ring depth the call's n_buffers (2-4), capped by what
+//   shared memory holds beside the queries (3 stages at D 384).
 // * K11b, the idless scan of the sentinel layout (ts_ivf_scan_idless,
 //   _ivf_kernel_idless): bf16 rows of D + 1 columns, the last +2 on live
 //   rows and 0 on dead ones; no ids are read: slot id = slab · Mc +
@@ -164,6 +175,7 @@ struct TileArgs {
   int* counts;                 // K11b, or null: += (tiles of valid probes, tiles skipped)
   int D, U, C_tot, Mc, block_q, k, kp, width, n_ranges, n_sub, nq, nwg, stages, stage_bytes;
   int n_mt;                    // K11b: 64-row tiles a slab in the zero map
+  bool emit;                   // emit_acc: part_* are (B, S·width), slot-major; no merge
 };
 
 struct __align__(64) TileMaps {
@@ -797,18 +809,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 
   if constexpr (S > 0) {
-    // the raw accumulator entries, (query, range, slot, lane) → part: the
-    // merge pass selects each query's top-k from all of them
+    // the raw accumulator entries → part: (query, range, slot, lane), from
+    // which the merge pass selects each query's top-k; or, for emit_acc,
+    // (query, slot, lane class), only the range's lanes
+    const size_t q_pitch = a.emit ? (size_t)S * a.width : (size_t)a.n_ranges * S * kTileM;
+    const size_t base = a.emit ? (size_t)r0 : (size_t)range * S * kTileM;
+    const size_t step = a.emit ? a.width : kTileM;
+    const int rows = a.emit ? lanes : kTileM;
 #pragma unroll
     for (int p = 0; p < N / 2; ++p) {
       const int ql = n0 + 8 * (p >> 2) + 2 * t + (p & 1);
-      if (ql >= qn) continue;
-      const size_t o = (((size_t)(qrow0 + ql) * a.n_ranges + range) * S) * kTileM + R0 +
-                       8 * ((p >> 1) & 1);
+      const int row = R0 + 8 * ((p >> 1) & 1);
+      if (ql >= qn || row >= rows) continue;
+      const size_t o = (size_t)(qrow0 + ql) * q_pitch + base + row;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        a.part_s[o + s * kTileM] = acc_s[p][s];
-        a.part_i[o + s * kTileM] = acc_i[p][s];
+        a.part_s[o + s * step] = acc_s[p][s];
+        a.part_i[o + s * step] = acc_i[p][s];
       }
     }
   } else {
@@ -846,8 +863,8 @@ template <typename T>
 cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes, const T* data,
                      const float* scales, const int* ids, const unsigned char* zero, int* counts,
                      int B, int D, int U, int C_tot, int Mc, int block_q, int k, int width,
-                     int slots, float* part_s, int* part_i, float* out_s, int* out_i,
-                     cudaStream_t st) {
+                     int slots, bool emit, float* part_s, int* part_i, float* out_s,
+                     int* out_i, cudaStream_t st) {
   constexpr bool kInt8 = std::is_same_v<T, int8_t>;
   constexpr bool kIdless = std::is_same_v<T, SentinelRows>;
   TileMaps maps{};
@@ -896,6 +913,7 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
   a.stages = plan.stages;
   a.stage_bytes = (int)tile_stage_bytes(kIdless ? kSentinel : kInt8 ? 2 : 1, D);
   a.n_mt = (Mc + kTileM - 1) / kTileM;
+  a.emit = emit;
   // range-major: range 0 of every query block first (the heaviest CTAs)
   const dim3 grid((B / block_q) * a.n_sub, a.n_ranges);
   if constexpr (kIdless) {
@@ -910,7 +928,7 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.emit) return err;
   return launch_merge_rows(part_s, part_i, B, a.n_ranges * (slots ? slots * kTileM : k), k,
                            out_s, out_i, st);
 }
@@ -952,11 +970,13 @@ bool ivf_tile_plan(int data_kind, int D, int Mc, int block_q, int k, int width, 
   }
 }
 
-int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* data,
-                  const float* scales, const int* ids, const unsigned char* zero_tiles,
-                  int* counts, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
-                  int width, int slots, int max_stages, float* part_s, int* part_i,
-                  float* out_s, int* out_i, void* stream) {
+namespace {
+
+int tile_scan(int data_kind, const float* q, const int* probes, const void* data,
+              const float* scales, const int* ids, const unsigned char* zero_tiles, int* counts,
+              int B, int D, int U, int C_tot, int Mc, int block_q, int k, int width, int slots,
+              int max_stages, bool emit, float* part_s, int* part_i, float* out_s, int* out_i,
+              void* stream) {
   IvfTilePlan plan;
   if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, max_stages, &plan))
     return (int)cudaErrorInvalidValue;
@@ -965,15 +985,37 @@ int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* 
     if (reinterpret_cast<uintptr_t>(data) % 16) return (int)cudaErrorMisalignedAddress;
     return (int)run_tile(plan, q, probes, static_cast<const SentinelRows*>(data), nullptr,
                          nullptr, zero_tiles, counts, B, D - 1, U, C_tot, Mc, block_q, k, width,
-                         slots, part_s, part_i, out_s, out_i, st);
+                         slots, emit, part_s, part_i, out_s, out_i, st);
   }
   if (data_kind == 2)
     return (int)run_tile(plan, q, probes, static_cast<const int8_t*>(data), scales, ids, nullptr,
-                         nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, part_s, part_i,
-                         out_s, out_i, st);
+                         nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, emit, part_s,
+                         part_i, out_s, out_i, st);
   return (int)run_tile(plan, q, probes, static_cast<const __nv_bfloat16*>(data), nullptr, ids,
-                       nullptr, nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, part_s,
-                       part_i, out_s, out_i, st);
+                       nullptr, nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, emit,
+                       part_s, part_i, out_s, out_i, st);
+}
+
+}  // namespace
+
+int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* data,
+                  const float* scales, const int* ids, const unsigned char* zero_tiles,
+                  int* counts, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
+                  int width, int slots, int max_stages, float* part_s, int* part_i,
+                  float* out_s, int* out_i, void* stream) {
+  if (!out_s || !out_i) return (int)cudaErrorInvalidValue;
+  return tile_scan(data_kind, q, probes, data, scales, ids, zero_tiles, counts, B, D, U, C_tot,
+                   Mc, block_q, k, width, slots, max_stages, false, part_s, part_i, out_s, out_i,
+                   stream);
+}
+
+int ivf_tile_emit(int data_kind, const float* q, const int* probes, const void* data,
+                  const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
+                  int block_q, int width, int slots, float* out_s, int* out_i, void* stream) {
+  if (data_kind != 1 && data_kind != 2) return (int)cudaErrorInvalidValue;
+  if (slots < 1 || !out_s || !out_i) return (int)cudaErrorInvalidValue;
+  return tile_scan(data_kind, q, probes, data, scales, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
+                   block_q, 1, width, slots, 0, true, out_s, out_i, nullptr, nullptr, stream);
 }
 
 // The plan the scan entry points take for a shape: 1 and out = (nq, nwg,

@@ -1,8 +1,10 @@
 // The IVF block-union scan on Hopper's tensor cores (ivf_tile.cu), as the
-// merge entry points of ivf_scan.cu (ts_ivf_scan, ts_ivf_scan_int8, and
-// ts_ivf_scan_idless for K11b) and ivf_modes.cu's ts_ivf_scan_dma (K10)
-// reach it. The kernel choice lives here: ivf_tile_plan says whether the
-// wgmma tile takes a shape, and ivf_tile_scan launches it.
+// entry points of ivf_scan.cu (ts_ivf_scan, ts_ivf_scan_int8,
+// ts_ivf_scan_emit_acc, and ts_ivf_scan_idless for K11b) and ivf_modes.cu
+// (ts_ivf_scan_dma for K10, ts_ivf_scan_multiprobe for K11a, both through
+// ivf_k1_scan) reach it. The kernel choice lives here: ivf_tile_plan says
+// whether the wgmma tile takes a shape, and ivf_tile_scan / ivf_tile_emit
+// launch it.
 #pragma once
 
 #include <stddef.h>
@@ -33,3 +35,20 @@ int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* 
                   int* counts, int B, int D, int U, int C_tot, int Mc, int block_q, int k,
                   int width, int slots, int max_stages, float* part_s, int* part_i,
                   float* out_s, int* out_i, void* stream);
+
+// K1-opt emit_acc on the tile (kinds 1 and 2, slots ≥ 1; the shape must
+// have a plan at k 1): the deferred fold's entries written slot-major to
+// out_* (B, S·width), slot s at columns s·width … s·width + width − 1; no
+// merge runs.
+int ivf_tile_emit(int data_kind, const float* q, const int* probes, const void* data,
+                  const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
+                  int block_q, int width, int slots, float* out_s, int* out_i, void* stream);
+
+// K1 / K4 (ivf_scan.cu), and K10 and K11a through them: the tile where
+// ivf_tile_plan takes the shape (its ring at most max_stages deep, 0: its
+// own depth), else K1's CUDA-core kernel (data_kind 0 f32, 1 bf16, 2 int8
+// + scales; slots 0 the exact merge, 1-4 the deferred fold).
+int ivf_k1_scan(int data_kind, const float* q, const int* probes, const void* data,
+                const float* scales, const int* ids, int B, int D, int U, int C_tot, int Mc,
+                int block_q, int k, int width, int slots, int max_stages, float* part_s,
+                int* part_i, float* out_s, int* out_i, void* stream);

@@ -186,12 +186,14 @@ def ivf_scan_cuda(
     ``ivf_scan_reference``. q (B, D) f32, probe_list (B/block_q, U) int32,
     data (C_tot, Mc, D), ids and scales (C_tot, Mc) int32 / f32 —
     contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≤ 256, acc_slots
-    ≤ 4. The merge mode runs on the wgmma tile where the kernel library's
-    plan takes the shape (``tile_plan_cuda``), else on the CUDA-core
-    kernel. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
+    ≤ 4. The merge and emit_acc modes run on the wgmma tile where the
+    kernel library's plan takes the shape (``tile_plan_cuda``; emit_acc
+    asks it at k 1: no selection runs), else on the CUDA-core kernel. Each
+    mode counts its launches apart: ``ivf_scan_cuda.launches``,
     ``.launches_int8`` (merge; those on the tile also in
     ``.launches_tile[_int8]``), ``.launches_per_probe[_int8]``,
-    ``.launches_emit_acc[_int8]``."""
+    ``.launches_emit_acc[_int8]`` (those on the tile also in
+    ``.launches_emit_acc_tile[_int8]``)."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
     int8 = data.dtype == torch.int8
     b, d = q.shape
@@ -211,6 +213,7 @@ def ivf_scan_cuda(
         out_i = torch.empty((b, slots * w), dtype=torch.int32, device=dev)
         if b == 0:
             return out_s, out_i
+        plan = tile_plan_cuda(data_kind(data), d, mc, block_q, 1, w, slots)
         err = _cuda.lib().ts_ivf_scan_emit_acc(
             q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data), sc_ptr,
             ids.data_ptr(), b, d, u, c_tot, mc, block_q, w, slots,
@@ -218,6 +221,8 @@ def ivf_scan_cuda(
         )
         _cuda.check(err, "ivf_scan emit_acc kernel")
         _count(f"launches_emit_acc{suffix}")
+        if plan:
+            _count(f"launches_emit_acc_tile{suffix}")
         return out_s, out_i
     rows = u * b if per_probe else b
     out_s = torch.empty((rows, k), dtype=torch.float32, device=dev)
@@ -271,6 +276,8 @@ ivf_scan_cuda.launches_per_probe = 0
 ivf_scan_cuda.launches_per_probe_int8 = 0
 ivf_scan_cuda.launches_emit_acc = 0
 ivf_scan_cuda.launches_emit_acc_int8 = 0
+ivf_scan_cuda.launches_emit_acc_tile = 0
+ivf_scan_cuda.launches_emit_acc_tile_int8 = 0
 
 
 def ivf_scan(q, probe_list, data, ids, k, block_q, approx_width=0, acc_slots=1, scales=None,

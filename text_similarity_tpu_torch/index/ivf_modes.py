@@ -20,12 +20,14 @@ the dot; a probe id outside [0, C_tot) scans nothing.
   (``_pack_candidates``) → (B, k) packets; ``_unpack_candidates`` turns
   them into (score, id).
 - K10 ``ivf_scan_dma``: the deferred fold at full width Mc with S slots and
-  the in-kernel merge (the kernel streams its tiles through a ring of
-  ``n_buffers`` stages: K1's wgmma tile where its plan takes the shape;
-  the result equals K1's at ``approx_width=Mc``).
+  the in-kernel merge; the card runs K1 at ``approx_width=Mc`` (its wgmma
+  tile streams the slabs through a ring at most ``n_buffers`` deep), so
+  the result equals K1's there.
 - K11a ``ivf_scan_multiprobe``: P probes a step, full-width single-slot
   fold; the probe list is padded to a multiple of P by repeating its last
-  probe (a repeated probe changes nothing).
+  probe (a repeated probe changes nothing). The card runs K1 at
+  ``approx_width=Mc`` with one slot over the padded list, so the result
+  equals K1's there.
 - K11b ``ivf_scan_idless``: the single-slot deferred fold over D+1 slabs
   without ids: slot id = probe · Mc + position, no slot masked (the
   sentinel column scores dead slots 0) → flat slot ids. On the wgmma tile
@@ -48,7 +50,6 @@ from ..ops import _cuda
 from ..ops.topk import MAX_K, select_topk
 
 MAX_D = 1025                    # 1024 wide, +1 for the sentinel column
-STAGED_PROBES = 4              # slabs K11a stages a step at most
 PACK_SCORE_BITS = 14            # fixed-point cosine resolution ~1.2e-4
 PACK_U_BITS = 6                 # probe index within the block union (≤ 64)
 PACK_POS_BITS = 11              # row position within the slab (Mc ≤ 2048)
@@ -437,11 +438,13 @@ def ivf_scan_dma_cuda(
 ):
     """Kernel K10 on the card; same contract as ``ivf_scan_dma_reference``
     (f32 / bf16 slabs, any Mc, D ≤ 1025, acc_slots ≤ 4, n_buffers 2-4).
-    Where the kernel library's plan takes the shape (``tile_plan_cuda`` at
-    width Mc with S slots, its ring at most ``n_buffers`` deep: bf16 slabs,
-    D a multiple of 64, Mc a multiple of 4) it runs K1's wgmma tile, else
-    the CUDA-core copy-ring kernel. Counts ``ivf_scan_dma_cuda.launches``,
-    those on the tile also in ``.launches_tile``."""
+    It runs K1 at width Mc with S slots, so its result is K1's at
+    ``approx_width=Mc`` bit for bit: the wgmma tile where the kernel
+    library's plan takes the shape (``tile_plan_cuda`` with its ring at
+    most ``n_buffers`` deep: bf16 slabs, D a multiple of 64, Mc a multiple
+    of 4), else K1's CUDA-core kernel. Counts
+    ``ivf_scan_dma_cuda.launches``, those on the tile also in
+    ``.launches_tile``."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q,
                       dtypes=(torch.float32, torch.bfloat16))
     b, d = q.shape
@@ -458,9 +461,9 @@ def ivf_scan_dma_cuda(
     part_s, part_i = _outputs((b, n_part), dev)
     err = _cuda.lib().ts_ivf_scan_dma(
         q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
-        data.numel() * data.element_size(), ids.data_ptr(), b, d, probe_list.shape[1],
-        c_tot, mc, block_q, k, acc_slots, n_buffers, part_s.data_ptr(), part_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
+        ids.data_ptr(), b, d, probe_list.shape[1], c_tot, mc, block_q, k, acc_slots, n_buffers,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _cuda.stream_handle(dev),
     )
     _cuda.check(err, "ivf_scan_dma kernel")
     ivf_scan_dma_cuda.launches += 1
@@ -478,35 +481,41 @@ def ivf_scan_multiprobe_cuda(
     scales=None,
 ):
     """Kernel K11a on the card; same contract as
-    ``ivf_scan_multiprobe_reference`` (f32, bf16 or int8 + scales). The
-    kernel stages up to four slabs a step: a larger ``probes_per_step``
-    runs four at a time on the list padded further with its last probe,
-    which leaves the fold, hence the result, as it is. Counts
-    ``ivf_scan_multiprobe_cuda.launches``."""
+    ``ivf_scan_multiprobe_reference`` (f32, bf16 or int8 + scales). It
+    runs K1 at width Mc with one slot over the probe list padded to a
+    multiple of ``probes_per_step``, so its result is K1's at
+    ``approx_width=Mc`` bit for bit: the wgmma tile where the kernel
+    library's plan takes the shape (``tile_plan_cuda`` at width Mc with one
+    slot: bf16 or int8 slabs, D a multiple of 64, Mc a multiple of 4), else
+    K1's CUDA-core kernel. Counts ``ivf_scan_multiprobe_cuda.launches``,
+    those on the tile also in ``.launches_tile``."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
     b, d = q.shape
     c_tot, mc, _ = data.shape
     _check_multiprobe(k, mc, probes_per_step)
-    staged = min(probes_per_step, STAGED_PROBES)
-    probe_list = pad_probes(pad_probes(probe_list, probes_per_step), staged)
+    probe_list = pad_probes(probe_list, probes_per_step)
     dev = q.device
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
-    part_s, part_i = _outputs((b, -(-mc // 128), k), dev)
+    plan = tile_plan_cuda(data_kind(data), d, mc, block_q, k, mc, 1)
+    part_s, part_i = _outputs((b, tile_part_width(mc, k, 1) if plan else -(-mc // 128) * k), dev)
     err = _cuda.lib().ts_ivf_scan_multiprobe(
         q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data),
         scales.data_ptr() if scales is not None else None, ids.data_ptr(), b, d,
-        probe_list.shape[1], staged, c_tot, mc, block_q, k,
+        probe_list.shape[1], probes_per_step, c_tot, mc, block_q, k,
         part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
         _cuda.stream_handle(dev),
     )
     _cuda.check(err, "ivf_scan_multiprobe kernel")
     ivf_scan_multiprobe_cuda.launches += 1
+    if plan:
+        ivf_scan_multiprobe_cuda.launches_tile += 1
     return out_s, out_i
 
 
 ivf_scan_multiprobe_cuda.launches = 0
+ivf_scan_multiprobe_cuda.launches_tile = 0
 
 
 def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width: int,

@@ -74,9 +74,9 @@ _SIGNATURES = {
     # slots, part_s, part_i, sel_s, sel_i, out_p, stream
     "ts_ivf_scan_packed": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P],
-    # q, probes, data, data_bf16, data_bytes, ids, B, D, U, C_tot, Mc,
-    # block_q, k, slots, n_buf, part_s, part_i, out_s, out_i, stream
-    "ts_ivf_scan_dma": [_P, _P, _P, _I, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, probes, data, data_bf16, ids, B, D, U, C_tot, Mc, block_q, k,
+    # slots, n_buf, part_s, part_i, out_s, out_i, stream
+    "ts_ivf_scan_dma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P],
     # q, probes, data, data_kind, scales, ids, B, D, U, P, C_tot, Mc,
     # block_q, k, part_s, part_i, out_s, out_i, stream

@@ -1,15 +1,23 @@
-"""Times K1, K4, K10 and K11b of one source tree on the card, with K2 as a
-control:
+"""Times K1, K4, K1-opt emit_acc, K10, K11a and K11b of one source tree on
+the card, with K2 as a control:
 
 - at chip_smoke.py's shapes: the 1M × 384 bench corpus,
   ``IndexConfig.auto(1M)``, 4096 queries with the serving args (block_q 64,
   union_factor 1): K1 at k 10 and k 100 (deferred, w = Mc, the planned
   slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact; K10
   (``dma_pipeline``) at k 10 with 2, 3 and 4 buffers and at k 100 (its
-  planned slots); K11b (the idless scan) at k 10 on a ``sentinel=True``
-  build of the same corpus (2048 × 1536 × 385, w = Mc);
-  ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10, int8 + rescore,
-  ``dma_pipeline`` and the sentinel index's idless scan;
+  planned slots); K1-opt emit_acc (``final_merge="xla"``) at bench.py's
+  k 100 args (w 512, the planned slots; int8 at the rescore's k_scan 200)
+  and the stable select the query path runs on its (4096, S·w) output;
+  the rescore of the int8 scan's 200 candidates a query down to k 100;
+  K11a (``probes_per_step``) at k 10 with P 2, 3 and 4; K11b (the idless
+  scan) at k 10 on a ``sentinel=True`` build of the same corpus (2048 ×
+  1536 × 385, w = Mc); K11a (P 2) and K10 (2 buffers) where the tile does
+  not run, beside K1's CUDA-core fold at (Mc, 1): on f32 copies of the
+  bf16 slabs and on the sentinel build's 385-wide slabs; ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10,
+  int8 + rescore, ``dma_pipeline``, ``probes_per_step=2``,
+  ``final_merge="xla"`` at k 100 (bf16, int8 + rescore) and the sentinel
+  index's idless scan;
 - at the pipeline's request shapes: chip_smoke.py phase 4's index of
   120,000 synthetic documents (minilm-l6 with random weights, bf16 slabs)
   and phase 5's (the same encoder in int8, int8 slabs), requests of 1, 5
@@ -76,7 +84,9 @@ def main(tree: str) -> None:
     import chip_smoke as cs
     from text_similarity_tpu_torch.core.config import IndexConfig
     from text_similarity_tpu_torch.index import ivf_modes
-    from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda
+    from text_similarity_tpu_torch.index.ivf import (
+        IVFIndex, _rescore, _top_by_position, ivf_scan_cuda,
+    )
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
     from text_similarity_tpu_torch.pipelines.search import _pad_pow2
 
@@ -88,6 +98,18 @@ def main(tree: str) -> None:
         return cs.time_ms(torch, lambda: ivf_scan_cuda(qs, pl, ivf.data_padded, ivf.ids_padded, k,
                                                        bq, w, s, ivf.scales_padded),
                           iters=iters, warmup=2)
+
+    def off_tile(name, qs, pl, data, ids, bq):
+        mc = data.shape[1]
+        assert ivf_modes.tile_plan_cuda(ivf_modes.data_kind(data), data.shape[2], mc, bq, 10, mc,
+                                        1) is None
+        for label, fn in (
+                ("K1 core k=10 w=Mc S=1", lambda: ivf_scan_cuda(qs, pl, data, ids, 10, bq, mc, 1)),
+                ("K11a k=10 P=2", lambda: ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, data, ids, 10,
+                                                                             bq, 2)),
+                ("K10 k=10 S=1 buffers 2", lambda: ivf_modes.ivf_scan_dma_cuda(qs, pl, data, ids,
+                                                                               10, bq, 1, 2))):
+            times[f"{label} 1M {name}"] = cs.time_ms(torch, fn, iters=5, warmup=1)
 
     # the pipeline's request shapes
     rng = np.random.default_rng(4)
@@ -132,6 +154,38 @@ def main(tree: str) -> None:
             q_ms = cs.time_ms(torch, lambda: ivf.query(queries, dma_pipeline=True, **qargs),
                               iters=5, warmup=1)
             times[f"query 4096 dma_pipeline k=10 ({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+            # K11a (probes_per_step) on the bf16 index: phase 5b's cases
+            for p in (2, 3, 4):
+                times[f"K11a 1M k=10 P={p}"] = cs.time_ms(
+                    torch, lambda: ivf_modes.ivf_scan_multiprobe_cuda(qs, pl, ivf.data_padded,
+                                                                      ivf.ids_padded, 10, bq, p),
+                    iters=10, warmup=2)
+            q_ms = cs.time_ms(torch, lambda: ivf.query(queries, probes_per_step=2, **qargs),
+                              iters=5, warmup=1)
+            times[f"query 4096 probes_per_step 2 k=10 ({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+            # K10 and K11a off the tile, on f32 copies of the same slabs, beside
+            # K1's CUDA-core fold at (Mc, S)
+            off_tile(f"f32 D {ivf.data_padded.shape[2]}", qs, pl, ivf.data_padded.float(),
+                     ivf.ids_padded, bq)
+        # K1-opt emit_acc (final_merge "xla") at k 100: the scan's k_scan
+        k_e = ivf.scan_k(100)
+        w, s = ivf.scan_mode(k_e, 512, final_merge="xla")
+        emit = lambda: ivf_scan_cuda(qs, pl, ivf.data_padded, ivf.ids_padded, k_e, bq,  # noqa: E731
+                                     w, s, ivf.scales_padded, emit_acc=True)
+        times[f"emit_acc 1M {'int8' if int8 else 'bf16'} k={k_e} w={w} S={s}"] = cs.time_ms(
+            torch, emit, iters=10, warmup=2)
+        acc = emit()
+        if not int8:
+            times[f"stable select of emit_acc's (4096, {s * w}) at k={k_e}"] = cs.time_ms(
+                torch, lambda: _top_by_position(*acc, k_e), iters=10, warmup=2)
+        else:   # the rescore of the int8 scan's k_scan candidates down to k 100
+            cand = _top_by_position(*acc, k_e)[1]
+            times[f"rescore of {k_e} candidates to k=100 (bf16 copy)"] = cs.time_ms(
+                torch, lambda: _rescore(qs, cand, ivf.rescore_data, 100), iters=10, warmup=2)
+        q_ms = cs.time_ms(torch, lambda: ivf.query(queries, k=100, final_merge="xla",
+                                                   **cs.K100_ARGS), iters=5, warmup=1)
+        times[f"query 4096 final_merge xla {'int8 + rescore' if int8 else 'bf16'} k=100 "
+              f"({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
         del ivf
     # K11b on a sentinel build of the same corpus (phase 5b's case)
     sent = IVFIndex.build(corpus, cfg, data_dtype=torch.bfloat16, generator=gen(), device="cuda",
@@ -145,6 +199,8 @@ def main(tree: str) -> None:
         iters=10, warmup=2)
     q_ms = cs.time_ms(torch, lambda: sent.query(queries, acc_slots=1, **qargs), iters=5, warmup=1)
     times[f"query 4096 sentinel idless k=10 ({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+    off_tile(f"sentinel D+1 {sent.data_padded.shape[2]}", qs, pl, sent.data_padded,
+             sent.ids_padded, bq)
     del sent
     q256, c100k = queries[:256].contiguous(), corpus[:100_003].contiguous()
     times["K2 Q=256 N=100003"] = cs.time_ms(torch, lambda: cosine_topk_cuda(q256, c100k, 10))
