@@ -85,17 +85,21 @@ Phases (any failure exits non-zero):
     100) against K2's exact answer ≥ 0.95 for every option; the removed row
     never comes back, the added row finds itself; every new counter rises.
     Then each kernel against its plain version at those shapes: K1-opt
-    per_probe (bf16, int8) and emit_acc (bf16 k 100, int8 k_scan 200, on
-    K1's wgmma tile: its entries after the exact select equal K1 on the
-    tile at the same (w, S) bit for bit; both timed), K9 (unpacked scores
-    within one 14-bit bin, overlap ≥ 0.99), K10 (buffers 2-4 at k 10, 2 at
+    per_probe (bf16, int8, on K1's wgmma tile: each probe's top-k pooled
+    and selected equals K1's / K4's exact mode on the tile bit for bit;
+    both timed) and emit_acc (bf16 k 100, int8 k_scan 200, on K1's wgmma
+    tile: its entries after the exact select equal K1 on the tile at the
+    same (w, S) bit for bit; both timed), K9 on the wgmma tile at k 10 and
+    100 (unpacked scores within one 14-bit bin, overlap ≥ 0.99, the share
+    of packets bit-equal printed; both timed), K10 (buffers 2-4 at k 10, 2 at
     k 100) and K11a (P 2, 3, 4, each timed), both on K1's wgmma tile and
     equal, bit for bit, to K1 at approx_width = Mc and to emit_acc + the
     exact select there, K11b on the wgmma tile (its counter's share of
     probed tiles skipped as all zero) and K1 on the 385-wide slabs (its
     CUDA-core kernel, bit for bit equal to that kernel's fold, emit_acc +
     top-k); f32 |Δscore| ≤ 1e-4 and overlap ≥ 0.99 elsewhere; every
-    emit_acc, K10, K11a and K11b launch of the options window on the tile;
+    per_probe, emit_acc, K9, K10, K11a and K11b launch of the options
+    window on the tile;
     times beside K1's at the same k, and each option's query rate.
  6. long documents:
     - K5 (flash attention forward) against its plain version at the
@@ -1424,12 +1428,13 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
     # --- the main path: IVFIndex.query with every option (counted window)
     counters = [(ivf_scan_cuda, c) for c in (
         "launches", "launches_int8", "launches_per_probe", "launches_per_probe_int8",
+        "launches_per_probe_tile", "launches_per_probe_tile_int8",
         "launches_emit_acc", "launches_emit_acc_int8", "launches_emit_acc_tile",
         "launches_emit_acc_tile_int8")] + [
         (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches")
         for m in ("packed", "dma", "multiprobe", "idless")] + [
         (getattr(ivf_modes, f"ivf_scan_{m}_cuda"), "launches_tile")
-        for m in ("dma", "multiprobe", "idless")]
+        for m in ("packed", "dma", "multiprobe", "idless")]
     q10 = dict(QARGS)
     per_probe_args = dict(union_factor=1, block_q=64, per_probe=True)
     cases = [
@@ -1487,13 +1492,15 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
                 "ivf_scan_cuda.launches"):
         if counts[key] == 0:
             raise AssertionError(f"{key} never launched on the IVF options path")
-    # emit_acc (bf16 and int8), K10 and K11a on the bf16 index and K11b on
-    # the sentinel build run the wgmma tile
-    tile_counts = [("K1-opt emit_acc", sum(counts[f"ivf_scan_cuda.launches_emit_acc_tile{x}"]
-                                           for x in ("", "_int8")),
-                    sum(counts[f"ivf_scan_cuda.launches_emit_acc{x}"] for x in ("", "_int8")))]
+    # per_probe and emit_acc (bf16 and int8), K9, K10 and K11a on the bf16
+    # index and K11b on the sentinel build run the wgmma tile
+    tile_counts = [(f"K1-opt {m}", sum(counts[f"ivf_scan_cuda.launches_{m}_tile{x}"]
+                                       for x in ("", "_int8")),
+                    sum(counts[f"ivf_scan_cuda.launches_{m}{x}"] for x in ("", "_int8")))
+                   for m in ("per_probe", "emit_acc")]
     tile_counts += [(f"ivf_scan_{m}_cuda", counts[f"ivf_scan_{m}_cuda.launches_tile"],
-                     counts[f"ivf_scan_{m}_cuda.launches"]) for m in ("dma", "multiprobe", "idless")]
+                     counts[f"ivf_scan_{m}_cuda.launches"])
+                    for m in ("packed", "dma", "multiprobe", "idless")]
     for name, on_tile, launched in tile_counts:
         log(f"{name}: {on_tile} of {launched} launches on the wgmma tile (csrc/ivf_tile.cu)")
         if on_tile != launched:
@@ -1520,23 +1527,46 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
         log(f"{name} [{card}]: {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}), {ms / bnd[0]:.1f}x the bound; {shape}")
 
-    # K1-opt per_probe (bf16, and int8 at the rescore's k)
+    # K1-opt per_probe (bf16, and int8 at the rescore's k) on the wgmma
+    # tile: each probe's top-k pooled to (B, U·k) and selected is K1's
+    # (K4's) exact mode on the tile, bit for bit
     a = (qs, pl, data, ids, 10, bq)
-    ks, ki = ivf_scan_cuda(*a, per_probe=True)
-    rs, ri = ivf_scan_reference(*a, per_probe=True)
-    ms, plain = timed(lambda: ivf_scan_cuda(*a, per_probe=True),
-                      lambda: ivf_scan_reference(*a, per_probe=True))
-    err = check_pair("K1-opt per_probe bf16 k=10", ks, ki, rs, ri, card, ms, k1_10)
     qs8, pl8, _, _ = serving_plan(ivf8, queries)
     a8 = (qs8, pl8, ivf8.data_padded, ivf8.ids_padded, 10, bq)
-    ks, ki = ivf_scan_cuda(*a8, scales=ivf8.scales_padded, per_probe=True)
-    rs, ri = ivf_scan_reference(*a8, scales=ivf8.scales_padded, per_probe=True)
-    err = max(err, check_pair("K1-opt per_probe int8 k=10", ks, ki, rs, ri, card))
     u = pl.shape[1]
-    entry("ivf_scan_per_probe", "ivf_scan.cu", "1945 (per_probe :1130-1132, :1238-1240, :1908-1917)",
-          err, ms, plain, scan_bound(torch, ivf, pl, n_q, bq, u * n_q * 10 * 8),
-          f"B={n_q} U={u} Mc={mc} D={d} k=10 bf16 -> (U, B, k); int8 checked too",
+    errs, pp_ms = [], {}
+    for label, args, sc in (("bf16", a, None), ("int8", a8, ivf8.scales_padded)):
+        tiles = ivf_scan_cuda.launches_per_probe_tile + ivf_scan_cuda.launches_per_probe_tile_int8
+        ks, ki = ivf_scan_cuda(*args, scales=sc, per_probe=True)
+        if (ivf_scan_cuda.launches_per_probe_tile + ivf_scan_cuda.launches_per_probe_tile_int8
+                != tiles + 1):
+            raise AssertionError(f"K1-opt per_probe {label} left the wgmma tile at the main "
+                                 f"path's shape")
+        rs, ri = ivf_scan_reference(*args, scales=sc, per_probe=True)
+        b = ks.shape[1]
+        pooled = ivf_modes._select(ks.permute(1, 0, 2).reshape(b, -1),
+                                   ki.permute(1, 0, 2).reshape(b, -1), 10)
+        bit = bit_equal(pooled, ivf_scan_cuda(*args, scales=sc))
+        pp_ms[label] = time_ms(torch, lambda: ivf_scan_cuda(*args, scales=sc, per_probe=True),
+                               iters=5, warmup=1)
+        k1_exact = time_ms(torch, lambda: ivf_scan_cuda(*args, scales=sc), iters=5, warmup=1)
+        k1 = "K1" if sc is None else "K4"
+        errs.append(check_pair(f"K1-opt per_probe {label} k=10 on the wgmma tile, kernel "
+                               f"{pp_ms[label]:.3f} ms ({k1}'s exact mode on the tile "
+                               f"{k1_exact:.3f} ms; pooled and selected, bit for bit equal to "
+                               f"it: {bit})", ks, ki, rs, ri, card))
+        if not bit:
+            raise AssertionError(f"K1-opt per_probe {label}, pooled and selected, differs from "
+                                 f"the exact mode on the wgmma tile")
+    plain = time_ms(torch, lambda: ivf_scan_reference(*a, per_probe=True), iters=1, warmup=1)
+    entry("ivf_scan_per_probe", "ivf_tile.cu", "1945 (per_probe :1130-1132, :1238-1240, :1908-1917)",
+          max(errs), pp_ms["bf16"], plain, scan_bound(torch, ivf, pl, n_q, bq, u * n_q * 10 * 8),
+          f"B={n_q} U={u} Mc={mc} D={d} k=10 bf16 -> (U, B, k) on the wgmma tile; int8 timed too",
           counts["ivf_scan_cuda.launches_per_probe"] + counts["ivf_scan_cuda.launches_per_probe_int8"])
+    entries[-1]["ms_by_case"] = pp_ms
+    entries[-1]["bound_ms_by_case"] = {
+        "bf16": entries[-1]["bound_ms"],
+        "int8": scan_bound(torch, ivf8, pl8, n_q, bq, u * n_q * 10 * 8)[0]}
 
     # K1-opt emit_acc at k = 100 (bench's w 512 and the planned slots) and,
     # int8, at the rescore's k_scan 200, on the wgmma tile: after the exact
@@ -1583,14 +1613,18 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
         "bf16_k100": entries[-1]["bound_ms"],
         "int8_k200": scan_bound(torch, ivf8, pl8, n_q, bq, n_q * s8 * w8 * 8)[0]}
 
-    # K9 packed, k = 10 (w = Mc) and k = 100 (w 512, the planned slots)
+    # K9 packed, k = 10 (w = Mc) and k = 100 (w 512, the planned slots), on
+    # the wgmma tile
     bin_w = 1.0 / ivf_modes.PACK_SCALE + 1e-6
-    worst, main = 0.0, None
+    worst, main, k9_ms, k9_bound = 0.0, None, {}, {}
     for k, args in ((10, QARGS), (100, K100_ARGS)):
         qk, plk = qs, pl
         wk, sk = ivf.scan_mode(k, args["approx_width"], final_merge="packed")
         a = (qk, plk, data, ids, k, bq, wk, sk)
+        tiles = ivf_modes.ivf_scan_packed_cuda.launches_tile
         kp = ivf_modes.ivf_scan_packed_cuda(*a)
+        if ivf_modes.ivf_scan_packed_cuda.launches_tile != tiles + 1:
+            raise AssertionError("K9 left the wgmma tile at the main path's shape")
         rp = ivf_modes.ivf_scan_packed_reference(*a)
         ks, ki = ivf_modes._unpack_candidates(kp, plk, ids, bq)
         rs, ri = ivf_modes._unpack_candidates(rp, plk, ids, bq)
@@ -1598,8 +1632,11 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
         e = float((ks.sort(dim=1).values - rs.sort(dim=1).values).abs().max())
         bits = float((kp == rp).float().mean())
         ms = time_ms(torch, lambda: ivf_modes.ivf_scan_packed_cuda(*a), iters=5, warmup=1)
+        k9_ms[f"k{k}"] = ms
+        k9_bound[f"k{k}"] = scan_bound(torch, ivf, plk, n_q, bq, n_q * k * 4)[0]
         ok = ov >= 0.99 and e <= bin_w
-        log(f"K9 packed k={k} w={wk} S={sk}: overlap {ov:.4f}, unpacked max|Δscore| {e:.2e} "
+        log(f"K9 packed k={k} w={wk} S={sk} on the wgmma tile: overlap {ov:.4f}, unpacked "
+            f"max|Δscore| {e:.2e} "
             f"(one bin {bin_w:.2e}), packets bit-equal {bits:.5f}, kernel {ms:.3f} ms "
             f"(K1 at the same k {k1_10 if k == 10 else k1_100:.3f} ms) [{card}] -> "
             f"{'ok' if ok else 'FAIL'}")
@@ -1610,10 +1647,12 @@ def phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact):
             plain = time_ms(torch, lambda: ivf_modes.ivf_scan_packed_reference(*a), iters=1, warmup=1)
             main = (ms, plain, plk, wk, sk)
     ms, plain, plk, wk, sk = main
-    entry("ivf_scan_packed", "ivf_modes.cu", "1505", worst, ms, plain,
+    entry("ivf_scan_packed", "ivf_tile.cu", "1505", worst, ms, plain,
           scan_bound(torch, ivf, plk, n_q, bq, n_q * 10 * 4),
-          f"B={n_q} U={plk.shape[1]} Mc={mc} D={d} k=10 w={wk} S={sk} bf16 -> (B, k) packets",
-          counts["ivf_scan_packed_cuda.launches"])
+          f"B={n_q} U={plk.shape[1]} Mc={mc} D={d} k=10 w={wk} S={sk} bf16 -> (B, k) packets on "
+          f"the wgmma tile; k=100 timed too", counts["ivf_scan_packed_cuda.launches"])
+    entries[-1]["ms_by_case"] = k9_ms
+    entries[-1]["bound_ms_by_case"] = k9_bound
 
     # K10: full width, the planned slots, buffers 2-4, on K1's wgmma tile:
     # equal to K1 at (Mc, S) and to emit_acc + the exact select there (the

@@ -909,11 +909,14 @@ def test_k1_opt_per_probe_matches_plain(cuda, dtype, d, sentinel):
     empty; D+1 rows of no alignment."""
     q, probes, data, ids, scales = _scan_inputs(cuda, dtype, d, sentinel=sentinel)
     counter = "launches_per_probe_int8" if dtype == torch.int8 else "launches_per_probe"
-    before = getattr(ivf_scan_cuda, counter)
+    tile_counter = counter.replace("probe", "probe_tile")
+    on_tile = dtype != torch.float32 and d % 64 == 0   # f32, D 65 and 385: the CUDA cores
+    before, tiles = getattr(ivf_scan_cuda, counter), getattr(ivf_scan_cuda, tile_counter)
     ks, ki = ivf_scan_cuda(q, probes, data, ids, 10, 8, scales=scales, per_probe=True)
     rs, ri = ivf_scan_reference(q, probes, data, ids, 11, 8, scales=scales, per_probe=True)
     torch.cuda.synchronize()
     assert getattr(ivf_scan_cuda, counter) == before + 1
+    assert getattr(ivf_scan_cuda, tile_counter) == tiles + int(on_tile)
     assert ks.shape == (6, 24, 10)
     assert (ki[1, :8] == -1).all() and torch.isinf(ks[1, :8]).all()   # the −1 probe
     _agree_flat(ks, ki, rs, ri, dtype)
@@ -1177,16 +1180,101 @@ def test_k9_packed_matches_plain(cuda, dtype, d, mc, width, slots, k):
     from text_similarity_tpu_torch.index.ivf_modes import PACK_SCALE, _unpack_candidates
 
     q, probes, data, ids, _ = _scan_inputs(cuda, dtype, d, mc=mc, seed=6)
+    on_tile = dtype == torch.bfloat16 and d % 64 == 0   # f32, D 65 and 385: the CUDA cores
     before = ivf_modes.ivf_scan_packed_cuda.launches
+    tiles = ivf_modes.ivf_scan_packed_cuda.launches_tile
     kp = ivf_modes.ivf_scan_packed_cuda(q, probes, data, ids, k, 8, width, slots)
     rp = ivf_modes.ivf_scan_packed_reference(q, probes, data, ids, k, 8, width, slots)
     torch.cuda.synchronize()
     assert ivf_modes.ivf_scan_packed_cuda.launches == before + 1
+    assert ivf_modes.ivf_scan_packed_cuda.launches_tile == tiles + int(on_tile)
     ks, ki = (t.cpu().numpy() for t in _unpack_candidates(kp, probes, ids, 8))
     rs, ri = (t.cpu().numpy() for t in _unpack_candidates(rp, probes, ids, 8))
     assert _overlap(ki, ri) >= 0.99
     np.testing.assert_allclose(np.sort(ks, 1), np.sort(rs, 1), atol=1.0 / PACK_SCALE + 1e-6)
     assert (kp.cpu().numpy() == rp.cpu().numpy()).mean() >= 0.95
+
+
+def _exact_inputs(cuda, dtype, d, mc=200, c_tot=10, u=5, block_q=8, b=16, seed=20):
+    """Slabs whose every score is exact in f32 whatever the order of its
+    sum: entries and queries in {−1, 0, 1} / 16 (int8: codes in {−1, 0,
+    1} with per-slot scales 2^−3 … 2^−6), D ≤ 384, so each partial sum is
+    a multiple of 2^−8 (int8: 2^−4 before its scale) below 2; scores tie
+    often, so the lowest-id rule decides. About 10% of the slots are
+    empty, slab 0's rows 64-127 are all empty (a wholly empty 64-row
+    tile), Mc 200 ends in a tile of 8 rows, and block 0 probes −1.
+    → (q, probes, data, ids, scales or None)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-1, 2, (b, d)).astype(np.float32) / 16
+    codes = rng.integers(-1, 2, (c_tot * mc, d))
+    ids = np.arange(c_tot * mc, dtype=np.int32)
+    ids[rng.random(c_tot * mc) < 0.1] = -1
+    ids[64:128] = -1
+    probes = np.stack([rng.choice(c_tot, u, replace=False) for _ in range(b // block_q)])
+    probes[0, 1] = -1
+    scales = None
+    if dtype == torch.int8:
+        x = torch.from_numpy(codes.astype(np.int8)).to(cuda)
+        sc = 2.0 ** -rng.integers(3, 7, c_tot * mc)
+        scales = torch.from_numpy(sc.astype(np.float32)).view(c_tot, mc).to(cuda)
+    else:
+        x = torch.from_numpy(codes.astype(np.float32) / 16).to(cuda).to(dtype)
+    return (torch.from_numpy(q).to(cuda), torch.from_numpy(probes.astype(np.int32)).to(cuda),
+            x.view(c_tot, mc, d).contiguous(), torch.from_numpy(ids).view(c_tot, mc).to(cuda),
+            scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("block_q", [8, 16, 64])
+@pytest.mark.parametrize("d,k", [(64, 10), (384, 10), (128, 100)])
+def test_k1_opt_per_probe_on_tile_exact(cuda, dtype, block_q, d, k):
+    """K1-opt per_probe on the wgmma tile (the plans of 8, 16 and 64
+    queries a CTA; k 10 in a list of 32, k 100 through the selector) over
+    exactly representable scores: (U, B, k) equal to the plain version's
+    bit for bit, scores and ids with the lowest-id rule, the −1 probe's
+    rows (−inf, −1); and its per-probe top-k's pooled to (B, U·k) and
+    selected equal to K1's exact mode on the tile bit for bit. Counted in
+    ``launches_per_probe_tile[_int8]``."""
+    q, probes, data, ids, scales = _exact_inputs(cuda, dtype, d, block_q=block_q, b=2 * block_q)
+    kind = ivf_modes.data_kind(data)
+    plan = ivf_mod.tile_plan_cuda(kind, d, 200, block_q, k, 200, 0)
+    assert plan is not None and plan.nq == block_q
+    suffix = "_int8" if dtype == torch.int8 else ""
+    tiles = getattr(ivf_scan_cuda, f"launches_per_probe_tile{suffix}")
+    ks, ki = ivf_scan_cuda(q, probes, data, ids, k, block_q, scales=scales, per_probe=True)
+    rs, ri = ivf_scan_reference(q, probes, data, ids, k, block_q, scales=scales, per_probe=True)
+    torch.cuda.synchronize()
+    assert getattr(ivf_scan_cuda, f"launches_per_probe_tile{suffix}") == tiles + 1
+    assert torch.equal(ks, rs) and torch.equal(ki, ri)
+    assert (ki[1, :block_q] == -1).all() and torch.isneginf(ks[1, :block_q]).all()
+    u, b = probes.shape[1], q.shape[0]
+    pooled = ivf_modes._select(ks.permute(1, 0, 2).reshape(b, u * k),
+                               ki.permute(1, 0, 2).reshape(b, u * k), k)
+    k1_tiles = _tile_launches(dtype)
+    ws, wi = ivf_scan_cuda(q, probes, data, ids, k, block_q, scales=scales)
+    torch.cuda.synchronize()
+    assert _tile_launches(dtype) == k1_tiles + 1
+    assert torch.equal(pooled[0], ws) and torch.equal(pooled[1], wi)
+
+
+@pytest.mark.parametrize("block_q", [8, 16, 64])
+@pytest.mark.parametrize("d,mc,width,slots,k", [(64, 200, 200, 1, 10), (384, 256, 128, 2, 50),
+                                                (128, 256, 256, 3, 100), (64, 512, 128, 4, 200)])
+def test_k9_on_tile_packets_exact(cuda, block_q, d, mc, width, slots, k):
+    """K9 on the wgmma tile (bf16; 8, 16 and 64 queries a CTA; S 1-4, a
+    last range of 8 lanes at w 200) over exactly representable scores: its
+    (B, k) packets equal ``ivf_scan_packed_reference``'s bit for bit, an
+    empty tile and the −1 probe skipped. Counted in
+    ``ivf_scan_packed_cuda.launches_tile``."""
+    q, probes, data, ids, _ = _exact_inputs(cuda, torch.bfloat16, d, mc=mc, block_q=block_q,
+                                            b=2 * block_q)
+    assert ivf_mod.tile_plan_cuda(1, d, mc, block_q, k, width, slots) is not None
+    tiles = ivf_modes.ivf_scan_packed_cuda.launches_tile
+    kp = ivf_modes.ivf_scan_packed_cuda(q, probes, data, ids, k, block_q, width, slots)
+    rp = ivf_modes.ivf_scan_packed_reference(q, probes, data, ids, k, block_q, width, slots)
+    torch.cuda.synchronize()
+    assert ivf_modes.ivf_scan_packed_cuda.launches_tile == tiles + 1
+    assert torch.equal(kp, rp)
 
 
 def test_k9_rejects_wide_unions_and_slabs(cuda):

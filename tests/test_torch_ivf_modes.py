@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from text_similarity_tpu.core.config import IndexConfig as JaxIndexConfig
 from text_similarity_tpu.index.ivf import IVFIndex as JaxIVFIndex
 from text_similarity_tpu.index.ivf import _affinity_group_perm as jax_group_perm
-from text_similarity_tpu.index.ivf import _ivf_query_pallas_packed
+from text_similarity_tpu.index.ivf import _ivf_query_pallas, _ivf_query_pallas_packed
 from text_similarity_tpu.index.ivf import _pack_candidates as jax_pack
 from text_similarity_tpu.index.ivf import _unpack_candidates as jax_unpack
 from text_similarity_tpu.ops.topk import cosine_topk_xla
@@ -619,6 +619,35 @@ def test_emit_acc_select_equals_k1_plain(saved, corpus, name, width, slots):
         want = ivf_scan(qs, probes, data, ids, k, 8, w, slots, scales)
         got = ivf_modes._select(acc_s, acc_i, k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16", "int8"])
+def test_per_probe_plain_pools_to_k1_exact(saved, corpus, name):
+    """K1-opt per_probe's plain version against the Pallas kernel
+    (``_ivf_query_pallas(..., per_probe=True, interpret=True)``) probe by
+    probe, and its (U, B, k) pooled to (B, U·k) and selected by (score
+    desc, id asc) equal to K1's exact plain version bit for bit: the top-k
+    of a union is the top-k of its per-probe top-k's. The card tests hold
+    per_probe on the wgmma tile to K1's exact mode on the tile by this
+    identity."""
+    q, _ = corpus
+    jivf, tivf = _pair(saved, name)
+    qs, probes, _ = _plan(tivf, q)
+    data, ids, scales = tivf.data_padded, tivf.ids_padded, tivf.scales_padded
+    b, u = qs.shape[0], probes.shape[1]
+    for k in (10, 50):
+        ps, pi = ivf_scan(qs, probes, data, ids, k, 8, scales=scales, per_probe=True)
+        assert ps.shape == (u, b, k)
+        pooled = ivf_modes._select(ps.permute(1, 0, 2).reshape(b, u * k),
+                                   pi.permute(1, 0, 2).reshape(b, u * k), k)
+        want = ivf_scan(qs, probes, data, ids, k, 8, scales=scales)
+        assert torch.equal(pooled[0], want[0]) and torch.equal(pooled[1], want[1]), k
+    js, ji = _ivf_query_pallas(
+        jnp.asarray(qs.numpy()), jnp.asarray(probes.numpy()), jivf.data_padded,
+        jivf.ids_padded, jivf.scales_padded, 10, 8, interpret=True, per_probe=True)
+    ps, pi = ivf_scan(qs, probes, data, ids, 10, 8, scales=scales, per_probe=True)
+    _agree(name, ps.reshape(-1, 10), pi.reshape(-1, 10), np.asarray(js).reshape(-1, 10),
+           np.asarray(ji).reshape(-1, 10))
 
 
 def test_idless_plain_ids_are_flat_slots(saved, corpus):

@@ -322,6 +322,19 @@ merge_partials(const float* __restrict__ part_s, const int* __restrict__ part_i,
   }
 }
 
+// K9's packet of a candidate (text_similarity_tpu/index/ivf.py
+// _pack_candidates): [30:17] the score's 14 bits, [16:11] the probe's index
+// u in the block union, [10:0] the slot's position in its slab; s14 =
+// (int)clamp((s + 1) · 8191.75, 0, 16383), truncating. Packets are ≥ 0 and
+// unique apart from 0 (a dead slot's).
+constexpr float kPackScale = 8191.75f;   // (2^14) / 2 − 0.25: (s + 1) · scale ≤ 2^14 − 1
+constexpr int kPackLow = (1 << 17) - 1;  // the u and pos bits
+
+__device__ __forceinline__ int pack_candidate(float s, int u, int pos) {
+  const float v = fminf(fmaxf((s + 1.0f) * kPackScale, 0.f), 16383.f);
+  return (static_cast<int>(v) << 17) | (u << 11) | pos;
+}
+
 inline int host_kp_for(int k) {
   int kp = 32;
   while (kp < k) kp <<= 1;

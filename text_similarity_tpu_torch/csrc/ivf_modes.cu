@@ -1,5 +1,7 @@
-// The IVF scan's other modes: the packed accumulator (kernel K9), the
-// copy-ring scan (K10) and several probes a staging step (K11a).
+// The IVF scan's other modes: the packed accumulator (kernel K9; on
+// ivf_tile.cu's wgmma tile for bf16 slabs, its CUDA-core kernel here for
+// the rest), the copy-ring scan (K10) and several probes a staging step
+// (K11a), both K1's entry.
 //
 // K9 replaces text_similarity_tpu/index/ivf.py _ivf_query_pallas_packed →
 // _ivf_kernel_packed (:1392-1457): the deferred fold over ONE int32 packet
@@ -8,11 +10,24 @@
 // the fold is an integer max (a max/min cascade for S > 1 slots) and the
 // flush takes the k largest packets; dead slots (id < 0) give packet 0.
 // The packet is built from the f32 score exactly as the reference does:
-// s14 = (int)clamp((s + 1) · 8191.75, 0, 16383), truncating. Packets are
-// unique, so the selection is an exact top-k with no ties; it runs on the
-// shared selector with (score = s14, id = 2^17 − 1 − (packet & (2^17 − 1))),
-// which orders pairs as the packets order, and ts_ivf_scan_packed converts
-// the winners back to packets (missing → 0). U ≤ 64 and Mc ≤ 2048.
+// s14 = (int)clamp((s + 1) · 8191.75, 0, 16383), truncating
+// (common.cuh's pack_candidate). Packets are unique, so the selection is
+// an exact top-k with no ties; it runs on the shared selector with (score
+// = s14, id = 2^17 − 1 − (packet & (2^17 − 1))), which orders pairs as the
+// packets order, and ts_ivf_scan_packed converts the winners back to
+// packets (missing → 0). U ≤ 64 and Mc ≤ 2048.
+//
+// With bf16 slabs, where ivf_tile_plan takes the shape (D a multiple of
+// 64, Mc a multiple of 4), K9 runs on ivf_tile.cu's wgmma tile
+// (ivf_tile_packed): K1's deferred mode at (w, S), each accumulator entry
+// a packet built from the f32 wgmma accumulator in registers (u the
+// probe's index in the CTA's walk, pos = chunk · w + range + row) and
+// folded by the integer max / max-min cascade, 16·S registers a thread at
+// N 32; empty tiles skipped, as K1 skips them (each of their slots would
+// give packet 0, which changes neither fold); each CTA writes its 64·S
+// entries a query as the pairs above, and the merge pass and
+// pairs_to_packets follow. f32 slabs and the other shapes run the CUDA-core
+// kernel below.
 //
 // K10 replaces _ivf_query_pallas_dma → _ivf_kernel_dma (:1533-1627): the
 // reference copies each probed slab and its ids into VMEM through a ring of
@@ -43,22 +58,14 @@
 // next live tile while the current one multiplies, and a CTA walks its
 // whole probe list in one launch, so there is no step cost to spread.
 //
-// Bound on the H100: K10 and K11a as K1, the bytes of the probed slabs'
-// live tiles. K9's CUDA-core kernel does 2·B·U·Mc·D f32 FMAs:
-// operation-bound well above the byte bound. A wgmma pipeline for K9 is
-// later work.
+// Bound on the H100: K9, K10 and K11a as K1, the bytes of the probed
+// slabs' live tiles. K9's CUDA-core kernel does 2·B·U·Mc·D f32 FMAs:
+// operation-bound well above the byte bound, it serves only the shapes the
+// tile does not take.
 #include "common.cuh"
 #include "ivf_tile.cuh"
 
 namespace {
-
-constexpr float kPackScale = 8191.75f;   // (2^14) / 2 − 0.25: (s + 1) · scale ≤ 2^14 − 1
-constexpr int kPackLow = (1 << 17) - 1;  // the u and pos bits
-
-__device__ __forceinline__ int pack_candidate(float s, int u, int pos) {
-  const float v = fminf(fmaxf((s + 1.0f) * kPackScale, 0.f), 16383.f);
-  return (static_cast<int>(v) << 17) | (u << 11) | pos;
-}
 
 // Offer the 128 × 16 values staged in sc / sid (query-major, kRows a query)
 // to the per-warp selectors: the same as K1's flush of a slot.
@@ -220,6 +227,13 @@ __global__ void pairs_to_packets(const float* __restrict__ s, const int* __restr
   out[x] = s[x] == -INFINITY ? 0 : (static_cast<int>(s[x]) << 17) | (kPackLow - i[x]);
 }
 
+// The merge's (B, k) pairs → out_p (B, k) packets.
+cudaError_t to_packets(const float* sel_s, const int* sel_i, int n, int* out_p,
+                       cudaStream_t st) {
+  pairs_to_packets<<<(n + 255) / 256, 256, 0, st>>>(sel_s, sel_i, n, out_p);
+  return cudaGetLastError();
+}
+
 template <typename T, int S>
 cudaError_t run_packed(const float* q, const int* probes, const T* data, const int* ids, int B,
                        int D, int U, int C_tot, int Mc, int block_q, int k, int width,
@@ -240,15 +254,16 @@ cudaError_t run_packed(const float* q, const int* probes, const T* data, const i
   if (err != cudaSuccess) return err;
   err = launch_merge(part_s, part_i, B, n_ranges, k, sel_s, sel_i, st);
   if (err != cudaSuccess) return err;
-  const int n = B * k;
-  pairs_to_packets<<<(n + 255) / 256, 256, 0, st>>>(sel_s, sel_i, n, out_p);
-  return cudaGetLastError();
+  return to_packets(sel_s, sel_i, B * k, out_p, st);
 }
 
 }  // namespace
 
-// K9: packed deferred scan (f32 / bf16 slabs) → out_p (B, k) int32 packets.
-// part_*: (B, ceil(width/128), k); sel_*: (B, k) scratch.
+// K9: packed deferred scan (f32 / bf16 slabs) → out_p (B, k) int32 packets;
+// sel_*: (B, k) scratch. The wgmma tile where ivf_tile_plan takes the bf16
+// shape (ts_ivf_scan_tile_plan(1, D, Mc, block_q, k, width, slots) tells
+// the caller; part_*: (B, ceil(width/64), 64·slots)), else the CUDA-core
+// kernel (part_*: (B, ceil(width/128), k)).
 extern "C" int ts_ivf_scan_packed(const float* q, const int* probes, const void* data,
                                   int data_bf16, const int* ids, int B, int D, int U, int C_tot,
                                   int Mc, int block_q, int k, int width, int slots,
@@ -256,6 +271,12 @@ extern "C" int ts_ivf_scan_packed(const float* q, const int* probes, const void*
                                   int* out_p, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (U > 64 || Mc > 2048) return (int)cudaErrorInvalidValue;
+  IvfTilePlan plan;
+  if (data_bf16 && ivf_tile_plan(1, D, Mc, block_q, k, width, slots, 0, &plan)) {
+    const int err = ivf_tile_packed(q, probes, data, ids, B, D, U, C_tot, Mc, block_q, k, width,
+                                    slots, part_s, part_i, sel_s, sel_i, stream);
+    return err != 0 ? err : (int)to_packets(sel_s, sel_i, B * k, out_p, st);
+  }
 #define TS_PACKED(T_, S_) run_packed<T_, S_>(q, probes, static_cast<const T_*>(data), ids, B, D, \
                                              U, C_tot, Mc, block_q, k, width, part_s, part_i,    \
                                              sel_s, sel_i, out_p, st)

@@ -20,9 +20,9 @@
 //
 // K1-opt (the reference's per_probe and emit_acc, ivf.py:1130-1132,
 // :1212-1222, :1908-1919), f32/bf16 and int8 slabs:
-//  * per_probe: the exact mode, but each CTA scans ONE probe (grid z) and
-//    the merge pass reduces (probe, query) rows: → (U, B, k), each probe's
-//    own exact top-k (the caller merges across probes);
+//  * per_probe: the exact mode over ONE probe → (U, B, k), each probe's
+//    own exact top-k (the caller merges across probes); below, a CTA scans
+//    one probe (grid z) and the merge pass reduces (probe, query) rows;
 //  * emit_acc: the deferred fold, then each thread writes its S
 //    accumulator entries to (B, S·w), slot s at columns s·w … s·w + w − 1
 //    (the reference's slot-major order); no selection, no second pass.
@@ -32,21 +32,22 @@
 // the result holds flat slot ids that the caller translates.
 // D need not be a multiple of 32 (the sentinel layout's D+1 rows).
 //
-// K1 with bf16 slabs and K4, and emit_acc over both, run on the tensor
-// cores (ivf_tile.cu) wherever ivf_tile_plan takes the shape (D a multiple
-// of 64 that shared memory holds, Mc a multiple of 4), and so does K11b
-// over bf16 sentinel rows of D' + 1 columns (D' a multiple of 64, Mc and
-// the width multiples of 8). The CUDA-core kernel below runs the rest, as
-// ts_ivf_scan / ts_ivf_scan_int8 (through ivf_k1_scan, which ivf_modes.cu's
-// K10 and K11a call too) / ts_ivf_scan_emit_acc / ts_ivf_scan_idless
-// choose by shape: f32 slabs (exact f32, no TF32), the
-// other D (the sentinel layout's D + 1 among them), Mc and widths; and
-// per_probe, whose mode the tile does not have.
+// K1 with bf16 slabs and K4, and per_probe and emit_acc over both, run on
+// the tensor cores (ivf_tile.cu) wherever ivf_tile_plan takes the shape (D
+// a multiple of 64 that shared memory holds, Mc a multiple of 4), and so
+// does K11b over bf16 sentinel rows of D' + 1 columns (D' a multiple of
+// 64, Mc and the width multiples of 8). The CUDA-core kernel below runs
+// the rest, as ts_ivf_scan / ts_ivf_scan_int8 (through ivf_k1_scan, which
+// ivf_modes.cu's K10 and K11a call too) / ts_ivf_scan_per_probe /
+// ts_ivf_scan_emit_acc / ts_ivf_scan_idless choose by shape: f32 slabs
+// (exact f32, no TF32), the other D (the sentinel layout's D + 1 among
+// them), Mc and widths.
 //
 // Bound on the H100: with bf16 slabs the scan reads U·Mc·D·2 bytes per
 // query block (int8: U·Mc·(D + 4) plus the ids); the arithmetic
 // (2·B·U·Mc·D) runs here on the CUDA cores in f32, so this kernel is
-// operation-bound far above the card's bf16 tensor rate.
+// operation-bound far above the card's bf16 tensor rate: it serves only
+// the shapes the tile does not take.
 //
 // Design: the TPU accumulator is block_q × S·w × 8 bytes (1 MB at 64 ×
 // 2048 × 2), far over 227 KB of shared memory. Here a CTA takes 16 queries
@@ -382,13 +383,20 @@ extern "C" int ts_ivf_scan_int8(const float* q, const int* probes, const int8_t*
                      slots, 0, part_s, part_i, out_s, out_i, stream);
 }
 
-// K1-opt per_probe: exact top-k of each probe → out (U, B, k); part holds
-// (U·B, ceil(Mc/128), k). data_kind 0 f32, 1 bf16, 2 int8 + scales.
+// K1-opt per_probe: exact top-k of each probe → out (U, B, k). data_kind 0
+// f32, 1 bf16, 2 int8 + scales. The wgmma tile where ivf_tile_plan takes
+// the exact mode's shape (ts_ivf_scan_tile_plan(kind, D, Mc, block_q, k,
+// Mc, 0) tells the caller; part_* unused), else the CUDA-core kernel (part
+// holds (U·B, ceil(Mc/128), k)).
 extern "C" int ts_ivf_scan_per_probe(const float* q, const int* probes, const void* data,
                                      int data_kind, const float* scales, const int* ids,
                                      int B, int D, int U, int C_tot, int Mc, int block_q,
                                      int k, float* part_s, int* part_i, float* out_s,
                                      int* out_i, void* stream) {
+  IvfTilePlan plan;
+  if (data_kind <= 2 && ivf_tile_plan(data_kind, D, Mc, block_q, k, Mc, 0, 0, &plan))
+    return ivf_tile_per_probe(data_kind, q, probes, data, scales, ids, B, D, U, C_tot, Mc,
+                              block_q, k, out_s, out_i, stream);
   return dispatch_kind<kPerProbe>(data_kind, 0, q, probes, data, scales, ids, B, D, U, C_tot,
                                   Mc, block_q, k, Mc, part_s, part_i, out_s, out_i, stream);
 }

@@ -50,7 +50,7 @@
 //   top-k, so the answer is unchanged. The ids are read, not the build's
 //   fill counts, so holes left by remove() and slots filled by add() are
 //   both seen.
-// * Selection. The deferred mode selects nothing in the tile: each CTA
+// * Selection. The deferred mode (and K9) selects nothing in the tile: each CTA
 //   writes its 64·S accumulator entries a query, and merge_partials takes
 //   each query's top-k over all its ranges' entries, one warp a query,
 //   with every SM's warps at once. A selection at the end of each CTA
@@ -75,7 +75,26 @@
 // reference's slot-major order, entry (query, slot s, lane class c) at
 // part[(query · S + s) · w + c], with no merge pass (the caller selects);
 // lane classes at or past w (the last range's rows past its lanes) are
-// not written. And three scan modes of ivf_modes.cu's entries:
+// not written. K1-opt per_probe (ts_ivf_scan_per_probe through
+// ivf_tile_per_probe, ivf.py:1130-1132, :1238-1240): the exact mode with
+// one CTA a (query block, probe u), grid (blocks, U), whose walk is every
+// 64-row tile of that one slab (a last tile of Mc % 64 rows offers only
+// those), empty tiles skipped as K1 skips them; each query's top-k goes
+// straight to out (U, B, k), with no merge pass: the CTA's selection is
+// the probe's. A CTA a (block, range, probe) would load its queries for
+// one tile; a CTA a (block, range) that wrote a top-k a probe would send
+// U·B·ranges partial rows through device memory. And four scan modes of
+// ivf_modes.cu's entries:
+// * K9, the packed fold (ts_ivf_scan_packed through ivf_tile_packed,
+//   _ivf_kernel_packed; bf16 slabs): K1's deferred fold at (w, S) with an
+//   int32 packet an accumulator entry (common.cuh's pack_candidate: the
+//   f32 accumulator's 14-bit score, the probe's index u in the walk, kept
+//   beside each listed tile, and pos = chunk · w + range + row), folded by
+//   an integer max or a max/min cascade (S ≤ 4; a dead slot's packet 0,
+//   like a skipped tile's, changes neither); the CTA writes its 64·S
+//   entries as (s14, 2^17 − 1 − low bits) pairs, which order as the
+//   packets do, for the merge pass; the caller turns the winners back into
+//   packets.
 // * K11a, several probes a step (ts_ivf_scan_multiprobe, _ivf_kernel_
 //   multiprobe), through ivf_k1_scan as K1's other shapes: K1's deferred
 //   fold at width Mc with one slot over the probe list padded with its
@@ -174,9 +193,14 @@ struct TileArgs {
   const unsigned char* zero;   // K11b: 1 a (slab, 64-row tile) whose rows are all zero
   int* counts;                 // K11b, or null: += (tiles of valid probes, tiles skipped)
   int D, U, C_tot, Mc, block_q, k, kp, width, n_ranges, n_sub, nq, nwg, stages, stage_bytes;
-  int n_mt;                    // K11b: 64-row tiles a slab in the zero map
+  int n_mt;                    // 64-row tiles a slab (K11b's zero map; per_probe's walk)
   bool emit;                   // emit_acc: part_* are (B, S·width), slot-major; no merge
+  bool per_probe;              // per_probe (exact mode): a CTA scans probe blockIdx.y alone
+                               // and writes its top-k to part_* as (U, B, k); no merge
 };
+// At 136 bytes nvcc read these fields through a pointer into the parameter
+// space, and ptxas serialised K11b's wgmma (C7520): 8% slower on the H100.
+static_assert(sizeof(TileArgs) <= 128, "keep the tile's arguments within 128 bytes");
 
 struct __align__(64) TileMaps {
   CUtensorMap data, ids, scales;
@@ -334,36 +358,37 @@ __device__ __forceinline__ void tile_dot(float (&acc)[N / 2], const unsigned cha
 
 // The liveness of 8 tiles of a window (tiles b0 .. b0 + 7): a warp reads
 // their probes, then their ids (two per lane), then keeps whether any
-// slot is live and each tile's (slab, row).
+// slot is live and each tile's (slab, row). Tile t of a CTA's walk is
+// probe plist[t / chunks] at rows (t % chunks)·ww + r0 …, at most lanes of
+// them and none past Mc (per_probe's last tile of a slab).
 struct LiveGroup {
   static constexpr int kTiles = 8;
   int c[kTiles], v[kTiles][2];
 
-  __device__ __forceinline__ void load(const TileArgs& a, int blk, int t0, int win, int b0,
-                                       int chunks, int r0, int lanes, int lane) {
+  __device__ __forceinline__ void load(const TileArgs& a, const int* plist, int t0, int win,
+                                       int b0, int chunks, int ww, int r0, int lanes, int lane) {
 #pragma unroll
-    for (int e = 0; e < kTiles; ++e)
-      c[e] = b0 + e < win ? a.probes[(size_t)blk * a.U + (t0 + b0 + e) / chunks] : -1;
+    for (int e = 0; e < kTiles; ++e) c[e] = b0 + e < win ? plist[(t0 + b0 + e) / chunks] : -1;
 #pragma unroll
     for (int e = 0; e < kTiles; ++e) {
-      const int row = ((t0 + b0 + e) % chunks) * a.width + r0;
+      const int row = ((t0 + b0 + e) % chunks) * ww + r0;
+      const int n = min(lanes, a.Mc - row);
       v[e][0] = v[e][1] = -1;
       if (b0 + e < win && c[e] >= 0 && c[e] < a.C_tot) {   // other probe ids scan nothing
         const int* src = a.ids + (size_t)c[e] * a.Mc + row;
-        if (2 * lane < lanes) v[e][0] = src[2 * lane];
-        if (2 * lane + 1 < lanes) v[e][1] = src[2 * lane + 1];
+        if (2 * lane < n) v[e][0] = src[2 * lane];
+        if (2 * lane + 1 < n) v[e][1] = src[2 * lane + 1];
       }
     }
   }
-  __device__ __forceinline__ void store(const TileArgs& a, int t0, int win, int b0, int chunks,
-                                        int r0, int lane, int2* list,
-                                        unsigned char* live) const {
+  __device__ __forceinline__ void store(int t0, int win, int b0, int chunks, int ww, int r0,
+                                        int lane, int2* list, unsigned char* live) const {
 #pragma unroll
     for (int e = 0; e < kTiles; ++e) {
       const bool any = __any_sync(0xffffffffu, v[e][0] >= 0 || v[e][1] >= 0);
       if (lane == 0 && b0 + e < win) {
         live[b0 + e] = any;
-        list[b0 + e] = make_int2(c[e], ((t0 + b0 + e) % chunks) * a.width + r0);
+        list[b0 + e] = make_int2(c[e], ((t0 + b0 + e) % chunks) * ww + r0);
       }
     }
   }
@@ -490,7 +515,8 @@ __device__ __forceinline__ void push_selector(const QuerySel& sel, int ql, int n
   sel.keep(ql, s, lane);
 }
 
-template <typename T, int S, int N>
+// P: K9's packed fold (S ≥ 1): one int32 packet an accumulator entry.
+template <typename T, int S, int N, bool P = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ivf_tile_kernel(const __grid_constant__ TileMaps maps, const TileArgs a) {
   constexpr bool kInt8 = std::is_same_v<T, int8_t>;
@@ -501,12 +527,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int n_cons_warps = 4 * a.nwg;
   const int n_warps = n_cons_warps + 1;
   const int blk = blockIdx.x / a.n_sub, sub = blockIdx.x % a.n_sub;
-  const int range = blockIdx.y, r0 = range * kTileM;
-  const int lanes = min(kTileM, a.width - r0);
+  // the CTA's walk: its lane range of every chunk of every probe, in
+  // order; per_probe: every 64-row tile of probe blockIdx.y's slab
+  const bool pp = S == 0 && a.per_probe;
+  const int range = pp ? 0 : blockIdx.y, r0 = range * kTileM;
+  const int ww = pp ? kTileM : a.width;   // rows a chunk of the walk
+  const int lanes = min(kTileM, ww - r0);
   const int qrow0 = blk * a.block_q + sub * a.nq;
   const int qn = min(a.nq, a.block_q - sub * a.nq);
-  const int chunks = a.Mc / a.width;
-  const int n_tiles = a.U * chunks;
+  const int chunks = pp ? a.n_mt : a.Mc / a.width;
+  const int n_tiles = (pp ? 1 : a.U) * chunks;
+  const int* plist = a.probes + (size_t)blk * a.U + (pp ? blockIdx.y : 0);
   const int data_bytes = kIdless ? 0 : kTileM * a.D * (int)sizeof(T);
   const int row_bytes = 2 * (a.D + 1);   // K11b's raw rows
 
@@ -537,7 +568,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   constexpr int kLive = LiveGroup::kTiles;
   LiveGroup grp;
   // K1 / K4: window 0's first liveness group is read while the queries load
-  if constexpr (!kIdless) grp.load(a, blk, 0, win0, warp * kLive, chunks, r0, lanes, lane);
+  if constexpr (!kIdless) grp.load(a, plist, 0, win0, warp * kLive, chunks, ww, r0, lanes, lane);
   const int pieces = a.D / 8, n_pieces = a.nq * pieces;
   if constexpr (kIdless) {
     // rows of D + 1 floats (no 16-byte pitch): the first D dims rounded to
@@ -585,7 +616,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if constexpr (!kIdless) grp.store(a, 0, win0, warp * kLive, chunks, r0, lane, list, live);
+  if constexpr (!kIdless) grp.store(0, win0, warp * kLive, chunks, ww, r0, lane, list, live);
   if constexpr (S == 0) {
     if (warp < n_cons_warps)
       for (int ql = warp; ql < a.nq; ql += n_cons_warps) sel.init(ql, lane);
@@ -605,7 +636,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
       acc_s[p][s] = -INFINITY;
-      acc_i[p][s] = -1;
+      acc_i[p][s] = P ? 0 : -1;   // K9: packet 0, a dead slot's
     }
   float qd[N / 4];   // K11b: q[D] of this thread's queries, entry p at 2·(p >> 2) + (p & 1)
   if constexpr (kIdless) {
@@ -625,8 +656,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       // liveness of the window's other groups (window 0's first: above)
       for (int b0 = warp * kLive + (t0 == 0 ? n_warps * kLive : 0); b0 < win;
            b0 += n_warps * kLive) {
-        grp.load(a, blk, t0, win, b0, chunks, r0, lanes, lane);
-        grp.store(a, t0, win, b0, chunks, r0, lane, list, live);
+        grp.load(a, plist, t0, win, b0, chunks, ww, r0, lanes, lane);
+        grp.store(t0, win, b0, chunks, ww, r0, lane, list, live);
       }
     }
     __syncthreads();
@@ -639,7 +670,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         const unsigned m = __ballot_sync(0xffffffffu, on);
         if constexpr (kIdless) n_zero += __popc(__ballot_sync(0xffffffffu, on && cr.x < 0));
         __syncwarp();
-        if (on) list[n + __popc(m & ((1u << lane) - 1u))] = cr;
+        if (on) {
+          const int at = n + __popc(m & ((1u << lane) - 1u));
+          list[at] = cr;
+          // K9: live[at] (read above, before the warp's barrier) now holds
+          // the tile's probe index u in the union
+          if constexpr (P) live[at] = (unsigned char)((t0 + tt) / chunks);
+        }
         n += __popc(m);
         __syncwarp();
       }
@@ -735,8 +772,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           const unsigned char* sp = ring + (size_t)st * a.stage_bytes;
           const int* sid = reinterpret_cast<const int*>(sp + data_bytes);
           int rid[2];
-          rid[0] = R0 < lanes ? sid[R0] : -1;
-          rid[1] = R0 + 8 < lanes ? sid[R0 + 8] : -1;
+          // rows past Mc (per_probe's last tile of a slab: TMA fills ids 0) are not offered
+          const int tl = S == 0 ? min(lanes, a.Mc - list[i].y) : lanes;
+          rid[0] = R0 < tl ? sid[R0] : -1;
+          rid[1] = R0 + 8 < tl ? sid[R0 + 8] : -1;
           float rsc[2] = {1.f, 1.f};
           if constexpr (kInt8) {
             const float* ssc = reinterpret_cast<const float*>(sp + data_bytes + 256);
@@ -750,7 +789,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   #pragma unroll
             for (int p = 0; p < N / 2; ++p) acc[p] *= rsc[(p >> 1) & 1];   // dot, then × scale
           }
-          if constexpr (S > 0) {
+          if constexpr (P) {
+            // K9: the entry's packet (probe index u, position in the slab),
+            // folded by an integer max, or a max/min cascade for S > 1; a
+            // dead slot's packet 0 changes neither, so it is not offered
+            const int ub = (int)live[i] << 11;
+            const int pos = list[i].y + R0;
+  #pragma unroll
+            for (int p = 0; p < N / 2; ++p) {
+              const int h = (p >> 1) & 1;
+              if (rid[h] < 0) continue;
+              int pk = pack_candidate(acc[p], 0, pos + 8 * h) | ub;
+  #pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const int hi = max(acc_i[p][s], pk);
+                pk = min(acc_i[p][s], pk);
+                acc_i[p][s] = hi;
+              }
+            }
+          } else if constexpr (S > 0) {
             // the fold: a later entry displaces only on a strictly greater
             // score; an empty slot (−inf) never does, so it is not offered
   #pragma unroll
@@ -824,15 +881,26 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const size_t o = (size_t)(qrow0 + ql) * q_pitch + base + row;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        a.part_s[o + s * step] = acc_s[p][s];
-        a.part_i[o + s * step] = acc_i[p][s];
+        if constexpr (P) {
+          // K9: a packet as the merge's pair (s14, 2^17 − 1 − low bits),
+          // which orders as the packets do; packet 0 → (−inf, −1)
+          const int pk = acc_i[p][s];
+          a.part_s[o + s * step] = pk > 0 ? (float)(pk >> 17) : -INFINITY;
+          a.part_i[o + s * step] = pk > 0 ? kPackLow - (pk & kPackLow) : -1;
+        } else {
+          a.part_s[o + s * step] = acc_s[p][s];
+          a.part_i[o + s * step] = acc_i[p][s];
+        }
       }
     }
   } else {
     for (int ql = n0 + wl; ql < n0 + N && ql < qn; ql += 4) {
       Selector sl = sel.at(ql);
       if (a.kp != 32) sel_flush(sl, lane);   // a list of 32 is kept exact
-      const size_t o = ((size_t)(qrow0 + ql) * a.n_ranges + range) * a.k;
+      // per_probe: out (U, B, k), B = the grid's query blocks × block_q
+      const size_t B = (size_t)(gridDim.x / a.n_sub) * a.block_q;
+      const size_t o = pp ? (blockIdx.y * B + qrow0 + ql) * a.k
+                          : ((size_t)(qrow0 + ql) * a.n_ranges + range) * a.k;
       for (int j = lane; j < a.k; j += 32) {
         a.part_s[o + j] = sl.ls[j];
         a.part_i[o + j] = sl.li[j];
@@ -841,10 +909,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-template <typename T, int S, int N>
+template <typename T, int S, int N, bool P>
 cudaError_t launch_tile(const TileMaps& maps, const TileArgs& a, dim3 grid, size_t smem,
                         cudaStream_t st) {
-  const auto kernel = ivf_tile_kernel<T, S, N>;
+  const auto kernel = ivf_tile_kernel<T, S, N, P>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -852,18 +920,27 @@ cudaError_t launch_tile(const TileMaps& maps, const TileArgs& a, dim3 grid, size
   return cudaGetLastError();
 }
 
-template <typename T, int S>
+template <typename T, int S, bool P = false>
 cudaError_t launch_n(const TileMaps& maps, const TileArgs& a, dim3 grid, size_t smem,
                      cudaStream_t st) {
-  return a.nq == 64 ? launch_tile<T, S, 32>(maps, a, grid, smem, st)
-                    : launch_tile<T, S, 8>(maps, a, grid, smem, st);
+  return a.nq == 64 ? launch_tile<T, S, 32, P>(maps, a, grid, smem, st)
+                    : launch_tile<T, S, 8, P>(maps, a, grid, smem, st);
 }
+
+// What a tile launch computes; only the named entries below set a mode
+// other than kTileMerge.
+enum TileMode : int {
+  kTileMerge = 0,     // K1 / K4 / K10 / K11a / K11b: the tile, then the merge of the ranges
+  kTileEmit = 1,      // emit_acc (ivf_tile_emit): the raw fold, slot-major; no merge
+  kTilePerProbe = 2,  // per_probe (ivf_tile_per_probe): one probe a CTA → (U, B, k); no merge
+  kTilePacked = 3,    // K9 (ivf_tile_packed): the packed fold, then the merge of the ranges
+};
 
 template <typename T>
 cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes, const T* data,
                      const float* scales, const int* ids, const unsigned char* zero, int* counts,
                      int B, int D, int U, int C_tot, int Mc, int block_q, int k, int width,
-                     int slots, bool emit, float* part_s, int* part_i, float* out_s,
+                     int slots, int mode, float* part_s, int* part_i, float* out_s,
                      int* out_i, cudaStream_t st) {
   constexpr bool kInt8 = std::is_same_v<T, int8_t>;
   constexpr bool kIdless = std::is_same_v<T, SentinelRows>;
@@ -913,11 +990,25 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
   a.stages = plan.stages;
   a.stage_bytes = (int)tile_stage_bytes(kIdless ? kSentinel : kInt8 ? 2 : 1, D);
   a.n_mt = (Mc + kTileM - 1) / kTileM;
-  a.emit = emit;
-  // range-major: range 0 of every query block first (the heaviest CTAs)
-  const dim3 grid((B / block_q) * a.n_sub, a.n_ranges);
+  a.emit = mode == kTileEmit;
+  a.per_probe = mode == kTilePerProbe;
+  // range-major: range 0 of every query block first (the heaviest CTAs);
+  // per_probe: a CTA a (query block, probe)
+  const dim3 grid((B / block_q) * a.n_sub, a.per_probe ? U : a.n_ranges);
   if constexpr (kIdless) {
     err = launch_n<T, 1>(maps, a, grid, plan.smem, st);
+  } else if (mode == kTilePacked) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {   // K9: bf16 slabs, as the reference
+      switch (slots) {
+        case 1: err = launch_n<T, 1, true>(maps, a, grid, plan.smem, st); break;
+        case 2: err = launch_n<T, 2, true>(maps, a, grid, plan.smem, st); break;
+        case 3: err = launch_n<T, 3, true>(maps, a, grid, plan.smem, st); break;
+        case 4: err = launch_n<T, 4, true>(maps, a, grid, plan.smem, st); break;
+        default: return cudaErrorInvalidValue;
+      }
+    } else {
+      return cudaErrorInvalidValue;
+    }
   } else {
     switch (slots) {
       case 0: err = launch_n<T, 0>(maps, a, grid, plan.smem, st); break;
@@ -928,7 +1019,7 @@ cudaError_t run_tile(const IvfTilePlan& plan, const float* q, const int* probes,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (err != cudaSuccess || a.emit) return err;
+  if (err != cudaSuccess || a.emit || a.per_probe) return err;
   return launch_merge_rows(part_s, part_i, B, a.n_ranges * (slots ? slots * kTileM : k), k,
                            out_s, out_i, st);
 }
@@ -975,7 +1066,7 @@ namespace {
 int tile_scan(int data_kind, const float* q, const int* probes, const void* data,
               const float* scales, const int* ids, const unsigned char* zero_tiles, int* counts,
               int B, int D, int U, int C_tot, int Mc, int block_q, int k, int width, int slots,
-              int max_stages, bool emit, float* part_s, int* part_i, float* out_s, int* out_i,
+              int max_stages, int mode, float* part_s, int* part_i, float* out_s, int* out_i,
               void* stream) {
   IvfTilePlan plan;
   if (!ivf_tile_plan(data_kind, D, Mc, block_q, k, width, slots, max_stages, &plan))
@@ -985,14 +1076,14 @@ int tile_scan(int data_kind, const float* q, const int* probes, const void* data
     if (reinterpret_cast<uintptr_t>(data) % 16) return (int)cudaErrorMisalignedAddress;
     return (int)run_tile(plan, q, probes, static_cast<const SentinelRows*>(data), nullptr,
                          nullptr, zero_tiles, counts, B, D - 1, U, C_tot, Mc, block_q, k, width,
-                         slots, emit, part_s, part_i, out_s, out_i, st);
+                         slots, mode, part_s, part_i, out_s, out_i, st);
   }
   if (data_kind == 2)
     return (int)run_tile(plan, q, probes, static_cast<const int8_t*>(data), scales, ids, nullptr,
-                         nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, emit, part_s,
+                         nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, mode, part_s,
                          part_i, out_s, out_i, st);
   return (int)run_tile(plan, q, probes, static_cast<const __nv_bfloat16*>(data), nullptr, ids,
-                       nullptr, nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, emit,
+                       nullptr, nullptr, B, D, U, C_tot, Mc, block_q, k, width, slots, mode,
                        part_s, part_i, out_s, out_i, st);
 }
 
@@ -1005,8 +1096,8 @@ int ivf_tile_scan(int data_kind, const float* q, const int* probes, const void* 
                   float* out_s, int* out_i, void* stream) {
   if (!out_s || !out_i) return (int)cudaErrorInvalidValue;
   return tile_scan(data_kind, q, probes, data, scales, ids, zero_tiles, counts, B, D, U, C_tot,
-                   Mc, block_q, k, width, slots, max_stages, false, part_s, part_i, out_s, out_i,
-                   stream);
+                   Mc, block_q, k, width, slots, max_stages, kTileMerge, part_s, part_i, out_s,
+                   out_i, stream);
 }
 
 int ivf_tile_emit(int data_kind, const float* q, const int* probes, const void* data,
@@ -1015,7 +1106,24 @@ int ivf_tile_emit(int data_kind, const float* q, const int* probes, const void* 
   if (data_kind != 1 && data_kind != 2) return (int)cudaErrorInvalidValue;
   if (slots < 1 || !out_s || !out_i) return (int)cudaErrorInvalidValue;
   return tile_scan(data_kind, q, probes, data, scales, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
-                   block_q, 1, width, slots, 0, true, out_s, out_i, nullptr, nullptr, stream);
+                   block_q, 1, width, slots, 0, kTileEmit, out_s, out_i, nullptr, nullptr, stream);
+}
+
+int ivf_tile_per_probe(int data_kind, const float* q, const int* probes, const void* data,
+                       const float* scales, const int* ids, int B, int D, int U, int C_tot,
+                       int Mc, int block_q, int k, float* out_s, int* out_i, void* stream) {
+  if (data_kind != 1 && data_kind != 2) return (int)cudaErrorInvalidValue;
+  if (!out_s || !out_i) return (int)cudaErrorInvalidValue;
+  return tile_scan(data_kind, q, probes, data, scales, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
+                   block_q, k, Mc, 0, 0, kTilePerProbe, out_s, out_i, nullptr, nullptr, stream);
+}
+
+int ivf_tile_packed(const float* q, const int* probes, const void* data, const int* ids, int B,
+                    int D, int U, int C_tot, int Mc, int block_q, int k, int width, int slots,
+                    float* part_s, int* part_i, float* out_s, int* out_i, void* stream) {
+  if (U > 64 || Mc > 2048 || slots < 1 || !out_s || !out_i) return (int)cudaErrorInvalidValue;
+  return tile_scan(1, q, probes, data, nullptr, ids, nullptr, nullptr, B, D, U, C_tot, Mc,
+                   block_q, k, width, slots, 0, kTilePacked, part_s, part_i, out_s, out_i, stream);
 }
 
 // The plan the scan entry points take for a shape: 1 and out = (nq, nwg,

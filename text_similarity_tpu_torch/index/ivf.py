@@ -186,12 +186,13 @@ def ivf_scan_cuda(
     ``ivf_scan_reference``. q (B, D) f32, probe_list (B/block_q, U) int32,
     data (C_tot, Mc, D), ids and scales (C_tot, Mc) int32 / f32 —
     contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≤ 256, acc_slots
-    ≤ 4. The merge and emit_acc modes run on the wgmma tile where the
-    kernel library's plan takes the shape (``tile_plan_cuda``; emit_acc
-    asks it at k 1: no selection runs), else on the CUDA-core kernel. Each
-    mode counts its launches apart: ``ivf_scan_cuda.launches``,
+    ≤ 4. Every mode runs on the wgmma tile where the kernel library's plan
+    takes the shape (``tile_plan_cuda``; per_probe asks it for the exact
+    mode, emit_acc at k 1: no selection runs), else on the CUDA-core
+    kernel. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
     ``.launches_int8`` (merge; those on the tile also in
-    ``.launches_tile[_int8]``), ``.launches_per_probe[_int8]``,
+    ``.launches_tile[_int8]``), ``.launches_per_probe[_int8]`` (those on
+    the tile also in ``.launches_per_probe_tile[_int8]``),
     ``.launches_emit_acc[_int8]`` (those on the tile also in
     ``.launches_emit_acc_tile[_int8]``)."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q, scales)
@@ -231,8 +232,13 @@ def ivf_scan_cuda(
         out_s, out_i = out_s.view(u, b, k), out_i.view(u, b, k)
     if b == 0:
         return out_s, out_i
-    plan = None if per_probe else tile_plan_cuda(data_kind(data), d, mc, block_q, k, width, slots)
-    n_part = tile_part_width(width, k, slots) if plan else -(-width // 128) * k
+    plan = tile_plan_cuda(data_kind(data), d, mc, block_q, k, width, slots)
+    if per_probe and plan:   # the tile writes (U, B, k) itself: no merge rows
+        n_part = 0
+    elif plan:
+        n_part = tile_part_width(width, k, slots)
+    else:
+        n_part = -(-width // 128) * k
     part_s = torch.empty((rows, n_part), dtype=torch.float32, device=dev)
     part_i = torch.empty((rows, n_part), dtype=torch.int32, device=dev)
     outs = (part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
@@ -244,6 +250,8 @@ def ivf_scan_cuda(
         )
         _cuda.check(err, "ivf_scan per_probe kernel")
         _count(f"launches_per_probe{suffix}")
+        if plan:
+            _count(f"launches_per_probe_tile{suffix}")
         return out_s, out_i
     dims = (b, d, u, c_tot, mc, block_q, k, width, slots)
     if int8:
@@ -274,6 +282,8 @@ ivf_scan_cuda.launches_tile = 0
 ivf_scan_cuda.launches_tile_int8 = 0
 ivf_scan_cuda.launches_per_probe = 0
 ivf_scan_cuda.launches_per_probe_int8 = 0
+ivf_scan_cuda.launches_per_probe_tile = 0
+ivf_scan_cuda.launches_per_probe_tile_int8 = 0
 ivf_scan_cuda.launches_emit_acc = 0
 ivf_scan_cuda.launches_emit_acc_int8 = 0
 ivf_scan_cuda.launches_emit_acc_tile = 0

@@ -18,7 +18,8 @@ the dot; a probe id outside [0, C_tot) scans nothing.
   (−inf, −1).
 - K9 ``ivf_scan_packed``: the fold over one int32 packet a candidate
   (``_pack_candidates``) → (B, k) packets; ``_unpack_candidates`` turns
-  them into (score, id).
+  them into (score, id). On the wgmma tile (bf16 slabs) the kernel builds
+  each packet from its f32 accumulator and skips empty tiles, as K1 does.
 - K10 ``ivf_scan_dma``: the deferred fold at full width Mc with S slots and
   the in-kernel merge; the card runs K1 at ``approx_width=Mc`` (its wgmma
   tile streams the slabs through a ring at most ``n_buffers`` deep), so
@@ -403,7 +404,11 @@ def ivf_scan_packed_cuda(
 ) -> torch.Tensor:
     """Kernel K9 on the card; same contract as
     ``ivf_scan_packed_reference`` (f32 / bf16 slabs, U ≤ 64, Mc ≤ 2048,
-    acc_slots ≤ 4). Counts ``ivf_scan_packed_cuda.launches``."""
+    acc_slots ≤ 4). bf16 slabs run the wgmma tile where the kernel
+    library's plan takes the shape (``tile_plan_cuda(1, D, Mc, block_q, k,
+    w, acc_slots)``: D a multiple of 64, Mc a multiple of 4), else the
+    CUDA-core kernel. Counts ``ivf_scan_packed_cuda.launches``, those on
+    the tile also in ``.launches_tile``."""
     check_scan_inputs(q, probe_list, data, ids, k, block_q,
                       dtypes=(torch.float32, torch.bfloat16))
     b, d = q.shape
@@ -416,7 +421,11 @@ def ivf_scan_packed_cuda(
     out = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    part_s, part_i = _outputs((b, -(-w // 128), k), dev)
+    plan = None
+    if data.dtype == torch.bfloat16:
+        plan = tile_plan_cuda(1, d, mc, block_q, k, w, acc_slots)
+    part_s, part_i = _outputs((b, tile_part_width(w, k, acc_slots) if plan else -(-w // 128) * k),
+                              dev)
     sel_s, sel_i = _outputs((b, k), dev)
     err = _cuda.lib().ts_ivf_scan_packed(
         q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), int(data.dtype == torch.bfloat16),
@@ -426,10 +435,13 @@ def ivf_scan_packed_cuda(
     )
     _cuda.check(err, "ivf_scan_packed kernel")
     ivf_scan_packed_cuda.launches += 1
+    if plan:
+        ivf_scan_packed_cuda.launches_tile += 1
     return out
 
 
 ivf_scan_packed_cuda.launches = 0
+ivf_scan_packed_cuda.launches_tile = 0
 
 
 def ivf_scan_dma_cuda(

@@ -1,10 +1,13 @@
-"""Times K1, K4, K1-opt emit_acc, K10, K11a and K11b of one source tree on
-the card, with K2 as a control:
+"""Times K1, K4, K1-opt per_probe and emit_acc, K9, K10, K11a and K11b of
+one source tree on the card, with K2 as a control:
 
 - at chip_smoke.py's shapes: the 1M × 384 bench corpus,
   ``IndexConfig.auto(1M)``, 4096 queries with the serving args (block_q 64,
   union_factor 1): K1 at k 10 and k 100 (deferred, w = Mc, the planned
-  slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact; K10
+  slots) and at k 10 exact; K4 at k_scan 20 (deferred) and exact; K1-opt
+  per_probe at k 10 (bf16, int8; bf16 also with every probe −1, which
+  times its CTAs' fixed cost alone); K9 (``final_merge="packed"``) at k 10
+  (w = Mc) and k 100 (w 512, the planned slots); K10
   (``dma_pipeline``) at k 10 with 2, 3 and 4 buffers and at k 100 (its
   planned slots); K1-opt emit_acc (``final_merge="xla"``) at bench.py's
   k 100 args (w 512, the planned slots; int8 at the rescore's k_scan 200)
@@ -14,10 +17,13 @@ the card, with K2 as a control:
   scan) at k 10 on a ``sentinel=True`` build of the same corpus (2048 ×
   1536 × 385, w = Mc); K11a (P 2) and K10 (2 buffers) where the tile does
   not run, beside K1's CUDA-core fold at (Mc, 1): on f32 copies of the
-  bf16 slabs and on the sentinel build's 385-wide slabs; ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10,
-  int8 + rescore, ``dma_pipeline``, ``probes_per_step=2``,
-  ``final_merge="xla"`` at k 100 (bf16, int8 + rescore) and the sentinel
-  index's idless scan;
+  bf16 slabs and on the sentinel build's 385-wide slabs;
+  ``IVFIndex.query``'s 4096-query QPS, bf16 at k 10, int8 + rescore,
+  ``per_probe`` (bf16, int8 + rescore with k_coarse 20) and
+  ``final_merge="packed"`` at k 10 and 100 with their recall against the
+  exact top-k (``cosine_topk_cuda``), ``dma_pipeline``,
+  ``probes_per_step=2``, ``final_merge="xla"`` at k 100 (bf16, int8 +
+  rescore) and the sentinel index's idless scan;
 - at the pipeline's request shapes: chip_smoke.py phase 4's index of
   120,000 synthetic documents (minilm-l6 with random weights, bf16 slabs)
   and phase 5's (the same encoder in int8, int8 slabs), requests of 1, 5
@@ -26,8 +32,9 @@ the card, with K2 as a control:
   20);
 - K2 at Q 256 × N 100,003.
 
-The pipeline's embeddings are encoded once and kept in
-``_archive/ab_cache/`` (git-ignored) for the runs that follow. To compare
+The pipeline's embeddings are encoded once, and each index's centroids and
+id map built once, and kept in ``_archive/ab_cache/`` (git-ignored) for
+the runs that follow, so that every tree scans the same slabs. To compare
 two commits on one card, unpack the other with ``git archive`` into a
 git-ignored directory and run, from the repository root, in turns:
 
@@ -76,6 +83,47 @@ def pipeline_embeddings(torch, cs, int8: bool):
     return view
 
 
+def same_index(torch, name, corpus, cfg, sentinel=False):
+    """The IVF index of ``corpus`` that every run scans: built once (k-means
+    on the card is not deterministic: its centroid sums go through
+    ``index_add_``, so two builds lay the slabs out differently), its
+    centroids and id map kept in ``_archive/ab_cache/``, and the slabs laid
+    out from them each run as ``IVFIndex.build`` lays them out (bf16 rows,
+    the sentinel's +2 column; int8 codes and scales, the bf16 rescore
+    copy)."""
+    from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
+    from text_similarity_tpu_torch.index.ivf import IVFIndex
+
+    path = os.path.join(CACHE, f"ivf_{name}.pt")
+    if not os.path.exists(path):
+        ivf = IVFIndex.build(corpus, cfg, data_dtype=torch.bfloat16, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0),
+                             sentinel=sentinel)
+        os.makedirs(CACHE, exist_ok=True)
+        torch.save({"centroids": ivf.centroids.cpu(), "ids": ivf.ids_padded.cpu(),
+                    "num_base": ivf.num_base_clusters}, path)
+        del ivf
+    z = torch.load(path)
+    ids = z["ids"].cuda()
+    c_tot, mc = ids.shape
+    d = corpus.shape[1]
+    slot = torch.nonzero(ids.reshape(-1) >= 0).squeeze(1)
+    rows = corpus[ids.reshape(-1)[slot].long()]
+    scales = rescore = None
+    if cfg.quantize_int8:
+        data = torch.zeros((c_tot * mc, d), dtype=torch.int8, device="cuda")
+        scales = torch.zeros(c_tot * mc, device="cuda")
+        data[slot], scales[slot] = quantize_embeddings_int8(rows)
+        scales, rescore = scales.view(c_tot, mc), corpus.to(torch.bfloat16)
+    else:
+        data = torch.zeros((c_tot * mc, d + int(sentinel)), dtype=torch.bfloat16, device="cuda")
+        data[slot, :d] = rows.to(torch.bfloat16)
+        if sentinel:
+            data[slot, d] = 2.0
+    return IVFIndex(z["centroids"].cuda(), data.view(c_tot, mc, -1), ids, z["num_base"], cfg,
+                    scales_padded=scales, rescore_data=rescore)
+
+
 def main(tree: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     sys.path.insert(1, REPO)
@@ -85,13 +133,12 @@ def main(tree: str) -> None:
     from text_similarity_tpu_torch.core.config import IndexConfig
     from text_similarity_tpu_torch.index import ivf_modes
     from text_similarity_tpu_torch.index.ivf import (
-        IVFIndex, _rescore, _top_by_position, ivf_scan_cuda,
+        _rescore, _top_by_position, ivf_scan_cuda,
     )
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
     from text_similarity_tpu_torch.pipelines.search import _pad_pow2
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = lambda: torch.Generator(device="cuda").manual_seed(0)   # noqa: E731
     times = {}
 
     def scan_ms(ivf, qs, pl, k, bq, w, s, iters):
@@ -116,7 +163,7 @@ def main(tree: str) -> None:
     for int8 in (False, True):
         emb = pipeline_embeddings(torch, cs, int8)
         cfg = dataclasses.replace(IndexConfig.auto(emb.shape[0]), quantize_int8=int8)
-        ivf = IVFIndex.build(emb, cfg, data_dtype=torch.bfloat16, generator=gen(), device="cuda")
+        ivf = same_index(torch, f"pipeline_{'int8' if int8 else 'bf16'}", emb, cfg)
         mc = ivf.data_padded.shape[1]
         k = ivf.scan_k(10)
         w, s = ivf.scan_mode(k, 2048 if mc >= 1024 else 0, 0)
@@ -130,11 +177,15 @@ def main(tree: str) -> None:
     # the 1M bench shapes
     n, n_q = 1_000_000, 4096
     corpus, queries = cs.bench_corpus(torch, n, n_q)
+    exact = {k: cosine_topk_cuda(queries, corpus, k)[1].cpu().numpy() for k in (10, 100)}
+
+    def recall(out, k):   # of the query's ids against the exact top-k
+        return cs.overlap(out[1].cpu().numpy(), exact[k])
     cfg = IndexConfig.auto(n)
     qargs = dict(k=10, block_q=64, union_factor=1, approx_width=2048)
     for int8 in (False, True):
-        ivf = IVFIndex.build(corpus, dataclasses.replace(cfg, quantize_int8=int8),
-                             data_dtype=torch.bfloat16, generator=gen(), device="cuda")
+        ivf = same_index(torch, f"1m_{'int8' if int8 else 'bf16'}", corpus,
+                         dataclasses.replace(cfg, quantize_int8=int8))
         qs, pl, _, bq = cs.serving_plan(ivf, queries)
         mc = ivf.data_padded.shape[1]
         runs = ((20, mc, 2), (20, 0, 1)) if int8 else ((10, mc, 1), (100, mc, 2), (10, 0, 1))
@@ -144,6 +195,35 @@ def main(tree: str) -> None:
         q_ms = cs.time_ms(torch, lambda: ivf.query(queries, **qargs), iters=5, warmup=1)
         times[f"query 4096 {'int8 + rescore' if int8 else 'bf16'} k=10 "
               f"({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
+        # K1-opt per_probe at k 10 (int8: the query's scan, before its rescore)
+        times[f"per_probe 1M {'int8' if int8 else 'bf16'} k=10"] = cs.time_ms(
+            torch, lambda: ivf_scan_cuda(qs, pl, ivf.data_padded, ivf.ids_padded, 10, bq,
+                                         scales=ivf.scales_padded, per_probe=True),
+            iters=10, warmup=2)
+        if not int8:   # the same launch with every probe −1: its CTAs' fixed cost, no tile read
+            none = torch.full_like(pl, -1)
+            times["per_probe 1M bf16 k=10, every probe -1"] = cs.time_ms(
+                torch, lambda: ivf_scan_cuda(qs, none, ivf.data_padded, ivf.ids_padded, 10, bq,
+                                             per_probe=True),
+                iters=10, warmup=2)
+        pp_args = dict(k=10, block_q=64, union_factor=1, per_probe=True,
+                       **(dict(k_coarse=20) if int8 else {}))
+        q_ms = cs.time_ms(torch, lambda: ivf.query(queries, **pp_args), iters=5, warmup=1)
+        rec = recall(ivf.query(queries, **pp_args), 10)
+        times[f"query 4096 per_probe {'int8 + rescore (k_coarse 20)' if int8 else 'bf16'} k=10 "
+              f"({n_q / q_ms * 1e3:.0f} QPS, recall {rec:.4f})"] = q_ms
+        if not int8:   # K9 (final_merge "packed") at k 10 (w = Mc) and k 100 (w 512)
+            for k, args in ((10, qargs), (100, cs.K100_ARGS)):
+                w, s = ivf.scan_mode(k, args["approx_width"], final_merge="packed")
+                times[f"K9 1M k={k} w={w} S={s}"] = cs.time_ms(
+                    torch, lambda: ivf_modes.ivf_scan_packed_cuda(qs, pl, ivf.data_padded,
+                                                                  ivf.ids_padded, k, bq, w, s),
+                    iters=10, warmup=2)
+                pk = dict(args, k=k, final_merge="packed")
+                q_ms = cs.time_ms(torch, lambda: ivf.query(queries, **pk), iters=5, warmup=1)
+                rec = recall(ivf.query(queries, **pk), k)
+                times[f"query 4096 final_merge packed k={k} ({n_q / q_ms * 1e3:.0f} QPS, "
+                      f"recall {rec:.4f})"] = q_ms
         if not int8:   # K10 (dma_pipeline) on the bf16 index: phase 5b's cases
             for k, nb in ((10, 2), (10, 3), (10, 4), (100, 2)):
                 s = ivf.scan_mode(k, dma_pipeline=True)[1]
@@ -188,8 +268,7 @@ def main(tree: str) -> None:
               f"({n_q / q_ms * 1e3:.0f} QPS)"] = q_ms
         del ivf
     # K11b on a sentinel build of the same corpus (phase 5b's case)
-    sent = IVFIndex.build(corpus, cfg, data_dtype=torch.bfloat16, generator=gen(), device="cuda",
-                          sentinel=True)
+    sent = same_index(torch, "1m_sentinel", corpus, cfg, sentinel=True)
     qs, pl, _, bq = cs.serving_plan(sent, queries)
     w = sent.scan_mode(10, 2048, 1)[0]
     # the index's zero-tile map where the tree keeps one (read, not rebuilt, by each call)
