@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's semantic-search, long-document, training and
-packed-encode paths on one NVIDIA card.
+"""Run the PyTorch port's semantic-search, long-document, training,
+packed-encode and serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -181,7 +181,42 @@ Phases (any failure exits non-zero):
       pooled cosine ≥ 0.99, another row ≥ 10 × the mean limit away; a
       ``torch.profiler`` split of one pass, with K7's share of its device
       time and its kernels' names.
- 9. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 9. serving (phase 4's tokenizer, minilm-l6 encoder and 120,000- and
+    2,000-document pipelines):
+    - the 120,000 documents through the native and the Python tokenizer
+      (``tokenize_many`` and the padded ``encode_batch``: equal ids) and
+      ``pack_sequences`` with the native and the Python FFD (equal
+      layouts), each host time printed;
+    - a cross-encoder, minilm-l6 at full width with token types and the
+      pooler (random weights from a seed, one output, its head scaled to
+      std 1), must lie on the card; queueing a packed layout
+      (``_dispatch_packed_layout``) must not synchronise (sync debug mode
+      "error");
+    - ``SearchServer`` (batch window 2 ms) over the 120,000-document
+      pipeline with ``RankingPipeline(retrieve_k=100)``, and one over the
+      2,000-document pipeline, on 127.0.0.1 port 0, queried with
+      ``urllib``: ``/search`` of 1, 5 and 64 texts under phase 4's
+      self-retrieval gate (K1's counter, zeroed just before, must rise with
+      every launch on the wgmma tile; K2's on the 2,000-document server); 32
+      concurrent one-text clients a server (on the brute server each answer
+      equals the unbatched one: ids where separated, scores within
+      ``BATCH_SCORE_TOL``; on the IVF server 10 finite scores best first);
+      an empty ``/search`` answered 400, then a normal one; ``/rerank`` of
+      1 query (100 pairs, which must take the packed auto route) and of 32
+      (3,200 pairs, the wave path): each row the query's retrieved
+      candidates, best first, its scores within ``RERANK_AGREE_MAX`` of the
+      cross-encoder's bucketed ``predict`` (the spread across pairs printed
+      beside it), K1 on the tile; ``/encode``, ``/add`` (a new document
+      finds itself) and ``/remove`` (none comes back) of 100 documents,
+      ``/health``, ``/metrics`` (no error but the empty request's);
+    - ``python -m text_similarity_tpu_torch serve --model --load
+      --rerank-model --int8 --port 0`` on the phase's saved encoder,
+      pipeline and cross-encoder: "warmed rerank path" and "serving on …"
+      within 120 s, ``/health``, one ``/search``, one ``/rerank``, SIGINT:
+      exit 0 and no traceback or error line on its stderr.
+    Printed, with the card: the tokenize and FFD host times, each server's
+    ``/metrics`` p50 / p95, the 32-client rates, each ``/rerank``'s latency.
+ 10. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -192,7 +227,7 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile).
- 10. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 11. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -1053,7 +1088,7 @@ def phase_pipeline(torch, card):
         raise AssertionError(f"K1 ran {k1_tile} of its {launches['ivf_scan']} launches on the "
                              f"wgmma tile")
     return launches, {"corpus": corpus, "tok": tok, "params": params, "enc": enc,
-                      "bf16_store": big.store}
+                      "bf16_store": big.store, "big": big, "small": small}
 
 
 # ---------------------------------------------------------------------------
@@ -2696,6 +2731,451 @@ def phase_packed_encode(torch, card, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: serving
+# ---------------------------------------------------------------------------
+
+# /rerank's scores (packed: the auto route at 100 pairs, the wave path at
+# 3,200) against the cross-encoder's bucketed predict of the same pairs,
+# bf16 on the card: 2.5x the first reading on an H100 (max|Δ| 6.2e-2 at 100
+# pairs, 1.058e-1 at 3,200, where the scores' std is 0.11 and 0.32: the
+# bucketed route rounds the pooler's output to bf16, the packed one keeps
+# it in f32); and the mean |Δ| at most a quarter of the control's, the
+# same scores against a random permutation of the pairs (on an H100: mean
+# 1.15e-2 against the control's 1.09e-1 at 100 pairs, 1.21e-2 against
+# 3.68e-1 at 3,200)
+RERANK_AGREE_MAX = 0.27
+# a micro-batched /search answer against the unbatched one: the query's
+# embedding may take the packed route in a batch and the bucketed one alone,
+# and 1 − cos ≤ PACK_AGREE_COS bounds each score's change by √(2·that)
+BATCH_SCORE_TOL = (2 * PACK_AGREE_COS) ** 0.5
+
+
+def http_call(port, path, payload=None, timeout=120):
+    """One JSON request to the daemon on 127.0.0.1 → (status, body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    t = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), (time.time() - t) * 1e3
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), (time.time() - t) * 1e3
+
+
+def http_ok(port, path, payload=None):
+    code, body, ms = http_call(port, path, payload)
+    if code != 200:
+        raise AssertionError(f"{path}: HTTP {code}: {body}")
+    return body, ms
+
+
+def tokenizer_records(torch, card, corpus, tok):
+    """The 120k corpus through the native and the Python tokenizer (equal
+    ids, both host times), and pack_sequences with the native and the
+    Python FFD (equal layouts, both host times)."""
+    from text_similarity_tpu_torch.data import BUCKETS, packing, pick_bucket
+    from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer
+
+    py = WordPieceTokenizer(tok.vocab, lowercase=tok.lowercase, use_native=False)
+    rec, out = {}, {}
+    for label, fn in (("tokenize_many", lambda t: t.tokenize_many(corpus)),
+                      ("encode_batch", lambda t: t.encode_batch(corpus, max_len=256))):
+        t = time.time()
+        out[label] = fn(tok)
+        rec[label + " native"] = (time.time() - t) * 1e3
+        t = time.time()
+        want = fn(py)
+        rec[label + " python"] = (time.time() - t) * 1e3
+        got = out[label]
+        same = got == want if label == "tokenize_many" else all(
+            np.array_equal(g, w) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"native and Python {label} disagree on the corpus")
+    rows = [[tok.cls_id] + r[:254] + [tok.sep_id] for r in out["tokenize_many"]]
+    width = pick_bucket(max(len(r) for r in rows), BUCKETS)
+    lens = np.sort(np.asarray([len(r) for r in rows], np.int32))[::-1]
+    placed = {}
+    for label, place in (("native", packing.ffd_place_native), ("python", packing._ffd_place_py)):
+        t = time.time()
+        placed[label] = place(lens, width)
+        rec["FFD placement " + label] = (time.time() - t) * 1e3
+    a, b = placed["native"], placed["python"]
+    if a[0] != b[0] or any(not np.array_equal(x, y) for x, y in zip(a[1:], b[1:])):
+        raise AssertionError("the native and the Python FFD place differently")
+    t = time.time()
+    native = packing.pack_sequences(rows, width, pad_id=tok.pad_id)
+    rec["pack_sequences native"] = (time.time() - t) * 1e3
+    saved, packing.NATIVE_MIN = packing.NATIVE_MIN, len(rows) + 1   # the Python FFD
+    try:
+        t = time.time()
+        python = packing.pack_sequences(rows, width, pad_id=tok.pad_id)
+        rec["pack_sequences python"] = (time.time() - t) * 1e3
+    finally:
+        packing.NATIVE_MIN = saved
+    if set(native) != set(python) or any(not np.array_equal(native[k], python[k]) for k in native):
+        raise AssertionError("pack_sequences: the native and the Python FFD place differently")
+    log(f"host tokenize + FFD of {len(corpus)} documents: "
+        + "; ".join(f"{k} {v:.1f} ms" for k, v in rec.items())
+        + f" (ids and layouts equal; {native['ids'].shape[0]} rows of {width}) [{card}]")
+    return rec
+
+
+def search_gate(torch, pipe, port, label, sizes, rng, card):
+    """/search requests of verbatim corpus sentences through the daemon:
+    ≥ 95% find themselves in the top 10 at score ≥ 0.99 (on a multi-query
+    IVF request, of the queries whose own slab was probed, as phase 4)."""
+    picks = rng.choice(len(pipe.corpus), size=sum(sizes), replace=False)
+    start = 0
+    for size in sizes:
+        req = picks[start:start + size]
+        start += size
+        texts = [pipe.corpus[j] for j in req]
+        body, ms = http_ok(port, "/search", {"queries": texts, "k": 10})
+        hits = [any(x["id"] == j and x["score"] >= 0.99 for x in row)
+                for j, row in zip(req, body["results"])]
+        counted = (own_slab_probed(torch, pipe, texts, req) if pipe.ivf is not None and size > 1
+                   else [True] * size)
+        n = sum(counted)
+        found = sum(h for h, c in zip(hits, counted) if c)
+        log(f"{label}: /search of {size}: {found}/{n} counted queries find themselves "
+            f"({sum(hits)}/{size} in all), {ms:.1f} ms [{card}]")
+        if n == 0 or found < 0.95 * n:
+            raise AssertionError(f"{label}: /search of {size}: self-retrieval {found}/{n}")
+
+
+def concurrent_clients(port, texts, k=10):
+    """One thread a text, each a single-query /search → (results, seconds)."""
+    import threading
+
+    out, errors = {}, []
+
+    def one(i):
+        try:
+            out[i] = http_ok(port, "/search", {"queries": [texts[i]], "k": k})[0]["results"][0]
+        except Exception as e:  # recorded, raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(texts))]
+    t = time.time()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    dt = time.time() - t
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"concurrent clients failed: {errors[:3]}")
+    return [out[i] for i in range(len(texts))], dt
+
+
+def rerank_check(torch, card, port, lock, rr, queries, label):
+    """/rerank of ``queries`` with k = retrieve_k: every row is a subset of
+    that query's retrieved candidates (the same retrieval call), sorted
+    best first, and its scores equal the cross-encoder's bucketed predict
+    of the same pairs within RERANK_AGREE_MAX. → (ms, max|Δ|)."""
+    ce = rr.cross_encoder
+    body, ms = http_ok(port, "/rerank", {"queries": queries, "k": rr.retrieve_k})
+    with lock, torch.no_grad():     # the daemon is idle: the same retrieval
+        retrieved = rr.search(queries, max_num_results=rr.retrieve_k)
+    pairs, got = [], []
+    for q, row, cands in zip(queries, body["results"], retrieved):
+        ids = [x["id"] for x in row]
+        scores = [x["score"] for x in row]
+        if not set(ids) <= {cid for _, _, cid in cands} or len(ids) != len(cands):
+            raise AssertionError(f"{label}: /rerank returned ids outside the retrieved set")
+        if scores != sorted(scores, reverse=True):
+            raise AssertionError(f"{label}: /rerank row not sorted best first")
+        pairs += [(q, x["document"]) for x in row]
+        got += scores
+    want = ce.predict(pairs, packed=False)
+    got = np.asarray(got, np.float32)
+    err = float(np.abs(got - want).max())
+    mean = float(np.abs(got - want).mean())
+    control = float(np.abs(got - want[np.random.default_rng(0).permutation(len(want))]).mean())
+    log(f"{label}: /rerank of {len(queries)} quer{'y' if len(queries) == 1 else 'ies'} "
+        f"({len(pairs)} pairs) {ms:.1f} ms; scores against the bucketed predict: max|Δ| "
+        f"{err:.3e} (limit {RERANK_AGREE_MAX:.2f}), mean|Δ| {mean:.3e}; control, a "
+        f"permutation of the pairs: mean|Δ| {control:.3e}; spread across pairs: std "
+        f"{float(want.std()):.3e}, range {float(np.ptp(want)):.3e} [{card}]")
+    if err > RERANK_AGREE_MAX or mean > 0.25 * control:
+        raise AssertionError(f"{label}: /rerank scores differ from predict (max|Δ| {err:.3e}, "
+                             f"mean|Δ| {mean:.3e} against the control's {control:.3e})")
+    return ms, err
+
+
+def serve_subprocess(card, enc_dir, pipe_dir, ce_dir, corpus):
+    """``python -m text_similarity_tpu_torch serve --model ENC --load PIPE
+    --rerank-model CE --int8 --port 0``: at most 120 s to "warmed rerank
+    path" and "serving on …", then /health, one /search and one /rerank,
+    then SIGINT; its exit code must be 0 and its stderr hold no traceback
+    and no error line."""
+    import queue
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "text_similarity_tpu_torch", "serve", "--model", enc_dir,
+           "--load", pipe_dir, "--rerank-model", ce_dir, "--int8", "--port", "0"]
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    err_lines = []
+
+    def read_stdout():
+        for line in proc.stdout:
+            lines.put(line)
+
+    threading.Thread(target=read_stdout, daemon=True).start()
+    err_reader = threading.Thread(target=lambda: err_lines.extend(proc.stderr), daemon=True)
+    err_reader.start()
+    try:
+        warmed = port = None
+        while port is None:
+            left = 120 - (time.time() - t0)
+            if left <= 0 or proc.poll() is not None:
+                raise AssertionError(f"serve did not start within 120 s (rc {proc.poll()}): "
+                                     f"{''.join(err_lines)[-2000:]}")
+            try:
+                line = lines.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            if line.startswith("warmed rerank path"):
+                warmed = time.time() - t0
+            elif line.startswith("serving on http://"):
+                port = int(line.strip().rsplit(":", 1)[1])
+        if warmed is None:
+            raise AssertionError("serve printed no 'warmed rerank path' before serving")
+        ready = time.time() - t0
+        health, _ = http_ok(port, "/health")
+        res, s_ms = http_ok(port, "/search", {"queries": [corpus[7]], "k": 10})
+        rr, r_ms = http_ok(port, "/rerank", {"queries": [corpus[7]], "k": 10})
+        for name, body in (("/search", res), ("/rerank", rr)):
+            row = body["results"][0]
+            scores = [x["score"] for x in row]
+            if len(row) != 10 or not np.all(np.isfinite(scores)) or scores != sorted(
+                    scores, reverse=True):
+                raise AssertionError(f"serve subprocess: bad {name} answer {row[:2]}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        err_reader.join(10)
+        stderr = "".join(err_lines)
+        log(f"serve subprocess (--int8): warmed rerank path at {warmed:.1f} s, serving at "
+            f"{ready:.1f} s; /health {health}; /search {s_ms:.1f} ms, /rerank {r_ms:.1f} ms; "
+            f"exit {rc} on SIGINT [{card}]")
+        if rc != 0 or "Traceback" in stderr or " ERROR " in stderr:
+            raise AssertionError(f"serve subprocess exit {rc}, stderr: {stderr[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def phase_serving(torch, card, ctx):
+    import tempfile
+
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.data import pack_pair_arrays
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+    from text_similarity_tpu_torch.pipelines import RankingPipeline, SearchServer
+
+    corpus, tok, big, small = ctx["corpus"], ctx["tok"], ctx["big"], ctx["small"]
+    if tok._native is None:
+        raise AssertionError("the phase-4 tokenizer does not run the native matcher")
+    tokenizer_records(torch, card, corpus, tok)
+
+    # the cross-encoder: minilm-l6 (token types, pooler) at full width,
+    # random weights from a seed, one output; a head of std 1 (not 0.02)
+    # spreads the scores across pairs far beyond bf16 noise
+    ce = CrossEncoder.init(torch.Generator().manual_seed(7), ARCH_PRESETS["minilm-l6"],
+                           tokenizer=tok, num_classes=1, device="cuda")
+    ce.params["head"]["w"].mul_(50.0)
+    if ce.device.type != "cuda" or any(
+            not t.is_cuda for t in flat_leaves(ce.params).values()):
+        raise AssertionError("the cross-encoder is not on the card")
+    rr = RankingPipeline(big, ce, retrieve_k=100)
+    packed_calls, wave_calls = [], []
+    real_layout, real_wave = ce._predict_packed_layout, rr._predict_pipelined
+    ce._predict_packed_layout = lambda *a, **k: packed_calls.append(1) or real_layout(*a, **k)
+    rr._predict_pipelined = lambda p, **k: wave_calls.append(len(p)) or real_wave(p, **k)
+
+    # queueing a packed layout must not wait for the device: that is what
+    # lets the wave path overlap host and card
+    pairs = [(corpus[i], corpus[i + 1]) for i in range(256)]
+    ba, la = tok.encode_bodies([p[0] for p in pairs], 253)
+    bb, lb = tok.encode_bodies([p[1] for p in pairs], 253)
+    layout = pack_pair_arrays(ba, la, bb, lb, 256, cls_id=tok.cls_id, sep_id=tok.sep_id,
+                              pad_id=tok.pad_id)
+    ce._dispatch_packed_layout(layout)   # warm: the pinned pool, cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ce._dispatch_packed_layout(layout)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = np.zeros(len(pairs), np.float32)
+    ce._collect_packed(pending, out)
+    log("CrossEncoder._dispatch_packed_layout queued 256 pairs with no host-device "
+        "synchronisation (torch.cuda.set_sync_debug_mode('error'))")
+
+    rng = np.random.default_rng(9)
+    servers = {
+        f"ivf server ({len(big.corpus)} docs)": SearchServer(big, port=0, batch_window=0.002,
+                                                             reranker=rr),
+        f"brute server ({len(small.corpus)} docs)": SearchServer(small, port=0,
+                                                                 batch_window=0.002),
+    }
+    for srv in servers.values():
+        srv.start_background()
+    try:
+        (ivf_label, ivf_srv), (brute_label, brute_srv) = servers.items()
+        cosine_topk_cuda.launches = 0
+        ivf_scan_cuda.launches = ivf_scan_cuda.launches_tile = 0
+        search_gate(torch, big, ivf_srv.port, ivf_label, [1, 5, 64], rng, card)
+        k1 = (ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile)
+        search_gate(torch, small, brute_srv.port, brute_label, [1, 5, 64], rng, card)
+        k2 = cosine_topk_cuda.launches
+        log(f"launches during /search: K1 {k1[0]} ({k1[1]} on the wgmma tile), K2 {k2}")
+        if k1[0] == 0 or k1[0] != k1[1] or k2 == 0:
+            raise AssertionError(f"/search did not run K1 on the tile and K2: K1 {k1}, K2 {k2}")
+
+        # 32 concurrent single-query clients, micro-batched. On the brute
+        # server each answer must equal the unbatched one (ids where the
+        # scores are separated, scores within BATCH_SCORE_TOL). On the
+        # IVF server a batched query shares its block's probe union with
+        # its companions (phase 4), which need not hold its own slab: there
+        # every answer must hold 10 finite scores, best first, and the
+        # share that finds itself first is a record.
+        for label, srv, pipe in ((brute_label, brute_srv, small), (ivf_label, ivf_srv, big)):
+            picks = rng.choice(len(pipe.corpus), 32, replace=False)
+            texts = [pipe.corpus[j] for j in picks]
+            with srv.lock, torch.no_grad():
+                want = [pipe([t], max_num_results=10)[0] for t in texts]
+            got, dt = concurrent_clients(srv.port, texts)
+            top_self = sum(row[0]["id"] == j for row, j in zip(got, picks))
+            log(f"{label}: 32 concurrent single-query clients in {dt * 1e3:.1f} ms = "
+                f"{32 / dt:.1f} QPS (micro-batched, window 2 ms); {top_self}/32 find "
+                f"themselves first [{card}]")
+            for row in got:
+                scores = [x["score"] for x in row]
+                if len(row) != 10 or not np.all(np.isfinite(scores)) or scores != sorted(
+                        scores, reverse=True):
+                    raise AssertionError(f"{label}: a bad concurrent answer: {row[:2]}")
+            if pipe is small:
+                if top_self < 0.95 * 32:
+                    raise AssertionError(f"{label}: {top_self}/32 clients find themselves first")
+                for row, ref in zip(got, want):
+                    gs = np.asarray([[x["score"] for x in row]])
+                    rs = np.asarray([[s for _, s, _ in ref]])
+                    if (float(np.abs(gs - rs).max()) > BATCH_SCORE_TOL or not separated_ids_equal(
+                            np.asarray([[x["id"] for x in row]]),
+                            np.asarray([[i for _, _, i in ref]]), rs, tol=2 * BATCH_SCORE_TOL)):
+                        raise AssertionError(f"{label}: a micro-batched answer differs from "
+                                             f"the unbatched one: {row[:3]} vs {ref[:3]}")
+
+        # an empty request is a 400, and the daemon (its batcher) lives on
+        code, body, _ = http_call(ivf_srv.port, "/search", {"queries": [], "k": 10})
+        if code != 400:
+            raise AssertionError(f"empty /search answered {code}: {body}")
+        http_ok(ivf_srv.port, "/search", {"queries": [corpus[3]], "k": 10})
+
+        # /rerank: 1 query (100 pairs, the packed auto route), 32 queries
+        # (3,200 pairs, the wave path); K1 retrieves both
+        ivf_scan_cuda.launches = ivf_scan_cuda.launches_tile = 0
+        q32 = [corpus[j] for j in rng.choice(len(corpus), 32, replace=False)]
+        ms1, _ = rerank_check(torch, card, ivf_srv.port, ivf_srv.lock, rr, [corpus[11]],
+                              ivf_label)
+        if not packed_calls or wave_calls:
+            raise AssertionError(f"/rerank of 100 pairs did not take the packed route "
+                                 f"({len(packed_calls)} packed, waves {wave_calls})")
+        ms32, _ = rerank_check(torch, card, ivf_srv.port, ivf_srv.lock, rr, q32, ivf_label)
+        if wave_calls != [3200]:
+            raise AssertionError(f"/rerank of 3,200 pairs did not take the wave path: "
+                                 f"{wave_calls}")
+        if ivf_scan_cuda.launches == 0 or ivf_scan_cuda.launches != ivf_scan_cuda.launches_tile:
+            raise AssertionError("the /rerank retrievals did not run K1 on the wgmma tile")
+
+        # steady state, one request at a time: the daemon's latency beside
+        # the same call made directly (its HTTP and batching cost), and
+        # where a one-query /rerank spends its time
+        one = [corpus[j] for j in rng.choice(len(corpus), 20, replace=False)]
+        for label, srv, pipe in ((ivf_label, ivf_srv, big), (brute_label, brute_srv, small)):
+            via = [http_ok(srv.port, "/search", {"queries": [one[i]], "k": 10})[1]
+                   for i in range(20)]
+            with srv.lock, torch.no_grad():
+                direct = [host_ms(torch, lambda: pipe([one[i]], 10), reps=1) for i in range(20)]
+            log(f"{label}: 20 one-text /search requests one at a time: median "
+                f"{np.median(via):.2f} ms (min {min(via):.2f}), the pipeline called directly "
+                f"{np.median(direct):.2f} ms (min {min(direct):.2f}) [{card}]")
+        via = [http_ok(ivf_srv.port, "/rerank", {"queries": [one[i]], "k": 10})[1]
+               for i in range(5)]
+        with ivf_srv.lock, torch.no_grad():
+            cands = big([one[0]], max_num_results=100)[0]
+            pairs1 = [(one[0], d) for d, _, _ in cands]
+            split = {"the whole rerank": host_ms(torch, lambda: rr([one[0]], top_k=10)),
+                     "retrieve 100": host_ms(torch, lambda: big([one[0]], max_num_results=100)),
+                     "predict 100 pairs": host_ms(torch, lambda: ce.predict(pairs1)),
+                     "tokenize both sides": host_ms(torch, lambda: (
+                         tok.encode_bodies([p[0] for p in pairs1], 253),
+                         tok.encode_bodies([p[1] for p in pairs1], 253)))}
+        log(f"{ivf_label}: 5 one-query /rerank requests one at a time: median "
+            f"{np.median(via):.2f} ms; called directly: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in split.items()) + f" [{card}]")
+
+        # /encode, /add and /remove of 100 documents
+        new_docs = [" ".join(reversed(d.split())) for d in corpus[:100]]
+        emb = np.asarray(http_ok(ivf_srv.port, "/encode", {"texts": new_docs})[0]["embeddings"])
+        if emb.shape != (100, 384) or not np.all(np.isfinite(emb)) or float(
+                np.abs(np.linalg.norm(emb, axis=1) - 1).max()) > 1e-3:
+            raise AssertionError(f"/encode: bad embeddings {emb.shape}")
+        n0 = len(big.corpus)
+        ids = http_ok(ivf_srv.port, "/add", {"texts": new_docs})[0]["ids"]
+        row = http_ok(ivf_srv.port, "/search", {"queries": [new_docs[5]], "k": 10})[0]
+        found = [x for x in row["results"][0] if x["id"] == ids[5] and x["score"] >= 0.99]
+        if ids != list(range(n0, n0 + 100)) or not found:
+            raise AssertionError(f"/add: the added document does not find itself: "
+                                 f"{row['results'][0][:2]}")
+        if http_ok(ivf_srv.port, "/remove", {"ids": ids})[0]["removed"] != 100:
+            raise AssertionError("/remove did not remove the 100 documents")
+        row = http_ok(ivf_srv.port, "/search", {"queries": [new_docs[5]], "k": 10})[0]
+        if any(x["id"] in set(ids) for x in row["results"][0]):
+            raise AssertionError("a removed document came back")
+        log(f"{ivf_label}: /health {http_ok(ivf_srv.port, '/health')[0]}")
+        for label, srv, errors in ((ivf_label, ivf_srv, 1), (brute_label, brute_srv, 0)):
+            metrics = http_ok(srv.port, "/metrics")[0]
+            for path, m in sorted(metrics.items()):
+                log(f"{label} {path}: {m['requests']} requests, {m['errors']} errors, p50 "
+                    f"{m['latency_ms_p50']} ms, p95 {m['latency_ms_p95']} ms [{card}]")
+            # the one error: the empty /search
+            if sum(m["errors"] for m in metrics.values()) != errors:
+                raise AssertionError(f"{label}: unexpected server errors: {metrics}")
+        log(f"/rerank latency: 1 query {ms1:.1f} ms, 32 queries {ms32:.1f} ms [{card}]")
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+
+    # the entry point itself, on this phase's saved directories
+    build = os.path.join(REPO, "text_similarity_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t = time.time()
+        ctx["enc"].save(os.path.join(tmp, "enc"))
+        big.save(os.path.join(tmp, "pipe"))
+        ce.save(os.path.join(tmp, "ce"))
+        log(f"saved the encoder, the {len(big.corpus)}-document pipeline and the cross-encoder in "
+            f"{time.time() - t:.1f} s")
+        serve_subprocess(card, os.path.join(tmp, "enc"), os.path.join(tmp, "pipe"),
+                         os.path.join(tmp, "ce"), corpus)
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -2740,6 +3220,7 @@ def main() -> int:
     phase_short_training(torch, card, ctx)
     k7 = phase_packed_attention(torch, card)
     k7["launches"] = phase_packed_encode(torch, card, ctx)
+    phase_serving(torch, card, ctx)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]

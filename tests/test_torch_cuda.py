@@ -1761,3 +1761,94 @@ def test_k8_count_over_scores_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError):
         topk_2pass_count_cuda(q, x, thr, scores=torch.zeros(4, 100))
     assert topk_2pass_count_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Serving: the cross-encoder and the HTTP daemon on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cross_encoder_packed_equals_bucketed_on_card(cuda, precision):
+    """On the card the packed route's scores (each pair's CLS through the
+    pooler's tanh) equal the bucketed route's: f32 within 1e-4; bf16
+    within 1.5e-2, 2.8x the first reading (5.37e-3 on an H100, where the
+    bucketed route rounds the pooler's output to bf16). Each limit is under
+    a tenth (f32) or all (bf16: random weights give pairs near-equal CLS
+    states, scores within about 3e-2) of the largest gap between
+    neighbouring pairs' scores. Queueing a packed layout waits for the device nowhere
+    (sync debug mode "error")."""
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION
+    from text_similarity_tpu_torch.data import pack_pair_arrays
+    from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
+
+    atol, prec = {"f32": (1e-4, FP32_PRECISION), "bf16": (1.5e-2, DEFAULT_PRECISION)}[precision]
+    corpus = _corpus(200)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=2000, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    ce = CrossEncoder.init(torch.Generator().manual_seed(3), arch, tokenizer=tok, device=cuda,
+                           precision=prec)
+    ce.params["head"]["w"].mul_(50.0)    # std 1: scores spread across pairs
+    assert ce.params["head"]["w"].is_cuda
+    pairs = list(zip(corpus[:100], corpus[100:]))
+    dense = ce.predict(pairs, packed=False, max_len=128)   # the arch's 128 positions
+    packed = ce.predict(pairs, packed=True, max_len=128)
+    print(f"{precision} packed vs bucketed: max|Δ| {np.abs(packed - dense).max():.3e}, "
+          f"spread {np.ptp(dense):.3e}")
+    assert np.isfinite(dense).all()
+    np.testing.assert_allclose(packed, dense, atol=atol)
+    gap = np.abs(dense - np.roll(dense, 1)).max()
+    assert gap > (10 if precision == "f32" else 1) * atol
+    ba, la = tok.encode_bodies([p[0] for p in pairs], 125)
+    bb, lb = tok.encode_bodies([p[1] for p in pairs], 125)
+    layout = pack_pair_arrays(ba, la, bb, lb, 128, cls_id=tok.cls_id, sep_id=tok.sep_id,
+                              pad_id=tok.pad_id)
+    ce._dispatch_packed_layout(layout)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ce._dispatch_packed_layout(layout)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = np.zeros(len(pairs), np.float32)
+    ce._collect_packed(pending, out)
+    np.testing.assert_allclose(out, ce.predict_packed(pairs, width=128, max_len=128), atol=1e-6)
+
+
+def test_search_server_on_card_launches_k1(cuda):
+    """A SearchServer over a CUDA IVF pipeline: /search raises K1's launch
+    counter and finds the verbatim query; /rerank scores on the card."""
+    import json
+    import urllib.request
+
+    from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
+    from text_similarity_tpu_torch.pipelines import RankingPipeline, SearchServer
+
+    corpus = _corpus(3000)
+    tok = WordPieceTokenizer(train_wordpiece_vocab(corpus, vocab_size=4000, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    enc = SentenceEncoder(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                          tokenizer=tok, device=cuda)
+    pipe = SemanticSearchPipeline(enc, corpus=corpus, use_ivf=True, device=cuda,
+                                  index_config=IndexConfig(num_clusters=16, num_probes=4,
+                                                           kmeans_iters=4))
+    ce = CrossEncoder.init(torch.Generator().manual_seed(1), arch, tokenizer=tok, device=cuda)
+    server = SearchServer(pipe, port=0, batch_window=0.002,
+                          reranker=RankingPipeline(pipe, ce, retrieve_k=20))
+    server.start_background()
+
+    def call(path, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["results"]
+
+    try:
+        before = ivf_scan_cuda.launches
+        row = call("/search", {"queries": [corpus[5]], "k": 5})[0]
+        assert ivf_scan_cuda.launches > before
+        assert row[0]["id"] == 5 and row[0]["score"] > 0.99
+        row = call("/rerank", {"queries": [corpus[5]], "k": 5})[0]
+        scores = [x["score"] for x in row]
+        assert len(row) == 5 and scores == sorted(scores, reverse=True)
+    finally:
+        server.shutdown()

@@ -15,17 +15,22 @@ import text_similarity_tpu_torch
 from text_similarity_tpu_torch.core.config import ARCH_PRESETS, IndexConfig
 from text_similarity_tpu_torch.core.precision import FP32_PRECISION
 from text_similarity_tpu_torch.index import EmbeddingStore, IVFIndex
+from text_similarity_tpu_torch.cli.main import build_parser, build_server
 from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(text_similarity_tpu_torch.__file__).resolve().parent
 
-MODULES = sorted(
-    "text_similarity_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
-    for p in PKG.rglob("*.py")
-    if p.name != "__init__.py"
-)
+def _module_name(path: pathlib.Path) -> str:
+    parts = path.relative_to(PKG).with_suffix("").parts
+    if parts[-1] == "__init__":     # a package: native/ holds its code there
+        parts = parts[:-1]
+    return ".".join(("text_similarity_tpu_torch",) + parts)
+
+
+MODULES = sorted(_module_name(p) for p in PKG.rglob("*.py"))
 
 # a meta-path finder that refuses jax and the exact top-level JAX package
 # (text_similarity_tpu_torch shares its prefix, so match whole names)
@@ -55,6 +60,10 @@ def test_port_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
     assert len(MODULES) >= 15
+    assert {"text_similarity_tpu_torch." + m for m in (
+        "native", "models.cross_encoder", "pipelines.rerank", "pipelines.serve", "cli.main",
+        "cli.__main__", "__main__", "utils.logging",
+    )} <= set(MODULES)
 
 
 _FORBIDDEN = re.compile(
@@ -77,8 +86,10 @@ def _tiny_encoder_args():
     return params, arch
 
 
-@pytest.mark.parametrize("entry", ["encoder", "store", "ivf_build", "pipeline"])
-def test_entry_points_default_to_the_card(entry):
+@pytest.mark.parametrize(
+    "entry", ["encoder", "store", "ivf_build", "pipeline", "cross_encoder", "serve_cli"]
+)
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without device=..., every entry point asks for CUDA: it raises when no
     card is present and lands on the card when one is."""
     params, arch = _tiny_encoder_args()
@@ -91,6 +102,17 @@ def test_entry_points_default_to_the_card(entry):
             return EmbeddingStore(16, arch.hidden_size)
         if entry == "ivf_build":
             return IVFIndex.build(x, IndexConfig(num_clusters=4, kmeans_iters=1))
+        if entry == "cross_encoder":
+            return CrossEncoder.init(torch.Generator().manual_seed(0), arch,
+                                     precision=FP32_PRECISION)
+        if entry == "serve_cli":
+            # the CLI's --device defaults to cuda
+            SentenceEncoder(params, arch, precision=FP32_PRECISION, device="cpu").save(
+                str(tmp_path / "enc"))
+            server = build_server(build_parser().parse_args(
+                ["serve", "--model", str(tmp_path / "enc"), "--port", "0"]))
+            server.shutdown()
+            return server
         enc = SentenceEncoder(
             params, arch, precision=FP32_PRECISION,
             device="cuda" if torch.cuda.is_available() else "cpu",

@@ -6,10 +6,13 @@ module layout and names so each counterpart is easy to find. It imports
 card (``device="cuda"``) unless the caller asks for the CPU; nothing falls
 back to the CPU on its own.
 
-Ported so far: the semantic-search serving path — WordPiece tokenization,
-the BERT-class sentence encoder, the embedding store, brute-force and IVF
-top-k search and ``SemanticSearchPipeline`` (with add and remove on a built
-index) — int8 serving: int8 weights (``SentenceEncoder.to_int8``), the
+Ported so far: the semantic-search serving path — WordPiece tokenization
+(the C matcher and packer under ``native/``, or a HuggingFace
+``tokenizer.json``), the BERT-class sentence encoder, the embedding store,
+brute-force and IVF top-k search, ``SemanticSearchPipeline`` (with add and
+remove on a built index), the cross-encoder rerank (``RankingPipeline``)
+and the HTTP daemon (``python -m text_similarity_tpu_torch serve``) — int8
+serving: int8 weights (``SentenceEncoder.to_int8``), the
 int8 store and int8 IVF slabs with a bf16 rescore — long-document encode
 (windowed attention with a global CLS at 4096 tokens) and bi-encoder
 training (``train``: the pair losses, AdamW, the train step, the Trainer).

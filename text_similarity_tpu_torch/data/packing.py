@@ -8,9 +8,10 @@ with a block-diagonal attention mask (``ops.attention.attention_reference``
 ``segment_ids``), per-segment positions restarting at 0 and segment-wise
 pooling (``models.pooling.segment_mean_pool``).
 
-Everything here is host-side layout. The placement is the reference's
-pure-Python segment tree, whose placement its native C FFD reproduces byte
-for byte; the native one is not ported.
+Everything here is host-side layout. The placement is a segment tree of
+free space, in C (``native.ffd_place_native``) from ``NATIVE_MIN`` sequences
+up and in Python below (the ctypes call costs more than a tiny placement);
+both place every sequence alike.
 """
 
 from __future__ import annotations
@@ -19,6 +20,15 @@ from itertools import chain
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from ..native import ffd_place_native
+
+# from this many sequences up the placement runs in C (the reference's cut)
+NATIVE_MIN = 512
+
+
+def _ffd_place(lens: np.ndarray, width: int):
+    return ffd_place_native(lens, width) if len(lens) >= NATIVE_MIN else _ffd_place_py(lens, width)
 
 
 def _ffd_place_py(lens: np.ndarray, width: int):
@@ -97,7 +107,7 @@ def pack_sequences(
     lens = np.fromiter((min(len(r), width) for r in row_ids), np.int64, count=n)
     order = np.argsort(-lens, kind="stable")   # longest first
     sl = lens[order].astype(np.int32)
-    r, row, slot, off = _ffd_place_py(sl, width)
+    r, row, slot, off = _ffd_place(sl, width)
     if n == 0:
         return _empty_layout(width, pad_id, row_types is not None)
 
@@ -171,7 +181,7 @@ def pack_pair_arrays(
     L = (la + lb + 3).astype(np.int64)
     order = np.argsort(-L, kind="stable")
     sl = L[order].astype(np.int32)
-    r, row, slot, off = _ffd_place_py(sl, width)
+    r, row, slot, off = _ffd_place(sl, width)
     if n == 0:
         return _empty_layout(width, pad_id, True)
 

@@ -1,11 +1,25 @@
-"""Host-side WordPiece tokenization (pure Python).
+"""Host-side tokenization (port of ``text_similarity_tpu.data.tokenization``).
 
-The port's own copy of the pure-Python path of
-``text_similarity_tpu.data.tokenization``: BERT-style basic pre-split plus
-greedy longest-match subwords, a frequency-based vocab builder so tests and
-smoke runs need no network, and ``load_tokenizer`` for a ``vocab.txt``.
-The reference's native C matcher is byte-exact with this path and is not
-ported yet; neither is loading a HuggingFace ``tokenizer.json``.
+- ``WordPieceTokenizer``: BERT-style basic pre-split plus greedy
+  longest-match subwords. By default ``encode_batch`` and ``tokenize_many``
+  run in C (``native.NativeWordPiece``, built at first use): one
+  pthread-parallel call splits, matches and pads a whole batch. A row the C
+  batch does not take (any non-ASCII byte, including a text that does not
+  encode as UTF-8) goes through the full-Unicode Python pre-split, on the
+  input's own test: no error falls back to Python. ``tokenize_to_ids`` (one
+  text) is the Python matcher with its word cache. The C and Python paths
+  give equal ids (``use_native=False`` selects the Python one).
+- the pair methods of a cross-encoder: ``encode_pair_batch`` (padded),
+  ``encode_pair_rows`` (ragged rows for packing) and ``encode_bodies``
+  (bodies without specials for ``data.packing.pack_pair_arrays``), with
+  HF's ``longest_first`` truncation;
+- ``train_wordpiece_vocab``: a frequency-based vocab builder, so tests and
+  smoke runs need no network;
+- ``HFTokenizerAdapter``: a HuggingFace ``tokenizer.json`` (through the
+  ``tokenizers`` package, imported when one is loaded) behind the same
+  batch API;
+- ``load_tokenizer``: a model directory's ``tokenizer.json``, else its
+  ``vocab.txt``.
 """
 
 from __future__ import annotations
@@ -19,10 +33,17 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..native import NativeWordPiece
+
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MASK]
 
 _PUNCT_RE = re.compile(r"([\W_])", re.UNICODE)
+
+# a C call of tokenize_many takes at most this many texts and id cells
+# (ids and mask of 8 Mi cells: 64 MiB)
+_MANY_ROWS = 16384
+_MANY_CELLS = 1 << 23
 
 
 def _basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
@@ -39,13 +60,15 @@ def _basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
 
 
 class WordPieceTokenizer:
-    """Greedy longest-match-first WordPiece (BERT semantics)."""
+    """Greedy longest-match-first WordPiece (BERT semantics); the matcher
+    runs in C unless ``use_native=False``."""
 
     def __init__(
         self,
         vocab: Dict[str, int],
         lowercase: bool = True,
         max_word_chars: int = 100,
+        use_native: bool = True,
     ):
         self.vocab = dict(vocab)
         self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
@@ -56,9 +79,13 @@ class WordPieceTokenizer:
         self.cls_id = self.vocab[CLS]
         self.sep_id = self.vocab[SEP]
         self.mask_id = self.vocab.get(MASK, self.unk_id)
-        # word → ids memo: corpora repeat words heavily, and the greedy
-        # matcher is the host hot path of encode()
+        # word → ids memo of the Python matcher: corpora repeat words
+        # heavily, and the greedy matcher is the host hot path of encode()
         self._word_cache: Dict[str, List[int]] = {}
+        self._native = None
+        if use_native:
+            # the C batch takes ASCII rows only, where bytes are characters
+            self._native = NativeWordPiece(self.vocab, self.unk_id, max_word_chars)
 
     @property
     def vocab_size(self) -> int:
@@ -116,30 +143,146 @@ class WordPieceTokenizer:
         return ids
 
     def tokenize_many(self, texts: Sequence[str]) -> List[List[int]]:
-        return [self.tokenize_to_ids(t) for t in texts]
+        """Token ids of many texts, untruncated. Natively the texts go
+        through the C batch of ``encode_batch`` in chunks of similar length,
+        each as wide as its longest text (an ASCII row has no more ids than
+        characters); the rows it flags take the Python path whole."""
+        texts = list(texts)
+        if self._native is None:
+            return [self.tokenize_to_ids(t) for t in texts]
+        lens = np.fromiter(map(len, texts), np.int64, len(texts))
+        order = np.argsort(lens, kind="stable")
+        out: List[List[int]] = [[] for _ in texts]
+        st = 0
+        while st < len(order):
+            en = min(st + _MANY_ROWS, len(order))
+            while en - st > 1 and (en - st) * (int(lens[order[en - 1]]) + 2) > _MANY_CELLS:
+                en = st + (en - st) // 2
+            idx = order[st:en]
+            ids, _, n, needs_py = self._native.encode_batch_padded(
+                [texts[i] for i in idx], int(lens[idx[-1]]) + 2, self.cls_id, self.sep_id,
+                self.pad_id, lowercase=self.lowercase, max_word_chars=self.max_word_chars,
+            )
+            for j, i in enumerate(idx):
+                out[i] = (self.tokenize_to_ids(texts[i]) if needs_py[j]
+                          else ids[j, 1:n[j] - 1].tolist())
+            st = en
+        return out
 
     def encode_batch(
         self, texts: Sequence[str], max_len: int = 128, pad_to: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """→ (ids, mask), shape (B, L): [CLS] tokens [SEP], truncated to
-        ``max_len`` and padded to the longest row (or ``pad_to``)."""
-        rows = []
-        for t in texts:
-            ids = [self.cls_id] + self.tokenize_to_ids(t)[: max_len - 2] + [self.sep_id]
-            rows.append(ids)
-        longest = max((len(r) for r in rows), default=2)
-        if pad_to and pad_to < longest:
-            raise ValueError(
-                f"pad_to={pad_to} < longest row ({longest}): would "
-                "truncate mid-sequence; raise pad_to or lower max_len"
-            )
+        ``max_len`` and padded to the longest row (or ``pad_to``).
+
+        Natively the whole batch (split + WordPiece + specials + padding)
+        runs in one pthread-parallel C call; each row with a non-ASCII byte,
+        which that call flags, then goes through the full-Unicode Python
+        pre-split."""
+        texts = list(texts)
+        if self._native is None or not texts or max_len < 2:
+            rows = [
+                [self.cls_id] + self.tokenize_to_ids(t)[: max_len - 2] + [self.sep_id]
+                for t in texts
+            ]
+            return _pad_rows(rows, self.pad_id, pad_to)
+        ids, mask, lens, needs_py = self._native.encode_batch_padded(
+            texts, max_len, self.cls_id, self.sep_id, self.pad_id,
+            lowercase=self.lowercase, max_word_chars=self.max_word_chars,
+        )
+        for i in np.nonzero(needs_py)[0]:
+            row = [self.cls_id] + self.tokenize_to_ids(texts[i])[: max_len - 2] + [self.sep_id]
+            ids[i, : len(row)] = row
+            ids[i, len(row):] = self.pad_id
+            mask[i, : len(row)] = 1
+            mask[i, len(row):] = 0
+            lens[i] = len(row)
+        longest = int(lens.max())
+        _check_pad_to(pad_to, longest)
         L = pad_to or longest
-        out = np.full((len(rows), L), self.pad_id, np.int32)
-        mask = np.zeros((len(rows), L), np.int32)
-        for i, r in enumerate(rows):
-            out[i, : len(r)] = r
-            mask[i, : len(r)] = 1
+        if L > max_len:
+            # the C buffers are (B, max_len); honour pad_to > max_len as the
+            # Python path does
+            ids = np.pad(ids, ((0, 0), (0, L - max_len)), constant_values=self.pad_id)
+            mask = np.pad(mask, ((0, 0), (0, L - max_len)))
+        return ids[:, :L], mask[:, :L]
+
+    def encode_pair_batch(
+        self,
+        texts_a: Sequence[str],
+        texts_b: Sequence[str],
+        max_len: int = 128,
+        pad_to: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Cross-encoder input [CLS] a [SEP] b [SEP] → (ids, mask, token
+        types), padded; HF's ``longest_first`` truncation (pop from the
+        longer side, ties from a)."""
+        rows, types = self.encode_pair_rows(texts_a, texts_b, max_len)
+        return _pad_rows(rows, self.pad_id, pad_to, types)
+
+    def encode_pair_rows(
+        self,
+        texts_a: Sequence[str],
+        texts_b: Sequence[str],
+        max_len: int = 128,
+    ) -> Tuple[List[List[int]], List[List[int]]]:
+        """Ragged form of ``encode_pair_batch`` (the packing input): token
+        rows and type rows, no padding. One batched tokenize a side and the
+        ``longest_first`` truncation in closed form."""
+        ra = self.tokenize_many(texts_a)
+        rb = self.tokenize_many(texts_b)
+        budget = max_len - 3
+        half = budget // 2
+        rows, types = [], []
+        for ia, ib in zip(ra, rb):
+            la, lb = len(ia), len(ib)
+            if la + lb > budget:
+                if lb <= half:
+                    la = budget - lb
+                elif la <= half:
+                    lb = budget - la
+                else:
+                    la, lb = half, budget - half
+                ia, ib = ia[:la], ib[:lb]
+            rows.append([self.cls_id] + ia + [self.sep_id] + ib + [self.sep_id])
+            types.append([0] * (la + 2) + [1] * (lb + 1))
+        return rows, types
+
+    def encode_bodies(self, texts: Sequence[str], max_body: int) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (body ids (N, ≤ max_body + 1) int32 left-aligned, body lens):
+        the tokens without [CLS]/[SEP], truncated to ``max_body``, through
+        ``encode_batch`` — the array input of
+        ``data.packing.pack_pair_arrays``."""
+        ids, mask = self.encode_batch(texts, max_len=max_body + 2)
+        lens = mask.sum(axis=1).astype(np.int64) - 2
+        return ids[:, 1:], lens
+
+
+def _check_pad_to(pad_to: Optional[int], longest: int) -> None:
+    if pad_to and pad_to < longest:
+        raise ValueError(
+            f"pad_to={pad_to} < longest row ({longest}): would "
+            "truncate mid-sequence; raise pad_to or lower max_len"
+        )
+
+
+def _pad_rows(rows, pad_id: int, pad_to: Optional[int], types=None):
+    """Ragged rows (and type rows) → (ids, mask[, types]) int32, padded to
+    the longest row or ``pad_to``."""
+    longest = max((len(r) for r in rows), default=2)
+    _check_pad_to(pad_to, longest)
+    L = pad_to or longest
+    out = np.full((len(rows), L), pad_id, np.int32)
+    mask = np.zeros((len(rows), L), np.int32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+        mask[i, : len(r)] = 1
+    if types is None:
         return out, mask
+    tts = np.zeros((len(rows), L), np.int32)
+    for i, tt in enumerate(types):
+        tts[i, : len(tt)] = tt
+    return out, mask, tts
 
 
 def train_wordpiece_vocab(
@@ -184,14 +327,59 @@ def train_wordpiece_vocab(
     return vocab
 
 
-def load_tokenizer(path: str) -> WordPieceTokenizer:
-    """Load ``vocab.txt`` (+ ``tokenizer_config.json``'s ``do_lower_case``)
-    from a model directory."""
-    if os.path.exists(os.path.join(path, "tokenizer.json")):
-        raise NotImplementedError(
-            f"{path}/tokenizer.json: HuggingFace tokenizer loading is not "
-            "ported yet; provide a vocab.txt"
+class HFTokenizerAdapter:
+    """A HuggingFace ``tokenizers.Tokenizer`` (a ``tokenizer.json``) behind
+    the batch API of ``WordPieceTokenizer``. The HF tokenizer adds its own
+    specials and normalises; a truncated row keeps its final [SEP]."""
+
+    def __init__(self, tok, pad_id: int, cls_id: int, sep_id: int,
+                 unk_id: int = 0, mask_id: Optional[int] = None):
+        self._tok = tok
+        self.pad_id, self.cls_id, self.sep_id = pad_id, cls_id, sep_id
+        self.unk_id = unk_id
+        self.mask_id = mask_id if mask_id is not None else unk_id
+        self.vocab_size = tok.get_vocab_size()
+
+    @classmethod
+    def from_file(cls, path: str) -> "HFTokenizerAdapter":
+        from tokenizers import Tokenizer
+
+        tok = Tokenizer.from_file(path)
+        vocab = tok.get_vocab()
+        return cls(
+            tok,
+            pad_id=vocab.get(PAD, 0),
+            cls_id=vocab.get(CLS, vocab.get("<s>", 0)),
+            sep_id=vocab.get(SEP, vocab.get("</s>", 0)),
+            unk_id=vocab.get(UNK, vocab.get("<unk>", 0)),
+            mask_id=vocab.get(MASK, vocab.get("<mask>")),
         )
+
+    def _truncate(self, ids, max_len: int) -> List[int]:
+        """Truncate to ``max_len`` keeping the terminal [SEP]: BERT-class
+        models never saw a row end mid-sequence in training."""
+        if len(ids) <= max_len:
+            return list(ids)
+        return list(ids[: max_len - 1]) + [self.sep_id]
+
+    def encode_batch(self, texts, max_len: int = 128, pad_to: Optional[int] = None):
+        encs = self._tok.encode_batch(list(texts))
+        return _pad_rows([self._truncate(e.ids, max_len) for e in encs], self.pad_id, pad_to)
+
+    def encode_pair_batch(self, texts_a, texts_b, max_len: int = 128, pad_to: Optional[int] = None):
+        encs = self._tok.encode_batch(list(zip(texts_a, texts_b)))
+        rows = [self._truncate(e.ids, max_len) for e in encs]
+        types = [list(e.type_ids[: len(r)]) for e, r in zip(encs, rows)]
+        return _pad_rows(rows, self.pad_id, pad_to, types)
+
+
+def load_tokenizer(path: str):
+    """A model directory's tokenizer: ``tokenizer.json`` (HF fast-tokenizer
+    format) when present, else ``vocab.txt`` (+ ``tokenizer_config.json``'s
+    ``do_lower_case``)."""
+    tj = os.path.join(path, "tokenizer.json")
+    if os.path.exists(tj):
+        return HFTokenizerAdapter.from_file(tj)
     vt = os.path.join(path, "vocab.txt")
     if os.path.exists(vt):
         lowercase = True
@@ -200,4 +388,4 @@ def load_tokenizer(path: str) -> WordPieceTokenizer:
             with open(cfgp) as f:
                 lowercase = json.load(f).get("do_lower_case", True)
         return WordPieceTokenizer.from_vocab_file(vt, lowercase=lowercase)
-    raise FileNotFoundError(f"no vocab.txt under {path}")
+    raise FileNotFoundError(f"no tokenizer.json or vocab.txt under {path}")

@@ -1,6 +1,7 @@
 from .encoder import (
     Encoder,
     EncoderOutput,
+    cross_params_from_jax,
     embed_inputs,
     encoder_forward,
     init_params,
@@ -13,6 +14,7 @@ from .sentence_encoder import SentenceEncoder
 __all__ = [
     "Encoder",
     "EncoderOutput",
+    "cross_params_from_jax",
     "embed_inputs",
     "encoder_forward",
     "init_params",

@@ -140,6 +140,38 @@ def init_params(
     return make(_param_shapes(arch))
 
 
+def _leaf_from_jax(arr, shp, name: str, kind: str, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.kind != kind:
+        raise TypeError(f"{name}: expected a {kind!r} array, got {arr.dtype}")
+    if tuple(arr.shape) != tuple(shp):
+        raise ValueError(f"{name}: shape {arr.shape} != expected {shp}")
+    if kind == "i":
+        return torch.from_numpy(arr.astype(np.int8)).to(device)
+    return torch.from_numpy(arr.astype(np.float32)).to(device)
+
+
+def _tree_from_jax(shapes: dict, sub: dict, path: str, device) -> dict:
+    """``sub`` (numpy leaves) → tensors, leaf by leaf against ``shapes``."""
+    out = {}
+    for key, shp in shapes.items():
+        if key not in sub:
+            raise KeyError(f"parameter tree is missing {path + key!r}")
+        if isinstance(shp, dict):
+            out[key] = _tree_from_jax(shp, sub[key], path + key + "/", device)
+        elif isinstance(sub[key], dict):
+            if set(sub[key]) != {"q", "s"}:
+                raise KeyError(f"{path + key}: a quantized leaf holds q and s")
+            s_shp = tuple(shp[:-2]) + (1, shp[-1])
+            out[key] = {
+                "q": _leaf_from_jax(sub[key]["q"], shp, path + key + "/q", "i", device),
+                "s": _leaf_from_jax(sub[key]["s"], s_shp, path + key + "/s", "f", device),
+            }
+        else:
+            out[key] = _leaf_from_jax(sub[key], shp, path + key, "f", device)
+    return out
+
+
 def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
     """A JAX-layout parameter tree of numpy arrays (e.g. from
     ``restore_checkpoint_raw`` or ``jax.device_get(params)``) → the same
@@ -148,37 +180,18 @@ def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
     (``quantize_params_int8``) carries across as int8 codes and f32 scales
     whose contraction axis (-2) is 1."""
     _check_supported(arch)
+    return _tree_from_jax(_param_shapes(arch), tree, "", device)
 
-    def leaf(arr, shp, name, kind):
-        arr = np.asarray(arr)
-        if arr.dtype.kind != kind:
-            raise TypeError(f"{name}: expected a {kind!r} array, got {arr.dtype}")
-        if tuple(arr.shape) != tuple(shp):
-            raise ValueError(f"{name}: shape {arr.shape} != expected {shp}")
-        if kind == "i":
-            return torch.from_numpy(arr.astype(np.int8)).to(device)
-        return torch.from_numpy(arr.astype(np.float32)).to(device)
 
-    def convert(shapes, sub, path):
-        out = {}
-        for key, shp in shapes.items():
-            if key not in sub:
-                raise KeyError(f"parameter tree is missing {path + key!r}")
-            if isinstance(shp, dict):
-                out[key] = convert(shp, sub[key], path + key + "/")
-            elif isinstance(sub[key], dict):
-                if set(sub[key]) != {"q", "s"}:
-                    raise KeyError(f"{path + key}: a quantized leaf holds q and s")
-                s_shp = tuple(shp[:-2]) + (1, shp[-1])
-                out[key] = {
-                    "q": leaf(sub[key]["q"], shp, path + key + "/q", "i"),
-                    "s": leaf(sub[key]["s"], s_shp, path + key + "/s", "f"),
-                }
-            else:
-                out[key] = leaf(sub[key], shp, path + key, "f")
-        return out
-
-    return convert(_param_shapes(arch), tree, "")
+def cross_params_from_jax(tree: dict, arch: EncoderArch, num_classes: int, device="cpu") -> dict:
+    """A cross-encoder's JAX-layout tree ``{"encoder", "head"}`` → tensors,
+    as :func:`params_from_jax`; the head is ``w`` (hidden, num_classes) and
+    ``b`` (num_classes,), its ``w`` quantized or not."""
+    head = {"w": (arch.hidden_size, num_classes), "b": (num_classes,)}
+    return {
+        "encoder": params_from_jax(tree["encoder"], arch, device),
+        "head": _tree_from_jax(head, tree["head"], "head/", device),
+    }
 
 
 class _ParamTree(nn.Module):

@@ -61,7 +61,8 @@ def segment_first_pool(
     gathered = torch.gather(
         hidden, 1, first.clamp(max=s - 1)[:, :, None].expand(-1, -1, hidden.shape[2])
     )
-    return torch.where((first < s)[:, :, None], gathered, torch.zeros((), dtype=hidden.dtype))
+    # the zero lives on hidden's device: a host scalar would cost a blocking copy
+    return torch.where((first < s)[:, :, None], gathered, hidden.new_zeros(()))
 
 
 POOLERS = {

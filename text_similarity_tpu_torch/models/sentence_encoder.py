@@ -3,7 +3,8 @@
 
 tokenize → length-bucketed batches (or packed rows) → encoder → pooling →
 optional projection → f32 L2 normalisation. ``save``/``load`` use the JAX package's
-directory layout (``arch.json`` + ``step_*/params.npz`` + ``vocab.txt``),
+directory layout (``arch.json`` + ``step_*/params.npz`` + ``vocab.txt``, or
+a ``tokenizer.json`` read through ``data.tokenization.HFTokenizerAdapter``),
 so an encoder saved by either package loads in the other.
 
 ``to_int8`` quantizes the weights for int8 serving (dense layers then run
@@ -59,6 +60,10 @@ from .encoder import (
     Encoder, _cast_tree, dequant_weight, encoder_forward, params_from_jax,
 )
 from .pooling import pool, segment_mean_pool
+
+
+# texts a padded tokenizer batch in _tokenize_rows (bounds its host buffers)
+_ROWS_CHUNK = 16384
 
 
 class SentenceEncoder(nn.Module):
@@ -206,11 +211,15 @@ class SentenceEncoder(nn.Module):
         """texts → token-id rows ([CLS] body [SEP], ≤ max_len)."""
         if self.tokenizer is None:
             raise ValueError("encoder has no tokenizer; use embed_tokens")
-        body = self.tokenizer.tokenize_many(texts)
-        return [
-            [self.tokenizer.cls_id] + r[: max_len - 2] + [self.tokenizer.sep_id]
-            for r in body
-        ]
+        # the padded batch of every tokenizer: the C batch of the native
+        # WordPiece, [CLS] body[: max_len - 2] [SEP] of the Python one,
+        # HFTokenizerAdapter's own specials and truncation
+        rows = []
+        for st in range(0, len(texts), _ROWS_CHUNK):
+            ids, mask = self.tokenizer.encode_batch(texts[st:st + _ROWS_CHUNK], max_len)
+            lens = mask.sum(axis=1)
+            rows += [ids[i, : lens[i]].tolist() for i in range(len(lens))]
+        return rows
 
     # bucketed batches must cost at least this many times the packed
     # layout's tokens before "auto" packs (the reference's constant)

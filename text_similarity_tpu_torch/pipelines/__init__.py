@@ -1,3 +1,5 @@
+from .rerank import RankingPipeline
 from .search import SemanticSearchPipeline
+from .serve import SearchServer
 
-__all__ = ["SemanticSearchPipeline"]
+__all__ = ["RankingPipeline", "SemanticSearchPipeline", "SearchServer"]

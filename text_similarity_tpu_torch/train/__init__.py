@@ -2,6 +2,7 @@ from .optim import AdamW, linear_warmup_schedule, make_optimizer
 from .prefetch import DevicePrefetcher
 from .steps import (
     TrainState,
+    classifier_forward,
     init_classifier_head,
     init_train_state,
     make_bi_encoder_train_step,
@@ -15,6 +16,7 @@ __all__ = [
     "make_bi_encoder_train_step",
     "TrainState",
     "init_train_state",
+    "classifier_forward",
     "init_classifier_head",
     "DevicePrefetcher",
     "Trainer",

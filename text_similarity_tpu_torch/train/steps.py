@@ -1,5 +1,5 @@
-"""Train-step factories (port of ``text_similarity_tpu.train.steps``, the
-bi-encoder step).
+"""Train-step factories (port of ``text_similarity_tpu.train.steps``: the
+bi-encoder step, and the classifier forward the cross-encoder scores with).
 
 A step is eager PyTorch: two tower passes that share the encoder weights
 (dropout from the state's ``torch.Generator``), the pair loss, the
@@ -13,8 +13,9 @@ tensors that require grad, in the JAX package's layout, so
 ``models.params_from_jax`` carries a JAX tree across and a trained encoder
 saves in the shared checkpoint format.
 
-Not ported yet: the cross-encoder / classifier, token, word, MLM, packed,
-theseus and distillation steps, ``remat``, pipeline parallelism and MoE
+Not ported yet: the cross-encoder / classifier step (its forward,
+``classifier_forward``, is here), the token, word, MLM, packed, theseus and
+distillation steps, ``remat``, pipeline parallelism and MoE
 auxiliary losses.
 """
 
@@ -28,8 +29,8 @@ import torch
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision, resolve_device
 from ..models import losses as L
-from ..models.encoder import encoder_forward
-from ..models.pooling import pool
+from ..models.encoder import dequant_weight, encoder_forward
+from ..models.pooling import cls_pool, mean_pool, pool
 from .optim import AdamW, _leaves
 
 
@@ -78,6 +79,23 @@ def _embed(
         pw = enc_params["projection"]
         pooled = pooled.float() @ pw["w"] + pw["b"]
     return pooled
+
+
+def classifier_forward(
+    params: dict, ids, mask, type_ids=None, *, arch: EncoderArch,
+    precision: Precision = DEFAULT_PRECISION, pooling: str = "cls",
+) -> torch.Tensor:
+    """Encoder → pool → linear head → (B, C) f32 logits, without dropout.
+    ``cls`` pooling takes the tanh pooler's output where the arch has one,
+    else the CLS state; any other pooling the masked mean."""
+    out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision)
+    if pooling == "cls":
+        pooled = (out.pooler_output if out.pooler_output is not None
+                  else cls_pool(out.last_hidden_state, mask))
+    else:
+        pooled = mean_pool(out.last_hidden_state, mask)
+    head = params["head"]
+    return pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
 
 
 def init_classifier_head(
