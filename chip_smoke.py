@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
-packed-encode and serving paths on one NVIDIA card.
+packed-encode, serving and training-entry-point paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -216,7 +216,42 @@ Phases (any failure exits non-zero):
       exit 0 and no traceback or error line on its stderr.
     Printed, with the card: the tokenize and FFD host times, each server's
     ``/metrics`` p50 / p95, the 32-client rates, each ``/rerank``'s latency.
- 10. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 10. training entry points (phase 4's tokenizer, corpus, minilm-l6
+    weights and 2,000-document pipeline; data files written from the corpus
+    into a temporary directory; the CLI's ``main([...])`` in this process
+    with ``--device cuda``):
+    - ALBERT albert-base (H 768, E 128, one shared layer run 12 times,
+      random weights from seed 0): 2,000 sentences encoded with
+      ``packed="auto"`` (which must pack) and ``packed=False`` under phase
+      4's ``PACK_AGREE_*`` limits, each rate beside minilm-l6's; K7 through
+      ``attention_impl="packed"`` over length-bucketed batches (its counter
+      must read 12 × the batches; pooled cosine to the reference path ≥
+      0.99); one bi-encoder loss in f32 with dropout 0: the shared leaves'
+      gradient equals the sum of an unshared 12-layer copy's, per leaf
+      within ``ALBERT_GRAD_REL``;
+    - the packed step at bench.py's recipe (minilm-l6, 8,192 pairs of its
+      length law as token rows, 64 rows × 128 a side, cosine MSE,
+      ``remat=True``): pairs/s, a record; its gradient against the bucketed
+      step's on the same 64 pairs (dropout 0) within ``GRAD_F32`` (f32) and
+      ``GRAD_BF16`` (bf16) per leaf;
+    - ``train-sts --packed --packed-rows 64 --max-len 128`` on 8,192 pairs
+      of bench.py's length law made of corpus words: the loss finite, the
+      saved model loads and encodes, the epoch's pairs/s;
+    - ``train-cross-encoder --format paws``, packed and bucketed (256 pairs,
+      8 steps): ``CrossEncoder.load`` of each saved directory feeds
+      ``RankingPipeline`` over the 2,000-document pipeline; its packed and
+      bucketed ``predict`` of the 100 candidates within ``RERANK_AGREE_MAX``;
+    - ``train-ner`` (256 sentences), then ``train-classification`` and
+      ``eval-classification`` (512 documents, 4 labels): finite losses, the
+      accuracy printed;
+    - ``pretrain-long --arch roberta-base --target-len 4096 --window 256
+      --batch-size 2`` over 16 documents of 3,000-4,200 tokens (the first
+      fills the 4,096-token row, where the reference reads past its
+      position table): 8 steps at width 4096, every loss finite, K5 12 and
+      K6 24 launches a step (watched through ``train.make_mlm_train_step``),
+      the parameters moved; tokens/s, peak memory and a ``torch.profiler``
+      split of one step.
+ 11. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -227,7 +262,7 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile).
- 11. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 12. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -3176,6 +3211,432 @@ def phase_serving(torch, card, ctx):
                          os.path.join(tmp, "ce"), corpus)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training entry points (ALBERT, the CLI's train / eval commands,
+# pretrain-long)
+# ---------------------------------------------------------------------------
+
+# ALBERT's bucketed and packed sentence encodes are gated by phase 4's
+# PACK_AGREE_* limits; the shared layer's gradient against the sum of an
+# unshared 12-layer copy's (f32, dropout 0), per leaf
+ALBERT_GRAD_REL = 1e-5
+
+
+def cli(torch, argv, card):
+    """The port's CLI in this process → (seconds, the JSON object it printed
+    last), which is logged."""
+    import contextlib
+    import io
+
+    from text_similarity_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    lines = buf.getvalue().strip().splitlines()
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    out = json.loads("\n".join(lines[start:]))
+    log(f"  {argv[0]}: {dt:.1f} s -> {json.dumps(out)[:300]} [{card}]")
+    return dt, out
+
+
+def bench_length_rows(rng, words, n):
+    """n sentences of bench.py's packed-train length law (log-normal(3.1,
+    0.45) tokens, clipped to 6-126) made of corpus words, which the phase-4
+    vocabulary holds whole (about one token a word)."""
+    lens = np.clip(np.round(np.exp(rng.normal(3.1, 0.45, n))).astype(int), 6, 126)
+    return [" ".join(words[j] for j in rng.integers(0, len(words), n_)) for n_ in lens]
+
+
+def albert_records(torch, card, ctx):
+    """albert-base (H 768, E 128, one shared layer run 12 times; random
+    weights, seed 0) on phase 4's tokenizer: the packed="auto" and
+    packed=False encodes of 2,000 sentences beside minilm-l6's, K7 over
+    length-bucketed batches, and the shared leaf's gradient."""
+    import torch.nn.functional as F
+
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+    from text_similarity_tpu_torch.data import BUCKETS, LengthBucketBatcher, build_pair_batches
+    from text_similarity_tpu_torch.models import (
+        SentenceEncoder, encoder_forward, init_params, mean_pool,
+    )
+    from text_similarity_tpu_torch.ops.attention import packed_attention_cuda
+    from text_similarity_tpu_torch.train.steps import (
+        batch_to, bi_encoder_loss, trainable, value_and_grad,
+    )
+
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    arch = ARCH_PRESETS["albert-base"].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    texts = corpus[4000:6000]
+    rows = enc._tokenize_rows(texts, 256)
+    if not enc.use_packed(rows, 128, BUCKETS):
+        raise AssertionError("ALBERT's 2,000-sentence encode does not take the packed route")
+    rates, embs = {}, {}
+    for name, e, packed in (("albert auto (packed)", enc, "auto"),
+                            ("albert packed=False", enc, False),
+                            ("minilm-l6 auto (packed)", ctx["enc"], "auto")):
+        e.encode(texts[:256], device_output=True, packed=packed)       # warm
+        torch.cuda.synchronize()
+        t = time.time()
+        embs[name] = e.encode(texts, device_output=True, packed=packed)
+        torch.cuda.synchronize()
+        rates[name] = len(texts) / (time.time() - t)
+    a, b = embs["albert auto (packed)"], embs["albert packed=False"]
+    cos = (a * b).sum(dim=1)
+    gap, worst = 1.0 - float(cos.min()), float((a - b).abs().max())
+    ctl = 1.0 - float((b.roll(1, 0) * a).sum(dim=1).min())
+    log(f"ALBERT albert-base encode of {len(texts)} sentences [{card}]: "
+        + ", ".join(f"{k} {v:.0f} sentences/s" for k, v in rates.items())
+        + f"; packed vs bucketed unit embeddings 1 − min cosine {gap:.2e}, max|Δ| {worst:.3e} "
+        f"(limits {PACK_AGREE_COS:.1e}, {PACK_AGREE_MAX:.1e}); control 1 − min cosine {ctl:.2e}")
+    if gap > PACK_AGREE_COS or worst > PACK_AGREE_MAX or ctl < 100 * PACK_AGREE_COS:
+        raise AssertionError(f"ALBERT's packed and bucketed encodes disagree (1 − min cosine "
+                             f"{gap:.2e}, max|Δ| {worst:.3e}) or the control does not separate")
+
+    # K7 in each of the 12 iterations of the shared layer
+    batcher = LengthBucketBatcher(128, buckets=PACKED_BUCKETS, shuffle_batches=False)
+    batches = [(torch.from_numpy(bt["ids"][bt["valid"]]).cuda(),
+                torch.from_numpy(bt["mask"][bt["valid"]]).cuda())
+               for bt in batcher.batches(enc._tokenize_rows(texts, 128), pad_id=tok.pad_id)]
+    p = enc.params
+    with torch.no_grad():
+        packed_attention_cuda.launches = 0
+        got = [encoder_forward(p, ids, m, arch=arch, precision=enc.precision,
+                               attention_impl="packed").last_hidden_state for ids, m in batches]
+        torch.cuda.synchronize()
+        k7 = packed_attention_cuda.launches
+        ref = [encoder_forward(p, ids, m, arch=arch, precision=enc.precision,
+                               attention_impl="reference").last_hidden_state
+               for ids, m in batches]
+    cos = min(float((F.normalize(mean_pool(g, m).float(), dim=-1)
+                     * F.normalize(mean_pool(r, m).float(), dim=-1)).sum(1).min())
+              for (_, m), g, r in zip(batches, got, ref))
+    diff = torch.cat([(g.float() - r.float()).abs()[m.bool()] for (_, m), g, r in
+                      zip(batches, got, ref)])
+    log(f"ALBERT attention_impl='packed' [{card}]: K7 launches {k7} (12 iterations x "
+        f"{len(batches)} batches = {12 * len(batches)}); last_hidden_state against the reference "
+        f"path mean|Δ| {float(diff.mean()):.3e}, max|Δ| {float(diff.max()):.3e}; pooled min "
+        f"cosine {cos:.6f}")
+    if k7 != 12 * len(batches):
+        raise AssertionError(f"K7 launched {k7} times, expected 12 x {len(batches)}")
+    if cos < 0.99:
+        raise AssertionError(f"ALBERT's K7 path and reference path disagree (min cosine {cos})")
+
+    # the shared leaf's gradient: the sum over its 12 iterations
+    f32 = arch.replace(hidden_dropout=0.0, attention_dropout=0.0)
+    pairs = [(texts[i], texts[i + 1]) for i in range(0, 16, 2)]
+    batch = batch_to(build_pair_batches(tok, pairs, np.linspace(0, 1, 8, dtype=np.float32),
+                                        batch_size=8, max_len=64)[0], torch.device("cuda"))
+
+    def repeat(tree):
+        return {k: repeat(v) if isinstance(v, dict) else v.repeat(12, *[1] * (v.dim() - 1))
+                for k, v in tree.items()}
+
+    shared = trainable({"encoder": params}, torch.device("cuda"))
+    unshared = trainable({"encoder": {**params, "layers": repeat(params["layers"])}},
+                         torch.device("cuda"))
+    _, _, g_s = value_and_grad(bi_encoder_loss, shared, batch, arch=f32,
+                               precision=FP32_PRECISION, deterministic=True)
+    _, _, g_u = value_and_grad(bi_encoder_loss, unshared, batch,
+                               arch=f32.replace(share_layers=False),
+                               precision=FP32_PRECISION, deterministic=True)
+    g_s, g_u = flat_leaves(g_s), flat_leaves(g_u)
+    g_u = {k: g.sum(dim=0, keepdim=True) if k.startswith("encoder/layers/") else g
+           for k, g in g_u.items()}
+    # a leaf whose exact gradient is zero (the key bias: a shift shared by
+    # a row's scores leaves the softmax alone) is measured against 1e-3 of
+    # the whole gradient's norm, as phase 7 does
+    whole = sum(float(g.norm()) ** 2 for g in g_u.values()) ** 0.5
+    rel = {k: float((g_s[k] - g).norm()) / max(float(g.norm()), 1e-3 * whole)
+           for k, g in g_u.items()}
+    floored = [k for k, g in g_u.items() if float(g.norm()) < 1e-3 * whole]
+    worst_leaf = max(rel, key=rel.get)
+    log(f"ALBERT shared-layer gradient (f32, dropout 0, 8 pairs at 64) [{card}]: per leaf "
+        f"‖g_shared − Σ g_unshared‖ / ‖Σ g_unshared‖ max {rel[worst_leaf]:.2e} ({worst_leaf}), "
+        f"median {float(np.median(list(rel.values()))):.2e}, limit {ALBERT_GRAD_REL:.0e}; "
+        f"against 1e-3 of the whole norm: {floored}")
+    if rel[worst_leaf] > ALBERT_GRAD_REL:
+        raise AssertionError(f"the shared layer's gradient is not the sum over its iterations: "
+                             f"{worst_leaf} {rel[worst_leaf]:.2e}")
+    return rates
+
+
+def packed_train_records(torch, card, ctx, words):
+    """bench.py's packed-train recipe in this process (minilm-l6, 8,192
+    pairs of its length law as token rows, 64 rows of 128 a side, cosine
+    MSE, ``remat=True``; a warm epoch, then one timed) → pairs/s; then the
+    packed step's gradient against the bucketed step's on 64 pairs."""
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS, TrainConfig
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from text_similarity_tpu_torch.data import (
+        build_packed_pair_batches, build_pair_batches, packed_pair_batches_from_rows,
+    )
+    from text_similarity_tpu_torch.train import (
+        init_train_state, make_optimizer, make_packed_bi_encoder_train_step,
+    )
+    from text_similarity_tpu_torch.train.steps import (
+        batch_to, bi_encoder_loss, packed_bi_encoder_loss, trainable, value_and_grad,
+    )
+
+    arch = ARCH_PRESETS["minilm-l6"]
+    rng = np.random.RandomState(17)
+    n = 8192
+    lens = np.clip(np.round(np.exp(rng.normal(3.1, 0.45, 2 * n))).astype(int), 6, 126)
+    rows = [list(rng.randint(5, arch.vocab_size, length + 2)) for length in lens]
+    batches = packed_pair_batches_from_rows(rows[:n], rows[n:], rng.rand(n).astype(np.float32),
+                                            rows_per_side=64, width=128, shuffle=False)
+    dev = torch.device("cuda")
+    batches = [batch_to(b, dev) for b in batches]
+    from text_similarity_tpu_torch.models import init_params
+
+    params = init_params(arch, torch.Generator().manual_seed(3))
+    tx = make_optimizer(TrainConfig(), len(batches))
+    step = make_packed_bi_encoder_train_step(arch, tx, loss_type="cosine_mse", remat=True)
+
+    def epoch():
+        st = init_train_state({"encoder": params}, tx, device="cuda")
+        torch.cuda.synchronize()
+        t = time.time()
+        for b in batches:
+            st, m = step(st, b)
+        loss = float(m["loss"])
+        return time.time() - t, loss
+
+    epoch()                                       # warm
+    dt, loss = epoch()
+    log(f"packed train step, bench.py's recipe (minilm-l6, {n} pairs in {len(batches)} steps of "
+        f"64 rows x 128 a side, cosine MSE, remat=True, bf16) [{card}]: {n / dt:.0f} pairs/s "
+        f"({dt * 1e3 / len(batches):.1f} ms/step), last loss {loss:.4f} (a record, not a gate)")
+    st = init_train_state({"encoder": params}, tx, device="cuda")
+    profile_split(torch, "one packed train step (bench.py's recipe)",
+                  lambda: step(st, batches[0]), card,
+                  groups=(("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),))
+
+    # packed against bucketed, the same 64 pairs, dropout 0
+    f0 = arch.replace(hidden_dropout=0.0, attention_dropout=0.0)   # phase 4's weights
+    tok = ctx["tok"]
+    sents = bench_length_rows(np.random.default_rng(5), words, 128)
+    pairs = list(zip(sents[:64], sents[64:]))
+    target = np.random.default_rng(6).random(64).astype(np.float32)
+    dense = build_pair_batches(tok, pairs, target, batch_size=64, max_len=128, shuffle=False)
+    packed = build_packed_pair_batches(tok, pairs, target, rows_per_side=64, width=128,
+                                       shuffle=False)
+    if len(dense) != 1 or len(packed) != 1:
+        raise AssertionError("the 64 pairs do not fit one dense and one packed batch")
+    leaves = trainable({"encoder": ctx["params"]}, dev)
+    readings = {}
+    for name, precision, limit in (("f32", FP32_PRECISION, GRAD_F32),
+                                   ("bf16", DEFAULT_PRECISION, GRAD_BF16)):
+        kw = dict(arch=f0, precision=precision, deterministic=True)
+        ld, _, gd = value_and_grad(bi_encoder_loss, leaves, batch_to(dense[0], dev), **kw)
+        lp, _, gp = value_and_grad(packed_bi_encoder_loss, leaves, batch_to(packed[0], dev), **kw)
+        gd, gp = flat_leaves(gd), flat_leaves(gp)
+        whole = sum(float(v.norm()) ** 2 for v in gd.values()) ** 0.5
+        rel = {k: float((gp[k].float() - v.float()).norm()) / max(float(v.norm()), 1e-3 * whole)
+               for k, v in gd.items()}
+        worst = max(rel, key=rel.get)
+        readings[name] = (rel[worst], limit)
+        log(f"packed vs bucketed step gradient {name} (64 pairs, minilm-l6, dropout 0) [{card}]: "
+            f"loss {float(lp.detach()):.6f} vs {float(ld.detach()):.6f}; per leaf ‖Δg‖/‖g‖ max {rel[worst]:.3e} "
+            f"({worst}), median {float(np.median(list(rel.values()))):.3e} (limit {limit})")
+    for name, (worst, limit) in readings.items():
+        if worst > limit:
+            raise AssertionError(f"{name}: the packed step's gradient differs from the bucketed "
+                                 f"step's by {worst:.3e} > {limit}")
+    return n / dt
+
+
+def phase_training_entry_points(torch, card, ctx):
+    """ALBERT, then the CLI's training and evaluation commands in this
+    process with ``--device cuda`` on data files written from phase 4's
+    corpus, then ``pretrain-long`` at 4096 (K5 / K6 counted)."""
+    import tempfile
+
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
+    from text_similarity_tpu_torch.ops.attention import (
+        flash_attention_backward_cuda, flash_attention_cuda,
+    )
+    from text_similarity_tpu_torch.pipelines import RankingPipeline
+    import text_similarity_tpu_torch.train as train_mod
+
+    records = {"albert": albert_records(torch, card, ctx)}
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    words = sorted({w for s in corpus[:5000] for w in s.split()})
+    records["packed_step_pps"] = packed_train_records(torch, card, ctx, words)
+
+    rng = np.random.default_rng(10)
+    build = os.path.join(REPO, "text_similarity_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        tok.save_vocab(path("vocab.txt"))
+        common = ["--arch", "minilm-l6", "--tokenizer", tmp, "--device", "cuda", "--epochs", "1"]
+        # train-sts --packed: 8,192 pairs of bench.py's length law
+        sents = bench_length_rows(rng, words, 2 * 8192)
+        with open(path("sts.tsv"), "w") as f:
+            f.writelines(f"{a}\t{b}\t{s:.3f}\n" for a, b, s in
+                         zip(sents[:8192], sents[8192:], rng.uniform(0, 5, 8192)))
+        dt, out = cli(torch, ["train-sts", "--data", path("sts.tsv"), "--packed", "--packed-rows", "64",
+                       "--max-len", "128", "--no-eval", "--save-path", path("sts")] + common,
+                      card)
+        hist = [json.loads(line) for line in open(path("sts/results.jsonl"))]
+        steps, secs, loss = hist[0]["steps"], hist[0]["seconds"], hist[0]["train"]["loss"]
+        log(f"train-sts --packed [{card}]: 8192 pairs in {steps} steps, epoch {secs:.2f} s = "
+            f"{8192 / secs:.0f} pairs/s ({8192 / dt:.0f} pairs/s over the whole command, "
+            f"tokenizing and packing included); mean loss {loss:.5f}")
+        if not np.isfinite(loss) or not np.isfinite(out["best_metric"]):
+            raise AssertionError(f"train-sts --packed: loss {loss}, best {out['best_metric']}")
+        emb = SentenceEncoder.load(path("sts"), device="cuda").encode(sents[:64])
+        if emb.shape != (64, 384) or not np.isfinite(emb).all():
+            raise AssertionError("the train-sts model does not load and encode")
+        records["train_sts_packed_pps"] = 8192 / secs
+
+        # train-cross-encoder, packed and bucketed, then the rerank
+        picks = rng.choice(len(corpus), 512, replace=False)
+        with open(path("paws.tsv"), "w") as f:
+            f.write("id\tsentence1\tsentence2\tlabel\n")
+            f.writelines(f"{i}\t{corpus[a]}\t{corpus[b]}\t{i % 2}\n"
+                         for i, (a, b) in enumerate(zip(picks[:256], picks[256:])))
+        query = ctx["small"].corpus[3]
+        for mode in ("packed", "bucketed"):
+            extra = ["--packed", "--packed-rows", "16"] if mode == "packed" else []
+            cli(torch, ["train-cross-encoder", "--data", path("paws.tsv"), "--format", "paws",
+                 "--batch-size", "32", "--max-len", "128", "--save-path", path(f"ce_{mode}")]
+                + extra + common, card)
+            ce = CrossEncoder.load(path(f"ce_{mode}"), device="cuda")
+            ranked = RankingPipeline(ctx["small"], ce, retrieve_k=100)([query], top_k=100)[0]
+            cand = [(query, doc) for doc, _, _ in ranked]
+            sp = ce.predict(cand, packed=True)
+            sb = ce.predict(cand, packed=False)
+            err = float(np.abs(sp - sb).max())
+            log(f"train-cross-encoder ({mode}) -> CrossEncoder.load -> RankingPipeline [{card}]: "
+                f"{len(ranked)} candidates, packed vs bucketed predict max|Δ| {err:.3e} (limit "
+                f"{RERANK_AGREE_MAX}), score spread {float(np.std(sb)):.3e}")
+            if err > RERANK_AGREE_MAX or not np.isfinite(sp).all() or len(ranked) != 100:
+                raise AssertionError(f"the {mode} cross-encoder's rerank disagrees: {err}")
+
+        # train-ner; train-classification then eval-classification
+        with open(path("ner.txt"), "w") as f:
+            for s in corpus[6000:6256]:
+                f.write("\n".join(f"{w} {'B-X' if len(w) % 3 == 0 else 'O'}"
+                                  for w in s.split()) + "\n\n")
+        _, out = cli(torch, ["train-ner", "--data", path("ner.txt"), "--batch-size", "32",
+                      "--save-path", path("ner")] + common, card)
+        if not np.isfinite(out["best"]):
+            raise AssertionError(f"train-ner: {out}")
+        with open(path("docs.jsonl"), "w") as f:
+            f.writelines(json.dumps({"text": s, "label": f"c{len(s.split()) % 4}"}) + "\n"
+                         for s in corpus[7000:7512])
+        _, out = cli(torch, ["train-classification", "--data", path("docs.jsonl"), "--batch-size", "32",
+                      "--save-path", path("cls")] + common, card)
+        _, ev = cli(torch, ["eval-classification", "--model", path("cls"), "--data", path("docs.jsonl"),
+                     "--batch-size", "64", "--device", "cuda"], card)
+        log(f"eval-classification [{card}]: accuracy {ev['accuracy']:.4f} over {ev['n']} "
+            f"documents, per class {ev['per_class']}")
+        if not np.isfinite(out["best"]) or ev["n"] != 512:
+            raise AssertionError(f"classification: train {out}, eval {ev}")
+
+        records["pretrain_long"] = pretrain_long_records(torch, card, ctx, tmp, train_mod,
+                                                         flash_attention_cuda,
+                                                         flash_attention_backward_cuda)
+    return records
+
+
+def pretrain_long_records(torch, card, ctx, tmp, train_mod, k5, k6):
+    """``pretrain-long --arch roberta-base --target-len 4096 --window 256
+    --batch-size 2`` over 16 documents of 3,000-4,200 tokens (the first
+    fills the 4096-token row: the reference's NaN case). The step is
+    watched through ``train.make_mlm_train_step``: every loss finite, K5 +12
+    and K6 +24 a step (12 layers; window 256 without a global CLS, which
+    changes neither count), a parameter moved."""
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    counts = [len(r) for r in tok.tokenize_many(corpus[:20_000])]
+    docs, pos = [], 0
+    for target in [4200] + list(np.random.default_rng(11).integers(3000, 4201, 15)):
+        parts, total = [], 0
+        while total < target:
+            parts.append(corpus[pos])
+            total += counts[pos]
+            pos += 1
+        docs.append(" ".join(parts))
+    with open(os.path.join(tmp, "long.txt"), "w") as f:
+        f.write("\n".join(docs) + "\n")
+    n_tokens = int(sum(min(len(r) + 2, 4096) for r in tok.tokenize_many(docs)))
+
+    real = train_mod.make_mlm_train_step
+    seen = {"losses": [], "k5": [], "k6": []}
+
+    def watched_factory(*a, **k):
+        step = real(*a, **k)
+
+        def watched(state, batch):
+            if not seen["losses"]:
+                seen["before"] = state.params["encoder"]["layers"]["attn"]["q"]["w"].detach().clone()
+                seen["params"] = state.params
+                torch.cuda.synchronize()
+                seen["t0"] = time.time()
+            b5, b6 = k5.launches, k6.launches
+            state, m = step(state, batch)
+            seen.update(step=step, state=state, batch=batch)
+            seen["k5"].append(k5.launches - b5)
+            seen["k6"].append(k6.launches - b6)
+            seen["losses"].append(m["loss"])
+            seen["width"] = int(np.asarray(batch["ids"]).shape[1])
+            torch.cuda.synchronize()              # a measurement: the steps' end
+            seen["t1"] = time.time()
+            return state, m
+
+        return watched
+
+    train_mod.make_mlm_train_step = watched_factory
+    torch.cuda.reset_peak_memory_stats()
+    k5.launches = k6.launches = 0
+    try:
+        dt, out = cli(torch, ["pretrain-long", "--arch", "roberta-base", "--tokenizer", tmp, "--data",
+                       os.path.join(tmp, "long.txt"), "--target-len", "4096", "--window", "256",
+                       "--batch-size", "2", "--save-path", os.path.join(tmp, "long"),
+                       "--device", "cuda"], card)
+    finally:
+        train_mod.make_mlm_train_step = real
+    steps_s = seen["t1"] - seen["t0"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in seen["losses"]]
+    moved = not torch.equal(seen["params"]["encoder"]["layers"]["attn"]["q"]["w"], seen["before"])
+    log(f"pretrain-long roberta-base, target 4096 (table {4096 + 2} rows), window 256, batch 2 "
+        f"[{card}]: {len(losses)} steps at width {seen['width']}, losses "
+        f"{[f'{x:.4f}' for x in losses]}; K5 a step {seen['k5']}, K6 a step {seen['k6']} "
+        f"(expected 12 and 24); {n_tokens} tokens in {steps_s:.2f} s of steps = "
+        f"{n_tokens / steps_s:.0f} tokens/s ({n_tokens / dt:.0f} over the whole command); peak "
+        f"memory {peak:.2f} GiB; parameters moved: {moved}")
+    split = profile_split(torch, "one pretrain-long MLM step (2 x 4096, roberta-base)",
+                          lambda: seen["step"](seen["state"], seen["batch"]), card,
+                          groups=TRAIN_GROUPS)
+    if split is not None:
+        k56 = split["K5 flash_fwd"] + split["K6 flash_bwd"]
+        log(f"pretrain-long step split [{card}]: K5 {split['K5 flash_fwd']:.2f} ms, K6 "
+            f"{split['K6 flash_bwd']:.2f} ms ({k56 / split['busy']:.1%} of the device time), "
+            f"GEMMs {split['GEMMs']:.2f} ms; busy {split['busy']:.2f} of {split['wall']:.2f} ms "
+            f"wall, idle {1 - split['busy'] / split['wall']:.1%}")
+    if len(losses) != 8 or not all(np.isfinite(losses)) or seen["width"] != 4096:
+        raise AssertionError(f"pretrain-long: {len(losses)} steps at width {seen['width']}, "
+                             f"losses {losses}")
+    if any(x != 12 for x in seen["k5"]) or any(x != 24 for x in seen["k6"]):
+        raise AssertionError(f"pretrain-long: K5 {seen['k5']}, K6 {seen['k6']} a step")
+    if not moved or not np.isfinite(out["mlm_loss_last"]):
+        raise AssertionError(f"pretrain-long: parameters moved {moved}, output {out}")
+    return {"tokens_per_s": n_tokens / steps_s, "peak_gib": peak, "losses": losses}
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -3221,6 +3682,7 @@ def main() -> int:
     k7 = phase_packed_attention(torch, card)
     k7["launches"] = phase_packed_encode(torch, card, ctx)
     phase_serving(torch, card, ctx)
+    phase_training_entry_points(torch, card, ctx)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]

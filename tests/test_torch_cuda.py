@@ -1852,3 +1852,79 @@ def test_search_server_on_card_launches_k1(cuda):
         assert len(row) == 5 and scores == sorted(scores, reverse=True)
     finally:
         server.shutdown()
+
+
+def test_albert_through_k7_and_k5_on_card(cuda):
+    """ALBERT (one shared layer run 3 times, 32-wide tables) through K7
+    (``attention_impl="packed"``, S 64) and K5 (S 4096 under ``"auto"``):
+    each kernel launches once an iteration, and the states agree with the
+    reference path on valid rows (f32, 2e-4)."""
+    arch = ARCH_PRESETS["tiny-test"].replace(
+        num_heads=4, hidden_size=128, intermediate_size=256, share_layers=True,
+        embed_factor_size=32, num_layers=3, max_position=4096)
+    params = SentenceEncoder(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                             precision=FP32_PRECISION, device=cuda).params
+    rng = np.random.default_rng(1)
+    for s, impl, counter in ((64, "packed", packed_attention_cuda),
+                             (4096, "auto", flash_attention_cuda)):
+        ids = torch.from_numpy(rng.integers(5, arch.vocab_size, (2, s)).astype(np.int32)).to(cuda)
+        lens = torch.tensor([s, s // 2 + 3], device=cuda)
+        mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+        before = counter.launches
+        got = encoder_forward(params, ids, mask, arch=arch, precision=FP32_PRECISION,
+                              attention_impl=impl).last_hidden_state
+        torch.cuda.synchronize()
+        assert counter.launches == before + arch.num_layers, impl
+        want = encoder_forward(params, ids, mask, arch=arch, precision=FP32_PRECISION,
+                               attention_impl="reference").last_hidden_state
+        assert float((got - want).abs()[mask.bool()].max()) <= 2e-4, impl
+
+
+def test_pretrain_long_step_gradient_k5_k6_on_card(cuda):
+    """One ``pretrain-long`` MLM loss at 4096 (a 2-layer cut of roberta-base
+    with positions tiled to 4098, window 256, bf16 compute, a fixed
+    corruption): its gradient through K5 / K6 against the reference path,
+    per leaf ‖Δg‖ / ‖g‖ ≤ 3e-2 (``chip_smoke.GRAD_BF16``; a leaf whose
+    exact gradient is zero is measured against 1e-3 of the whole norm)."""
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION
+    from text_similarity_tpu_torch.models.losses import mlm_loss
+    from text_similarity_tpu_torch.train.steps import trainable, value_and_grad
+
+    arch = ARCH_PRESETS["roberta-base"].replace(num_layers=2)
+    params, arch = extend_positions(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                                    4096 + arch.position_offset)
+    arch = arch.replace(attention_window=256)
+    tree = trainable({"encoder": params, "mlm_bias": torch.zeros(arch.vocab_size)}, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(5, arch.vocab_size, (1, 4096), generator=g, device=cuda, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    labels = torch.where(torch.rand(ids.shape, generator=g, device=cuda) < 0.15, ids, -100)
+    corrupted = torch.where(labels >= 0, torch.full_like(ids, 4), ids)
+
+    def loss_fn(p, impl):
+        h = encoder_forward(p["encoder"], corrupted, mask, arch=arch,
+                            precision=DEFAULT_PRECISION, attention_impl=impl).last_hidden_state
+        logits = h.float() @ p["encoder"]["embeddings"]["word"].T + p["mlm_bias"]
+        return mlm_loss(logits, labels), {}
+
+    before = (flash_attention_cuda.launches, flash_attention_backward_cuda.launches)
+    loss_k, _, g_k = value_and_grad(loss_fn, tree, "auto")
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches - before[0],
+            flash_attention_backward_cuda.launches - before[1]) == (2, 4)
+    loss_r, _, g_r = value_and_grad(loss_fn, tree, "reference")
+
+    def flat(t, prefix=""):
+        out = {}
+        for key, val in t.items():
+            out.update(flat(val, prefix + key + "/") if isinstance(val, dict)
+                       else {prefix + key: val.float()})
+        return out
+
+    g_k, g_r = flat(g_k), flat(g_r)
+    whole = sum(float(v.norm()) ** 2 for v in g_r.values()) ** 0.5
+    rel = {k: float((g_k[k] - v).norm()) / max(float(v.norm()), 1e-3 * whole)
+           for k, v in g_r.items()}
+    loss_k, loss_r = float(loss_k.detach()), float(loss_r.detach())
+    assert abs(loss_k - loss_r) <= 1e-2 * abs(loss_r)
+    assert max(rel.values()) <= 3e-2, sorted(rel.items(), key=lambda kv: -kv[1])[:3]

@@ -105,8 +105,8 @@ def test_params_from_jax_checks_shapes():
     jp["layers"]["attn"]["q"]["w"] = jp["layers"]["attn"]["q"]["w"][:, :, :8]
     with pytest.raises(ValueError):
         params_from_jax(jp, arch)
-    with pytest.raises(NotImplementedError):   # ALBERT sharing: not ported
-        init_params(ARCH_PRESETS["albert-base"].replace(num_layers=1, vocab_size=64))
+    with pytest.raises(NotImplementedError):   # MoE: not ported
+        init_params(ARCH_PRESETS["tiny-test"].replace(num_experts=2))
 
 
 def test_init_params_layout_matches_jax():

@@ -1,35 +1,73 @@
 """The port's CLI: ``python -m text_similarity_tpu_torch <command>``.
 
-Port of ``text_similarity_tpu.cli.main``; so far its ``serve`` subcommand,
-the search daemon (``pipelines.serve.SearchServer``):
+Port of ``text_similarity_tpu.cli.main``, with the reference's flags plus
+``--device`` (``cuda`` by default; it raises without a card):
 
+  train-sts            bi-encoder, cosine MSE on STS scores (evaluates
+                       Spearman each epoch unless ``--no-eval``)
+  train-nli            bi-encoder, softmax loss over 3 NLI classes
+  train-paws           bi-encoder on PAWS / Quora pairs (``--loss``)
+  train-classification document classifier (CLS head)
+  train-cross-encoder  pair classifier (``--packed`` or bucketed); saves a
+                       ``CrossEncoder`` directory
+  train-ner            token classifier on CoNLL files
+  eval-classification  accuracy and per-class accuracy of a classifier
+  pretrain-long        tile the positions to ``--target-len``, set the
+                       attention window, then masked-LM steps
+  eval-sts / eval-paws / eval-tatoeba
+                       evaluate a saved encoder
+  serve                the search daemon (``pipelines.serve``)
+
+``--packed`` (bi-encoder and cross-encoder training) packs several short
+rows a ``--max-len``-token row, ``--packed-rows`` rows a side and step.
+Every command prints the reference's JSON line and saves its artifacts in
+the shared layout, so the JAX package loads what the port saves.
+
+    python -m text_similarity_tpu_torch train-sts --data sts.tsv \\
+        --save-path runs/sts [--packed] [--device cpu]
     python -m text_similarity_tpu_torch serve --model ENC_DIR \\
         (--corpus docs.txt | --load PIPELINE_DIR) [--rerank-model CE_DIR] \\
         [--int8] [--port 8080] [--device cuda]
 
-The flags are the reference's, plus ``--device`` (``cuda`` by default; it
-raises without a card). ``build_server`` does the set-up (load the encoder,
-the corpus or saved pipeline and the cross-encoder, warm them) and returns
-the server; ``cmd_serve`` only serves it, so a caller can drive the same
-set-up without blocking.
+``pretrain-long`` sizes the position table at ``--target-len`` plus the
+arch's ``position_offset``: a RoBERTa-family model numbers a row's tokens
+from ``pad_token_id + 1``, so a full row needs that many more rows than
+tokens (the reference tiles to ``--target-len`` and reads past its table).
+
+``build_server`` does the serve set-up (load the encoder, the corpus or
+saved pipeline and the cross-encoder, warm them) and returns the server;
+``cmd_serve`` only serves it, so a caller can drive the same set-up without
+blocking. The reference's other commands, ``--pipe > 1`` and ``--experts``
+exit with "not ported yet" and the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 
-from ..core.precision import resolve_device
+import numpy as np
+import torch
+
+from ..core.precision import precision_for, resolve_device
 
 
 # the reference's shared flags that configure a random-init model or a
 # training run: serve loads --model and reads none of them
 _UNREAD = ("tokenizer", "arch", "pooling", "vocab_size", "seed", "save_path")
 
+# the reference's commands the port does not run yet → ROADMAP queue 1 item
+_NOT_PORTED = {
+    "train-wic": 8, "distill": 7, "theseus": 7, "prune": 7, "export": 7,
+    "quantize": 11, "encode": 11, "search": 11, "mine": 8, "compare-models": 8,
+    "cluster": 8, "topics": 8,
+}
+
 
 def _common(p: argparse.ArgumentParser) -> None:
-    # the reference's shared flags; serve reads --model, --fp32 and --device
-    p.add_argument("--model", help="model dir to load")
+    p.add_argument("--model", help="model dir to load (else random init)")
     p.add_argument("--tokenizer", help="tokenizer dir (vocab.txt/tokenizer.json)")
     p.add_argument("--arch", default="minilm-l6")
     p.add_argument("--pooling", default=None, choices=["mean", "cls", "max"],
@@ -39,8 +77,467 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--save-path", default="checkpoints/run")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the models and the index run (cuda raises without a card)")
+                   help="where the models, the index and training run (cuda raises "
+                        "without a card)")
 
+
+def _train_common(p: argparse.ArgumentParser) -> None:
+    _common(p)
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--max-len", type=int, default=128)
+    p.add_argument("--warmup-ratio", type=float, default=0.1)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--pipe", type=int, default=1,
+                   help="pipeline-parallel stages (not ported yet: 1 only)")
+    p.add_argument("--experts", type=int, default=0,
+                   help="MoE experts for a random-init model (not ported yet: 0 only)")
+    p.add_argument("--expert-top-k", type=int, default=2,
+                   help="experts consulted per token (MoE routing)")
+    p.add_argument("--packed", action="store_true",
+                   help="sequence-packed training: several short sentences a row behind "
+                        "a block-diagonal mask (bi-encoder and cross-encoder objectives)")
+    p.add_argument("--packed-rows", type=int, default=32,
+                   help="packed rows per tower per step (the step's pairs are those that "
+                        "pack into these rows)")
+
+
+# ---------------------------------------------------------------------------
+# shared helpers
+# ---------------------------------------------------------------------------
+
+def _check_ported(args) -> None:
+    if getattr(args, "pipe", 1) > 1:
+        raise SystemExit("--pipe > 1: pipeline parallelism is not ported yet "
+                         "(ROADMAP queue 1 item 10)")
+    if getattr(args, "experts", 0) > 0:
+        raise SystemExit("--experts > 0: MoE is not ported yet (ROADMAP queue 1 item 9)")
+
+
+def _tokenizer(args, texts=None):
+    from ..data.tokenization import WordPieceTokenizer, load_tokenizer, train_wordpiece_vocab
+
+    if getattr(args, "tokenizer", None):
+        return load_tokenizer(args.tokenizer)
+    if texts is None:
+        raise SystemExit("--tokenizer required (no training texts to fit one)")
+    return WordPieceTokenizer(train_wordpiece_vocab(texts, vocab_size=args.vocab_size))
+
+
+def _encoder(args, tokenizer=None, texts=None):
+    """A SentenceEncoder on ``--device``: loaded from ``--model``, else
+    random weights of ``--arch`` drawn from ``--seed``."""
+    from ..core.config import ARCH_PRESETS
+    from ..models import SentenceEncoder, init_params
+
+    _check_ported(args)
+    if getattr(args, "model", None):
+        if not os.path.isdir(args.model):
+            # a mistyped path must not fall back to a random model
+            raise SystemExit(f"--model dir not found: {args.model!r}")
+        return SentenceEncoder.load(args.model, bf16=not args.fp32, device=args.device)
+    tok = tokenizer or _tokenizer(args, texts)
+    arch = ARCH_PRESETS[args.arch].replace(vocab_size=tok.vocab_size)
+    params = init_params(arch, torch.Generator().manual_seed(args.seed))
+    return SentenceEncoder(params, arch, tokenizer=tok, pooling=args.pooling or "mean",
+                           precision=precision_for(not args.fp32), device=args.device)
+
+
+def _train_cfg(args):
+    from ..core.config import TrainConfig
+
+    return TrainConfig(
+        lr=args.lr, epochs=args.epochs, batch_size=args.batch_size,
+        warmup_ratio=args.warmup_ratio, grad_accum_steps=args.grad_accum,
+        seed=args.seed, bf16=not args.fp32,
+    )
+
+
+def _fit(args, step, state, batches, epochs, **kw):
+    """``Trainer.execute`` over the same batches every epoch, on
+    ``--device``, saving under ``--save-path``."""
+    from ..train import Trainer
+
+    trainer = Trainer(step, state, save_path=args.save_path, device=args.device, **kw)
+    return trainer.execute(lambda epoch: iter(batches), epochs=epochs)
+
+
+def _run_bi_encoder_training(args, pairs, targets, loss_type, eval_fn=None,
+                             target_dtype=np.float32, encoder=None):
+    from ..data.pairs import build_packed_pair_batches, build_pair_batches
+    from ..train import (
+        init_classifier_head, init_train_state, make_bi_encoder_train_step,
+        make_optimizer, make_packed_bi_encoder_train_step,
+    )
+
+    texts = [p[0] for p in pairs] + [p[1] for p in pairs]
+    enc = encoder or _encoder(args, texts=texts)
+    if args.packed:
+        batches = build_packed_pair_batches(
+            enc.tokenizer, pairs, targets, rows_per_side=args.packed_rows, width=args.max_len,
+            seed=args.seed, target_dtype=target_dtype,
+        )
+    else:
+        batches = build_pair_batches(
+            enc.tokenizer, pairs, targets, batch_size=args.batch_size, max_len=args.max_len,
+            seed=args.seed, target_dtype=target_dtype,
+        )
+    cfg = _train_cfg(args)
+    params = {"encoder": enc.params}
+    if loss_type == "softmax":
+        # embedding_size, not hidden_size: a projection head narrows it
+        params["head"] = init_classifier_head(
+            torch.Generator().manual_seed(args.seed + 1), 3 * enc.arch.embedding_size,
+            args.num_classes, device=args.device,
+        )
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, seed=args.seed, device=args.device)
+    # the loaded encoder's pooling unless --pooling: training with another
+    # pooler than encode() would mismatch the objective and the eval
+    make = make_packed_bi_encoder_train_step if args.packed else make_bi_encoder_train_step
+    step = make(enc.arch, tx, loss_type=loss_type, pooling=args.pooling or enc.pooling,
+                precision=precision_for(cfg.bf16), device=args.device)
+    result = _fit(args, step, state, batches, cfg.epochs, eval_fn=eval_fn,
+                  tracked_metric=getattr(args, "metric", "loss"),
+                  direction="max" if eval_fn else "min")
+    enc.params = result["state"].params["encoder"]
+    enc.save(args.save_path)
+    print(json.dumps({"best_metric": result["best_metric"]}))
+    return enc, result
+
+
+# ---------------------------------------------------------------------------
+# training commands
+# ---------------------------------------------------------------------------
+
+def cmd_train_sts(args):
+    from ..data.datasets import load_sts
+    from ..evaluation.evaluators import ParaphraseEvaluator
+
+    rows = load_sts(args.data)
+    pairs = [(a, b) for a, b, _ in rows]
+    scores = [s for _, _, s in rows]
+    eval_rows = load_sts(args.eval_data) if args.eval_data else None
+    # built up front so the evaluation can take the live train state's weights
+    enc = _encoder(args, texts=[a for a, _ in pairs] + [b for _, b in pairs])
+
+    def eval_fn(state):
+        enc.params = state.params["encoder"]
+        rows_ = eval_rows or rows[:512]
+        return ParaphraseEvaluator(enc, mode="regression").evaluate(
+            [r[0] for r in rows_], [r[1] for r in rows_], [r[2] for r in rows_])
+
+    args.metric = "spearman_cosine"
+    _run_bi_encoder_training(args, pairs, scores, "cosine_mse",
+                             eval_fn=None if args.no_eval else eval_fn, encoder=enc)
+
+
+def cmd_train_nli(args):
+    from ..data.datasets import load_nli
+
+    rows = load_nli(args.data)
+    args.num_classes = 3
+    _run_bi_encoder_training(args, [(a, b) for a, b, _ in rows], [lab for _, _, lab in rows],
+                             "softmax", target_dtype=np.int32)
+
+
+def cmd_train_paws(args):
+    from ..data.datasets import load_paws, load_quora
+
+    rows = load_quora(args.data) if args.format == "quora" else load_paws(args.data)
+    _run_bi_encoder_training(args, [(a, b) for a, b, _ in rows], [lab for _, _, lab in rows],
+                             args.loss, target_dtype=np.float32)
+
+
+def cmd_train_classification(args):
+    from ..data.datasets import load_documents_json
+    from ..data.pairs import build_sequence_batches
+    from ..train import (
+        init_classifier_head, init_train_state, make_classifier_train_step, make_optimizer,
+    )
+
+    docs = load_documents_json(args.data, max_paragraph_words=args.paragraph_words)
+    labels = sorted({d["label"] for d in docs})
+    lab2id = {lab: i for i, lab in enumerate(labels)}
+    texts = [d["text"] for d in docs]
+    enc = _encoder(args, texts=texts)
+    batches = build_sequence_batches(enc.tokenizer, texts, [lab2id[d["label"]] for d in docs],
+                                     batch_size=args.batch_size, max_len=args.max_len,
+                                     seed=args.seed)
+    cfg = _train_cfg(args)
+    params = {
+        "encoder": enc.params,
+        "head": init_classifier_head(torch.Generator().manual_seed(1), enc.arch.hidden_size,
+                                     len(labels), device=args.device),
+    }
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, seed=args.seed, device=args.device)
+    step = make_classifier_train_step(enc.arch, tx, pooling="cls",
+                                      precision=precision_for(cfg.bf16), device=args.device)
+    result = _fit(args, step, state, batches, cfg.epochs)
+    with open(os.path.join(args.save_path, "arch.json"), "w") as f:
+        f.write(enc.arch.to_json())
+    if hasattr(enc.tokenizer, "save_vocab"):
+        enc.tokenizer.save_vocab(os.path.join(args.save_path, "vocab.txt"))
+    with open(os.path.join(args.save_path, "labels.json"), "w") as f:
+        json.dump(labels, f)
+    print(json.dumps({"labels": labels, "best": result["best_metric"]}))
+
+
+def cmd_train_cross_encoder(args):
+    """Train a cross-encoder pair classifier (the reranker's model)."""
+    from ..data.datasets import load_nli, load_paws
+    from ..data.pairs import build_packed_pair_batches, build_pair_batches
+    from ..models.cross_encoder import CrossEncoder
+    from ..train import (
+        init_classifier_head, init_train_state, make_classifier_train_step, make_optimizer,
+        make_packed_classifier_train_step,
+    )
+
+    if args.format == "nli":
+        rows, num_classes = load_nli(args.data), 3
+    else:
+        rows, num_classes = load_paws(args.data), 2
+    enc = _encoder(args, texts=[a for a, _, _ in rows] + [b for _, b, _ in rows])
+    pairs, labels = [(a, b) for a, b, _ in rows], [lab for _, _, lab in rows]
+    if args.packed:
+        batches = build_packed_pair_batches(
+            enc.tokenizer, pairs, labels, rows_per_side=args.packed_rows, width=args.max_len,
+            mode="cross", target_dtype=np.int32, seed=args.seed,
+        )
+    else:
+        batches = build_pair_batches(
+            enc.tokenizer, pairs, labels, batch_size=args.batch_size, max_len=args.max_len,
+            mode="cross", target_dtype=np.int32, seed=args.seed,
+        )
+    cfg = _train_cfg(args)
+    params = {
+        "encoder": enc.params,
+        "head": init_classifier_head(torch.Generator().manual_seed(args.seed + 1),
+                                     enc.arch.hidden_size, num_classes, device=args.device),
+    }
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, seed=args.seed, device=args.device)
+    precision = precision_for(cfg.bf16)
+    if args.packed:
+        step = make_packed_classifier_train_step(enc.arch, tx, precision=precision,
+                                                 device=args.device)
+    else:
+        step = make_classifier_train_step(enc.arch, tx, pooling="cls", precision=precision,
+                                          device=args.device)
+    result = _fit(args, step, state, batches, cfg.epochs)
+    ce = CrossEncoder(result["state"].params, enc.arch, tokenizer=enc.tokenizer,
+                      num_classes=num_classes, precision=precision, device=args.device)
+    ce.save(args.save_path)
+    print(json.dumps({"num_classes": num_classes, "best": result["best_metric"]}))
+
+
+def _ner_batches(tok, sents, tag2id, batch_size: int, max_len: int):
+    """Token batches {ids, mask, tags}: a word's first sub-token carries its
+    tag, the other sub-tokens, [CLS], [SEP] and padding −100; rows sorted
+    by length, each batch padded to its bucket."""
+    from ..data.batching import BUCKETS
+    from ..data.pairs import _cap_bucket
+
+    rows, tag_rows = [], []
+    for s in sents:
+        ids, tg = [tok.cls_id], [-100]
+        for w, t in zip(s["tokens"], s["tags"]):
+            pieces = tok._wordpiece(w.lower() if tok.lowercase else w)
+            ids.extend(pieces[: max_len - 2 - len(ids)])
+            tg.extend([tag2id[t]] + [-100] * (len(pieces) - 1))
+            tg = tg[: len(ids)]
+            if len(ids) >= max_len - 2:   # the row is full
+                break
+        rows.append(ids + [tok.sep_id])
+        tag_rows.append(tg + [-100])
+    batches = []
+    order = np.argsort([len(r) for r in rows])
+    for st in range(0, len(order), batch_size):
+        g = order[st : st + batch_size]
+        width = _cap_bucket(max(len(rows[i]) for i in g), BUCKETS, max_len)
+        ids = np.full((batch_size, width), tok.pad_id, np.int32)
+        mask = np.zeros((batch_size, width), np.int32)
+        tg = np.full((batch_size, width), -100, np.int32)
+        for j, i in enumerate(g):
+            ids[j, : len(rows[i])] = rows[i]
+            mask[j, : len(rows[i])] = 1
+            tg[j, : len(tag_rows[i])] = tag_rows[i]
+        batches.append({"ids": ids, "mask": mask, "tags": tg})
+    return batches
+
+
+def cmd_train_ner(args):
+    from ..data.datasets import load_conll_ner
+    from ..train import (
+        init_classifier_head, init_train_state, make_optimizer,
+        make_token_classifier_train_step,
+    )
+
+    sents = load_conll_ner(args.data)
+    tags = sorted({t for s in sents for t in s["tags"]})
+    enc = _encoder(args, texts=[" ".join(s["tokens"]) for s in sents])
+    batches = _ner_batches(enc.tokenizer, sents, {t: i for i, t in enumerate(tags)},
+                           args.batch_size, args.max_len)
+    cfg = _train_cfg(args)
+    params = {
+        "encoder": enc.params,
+        "head": init_classifier_head(torch.Generator().manual_seed(1), enc.arch.hidden_size,
+                                     len(tags), device=args.device),
+    }
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, device=args.device)
+    step = make_token_classifier_train_step(enc.arch, tx, device=args.device)
+    result = _fit(args, step, state, batches, cfg.epochs)
+    print(json.dumps({"tags": tags, "best": result["best_metric"]}))
+
+
+def cmd_pretrain_long(args):
+    """Long-model conversion and masked-LM re-pretraining: tile the position
+    embeddings, set the sliding attention window, then MLM steps over the
+    documents of ``--data`` tokenized to ``--target-len``."""
+    from ..data.datasets import load_sentence_pool
+    from ..models.hf_convert import extend_positions
+    from ..train import init_train_state, make_mlm_train_step, make_optimizer
+
+    texts_boot = None if args.model else load_sentence_pool(args.data, max_sentences=256)
+    enc = _encoder(args, texts=texts_boot)
+    # a RoBERTa-family row of target_len tokens reads position
+    # target_len + pad_token_id: the table needs position_offset more rows
+    params, arch = extend_positions(enc.params, enc.arch,
+                                    args.target_len + enc.arch.position_offset)
+    arch = arch.replace(attention_window=args.window)
+
+    texts = load_sentence_pool(args.data, max_sentences=args.max_sentences)
+    ids, mask = enc.tokenizer.encode_batch(texts, max_len=args.target_len)
+    cfg = _train_cfg(args)
+    n = (len(texts) // cfg.batch_size) * cfg.batch_size
+    batches = [{"ids": ids[i:i + cfg.batch_size], "mask": mask[i:i + cfg.batch_size]}
+               for i in range(0, n, cfg.batch_size)]
+    if not batches:
+        raise SystemExit("not enough documents for one batch")
+    mlm_params = {
+        "encoder": params,
+        "mlm_bias": torch.zeros((arch.vocab_size,), dtype=torch.float32),
+    }
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=mlm_params)
+    state = init_train_state(mlm_params, tx, seed=args.seed, device=args.device)
+    tok = enc.tokenizer
+    specials = sorted({tok.pad_id, getattr(tok, "unk_id", tok.pad_id), tok.cls_id,
+                       tok.sep_id, tok.mask_id})
+    step = make_mlm_train_step(arch, tx, mask_token_id=tok.mask_id, mask_prob=args.mask_prob,
+                               special_ids=tuple(specials),
+                               precision=precision_for(cfg.bf16), device=args.device)
+    first = last = None
+    for _ in range(cfg.epochs):
+        pend = []
+        for b in batches:
+            state, m = step(state, b)
+            pend.append(m["loss"])
+        losses = [float(x) for x in pend]    # one sync an epoch
+        if first is None:
+            first = losses[0]
+        last = losses[-1]
+    enc.arch = arch
+    enc.params = state.params["encoder"]
+    enc.save(args.save_path)
+    print(json.dumps({
+        "target_len": args.target_len,
+        "window": args.window,
+        "mlm_loss_first": first,
+        "mlm_loss_last": last,
+        "saved": args.save_path,
+    }))
+
+
+# ---------------------------------------------------------------------------
+# evaluation commands
+# ---------------------------------------------------------------------------
+
+def cmd_eval_classification(args):
+    """A trained document classifier's accuracy and per-class accuracy over
+    a labelled document set."""
+    from ..core import checkpoint as ckpt
+    from ..core.config import EncoderArch
+    from ..data.datasets import load_documents_json
+    from ..data.pairs import build_sequence_batches
+    from ..data.tokenization import load_tokenizer
+    from ..models.encoder import cross_params_from_jax
+    from ..train import classifier_forward
+
+    with open(os.path.join(args.model, "arch.json")) as f:
+        arch = EncoderArch.from_json(f.read())
+    with open(os.path.join(args.model, "labels.json")) as f:
+        labels = json.load(f)
+    lab2id = {lab: i for i, lab in enumerate(labels)}
+    tok = load_tokenizer(args.model)
+    tree, _, _ = ckpt.restore_checkpoint_raw(ckpt.latest_checkpoint(args.model))
+    device = resolve_device(args.device)
+    params = cross_params_from_jax(tree, arch, len(labels), device)
+    docs = load_documents_json(args.data)
+    y = [lab2id.get(d["label"], -1) for d in docs]
+    batches = build_sequence_batches(tok, [d["text"] for d in docs], y,
+                                     batch_size=args.batch_size, max_len=args.max_len,
+                                     seed=0, shuffle=False)
+    precision = precision_for(not args.fp32)
+    preds, gold = [], []
+    with torch.no_grad():
+        for b in batches:
+            logits = classifier_forward(
+                params, torch.from_numpy(b["ids"]).to(device),
+                torch.from_numpy(b["mask"]).to(device), None, arch=arch, precision=precision,
+                pooling="cls",
+            )
+            valid = b["valid"].astype(bool)
+            preds.extend(logits.argmax(dim=-1).cpu().numpy()[valid].tolist())
+            gold.extend(b["labels"][valid].tolist())
+    preds, gold = np.asarray(preds), np.asarray(gold)
+    acc = float((preds == gold).mean()) if len(gold) else 0.0
+    per_class = {lab: float((preds[gold == i] == i).mean())
+                 for i, lab in enumerate(labels) if (gold == i).any()}
+    print(json.dumps({"accuracy": acc, "per_class": per_class, "n": int(len(gold))}))
+
+
+def _load_encoder(args):
+    from ..models import SentenceEncoder
+
+    return SentenceEncoder.load(args.model, bf16=not args.fp32, device=args.device)
+
+
+def cmd_eval_sts(args):
+    from ..data.datasets import load_sts
+    from ..evaluation.evaluators import ParaphraseEvaluator
+
+    rows = load_sts(args.data)[: args.max_pairs]
+    out = ParaphraseEvaluator(_load_encoder(args), mode="regression").evaluate(
+        [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows])
+    print(json.dumps(out, indent=2))
+
+
+def cmd_eval_paws(args):
+    from ..data.datasets import load_paws
+    from ..evaluation.evaluators import ParaphraseEvaluator
+
+    rows = load_paws(args.data)[: args.max_pairs]
+    out = ParaphraseEvaluator(_load_encoder(args), mode="binary").evaluate(
+        [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows])
+    print(json.dumps(out, indent=2))
+
+
+def cmd_eval_tatoeba(args):
+    from ..data.datasets import load_parallel
+    from ..evaluation.evaluators import RetrievalEvaluator
+
+    pairs = load_parallel(args.data, max_pairs=args.max_pairs)
+    out = RetrievalEvaluator(_load_encoder(args)).evaluate(
+        [s for s, _ in pairs], [t for _, t in pairs])
+    print(json.dumps(out, indent=2))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 def build_server(args):
     """The ``serve`` set-up → a ``SearchServer`` bound to ``--host`` /
@@ -57,7 +554,8 @@ def build_server(args):
         raise SystemExit(f"serve reads no {', '.join(unread)}: it serves the --model "
                          "directory's own tokenizer, architecture and pooling")
     if args.shards > 1:
-        raise SystemExit("--shards > 1: the sharded pipeline is not ported yet")
+        raise SystemExit("--shards > 1: the sharded pipeline is not ported yet "
+                         "(ROADMAP queue 1 item 10)")
     if not args.model or not os.path.isdir(args.model):
         raise SystemExit(f"--model dir not found: {args.model!r}")
     device = resolve_device(args.device)
@@ -106,6 +604,66 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m text_similarity_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("train-sts")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--eval-data")
+    p.add_argument("--no-eval", action="store_true")
+    p.set_defaults(fn=cmd_train_sts)
+
+    p = sub.add_parser("train-nli")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.set_defaults(fn=cmd_train_nli)
+
+    p = sub.add_parser("train-paws")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--format", default="paws", choices=["paws", "quora"])
+    p.add_argument("--loss", default="online_contrastive",
+                   choices=["contrastive", "online_contrastive", "mnrl", "cosine_mse"])
+    p.set_defaults(fn=cmd_train_paws)
+
+    p = sub.add_parser("train-classification")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--paragraph-words", type=int, default=0)
+    p.set_defaults(fn=cmd_train_classification)
+
+    p = sub.add_parser("train-cross-encoder")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--format", default="paws", choices=["paws", "nli"])
+    p.set_defaults(fn=cmd_train_cross_encoder)
+
+    p = sub.add_parser("train-ner")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.set_defaults(fn=cmd_train_ner)
+
+    p = sub.add_parser("eval-classification")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.set_defaults(fn=cmd_eval_classification)
+
+    p = sub.add_parser("pretrain-long")
+    _train_common(p)
+    p.add_argument("--data", required=True, help="text file, one document per line")
+    p.add_argument("--target-len", type=int, default=1024)
+    p.add_argument("--window", type=int, default=128,
+                   help="sliding attention window for the long model")
+    p.add_argument("--mask-prob", type=float, default=0.15)
+    p.add_argument("--max-sentences", type=int, default=100000)
+    p.set_defaults(fn=cmd_pretrain_long)
+
+    for name, fn in (("eval-sts", cmd_eval_sts), ("eval-paws", cmd_eval_paws),
+                     ("eval-tatoeba", cmd_eval_tatoeba)):
+        p = sub.add_parser(name)
+        _common(p)
+        p.add_argument("--data", required=True)
+        p.add_argument("--max-pairs", type=int, default=5000)
+        p.set_defaults(fn=fn)
+
     p = sub.add_parser("serve")
     _common(p)
     p.add_argument("--corpus", help="text file, one document per line")
@@ -131,7 +689,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _NOT_PORTED:
+        raise SystemExit(f"{argv[0]}: not ported yet (ROADMAP queue 1 item "
+                         f"{_NOT_PORTED[argv[0]]})")
     args = build_parser().parse_args(argv)
     args.fn(args)
 

@@ -146,11 +146,11 @@ class IndexConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer's hyper-parameters, with the JAX package's names and
+    """Training hyper-parameters, with the JAX package's names and
     defaults: AdamW with no-decay groups, linear warmup then decay, global
-    norm clipping, gradient accumulation. The JAX config's run fields
-    (batch size, epochs, precision, evaluation) come with the CLI that reads
-    them; precision is the train step's ``precision`` argument."""
+    norm clipping, gradient accumulation, and the run fields the CLI reads
+    (batch size, epochs, bf16 compute). The JAX config's other fields are
+    not read by the port."""
 
     lr: float = 2e-5
     weight_decay: float = 0.01
@@ -159,5 +159,8 @@ class TrainConfig:
     adam_eps: float = 1e-8
     warmup_ratio: float = 0.1
     max_grad_norm: float = 1.0
+    batch_size: int = 32
+    epochs: int = 1
     grad_accum_steps: int = 1
     seed: int = 0
+    bf16: bool = True

@@ -1,6 +1,11 @@
 from .batching import BUCKETS, LengthBucketBatcher, pick_bucket
 from .packing import pack_pair_arrays, pack_sequences, packing_efficiency
-from .pairs import build_pair_batches
+from .pairs import (
+    build_packed_pair_batches,
+    build_pair_batches,
+    build_sequence_batches,
+    packed_pair_batches_from_rows,
+)
 from .tokenization import WordPieceTokenizer, load_tokenizer, train_wordpiece_vocab
 
 __all__ = [
@@ -11,6 +16,9 @@ __all__ = [
     "pack_sequences",
     "packing_efficiency",
     "build_pair_batches",
+    "build_packed_pair_batches",
+    "build_sequence_batches",
+    "packed_pair_batches_from_rows",
     "WordPieceTokenizer",
     "load_tokenizer",
     "train_wordpiece_vocab",

@@ -42,18 +42,34 @@ with such kernels quantize their input per token and run an exact
 int8×int8→int32 product (``_int8_dense``, the fused QKV), embedding tables
 dequantize the gathered rows, the pooler dequantizes its kernel.
 
-Not ported yet: ALBERT sharing and factorized embeddings, MoE, head-dim
-overrides, performer attention, head pruning, ``remat``.
+ALBERT (``share_layers``, ``embed_factor_size``): the stack holds one
+layer's parameters on its leading axis and the forward runs that layer
+``num_layers`` times, so its gradient is the sum over the iterations; the
+embedding tables and their LayerNorm are E wide and ``embeddings.proj``
+maps E → H after the embedding dropout (kept even where E == H, as HF
+does). An int8 tree quantizes ``proj.w`` (a leaf named ``w``); the embed
+path dequantizes it.
+
+``remat=True`` recomputes each layer in the backward
+(``torch.utils.checkpoint``); ``remat="dots"`` keeps the layer's matmul
+outputs and recomputes the rest. The recompute restores the dropout
+generator to its state at the layer's entry, so it draws the masks the
+forward drew.
+
+Not ported yet: MoE, head-dim overrides, performer attention, head
+pruning.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
@@ -68,8 +84,6 @@ class EncoderOutput(NamedTuple):
 
 def _check_supported(arch: EncoderArch) -> None:
     unsupported = {
-        "share_layers": arch.share_layers,
-        "embed_factor_size": arch.embed_factor_size,
         "num_experts": arch.num_experts,
         "head_dim_override": arch.head_dim_override,
     }
@@ -79,19 +93,22 @@ def _check_supported(arch: EncoderArch) -> None:
     if bad:
         raise NotImplementedError(
             f"encoder options not ported yet: {', '.join(bad)} "
-            "(ROADMAP queue 1: ALBERT, MoE, performer)"
+            "(ROADMAP queue 1: MoE, performer, compression)"
         )
 
 
 def _param_shapes(arch: EncoderArch) -> dict:
-    h, i, l = arch.hidden_size, arch.intermediate_size, arch.num_layers
+    h, i = arch.hidden_size, arch.intermediate_size
+    # ALBERT: one layer on the stack axis, tables at E projected to H
+    l = 1 if arch.share_layers else arch.num_layers
+    e = arch.embed_factor_size or h
     dense = lambda fi, fo: {"w": (l, fi, fo), "b": (l, fo)}  # noqa: E731
     ln = lambda *s: {"scale": s, "bias": s}  # noqa: E731
     shapes = {
         "embeddings": {
-            "word": (arch.vocab_size, h),
-            "position": (arch.max_position, h),
-            "ln": ln(h),
+            "word": (arch.vocab_size, e),
+            "position": (arch.max_position, e),
+            "ln": ln(e),
         },
         "layers": {
             "attn": {n: dense(h, h) for n in ("q", "k", "v", "o")},
@@ -101,7 +118,9 @@ def _param_shapes(arch: EncoderArch) -> dict:
         },
     }
     if arch.has_token_type:
-        shapes["embeddings"]["token_type"] = (arch.type_vocab_size, h)
+        shapes["embeddings"]["token_type"] = (arch.type_vocab_size, e)
+    if arch.embed_factor_size:
+        shapes["embeddings"]["proj"] = {"w": (e, h), "b": (h,)}
     if arch.has_pooler:
         shapes["pooler"] = {"w": (h, h), "b": (h,)}
     if arch.projection_dim:
@@ -394,6 +413,10 @@ def embed_inputs(
             x = x + _take(emb["token_type"], token_type_ids.long())
     x = _layer_norm(x, emb["ln"]["scale"], emb["ln"]["bias"], arch.layer_norm_eps)
     x = dropout(x, arch.hidden_dropout, generator, deterministic)
+    if arch.embed_factor_size and "proj" in emb:
+        # ALBERT: E → H in f32 (HF's embedding_hidden_mapping_in)
+        pw = emb["proj"]
+        x = x.float() @ dequant_weight(pw["w"]).float() + pw["b"].float()
     return x.to(precision.compute_dtype)
 
 
@@ -418,13 +441,16 @@ def encoder_forward(
     generator: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,   # (B, S): packed rows
     position_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
+    remat=False,                                  # False | True | "dots"
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
-    (the reference's ``lax.scan``), then the pooler when the arch has one.
-    ``attention_impl``: auto | flash | packed | reference (see the module
-    note). ``deterministic=False`` applies dropout with masks from
-    ``generator``. ``segment_ids`` / ``position_ids``: a packed layout
-    (``data.packing.pack_sequences``)."""
+    (the reference's ``lax.scan``; ALBERT runs its one layer L times), then
+    the pooler when the arch has one. ``attention_impl``: auto | flash |
+    packed | reference (see the module note). ``deterministic=False``
+    applies dropout with masks from ``generator``. ``segment_ids`` /
+    ``position_ids``: a packed layout (``data.packing.pack_sequences``).
+    ``remat``: recompute each layer in the backward (True), or all but its
+    matmul outputs ("dots")."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
@@ -433,18 +459,60 @@ def encoder_forward(
         arch=arch, precision=precision, deterministic=deterministic, generator=generator,
         position_ids=position_ids,
     )
-    layers = _unstack_tree(_cast_tree(params["layers"], precision.compute_dtype), arch.num_layers)
+    layers = _cast_tree(params["layers"], precision.compute_dtype)
+    if arch.share_layers:
+        layers = _unstack_tree(layers, 1) * arch.num_layers   # one set, L iterations
+    else:
+        layers = _unstack_tree(layers, arch.num_layers)
+    kw = dict(arch=arch, attention_impl=attention_impl, deterministic=deterministic,
+              generator=generator, segment_ids=segment_ids)
     for lp in layers:
-        x = transformer_layer(
-            x, lp, attention_mask, arch=arch, attention_impl=attention_impl,
-            deterministic=deterministic, generator=generator, segment_ids=segment_ids,
-        )
+        if remat and torch.is_grad_enabled():
+            x = _remat_layer(x, lp, attention_mask, remat, **kw)
+        else:
+            x = transformer_layer(x, lp, attention_mask, **kw)
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
         w = dequant_weight(pw["w"]).float()
         pooler_out = torch.tanh(x[:, 0, :].float() @ w + pw["b"]).to(x.dtype)
     return EncoderOutput(x, pooler_out)
+
+
+# ops whose outputs remat="dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable keeps the matmuls)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default]
+
+
+def _remat_layer(x, lp, attention_mask, remat, *, generator, deterministic, **kw):
+    """One layer under ``torch.utils.checkpoint``. Checkpoint restores only
+    the default generators, so the layer's own ``generator`` is put back to
+    its state at the layer's entry for the recompute (and returned to where
+    the backward found it after), so the recompute draws the forward's
+    dropout masks."""
+    draws = generator is not None and not deterministic
+    entry = generator.get_state() if draws else None
+    calls = []
+
+    def layer(h):
+        return transformer_layer(h, lp, attention_mask, generator=generator,
+                                 deterministic=deterministic, **kw)
+
+    def run(h):
+        if not draws or not calls:       # the forward
+            calls.append(1)
+            return layer(h)
+        now = generator.get_state()      # the recompute
+        generator.set_state(entry)
+        try:
+            return layer(h)
+        finally:
+            generator.set_state(now)
+
+    context = {}
+    if remat == "dots":
+        context["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _DOTS)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **context)
 
 
 def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
@@ -460,7 +528,8 @@ def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
 def _unstack_tree(tree: dict, n: int) -> list:
     """A tree of (n, …) stacked leaves → n trees of (…) leaves. One
     ``unbind`` a leaf, so the backward stacks the n gradients once (indexing
-    each layer would add n full-size zero tensors a leaf)."""
+    each layer would add n full-size zero tensors a leaf). ALBERT's stack
+    holds one layer (n = 1), which the forward then reuses."""
     parts = {
         k: _unstack_tree(v, n) if isinstance(v, dict) else v.unbind(0)
         for k, v in tree.items()

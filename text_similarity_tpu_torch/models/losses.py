@@ -8,10 +8,11 @@
 - ``distill_mse_loss``: embedding-matching distillation
 - ``multiple_negatives_loss``: in-batch negatives InfoNCE (MNRL)
 - ``cross_entropy_loss``: a classification head's CE
+- ``mlm_loss``: masked-LM CE over the predicted positions
 
-Every loss takes an optional ``valid`` (B,) mask: padded rows of a tail
-batch count nowhere. Reductions run in f32. ``mlm_loss``,
-``hidden_state_mse`` and ``kl_distill_loss`` come with their train steps.
+Every pair loss takes an optional ``valid`` (B,) mask: padded rows of a
+tail batch count nowhere. Reductions run in f32. ``hidden_state_mse`` and
+``kl_distill_loss`` come with the distillation steps.
 """
 
 from __future__ import annotations
@@ -109,3 +110,13 @@ def multiple_negatives_loss(u, v, scale: float = 20.0, valid: Optional[torch.Ten
     logp = F.log_softmax(sim, dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     return _masked_mean(nll, valid), sim
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Masked-LM cross entropy of (B, S, V) logits over the positions whose
+    (B, S) label is not −100, averaged over those positions."""
+    valid = labels >= 0
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    w = valid.float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)

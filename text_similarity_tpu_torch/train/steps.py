@@ -1,22 +1,24 @@
-"""Train-step factories (port of ``text_similarity_tpu.train.steps``: the
-bi-encoder step, and the classifier forward the cross-encoder scores with).
+"""Train-step factories (port of ``text_similarity_tpu.train.steps``): the
+bi-encoder step, the classifier / cross-encoder step, the packed
+bi-encoder and packed classifier steps, the token-classifier (NER) step
+and the masked-LM step, with their forwards.
 
-A step is eager PyTorch: two tower passes that share the encoder weights
-(dropout from the state's ``torch.Generator``), the pair loss, the
-gradients of every parameter leaf (``torch.autograd.grad``; on the card
-every flash layer runs K5 forward and K6 backward), then the optimizer's
-in-place update. Metrics come back as device scalars; nothing waits for
-the device inside a step.
+A step is eager PyTorch: the tower passes (dropout from the state's
+``torch.Generator``), the loss, the gradients of every parameter leaf
+(``torch.autograd.grad``; on the card every flash layer runs K5 forward
+and K6 backward), then the optimizer's in-place update. Metrics come back
+as device scalars; nothing waits for the device inside a step. ``remat``
+(bi-encoder and packed steps) recomputes each layer in the backward.
 
 Parameters are a plain tree ``{"encoder": ..., "head": ...}`` of f32 leaf
 tensors that require grad, in the JAX package's layout, so
 ``models.params_from_jax`` carries a JAX tree across and a trained encoder
-saves in the shared checkpoint format.
+saves in the shared checkpoint format. Packed steps scatter each segment's
+output to its pair's slot through an explicit trash row for empty slots.
 
-Not ported yet: the cross-encoder / classifier step (its forward,
-``classifier_forward``, is here), the token, word, MLM, packed, theseus and
-distillation steps, ``remat``, pipeline parallelism and MoE
-auxiliary losses.
+Not ported yet: the word (WiC), theseus and distillation steps
+(ROADMAP queue 1 items 7 and 8), pipeline parallelism and MoE auxiliary
+losses.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision, resolve_device
 from ..models import losses as L
 from ..models.encoder import dequant_weight, encoder_forward
-from ..models.pooling import cls_pool, mean_pool, pool
+from ..models.pooling import cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool
 from .optim import AdamW, _leaves
 
 
@@ -68,13 +70,18 @@ def init_train_state(params: dict, tx: AdamW, seed: int = 0, device="cuda") -> T
 def _embed(
     enc_params: dict, ids, mask, *, arch: EncoderArch, precision: Precision, pooling: str,
     generator: Optional[torch.Generator], deterministic: bool, attention_impl: str = "auto",
+    remat=False,
 ) -> torch.Tensor:
     """Encoder → pooling → the optional ``projection`` head → (B, D)."""
     out = encoder_forward(
         enc_params, ids, mask, arch=arch, precision=precision, attention_impl=attention_impl,
-        deterministic=deterministic, generator=generator,
+        deterministic=deterministic, generator=generator, remat=remat,
     )
-    pooled = pool(pooling, out.last_hidden_state, mask)
+    return _project(enc_params, pool(pooling, out.last_hidden_state, mask))
+
+
+def _project(enc_params: dict, pooled: torch.Tensor) -> torch.Tensor:
+    """The optional ``projection`` head (dimension-reduced students)."""
     if "projection" in enc_params:
         pw = enc_params["projection"]
         pooled = pooled.float() @ pw["w"] + pw["b"]
@@ -84,11 +91,14 @@ def _embed(
 def classifier_forward(
     params: dict, ids, mask, type_ids=None, *, arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION, pooling: str = "cls",
+    generator: Optional[torch.Generator] = None, deterministic: bool = True,
 ) -> torch.Tensor:
-    """Encoder → pool → linear head → (B, C) f32 logits, without dropout.
-    ``cls`` pooling takes the tanh pooler's output where the arch has one,
-    else the CLS state; any other pooling the masked mean."""
-    out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision)
+    """Encoder → pool → linear head → (B, C) f32 logits (dropout with
+    ``deterministic=False``). ``cls`` pooling takes the tanh pooler's
+    output where the arch has one, else the CLS state; any other pooling
+    the masked mean."""
+    out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision,
+                          deterministic=deterministic, generator=generator)
     if pooling == "cls":
         pooled = (out.pooler_output if out.pooler_output is not None
                   else cls_pool(out.last_hidden_state, mask))
@@ -141,13 +151,13 @@ def bi_encoder_loss(
     params: dict, batch: dict, *, arch: EncoderArch, loss_type: str = "cosine_mse",
     pooling: str = "mean", precision: Precision = DEFAULT_PRECISION, margin: float = 0.5,
     generator: Optional[torch.Generator] = None, deterministic: bool = False,
-    attention_impl: str = "auto",
+    attention_impl: str = "auto", remat=False,
 ):
     """The bi-encoder objective on one batch (device tensors ids_a, mask_a,
     ids_b, mask_b, target, valid): two tower passes over the shared
     encoder, then the pair loss → (loss, aux metrics)."""
     kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
-              deterministic=deterministic, attention_impl=attention_impl)
+              deterministic=deterministic, attention_impl=attention_impl, remat=remat)
     enc = params["encoder"]
     u = _embed(enc, batch["ids_a"], batch["mask_a"], **kw)
     v = _embed(enc, batch["ids_b"], batch["mask_b"], **kw)
@@ -186,21 +196,11 @@ def value_and_grad(loss_fn: Callable, params: dict, *args, **kwargs):
     return loss, aux, _like(params, grads)
 
 
-def make_bi_encoder_train_step(
-    arch: EncoderArch,
-    tx: AdamW,
-    loss_type: str = "cosine_mse",   # softmax | cosine_mse | contrastive |
-                                     # online_contrastive | mnrl | distill_mse
-    pooling: str = "mean",
-    precision: Precision = DEFAULT_PRECISION,
-    margin: float = 0.5,
-    device="cuda",
-) -> Callable:
-    """Returns step(state, batch) → (state, metrics): the loss and its
-    gradients (dropout on), then ``tx``'s in-place update. batch: ids_a,
-    mask_a, ids_b, mask_b, target (labels, scores or teacher embeddings),
-    valid (B,); host arrays or tensors on ``device``. The state's
-    parameters must lie on ``device``. metrics: {"loss", …} as device
+def _make_step(loss_fn: Callable, tx: AdamW, device) -> Callable:
+    """step(state, batch) → (state, metrics) of ``loss_fn(params, batch,
+    generator) → (loss, aux)``: its gradients, then ``tx``'s in-place
+    update. The state's parameters must lie on ``device``; the batch may
+    be host arrays or tensors there. metrics: {"loss", …} as device
     scalars."""
     dev = resolve_device(device)
 
@@ -209,13 +209,316 @@ def make_bi_encoder_train_step(
         if leaf.device.type != dev.type:
             raise ValueError(f"the state lies on {leaf.device}, the step runs on {dev}")
         batch = batch_to(batch, leaf.device)
-        loss, aux, grads = value_and_grad(
-            bi_encoder_loss, state.params, batch, arch=arch, loss_type=loss_type,
-            pooling=pooling, precision=precision, margin=margin, generator=state.rng,
-            deterministic=False,
-        )
+        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng)
         tx.step(state.params, grads, state.opt_state)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         return state._replace(step=state.step + 1), metrics
 
     return step
+
+
+def make_bi_encoder_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    loss_type: str = "cosine_mse",   # softmax | cosine_mse | contrastive |
+                                     # online_contrastive | mnrl | distill_mse
+    pooling: str = "mean",
+    precision: Precision = DEFAULT_PRECISION,
+    margin: float = 0.5,
+    remat=False,
+    device="cuda",
+) -> Callable:
+    """Returns step(state, batch) → (state, metrics): the loss and its
+    gradients (dropout on), then ``tx``'s in-place update. batch: ids_a,
+    mask_a, ids_b, mask_b, target (labels, scores or teacher embeddings),
+    valid (B,)."""
+
+    def loss_fn(params, batch, generator):
+        return bi_encoder_loss(
+            params, batch, arch=arch, loss_type=loss_type, pooling=pooling,
+            precision=precision, margin=margin, generator=generator, deterministic=False,
+            remat=remat,
+        )
+
+    return _make_step(loss_fn, tx, device)
+
+
+def make_classifier_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    pooling: str = "cls",
+    precision: Precision = DEFAULT_PRECISION,
+    device="cuda",
+) -> Callable:
+    """Cross-encoder / document-classifier step. batch: ids, mask,
+    type_ids (optional), labels, valid. metrics: loss, accuracy."""
+
+    def loss_fn(params, batch, generator):
+        logits = classifier_forward(
+            params, batch["ids"], batch["mask"], batch.get("type_ids"), arch=arch,
+            precision=precision, pooling=pooling, generator=generator, deterministic=False,
+        )
+        valid = batch.get("valid")
+        loss = L.cross_entropy_loss(logits, batch["labels"], valid)
+        return loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)}
+
+    return _make_step(loss_fn, tx, device)
+
+
+# ---------------------------------------------------------------------------
+# Packed steps: several short sequences a fixed-width row behind a
+# block-diagonal mask (data.pairs.build_packed_pair_batches)
+# ---------------------------------------------------------------------------
+
+def _scatter_segments(emb: torch.Tensor, owners: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Per-segment outputs (R, M, D) → per-example slots (n_slots, D).
+    ``owners`` (R, M) holds each segment's example index, −1 for an empty
+    slot; empty slots add into an explicit trash row n_slots, which is cut
+    off. Each example owns one segment, so the add is a set."""
+    r, m, d = emb.shape
+    own = owners.reshape(r * m).long()
+    idx = torch.where(own >= 0, own, torch.full_like(own, n_slots))
+    out = emb.new_zeros((n_slots + 1, d)).index_add(0, idx, emb.reshape(r * m, d))
+    return out[:n_slots]
+
+
+def _packed_embed(
+    enc_params: dict, ids, segments, positions, owners, n_slots: int, *, arch: EncoderArch,
+    precision: Precision, pooling: str, generator, deterministic: bool, remat=False,
+) -> torch.Tensor:
+    """The packed counterpart of ``_embed``: the encoder over packed rows
+    (block-diagonal attention, per-segment positions), a per-segment pool
+    (first token for ``cls``, else the mean), the projection head, then the
+    owner scatter → (n_slots, D)."""
+    mask = (segments > 0).to(torch.int32)
+    out = encoder_forward(
+        enc_params, ids, mask, arch=arch, precision=precision, deterministic=deterministic,
+        generator=generator, remat=remat, segment_ids=segments, position_ids=positions,
+    )
+    m = owners.shape[1]
+    seg_pool = segment_first_pool if pooling == "cls" else segment_mean_pool
+    pooled = _project(enc_params, seg_pool(out.last_hidden_state, segments, m))
+    return _scatter_segments(pooled, owners, n_slots)
+
+
+def _check_packable(arch: EncoderArch) -> None:
+    if arch.attention_type != "softmax":
+        raise ValueError("packed training needs block-diagonal softmax attention")
+
+
+def packed_bi_encoder_loss(
+    params: dict, batch: dict, *, arch: EncoderArch, loss_type: str = "cosine_mse",
+    pooling: str = "mean", precision: Precision = DEFAULT_PRECISION, margin: float = 0.5,
+    generator: Optional[torch.Generator] = None, deterministic: bool = False, remat=False,
+):
+    """The bi-encoder objective on one packed batch (ids_a / segments_a /
+    positions_a (R, W), owners_a (R, M), the same for b, target (P,), valid
+    (P,)) → (loss, aux metrics). The owner scatter gives the pair loss the
+    dense batch's (u, v, target, valid), so it equals ``bi_encoder_loss``
+    on the same pairs."""
+    n_slots = batch["target"].shape[0]
+    kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
+              deterministic=deterministic, remat=remat)
+    enc = params["encoder"]
+    u = _packed_embed(enc, batch["ids_a"], batch["segments_a"], batch["positions_a"],
+                      batch["owners_a"], n_slots, **kw)
+    v = _packed_embed(enc, batch["ids_b"], batch["segments_b"], batch["positions_b"],
+                      batch["owners_b"], n_slots, **kw)
+    return _pair_objective(loss_type, params, u, v, batch.get("target"), batch.get("valid"),
+                           margin)
+
+
+def make_packed_bi_encoder_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    loss_type: str = "cosine_mse",
+    pooling: str = "mean",
+    precision: Precision = DEFAULT_PRECISION,
+    margin: float = 0.5,
+    remat=False,
+    device="cuda",
+) -> Callable:
+    """Packed twin-tower step over ``packed_bi_encoder_loss``; its
+    gradients equal the dense step's on the same pairs."""
+    _check_packable(arch)
+
+    def loss_fn(params, batch, generator):
+        return packed_bi_encoder_loss(
+            params, batch, arch=arch, loss_type=loss_type, pooling=pooling,
+            precision=precision, margin=margin, generator=generator, remat=remat,
+        )
+
+    return _make_step(loss_fn, tx, device)
+
+
+def packed_classifier_forward(
+    params: dict, ids, segments, positions, type_ids, owners, n_slots: int, *,
+    arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
+    generator: Optional[torch.Generator] = None, deterministic: bool = True, remat=False,
+) -> torch.Tensor:
+    """Packed cross-encoder forward: several [CLS] a [SEP] b [SEP] pairs a
+    row → (n_slots, C) f32 logits, each pair read at its own [CLS] through
+    the tanh pooler where the arch has one (``classifier_forward`` with cls
+    pooling)."""
+    enc = params["encoder"]
+    mask = (segments > 0).to(torch.int32)
+    out = encoder_forward(
+        enc, ids, mask, type_ids, arch=arch, precision=precision, deterministic=deterministic,
+        generator=generator, remat=remat, segment_ids=segments, position_ids=positions,
+    )
+    pooled = segment_first_pool(out.last_hidden_state, segments, owners.shape[1])
+    if arch.has_pooler and "pooler" in enc:
+        pw = enc["pooler"]
+        pooled = torch.tanh(pooled.float() @ dequant_weight(pw["w"]).float() + pw["b"])
+    head = params["head"]
+    logits = pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
+    return _scatter_segments(logits, owners, n_slots)
+
+
+def make_packed_classifier_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    precision: Precision = DEFAULT_PRECISION,
+    remat=False,
+    device="cuda",
+) -> Callable:
+    """Packed cross-encoder / pair-classifier step. batch
+    (``build_packed_pair_batches(mode="cross")``): ids / segments /
+    positions / type_ids (R, W), owners (R, M), labels (P,), valid (P,)."""
+    _check_packable(arch)
+
+    def loss_fn(params, batch, generator):
+        logits = packed_classifier_forward(
+            params, batch["ids"], batch["segments"], batch["positions"], batch.get("type_ids"),
+            batch["owners"], batch["labels"].shape[0], arch=arch, precision=precision,
+            generator=generator, deterministic=False, remat=remat,
+        )
+        valid = batch.get("valid")
+        loss = L.cross_entropy_loss(logits, batch["labels"], valid)
+        return loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)}
+
+    return _make_step(loss_fn, tx, device)
+
+
+# ---------------------------------------------------------------------------
+# Token classification (NER)
+# ---------------------------------------------------------------------------
+
+def token_classifier_forward(
+    params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
+    generator: Optional[torch.Generator] = None, deterministic: bool = True,
+) -> torch.Tensor:
+    """Encoder → per-token linear head → (B, S, T) f32 logits."""
+    out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
+                          deterministic=deterministic, generator=generator)
+    head = params["head"]
+    return out.last_hidden_state.float() @ head["w"] + head["b"]
+
+
+def make_token_classifier_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    precision: Precision = DEFAULT_PRECISION,
+    device="cuda",
+) -> Callable:
+    """batch: ids, mask, tags (B, S) with −100 where no tag is predicted
+    (sub-word continuations, specials, padding); padding is ignored too.
+    metrics: loss, accuracy over the tagged tokens."""
+
+    def loss_fn(params, batch, generator):
+        logits = token_classifier_forward(params, batch["ids"], batch["mask"], arch=arch,
+                                          precision=precision, generator=generator,
+                                          deterministic=False)
+        tags = batch["tags"].long()
+        w = ((tags >= 0) & (batch["mask"] > 0)).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, tags.clamp_min(0)[..., None])[..., 0]
+        n = w.sum().clamp_min(1.0)
+        acc = ((logits.argmax(dim=-1) == tags).float() * w).sum() / n
+        return (nll * w).sum() / n, {"accuracy": acc}
+
+    return _make_step(loss_fn, tx, device)
+
+
+# ---------------------------------------------------------------------------
+# Masked-LM pretraining (the long-model re-pretraining objective)
+# ---------------------------------------------------------------------------
+
+def mlm_mask_batch(
+    generator: torch.Generator,
+    ids: torch.Tensor,            # (B, S) int
+    mask: torch.Tensor,           # (B, S) 1 = real token
+    vocab_size: int,
+    mask_token_id: int,
+    mask_prob: float = 0.15,
+    special_ids=(0, 1, 2, 3, 4),  # token ids never masked
+):
+    """BERT-style dynamic masking, drawn from ``generator``: each real,
+    non-special token is selected with probability ``mask_prob``; of the
+    selected, 80% become ``mask_token_id``, 10% a token drawn uniformly
+    from the vocabulary and 10% stay. → (corrupted ids, labels: the
+    original id where selected, −100 elsewhere). ``special_ids`` must be
+    the tokenizer's real special ids."""
+    dev = ids.device
+    specials = torch.tensor(sorted(special_ids), dtype=ids.dtype, device=dev)
+    eligible = (mask > 0) & ~torch.isin(ids, specials)
+    sel = (torch.rand(ids.shape, generator=generator, device=dev) < mask_prob) & eligible
+    labels = torch.where(sel, ids, torch.full_like(ids, -100))
+    op = torch.rand(ids.shape, generator=generator, device=dev)
+    rand_tok = torch.randint(0, vocab_size, ids.shape, generator=generator, device=dev,
+                             dtype=ids.dtype)
+    corrupted = torch.where(sel & (op < 0.8), torch.full_like(ids, mask_token_id),
+                            torch.where(sel & (op >= 0.9), rand_tok, ids))
+    return corrupted, labels.to(torch.int32)
+
+
+def _check_tied_head(arch: EncoderArch) -> None:
+    if arch.embed_factor_size and arch.embed_factor_size != arch.hidden_size:
+        raise ValueError(
+            f"the MLM head is tied to the word table, which is {arch.embed_factor_size} wide "
+            f"where the hidden states are {arch.hidden_size}: MLM needs embed_factor_size == "
+            "hidden_size (the reference's einsum fails to trace here too)"
+        )
+
+
+def mlm_forward(
+    params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
+    generator: Optional[torch.Generator] = None, deterministic: bool = True,
+) -> torch.Tensor:
+    """Encoder → the output head tied to the word table (f32) → (B, S, V)
+    logits, plus ``params["mlm_bias"]`` where present."""
+    _check_tied_head(arch)
+    out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
+                          deterministic=deterministic, generator=generator)
+    word = params["encoder"]["embeddings"]["word"]
+    logits = out.last_hidden_state.float() @ word.float().T
+    if "mlm_bias" in params:
+        logits = logits + params["mlm_bias"]
+    return logits
+
+
+def make_mlm_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    mask_token_id: int,
+    precision: Precision = DEFAULT_PRECISION,
+    mask_prob: float = 0.15,
+    special_ids=(0, 1, 2, 3, 4),
+    device="cuda",
+) -> Callable:
+    """batch: ids, mask. The masking is drawn anew each step from the
+    state's generator (then the dropout masks). metrics: loss,
+    masked_tokens."""
+    _check_tied_head(arch)
+
+    def loss_fn(params, batch, generator):
+        corrupted, labels = mlm_mask_batch(
+            generator, batch["ids"], batch["mask"], arch.vocab_size, mask_token_id, mask_prob,
+            special_ids=special_ids,
+        )
+        logits = mlm_forward(params, corrupted, batch["mask"], arch=arch, precision=precision,
+                             generator=generator, deterministic=False)
+        loss = L.mlm_loss(logits, labels)
+        return loss, {"masked_tokens": (labels >= 0).float().sum()}
+
+    return _make_step(loss_fn, tx, device)
