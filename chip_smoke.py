@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
-packed-encode, serving and training-entry-point paths on one NVIDIA card.
+packed-encode, serving, training-entry-point and command-line paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -251,7 +252,45 @@ Phases (any failure exits non-zero):
       K6 24 launches a step (watched through ``train.make_mlm_train_step``),
       the parameters moved; tokens/s, peak memory and a ``torch.profiler``
       split of one step.
- 11. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 11. the main path's commands (phase 3's 1M rows and 4,096 queries; phase
+    4's tokenizer, minilm-l6 encoder, 120,000-document corpus and pipeline;
+    phase 9's cross-encoder; K1's and K2's counters zeroed just before and
+    required to rise):
+    - IVF mining: ``SentenceMiningPipeline._mine_ivf`` over the 1M rows at
+      k 10 (every K1 launch on the wgmma tile); recall@10 of 4,096 sampled
+      rows' neighbours against K2's exact top-11 less the row ≥ 0.95; K1 on
+      256 of the mined rows (the first chunk's plan, k 11) against its plain
+      version (phase 3's gate); rows/s printed. Exact mining:
+      ``BruteForceIndex.mine`` over 20,000 f32 rows against the same mine
+      through the plain ``cosine_topk`` (ids equal where separated, |Δ| ≤
+      1e-5);
+    - the CLI in this process with ``--device cuda`` over a file of the
+      120,000 documents plus 1,000 verbatim copies of corpus lines:
+      ``encode`` by the auto rule and with ``--packed`` (rows/s; the two
+      ``.npy`` within phase 4's ``PACK_AGREE_*`` limits), ``search --query``
+      on a corpus line (the IVF route; the line first, score ≥ 0.99),
+      ``mine --ivf on`` and ``--ivf off`` (``--min-score 0.99 --top-k 3``:
+      every planted pair by the exact route; by the IVF route ≥ 95% of the
+      pairs whose copy lies in a slab that the original's query block probes,
+      at least 400 pairs probed, none found outside them, and ≥ 45% of all
+      1,000 found: the reference's block-union scan reaches no further,
+      ROADMAP queue 3),
+      ``quantize`` then ``compare-models`` over 2,000 documents and 100
+      queries (the model against itself overlap 1.0; the int8 student's
+      overlap a record);
+    - the churn drive (``text_similarity_tpu_torch.drives.churn``) on the 1M
+      rows and 4,096 queries with 100,000 new rows: post-churn recall@10 ≥
+      0.95, no removed id in an answer, every re-added row found by its own
+      query; remove and add rows/s printed;
+    - the serve-load drive (``drives.serve_load``) against the 120,000-
+      document pipeline and the cross-encoder (retrieve_k 100), phases A-D
+      of 3 s: every request answered; queries/s and p50 / p95 printed;
+    - phase 4's weights under HuggingFace's key names back through
+      ``convert_state_dict``: 256 embeddings bit-equal to phase 4's;
+      ``embed_token_stack`` equal to ``embed_tokens`` batch by batch;
+    - ``AdaptiveParamOptimizer``: 4 trials over lr of 5 minilm-l6 steps,
+      every loss finite.
+ 12. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -262,7 +301,7 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile).
- 12. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 13. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -650,22 +689,11 @@ def phase_topk_2pass(torch, card):
 # ---------------------------------------------------------------------------
 
 def bench_corpus(torch, n, n_q, d=384, seed=0):
-    """bench.py's recipe with torch: 4096 gaussian centres ×3 + unit noise;
-    queries are corpus rows + 0.1 noise."""
-    from text_similarity_tpu_torch.ops.topk import l2_normalize
+    """bench.py's recipe on the card (the churn drive's): 4096 gaussian
+    centres ×3 + unit noise; queries are corpus rows + 0.1 noise."""
+    from text_similarity_tpu_torch.drives.churn import bench_corpus as recipe
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    centers = torch.randn(4096, d, generator=g, device=dev)
-    assign = torch.randint(0, 4096, (n,), generator=g, device=dev)
-    corpus = torch.empty((n, d), device=dev)
-    for i in range(0, n, 1 << 18):
-        j = min(i + (1 << 18), n)
-        corpus[i:j] = l2_normalize(
-            centers[assign[i:j]] * 3.0 + torch.randn(j - i, d, generator=g, device=dev)
-        )
-    queries = l2_normalize(corpus[:n_q] + 0.1 * torch.randn(n_q, d, generator=g, device=dev))
-    return corpus, queries
+    return recipe(n, n_q, d, seed, device="cuda")
 
 
 def serving_plan(ivf, queries):
@@ -3037,6 +3065,7 @@ def phase_serving(torch, card, ctx):
             not t.is_cuda for t in flat_leaves(ce.params).values()):
         raise AssertionError("the cross-encoder is not on the card")
     rr = RankingPipeline(big, ce, retrieve_k=100)
+    ctx["ce"] = ce
     packed_calls, wave_calls = [], []
     real_layout, real_wave = ce._predict_packed_layout, rr._predict_pipelined
     ce._predict_packed_layout = lambda *a, **k: packed_calls.append(1) or real_layout(*a, **k)
@@ -3222,9 +3251,8 @@ def phase_serving(torch, card, ctx):
 ALBERT_GRAD_REL = 1e-5
 
 
-def cli(torch, argv, card):
-    """The port's CLI in this process → (seconds, the JSON object it printed
-    last), which is logged."""
+def cli_lines(torch, argv):
+    """The port's CLI in this process → (seconds, the lines it printed)."""
     import contextlib
     import io
 
@@ -3236,8 +3264,13 @@ def cli(torch, argv, card):
     with contextlib.redirect_stdout(buf):
         cli_main(argv)
     torch.cuda.synchronize()
-    dt = time.time() - t
-    lines = buf.getvalue().strip().splitlines()
+    return time.time() - t, buf.getvalue().strip().splitlines()
+
+
+def cli(torch, argv, card):
+    """The port's CLI in this process → (seconds, the JSON object it printed
+    last), which is logged."""
+    dt, lines = cli_lines(torch, argv)
     start = max(i for i, line in enumerate(lines) if line.startswith("{"))
     out = json.loads("\n".join(lines[start:]))
     log(f"  {argv[0]}: {dt:.1f} s -> {json.dumps(out)[:300]} [{card}]")
@@ -3637,6 +3670,413 @@ def pretrain_long_records(torch, card, ctx, tmp, train_mod, k5, k6):
     return {"tokens_per_s": n_tokens / steps_s, "peak_gib": peak, "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the main path's commands (mining, encode / search / quantize /
+# compare-models through the CLI, the churn and serve-load drives, HF
+# conversion, hpo)
+# ---------------------------------------------------------------------------
+
+# IVF mining at 1M: recall@10 of the mined neighbours against the exact
+# top-10 (phase 3's IVF gate). The IVF route of `mine` must find the planted
+# pairs whose copy lies in a slab that the original's query block probes;
+# the others are out of reach of the reference's block-union scan
+# (union_factor 1), which the port keeps (ROADMAP queue 3). That reach is
+# held too: at least PLANTED_PROBED_MIN of the 1,000 pairs must be probed and
+# PLANTED_IVF_RAW_MIN of all 1,000 found (538-543 of 1,000 in four runs on
+# the H100), and no pair may be found outside the probed set, which would
+# mean that `copy_slab_probed`'s plan has drifted from the scan's
+MINE_RECALL_MIN = 0.95
+PLANTED_IVF_MIN = 0.95
+PLANTED_PROBED_MIN = 400
+PLANTED_IVF_RAW_MIN = 0.45
+
+
+def mining_records(torch, card, ctx, corpus):
+    """``SentenceMiningPipeline._mine_ivf`` over phase 3's 1M rows at k 10
+    (K1, counted), its recall@10 on 4,096 sampled rows against K2's exact
+    top-11 less the row itself, and K1 on 256 of the mined rows (four query
+    blocks of the first chunk's plan) against its plain version; then
+    ``BruteForceIndex.mine`` over 20,000 of the rows (K2, counted) against
+    the same mine through the plain ``cosine_topk``."""
+    import text_similarity_tpu_torch.index.brute as brute
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+    from text_similarity_tpu_torch.pipelines import SentenceMiningPipeline
+
+    n, k = corpus.shape[0], 10
+    miner = SentenceMiningPipeline(ctx["enc"], device="cuda")
+    built = []
+    real = miner._mine_with_index
+    miner._mine_with_index = lambda ivf, emb, kk: built.append(ivf) or real(ivf, emb, kk)
+    ivf_scan_cuda.launches = ivf_scan_cuda.launches_tile = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    s, i = miner._mine_ivf(corpus, k)
+    dt = time.time() - t
+    k1 = (ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile)
+    ivf = built[0]
+    rows = np.sort(np.random.default_rng(12).choice(n, 4096, replace=False))
+    _, ex = cosine_topk_cuda(corpus[torch.as_tensor(rows, device="cuda")], corpus, k + 1)
+    ex = ex.cpu().numpy()
+    exact = np.stack([r[r != row][:k] for r, row in zip(ex, rows)])
+    recall = overlap(i[rows], exact)
+    valid = float((i >= 0).mean())
+    log(f"IVF mining (SentenceMiningPipeline._mine_ivf) of {n} x {corpus.shape[1]} rows at k {k} "
+        f"[{card}]: {dt:.2f} s = {n / dt:.0f} rows/s, build included (C "
+        f"{ivf.num_base_clusters}, Mc {ivf.data_padded.shape[1]}, probes {ivf.config.num_probes}); "
+        f"K1 {k1[0]} launches ({k1[1]} on the wgmma tile); recall@10 on 4096 sampled rows "
+        f"{recall:.4f} (gate {MINE_RECALL_MIN}); neighbours filled {valid:.4%}")
+    if k1[0] == 0 or k1[0] != k1[1]:
+        raise AssertionError(f"IVF mining did not run K1 on the tile: {k1}")
+    if recall < MINE_RECALL_MIN:
+        raise AssertionError(f"IVF mining recall@10 {recall:.4f} < {MINE_RECALL_MIN}")
+    # K1 at the shapes mining gives it: the first chunk's plan, k + 1
+    q_s, probes, _, block_q = serving_plan(ivf, corpus[:miner.MINE_CHUNK])
+    w, slots = ivf.scan_mode(k + 1, 2048 if ivf.data_padded.shape[1] >= 1024 else 0, 0)
+    args = (q_s[:256], probes[:256 // block_q], ivf.data_padded, ivf.ids_padded, k + 1, block_q,
+            w, slots)
+    ks, ki = ivf_scan_cuda(*args)
+    rs, ri = ivf_scan_reference(*args)
+    check_pair(f"K1 on 256 mined rows (block_q {block_q}, k {k + 1}, deferred w={w} S={slots})",
+               ks, ki, rs, ri, card)
+    del built, ivf
+
+    # exact mining: K2 against the plain cosine_topk on the same store
+    store = EmbeddingStore(20_000, corpus.shape[1], device="cuda")
+    store.add(corpus[:20_000])
+    cosine_topk_cuda.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    ks, ki = BruteForceIndex(store).mine(k=k)
+    dt_exact = time.time() - t
+    k2 = cosine_topk_cuda.launches
+    kernel = brute.cosine_topk
+    brute.cosine_topk = cosine_topk_reference
+    try:
+        rs, ri = BruteForceIndex(store).mine(k=k)
+    finally:
+        brute.cosine_topk = kernel
+    err = float(np.abs(ks - rs).max())
+    ok = k2 > 0 and separated_ids_equal(ki, ri, rs) and err <= 1e-5
+    log(f"exact mining (BruteForceIndex.mine, 20000 f32 rows, k {k}) [{card}]: {dt_exact:.2f} s, "
+        f"K2 {k2} launches; against the plain cosine_topk: ids equal where separated "
+        f"{separated_ids_equal(ki, ri, rs)} ({float((ki == ri).mean()):.4%} equal), "
+        f"max|Δscore| {err:.2e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("exact mining on the card disagrees with its plain version")
+    return {"ivf_mine_rows_per_s": n / dt, "recall_at_10": recall}
+
+
+def planted_pairs(lines, planted):
+    """Planted texts found as a mined pair: a printed ``score\\ta\\tb`` line
+    with a == b (the corpus is otherwise unique)."""
+    found = set()
+    for line in lines:
+        _, a, b = line.split("\t")
+        if a == b and a in planted:
+            found.add(a)
+    return found
+
+
+def copy_slab_probed(ivf, emb, originals, copies, chunk):
+    """For each planted pair: does the query block of the original row (in
+    ``_mine_with_index``'s chunk of ``chunk`` rows, planned as
+    ``IVFIndex.query`` plans it with the serving args) probe the slab that
+    holds the copy?"""
+    ids = ivf.ids_padded.cpu().numpy()
+    slab_of = np.full(int(ids.max()) + 1, -1)
+    r, c = np.nonzero(ids >= 0)
+    slab_of[ids[r, c]] = r
+    out = np.zeros(len(originals), bool)
+    for start in range(0, emb.shape[0], chunk):
+        sel = (originals >= start) & (originals < start + chunk)
+        if not sel.any():
+            continue
+        _, probes, order, block_q = serving_plan(ivf, emb[start:start + chunk])
+        pos = np.empty(order.numel(), np.int64)
+        pos[order.cpu().numpy()] = np.arange(order.numel())
+        blocks = pos[originals[sel] - start] // block_q
+        probes = probes.cpu().numpy()
+        out[sel] = [slab_of[cp] in probes[b] for b, cp in zip(blocks, copies[sel])]
+    return out
+
+
+def cli_records(torch, card, ctx, tmp):
+    """The CLI in this process with ``--device cuda`` over a file of phase
+    4's 120,000 documents plus 1,000 verbatim copies of corpus lines:
+    ``encode`` (bucketed by the "auto" rule and ``--packed``), ``search
+    --query`` (the IVF route), ``mine --ivf on`` and ``--ivf off``,
+    ``quantize``, ``compare-models``."""
+    corpus = ctx["corpus"]
+    rng = np.random.default_rng(13)
+    picks = rng.choice(len(corpus), 1000, replace=False)
+    planted = {corpus[j] for j in picks}
+    lines = list(corpus) + [corpus[j] for j in picks]
+    docs, enc_dir = os.path.join(tmp, "docs.txt"), os.path.join(tmp, "enc")
+    with open(docs, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ctx["enc"].save(enc_dir)
+    dev = ["--model", enc_dir, "--device", "cuda"]
+    rec = {}
+
+    # encode, with and without --packed
+    embs = {}
+    for mode, extra in (("auto", []), ("packed", ["--packed"])):
+        out = os.path.join(tmp, f"emb_{mode}.npy")
+        dt, printed = cli_lines(torch, ["encode", "--corpus", docs, "--out", out] + dev + extra)
+        embs[mode] = np.load(out)
+        rec[f"encode_{mode}_rows_per_s"] = len(lines) / dt
+        log(f"  encode ({'--packed' if extra else 'the auto rule'}): {dt:.1f} s = "
+            f"{len(lines) / dt:.0f} rows/s -> {printed[-1]} [{card}]")
+    a, b = embs["auto"], embs["packed"]
+    cos = (a * b).sum(axis=1)
+    worst = float(np.abs(a - b).max())
+    ok = (a.shape == b.shape == (len(lines), 384) and 1.0 - cos.min() <= PACK_AGREE_COS
+          and worst <= PACK_AGREE_MAX)
+    log(f"encode .npy, the auto rule against --packed: 1 − min cosine {1.0 - cos.min():.2e}, "
+        f"max|Δ| {worst:.3e} (limits {PACK_AGREE_COS:.1e}, {PACK_AGREE_MAX:.1e}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("encode's two routes disagree")
+
+    # search --query: a corpus line with no planted copy must come back first
+    query = next(t for t in corpus[5000:] if t not in planted)
+    dt, printed = cli_lines(torch, ["search", "--corpus", docs, "--query", query] + dev)
+    first = printed[0].split("\t", 1)
+    log(f"  search --query over {len(lines)} lines (IVF route, C 1024, 16 probes): {dt:.1f} s "
+        f"(encode and build included); first {first[0]} {'itself' if first[1] == query else 'another'}")
+    if first[1] != query or float(first[0]) < 0.99 or len(printed) != 10:
+        raise AssertionError(f"search --query did not return the line first: {printed[:2]}")
+
+    # mine: every planted pair by the exact route; by the IVF route, those
+    # whose copy lies in a slab the original's query block probes (the
+    # command's own index and rows, seen through _mine_with_index)
+    from text_similarity_tpu_torch.pipelines import SentenceMiningPipeline
+
+    found, seen = {}, []
+    real = SentenceMiningPipeline._mine_with_index
+    SentenceMiningPipeline._mine_with_index = (
+        lambda self, ivf, emb, k: seen.append((ivf, emb)) or real(self, ivf, emb, k))
+    try:
+        for route in ("on", "off"):
+            dt, printed = cli_lines(torch, ["mine", "--corpus", docs, "--ivf", route, "--top-k",
+                                            "3", "--min-score", "0.99", "--max-pairs",
+                                            "100000000"] + dev)
+            found[route] = planted_pairs(printed, planted)
+            rec[f"mine_ivf_{route}_seconds"] = dt
+            log(f"  mine --ivf {route} --top-k 3 --min-score 0.99: {dt:.1f} s, {len(printed)} "
+                f"pairs printed, planted pairs found {len(found[route])}/1000 [{card}]")
+    finally:
+        SentenceMiningPipeline._mine_with_index = real
+    ivf, emb = seen[0]
+    copies = len(corpus) + np.arange(1000)
+    probed = copy_slab_probed(ivf, emb, picks, copies, SentenceMiningPipeline.MINE_CHUNK)
+    hit = np.array([corpus[j] in found["on"] for j in picks])
+    reach = int((hit & probed).sum())
+    stray = int((hit & ~probed).sum())
+    log(f"mine --ivf on [{card}]: planted pairs found {int(hit.sum())}/1000 (gate "
+        f"{PLANTED_IVF_RAW_MIN}); the copy's slab in the original's block probe list for "
+        f"{int(probed.sum())} (gate {PLANTED_PROBED_MIN}), of which {reach} found (gate "
+        f"{PLANTED_IVF_MIN}); found though not probed {stray} (gate 0) (C "
+        f"{ivf.num_base_clusters}, probes {ivf.config.num_probes}, Mc "
+        f"{ivf.data_padded.shape[1]}, overflow slabs {ivf.num_overflow})")
+    if (len(found["off"]) != 1000 or probed.sum() < PLANTED_PROBED_MIN
+            or reach < PLANTED_IVF_MIN * probed.sum() or hit.sum() < PLANTED_IVF_RAW_MIN * 1000
+            or stray):
+        raise AssertionError(f"planted pairs found: exact {len(found['off'])}, IVF {reach} of "
+                             f"{int(probed.sum())} probed, {int(hit.sum())} in all, {stray} "
+                             f"outside the probed set")
+    rec["planted_found_ivf"] = int(hit.sum())
+
+    # quantize, then compare-models over 2,000 documents and 100 queries
+    small = os.path.join(tmp, "docs2000.txt")
+    with open(small, "w") as f:
+        f.write("\n".join(corpus[:2000]) + "\n")
+    _, out = cli(torch, ["quantize", "--save-path", os.path.join(tmp, "int8")] + dev, card)
+    cmp_args = ["compare-models", "--corpus", small, "--num-queries", "100"] + dev
+    _, same = cli(torch, cmp_args + ["--student", enc_dir], card)
+    _, q8 = cli(torch, cmp_args + ["--student", os.path.join(tmp, "int8")], card)
+    log(f"compare-models [{card}]: the model against itself mean overlap "
+        f"{same['mean_topk_overlap']:.4f}; the quantize output (loaded dequantized to bf16: "
+        f"weight quantization only, as the reference) mean top-10 overlap "
+        f"{q8['mean_topk_overlap']:.4f}, min {q8['min_topk_overlap']:.4f} (a record)")
+    if same["mean_topk_overlap"] != 1.0 or out["format"] != "int8":
+        raise AssertionError(f"compare-models of the model with itself: {same}")
+    rec["int8_student_overlap"] = q8["mean_topk_overlap"]
+    return rec
+
+
+def churn_records(torch, card, corpus, queries):
+    """The churn drive on phase 3's 1M rows and 4,096 queries, 100,000 new
+    rows of the same recipe: post-churn recall@10 ≥ 0.95, no removed id in
+    an answer, every re-added row found by its own query."""
+    from text_similarity_tpu_torch.drives import churn
+
+    added = churn.new_rows(100_000, corpus.shape[1], seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t = time.time()
+    rows = churn.Churn(corpus, queries, added, windows=3, iters=3,
+                       emit=lambda row: log(f"  churn {json.dumps(row)}")).run()
+    post, leak, readd = rows["post_churn"], rows["tombstone_leak_check"], rows["readd_self_check"]
+    log(f"churn drive at {corpus.shape[0]} rows [{card}]: {time.time() - t:.1f} s; remove "
+        f"{rows['remove']['rows_per_s']:.0f} rows/s, add {rows['add_1x100000']['rows_per_s']:.0f} "
+        f"rows/s (1 x 100000), {rows['add_10x10000']['rows_per_s']:.0f} (10 x 10000); recall@10 "
+        f"fresh {rows['fresh']['recall_at_10']:.4f}, post-churn {post['recall_at_10']:.4f}, rebuild "
+        f"{rows['rebuild']['recall_at_10']:.4f}; QPS medians {rows['fresh']['qps_median']:.0f} / "
+        f"{post['qps_median']:.0f} / {rows['rebuild']['qps_median']:.0f}; leaked {leak['leaked']}; "
+        f"re-added rows found {readd['found_top10']}/{readd['rows']} (first {readd['found_first']})")
+    if post["recall_at_10"] < 0.95 or leak["leaked"] or readd["found_top10"] != readd["rows"]:
+        raise AssertionError(f"churn: {post}, {leak}, {readd}")
+    return rows
+
+
+def serve_load_records(torch, card, ctx):
+    """The serve-load drive's phases A-D against phase 4's 120,000-document
+    pipeline and phase 9's cross-encoder (retrieve_k 100), 3 s a phase:
+    every request answered."""
+    from text_similarity_tpu_torch.drives import serve_load
+    from text_similarity_tpu_torch.pipelines import RankingPipeline
+
+    rr = RankingPipeline(ctx["big"], ctx["ce"], retrieve_k=100, batch_size=512)
+    rows = serve_load.run_phases(ctx["big"], rr, ctx["corpus"][:65536], duration=3.0,
+                                 phases="ABCD", rerank_factor=1.0,
+                                 emit=lambda row: log(f"  serve_load {json.dumps(row)[:400]}"))
+    for r in rows:
+        log(f"serve_load {r['phase']} [{card}]: {r['queries_per_s']:.1f} queries/s over "
+            f"{r['requests']} requests of {r['batch']} ({r['clients']} clients), p50 "
+            f"{r['p50_ms']} ms, p95 {r['p95_ms']} ms, errors {r['errors']}")
+    if any(r["errors"] or not r["requests"] for r in rows):
+        raise AssertionError("serve_load: a request was not answered")
+    return {r["phase"]: {"qps": r["queries_per_s"], "p50_ms": r["p50_ms"], "p95_ms": r["p95_ms"]}
+            for r in rows}
+
+
+def hf_state_dict(params, layers):
+    """Phase 4's minilm-l6 tree under HuggingFace BERT's key names, as a
+    numpy state dict ((out, in) weights): the inverse of
+    ``convert_state_dict``."""
+    def np_(t):
+        return t.detach().float().cpu().numpy()
+
+    emb, lay = params["embeddings"], params["layers"]
+    sd = {
+        "embeddings.word_embeddings.weight": np_(emb["word"]),
+        "embeddings.position_embeddings.weight": np_(emb["position"]),
+        "embeddings.token_type_embeddings.weight": np_(emb["token_type"]),
+        "embeddings.LayerNorm.weight": np_(emb["ln"]["scale"]),
+        "embeddings.LayerNorm.bias": np_(emb["ln"]["bias"]),
+        "pooler.dense.weight": np_(params["pooler"]["w"]).T,
+        "pooler.dense.bias": np_(params["pooler"]["b"]),
+    }
+    names = {("attn", "q"): "attention.self.query", ("attn", "k"): "attention.self.key",
+             ("attn", "v"): "attention.self.value", ("attn", "o"): "attention.output.dense",
+             ("mlp", "in"): "intermediate.dense", ("mlp", "out"): "output.dense"}
+    lns = {"attn_ln": "attention.output.LayerNorm", "mlp_ln": "output.LayerNorm"}
+    for i in range(layers):
+        for (grp, name), hf in names.items():
+            sd[f"encoder.layer.{i}.{hf}.weight"] = np_(lay[grp][name]["w"][i]).T
+            sd[f"encoder.layer.{i}.{hf}.bias"] = np_(lay[grp][name]["b"][i])
+        for grp, hf in lns.items():
+            sd[f"encoder.layer.{i}.{hf}.weight"] = np_(lay[grp]["scale"][i])
+            sd[f"encoder.layer.{i}.{hf}.bias"] = np_(lay[grp]["bias"][i])
+    return {"bert." + key: v for key, v in sd.items()}
+
+
+def hf_records(torch, card, ctx):
+    """Phase 4's minilm-l6 weights under HF's key names back through
+    ``convert_state_dict`` into a ``SentenceEncoder`` on the card: its
+    embeddings of 256 corpus texts equal phase 4's bit for bit; the
+    leftovers: ``embed_token_stack`` equals ``embed_tokens`` batch by batch."""
+    from text_similarity_tpu_torch.models import SentenceEncoder, convert_state_dict, num_params
+
+    enc, texts = ctx["enc"], ctx["corpus"][:256]
+    params = convert_state_dict(hf_state_dict(enc.params, enc.arch.num_layers), enc.arch,
+                                family="bert", device="cuda")
+    hf = SentenceEncoder(params, enc.arch, tokenizer=ctx["tok"], device="cuda")
+    want, again, got = enc.encode(texts), enc.encode(texts), hf.encode(texts)
+    log(f"HF round trip (minilm-l6, {num_params(params)} parameters, HF key names -> "
+        f"convert_state_dict -> SentenceEncoder) [{card}]: 256 embeddings bit-equal "
+        f"{np.array_equal(got, want)} (max|Δ| {float(np.abs(got - want).max()):.2e}; phase 4's "
+        f"encoder against itself bit-equal {np.array_equal(again, want)})")
+    if not np.array_equal(got, want):
+        raise AssertionError("the HF round trip changed the embeddings")
+    ids, mask = ctx["tok"].encode_batch(texts, 64)
+    stack = enc.embed_token_stack(ids.reshape(4, 64, 64), mask.reshape(4, 64, 64))
+    each = torch.stack([enc.embed_tokens(ids[j * 64:(j + 1) * 64], mask[j * 64:(j + 1) * 64])
+                        for j in range(4)])
+    log(f"embed_token_stack (4 x 64 x 64) against embed_tokens batch by batch: equal "
+        f"{torch.equal(stack, each)}")
+    if not torch.equal(stack, each):
+        raise AssertionError("embed_token_stack differs from embed_tokens")
+
+
+def hpo_records(torch, card, ctx):
+    """A 4-trial ``AdaptiveParamOptimizer`` over lr, each trial 5 steps of
+    minilm-l6 (phase 4's weights, cosine MSE on 32 corpus pairs); the
+    objective is the last step's loss (direction min)."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.train import (
+        init_train_state, make_bi_encoder_train_step, make_optimizer,
+    )
+    from text_similarity_tpu_torch.train.hpo import AdaptiveParamOptimizer, SearchSpace
+
+    corpus, enc = ctx["corpus"], ctx["enc"]
+    rng = np.random.default_rng(14)
+    picks = rng.choice(len(corpus), 64, replace=False)
+    pairs = [(corpus[i], corpus[j]) for i, j in zip(picks[:32], picks[32:])]
+    batch = build_pair_batches(ctx["tok"], pairs, rng.random(32).astype(np.float32),
+                               batch_size=32, max_len=128)[0]
+    losses = []
+
+    def objective(p):
+        tx = make_optimizer(TrainConfig(lr=p["lr"], warmup_ratio=0.0), 5,
+                            params_example={"encoder": ctx["params"]})
+        state = init_train_state({"encoder": ctx["params"]}, tx, device="cuda")
+        step = make_bi_encoder_train_step(enc.arch, tx, loss_type="cosine_mse")
+        for _ in range(5):
+            state, m = step(state, batch)
+        trial = [float(m["loss"])]
+        losses.append(trial[0])
+        return trial[0]
+
+    t = time.time()
+    res = AdaptiveParamOptimizer(objective, SearchSpace({"lr": ("loguniform", 1e-6, 1e-3)}),
+                                 direction="min", seed=0).optimize(n_trials=4)
+    log(f"hpo [{card}]: 4 trials x 5 minilm-l6 steps in {time.time() - t:.1f} s; losses "
+        f"{[f'{x:.5f}' for x in losses]}; best lr {res['best_params']['lr']:.3e} -> "
+        f"{res['best_value']:.5f}")
+    if len(losses) != 4 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"hpo: losses {losses}")
+
+
+def phase_commands(torch, card, ctx, corpus, queries):
+    """Phase 11, with K1's and K2's counters zeroed just before: IVF and
+    exact mining, the CLI's remaining commands, the churn and serve-load
+    drives, the HF round trip and the leftovers, hpo."""
+    import tempfile
+
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+
+    records = {"mining": mining_records(torch, card, ctx, corpus)}
+    ivf_scan_cuda.launches = cosine_topk_cuda.launches = 0
+    build = os.path.join(REPO, "text_similarity_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        records["cli"] = cli_records(torch, card, ctx, tmp)
+    records["churn"] = churn_records(torch, card, corpus, queries)
+    records["serve_load"] = serve_load_records(torch, card, ctx)
+    k1, k2 = ivf_scan_cuda.launches, cosine_topk_cuda.launches
+    log(f"launches during the commands, the drives: K1 {k1}, K2 {k2}")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError(f"the commands did not run K1 and K2: K1 {k1}, K2 {k2}")
+    hf_records(torch, card, ctx)
+    hpo_records(torch, card, ctx)
+    return records
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -3671,7 +4111,7 @@ def main() -> int:
     k3 = phase_int8_topk(torch, card)
     k4, ivf8 = phase_int8_ivf(torch, card, corpus, queries, exact)
     modes = phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact)
-    del corpus, queries, exact, ivf, ivf8
+    del exact, ivf, ivf8
     launches8 = phase_int8_pipeline(torch, card, ctx)
     k5 = phase_flash(torch, card)
     k5["launches"] = phase_long_documents(torch, card, ctx)
@@ -3683,6 +4123,7 @@ def main() -> int:
     k7["launches"] = phase_packed_encode(torch, card, ctx)
     phase_serving(torch, card, ctx)
     phase_training_entry_points(torch, card, ctx)
+    phase_commands(torch, card, ctx, corpus, queries)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]

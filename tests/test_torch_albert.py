@@ -1,8 +1,9 @@
 """ALBERT in the port's encoder: one shared layer on the stack axis run L
 times and factorized embeddings (E-wide tables, the E → H projection).
 Against HF's ``AlbertModel`` (random weights; E 32 and 64, the E == H case
-keeping the projection) through the JAX package's ``convert_hf_model`` and
-against the JAX package's forward; the (1, …) stack of ``init_params``;
+keeping the projection) through the port's ``convert_hf_model`` (its tree
+equal to the JAX package's conversion) and against the JAX package's
+forward; the (1, …) stack of ``init_params``;
 SentenceEncoder directories across the two packages; int8 weights; the
 packed and head-packed routes; the shared leaf's gradient as the sum over
 its iterations."""
@@ -20,13 +21,13 @@ from text_similarity_tpu.core.precision import FP32_PRECISION as JAX_FP32
 from text_similarity_tpu.data.tokenization import WordPieceTokenizer as JaxTokenizer
 from text_similarity_tpu.models import encoder_forward as jax_forward
 from text_similarity_tpu.models import init_params as jax_init
-from text_similarity_tpu.models.hf_convert import convert_hf_model
+from text_similarity_tpu.models.hf_convert import convert_hf_model as jax_convert_hf_model
 from text_similarity_tpu.models.sentence_encoder import SentenceEncoder as JaxSentenceEncoder
 from text_similarity_tpu_torch.core.config import ARCH_PRESETS, EncoderArch
 from text_similarity_tpu_torch.core.precision import FP32_PRECISION
 from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
 from text_similarity_tpu_torch.models import (
-    SentenceEncoder, encoder_forward, init_params, params_from_jax,
+    SentenceEncoder, convert_hf_model, encoder_forward, init_params, params_from_jax,
 )
 from text_similarity_tpu_torch.models.encoder import _param_shapes
 from text_similarity_tpu_torch.train.steps import trainable
@@ -60,9 +61,11 @@ def test_albert_matches_hf_and_jax(embedding_size):
     )
     torch.manual_seed(0)
     model = transformers.AlbertModel(cfg).eval()
-    jparams, jarch = convert_hf_model(model)
-    arch = EncoderArch.from_json(jarch.to_json())
-    params = params_from_jax(_np(jparams), arch)
+    jparams, jarch = jax_convert_hf_model(model)
+    params, arch = convert_hf_model(model)
+    assert arch == EncoderArch.from_json(jarch.to_json())
+    want = params_from_jax(_np(jparams), arch)
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(want)))
     assert params["layers"]["attn"]["q"]["w"].shape[0] == 1
     assert params["embeddings"]["proj"]["w"].shape == (embedding_size, 64)
     ids, mask = _batch(cfg.vocab_size)

@@ -262,7 +262,7 @@ def test_pretrain_long_full_roberta_row_stays_finite(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["train-wic", "--data", "x"], 8), (["distill"], 7), (["theseus", "--data", "x"], 7),
-    (["search", "--corpus", "x"], 11),
+    (["cluster", "--corpus", "x"], 8),
     (["train-sts", "--data", "STS", "--pipe", "2"], 10),
     (["train-sts", "--data", "STS", "--experts", "2"], 9),
 ])

@@ -86,17 +86,15 @@ def _port(saved, c) -> CrossEncoder:
     return CrossEncoder.load(saved[c][1], bf16=False, device="cpu")
 
 
-def _routes(ce, monkeypatch):
-    """Count the port's packed scoring calls."""
+def _routes(monkeypatch, cls=CrossEncoder):
+    """Count a package's packed scoring calls (``cls`` the port's or the JAX
+    package's CrossEncoder): the route a predict took, read without
+    clearing the JAX package's compiled shapes, which the tests share."""
     calls = []
-    real = CrossEncoder._predict_packed_layout
-    monkeypatch.setattr(CrossEncoder, "_predict_packed_layout",
+    real = cls._predict_packed_layout
+    monkeypatch.setattr(cls, "_predict_packed_layout",
                         lambda self, *a, **k: calls.append(1) or real(self, *a, **k))
     return calls
-
-
-def _jax_packed(jce):
-    return any(isinstance(k, tuple) and k and k[0] == "packed" for k in jce._jit_cache)
 
 
 def test_load_reads_the_jax_layout(saved):
@@ -113,16 +111,15 @@ def test_predict_matches_jax(saved, c, mode, monkeypatch):
     """Bucketed, packed and "auto" scores of 40 pairs within 1e-4 of the
     JAX package's, (N,) for 1 and 2 classes, (N, C) logits for 3."""
     jce = saved[c][0]
-    jce._jit_cache.clear()
     ce = _port(saved, c)
     pairs = _pairs()
-    calls = _routes(ce, monkeypatch)
+    calls, jax_calls = _routes(monkeypatch), _routes(monkeypatch, JaxCrossEncoder)
     got = ce.predict(pairs, packed=mode)
     want = np.asarray(jce.predict(pairs, packed=mode))
     assert got.shape == want.shape == ((40,) if c <= 2 else (40, c))
     np.testing.assert_allclose(got, want, atol=ATOL)
     assert np.ptp(want) > 10 * ATOL     # the tolerance tells pairs apart
-    assert bool(calls) == _jax_packed(jce)
+    assert bool(calls) == bool(jax_calls) == (mode is not False)
 
 
 @pytest.mark.parametrize("lens", [(3, 20), (30, 31)])
@@ -131,13 +128,14 @@ def test_auto_route_follows_jax(saved, lens, monkeypatch):
     in both packages; 8 pairs never pack."""
     jce = saved[1][0]
     ce = _port(saved, 1)
+    routes = []
     for pairs in (_pairs(40, 7, *lens), _pairs(8, 9)):
-        jce._jit_cache.clear()
-        calls = _routes(ce, monkeypatch)
+        calls, jax_calls = _routes(monkeypatch), _routes(monkeypatch, JaxCrossEncoder)
         np.testing.assert_allclose(ce.predict(pairs, max_len=64),
                                    np.asarray(jce.predict(pairs, max_len=64)), atol=ATOL)
-        assert bool(calls) == _jax_packed(jce)
-    assert _jax_packed(jce) is False           # the 8-pair call
+        assert bool(calls) == bool(jax_calls)
+        routes.append(bool(calls))
+    assert routes[-1] is False                 # the 8-pair call
 
 
 def test_predict_packed_matches_jax(saved):
@@ -247,22 +245,23 @@ def test_cross_encoder_defaults_to_the_card(saved):
 
 @pytest.fixture(scope="module")
 def rank_setup(vocab, jax_arch, saved, tmp_path_factory):
+    """The JAX package's and the port's brute-force pipelines over CORPUS
+    (one JAX-saved bi-encoder), built once: reranking reads them only."""
     jenc = JaxSentenceEncoder(jax_init(jax.random.PRNGKey(5), jax_arch),
                               jax_arch, tokenizer=JaxTokenizer(vocab), precision=JAX_FP32)
     d = tmp_path_factory.mktemp("enc")
     jenc.save(str(d))
     enc = SentenceEncoder.load(str(d), bf16=False, device="cpu")
-    return jenc, enc
+    return (JaxPipeline(jenc, corpus=CORPUS, use_ivf=False),
+            SemanticSearchPipeline(enc, corpus=CORPUS, use_ivf=False, device="cpu"))
 
 
 @pytest.mark.parametrize("c", [1, 2])
 def test_ranking_pipeline_matches_jax(rank_setup, saved, c):
     """Same candidates, same re-sorted ids and order, scores within 1e-4."""
-    jenc, enc = rank_setup
-    jrr = JaxRankingPipeline(JaxPipeline(jenc, corpus=CORPUS, use_ivf=False), saved[c][0],
-                             retrieve_k=10)
-    rr = RankingPipeline(SemanticSearchPipeline(enc, corpus=CORPUS, use_ivf=False, device="cpu"),
-                         _port(saved, c), retrieve_k=10)
+    jpipe, pipe = rank_setup
+    jrr = JaxRankingPipeline(jpipe, saved[c][0], retrieve_k=10)
+    rr = RankingPipeline(pipe, _port(saved, c), retrieve_k=10)
     queries = CORPUS[:3] + ["kaba lode mifo unseen"]
     got, want = rr(queries, top_k=5), jrr(queries, top_k=5)
     assert [[(d, i) for d, _, i in r] for r in got] == [[(d, i) for d, _, i in r] for r in want]
@@ -276,16 +275,14 @@ def test_predict_pipelined_equals_predict(rank_setup, saved):
     """The wave-pipelined packed scorer over 3000 pairs in waves of 1024
     equals ``predict`` (packed; the JAX package's own test holds 1e-5) and
     the JAX package's wave scorer within 1e-4."""
-    jenc, enc = rank_setup
+    jpipe, pipe = rank_setup
     ce = _port(saved, 1)
-    rr = RankingPipeline(SemanticSearchPipeline(enc, corpus=CORPUS, use_ivf=False, device="cpu"),
-                         ce, retrieve_k=5)
+    rr = RankingPipeline(pipe, ce, retrieve_k=5)
     rng = np.random.default_rng(0)
     flat = [(CORPUS[i], CORPUS[j]) for i, j in rng.integers(0, len(CORPUS), (3000, 2))]
     got = rr._predict_pipelined(flat, wave=1024)
     np.testing.assert_allclose(got, ce.predict(flat, packed=True), rtol=1e-5, atol=1e-5)
-    jrr = JaxRankingPipeline(JaxPipeline(jenc, corpus=CORPUS, use_ivf=False), saved[1][0],
-                             retrieve_k=5)
+    jrr = JaxRankingPipeline(jpipe, saved[1][0], retrieve_k=5)
     np.testing.assert_allclose(got, np.asarray(jrr._predict_pipelined(flat, wave=1024)),
                                atol=ATOL)
 
@@ -293,10 +290,9 @@ def test_predict_pipelined_equals_predict(rank_setup, saved):
 def test_ranking_pipeline_takes_the_wave_path_above_2048_pairs(rank_setup, saved, monkeypatch):
     """33 queries × 64 candidates = 2112 pairs: scored in waves, with the
     same ranking as the direct ``predict`` route."""
-    _, enc = rank_setup
+    _, pipe = rank_setup
     ce = _port(saved, 1)
-    rr = RankingPipeline(SemanticSearchPipeline(enc, corpus=CORPUS, use_ivf=False, device="cpu"),
-                         ce, retrieve_k=64)
+    rr = RankingPipeline(pipe, ce, retrieve_k=64)
     waves = []
     real = RankingPipeline._predict_pipelined
     monkeypatch.setattr(RankingPipeline, "_predict_pipelined",

@@ -2,11 +2,13 @@
 package, and its entry points default to the card without falling back to
 the CPU."""
 
+import functools
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -16,9 +18,16 @@ from text_similarity_tpu_torch.core.config import ARCH_PRESETS, IndexConfig
 from text_similarity_tpu_torch.core.precision import FP32_PRECISION
 from text_similarity_tpu_torch.index import EmbeddingStore, IVFIndex
 from text_similarity_tpu_torch.cli.main import build_parser, build_server
-from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+from text_similarity_tpu_torch.cli.main import main as cli_main
+from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
+from text_similarity_tpu_torch.drives import churn, serve_load
+from text_similarity_tpu_torch.models import SentenceEncoder, arch_from_hf_config, init_params
+from text_similarity_tpu_torch.models.encoder import _param_shapes
+from text_similarity_tpu_torch.models.hf_convert import _BERT_LAYER, _EMB
 from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
-from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+from text_similarity_tpu_torch.pipelines import (
+    SemanticSearchPipeline, SentenceMiningPipeline, compare_models,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(text_similarity_tpu_torch.__file__).resolve().parent
@@ -33,10 +42,12 @@ def _module_name(path: pathlib.Path) -> str:
 MODULES = sorted(_module_name(p) for p in PKG.rglob("*.py"))
 
 # a meta-path finder that refuses jax and the exact top-level JAX package
-# (text_similarity_tpu_torch shares its prefix, so match whole names)
+# (text_similarity_tpu_torch shares its prefix, so match whole names), and
+# transformers, which the card's machine lacks (models.hf_convert reads a
+# live model's config and state dict without it)
 _BLOCKER = """
 import sys
-BLOCKED = ("jax", "jaxlib", "text_similarity_tpu")
+BLOCKED = ("jax", "jaxlib", "text_similarity_tpu", "transformers")
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -64,6 +75,7 @@ def test_port_imports_with_jax_blocked():
         "native", "models.cross_encoder", "pipelines.rerank", "pipelines.serve", "cli.main",
         "cli.__main__", "__main__", "utils.logging", "data.datasets", "data.pairs",
         "evaluation", "evaluation.meters", "evaluation.evaluators", "train.steps",
+        "drives.churn", "drives.serve_load", "train.hpo", "models.hf_convert",
     )} <= set(MODULES)
 
 
@@ -81,6 +93,31 @@ def test_source_has_no_jax_import(path):
     assert not _FORBIDDEN.search(src), path
 
 
+def _tiny_tokenizer():
+    return WordPieceTokenizer(train_wordpiece_vocab(["alpha beta", "beta gamma"], 64,
+                                                    min_freq=1))
+
+
+class _TinyHF:
+    """What the conversion reads of a live HF BERT: ``.config`` and
+    ``.state_dict()`` (zeros of a one-layer, 8-wide model's shapes)."""
+
+    config = types.SimpleNamespace(
+        model_type="bert", vocab_size=32, hidden_size=8, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=16, max_position_embeddings=16,
+        type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", pad_token_id=0)
+
+    def state_dict(self):
+        shapes = _param_shapes(arch_from_hf_config(self.config))
+        sd = {key.format(i=0): torch.zeros(functools.reduce(dict.get, path, shapes["layers"])
+                                           [1:][::-1])       # one layer; (out, in) weights
+              for path, key in _BERT_LAYER.items()}
+        emb = dict(shapes["embeddings"], ln_scale=(8,), ln_bias=(8,))
+        sd.update({key: torch.zeros(emb[name]) for name, key in _EMB["bert"].items()})
+        sd["pooler.dense.weight"], sd["pooler.dense.bias"] = torch.zeros(8, 8), torch.zeros(8)
+        return sd
+
+
 def _tiny_encoder_args():
     arch = ARCH_PRESETS["tiny-test"]
     params = init_params(arch, torch.Generator().manual_seed(0))
@@ -88,7 +125,9 @@ def _tiny_encoder_args():
 
 
 @pytest.mark.parametrize(
-    "entry", ["encoder", "store", "ivf_build", "pipeline", "cross_encoder", "serve_cli"]
+    "entry", ["encoder", "store", "ivf_build", "pipeline", "cross_encoder", "serve_cli",
+              "from_hf", "mining_pipeline", "compare_models", "quantize_cli", "encode_cli",
+              "search_cli", "mine_cli", "compare_models_cli", "churn_drive", "serve_load_drive"]
 )
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without device=..., every entry point asks for CUDA: it raises when no
@@ -114,10 +153,35 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
                 ["serve", "--model", str(tmp_path / "enc"), "--port", "0"]))
             server.shutdown()
             return server
+        if entry.endswith("_cli"):
+            # the commands' --device defaults to cuda too
+            SentenceEncoder(params, arch, tokenizer=_tiny_tokenizer(), precision=FP32_PRECISION,
+                            device="cpu").save(str(tmp_path / "enc"))
+            (tmp_path / "docs.txt").write_text("alpha beta\nbeta gamma\n")
+            model, docs = str(tmp_path / "enc"), str(tmp_path / "docs.txt")
+            argv = {
+                "quantize_cli": ["quantize", "--save-path", str(tmp_path / "q")],
+                "encode_cli": ["encode", "--corpus", docs, "--out", str(tmp_path / "e.npy")],
+                "search_cli": ["search", "--corpus", docs, "--query", "alpha"],
+                "mine_cli": ["mine", "--corpus", docs],
+                "compare_models_cli": ["compare-models", "--corpus", docs, "--student", model],
+            }[entry]
+            return cli_main(argv + ["--model", model])
+        if entry == "from_hf":
+            return SentenceEncoder.from_hf(_TinyHF(), precision=FP32_PRECISION)
+        if entry == "churn_drive":
+            return churn.main(["--n", "500", "--d", "32", "--queries", "8"])
+        if entry == "serve_load_drive":
+            return serve_load.main(["--n-docs", "50", "--arch", "tiny-test", "--phases", "A",
+                                    "--duration", "0.1"])
         enc = SentenceEncoder(
             params, arch, precision=FP32_PRECISION,
             device="cuda" if torch.cuda.is_available() else "cpu",
         )
+        if entry == "mining_pipeline":
+            return SentenceMiningPipeline(enc)
+        if entry == "compare_models":
+            return compare_models(enc, enc, ["alpha beta", "beta gamma"], ["alpha"], k=1)
         return SemanticSearchPipeline(enc)
 
     if torch.cuda.is_available():

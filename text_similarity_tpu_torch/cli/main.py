@@ -16,6 +16,12 @@ Port of ``text_similarity_tpu.cli.main``, with the reference's flags plus
                        attention window, then masked-LM steps
   eval-sts / eval-paws / eval-tatoeba
                        evaluate a saved encoder
+  quantize             write a saved encoder's int8 deployment checkpoint
+  encode               embed a text file → (N, D) f32 ``.npy`` (``--packed``)
+  search               top-k search over a text file (``--query``, else an
+                       interactive loop until an empty line or EOF)
+  mine                 paraphrase pairs inside a text file (``--ivf``)
+  compare-models       teacher / student top-k overlap over a text file
   serve                the search daemon (``pipelines.serve``)
 
 ``--packed`` (bi-encoder and cross-encoder training) packs several short
@@ -61,7 +67,6 @@ _UNREAD = ("tokenizer", "arch", "pooling", "vocab_size", "seed", "save_path")
 # the reference's commands the port does not run yet → ROADMAP queue 1 item
 _NOT_PORTED = {
     "train-wic": 8, "distill": 7, "theseus": 7, "prune": 7, "export": 7,
-    "quantize": 11, "encode": 11, "search": 11, "mine": 8, "compare-models": 8,
     "cluster": 8, "topics": 8,
 }
 
@@ -536,6 +541,97 @@ def cmd_eval_tatoeba(args):
 
 
 # ---------------------------------------------------------------------------
+# encode, search, mining, compression
+# ---------------------------------------------------------------------------
+
+def _lines(path: str):
+    with open(path, encoding="utf-8") as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def cmd_quantize(args):
+    """The int8 deployment checkpoint of ``--model`` (codes and scales,
+    ``format: int8``, the pooling in its meta), with its arch and vocab."""
+    from ..compress.quantize import save_quantized
+
+    enc = _load_encoder(args)
+    # without the pooling in meta the reloaded model would take mean pooling
+    save_quantized(args.save_path, enc.params, meta={"pooling": enc.pooling})
+    with open(os.path.join(args.save_path, "arch.json"), "w") as f:
+        f.write(enc.arch.to_json())
+    if enc.tokenizer is not None and hasattr(enc.tokenizer, "save_vocab"):
+        enc.tokenizer.save_vocab(os.path.join(args.save_path, "vocab.txt"))
+    print(json.dumps({"saved": args.save_path, "format": "int8"}))
+
+
+def cmd_encode(args):
+    """Embed a text file (one sentence a line) → an (N, D) f32 ``.npy``;
+    ``--packed`` packs several short sentences a ``--width``-token row."""
+    enc = _load_encoder(args)
+    texts = _lines(args.corpus)
+    if args.packed:
+        emb = enc.encode_packed(texts, width=args.width, max_len=args.width)
+    else:
+        emb = enc.encode(texts, max_len=args.width)
+    np.save(args.out, np.asarray(emb))
+    print(f"encoded {len(texts)} texts -> {args.out} {emb.shape}")
+
+
+def cmd_search(args):
+    from ..core.config import IndexConfig
+    from ..pipelines import SemanticSearchPipeline
+
+    enc = _load_encoder(args)
+    pipe = SemanticSearchPipeline(
+        enc, corpus=_lines(args.corpus),
+        index_config=IndexConfig(num_clusters=args.clusters, num_probes=args.probes),
+        device=args.device,
+    )
+    if args.query:
+        for row in pipe([args.query], args.top_k)[0]:
+            print(f"{row[1]:.4f}\t{row[0]}")
+        return
+    print("interactive search — empty line to exit")
+    while True:
+        try:
+            q = input("query> ").strip()
+        except EOFError:   # Ctrl-D or the end of piped input
+            break
+        if not q:
+            break
+        for row in pipe([q], args.top_k)[0]:
+            print(f"{row[1]:.4f}\t{row[0]}")
+
+
+def cmd_mine(args):
+    from ..pipelines import SentenceMiningPipeline
+
+    enc = _load_encoder(args)
+    corpus = _lines(args.corpus)
+    use_ivf = {"auto": None, "on": True, "off": False}[args.ivf]
+    pairs = SentenceMiningPipeline(enc, use_ivf=use_ivf, device=args.device)(
+        corpus, k=args.top_k, min_score=args.min_score)
+    for i, j, s in pairs[: args.max_pairs]:
+        print(f"{s:.4f}\t{corpus[i]}\t{corpus[j]}")
+
+
+def cmd_compare_models(args):
+    """Teacher (``--model``) against student (``--student``): the top-k
+    overlap of their brute-force searches, the first ``--num-queries``
+    lines of the corpus as queries."""
+    from ..models import SentenceEncoder
+    from ..pipelines import compare_models
+
+    teacher = _load_encoder(args)
+    student = SentenceEncoder.load(args.student, bf16=not args.fp32, device=args.device)
+    if student.tokenizer is None:
+        student.tokenizer = teacher.tokenizer
+    corpus = _lines(args.corpus)
+    print(json.dumps(compare_models(teacher, student, corpus, corpus[: args.num_queries],
+                                    k=args.top_k, device=args.device)))
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -566,8 +662,7 @@ def build_server(args):
     if args.load:
         pipe.load_corpus(args.load)
     elif args.corpus:
-        with open(args.corpus, encoding="utf-8") as f:
-            pipe.add_documents([line.strip() for line in f if line.strip()])
+        pipe.add_documents(_lines(args.corpus))
     if args.warmup:
         n = pipe.warmup(max_queries=args.warmup)
         print(f"warmed {n} (bucket, k) serving shapes", flush=True)
@@ -664,6 +759,49 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--max-pairs", type=int, default=5000)
         p.set_defaults(fn=fn)
 
+    p = sub.add_parser("quantize")
+    _common(p)
+    p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("encode")
+    _common(p)
+    p.add_argument("--corpus", required=True, help="text file, one sentence per line")
+    p.add_argument("--out", required=True, help="output .npy path")
+    p.add_argument("--packed", action="store_true",
+                   help="greedy sequence packing: several short sentences a row behind a "
+                        "block-diagonal attention mask (short-text throughput)")
+    p.add_argument("--width", type=int, default=128,
+                   help="row width / max tokens per sentence")
+    p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("search")
+    _common(p)
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--query")
+    p.add_argument("--top-k", type=int, default=10)
+    p.add_argument("--clusters", type=int, default=1024)
+    p.add_argument("--probes", type=int, default=16)
+    p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("mine")
+    _common(p)
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--top-k", type=int, default=5)
+    p.add_argument("--min-score", type=float, default=0.8)
+    p.add_argument("--max-pairs", type=int, default=100)
+    p.add_argument("--ivf", choices=("auto", "on", "off"), default="auto",
+                   help="IVF approximate mining (auto: on from 100k docs; exact mining is "
+                        "O(N^2))")
+    p.set_defaults(fn=cmd_mine)
+
+    p = sub.add_parser("compare-models")
+    _common(p)
+    p.add_argument("--student", required=True)
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--top-k", type=int, default=10)
+    p.add_argument("--num-queries", type=int, default=100)
+    p.set_defaults(fn=cmd_compare_models)
+
     p = sub.add_parser("serve")
     _common(p)
     p.add_argument("--corpus", help="text file, one document per line")
@@ -687,8 +825,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="candidates retrieved per query before reranking")
     p.set_defaults(fn=cmd_serve)
     return ap
-
-
 
 
 def main(argv=None) -> None:

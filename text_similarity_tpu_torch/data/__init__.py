@@ -1,4 +1,4 @@
-from .batching import BUCKETS, LengthBucketBatcher, pick_bucket
+from .batching import BUCKETS, LengthBucketBatcher, pad_to_bucket, pick_bucket
 from .packing import pack_pair_arrays, pack_sequences, packing_efficiency
 from .pairs import (
     build_packed_pair_batches,
@@ -11,6 +11,7 @@ from .tokenization import WordPieceTokenizer, load_tokenizer, train_wordpiece_vo
 __all__ = [
     "BUCKETS",
     "LengthBucketBatcher",
+    "pad_to_bucket",
     "pick_bucket",
     "pack_pair_arrays",
     "pack_sequences",

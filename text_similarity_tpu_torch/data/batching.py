@@ -7,7 +7,7 @@ set of shapes.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,6 +19,18 @@ def pick_bucket(length: int, buckets: Sequence[int] = BUCKETS) -> int:
         if length <= b:
             return b
     return buckets[-1]
+
+
+def pad_to_bucket(
+    ids: np.ndarray, mask: np.ndarray, buckets: Sequence[int] = BUCKETS
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad (B, L) arrays with zeros up to the enclosing bucket length."""
+    length = ids.shape[1]
+    tgt = pick_bucket(length, buckets)
+    if tgt == length:
+        return ids, mask
+    pad = tgt - length
+    return np.pad(ids, ((0, 0), (0, pad))), np.pad(mask, ((0, 0), (0, pad)))
 
 
 class LengthBucketBatcher:

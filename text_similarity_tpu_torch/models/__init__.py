@@ -5,9 +5,11 @@ from .encoder import (
     embed_inputs,
     encoder_forward,
     init_params,
+    num_params,
     params_from_jax,
     transformer_layer,
 )
+from .hf_convert import arch_from_hf_config, convert_hf_model, convert_state_dict
 from .pooling import cls_pool, max_pool, mean_pool, segment_first_pool, segment_mean_pool
 from .sentence_encoder import SentenceEncoder
 
@@ -18,6 +20,7 @@ __all__ = [
     "embed_inputs",
     "encoder_forward",
     "init_params",
+    "num_params",
     "params_from_jax",
     "transformer_layer",
     "cls_pool",
@@ -26,4 +29,7 @@ __all__ = [
     "segment_first_pool",
     "segment_mean_pool",
     "SentenceEncoder",
+    "arch_from_hf_config",
+    "convert_hf_model",
+    "convert_state_dict",
 ]

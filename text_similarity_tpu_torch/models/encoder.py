@@ -75,6 +75,7 @@ from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops.attention import multi_head_attention
+from .pooling import bert_pooler
 
 
 class EncoderOutput(NamedTuple):
@@ -474,9 +475,14 @@ def encoder_forward(
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
-        w = dequant_weight(pw["w"]).float()
-        pooler_out = torch.tanh(x[:, 0, :].float() @ w + pw["b"]).to(x.dtype)
+        pooler_out = bert_pooler(x, dequant_weight(pw["w"]), pw["b"])
     return EncoderOutput(x, pooler_out)
+
+
+def num_params(params: dict) -> int:
+    """Elements over every leaf of a parameter tree (an int8 leaf counts
+    its codes and its scales)."""
+    return sum(num_params(v) if isinstance(v, dict) else v.numel() for v in params.values())
 
 
 # ops whose outputs remat="dots" keeps (the reference's

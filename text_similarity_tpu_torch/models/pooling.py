@@ -1,6 +1,7 @@
 """Pooling strategies turning token states into sentence embeddings (port of
 ``text_similarity_tpu.models.pooling``: masked mean, CLS, masked max, and
-the per-segment mean and first-token pools of packed rows)."""
+the per-segment mean and first-token pools of packed rows, and BERT's tanh
+pooler)."""
 
 from __future__ import annotations
 
@@ -63,6 +64,13 @@ def segment_first_pool(
     )
     # the zero lives on hidden's device: a host scalar would cost a blocking copy
     return torch.where((first < s)[:, :, None], gathered, hidden.new_zeros(()))
+
+
+def bert_pooler(hidden: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """BERT's pooler: tanh(W · h_CLS + b), taken in f32 and cast back to
+    the hidden dtype."""
+    cls = hidden[:, 0, :].float()
+    return torch.tanh(cls @ w.float() + b.float()).to(hidden.dtype)
 
 
 POOLERS = {

@@ -36,6 +36,9 @@ global CLS to its first segment only, and segment masking runs the plain
 attention at the row's full width; so ``"auto"`` runs such a model
 bucketed and ``packed=True`` raises.
 
+``from_hf`` converts a live ``transformers`` model (``models.hf_convert``);
+``embed_token_stack`` embeds an (n, B, L) stack of pre-tokenized batches.
+
 Not ported yet: ``encode_long`` (the context-parallel encode over a device
 mesh).
 """
@@ -126,6 +129,17 @@ class SentenceEncoder(nn.Module):
             params, ids, mask, arch=self.arch, precision=self.precision
         )
         return self._project_normalize(params, pool(self.pooling, out.last_hidden_state, mask))
+
+    @torch.no_grad()
+    def embed_token_stack(self, ids, mask) -> torch.Tensor:
+        """Embed an (n, B, L) stack of batches → (n, B, D) normalized f32 on
+        the encoder's device, batch i equal to ``embed_tokens(ids[i],
+        mask[i])``."""
+        ids, mask = np.asarray(ids), np.asarray(mask)
+        if ids.shape[0] == 0:
+            return torch.zeros((0, ids.shape[1], self.embedding_dim), dtype=torch.float32,
+                               device=self.device)
+        return torch.stack([self.embed_tokens(i, m) for i, m in zip(ids, mask)])
 
     @torch.no_grad()
     def embed_tokens_packed(self, ids, segments, positions, max_segments: int = 0) -> torch.Tensor:
@@ -305,6 +319,17 @@ class SentenceEncoder(nn.Module):
             f.write(self.arch.to_json())
         if self.tokenizer is not None and hasattr(self.tokenizer, "save_vocab"):
             self.tokenizer.save_vocab(os.path.join(path, "vocab.txt"))
+
+    @classmethod
+    def from_hf(cls, hf_model, tokenizer=None, pooling: str = "mean", device="cuda",
+                **kw) -> "SentenceEncoder":
+        """Build from a live transformers model (``models.hf_convert``; the
+        model's ``.config`` and ``.state_dict()`` are read)."""
+        from .hf_convert import convert_hf_model
+
+        dev = resolve_device(device)
+        params, arch = convert_hf_model(hf_model, device=dev)
+        return cls(params, arch, tokenizer=tokenizer, pooling=pooling, device=dev, **kw)
 
     @classmethod
     def load(cls, path: str, bf16: bool = True, device="cuda") -> "SentenceEncoder":

@@ -11,7 +11,13 @@ bf16 rescore copy (kernel K4 + rescore); with an int8 encoder
 Documents added after the IVF build go into the built index (no rebuild);
 ``remove_documents`` tombstones the store and clears the index's slots.
 
-Not ported yet: the mining pipeline and the sharded pipeline.
+``SentenceMiningPipeline`` finds likely paraphrase pairs inside a corpus:
+exact all-pairs mining through ``BruteForceIndex.mine`` (K2) below 100k
+documents, the corpus queried against its own IVF index (K1) from 100k
+up. ``compare_models`` is the teacher / student top-k overlap of two
+brute-force pipelines over one corpus.
+
+Not ported yet: the sharded pipeline.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..index import BruteForceIndex, EmbeddingStore, IVFIndex
+from ..ops.topk import l2_normalize
 
 logger = logging.getLogger(__name__)
 
@@ -59,10 +66,7 @@ class SemanticSearchPipeline:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if encoder.device.type != self.device.type:
-            raise ValueError(
-                f"encoder is on {encoder.device}, pipeline on {self.device}"
-            )
+        _check_encoder_device(encoder, self.device)
         self.encoder = encoder
         self.index_config = index_config
         self.batch_size = batch_size
@@ -205,3 +209,127 @@ class SemanticSearchPipeline:
         self.ivf = IVFIndex.load(ivf_path, device=self.device) if os.path.exists(ivf_path) else None
         remap_path = os.path.join(path, "id_remap.npy")
         self._id_remap = np.load(remap_path) if os.path.exists(remap_path) else None
+
+
+def _check_encoder_device(encoder, device: torch.device) -> None:
+    if encoder.device.type != device.type:
+        raise ValueError(f"encoder is on {encoder.device}, pipeline on {device}")
+
+
+def _pairs_above(s: np.ndarray, i: np.ndarray, min_score: float) -> List[Tuple[int, int, float]]:
+    """(r, j, score) for every neighbour j of row r with j ≥ 0, score ≥
+    min_score and r < j (each pair once, from its lower row), best first;
+    equal scores keep row-major order (a stable sort)."""
+    rows = np.arange(s.shape[0])[:, None]
+    keep = (i >= 0) & (s >= min_score) & (rows < i)
+    r, c = np.nonzero(keep)
+    j, sc = i[r, c], s[r, c]
+    order = np.argsort(-sc, kind="stable")
+    return [(int(a), int(b), float(x)) for a, b, x in zip(r[order], j[order], sc[order])]
+
+
+class SentenceMiningPipeline:
+    """Likely paraphrase pairs inside a corpus (the reference's intent:
+    all-pairs top-k, each pair once, best first)."""
+
+    IVF_MIN_DOCS = 100_000
+    MINE_CHUNK = 16384   # corpus rows a query call of the IVF route
+
+    def __init__(
+        self,
+        encoder,
+        batch_size: int = 128,
+        use_ivf: Optional[bool] = None,   # None: IVF from 100k docs (exact is O(N²))
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        _check_encoder_device(encoder, self.device)
+        self.encoder = encoder
+        self.batch_size = batch_size
+        self.use_ivf = use_ivf
+
+    def _mine_ivf(self, emb: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Approximate all-pairs mining: build a bf16 IVF index over the
+        (normalized) rows, then ``_mine_with_index``."""
+        ivf = IVFIndex.build(emb, IndexConfig.auto(int(emb.shape[0])), data_dtype=torch.bfloat16,
+                             device=self.device)
+        return self._mine_with_index(ivf, emb, k)
+
+    def _mine_with_index(self, ivf: IVFIndex, emb: torch.Tensor, k: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Query the rows against ``ivf`` (which holds them under their row
+        ids) in chunks of ``MINE_CHUNK`` at k + 1 with the serving args,
+        then keep each row's first k hits that are not itself (a stable
+        sort puts the self-match last) → (scores (N, k) f32, ids (N, k)
+        int64; 0.0 / −1 where fewer remain)."""
+        n = emb.shape[0]
+        mc = ivf.data_padded.shape[1]
+        all_s = np.zeros((n, k), np.float32)
+        all_i = np.zeros((n, k), np.int64)
+        for start in range(0, n, self.MINE_CHUNK):
+            stop = min(start + self.MINE_CHUNK, n)
+            s, i = ivf.query(emb[start:stop], k=k + 1, block_q=64, union_factor=1,
+                             approx_width=2048 if mc >= 1024 else 0)
+            s_h, i_h = s.cpu().numpy(), i.cpu().numpy()
+            keep = i_h != np.arange(start, stop)[:, None]
+            order = np.argsort(~keep, axis=1, kind="stable")[:, :k]
+            valid = np.take_along_axis(keep, order, axis=1)
+            all_s[start:stop] = np.where(valid, np.take_along_axis(s_h, order, axis=1), 0.0)
+            all_i[start:stop] = np.where(valid, np.take_along_axis(i_h, order, axis=1), -1)
+        return all_s, all_i
+
+    def __call__(
+        self,
+        corpus: Sequence[str],
+        k: int = 5,
+        min_score: float = 0.0,
+        queries: Optional[Sequence[str]] = None,
+    ):
+        """With ``queries=None``: all-pairs mining → [(i, j, score)], i < j,
+        best first. With queries: each query's top k over the corpus →
+        [[(document, score, corpus_id), ...]] (scores ≥ min_score)."""
+        emb = l2_normalize(self.encoder.encode(corpus, batch_size=self.batch_size,
+                                               device_output=True))
+        want_ivf = (self.use_ivf if self.use_ivf is not None
+                    else len(corpus) >= self.IVF_MIN_DOCS)
+        if queries is None and want_ivf:
+            return _pairs_above(*self._mine_ivf(emb, k), min_score)
+        index = BruteForceIndex.from_embeddings(emb)
+        if queries is None:
+            return _pairs_above(*index.mine(k=k), min_score)
+        q_emb = self.encoder.encode(list(queries), batch_size=self.batch_size, device_output=True)
+        s, i = index.query(q_emb, k=k)
+        return [
+            [(corpus[int(j)], float(score), int(j)) for score, j in zip(s[r], i[r])
+             if score >= min_score]
+            for r in range(len(queries))
+        ]
+
+
+def compare_models(
+    teacher_encoder,
+    student_encoder,
+    corpus: Sequence[str],
+    queries: Sequence[str],
+    k: int = 10,
+    device="cuda",
+) -> dict:
+    """Teacher / student retrieval consistency: the mean and least top-k
+    overlap of two brute-force pipelines' answers over the same corpus (the
+    reference's compression acceptance metric)."""
+    t_pipe = SemanticSearchPipeline(teacher_encoder, corpus=list(corpus), use_ivf=False,
+                                    device=device)
+    s_pipe = SemanticSearchPipeline(student_encoder, corpus=list(corpus), use_ivf=False,
+                                    device=device)
+    t_res = t_pipe(list(queries), max_num_results=k)
+    s_res = s_pipe(list(queries), max_num_results=k)
+    overlaps = []
+    for tr, sr in zip(t_res, s_res):
+        t_ids = {cid for _, _, cid in tr}
+        s_ids = {cid for _, _, cid in sr}
+        overlaps.append(len(t_ids & s_ids) / max(len(t_ids), 1))
+    return {
+        "mean_topk_overlap": float(np.mean(overlaps)),
+        "min_topk_overlap": float(np.min(overlaps)),
+        "k": k,
+    }

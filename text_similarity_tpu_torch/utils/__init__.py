@@ -1,3 +1,3 @@
-from .logging import get_logger
+from .logging import JsonlRunLog, get_logger
 
-__all__ = ["get_logger"]
+__all__ = ["JsonlRunLog", "get_logger"]
