@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
-packed-encode, serving, training-entry-point and command-line paths on one
-NVIDIA card.
+packed-encode, serving, training-entry-point, command-line and
+compression / clustering / word-model paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -290,7 +290,30 @@ Phases (any failure exits non-zero):
       ``embed_token_stack`` equal to ``embed_tokens`` batch by batch;
     - ``AdaptiveParamOptimizer``: 4 trials over lr of 5 minilm-l6 steps,
       every loss finite.
- 12. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 12. compression, clustering, topics and word models (phase 4's tokenizer,
+    corpus and minilm-l6 encoder, full width; K2's counter zeroed just
+    before and required to rise):
+    - distill: a 3-layer student on 8,192 sentences (one epoch, batch 64),
+      saved, loaded, 2,000 documents encoded and each found first by K2 at
+      score ≥ 0.99; ``DimReducingDistiller`` to 128 dimensions; FastFormers
+      on a minilm-l6 classifier; each loss's mean over its last 10 steps
+      below its first step's; sentences/s printed;
+    - theseus: ``theseus --slots 3`` on 4,096 PAWS-format pairs through the
+      CLI, the student searched as above; the mixed forward at rate 1 equal
+      to the 3-layer student's ``encoder_forward`` and at rate 0 to the
+      teacher's (``THESEUS_BF16``);
+    - prune: head and FFN importance over 8 batches on the card against
+      the CPU (f32, max |Δ| / max |ref| ≤ ``IMPORTANCE_REL``); 12 → 8 heads
+      at full FFN, whose logits on 256 rows equal the unpruned model's with
+      the matching 0/1 head mask (f32, ``PRUNE_F32``); ``prune`` →
+      ``eval-classification`` through the CLI;
+    - export: b 32 × s 128 int8 on the card, reloaded, equal to the eager
+      int8 encoder (max |Δ| ≤ 1e-5); ms a call beside the eager one;
+    - ``cluster`` (20,000 sentences, 50 clusters) and ``topics`` (5,000
+      documents; kmeans + pca, hdbscan + spectral, whose k-NN graph is K2)
+      through the CLI; ``train-wic`` on 512 synthetic rows (finite loss,
+      the WiC accuracy printed).
+ 13. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -301,7 +324,7 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile).
- 13. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 14. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -311,6 +334,7 @@ without TF32 (``allow_tf32 = False``): the plain versions are exact f32.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -4077,6 +4101,437 @@ def phase_commands(torch, card, ctx, corpus, queries):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: compression, clustering, topics and word models
+# ---------------------------------------------------------------------------
+
+# the theseus mixed forward against the plain stacks it reduces to at rate 1
+# (the student) and 0 (the teacher), bf16 on the card: the same layers run
+# in the same order, so any difference is a fault; the limit is one bf16 ulp
+# at the states' largest magnitudes (about 8)
+THESEUS_BF16 = 2 ** -5
+# head / FFN importance on the card against the CPU, f32: max |Δ| over the
+# largest importance of the matrix (the normalised importances are ≤ 1)
+IMPORTANCE_REL = 1e-3
+# pruned logits against the unpruned model's with the matching 0/1 head
+# mask, f32 on the card: the dropped heads' products are exact zeros in one
+# and absent in the other, so only the order of the output projection's
+# sums differs
+PRUNE_F32 = 1e-4
+
+
+def k2_held(torch, q, c, ks, label, card):
+    """K2 against its plain version on the card's (q, c) at each k of
+    ``ks``, as phase 2 holds it (f32: ids equal where the scores are
+    separated, max |Δscore| ≤ 1e-5); these launches leave K2's counter as
+    it was."""
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
+
+    count = cosine_topk_cuda.launches
+    for k in ks:
+        ks_, ki = cosine_topk_cuda(q, c, k)
+        rs, ri = cosine_topk_reference(q, c, k)
+        err, ok, detail = agree_topk(ks_, ki, rs, ri, exact=True)
+        log(f"  K2 at {label}: Q {q.shape[0]} x N {c.shape[0]} x D {c.shape[1]} f32, k {k}: "
+            f"max|Δscore| {err:.2e}, {detail} -> {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at {label}, k {k}")
+    cosine_topk_cuda.launches = count
+
+
+def self_retrieval(torch, enc, loaded, docs, card):
+    """The in-memory encoder's embeddings of ``docs`` as a store, the loaded
+    copy's as queries: K2's top-1 → (documents found first at score ≥ 0.99,
+    the smallest top-1 score). K2 is held to its plain version on the same
+    store and queries at the k the query gives it (2k, for tombstones) and
+    at k 1."""
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
+
+    store = EmbeddingStore(len(docs), enc.embedding_dim, device="cuda")
+    store.add(enc.encode(docs, device_output=True))
+    q = loaded.encode(docs, device_output=True)
+    s, i = BruteForceIndex(store).query(q, k=1)
+    k2_held(torch, l2_normalize(q), store.view, (2, 1), "the student's self-retrieval", card)
+    s, i = np.asarray(s)[:, 0], np.asarray(i)[:, 0]
+    return int(((i == np.arange(len(docs))) & (s >= 0.99)).sum()), float(s.min())
+
+
+class EpochLosses(logging.Handler):
+    """The (first step's loss, mean of the last 10) of each epoch line a
+    sentence distiller logs ("<label> epoch <n>: mse <first> -> <last>")."""
+
+    def __init__(self):
+        super().__init__()
+        self.epochs = []
+
+    def emit(self, record):
+        if " epoch %d: mse " in str(record.msg):
+            self.epochs.append((float(record.args[-2]), float(record.args[-1])))
+
+
+def loss_fell(label, first, last, steps, card):
+    log(f"  {label} [{card}]: {steps} steps, loss first {first:.6f}, mean of the last 10 "
+        f"{last:.6f}")
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"{label}: the loss did not fall ({first} -> {last})")
+
+
+def distill_records(torch, card, ctx, tmp):
+    """SentenceEncoderDistiller (3 of 6 layers), DimReducingDistiller (128
+    dimensions) and FastFormersDistiller (a minilm-l6 classifier)."""
+    from text_similarity_tpu_torch.compress.distill import (
+        DimReducingDistiller, FastFormersDistiller, SentenceEncoderDistiller,
+    )
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.data.pairs import build_sequence_batches
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.train import init_classifier_head
+
+    enc, corpus = ctx["enc"], ctx["corpus"]
+    sents = corpus[20_000:28_192]
+    cfg = TrainConfig(lr=1e-4, epochs=1, batch_size=64)
+    rec = {}
+    for label, make in (
+        ("distill", lambda: SentenceEncoderDistiller(enc, num_student_layers=3,
+                                                     train_config=cfg)),
+        ("dim-reducing distill", lambda: DimReducingDistiller(enc, 128, num_student_layers=3,
+                                                              train_config=cfg)),
+    ):
+        losses = EpochLosses()
+        distill_log = logging.getLogger("text_similarity_tpu_torch.distill")
+        distill_log.addHandler(losses)
+        try:
+            torch.cuda.synchronize()
+            t = time.time()
+            student = make().distill(sents)
+            torch.cuda.synchronize()
+            dt = time.time() - t
+        finally:
+            distill_log.removeHandler(losses)
+        log(f"{label}: 8192 sentences, teacher minilm-l6 -> {student.arch.num_layers} layers, "
+            f"{student.embedding_dim} dimensions, in {dt:.2f} s = {8192 / dt:.0f} sentences/s "
+            f"(teacher targets included) [{card}]")
+        ((first, last),) = losses.epochs
+        loss_fell(label, first, last, 8192 // 64, card)
+        rec[label] = 8192 / dt
+        if label == "distill":
+            student.save(os.path.join(tmp, "student"))
+            loaded = SentenceEncoder.load(os.path.join(tmp, "student"), device="cuda")
+            found, low = self_retrieval(torch, student, loaded, corpus[:2000], card)
+            log(f"  the saved student loaded: K2 finds {found}/2000 documents first at score "
+                f">= 0.99 (lowest top-1 score {low:.6f})")
+            if found != 2000:
+                raise AssertionError(f"the distilled student found {found}/2000 documents")
+
+    # FastFormers: a minilm-l6 classifier (phase 4's weights, a random head)
+    # distilled to 3 layers on 2,048 documents of 4 classes
+    docs = corpus[30_000:32_048]
+    batches = build_sequence_batches(ctx["tok"], docs, [len(d.split()) % 4 for d in docs],
+                                     batch_size=32, max_len=128, seed=0)
+    teacher = {"encoder": enc.params,
+               "head": init_classifier_head(torch.Generator().manual_seed(3),
+                                            enc.arch.hidden_size, 4, device="cuda")}
+    torch.cuda.synchronize()
+    t = time.time()
+    _, history = FastFormersDistiller(teacher, enc.arch, num_student_layers=3,
+                                      train_config=TrainConfig(lr=1e-4, epochs=1)).distill(batches)
+    dt = time.time() - t
+    log(f"FastFormers: minilm-l6 classifier -> 3 layers, {len(batches)} batches of 32 in "
+        f"{dt:.2f} s = {2048 / dt:.0f} documents/s; kl {history[0]['kl']:.5f} -> "
+        f"{history[-1]['kl']:.5f}, state mse {history[0]['state_mse']:.5f} -> "
+        f"{history[-1]['state_mse']:.5f} [{card}]")
+    losses = [h["loss"] for h in history]
+    loss_fell("FastFormers", losses[0], float(np.mean(losses[-10:])), len(losses), card)
+    rec["fastformers_docs_per_s"] = 2048 / dt
+    return rec
+
+
+def theseus_records(torch, card, ctx, tmp, dev):
+    """``theseus`` through the CLI, its student searched; the mixed forward
+    at rates 1 and 0 against the plain stacks."""
+    from text_similarity_tpu_torch.compress.theseus import theseus_encoder_forward
+    from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward
+
+    corpus, enc = ctx["corpus"], ctx["enc"]
+    rng = np.random.default_rng(15)
+    picks = rng.choice(len(corpus), 8192, replace=False)
+    with open(os.path.join(tmp, "paws.tsv"), "w") as f:
+        f.write("id\tsentence1\tsentence2\tlabel\n")
+        f.writelines(f"{i}\t{corpus[a]}\t{corpus[b]}\t{i % 2}\n"
+                     for i, (a, b) in enumerate(zip(picks[:4096], picks[4096:])))
+    dt, out = cli(torch, ["theseus", "--data", os.path.join(tmp, "paws.tsv"), "--slots", "3",
+                          "--batch-size", "64", "--lr", "1e-4", "--save-path",
+                          os.path.join(tmp, "theseus")] + dev, card)
+    log(f"theseus: 4096 pairs (64 steps of 64) in {dt:.2f} s = {4096 / dt:.0f} pairs/s over the "
+        f"whole command [{card}]")
+    student = SentenceEncoder.load(os.path.join(tmp, "theseus"), device="cuda")
+    found, low = self_retrieval(torch, student, student, corpus[:2000], card)
+    log(f"  the theseus student ({student.arch.num_layers} layers) loaded: K2 finds "
+        f"{found}/2000 documents first at score >= 0.99 (lowest top-1 score {low:.6f})")
+    if out["layers"] != 3 or student.arch.num_layers != 3 or found != 2000:
+        raise AssertionError(f"theseus: {out}, {found}/2000 found")
+
+    params = enc.params
+    ids, mask = ctx["tok"].encode_batch(corpus[40_000:40_064], 128)
+    ids, mask = torch.as_tensor(ids).cuda(), torch.as_tensor(mask).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        mixed = {rate: theseus_encoder_forward(
+            params["layers"], student.params["layers"], params["embeddings"], ids, mask,
+            arch=enc.arch, replace_rate=rate, generator=g, precision=enc.precision).float()
+            for rate in (1.0, 0.0)}
+        plain_student = student.encoder(ids, mask).last_hidden_state.float()
+        plain_teacher = encoder_forward(params, ids, mask, arch=enc.arch,
+                                        precision=enc.precision).last_hidden_state.float()
+    valid = mask.bool()
+    e1 = float((mixed[1.0] - plain_student).abs()[valid].max())
+    e0 = float((mixed[0.0] - plain_teacher).abs()[valid].max())
+    apart = float((plain_student - plain_teacher).abs()[valid].max())
+    log(f"  theseus mixed forward, 64 x 128 bf16 [{card}]: rate 1 vs the student's "
+        f"encoder_forward max|Δ| {e1:.3e}, rate 0 vs the teacher's {e0:.3e} (limit "
+        f"{THESEUS_BF16:.3e}); the two plain stacks apart by max|Δ| {apart:.3e}")
+    if e1 > THESEUS_BF16 or e0 > THESEUS_BF16 or apart <= THESEUS_BF16:
+        raise AssertionError(f"theseus forward: rate 1 {e1}, rate 0 {e0}, apart {apart}")
+    return {"theseus_pairs_per_s": 4096 / dt}
+
+
+def prune_records(torch, card, ctx, tmp):
+    """Importance on the card against the CPU; 12 → 8 heads against the
+    head-masked model; ``prune`` → ``eval-classification``."""
+    from text_similarity_tpu_torch.compress.prune import (
+        ffn_importance, head_importance, prune_rewire,
+    )
+    from text_similarity_tpu_torch.core import checkpoint as ckpt
+    from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_sequence_batches
+    from text_similarity_tpu_torch.train import classifier_forward, init_classifier_head
+
+    enc, corpus, tok = ctx["enc"], ctx["corpus"], ctx["tok"]
+    arch = enc.arch
+    docs = corpus[50_000:50_256]
+    labels = [f"c{len(d.split()) % 3}" for d in docs]
+    y = [int(lab[1]) for lab in labels]
+    head = init_classifier_head(torch.Generator().manual_seed(4), arch.hidden_size, 3,
+                                device="cpu")
+    cpu = {"encoder": ctx["params"], "head": head}
+    gpu = {"encoder": enc.params, "head": {k: v.cuda() for k, v in head.items()}}
+    batches = build_sequence_batches(tok, docs, y, batch_size=32, max_len=128, seed=0)[:8]
+    torch.cuda.synchronize()
+    t = time.time()
+    imp = {"head": head_importance(gpu, arch, batches), "ffn": ffn_importance(gpu, arch, batches)}
+    dt = time.time() - t
+    ref = {"head": head_importance(cpu, arch, batches), "ffn": ffn_importance(cpu, arch, batches)}
+    rel = {k: float(np.abs(imp[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in imp}
+    log(f"prune: head (6 x 12) and FFN (6 x 1536) importance over 8 batches of 32 on the card in "
+        f"{dt:.2f} s; against the CPU max|Δ| / max|ref|: head {rel['head']:.3e}, ffn "
+        f"{rel['ffn']:.3e} (limit {IMPORTANCE_REL}) [{card}]")
+    if max(rel.values()) > IMPORTANCE_REL:
+        raise AssertionError(f"importance on the card disagrees with the CPU: {rel}")
+
+    pruned, parch = prune_rewire(gpu["encoder"], arch, imp["head"], imp["ffn"], target_heads=8,
+                                 target_ffn=arch.intermediate_size)
+    hm = np.zeros((arch.num_layers, arch.num_heads), np.float32)
+    for i in range(arch.num_layers):
+        hm[i, np.argsort(-imp["head"][i])[:8]] = 1.0
+    ids, mask = tok.encode_batch(corpus[60_000:60_256], 128)
+    ids, mask = torch.as_tensor(ids).cuda(), torch.as_tensor(mask).cuda()
+    with torch.no_grad():
+        small = classifier_forward({"encoder": pruned, "head": gpu["head"]}, ids, mask,
+                                   arch=parch, precision=FP32_PRECISION)
+        masked = classifier_forward(gpu, ids, mask, arch=arch, precision=FP32_PRECISION,
+                                    head_mask=torch.as_tensor(hm).cuda())
+        full = classifier_forward(gpu, ids, mask, arch=arch, precision=FP32_PRECISION)
+    err = float((small - masked).abs().max())
+    moved = float((small - full).abs().max())
+    log(f"  12 -> 8 heads (head_dim_override {parch.head_dim_override}), FFN kept: logits of 256 "
+        f"rows against the unpruned model with the 0/1 head mask max|Δ| {err:.3e} (limit "
+        f"{PRUNE_F32}); against the unmasked model {moved:.3e}")
+    if err > PRUNE_F32 or moved < 10 * PRUNE_F32:
+        raise AssertionError(f"pruned logits: {err} against the masked model, {moved} unmasked")
+
+    # prune -> eval-classification through the CLI, from a classifier
+    # directory as train-classification writes it
+    cls = os.path.join(tmp, "cls")
+    ckpt.save_checkpoint(cls, gpu, step=0)
+    with open(os.path.join(cls, "arch.json"), "w") as f:
+        f.write(arch.to_json())
+    with open(os.path.join(cls, "labels.json"), "w") as f:
+        json.dump(["c0", "c1", "c2"], f)
+    tok.save_vocab(os.path.join(cls, "vocab.txt"))
+    with open(os.path.join(tmp, "docs.jsonl"), "w") as f:
+        f.writelines(json.dumps({"text": d, "label": lab}) + "\n" for d, lab in zip(docs, labels))
+    _, out = cli(torch, ["prune", "--model", cls, "--data", os.path.join(tmp, "docs.jsonl"),
+                         "--target-heads", "8", "--target-ffn", "1024", "--save-path",
+                         os.path.join(tmp, "pruned"), "--device", "cuda"], card)
+    _, ev = cli(torch, ["eval-classification", "--model", os.path.join(tmp, "pruned"), "--data",
+                        os.path.join(tmp, "docs.jsonl"), "--batch-size", "64", "--device",
+                        "cuda"], card)
+    if (out["heads"], out["ffn"]) != (8, 1024) or ev["n"] != 256 or not np.isfinite(ev["accuracy"]):
+        raise AssertionError(f"prune -> eval-classification: {out}, {ev}")
+    return {"importance_rel": rel}
+
+
+def export_records(torch, card, ctx, tmp):
+    """b 32 × s 128 int8 on the card, reloaded, against the eager int8
+    encoder on the same batch."""
+    from text_similarity_tpu_torch.compress.export import (
+        export_encoder, load_exported_fn, load_exported_params,
+    )
+    from text_similarity_tpu_torch.models import SentenceEncoder
+
+    enc = ctx["enc"]
+    t = time.time()
+    manifest = export_encoder(enc, os.path.join(tmp, "bundle"), batch_sizes=(32,),
+                              seq_lens=(128,))
+    dt = time.time() - t
+    (f,) = manifest["functions"]
+    fn = load_exported_fn(os.path.join(tmp, "bundle"), f["name"])
+    params = load_exported_params(os.path.join(tmp, "bundle"), device="cuda")
+    ids_np, mask_np = ctx["tok"].encode_batch(ctx["corpus"][70_000:70_032], 128, pad_to=128)
+    ids, mask = torch.as_tensor(ids_np).cuda(), torch.as_tensor(mask_np).cuda()
+    eager = SentenceEncoder(ctx["params"], enc.arch, tokenizer=ctx["tok"], device="cuda")
+    eager.to_int8()
+    got = fn(params, ids, mask)
+    want = eager.embed_tokens(ids_np, mask_np)
+    err = float((got - want).abs().max())
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: fn(params, ids, mask))
+        eager_ms = time_ms(torch, lambda: eager.embed_tokens(ids_np, mask_np))
+    log(f"export: {f['name']} ({f['bytes']} bytes, platforms {f['platforms']}, int8 "
+        f"{manifest['int8']}) traced in {dt:.1f} s; reloaded program vs the eager int8 encoder "
+        f"max|Δ| {err:.3e} (limit 1e-5); {ms:.3f} ms a call, eager {eager_ms:.3f} ms [{card}]")
+    if err > 1e-5 or f["platforms"] != ["cuda"]:
+        raise AssertionError(f"export: max|Δ| {err}, platforms {f['platforms']}")
+    return {"export_ms": ms, "eager_int8_ms": eager_ms}
+
+
+def wic_rows(rng, corpus, n):
+    """WiC-format lines: a word of one corpus sentence put into another at
+    a random position; labels alternate."""
+    lines, gold = [], []
+    for i in range(n):
+        a = corpus[100_000 + 2 * i].split()
+        b = corpus[100_001 + 2 * i].split()
+        i1, i2 = int(rng.integers(len(a))), int(rng.integers(len(b)))
+        b[i2] = a[i1]
+        lines.append(f"{a[i1]}\tN\t{i1}-{i2}\t{' '.join(a)}\t{' '.join(b)}\n")
+        gold.append("T\n" if i % 2 else "F\n")
+    return lines, gold
+
+
+def spectral_density_records(torch, card, ctx):
+    """What ``topics --method hdbscan --reduce spectral`` runs on the card,
+    held to plain versions: K2 at the k-NN's shape (Q = N = 5,000, k = 15
+    neighbours + the row itself) against its plain version, then DBSCAN at
+    each radius of the HDBSCAN ladder and the HDBSCAN selection on the
+    reduced embeddings against the same calls on the CPU. The reduced rows
+    are rounded to multiples of 2^-10 first: every cosine of two such
+    32-dimensional rows is then exact in f32 whatever the order of the
+    sums, so the thresholded graphs, and the labels, must be equal on both
+    devices. The sweeps and clusters at each radius are printed."""
+    from text_similarity_tpu_torch.ops import density
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, l2_normalize
+    from text_similarity_tpu_torch.pipelines.topic import spectral_reduce
+
+    emb = ctx["enc"].encode(ctx["corpus"][:5000], batch_size=128, device_output=True)
+    x = l2_normalize(emb.float())
+    k2_held(torch, x, x, (16,), "topics' spectral k-NN", card)
+    count = cosine_topk_cuda.launches
+    reduced = l2_normalize(spectral_reduce(emb, 32, n_neighbors=15))
+    cosine_topk_cuda.launches = count
+    xq = torch.round(reduced * 1024) / 1024
+    grid = sorted(density.DEFAULT_EPS_GRID)
+    levels = {}
+    for where, x in (("card", xq), ("cpu", xq.cpu())):
+        t = time.time()
+        levels[where] = []
+        for eps in grid:
+            labels = density.dbscan_cosine(x, eps=eps, min_samples=3)
+            levels[where].append(labels)
+            log(f"  DBSCAN on the reduced 5000 x 32 [{where}], eps {eps}: "
+                f"{density.dbscan_cosine.sweeps} sweeps, {labels.max() + 1} clusters, "
+                f"{int((labels < 0).sum())} noise")
+        log(f"  the ladder on the {where} in {time.time() - t:.2f} s")
+    same = [bool(np.array_equal(a, b)) for a, b in zip(levels["card"], levels["cpu"])]
+    card_labels = density.hdbscan_cosine(xq, min_samples=3)
+    # hdbscan_cosine(xq.cpu()) is this selection over the CPU's ladder
+    cpu_labels = density._stability_select(np.stack(levels["cpu"]), 1.0 / np.asarray(grid),
+                                           xq.shape[0])
+    log(f"  DBSCAN labels on the card equal the CPU's at each radius: {same}; HDBSCAN "
+        f"{card_labels.max() + 1} clusters, {int((card_labels < 0).sum())} noise, equal to "
+        f"the CPU's: {np.array_equal(card_labels, cpu_labels)} [{card}]")
+    if not all(same) or not np.array_equal(card_labels, cpu_labels):
+        raise AssertionError("the density labels on the card differ from the CPU's")
+
+
+def phase_compression(torch, card, ctx):
+    """Phase 12, K2's counter zeroed just before: distillation, theseus,
+    pruning, export, ``cluster`` / ``topics`` and ``train-wic``."""
+    import tempfile
+
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+
+    corpus = ctx["corpus"]
+    build = os.path.join(REPO, "text_similarity_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.time()
+    cosine_topk_cuda.launches = 0
+    records = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        enc_dir = os.path.join(tmp, "enc")
+        ctx["enc"].save(enc_dir)
+        dev = ["--model", enc_dir, "--device", "cuda"]
+        records["distill"] = distill_records(torch, card, ctx, tmp)
+        records["theseus"] = theseus_records(torch, card, ctx, tmp, dev)
+        records["prune"] = prune_records(torch, card, ctx, tmp)
+        records["export"] = export_records(torch, card, ctx, tmp)
+
+        with open(os.path.join(tmp, "c20k.txt"), "w") as f:
+            f.write("\n".join(corpus[:20_000]) + "\n")
+        dt, lines = cli_lines(torch, ["cluster", "--corpus", os.path.join(tmp, "c20k.txt"),
+                                      "--num-clusters", "50"] + dev)
+        sizes = [json.loads(line)["size"] for line in lines]
+        log(f"cluster: 20000 sentences -> {len(sizes)} clusters in {dt:.2f} s (sizes "
+            f"{min(sizes)}-{max(sizes)}) [{card}]")
+        if sum(sizes) != 20_000 or len(sizes) > 50:
+            raise AssertionError(f"cluster: {len(sizes)} clusters holding {sum(sizes)} sentences")
+        with open(os.path.join(tmp, "c5k.txt"), "w") as f:
+            f.write("\n".join(corpus[:5000]) + "\n")
+        for method, reduce in (("kmeans", "pca"), ("hdbscan", "spectral")):
+            k2 = cosine_topk_cuda.launches
+            dt, lines = cli_lines(torch, ["topics", "--corpus", os.path.join(tmp, "c5k.txt"),
+                                          "--num-topics", "10", "--method", method, "--reduce",
+                                          reduce] + dev)
+            sizes = [int(line.split()[1]) for line in lines]
+            noise = sum(n for line, n in zip(lines, sizes) if line.split()[0] == "-1")
+            log(f"topics --method {method} --reduce {reduce}: 5000 documents -> {len(lines)} "
+                f"topics in {dt:.2f} s ({noise} documents as noise), K2 launches "
+                f"{cosine_topk_cuda.launches - k2} [{card}]")
+            if sum(sizes) != 5000 or (reduce == "spectral") != (cosine_topk_cuda.launches > k2):
+                raise AssertionError(f"topics {method}/{reduce}: {lines[:3]}")
+        spectral_density_records(torch, card, ctx)
+
+        rows, gold = wic_rows(np.random.default_rng(16), corpus, 512)
+        with open(os.path.join(tmp, "wic.tsv"), "w") as f:
+            f.writelines(rows)
+        with open(os.path.join(tmp, "gold.txt"), "w") as f:
+            f.writelines(gold)
+        dt, out = cli(torch, ["train-wic", "--data", os.path.join(tmp, "wic.tsv"), "--gold",
+                              os.path.join(tmp, "gold.txt"), "--save-path",
+                              os.path.join(tmp, "wic")] + dev, card)
+        log(f"train-wic: 512 rows in {dt:.2f} s, best loss {out['best']:.5f}, WiC accuracy "
+            f"{out['wic']['accuracy']:.4f} (threshold {out['wic'].get('threshold')}) [{card}]")
+        if not np.isfinite(out["best"]):
+            raise AssertionError(f"train-wic: {out}")
+    k2 = cosine_topk_cuda.launches
+    log(f"phase 12: {time.time() - t0:.1f} s; K2 launches {k2}")
+    if k2 == 0:
+        raise AssertionError("phase 12 did not run K2")
+    records["k2_launches"] = k2
+    return records
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -4124,6 +4579,7 @@ def main() -> int:
     phase_serving(torch, card, ctx)
     phase_training_entry_points(torch, card, ctx)
     phase_commands(torch, card, ctx, corpus, queries)
+    phase_compression(torch, card, ctx)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]

@@ -31,6 +31,7 @@ from text_similarity_tpu_torch.models import (
 )
 from text_similarity_tpu_torch.models.encoder import _param_shapes
 from text_similarity_tpu_torch.train.steps import trainable
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ALBERT = dict(share_layers=True, embed_factor_size=32, num_layers=3)
 

@@ -20,6 +20,7 @@ from text_similarity_tpu_torch.ops.attention import (
     flash_attention_plain,
     multi_head_attention,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, H, D = 3, 128, 2, 32
 LENS = (128, 77, 0)           # a full row, a padded row and a zero-length row

@@ -30,6 +30,7 @@ from text_similarity_tpu.models.sentence_encoder import SentenceEncoder as JaxSe
 from text_similarity_tpu_torch.cli.main import main
 from text_similarity_tpu_torch.core import checkpoint as ckpt
 from text_similarity_tpu_torch.models import SentenceEncoder
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # bf16 compute (the CLI's default without --fp32): activations round to bf16
 # in both packages, in different orders, and unit-norm embeddings differ by

@@ -3,7 +3,7 @@
 JSON keys and saves artifacts the JAX package loads (the same embeddings,
 scores and logits); the cross-encoder feeds ``RankingPipeline``;
 ``pretrain-long`` on a RoBERTa-offset model with a full row, where the JAX
-package's states are NaN; the commands not ported yet exit naming their
+package's states are NaN; the options not ported yet exit naming their
 ROADMAP item."""
 
 import json
@@ -32,6 +32,7 @@ from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, trai
 from text_similarity_tpu_torch.models import SentenceEncoder, init_params
 from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
 from text_similarity_tpu_torch.pipelines import RankingPipeline, SemanticSearchPipeline
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SENTS = [
     "the quick brown fox jumps over the lazy dog",
@@ -261,8 +262,8 @@ def test_pretrain_long_full_roberta_row_stays_finite(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train-wic", "--data", "x"], 8), (["distill"], 7), (["theseus", "--data", "x"], 7),
-    (["cluster", "--corpus", "x"], 8),
+    (["train-wic", "--data", "x", "--pipe", "2"], 10), (["distill", "--experts", "2"], 9),
+    (["theseus", "--data", "x", "--pipe", "2"], 10), (["serve", "--shards", "2"], 10),
     (["train-sts", "--data", "STS", "--pipe", "2"], 10),
     (["train-sts", "--data", "STS", "--experts", "2"], 9),
 ])

@@ -29,6 +29,7 @@ from text_similarity_tpu_torch.models import SentenceEncoder, cross_params_from_
 from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
 from text_similarity_tpu_torch.pipelines import RankingPipeline, SemanticSearchPipeline
 from text_similarity_tpu_torch.train.steps import classifier_forward
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

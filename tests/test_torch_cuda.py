@@ -1880,6 +1880,36 @@ def test_albert_through_k7_and_k5_on_card(cuda):
         assert float((got - want).abs()[mask.bool()].max()) <= 2e-4, impl
 
 
+def test_pruned_model_through_k7_and_k5_on_card(cuda):
+    """A model pruned to 8 of 12 heads (``head_dim_override`` 32, minilm-l6's
+    width, 2 layers, FFN 1536 → 1024) through K7 (``"packed"``, S 64) and K5
+    (S 4096 under ``"auto"``): each kernel takes the pruned head width,
+    launches once a layer, and the states agree with the reference path on
+    valid rows (f32, 2e-4)."""
+    from text_similarity_tpu_torch.compress.prune import prune_rewire
+
+    arch = ARCH_PRESETS["minilm-l6"].replace(num_layers=2, max_position=4096)
+    rng = np.random.default_rng(2)
+    pruned, parch = prune_rewire(init_params(arch, torch.Generator().manual_seed(0)), arch,
+                                 rng.random((2, 12)), rng.random((2, 1536)), target_heads=8,
+                                 target_ffn=1024)
+    assert (parch.num_heads, parch.head_dim, parch.intermediate_size) == (8, 32, 1024)
+    params = SentenceEncoder(pruned, parch, precision=FP32_PRECISION, device=cuda).params
+    for s, impl, counter in ((64, "packed", packed_attention_cuda),
+                             (4096, "auto", flash_attention_cuda)):
+        ids = torch.from_numpy(rng.integers(5, parch.vocab_size, (2, s)).astype(np.int32)).to(cuda)
+        lens = torch.tensor([s, s // 2 + 3], device=cuda)
+        mask = (torch.arange(s, device=cuda)[None] < lens[:, None]).to(torch.int32)
+        before = counter.launches
+        got = encoder_forward(params, ids, mask, arch=parch, precision=FP32_PRECISION,
+                              attention_impl=impl).last_hidden_state
+        torch.cuda.synchronize()
+        assert counter.launches == before + parch.num_layers, impl
+        want = encoder_forward(params, ids, mask, arch=parch, precision=FP32_PRECISION,
+                               attention_impl="reference").last_hidden_state
+        assert float((got - want).abs()[mask.bool()].max()) <= 2e-4, impl
+
+
 def test_pretrain_long_step_gradient_k5_k6_on_card(cuda):
     """One ``pretrain-long`` MLM loss at 4096 (a 2-layer cut of roberta-base
     with positions tiled to 4098, window 256, bf16 compute, a fixed
@@ -1928,3 +1958,56 @@ def test_pretrain_long_step_gradient_k5_k6_on_card(cuda):
     loss_k, loss_r = float(loss_k.detach()), float(loss_r.detach())
     assert abs(loss_k - loss_r) <= 1e-2 * abs(loss_r)
     assert max(rel.values()) <= 3e-2, sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+
+
+def test_spectral_knn_runs_k2_and_matches_plain(cuda):
+    """``spectral_reduce`` on the card takes its k-NN graph from K2 (one
+    launch) and gives the eigenvector projector of the same reduction on
+    the CPU (plain top-k): three separated blobs, eigenvalue 1 of
+    multiplicity 3, V·Vᵀ within 1e-3."""
+    from text_similarity_tpu_torch.pipelines.topic import spectral_reduce
+
+    g = torch.Generator().manual_seed(5)
+    centres = torch.nn.functional.normalize(torch.randn(3, 64, generator=g), dim=1)
+    x = torch.cat([c + 0.05 * torch.randn(n, 64, generator=g)
+                   for c, n in zip(centres, (40, 30, 20))])
+    x = torch.nn.functional.normalize(x, dim=1)
+    before = cosine_topk_cuda.launches
+    got = spectral_reduce(x.to(cuda), 3, n_neighbors=8)
+    torch.cuda.synchronize()
+    assert cosine_topk_cuda.launches == before + 1
+    _, ki = cosine_topk_cuda(x.to(cuda), x.to(cuda), 9)
+    _, ri = cosine_topk_reference(x, x, 9)
+    assert torch.equal(ki.cpu().long(), ri.long())
+    want = spectral_reduce(x, 3, n_neighbors=8)
+    got = got.cpu()
+    assert float((got @ got.T - want @ want.T).abs().max()) <= 1e-3
+
+
+def test_export_bundle_on_card(cuda, tmp_path):
+    """``export_encoder`` on the card (b 2, s 16, int8): the program records
+    the card as its platform, and reloaded with its params on the card it
+    equals the eager int8 encoder there (max |Δ| ≤ 1e-5); at 4096 tokens,
+    where the eager encoder runs K5, the export is refused."""
+    from text_similarity_tpu_torch.compress.export import (
+        export_encoder, load_exported_fn, load_exported_params,
+    )
+
+    arch = ARCH_PRESETS["tiny-test"]
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    enc = SentenceEncoder(params, arch, precision=FP32_PRECISION, device="cuda")
+    manifest = export_encoder(enc, str(tmp_path), batch_sizes=(2,), seq_lens=(16,))
+    (f,) = manifest["functions"]
+    assert f["platforms"] == ["cuda"]
+    fn = load_exported_fn(str(tmp_path), f["name"])
+    shipped = load_exported_params(str(tmp_path), device="cuda")
+    ids = torch.randint(5, arch.vocab_size, (2, 16), device=cuda, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1, 9:] = 0
+    got = fn(shipped, ids, mask)
+    want = SentenceEncoder(params, arch, precision=FP32_PRECISION, device="cuda").to_int8() \
+        .embed_tokens(ids.cpu().numpy(), mask.cpu().numpy())
+    assert float((got - want).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match=r"K5"):
+        export_encoder(enc, str(tmp_path / "long"), batch_sizes=(1,), seq_lens=(4096,))
+    assert not (tmp_path / "long").exists()

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from text_similarity_tpu_torch.drives import churn, serve_load
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CHURN_KEYS = {
     "fresh": {"rows", "build_seconds", "clusters", "overflow", "qps_windows", "qps_median",

@@ -30,6 +30,7 @@ from text_similarity_tpu_torch.models import (
     mean_pool,
     params_from_jax,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _sentences(n, seed=0):

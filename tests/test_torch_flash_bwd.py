@@ -23,6 +23,7 @@ from text_similarity_tpu_torch.ops.attention import (
     flash_attention_backward_plain,
     flash_attention_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, H = 3, 64, 2
 LENS = (64, 59, 0)            # full, padded within the band, zero-length

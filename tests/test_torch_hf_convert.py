@@ -44,6 +44,7 @@ from text_similarity_tpu_torch.models import (
 )
 from text_similarity_tpu_torch.models.pooling import bert_pooler
 from text_similarity_tpu_torch.utils import JsonlRunLog
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HF_ATOL, HF_RTOL = 2e-4, 2e-3
 

@@ -76,6 +76,9 @@ def test_port_imports_with_jax_blocked():
         "cli.__main__", "__main__", "utils.logging", "data.datasets", "data.pairs",
         "evaluation", "evaluation.meters", "evaluation.evaluators", "train.steps",
         "drives.churn", "drives.serve_load", "train.hpo", "models.hf_convert",
+        "compress.distill", "compress.theseus", "compress.prune", "compress.export", "ops.pca",
+        "ops.density", "ops.segment", "pipelines.clustering", "pipelines.topic",
+        "models.word_encoder", "utils.lexicon", "utils.senses", "utils.profiling",
     )} <= set(MODULES)
 
 
@@ -127,7 +130,9 @@ def _tiny_encoder_args():
 @pytest.mark.parametrize(
     "entry", ["encoder", "store", "ivf_build", "pipeline", "cross_encoder", "serve_cli",
               "from_hf", "mining_pipeline", "compare_models", "quantize_cli", "encode_cli",
-              "search_cli", "mine_cli", "compare_models_cli", "churn_drive", "serve_load_drive"]
+              "search_cli", "mine_cli", "compare_models_cli", "churn_drive", "serve_load_drive",
+              "export_cli", "cluster_cli", "topics_cli", "distill_cli", "word_encoder",
+              "exported_params"]
 )
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without device=..., every entry point asks for CUDA: it raises when no
@@ -165,8 +170,22 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
                 "search_cli": ["search", "--corpus", docs, "--query", "alpha"],
                 "mine_cli": ["mine", "--corpus", docs],
                 "compare_models_cli": ["compare-models", "--corpus", docs, "--student", model],
+                "export_cli": ["export", "--save-path", str(tmp_path / "x"), "--seq-lens", "8"],
+                "cluster_cli": ["cluster", "--corpus", docs],
+                "topics_cli": ["topics", "--corpus", docs],
+                "distill_cli": ["distill", "--data", docs, "--save-path", str(tmp_path / "d")],
             }[entry]
             return cli_main(argv + ["--model", model])
+        if entry == "word_encoder":
+            from text_similarity_tpu_torch.models.word_encoder import WordEncoder
+
+            return WordEncoder(params, arch)
+        if entry == "exported_params":
+            from text_similarity_tpu_torch.compress.export import load_exported_params
+            from text_similarity_tpu_torch.core.checkpoint import save_checkpoint
+
+            save_checkpoint(str(tmp_path / "bundle"), params, step=0, meta={"int8": False})
+            return load_exported_params(str(tmp_path / "bundle"))
         if entry == "from_hf":
             return SentenceEncoder.from_hf(_TinyHF(), precision=FP32_PRECISION)
         if entry == "churn_drive":

@@ -40,6 +40,7 @@ from text_similarity_tpu_torch.ops.topk import (
     select_topk,
 )
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _unit(a):

@@ -31,6 +31,7 @@ from text_similarity_tpu_torch.index.ivf import (
     tile_part_width,
 )
 from text_similarity_tpu_torch.index.ivf_modes import TilePlan
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _unit(a):

@@ -43,6 +43,7 @@ from text_similarity_tpu_torch.index.ivf_modes import (
     ivf_scan_packed,
     zero_tile_map,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BIN = 1.0 / PACK_SCALE + 1e-6     # one 14-bit score bin of the packed fold
 

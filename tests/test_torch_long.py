@@ -33,6 +33,7 @@ from text_similarity_tpu_torch.models import (
     params_from_jax,
 )
 from text_similarity_tpu_torch.models.hf_convert import extend_positions
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LONG_BUCKETS = BUCKETS + (1024, 2048, 4096)
 

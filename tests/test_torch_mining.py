@@ -31,6 +31,7 @@ from text_similarity_tpu_torch.index import IVFIndex
 from text_similarity_tpu_torch.models import SentenceEncoder
 import text_similarity_tpu_torch.pipelines.search as port_search
 from text_similarity_tpu_torch.pipelines import SentenceMiningPipeline, compare_models
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCORE_TOL = 1e-5
 # the IVF scan takes its dots against bf16 rows with the query rounded to

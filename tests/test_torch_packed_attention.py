@@ -29,6 +29,7 @@ from text_similarity_tpu_torch.ops.attention import (
     packed_attention_cuda,
     packed_attention_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 S = 64
 LENS = (64, 37, 0, 1)     # full, padded, zero-length and one-key rows

@@ -32,6 +32,7 @@ from text_similarity_tpu_torch.models import (
     segment_mean_pool,
 )
 from text_similarity_tpu_torch.ops.attention import attention_reference
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rows(n, seed, max_len=90, vocab=1000):

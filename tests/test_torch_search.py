@@ -21,6 +21,7 @@ from text_similarity_tpu.pipelines.search import _pad_pow2 as jax_pad_pow2
 from text_similarity_tpu_torch.models import SentenceEncoder
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
 from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _corpus(n, seed=0):

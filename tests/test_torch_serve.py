@@ -44,6 +44,7 @@ from text_similarity_tpu_torch.pipelines import (
     SemanticSearchPipeline,
 )
 from text_similarity_tpu_torch.pipelines.serve import _MicroBatcher
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from text_similarity_tpu_torch.ops.topk import (
     l2_normalize,
     select_topk,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _unit(a):

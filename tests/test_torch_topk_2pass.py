@@ -24,6 +24,7 @@ from text_similarity_tpu_torch.ops.topk import (
     topk_2pass_fold_cuda,
     topk_2pass_fold_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _unit(a):

@@ -41,6 +41,7 @@ from text_similarity_tpu_torch.train import (
     make_optimizer,
 )
 from text_similarity_tpu_torch.train.steps import bi_encoder_loss, value_and_grad
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_TYPES = ["cosine_mse", "softmax", "mnrl", "online_contrastive"]
 

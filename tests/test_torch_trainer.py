@@ -25,6 +25,7 @@ from text_similarity_tpu_torch.train import (
     make_bi_encoder_train_step,
     make_optimizer,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = ARCH_PRESETS["tiny-test"].replace(hidden_dropout=0.0, attention_dropout=0.0)
 

@@ -10,18 +10,30 @@ Port of ``text_similarity_tpu.cli.main``, with the reference's flags plus
   train-classification document classifier (CLS head)
   train-cross-encoder  pair classifier (``--packed`` or bucketed); saves a
                        ``CrossEncoder`` directory
+  train-wic            word-in-context twin towers over the target words'
+                       spans; prints the best-threshold WiC accuracy
   train-ner            token classifier on CoNLL files
+  distill              layer-drop student trained to a teacher's embeddings
+                       (``--parallel-data``: the multilingual mode)
+  theseus              compress an encoder to ``--slots`` layers by
+                       successor replacement on labelled pairs
+  prune                head and FFN importance pruning of a classifier
   eval-classification  accuracy and per-class accuracy of a classifier
   pretrain-long        tile the positions to ``--target-len``, set the
                        attention window, then masked-LM steps
   eval-sts / eval-paws / eval-tatoeba
                        evaluate a saved encoder
   quantize             write a saved encoder's int8 deployment checkpoint
+  export               ``torch.export`` bundles of the encode step, one a
+                       (batch, seq) shape, with int8 params
   encode               embed a text file → (N, D) f32 ``.npy`` (``--packed``)
   search               top-k search over a text file (``--query``, else an
                        interactive loop until an empty line or EOF)
   mine                 paraphrase pairs inside a text file (``--ivf``)
   compare-models       teacher / student top-k overlap over a text file
+  cluster / topics     k-means clusters; topics (k-means or density, PCA or
+                       spectral reduction, c-TF-IDF words, ``--lexicon``
+                       names)
   serve                the search daemon (``pipelines.serve``)
 
 ``--packed`` (bi-encoder and cross-encoder training) packs several short
@@ -43,8 +55,8 @@ tokens (the reference tiles to ``--target-len`` and reads past its table).
 ``build_server`` does the serve set-up (load the encoder, the corpus or
 saved pipeline and the cross-encoder, warm them) and returns the server;
 ``cmd_serve`` only serves it, so a caller can drive the same set-up without
-blocking. The reference's other commands, ``--pipe > 1`` and ``--experts``
-exit with "not ported yet" and the ROADMAP item that ports them.
+blocking. ``--pipe > 1``, ``--experts`` and ``serve --shards > 1`` exit with
+"not ported yet" and the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -63,12 +75,6 @@ from ..core.precision import precision_for, resolve_device
 # the reference's shared flags that configure a random-init model or a
 # training run: serve loads --model and reads none of them
 _UNREAD = ("tokenizer", "arch", "pooling", "vocab_size", "seed", "save_path")
-
-# the reference's commands the port does not run yet → ROADMAP queue 1 item
-_NOT_PORTED = {
-    "train-wic": 8, "distill": 7, "theseus": 7, "prune": 7, "export": 7,
-    "cluster": 8, "topics": 8,
-}
 
 
 def _common(p: argparse.ArgumentParser) -> None:
@@ -136,7 +142,6 @@ def _encoder(args, tokenizer=None, texts=None):
     from ..core.config import ARCH_PRESETS
     from ..models import SentenceEncoder, init_params
 
-    _check_ported(args)
     if getattr(args, "model", None):
         if not os.path.isdir(args.model):
             # a mistyped path must not fall back to a random model
@@ -398,6 +403,144 @@ def cmd_train_ner(args):
     print(json.dumps({"tags": tags, "best": result["best_metric"]}))
 
 
+def cmd_train_wic(args):
+    """Word-in-context training, then the trained encoder's best-threshold
+    accuracy on the training batches."""
+    from ..data.datasets import load_wic
+    from ..data.pairs import build_word_batches
+    from ..models.word_encoder import WordEncoder
+    from ..train import init_train_state, make_optimizer, make_word_encoder_train_step
+
+    rows = load_wic(args.data, args.gold)
+    enc = _encoder(args, texts=[r["sent1"] for r in rows] + [r["sent2"] for r in rows])
+    batches = build_word_batches(enc.tokenizer, rows, batch_size=args.batch_size,
+                                 max_len=args.max_len, seed=args.seed)
+    cfg = _train_cfg(args)
+    params = {"encoder": enc.params}
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, seed=args.seed, device=args.device)
+    precision = precision_for(cfg.bf16)
+    step = make_word_encoder_train_step(enc.arch, tx, precision=precision, device=args.device)
+    result = _fit(args, step, state, batches, cfg.epochs)
+    trained = result["state"].params["encoder"]
+    metrics = WordEncoder(trained, enc.arch, tokenizer=enc.tokenizer, precision=precision,
+                          device=args.device).evaluate_wic(batches)
+    enc.params = trained
+    enc.save(args.save_path)
+    print(json.dumps({"wic": metrics, "best": result["best_metric"]}))
+
+
+def cmd_distill(args):
+    """A layer-drop student of ``--model`` trained to its embeddings of
+    ``--data`` (or of the source side of ``--parallel-data``)."""
+    from ..compress.distill import SentenceEncoderDistiller
+    from ..data.datasets import load_parallel, load_sentence_pool
+
+    teacher = _load_encoder(args)
+    if args.parallel_data:
+        pairs = load_parallel(args.parallel_data, max_pairs=args.max_sentences)
+        sentences, src = [t for _, t in pairs], [s for s, _ in pairs]
+    else:
+        sentences = load_sentence_pool(args.data, max_sentences=args.max_sentences)
+        src = None
+    distiller = SentenceEncoderDistiller(teacher, num_student_layers=args.student_layers,
+                                         train_config=_train_cfg(args))
+    student = distiller.distill(sentences, src_sentences=src, max_len=args.max_len)
+    student.save(args.save_path)
+    print(json.dumps({"student_layers": student.arch.num_layers, "saved": args.save_path}))
+
+
+def cmd_theseus(args):
+    """Theseus compression of ``--model`` to ``--slots`` layers on labelled
+    pairs (softmax loss over a new head; the loss of each epoch on
+    stderr)."""
+    from ..compress.theseus import ReplacementScheduler, TheseusDistiller
+    from ..data.datasets import load_nli, load_paws
+    from ..data.pairs import build_pair_batches
+    from ..models import SentenceEncoder
+    from ..train import init_classifier_head, init_train_state, make_optimizer
+
+    teacher = _load_encoder(args)
+    rows = load_nli(args.data) if args.format == "nli" else load_paws(args.data)
+    num_classes = 3 if args.format == "nli" else 2
+    batches = build_pair_batches(teacher.tokenizer, [(a, b) for a, b, _ in rows],
+                                 [lab for _, _, lab in rows], batch_size=args.batch_size,
+                                 max_len=args.max_len, target_dtype=np.int32, seed=args.seed)
+    cfg = _train_cfg(args)
+    distiller = TheseusDistiller(teacher.params, teacher.arch, num_slots=args.slots,
+                                 scheduler=ReplacementScheduler(args.base_rate, args.rate_k),
+                                 train_config=cfg)
+    params = {
+        "succ": distiller.succ,
+        "head": init_classifier_head(torch.Generator().manual_seed(args.seed + 1),
+                                     3 * teacher.arch.embedding_size, num_classes,
+                                     device=args.device),
+    }
+    tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
+    state = init_train_state(params, tx, seed=args.seed, device=args.device)
+    step = distiller.make_train_step(tx, num_classes=num_classes)
+    pred_layers, embeddings = teacher.params["layers"], teacher.params["embeddings"]
+    step_no = 0
+    for epoch in range(cfg.epochs):
+        losses = []
+        for b in batches:
+            state, m = step(state, b, distiller.scheduler.rate(step_no), pred_layers, embeddings)
+            step_no += 1
+            losses.append(m["loss"])
+        print(f"epoch {epoch}: loss {float(torch.stack(losses).mean()):.4f}", file=sys.stderr)
+    student = SentenceEncoder(distiller.compressed_params(state.params["succ"]),
+                              distiller.compressed_arch, tokenizer=teacher.tokenizer,
+                              pooling=teacher.pooling, precision=teacher.precision,
+                              device=args.device)
+    student.save(args.save_path)
+    print(json.dumps({"layers": distiller.compressed_arch.num_layers, "saved": args.save_path}))
+
+
+def cmd_prune(args):
+    """Head and FFN importance pruning of a ``train-classification``
+    directory; the result (``head_dim_override`` in its arch, labels and
+    vocab beside it) loads in ``eval-classification``."""
+    from ..compress.prune import ffn_importance, head_importance, prune_rewire
+    from ..core import checkpoint as ckpt
+    from ..core.config import EncoderArch
+    from ..data.datasets import load_documents_json
+    from ..data.pairs import build_sequence_batches
+    from ..data.tokenization import load_tokenizer
+    from ..models.encoder import cross_params_from_jax
+
+    with open(os.path.join(args.model, "arch.json")) as f:
+        arch = EncoderArch.from_json(f.read())
+    tree, _, _ = ckpt.restore_checkpoint_raw(ckpt.latest_checkpoint(args.model))
+    params = cross_params_from_jax(tree, arch, int(np.asarray(tree["head"]["b"]).shape[0]),
+                                   resolve_device(args.device))
+    tok = load_tokenizer(args.model)
+    docs = load_documents_json(args.data)
+    labels = sorted({d["label"] for d in docs})
+    lab2id = {lab: i for i, lab in enumerate(labels)}
+    # shuffled: the batches are length-sorted, and the shortest documents
+    # alone would prune the heads that long inputs need
+    batches = build_sequence_batches(
+        tok, [d["text"] for d in docs], [lab2id[d["label"]] for d in docs],
+        batch_size=args.batch_size, max_len=args.max_len, shuffle=True, seed=args.seed,
+    )[: args.importance_batches]
+    hi = head_importance(params, arch, batches)
+    fi = ffn_importance(params, arch, batches)
+    new_enc, new_arch = prune_rewire(params["encoder"], arch, hi, fi,
+                                     target_heads=args.target_heads, target_ffn=args.target_ffn)
+    os.makedirs(args.save_path, exist_ok=True)
+    ckpt.save_checkpoint(args.save_path, {"encoder": new_enc, "head": params["head"]}, step=0,
+                         meta={"pruned": True})
+    with open(os.path.join(args.save_path, "arch.json"), "w") as f:
+        f.write(new_arch.to_json())
+    # eval-classification reads the label list beside the weights
+    with open(os.path.join(args.save_path, "labels.json"), "w") as f:
+        json.dump(labels, f)
+    if hasattr(tok, "save_vocab"):
+        tok.save_vocab(os.path.join(args.save_path, "vocab.txt"))
+    print(json.dumps({"heads": new_arch.num_heads, "ffn": new_arch.intermediate_size,
+                      "saved": args.save_path}))
+
+
 def cmd_pretrain_long(args):
     """Long-model conversion and masked-LM re-pretraining: tile the position
     embeddings, set the sliding attention window, then MLM steps over the
@@ -564,6 +707,16 @@ def cmd_quantize(args):
     print(json.dumps({"saved": args.save_path, "format": "int8"}))
 
 
+def cmd_export(args):
+    """``torch.export`` bundles of ``--model``'s encode step on
+    ``--device``, one a (batch, seq) shape, with int8 params."""
+    from ..compress.export import export_encoder
+
+    manifest = export_encoder(_load_encoder(args), args.save_path,
+                              batch_sizes=tuple(args.batch_sizes), seq_lens=tuple(args.seq_lens))
+    print(json.dumps(manifest["functions"]))
+
+
 def cmd_encode(args):
     """Embed a text file (one sentence a line) → an (N, D) f32 ``.npy``;
     ``--packed`` packs several short sentences a ``--width``-token row."""
@@ -629,6 +782,42 @@ def cmd_compare_models(args):
     corpus = _lines(args.corpus)
     print(json.dumps(compare_models(teacher, student, corpus, corpus[: args.num_queries],
                                     k=args.top_k, device=args.device)))
+
+
+def cmd_cluster(args):
+    """k-means clusters of a text file: a JSON line a cluster (its id, size
+    and first five texts)."""
+    from ..pipelines import ClusteringPipeline
+
+    corpus = _lines(args.corpus)
+    clusters = ClusteringPipeline(_encoder(args, texts=corpus),
+                                  num_clusters=args.num_clusters)(corpus)
+    for cid in sorted(clusters):
+        print(json.dumps({"cluster": cid, "size": len(clusters[cid]),
+                          "examples": clusters[cid][:5]}))
+
+
+def cmd_topics(args):
+    """Topics of a text file: a line a topic (id, size, top words[, the
+    lexicon's names])."""
+    from ..pipelines import TopicModelingPipeline
+
+    enc = _load_encoder(args)
+    corpus = _lines(args.corpus)
+    lexicon = None
+    if args.lexicon:
+        from ..utils.lexicon import Lexicon
+
+        lexicon = (Lexicon.from_wordnet() if args.lexicon == "wordnet"   # needs nltk's corpus
+                   else Lexicon.from_json(args.lexicon))
+    res = TopicModelingPipeline(enc, num_topics=args.num_topics, method=args.method,
+                                reduce=args.reduce, lexicon=lexicon)(corpus)
+    names = res.get("names", {})
+    for t, words in sorted(res["topics"].items()):
+        row = [t, res["sizes"].get(t, 0), [w for w, _ in words]]
+        if lexicon is not None:
+            row.append("/".join(names.get(t, [])))
+        print(*row)
 
 
 # ---------------------------------------------------------------------------
@@ -731,10 +920,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--format", default="paws", choices=["paws", "nli"])
     p.set_defaults(fn=cmd_train_cross_encoder)
 
+    p = sub.add_parser("train-wic")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--gold")
+    p.set_defaults(fn=cmd_train_wic)
+
     p = sub.add_parser("train-ner")
     _train_common(p)
     p.add_argument("--data", required=True)
     p.set_defaults(fn=cmd_train_ner)
+
+    p = sub.add_parser("distill")
+    _train_common(p)
+    p.add_argument("--data")
+    p.add_argument("--parallel-data")
+    p.add_argument("--student-layers", type=int, default=4)
+    p.add_argument("--max-sentences", type=int, default=100000)
+    p.set_defaults(fn=cmd_distill)
 
     p = sub.add_parser("eval-classification")
     _train_common(p)
@@ -751,6 +954,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-sentences", type=int, default=100000)
     p.set_defaults(fn=cmd_pretrain_long)
 
+    p = sub.add_parser("theseus")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--format", default="paws", choices=["paws", "nli"])
+    p.add_argument("--slots", type=int, default=2)
+    p.add_argument("--base-rate", type=float, default=0.3)
+    p.add_argument("--rate-k", type=float, default=1e-3)
+    p.set_defaults(fn=cmd_theseus)
+
+    p = sub.add_parser("prune")
+    _train_common(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--target-heads", type=int, required=True)
+    p.add_argument("--target-ffn", type=int, required=True)
+    p.add_argument("--importance-batches", type=int, default=8)
+    p.set_defaults(fn=cmd_prune)
+
     for name, fn in (("eval-sts", cmd_eval_sts), ("eval-paws", cmd_eval_paws),
                      ("eval-tatoeba", cmd_eval_tatoeba)):
         p = sub.add_parser(name)
@@ -762,6 +982,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("quantize")
     _common(p)
     p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("export")
+    _common(p)
+    p.add_argument("--batch-sizes", type=int, nargs="+", default=[32])
+    p.add_argument("--seq-lens", type=int, nargs="+", default=[128])
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("encode")
     _common(p)
@@ -802,6 +1028,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-queries", type=int, default=100)
     p.set_defaults(fn=cmd_compare_models)
 
+    p = sub.add_parser("cluster")
+    _common(p)
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--num-clusters", type=int, default=10)
+    p.set_defaults(fn=cmd_cluster)
+
+    p = sub.add_parser("topics")
+    _common(p)
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--num-topics", type=int, default=10)
+    p.add_argument("--method", default="kmeans", choices=["kmeans", "density", "hdbscan"])
+    p.add_argument("--reduce", default="pca", choices=["pca", "spectral"])
+    p.add_argument("--lexicon", default=None,
+                   help="taxonomy JSON for hypernym topic names (or 'wordnet' to use the nltk "
+                        "corpus if installed)")
+    p.set_defaults(fn=cmd_topics)
+
     p = sub.add_parser("serve")
     _common(p)
     p.add_argument("--corpus", help="text file, one document per line")
@@ -828,11 +1071,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise SystemExit(f"{argv[0]}: not ported yet (ROADMAP queue 1 item "
-                         f"{_NOT_PORTED[argv[0]]})")
     args = build_parser().parse_args(argv)
+    _check_ported(args)
     args.fn(args)
 
 

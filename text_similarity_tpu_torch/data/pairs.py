@@ -9,10 +9,12 @@
   several short rows a fixed-width row (first-fit decreasing, the C
   placement of ``data.packing``), one static shape set for the batches.
 - ``build_sequence_batches``: documents and labels (classification).
+- ``build_distill_batches``: student tokens with the teacher's embeddings
+  as targets (both sides of a parallel corpus in the multilingual mode).
+- ``build_word_batches``: WiC twin sentences with the target word's
+  sub-token positions.
 
 The arrays equal the JAX package's for the same tokenizer, input and seed.
-The distill and word (WiC) builders come with their steps (ROADMAP queue
-1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 from ..native import ffd_place_native
 from .batching import BUCKETS, pick_bucket
 from .packing import pack_sequences
+from .tokenization import _basic_tokenize
 
 
 def _tok_rows(tokenizer, texts: Sequence[str], max_len: int) -> List[List[int]]:
@@ -340,6 +343,131 @@ def build_sequence_batches(
         valid[: len(g)] = 1
         batches.append({"ids": ids, "mask": mask, "type_ids": np.zeros_like(ids),
                         "labels": lab, "valid": valid})
+    if shuffle:
+        rng.shuffle(batches)
+    return batches
+
+
+def build_distill_batches(
+    student_tokenizer,
+    sentences: Sequence[str],
+    teacher_embeddings: np.ndarray,     # (N, D) the teacher's targets
+    batch_size: int = 32,
+    max_len: int = 128,
+    buckets=BUCKETS,
+    shuffle: bool = True,
+    seed: int = 0,
+    src_sentences: Optional[Sequence[str]] = None,
+) -> List[Dict[str, np.ndarray]]:
+    """Distillation batches {ids_a, mask_a, ids_b, mask_b (a copy of the a
+    side), target (B, D), valid}, length-sorted and bucketed as the pair
+    batches. With ``src_sentences`` (the teacher's side of a parallel
+    corpus, aligned 1:1 with ``sentences``) the student trains on both
+    sides against the same teacher embedding (student(src) ≈ student(tgt)
+    ≈ teacher(src))."""
+    if src_sentences is not None:
+        if len(src_sentences) != len(sentences):
+            raise ValueError(f"src/tgt length mismatch: {len(src_sentences)} vs "
+                             f"{len(sentences)} (parallel corpora must align 1:1)")
+        sentences = list(src_sentences) + list(sentences)
+        teacher_embeddings = np.concatenate([teacher_embeddings, teacher_embeddings])
+    rng = np.random.RandomState(seed)
+    rows = _tok_rows(student_tokenizer, sentences, max_len)
+    lens = np.asarray([len(r) for r in rows])
+    order = np.argsort(lens, kind="stable")
+    d = teacher_embeddings.shape[1]
+    batches = []
+    for s in range(0, len(order), batch_size):
+        g = order[s : s + batch_size]
+        width = _cap_bucket(int(lens[g].max()), buckets, max_len)
+        ids, mask = _pad_rows(rows, g, batch_size, width, student_tokenizer.pad_id)
+        tgt = np.zeros((batch_size, d), np.float32)
+        valid = np.zeros((batch_size,), np.int32)
+        tgt[: len(g)] = teacher_embeddings[g]
+        valid[: len(g)] = 1
+        batches.append({"ids_a": ids, "mask_a": mask, "ids_b": ids, "mask_b": mask,
+                        "target": tgt, "valid": valid})
+    if shuffle:
+        rng.shuffle(batches)
+    return batches
+
+
+def _row_with_span(tokenizer, sent: str, word_idx: int, max_len: int, max_span: int):
+    """[CLS] ids [SEP] of ``sent`` and the positions (−1 padded to
+    ``max_span``) of the sub-tokens of its whitespace chunk ``word_idx``.
+    Inside the chunk only the tokens with a letter or digit are marked
+    (not the comma of "cat,"), all of them for a chunk of punctuation."""
+    spans = tokenizer.token_spans(sent)
+    lowercase = getattr(tokenizer, "lowercase", True)
+    chunk_of = []
+    for ci, chunk in enumerate(sent.split()):
+        chunk_of.extend([ci] * len(_basic_tokenize(chunk, lowercase)))
+    in_chunk = [wi for wi in range(len(spans))
+                if wi < len(chunk_of) and chunk_of[wi] == word_idx]
+    target = {wi for wi in in_chunk if any(ch.isalnum() for ch in spans[wi][0])}
+    target = target or set(in_chunk)
+    row = [tokenizer.cls_id]
+    span_pos = [-1] * max_span
+    n_marked = 0
+    for wi, (w, positions) in enumerate(spans):
+        if len(row) >= max_len - 1:
+            break
+        if wi in target:
+            for p in range(len(row), len(row) + len(positions)):
+                if n_marked < max_span and p < max_len - 1:
+                    span_pos[n_marked] = p
+                    n_marked += 1
+        row.extend(tokenizer._wordpiece(w)[: max_len - 1 - len(row)])
+    row.append(tokenizer.sep_id)
+    return row, span_pos
+
+
+def build_word_batches(
+    tokenizer,
+    examples: Sequence[Dict],           # data.datasets.load_wic rows
+    batch_size: int = 32,
+    max_len: int = 128,
+    max_span: int = 8,
+    shuffle: bool = True,
+    seed: int = 0,
+) -> List[Dict[str, np.ndarray]]:
+    """WiC batches {ids_a, mask_a, span_a, ids_b, mask_b, span_b, target,
+    valid, index}: the two sentences of each example with the target
+    word's sub-token positions (``tokenizer.token_spans``), sorted by the
+    longer side and bucketed; ``index`` is each row's example (−1 on
+    padding)."""
+    rng = np.random.RandomState(seed)
+    rows_a, rows_b, spans_a, spans_b, labels = [], [], [], [], []
+    for ex in examples:
+        ra, sa = _row_with_span(tokenizer, ex["sent1"], ex["idx1"], max_len, max_span)
+        rb, sb = _row_with_span(tokenizer, ex["sent2"], ex["idx2"], max_len, max_span)
+        rows_a.append(ra)
+        rows_b.append(rb)
+        spans_a.append(sa)
+        spans_b.append(sb)
+        labels.append(ex["label"] if ex["label"] is not None else 0)
+    lens = np.maximum([len(r) for r in rows_a], [len(r) for r in rows_b])
+    order = np.argsort(lens, kind="stable")
+    batches = []
+    for s in range(0, len(order), batch_size):
+        g = order[s : s + batch_size]
+        width = _cap_bucket(int(lens[g].max()), BUCKETS, max_len)
+        ids_a, mask_a = _pad_rows(rows_a, g, batch_size, width, tokenizer.pad_id)
+        ids_b, mask_b = _pad_rows(rows_b, g, batch_size, width, tokenizer.pad_id)
+        sa = np.full((batch_size, max_span), -1, np.int32)
+        sb = np.full((batch_size, max_span), -1, np.int32)
+        lab = np.zeros((batch_size,), np.int32)
+        valid = np.zeros((batch_size,), np.int32)
+        index = np.full((batch_size,), -1, np.int64)
+        n = len(g)
+        sa[:n] = np.asarray([spans_a[r] for r in g], np.int32).reshape(n, max_span)
+        sb[:n] = np.asarray([spans_b[r] for r in g], np.int32).reshape(n, max_span)
+        lab[:n] = np.asarray(labels)[g]
+        valid[:n] = 1
+        index[:n] = g
+        batches.append({"ids_a": ids_a, "mask_a": mask_a, "span_a": sa,
+                        "ids_b": ids_b, "mask_b": mask_b, "span_b": sb,
+                        "target": lab, "valid": valid, "index": index})
     if shuffle:
         rng.shuffle(batches)
     return batches

@@ -257,6 +257,17 @@ class WordPieceTokenizer:
         lens = mask.sum(axis=1).astype(np.int64) - 2
         return ids[:, 1:], lens
 
+    def token_spans(self, text: str) -> List[Tuple[str, List[int]]]:
+        """Each basic token of ``text`` → the positions of its wordpieces in
+        the encoded row (position 0 is [CLS]): the word ↔ sub-token
+        alignment of the word models."""
+        spans, pos = [], 1
+        for w in _basic_tokenize(text, self.lowercase):
+            n = len(self._wordpiece(w))
+            spans.append((w, list(range(pos, pos + n))))
+            pos += n
+        return spans
+
 
 def _check_pad_to(pad_to: Optional[int], longest: int) -> None:
     if pad_to and pad_to < longest:
@@ -338,6 +349,9 @@ class HFTokenizerAdapter:
         self.pad_id, self.cls_id, self.sep_id = pad_id, cls_id, sep_id
         self.unk_id = unk_id
         self.mask_id = mask_id if mask_id is not None else unk_id
+        # the HF tokenizer normalises itself: the word helpers below must
+        # not lowercase again
+        self.lowercase = False
         self.vocab_size = tok.get_vocab_size()
 
     @classmethod
@@ -354,6 +368,17 @@ class HFTokenizerAdapter:
             unk_id=vocab.get(UNK, vocab.get("<unk>", 0)),
             mask_id=vocab.get(MASK, vocab.get("<mask>")),
         )
+
+    def _wordpiece(self, word: str) -> List[int]:
+        """One word's sub-token ids without specials (the surface the word
+        batch builders read)."""
+        return list(self._tok.encode(word, add_special_tokens=False).ids) or [self.unk_id]
+
+    def token_spans(self, text: str) -> List[Tuple[str, List[int]]]:
+        """[(basic token, its sub-token ids)], as the JAX package's adapter
+        returns them (ids, where ``WordPieceTokenizer.token_spans`` gives
+        positions; the word batch builders read only their count)."""
+        return [(w, self._wordpiece(w)) for w in _basic_tokenize(text, lowercase=False)]
 
     def _truncate(self, ids, max_len: int) -> List[int]:
         """Truncate to ``max_len`` keeping the terminal [SEP]: BERT-class

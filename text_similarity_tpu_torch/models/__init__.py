@@ -10,7 +10,9 @@ from .encoder import (
     transformer_layer,
 )
 from .hf_convert import arch_from_hf_config, convert_hf_model, convert_state_dict
-from .pooling import cls_pool, max_pool, mean_pool, segment_first_pool, segment_mean_pool
+from .pooling import (
+    cls_pool, max_pool, mean_pool, segment_first_pool, segment_mean_pool, word_span_pool,
+)
 from .sentence_encoder import SentenceEncoder
 
 __all__ = [
@@ -28,6 +30,7 @@ __all__ = [
     "mean_pool",
     "segment_first_pool",
     "segment_mean_pool",
+    "word_span_pool",
     "SentenceEncoder",
     "arch_from_hf_config",
     "convert_hf_model",

@@ -56,8 +56,15 @@ outputs and recomputes the rest. The recompute restores the dropout
 generator to its state at the layer's entry, so it draws the masks the
 forward drew.
 
-Not ported yet: MoE, head-dim overrides, performer attention, head
-pruning.
+Head masks and hidden states (compression, word models): ``head_mask``
+(L, nh) scales each layer's attention probabilities per head (the
+reference's XLA path scales each head's output, the same product), so its
+gradient is the heads' importance; a masked call takes the reference
+attention. ``output_hidden_states`` returns the (L + 1, B, S, H) stack, the
+embedding output first. A pruned arch (``head_dim_override``) keeps its
+head width: q, k, v are (H, nh·hd) and o (nh·hd, H).
+
+Not ported yet: MoE, performer attention.
 """
 
 from __future__ import annotations
@@ -81,25 +88,23 @@ from .pooling import bert_pooler
 class EncoderOutput(NamedTuple):
     last_hidden_state: torch.Tensor         # (B, S, H)
     pooler_output: Optional[torch.Tensor]   # (B, H) tanh(W·cls) or None
+    hidden_states: Optional[torch.Tensor] = None  # (L + 1, B, S, H), embeddings first
 
 
 def _check_supported(arch: EncoderArch) -> None:
-    unsupported = {
-        "num_experts": arch.num_experts,
-        "head_dim_override": arch.head_dim_override,
-    }
-    bad = [k for k, v in unsupported.items() if v]
+    bad = ["num_experts"] if arch.num_experts else []
     if arch.attention_type != "softmax":
         bad.append(f"attention_type={arch.attention_type!r}")
     if bad:
         raise NotImplementedError(
             f"encoder options not ported yet: {', '.join(bad)} "
-            "(ROADMAP queue 1: MoE, performer, compression)"
+            "(ROADMAP queue 1: MoE, performer)"
         )
 
 
 def _param_shapes(arch: EncoderArch) -> dict:
     h, i = arch.hidden_size, arch.intermediate_size
+    a = arch.num_heads * arch.head_dim   # < h after head pruning
     # ALBERT: one layer on the stack axis, tables at E projected to H
     l = 1 if arch.share_layers else arch.num_layers
     e = arch.embed_factor_size or h
@@ -112,7 +117,7 @@ def _param_shapes(arch: EncoderArch) -> dict:
             "ln": ln(e),
         },
         "layers": {
-            "attn": {n: dense(h, h) for n in ("q", "k", "v", "o")},
+            "attn": {**{n: dense(h, a) for n in ("q", "k", "v")}, "o": dense(a, h)},
             "attn_ln": ln(l, h),
             "mlp": {"in": dense(h, i), "out": dense(i, h)},
             "mlp_ln": ln(l, h),
@@ -327,6 +332,7 @@ def transformer_layer(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
+    head_mask: Optional[torch.Tensor] = None,    # (nh,) multiplier a head
 ) -> torch.Tensor:
     """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
     dropout on the attention output and the FFN output in training."""
@@ -354,10 +360,10 @@ def transformer_layer(
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
     # q, k, v stay strided views of the fused QKV: K5 reads them in place
     ctx = multi_head_attention(
-        q, k, v, mask=attention_mask, impl=attention_impl,
+        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
         window=arch.attention_window, window_global_cls=arch.window_global_cls,
         segment_ids=segment_ids,
-    ).reshape(b, s, nh * hd)
+    ).reshape(b, s, nh * hd)   # nh·hd < h after head pruning
     ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
     hx1 = _layer_norm(
         hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
@@ -443,6 +449,8 @@ def encoder_forward(
     segment_ids: Optional[torch.Tensor] = None,   # (B, S): packed rows
     position_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
     remat=False,                                  # False | True | "dots"
+    head_mask: Optional[torch.Tensor] = None,     # (L, nh)
+    output_hidden_states: bool = False,
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
     (the reference's ``lax.scan``; ALBERT runs its one layer L times), then
@@ -451,7 +459,10 @@ def encoder_forward(
     applies dropout with masks from ``generator``. ``segment_ids`` /
     ``position_ids``: a packed layout (``data.packing.pack_sequences``).
     ``remat``: recompute each layer in the backward (True), or all but its
-    matmul outputs ("dots")."""
+    matmul outputs ("dots"). ``head_mask`` (L, nh): layer l's attention
+    probabilities scaled by row l (the reference attention).
+    ``output_hidden_states``: also the (L + 1, B, S, H) stack of the
+    embedding output and every layer's output."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
@@ -467,16 +478,19 @@ def encoder_forward(
         layers = _unstack_tree(layers, arch.num_layers)
     kw = dict(arch=arch, attention_impl=attention_impl, deterministic=deterministic,
               generator=generator, segment_ids=segment_ids)
-    for lp in layers:
+    states = [x]
+    for i, lp in enumerate(layers):
+        hm = None if head_mask is None else head_mask[i].float()
         if remat and torch.is_grad_enabled():
-            x = _remat_layer(x, lp, attention_mask, remat, **kw)
+            x = _remat_layer(x, lp, attention_mask, remat, head_mask=hm, **kw)
         else:
-            x = transformer_layer(x, lp, attention_mask, **kw)
+            x = transformer_layer(x, lp, attention_mask, head_mask=hm, **kw)
+        states.append(x)
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
         pooler_out = bert_pooler(x, dequant_weight(pw["w"]), pw["b"])
-    return EncoderOutput(x, pooler_out)
+    return EncoderOutput(x, pooler_out, torch.stack(states) if output_hidden_states else None)
 
 
 def num_params(params: dict) -> int:

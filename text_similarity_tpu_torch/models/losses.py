@@ -9,10 +9,11 @@
 - ``multiple_negatives_loss``: in-batch negatives InfoNCE (MNRL)
 - ``cross_entropy_loss``: a classification head's CE
 - ``mlm_loss``: masked-LM CE over the predicted positions
+- ``hidden_state_mse``: layer-mapped hidden-state matching (FastFormers)
+- ``kl_distill_loss``: temperature-scaled logit distillation
 
 Every pair loss takes an optional ``valid`` (B,) mask: padded rows of a
-tail batch count nowhere. Reductions run in f32. ``hidden_state_mse`` and
-``kl_distill_loss`` come with the distillation steps.
+tail batch count nowhere. Reductions run in f32.
 """
 
 from __future__ import annotations
@@ -120,3 +121,44 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     nll = -logp.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
     w = valid.float()
     return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def hidden_state_mse(
+    student_hidden: torch.Tensor,                 # (Ls + 1, B, S, H)
+    teacher_hidden: torch.Tensor,                 # (Lt + 1, B, S, H)
+    mask: Optional[torch.Tensor] = None,          # (B, S)
+    layer_map=None,                               # (Ls + 1,) teacher index a student layer
+) -> torch.Tensor:
+    """Student layer i against teacher layer ``layer_map[i]`` (a student
+    initialised from teacher layers keep_layers aligns with those), else the
+    uniform round(i · Lt / Ls) map; both count the embeddings as layer 0.
+    The squared error is averaged over H, then over the masked tokens and
+    the Ls + 1 layers."""
+    ls = student_hidden.shape[0] - 1
+    lt = teacher_hidden.shape[0] - 1
+    if layer_map is not None:
+        idx = torch.as_tensor(layer_map, dtype=torch.long)
+    else:
+        # round half to even, as jnp.round
+        idx = torch.round(torch.arange(ls + 1, dtype=torch.float32) * (lt / max(ls, 1))).long()
+    mapped = teacher_hidden[idx.to(teacher_hidden.device)]
+    err = (student_hidden.float() - mapped.float()).square().mean(dim=-1)   # (Ls + 1, B, S)
+    if mask is None:
+        return err.mean()
+    w = mask.float()[None]
+    return (err * w).sum() / (w.sum() * (ls + 1)).clamp_min(1.0)
+
+
+def kl_distill_loss(
+    student_logits: torch.Tensor,
+    teacher_logits: torch.Tensor,
+    temperature: float = 2.0,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """KL(teacher ‖ student) of the temperature-softened distributions,
+    times T², a row."""
+    t = temperature
+    sp = F.log_softmax(student_logits.float() / t, dim=-1)
+    tp = F.softmax(teacher_logits.float() / t, dim=-1)
+    kl = (tp * (torch.log(tp.clamp_min(1e-12)) - sp)).sum(dim=-1) * t * t
+    return _masked_mean(kl, valid)

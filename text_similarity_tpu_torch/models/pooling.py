@@ -1,7 +1,7 @@
 """Pooling strategies turning token states into sentence embeddings (port of
 ``text_similarity_tpu.models.pooling``: masked mean, CLS, masked max, and
-the per-segment mean and first-token pools of packed rows, and BERT's tanh
-pooler)."""
+the per-segment mean and first-token pools of packed rows, BERT's tanh
+pooler, and the target word's span pool of the word models)."""
 
 from __future__ import annotations
 
@@ -78,6 +78,18 @@ POOLERS = {
     "cls": cls_pool,
     "max": max_pool,
 }
+
+
+def word_span_pool(hidden: torch.Tensor, span_indices: torch.Tensor) -> torch.Tensor:
+    """Mean of one target word's sub-token vectors an example: hidden (B,
+    S, H), span_indices (B, W) positions padded with −1 → (B, H) in
+    hidden's dtype (the sum in f32)."""
+    valid = (span_indices >= 0).float()
+    idx = span_indices.long().clamp_min(0)
+    gathered = torch.gather(hidden, 1, idx[..., None].expand(-1, -1, hidden.shape[-1])).float()
+    summed = (gathered * valid[..., None]).sum(dim=1)
+    count = valid.sum(dim=1, keepdim=True).clamp_min(1.0)
+    return (summed / count).to(hidden.dtype)
 
 
 def pool(strategy: str, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
+from .clustering import ClusteringPipeline
 from .rerank import RankingPipeline
 from .search import SemanticSearchPipeline, SentenceMiningPipeline, compare_models
 from .serve import SearchServer
+from .topic import TopicModelingPipeline
 
 __all__ = [
-    "RankingPipeline", "SemanticSearchPipeline", "SentenceMiningPipeline", "SearchServer",
-    "compare_models",
+    "ClusteringPipeline", "RankingPipeline", "SemanticSearchPipeline", "SentenceMiningPipeline",
+    "SearchServer", "TopicModelingPipeline", "compare_models",
 ]

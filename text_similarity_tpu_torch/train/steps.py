@@ -1,7 +1,8 @@
 """Train-step factories (port of ``text_similarity_tpu.train.steps``): the
 bi-encoder step, the classifier / cross-encoder step, the packed
-bi-encoder and packed classifier steps, the token-classifier (NER) step
-and the masked-LM step, with their forwards.
+bi-encoder and packed classifier steps, the token-classifier (NER) step,
+the masked-LM step, the word-in-context (WiC) step and the FastFormers
+distillation step, with their forwards.
 
 A step is eager PyTorch: the tower passes (dropout from the state's
 ``torch.Generator``), the loss, the gradients of every parameter leaf
@@ -16,9 +17,10 @@ tensors that require grad, in the JAX package's layout, so
 saves in the shared checkpoint format. Packed steps scatter each segment's
 output to its pair's slot through an explicit trash row for empty slots.
 
-Not ported yet: the word (WiC), theseus and distillation steps
-(ROADMAP queue 1 items 7 and 8), pipeline parallelism and MoE auxiliary
-losses.
+The FastFormers step runs the frozen teacher under ``torch.no_grad()``;
+the theseus step lives with its forward in ``compress.theseus``.
+
+Not ported yet: pipeline parallelism and MoE auxiliary losses.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision, resolve_device
 from ..models import losses as L
 from ..models.encoder import dequant_weight, encoder_forward
-from ..models.pooling import cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool
+from ..models.pooling import (
+    cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool, word_span_pool,
+)
 from .optim import AdamW, _leaves
 
 
@@ -92,13 +96,14 @@ def classifier_forward(
     params: dict, ids, mask, type_ids=None, *, arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION, pooling: str = "cls",
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
+    head_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Encoder → pool → linear head → (B, C) f32 logits (dropout with
     ``deterministic=False``). ``cls`` pooling takes the tanh pooler's
     output where the arch has one, else the CLS state; any other pooling
-    the masked mean."""
+    the masked mean. ``head_mask`` (L, nh) scales the heads' attention."""
     out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision,
-                          deterministic=deterministic, generator=generator)
+                          deterministic=deterministic, generator=generator, head_mask=head_mask)
     if pooling == "cls":
         pooled = (out.pooler_output if out.pooler_output is not None
                   else cls_pool(out.last_hidden_state, mask))
@@ -155,12 +160,13 @@ def bi_encoder_loss(
 ):
     """The bi-encoder objective on one batch (device tensors ids_a, mask_a,
     ids_b, mask_b, target, valid): two tower passes over the shared
-    encoder, then the pair loss → (loss, aux metrics)."""
+    encoder, then the pair loss → (loss, aux metrics). ``distill_mse``
+    reads the a side only, so the b tower does not run."""
     kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
               deterministic=deterministic, attention_impl=attention_impl, remat=remat)
     enc = params["encoder"]
     u = _embed(enc, batch["ids_a"], batch["mask_a"], **kw)
-    v = _embed(enc, batch["ids_b"], batch["mask_b"], **kw)
+    v = None if loss_type == "distill_mse" else _embed(enc, batch["ids_b"], batch["mask_b"], **kw)
     return _pair_objective(loss_type, params, u, v, batch.get("target"), batch.get("valid"),
                            margin)
 
@@ -197,19 +203,19 @@ def value_and_grad(loss_fn: Callable, params: dict, *args, **kwargs):
 
 
 def _make_step(loss_fn: Callable, tx: AdamW, device) -> Callable:
-    """step(state, batch) → (state, metrics) of ``loss_fn(params, batch,
-    generator) → (loss, aux)``: its gradients, then ``tx``'s in-place
-    update. The state's parameters must lie on ``device``; the batch may
-    be host arrays or tensors there. metrics: {"loss", …} as device
-    scalars."""
+    """step(state, batch, *extra) → (state, metrics) of ``loss_fn(params,
+    batch, generator, *extra) → (loss, aux)``: its gradients, then ``tx``'s
+    in-place update. The state's parameters must lie on ``device``; the
+    batch may be host arrays or tensors there. metrics: {"loss", …} as
+    device scalars."""
     dev = resolve_device(device)
 
-    def step(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict, *extra):
         leaf = _leaves(state.params)[0]
         if leaf.device.type != dev.type:
             raise ValueError(f"the state lies on {leaf.device}, the step runs on {dev}")
         batch = batch_to(batch, leaf.device)
-        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng)
+        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra)
         tx.step(state.params, grads, state.opt_state)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         return state._replace(step=state.step + 1), metrics
@@ -520,5 +526,100 @@ def make_mlm_train_step(
                              generator=generator, deterministic=False)
         loss = L.mlm_loss(logits, labels)
         return loss, {"masked_tokens": (labels >= 0).float().sum()}
+
+    return _make_step(loss_fn, tx, device)
+
+
+# ---------------------------------------------------------------------------
+# Word-in-context (WiC): twin towers over the target words' spans
+# ---------------------------------------------------------------------------
+
+def make_word_encoder_train_step(
+    arch: EncoderArch,
+    tx: AdamW,
+    precision: Precision = DEFAULT_PRECISION,
+    margin: float = 0.5,
+    loss_type: str = "contrastive",   # contrastive | online_contrastive
+    device="cuda",
+) -> Callable:
+    """batch: ids_a / mask_a / span_a, ids_b / mask_b / span_b, target
+    (0/1), valid. Both sides run the shared encoder (dropout on) and pool
+    the target word's sub-token span; the contrastive loss on the word
+    vectors' cosine."""
+
+    def word_vec(enc, ids, mask, span, generator):
+        out = encoder_forward(enc, ids, mask, arch=arch, precision=precision,
+                              deterministic=False, generator=generator)
+        return word_span_pool(out.last_hidden_state, span)
+
+    def loss_fn(params, batch, generator):
+        enc = params["encoder"]
+        u = word_vec(enc, batch["ids_a"], batch["mask_a"], batch["span_a"], generator)
+        v = word_vec(enc, batch["ids_b"], batch["mask_b"], batch["span_b"], generator)
+        objective = (L.online_contrastive_loss if loss_type == "online_contrastive"
+                     else L.contrastive_loss)
+        loss, _ = objective(u, v, batch["target"], margin, batch.get("valid"))
+        return loss, {}
+
+    return _make_step(loss_fn, tx, device)
+
+
+# ---------------------------------------------------------------------------
+# FastFormers distillation: teacher logits (KL) + layer-mapped hidden states
+# (MSE) (+ hard-label CE) for classifiers
+# ---------------------------------------------------------------------------
+
+def make_fastformers_distill_step(
+    student_arch: EncoderArch,
+    teacher_arch: EncoderArch,
+    tx: AdamW,
+    pooling: str = "cls",
+    precision: Precision = DEFAULT_PRECISION,
+    temperature: float = 2.0,
+    alpha_kl: float = 1.0,
+    alpha_state: float = 1.0,
+    alpha_ce: float = 0.0,
+    layer_map=None,   # (Ls + 1,) teacher hidden index a student layer
+    device="cuda",
+) -> Callable:
+    """Returns step(state, batch, teacher_params) → (state, metrics). The
+    frozen teacher ({"encoder", "head"}) runs under ``torch.no_grad()``
+    with no dropout, giving logits and hidden states; the student (dropout
+    on) matches the logits through the temperature-scaled KL and the
+    hidden states through the layer-mapped MSE. batch: ids, mask
+    (type_ids, labels, valid). metrics: loss, kl, state_mse (ce, accuracy
+    with ``alpha_ce > 0`` and labels)."""
+    if student_arch.num_experts > 0 or teacher_arch.num_experts > 0:
+        raise ValueError("MoE archs are not supported by the FastFormers distill step")
+
+    def tower(params, arch_, batch, generator, deterministic):
+        out = encoder_forward(
+            params["encoder"], batch["ids"], batch["mask"], batch.get("type_ids"), arch=arch_,
+            precision=precision, deterministic=deterministic, generator=generator,
+            output_hidden_states=True,
+        )
+        if pooling == "cls":
+            pooled = (out.pooler_output if out.pooler_output is not None
+                      else cls_pool(out.last_hidden_state, batch["mask"]))
+        else:
+            pooled = mean_pool(out.last_hidden_state, batch["mask"])
+        head = params["head"]
+        return pooled.float() @ head["w"] + head["b"], out.hidden_states
+
+    def loss_fn(params, batch, generator, teacher_params):
+        with torch.no_grad():
+            t_logits, t_hidden = tower(teacher_params, teacher_arch, batch, None, True)
+        s_logits, s_hidden = tower(params, student_arch, batch, generator, False)
+        valid = batch.get("valid")
+        kl = L.kl_distill_loss(s_logits, t_logits, temperature, valid)
+        st = L.hidden_state_mse(s_hidden, t_hidden, batch["mask"], layer_map=layer_map)
+        loss = alpha_kl * kl + alpha_state * st
+        aux = {"kl": kl, "state_mse": st}
+        if alpha_ce > 0 and "labels" in batch:
+            ce = L.cross_entropy_loss(s_logits, batch["labels"], valid)
+            loss = loss + alpha_ce * ce
+            aux["ce"] = ce
+            aux["accuracy"] = _masked_accuracy(s_logits, batch["labels"], valid)
+        return loss, aux
 
     return _make_step(loss_fn, tx, device)
