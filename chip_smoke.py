@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
-packed-encode, serving, training-entry-point, command-line and
-compression / clustering / word-model paths on one NVIDIA card.
+packed-encode, serving, training-entry-point, command-line, compression /
+clustering / word-model and MoE / Performer paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -313,7 +313,42 @@ Phases (any failure exits non-zero):
       documents; kmeans + pca, hdbscan + spectral, whose k-NN graph is K2)
       through the CLI; ``train-wic`` on 512 synthetic rows (finite loss,
       the WiC accuracy printed).
- 13. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 13. MoE and Performer (phase 4's corpus and tokenizer):
+    - minilm-l6 at full width with 8 experts, top-2, capacity factor 1.25
+      (the router-skew drive's arch), random weights, bf16: the 120,000-
+      and 2,000-document pipelines (IVF, K1; brute force, K2) with
+      ``moe_drop`` printed for the corpus encodes and the requests, phase
+      4's self-retrieval gate (IVF requests among the queries whose own slab
+      was probed: a query encoded alone routes otherwise than its document
+      did in the corpus's batches), with floors on the single queries whose
+      own slab was probed (``MOE_SINGLE_PROBED_MIN``) and on their IVF
+      answers' recall@10 against an exact top-10 on the same query vectors
+      (``MOE_SINGLE_RECALL_MIN``), the route gap (64 documents encoded
+      alone against their corpus vectors) and the corpus encode repeated
+      bit for bit; K2 (k 10, 20) and K1 (1-, 5-, 64-text requests) held to
+      their plain versions at these shapes, outside their counted windows;
+      ``to_int8`` (router f32, experts int8, min cosine to bf16 printed);
+      one forward under ``torch.profiler`` split by MoE stage
+      (``moe_router``, ``moe_dispatch``, ``moe_experts``, ``moe_combine``
+      ranges) with the idle share; ``train-sts --experts 8`` on 512 pairs
+      through the CLI (finite loss, ``moe_aux``, ``moe_drop``); 30
+      bi-encoder steps whose loss falls; the router-skew drive's ``--train``
+      (100 steps) and ``--sweep`` (b 1,024 × s 128), every row printed;
+    - roberta-base at 4,098 positions (phase 6's weights) with Performer
+      attention (m = head_dim), bf16: phase 6's 128 documents encoded with
+      ``packed=False`` beside the same weights on the exact path (K5,
+      window 0, 12 launches a 4096-token batch; the Performer path runs
+      neither K5 nor K7), documents/s of both, the unit embeddings' gap
+      printed and last_hidden_state of 8 documents gated
+      (``PERFORMER_MEAN`` / ``PERFORMER_MAX``, the next document's rows as
+      the control); K2 self-retrieval (held to its plain version); the card
+      against the CPU on a 2-layer cut at 2 × 4096, f32
+      (``PERFORMER_CARD_CPU``); causal FAVOR+ at 8 × 4096 × 12 × 64 against
+      exact causal attention (max |Δ| printed, both timed), with 4 local
+      heads equal to the banded causal attention; 8 bi-encoder steps with a
+      redraw every 4 (two matrices drawn, new at step 4 only); ``encode``
+      under ``packed="auto"`` of mixed lengths does not pack.
+ 14. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -324,7 +359,7 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile).
- 14. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+ 15. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -418,13 +453,15 @@ def overlap(a, b) -> float:
     return float(np.mean([len(set(r) & set(s)) / len(r) for r, s in zip(a, b)]))
 
 
-def separated_ids_equal(ki, ri, rs, tol=1e-5) -> bool:
+def separated_ids_equal(ki, ri, rs, tol=1e-5, next_scores=None) -> bool:
     """ids equal at every rank whose reference score differs from both
     neighbours by more than tol (near-ties may swap under another
-    summation order)."""
+    summation order); ``next_scores`` (the reference's (k + 1)-th score a
+    row) is the last rank's lower neighbour, else nothing lies below it."""
+    below = -np.inf if next_scores is None else np.asarray(next_scores)[:, None]
     gap = np.minimum(
         np.abs(np.diff(rs, axis=1, prepend=np.inf)),
-        np.abs(np.diff(rs, axis=1, append=-np.inf)),
+        np.abs(np.diff(rs, axis=1, append=below)),
     )
     sep = gap > tol
     return bool(np.array_equal(ki[sep], ri[sep]))
@@ -450,13 +487,14 @@ def topk_inputs(torch, seed=2, n=100_003, d=384):
     return corpus, queries
 
 
-def agree_topk(ks, ki, rs, ri, exact):
+def agree_topk(ks, ki, rs, ri, exact, next_scores=None):
     """(max |Δscore|, ok, detail): f32 ids equal where scores are separated
     and |Δ| ≤ 1e-5; bf16 overlap ≥ 0.99 and |Δ| ≤ 1e-4."""
     ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
     err = float(np.abs(ks - rs).max())
     if exact:
-        return err, err <= 1e-5 and separated_ids_equal(ki, ri, rs), f"ids equal {np.mean(ki == ri):.4f}"
+        return err, err <= 1e-5 and separated_ids_equal(ki, ri, rs, next_scores=next_scores), \
+            f"ids equal {np.mean(ki == ri):.4f}"
     ov = overlap(ki, ri)
     return err, err <= 1e-4 and ov >= 0.99, f"overlap {ov:.4f}"
 
@@ -945,13 +983,16 @@ def serve_requests(torch, pipe, label, n_docs, sizes, rng, results, requests):
         rec[4].append(dt * 1e3)
 
 
-def gate_requests(torch, results, requests, card):
+def gate_requests(torch, results, requests, card, probed_only=False):
     """Log each (pipeline, request size) and gate it: ≥ 95% self-retrieval
     on every brute-force request and every single-query IVF request; on a
     multi-query IVF request, ≥ 95% among the queries whose own slab was
     probed. The serving args share one union of round_up(probes, 8) slabs
     across a 64-query block, which cannot hold the own slab of every query
-    of a request drawn from many clusters."""
+    of a request drawn from many clusters. ``probed_only``: single-query IVF
+    requests too are gated among the probed queries (an MoE query, encoded
+    alone, routes otherwise than its document did in the corpus's batches,
+    and may land in another cluster)."""
     ivf_labels = {label for _, label, *_ in requests}
     for pipe, label, size, texts, req, hit in requests:
         rec = results[(label, size)]
@@ -965,7 +1006,7 @@ def gate_requests(torch, results, requests, card):
             f"themselves in the top 10 at score >= 0.99{cover}; median {np.median(ms):.1f} ms "
             f"= {size / np.median(ms) * 1e3:.1f} QPS [{card}]")
     for (label, size), (total, hits, probed, probed_hits, _) in results.items():
-        if label not in ivf_labels or size == 1:
+        if label not in ivf_labels or (size == 1 and not probed_only):
             if hits < 0.95 * total:
                 raise AssertionError(f"{label}, requests of {size}: self-retrieval "
                                      f"{hits}/{total} below 95%")
@@ -983,13 +1024,14 @@ def host_ms(torch, fn, reps=5):
     return (time.time() - t) / reps * 1e3
 
 
-def profile_split(torch, label, fn, card, top=8, groups=()):
+def profile_split(torch, label, fn, card, top=8, groups=(), ranges=()):
     """One call of ``fn`` under ``torch.profiler`` → log its wall time, the
     device's busy and idle share of it (the sum of the device time of every
     kernel, one stream, over the wall time), and the ops that took the most
     device time; with ``groups`` ((label, name substrings), ...) also the
-    device time of each group and of the rest. The profiler's own overhead
-    lengthens the wall time. → {group: device ms, "rest": ms, "busy": ms,
+    device time of each group and of the rest; with ``ranges`` (names of
+    ``record_function`` ranges) the device time of the kernels launched
+    inside each. The profiler's own overhead lengthens the wall time. → {group: device ms, "rest": ms, "busy": ms,
     "wall": ms, "kernels": {device op name: launches}}, or None when the
     profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
@@ -1022,7 +1064,12 @@ def profile_split(torch, label, fn, card, top=8, groups=()):
         ms = sum(t for t, _, key in ops if any(w in key.lower() for w in keys))
         split[name] = ms
         rest -= ms
-    if groups:
+    for name in ranges:
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+        split[name] = ms
+        rest -= ms
+    if groups or ranges:
         parts = "; ".join(f"{name} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in split.items())
         log(f"profile of {label}, device time by group: {parts}; the rest {rest:.2f} ms "
             f"({rest / busy:.1%}) [{card}]")
@@ -2051,14 +2098,16 @@ def bucket_batches(enc, docs, batch_size, max_len=4096):
     return [(pick_bucket(rows[-1], LONG_BUCKETS), rows) for rows in groups]
 
 
-def path_agreement(torch, enc, texts, bucket=4096):
+def path_agreement(torch, enc, texts, bucket=4096, paths=None):
     """One batch of texts padded to ``bucket`` through ``encoder_forward``
-    with attention_impl "auto" (K5 in every layer at 4096 on the card) and
-    "reference" (the banded reference) → (mean |Δ| and max |Δ| of
-    last_hidden_state on valid rows; the mean |Δ| between each document's
-    auto rows and the next document's reference rows, which is what an
-    answer for the wrong document would give; min cosine of the pooled
-    unit embeddings)."""
+    on two paths, the one under test and the one it is held to: ``paths``
+    gives each as (encoder, attention_impl); by default ``enc`` with
+    attention_impl "auto" (K5 in every layer at 4096 on the card) against
+    ``enc`` with "reference" (the banded reference). → (mean |Δ| and max |Δ|
+    of last_hidden_state on valid rows; the mean |Δ| between each
+    document's rows on the first path and the next document's on the
+    second, which is what an answer for the wrong document would give; min
+    cosine of the pooled unit embeddings)."""
     import torch.nn.functional as F
 
     from text_similarity_tpu_torch.models import encoder_forward
@@ -2070,18 +2119,18 @@ def path_agreement(torch, enc, texts, bucket=4096):
     for r, row in enumerate(rows):
         ids[r, :len(row)], mask[r, :len(row)] = row, 1
     ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
-    hidden, emb = {}, {}
+    hidden, emb = [], []
     with torch.no_grad():
-        for impl in ("auto", "reference"):
-            h = encoder_forward(enc.params, ids, mask, arch=enc.arch, precision=enc.precision,
+        for e, impl in paths or ((enc, "auto"), (enc, "reference")):
+            h = encoder_forward(e.params, ids, mask, arch=e.arch, precision=e.precision,
                                 attention_impl=impl).last_hidden_state
-            hidden[impl] = h.float()
-            emb[impl] = F.normalize(pool(enc.pooling, h, mask).float(), dim=-1)
+            hidden.append(h.float())
+            emb.append(F.normalize(pool(e.pooling, h, mask).float(), dim=-1))
     valid = mask.bool()
-    diff = (hidden["auto"] - hidden["reference"]).abs()[valid]
+    diff = (hidden[0] - hidden[1]).abs()[valid]
     both = valid & valid.roll(1, 0)
-    control = (hidden["auto"] - hidden["reference"].roll(1, 0)).abs()[both]
-    cos = (emb["auto"] * emb["reference"]).sum(dim=1)
+    control = (hidden[0] - hidden[1].roll(1, 0)).abs()[both]
+    cos = (emb[0] * emb[1]).sum(dim=1)
     return float(diff.mean()), float(diff.max()), float(control.mean()), float(cos.min())
 
 
@@ -4123,15 +4172,16 @@ PRUNE_F32 = 1e-4
 def k2_held(torch, q, c, ks, label, card):
     """K2 against its plain version on the card's (q, c) at each k of
     ``ks``, as phase 2 holds it (f32: ids equal where the scores are
-    separated, max |Δscore| ≤ 1e-5); these launches leave K2's counter as
-    it was."""
+    separated, the last rank from the plain version's (k + 1)-th score too,
+    max |Δscore| ≤ 1e-5); these launches leave K2's counter as it was."""
     from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda, cosine_topk_reference
 
     count = cosine_topk_cuda.launches
     for k in ks:
         ks_, ki = cosine_topk_cuda(q, c, k)
-        rs, ri = cosine_topk_reference(q, c, k)
-        err, ok, detail = agree_topk(ks_, ki, rs, ri, exact=True)
+        rs, ri = cosine_topk_reference(q, c, k + 1)
+        nxt = rs[:, k].cpu().numpy()
+        err, ok, detail = agree_topk(ks_, ki, rs[:, :k], ri[:, :k], exact=True, next_scores=nxt)
         log(f"  K2 at {label}: Q {q.shape[0]} x N {c.shape[0]} x D {c.shape[1]} f32, k {k}: "
             f"max|Δscore| {err:.2e}, {detail} -> {'ok' if ok else 'FAIL'} [{card}]")
         if not ok:
@@ -4532,6 +4582,454 @@ def phase_compression(torch, card, ctx):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: MoE and Performer
+# ---------------------------------------------------------------------------
+
+MOE_STAGES = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+# Performer (FAVOR+, m = head_dim) against the exact path (K5, window 0) on
+# the same roberta-base-long weights, one batch of 8 documents at 4096:
+# last_hidden_state on valid rows, mean and max |Δ|; the first H100 reading
+# is 2.107e-2 and 0.164, the max limit 2.5x it, the mean limit 2.37x it, so
+# that the control, the next document's exact rows (mean |Δ| 0.524), lies
+# 10x the mean limit away. (The unit embeddings cannot carry such a gate:
+# with random weights distinct documents' embeddings differ about as much
+# as the two paths' do, 1.0e-3 against 6.1e-4 mean |Δ|.)
+PERFORMER_MEAN, PERFORMER_MAX = 5e-2, 0.41
+# the card against the CPU, a 2-layer Performer cut at 2 x 4096, f32, one matrix
+PERFORMER_CARD_CPU = 1e-4
+
+
+# MoE IVF requests. A query encoded alone routes otherwise than its document
+# did in the corpus's batches (the reference's capacity rule), so some
+# single queries land in another cluster; self-retrieval is gated among the
+# probed ones, and two bounds keep the rest in view: at least
+# MOE_SINGLE_PROBED_MIN of the 20 single queries must have their own slab
+# probed (five H100 readings: 15), and the IVF answers of the single
+# queries must hold MOE_SINGLE_RECALL_MIN recall@10 against an exact top-10
+# over the same 120,000 vectors on the same query vectors (three H100
+# readings: 0.5150-0.5250; the serving args probe few of 512 clusters, and
+# random weights spread a query's exact neighbours over many). Each floor leaves
+# room for about three more single queries sent to another slab.
+MOE_SINGLE_PROBED_MIN = 12
+MOE_SINGLE_RECALL_MIN = 0.40
+
+
+def ivf_against_exact(torch, requests, k=10):
+    """Each IVF request's answers against an exact top-k over the same store
+    on the same query vectors (the pipeline's own encode, f32 products) →
+    {request size: [ids shared, ids asked, queries, exact self-hits]}; an
+    exact self-hit is the query's own document in the exact top k at score
+    ≥ 0.99, as ``serve_requests`` counts it."""
+    out = {}
+    for pipe, _, size, texts, req, _ in requests:
+        if pipe._id_remap is not None:
+            raise AssertionError("ivf_against_exact needs store rows in corpus order")
+        q = pipe.encoder.encode(texts, batch_size=pipe.batch_size, device_output=True)
+        s, i = (q.float() @ pipe.store.view.float().T).topk(k, dim=1)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        rec = out.setdefault(size, [0, 0, 0, 0])
+        for row, es, ei, j in zip(pipe(texts, max_num_results=k), s, i, req):
+            rec[0] += len({d for _, _, d in row} & set(ei.tolist()))
+            rec[1] += k
+            rec[2] += 1
+            rec[3] += any(d == j and sc >= 0.99 for sc, d in zip(es, ei))
+    return out
+
+
+class MoeDrops:
+    """Within the block, each ``encoder_forward`` that ``SentenceEncoder``
+    runs adds its dropped fraction, weighted by its valid tokens; ``mean()``
+    → their mean (it fails where no MoE forward was seen)."""
+
+    def __enter__(self):
+        import text_similarity_tpu_torch.models.sentence_encoder as se
+
+        self.module, self.real, self.seen = se, se.encoder_forward, []
+
+        def counted(params, ids, mask, *args, **kw):
+            out = self.real(params, ids, mask, *args, **kw)
+            if out.moe_drop is not None:
+                n = mask.sum()
+                self.seen.append((out.moe_drop * n, n))
+            return out
+
+        se.encoder_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.encoder_forward = self.real
+
+    def mean(self) -> float:
+        if not self.seen:
+            raise AssertionError("no MoE forward went through SentenceEncoder")
+        return float(sum(d for d, _ in self.seen) / sum(n for _, n in self.seen))
+
+
+def moe_pipeline_records(torch, card, ctx, enc):
+    """The MoE encoder behind phase 4's two pipelines (120,000 documents on
+    IVF, 2,000 by brute force) under phase 4's self-retrieval gate; K1 and
+    K2 at the requests' shapes against their plain versions."""
+    from text_similarity_tpu_torch.data import BUCKETS
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+    from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    corpus = ctx["corpus"]
+    route = "packed" if enc.use_packed(enc._tokenize_rows(corpus[:20_000], 256), 128,
+                                       BUCKETS) else "bucketed"
+    pipes = {}
+    for label, docs in (("ivf", corpus), ("brute", corpus[:2000])):
+        with MoeDrops() as drops:
+            torch.cuda.synchronize()
+            t = time.time()
+            pipes[label] = SemanticSearchPipeline(enc, corpus=docs, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.time() - t
+        log(f"MoE encode of {len(docs)} documents [{card}]: {dt:.2f} s = {len(docs) / dt:.0f} "
+            f"sentences/s (minilm-l6 E 8 top-2 cf 1.25 bf16, packed='auto': {route}); "
+            f"moe_drop {drops.mean():.5f}")
+    big, small = pipes["ivf"], pipes["brute"]
+    t = time.time()
+    big._build_ivf()
+    torch.cuda.synchronize()
+    log(f"MoE IVF build over 120000 docs: {time.time() - t:.2f} s, "
+        f"Mc={big.ivf.data_padded.shape[1]}, C={big.ivf.num_base_clusters}")
+    big(corpus[:1], 10)
+    small(corpus[:1], 10)
+    rng = np.random.default_rng(13)
+    results, requests = {}, []
+    k1, k2 = ivf_scan_cuda.launches, cosine_topk_cuda.launches
+    with MoeDrops() as drops:
+        serve_requests(torch, big, "MoE ivf pipeline (120000 docs)", len(corpus),
+                       [1] * 20 + [5, 64], rng, results, requests)
+        serve_requests(torch, small, "MoE brute pipeline (2000 docs)", 2000, [1, 5, 64],
+                       rng, results, requests)
+    k1, k2 = ivf_scan_cuda.launches - k1, cosine_topk_cuda.launches - k2
+    log(f"MoE requests: moe_drop of the queries' encodes {drops.mean():.5f}; K1 launches {k1}, "
+        f"K2 launches {k2}")
+    gate_requests(torch, results, requests, card, probed_only=True)
+    single_probed = results[("MoE ivf pipeline (120000 docs)", 1)][2]
+    exact = ivf_against_exact(torch, requests)
+    for size, (shared, asked, n, self_hits) in sorted(exact.items()):
+        log(f"MoE ivf pipeline, requests of {size}: recall@10 against an exact top-10 over the "
+            f"same 120000 vectors on the same query vectors {shared / asked:.4f}; the exact "
+            f"top-10 finds {self_hits}/{n} queries themselves at score >= 0.99 [{card}]")
+    single_recall = exact[1][0] / exact[1][1]
+    log(f"MoE ivf single queries: own slab probed for {single_probed}/20 (floor "
+        f"{MOE_SINGLE_PROBED_MIN}), recall@10 against exact {single_recall:.4f} (floor "
+        f"{MOE_SINGLE_RECALL_MIN})")
+    if single_probed < MOE_SINGLE_PROBED_MIN or single_recall < MOE_SINGLE_RECALL_MIN:
+        raise AssertionError(f"MoE ivf single queries: {single_probed}/20 probed, recall@10 "
+                             f"against exact {single_recall:.4f}, below their floors")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError(f"the MoE pipelines did not run K1 ({k1}) and K2 ({k2})")
+    # the route gap: each of 64 documents encoded alone (a query's batch)
+    # against its vector from the corpus's batches; the corpus route again
+    picks = rng.choice(2000, 64, replace=False)
+    alone = torch.cat([enc.encode([corpus[j]], device_output=True) for j in picks])
+    cos = (alone * small.store.view[torch.as_tensor(picks, device=alone.device)]).sum(dim=1)
+    again = enc.encode(corpus[:2000], device_output=True)
+    same = float((again - small.store.view[:2000]).abs().max())
+    log(f"MoE route gap [{card}]: 64 documents encoded alone against their corpus vectors: min "
+        f"cosine {float(cos.min()):.6f}, mean {float(cos.mean()):.6f}, below 0.99: "
+        f"{int((cos < 0.99).sum())}; the 2000-document encode repeated: max|Δ| {same:.2e}")
+    if same > 1e-6:
+        raise AssertionError(f"the MoE encode is not deterministic (max|Δ| {same:.2e})")
+    q64 = [corpus[j] for j in picks]
+    qe = _pad_pow2(enc.encode(q64, device_output=True))
+    k2_held(torch, qe, small.store.view.contiguous(), (10, 20), "the MoE brute pipeline's "
+            "64-query request", card)
+    scan_at_requests(torch, big.ivf, lambda x: enc.encode(x, device_output=True), q64, 10,
+                     "K1 (MoE encoder)", card)
+    return small
+
+
+def moe_records(torch, card, ctx):
+    """minilm-l6 at full width with 8 experts (top-2, capacity factor 1.25;
+    the drive's arch), random weights, bf16: the pipelines, the int8
+    encoder, a profiled forward, ``train-sts --experts 8``, 30 steps, the
+    router-skew drive."""
+    import contextlib
+    import io
+    import tempfile
+
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS, TrainConfig
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.drives import moe_router_skew
+    from text_similarity_tpu_torch.models import SentenceEncoder, init_params
+    from text_similarity_tpu_torch.train import (
+        init_train_state, make_bi_encoder_train_step, make_optimizer,
+    )
+
+    corpus, tok = ctx["corpus"], ctx["tok"]
+    arch = ARCH_PRESETS["minilm-l6"].replace(vocab_size=tok.vocab_size, num_experts=8,
+                                             expert_top_k=2, expert_capacity_factor=1.25)
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    small = moe_pipeline_records(torch, card, ctx, enc)
+
+    enc8 = SentenceEncoder(params, arch, tokenizer=tok, device="cuda").to_int8()
+    router = enc8.params["layers"]["mlp"]["router"]["w"]
+    experts = enc8.params["layers"]["mlp"]["in"]["w"]
+    torch.cuda.synchronize()
+    t = time.time()
+    e8 = enc8.encode(corpus[:2000], device_output=True)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    cos = (e8 * small.store.view[:2000]).sum(dim=1)
+    log(f"MoE int8 encoder [{card}]: 2000 documents in {dt:.2f} s = {2000 / dt:.0f} sentences/s; "
+        f"unit embeddings against the bf16 encoder's: min cosine {float(cos.min()):.6f}, mean "
+        f"{float(cos.mean()):.6f}; router {router.dtype}, experts {experts['q'].dtype}")
+    if (not isinstance(router, torch.Tensor) or router.dtype != torch.float32
+            or experts["q"].dtype != torch.int8 or not bool(torch.isfinite(e8).all())):
+        raise AssertionError("to_int8 on the MoE encoder: the router must stay f32, the experts "
+                             "int8, the embeddings finite")
+
+    ids, mask = tok.encode_batch(corpus[:256], 128)
+    split = profile_split(torch, "one MoE minilm-l6 forward (256 x 128, bf16)",
+                          lambda: enc.embed_tokens(ids, mask), card, ranges=MOE_STAGES)
+    if split is None:
+        log("MoE forward split by stage: not measured")
+
+    build = os.path.join(REPO, "text_similarity_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    rng = np.random.default_rng(14)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        picks = rng.choice(len(corpus), 1024, replace=False)
+        with open(os.path.join(tmp, "sts.tsv"), "w") as f:
+            f.writelines(f"{corpus[i]}\t{corpus[j]}\t{rng.uniform(0, 5):.2f}\n"
+                         for i, j in zip(picks[:512], picks[512:]))
+        dt, out = cli(torch, ["train-sts", "--data", os.path.join(tmp, "sts.tsv"), "--no-eval",
+                              "--experts", "8", "--expert-top-k", "2", "--arch", "minilm-l6",
+                              "--batch-size", "32", "--save-path", os.path.join(tmp, "run"),
+                              "--device", "cuda"], card)
+        with open(os.path.join(tmp, "run", "results.jsonl")) as f:
+            train = [json.loads(line)["train"] for line in f][-1]
+        log(f"train-sts --experts 8 [{card}]: 512 pairs in {dt:.2f} s = {512 / dt:.1f} pairs/s "
+            f"over the command; epoch loss {train['loss']:.6f}, moe_aux {train['moe_aux']:.6f}, "
+            f"moe_drop {train['moe_drop']:.6f}")
+        if not all(np.isfinite(train[k]) for k in ("loss", "moe_aux", "moe_drop")):
+            raise AssertionError(f"train-sts --experts 8: {train}")
+
+        pairs = [(corpus[i], corpus[j]) for i, j in zip(picks[:32], picks[32:64])]
+        batch = build_pair_batches(tok, pairs, rng.random(32).astype(np.float32),
+                                   batch_size=32, max_len=128)[0]
+        steps = 30
+        tx = make_optimizer(TrainConfig(lr=1e-4), steps, params_example={"encoder": params})
+        state = init_train_state({"encoder": params}, tx, device="cuda")
+        step = make_bi_encoder_train_step(arch, tx, device="cuda")
+        metrics = []
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        first, last = (float(metrics[i]["loss"]) for i in (0, -1))
+        log(f"MoE bi-encoder [{card}]: 32 pairs x {steps} steps in {dt:.2f} s; loss first "
+            f"{first:.6f}, last {last:.6f}; moe_aux {float(metrics[-1]['moe_aux']):.5f}, "
+            f"moe_drop {float(metrics[-1]['moe_drop']):.5f} at the last step")
+        if not last < first:
+            raise AssertionError(f"the MoE bi-encoder's loss did not fall: {first} -> {last}")
+
+        rows = {}
+        for mode, argv in (("train", ["--train", "--steps", "100"]), ("sweep", ["--sweep"])):
+            buf = io.StringIO()
+            t = time.time()
+            with contextlib.redirect_stdout(buf):
+                rows[mode] = moe_router_skew.main(argv + ["--ckpt", os.path.join(tmp, "skew"),
+                                                          "--device", "cuda"])
+            log(f"router-skew drive --{mode} [{card}]: {time.time() - t:.1f} s")
+        tr = rows["train"]
+        log(f"  --train: {tr['steps']} MLM steps in {tr['train_seconds']:.1f} s, final loss "
+            f"{tr['final_loss']:.4f}; drop at {tr['eval_shape']}:")
+        for mode in ("train", "sweep"):
+            for a, b in zip(rows[mode]["trained"], rows[mode]["random"]):
+                rate = (f", sentences/s trained {a['sent_per_s']:.0f} (windows "
+                        f"{', '.join(f'{w:.0f}' for w in a['sent_per_s_windows'])}), random "
+                        f"{b['sent_per_s']:.0f}" if mode == "sweep" else "")
+                log(f"  --{mode} top_k {a['top_k']} cf {a['cf']}: moe_drop trained "
+                    f"{a['moe_drop']:.5f}, random {b['moe_drop']:.5f}; moe_aux trained "
+                    f"{a['moe_aux']:.4f}, random {b['moe_aux']:.4f}{rate}")
+        every = [r for m in rows.values() for r in m["trained"] + m["random"]]
+        if len(every) != 4 * len(moe_router_skew.SWEEP) or not all(
+                0 <= r["moe_drop"] <= 1 and np.isfinite(r["moe_aux"]) for r in every):
+            raise AssertionError("the router-skew drive's tables are incomplete or out of range")
+
+
+def performer_records(torch, card, ctx):
+    """roberta-base at 4098 positions (phase 6's weights) with Performer
+    attention (m = head_dim), bf16, against the same weights on the exact
+    path (K5, window 0); the card against the CPU; causal FAVOR+ against the
+    exact causal attention; 8 steps with a redraw every 4; the ``"auto"``
+    encode route."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward
+    from text_similarity_tpu_torch.ops import performer
+    from text_similarity_tpu_torch.ops.attention import (
+        attention_reference, flash_attention_cuda, multi_head_attention, packed_attention_cuda,
+    )
+    from text_similarity_tpu_torch.train import (
+        init_train_state, make_bi_encoder_train_step, make_optimizer,
+    )
+
+    tok, corpus = ctx["tok"], ctx["corpus"]
+    docs = long_documents(tok, corpus[:24_000], np.random.default_rng(6), 112, 16)
+    params, arch = long_arch_params(torch)
+    exact_arch = arch.replace(attention_window=0, window_global_cls=False)
+    perf_arch = exact_arch.replace(attention_type="performer")
+    kw = dict(max_len=4096, buckets=LONG_BUCKETS, batch_size=8, packed=False)
+    encs = {"performer": SentenceEncoder(params, perf_arch, tokenizer=tok, device="cuda"),
+            "exact": SentenceEncoder(params, exact_arch, tokenizer=tok, device="cuda")}
+    n_4096 = sum(bucket == 4096 for bucket, _ in bucket_batches(encs["exact"], docs, 8))
+    emb, k5 = {}, {}
+    for name, enc in encs.items():
+        enc.encode(docs[:8], **kw)
+        before = (flash_attention_cuda.launches, packed_attention_cuda.launches)
+        torch.cuda.synchronize()
+        t = time.time()
+        emb[name] = enc.encode(docs, device_output=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        k5[name] = (flash_attention_cuda.launches - before[0],
+                    packed_attention_cuda.launches - before[1])
+        log(f"{name} roberta-base-long encode [{card}]: {len(docs)} documents in {dt:.2f} s = "
+            f"{len(docs) / dt:.1f} docs/s; K5 launches {k5[name][0]}, K7 {k5[name][1]}")
+    if k5["performer"] != (0, 0) or k5["exact"][0] != 12 * n_4096 or n_4096 == 0:
+        raise AssertionError(f"K5 / K7 launches {k5}: the Performer path must run neither, the "
+                             f"exact path K5 in 12 layers x {n_4096} batches")
+    ep, ex = emb["performer"], emb["exact"]
+    diff = (ep - ex).abs()
+    control = float((ep - ex.roll(1, dims=0)).abs().mean())
+    cos = (ep * ex).sum(dim=1)
+    log(f"Performer against the exact path (K5, window 0), unit embeddings of {len(docs)} "
+        f"documents: mean|Δ| {float(diff.mean()):.4e}, max|Δ| {float(diff.max()):.4e}, min "
+        f"cosine {float(cos.min()):.6f}, mean {float(cos.mean()):.6f}; control, the next "
+        f"document's: mean|Δ| {control:.4e} [{card}]")
+    if not bool(torch.isfinite(ep).all()):
+        raise AssertionError("the Performer embeddings are not finite")
+    rows = encs["exact"]._tokenize_rows(docs, 4096)
+    long_idx = [j for j in range(len(docs)) if len(rows[j]) > 2048][:8]
+    mean, worst, control, min_cos = path_agreement(
+        torch, encs["performer"], [docs[j] for j in long_idx],
+        paths=((encs["performer"], "auto"), (encs["exact"], "auto")))
+    ok = mean <= PERFORMER_MEAN and worst <= PERFORMER_MAX and control >= 10 * PERFORMER_MEAN
+    log(f"Performer against the exact path, last_hidden_state of 8 documents at 4096 on valid "
+        f"rows: mean|Δ| {mean:.4e}, max|Δ| {worst:.4e} (limits {PERFORMER_MEAN:.1e}, "
+        f"{PERFORMER_MAX:.1e}); control, the next document's rows: mean|Δ| {control:.4e}; "
+        f"pooled min cosine {min_cos:.6f} -> {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("the Performer states are not within their limits of the exact "
+                             "path's, or the control does not separate them")
+
+    store = EmbeddingStore(len(docs), ep.shape[1], device="cuda")
+    store.add(ep)
+    picks = np.random.default_rng(15).choice(len(docs), 16, replace=False)
+    q = encs["performer"].encode([docs[j] for j in picks], device_output=True, **kw)
+    scores, ids = BruteForceIndex(store).query(q, k=10)
+    hits = sum(any(i == j and s >= 0.99 for s, i in zip(srow, irow))
+               for j, srow, irow in zip(picks, scores, ids))
+    k2_held(torch, q, store.view.contiguous(), (10,), "the Performer self-retrieval", card)
+    log(f"Performer self-retrieval: {hits}/16 documents in their top 10 at score >= 0.99")
+    if hits < 0.95 * 16:
+        raise AssertionError(f"Performer self-retrieval {hits}/16 below 95%")
+
+    p2, a2 = long_arch_params(torch, layers=2)
+    a2 = a2.replace(attention_window=0, window_global_cls=False, attention_type="performer")
+    ids_np = np.full((2, 4096), tok.pad_id, np.int32)
+    mask_np = np.zeros((2, 4096), np.int32)
+    for r, row in enumerate(rows[:2]):
+        ids_np[r, :len(row)], mask_np[r, :len(row)] = row, 1
+
+    def tree_to(tree, dev):
+        return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            outs[dev] = encoder_forward(tree_to(p2, dev), torch.from_numpy(ids_np).to(dev),
+                                        torch.from_numpy(mask_np).to(dev), arch=a2,
+                                        precision=FP32_PRECISION).last_hidden_state.cpu()
+    gap = float((outs["cuda"] - outs["cpu"]).abs().max())
+    log(f"Performer on the card against the CPU (2 layers, 2 x 4096, f32, one matrix): max|Δ| "
+        f"{gap:.3e} (limit {PERFORMER_CARD_CPU:.0e}) [{card}]")
+    if not gap <= PERFORMER_CARD_CPU:
+        raise AssertionError(f"Performer: the card and the CPU differ by {gap:.3e}")
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (0.5 * torch.randn((8, 4096, 12, 64), generator=g, device="cuda")
+               for _ in range(3))
+    proj = performer.projection(perf_arch, device="cuda")
+    causal = performer.performer_attention_causal(q, k, v, proj)
+    exact = attention_reference(q, k, v, causal=True)
+    mix = multi_head_attention(q, k, v, impl="performer", performer_proj=proj, causal=True,
+                               performer_local_heads=4, performer_local_window=64)
+    band = attention_reference(q[:, :, :4], k[:, :, :4], v[:, :, :4], window=64,
+                               global_cls=False, causal=True)
+    fav_ms = time_ms(torch, lambda: performer.performer_attention_causal(q, k, v, proj), iters=3)
+    ref_ms = time_ms(torch, lambda: attention_reference(q, k, v, causal=True), iters=2, warmup=1)
+    local_gap = float((mix[:, :, :4] - band).abs().max())
+    log(f"causal FAVOR+ at 8 x 4096 x 12 x 64 (f32, m 64) against exact causal attention: "
+        f"max|Δ| {float((causal - exact).abs().max()):.4e}, mean|Δ| "
+        f"{float((causal - exact).abs().mean()):.4e}; {fav_ms:.2f} ms against {ref_ms:.2f} ms; "
+        f"4 local heads (band 64) + 8 linear: local heads against the banded causal reference "
+        f"max|Δ| {local_gap:.2e}, linear heads against exact max|Δ| "
+        f"{float((mix[:, :, 4:] - exact[:, :, 4:]).abs().max()):.4e} [{card}]")
+    if not (bool(torch.isfinite(causal).all()) and bool(torch.isfinite(mix).all())
+            and local_gap <= 1e-5):
+        raise AssertionError("causal FAVOR+: non-finite output, or the local heads are not the "
+                             "banded causal attention")
+    del q, k, v, causal, exact, mix, band
+
+    t_arch = perf_arch.replace(performer_redraw_every=4)
+    rng = np.random.default_rng(16)
+    picks = rng.choice(len(corpus), 32, replace=False)
+    batch = build_pair_batches(tok, [(corpus[i], corpus[j]) for i, j in zip(picks[:16],
+                                                                          picks[16:])],
+                               rng.random(16).astype(np.float32), batch_size=16, max_len=128)[0]
+    tx = make_optimizer(TrainConfig(lr=1e-5), 8, params_example={"encoder": params})
+    state = init_train_state({"encoder": params}, tx, device="cuda")
+    step = make_bi_encoder_train_step(t_arch, tx, device="cuda")
+    performer.draw_projection.cache_clear()
+    losses = []
+    for _ in range(8):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    draws = performer.draw_projection.cache_info().misses
+    mats = [performer.projection(t_arch, s, "cuda") for s in range(8)]
+    same = [bool(torch.equal(mats[s], mats[s - 1])) for s in range(1, 8)]
+    log(f"Performer bi-encoder, redraw every 4 [{card}]: 8 steps, losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; matrices drawn in the steps {draws}; "
+        f"step s equal to step s - 1: {same}")
+    if (not all(np.isfinite(losses)) or draws != 2
+            or same != [True, True, True, False, True, True, True]):
+        raise AssertionError("the Performer redraw: losses not finite, or the matrix did not "
+                             "change at the epoch boundary only")
+
+    mixed = corpus[:64] + docs[:2]
+    enc = encs["performer"]
+    routed = enc.use_packed(enc._tokenize_rows(mixed, 4096), 8, LONG_BUCKETS)
+    out = enc.encode(mixed, max_len=4096, buckets=LONG_BUCKETS, batch_size=8)
+    log(f"Performer encode(packed='auto') of 64 sentences and 2 long documents: packs "
+        f"{routed}, {tuple(out.shape)} finite {bool(np.isfinite(out).all())}")
+    if routed or not np.isfinite(out).all():
+        raise AssertionError("a Performer model packed or failed under packed='auto'")
+
+
+def phase_moe_performer(torch, card, ctx):
+    """Phase 13: the MoE expert FFN and Performer attention in the encoder."""
+    t0 = time.time()
+    moe_records(torch, card, ctx)
+    performer_records(torch, card, ctx)
+    log(f"phase 13: {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -4580,6 +5078,7 @@ def main() -> int:
     phase_training_entry_points(torch, card, ctx)
     phase_commands(torch, card, ctx, corpus, queries)
     phase_compression(torch, card, ctx)
+    phase_moe_performer(torch, card, ctx)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]

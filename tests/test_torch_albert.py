@@ -103,9 +103,15 @@ def test_init_params_holds_one_layer_and_e_wide_tables():
 
 
 def test_albert_still_refuses_moe():
+    """ALBERT with MoE FFNs (refused before MoE was ported): one shared
+    layer's router and experts, leaf for leaf the JAX package's tree."""
     arch = ARCH_PRESETS["tiny-test"].replace(num_experts=2, **ALBERT)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        init_params(arch)
+    tp = init_params(arch, torch.Generator().manual_seed(0))
+    jp = jax_init(jax.random.PRNGKey(0), JAX_PRESETS["tiny-test"].replace(num_experts=2, **ALBERT))
+    flat_t = jax.tree_util.tree_leaves_with_path(tp)
+    flat_j = jax.tree_util.tree_leaves_with_path(jp)
+    assert [(p, tuple(v.shape)) for p, v in flat_t] == [(p, v.shape) for p, v in flat_j]
+    assert tp["layers"]["mlp"]["in"]["w"].shape == (1, 2, 64, 128)
 
 
 @pytest.fixture(scope="module")

@@ -2011,3 +2011,103 @@ def test_export_bundle_on_card(cuda, tmp_path):
     with pytest.raises(ValueError, match=r"K5"):
         export_encoder(enc, str(tmp_path / "long"), batch_sizes=(1,), seq_lens=(4096,))
     assert not (tmp_path / "long").exists()
+
+
+@pytest.mark.parametrize("k", [64, 384])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 24, 33, 48])
+def test_int8_mm_few_rows_on_card(cuda, m, k):
+    """``int8_mm`` on the card at row counts cuBLASLt refuses unpadded at K
+    64 (an MoE expert's capacity can be 8): exact against the CPU."""
+    from text_similarity_tpu_torch.compress.quantize import int8_mm
+
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, 128), generator=g, dtype=torch.int8)
+    want = a.int() @ b.int()
+    assert torch.equal(int8_mm(a.to(cuda), b.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_moe_ffn_on_card_matches_cpu(cuda, quantized):
+    """``moe_ffn`` on the card against the CPU (f32, E 4, top-2, T 16 so
+    the capacity is 8; int8 experts through ``int8_mm``'s padded rows):
+    the same routing and outputs within 1e-5, with TF32 allowed for the
+    card's f32 products too (the router's logits take f64 then)."""
+    from text_similarity_tpu_torch.compress.quantize import _quant_leaf
+    from text_similarity_tpu_torch.ops.moe import moe_ffn
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 8, 64), generator=g)
+    mask = torch.ones((2, 8), dtype=torch.int32)
+    mask[1, 6:] = 0
+    rw = torch.randn((64, 4), generator=g)
+    wi, wo = (0.1 * torch.randn(s, generator=g) for s in ((4, 64, 128), (4, 128, 64)))
+    bi, bo = 0.1 * torch.randn((4, 128), generator=g), 0.1 * torch.randn((4, 64), generator=g)
+    if quantized:
+        wi, wo = _quant_leaf(wi), _quant_leaf(wo)
+
+    def on(t, dev):
+        return {k: v.to(dev) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+
+    want = moe_ffn(x, mask, rw, wi, bi, wo, bo, capacity_factor=1.0)
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = moe_ffn(*(on(t, cuda) for t in (x, mask, rw, wi, bi, wo, bo)),
+                          capacity_factor=1.0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert float(got[2]) == float(want[2]) and abs(float(got[1]) - float(want[1])) <= 1e-6
+        assert float((got[0].cpu() - want[0]).abs().max()) <= (1e-5 if not tf32 else 5e-3)
+
+
+def test_moe_ffn_bf16_on_card_matches_cpu(cuda):
+    """bf16 ``moe_ffn`` on the card (``bmm`` with an f32 output) against the
+    CPU (the product of the operands raised to f32): both sum exact
+    products in f32, so the routing is equal, each output within one bf16
+    ulp (|Δ| ≤ 2^-7·|want|) and at most 1% of them differ at all; the
+    gradients of x and the expert weights (bf16 products of the rounded
+    cotangent on both) within 1e-2 of their largest."""
+    from text_similarity_tpu_torch.ops.moe import moe_ffn
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((4, 64, 64), generator=g).bfloat16()
+    mask = torch.ones((4, 64), dtype=torch.int32)
+    mask[3, 40:] = 0
+    rw = torch.randn((64, 4), generator=g)
+    wi, wo = (0.3 * torch.randn(s, generator=g) for s in ((4, 64, 128), (4, 128, 64)))
+    bi, bo = 0.1 * torch.randn((4, 128), generator=g), 0.1 * torch.randn((4, 64), generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, wi, wo)]
+        y = moe_ffn(leaves[0], mask.to(dev), rw.to(dev), leaves[1], bi.to(dev), leaves[2],
+                    bo.to(dev))
+        (y[0].float() * cot.to(dev)).sum().backward()
+        outs.append(y)
+        grads.append([t.grad.float().cpu() for t in leaves])
+    want, got = outs
+    assert got[0].dtype == torch.bfloat16 and float(got[2]) == float(want[2])
+    g0, w0 = got[0].detach().cpu().float(), want[0].detach().float()
+    assert bool(((g0 - w0).abs() <= 2 ** -7 * w0.abs() + 1e-5).all())
+    assert float((g0 != w0).float().mean()) <= 0.01
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
+
+
+def test_performer_attention_on_card_matches_cpu(cuda):
+    """FAVOR+ (softmax and ReLU kernels, non-causal and causal at S 300)
+    on the card against the CPU, f32, one projection: within 1e-5."""
+    from text_similarity_tpu_torch.ops import performer
+
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn((2, 300, 4, 32), generator=g) for _ in range(3))
+    mask = torch.ones((2, 300), dtype=torch.int32)
+    mask[1, 200:] = 0
+    proj = performer.draw_projection(32, 32)
+    for fn in (performer.performer_attention, performer.performer_attention_causal):
+        for kernel in ("softmax", "relu"):
+            want = fn(q, k, v, proj, mask, kernel=kernel)
+            got = fn(q.to(cuda), k.to(cuda), v.to(cuda), proj.to(cuda), mask.to(cuda),
+                     kernel=kernel)
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -106,8 +106,8 @@ def test_params_from_jax_checks_shapes():
     jp["layers"]["attn"]["q"]["w"] = jp["layers"]["attn"]["q"]["w"][:, :, :8]
     with pytest.raises(ValueError):
         params_from_jax(jp, arch)
-    with pytest.raises(NotImplementedError):   # MoE: not ported
-        init_params(ARCH_PRESETS["tiny-test"].replace(num_experts=2))
+    with pytest.raises(KeyError, match="router"):   # a dense tree for an MoE arch
+        params_from_jax(_jax_params(arch), ARCH_PRESETS["tiny-test"].replace(num_experts=2))
 
 
 def test_init_params_layout_matches_jax():

@@ -20,7 +20,7 @@ from text_similarity_tpu_torch.index import EmbeddingStore, IVFIndex
 from text_similarity_tpu_torch.cli.main import build_parser, build_server
 from text_similarity_tpu_torch.cli.main import main as cli_main
 from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
-from text_similarity_tpu_torch.drives import churn, serve_load
+from text_similarity_tpu_torch.drives import churn, moe_router_skew, serve_load
 from text_similarity_tpu_torch.models import SentenceEncoder, arch_from_hf_config, init_params
 from text_similarity_tpu_torch.models.encoder import _param_shapes
 from text_similarity_tpu_torch.models.hf_convert import _BERT_LAYER, _EMB
@@ -79,6 +79,7 @@ def test_port_imports_with_jax_blocked():
         "compress.distill", "compress.theseus", "compress.prune", "compress.export", "ops.pca",
         "ops.density", "ops.segment", "pipelines.clustering", "pipelines.topic",
         "models.word_encoder", "utils.lexicon", "utils.senses", "utils.profiling",
+        "ops.performer", "ops.moe", "drives.moe_router_skew",
     )} <= set(MODULES)
 
 
@@ -132,9 +133,9 @@ def _tiny_encoder_args():
               "from_hf", "mining_pipeline", "compare_models", "quantize_cli", "encode_cli",
               "search_cli", "mine_cli", "compare_models_cli", "churn_drive", "serve_load_drive",
               "export_cli", "cluster_cli", "topics_cli", "distill_cli", "word_encoder",
-              "exported_params"]
+              "exported_params", "moe_router_skew_drive"]
 )
-def test_entry_points_default_to_the_card(entry, tmp_path):
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Without device=..., every entry point asks for CUDA: it raises when no
     card is present and lands on the card when one is."""
     params, arch = _tiny_encoder_args()
@@ -190,6 +191,11 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             return SentenceEncoder.from_hf(_TinyHF(), precision=FP32_PRECISION)
         if entry == "churn_drive":
             return churn.main(["--n", "500", "--d", "32", "--queries", "8"])
+        if entry == "moe_router_skew_drive":
+            for name, value in (("ARCH", "tiny-test"), ("TRAIN_SHAPE", (2, 16)),
+                                ("EVAL_SHAPE", (2, 16)), ("EVAL_BATCHES", 1)):
+                monkeypatch.setattr(moe_router_skew, name, value)
+            return moe_router_skew.main(["--train", "--steps", "1", "--ckpt", str(tmp_path)])
         if entry == "serve_load_drive":
             return serve_load.main(["--n-docs", "50", "--arch", "tiny-test", "--phases", "A",
                                     "--duration", "0.1"])

@@ -1,6 +1,6 @@
 """The port's HTTP daemon on the CPU: the JAX package's server tests
 (health, search, encode, add, remove, save, metrics, errors, micro-batching,
-rerank), the three faults of the reference that the port does not copy, a
+rerank), /metrics counting every answered request, the three faults of the reference that the port does not copy, a
 32-client stress run of the micro-batcher, the CLI's server builder and the
 ``serve`` entry point as a process, and one request answered alike by the
 port's server and the JAX package's over the same saved pipeline.
@@ -202,6 +202,50 @@ def test_search_server_metrics_endpoint(encoder):
         assert m["/search"]["latency_ms_p95"] >= m["/search"]["latency_ms_p50"] > 0
         _http_error(server, "/nowhere", {})
         assert "/nowhere" not in _call(server, "/metrics")
+    finally:
+        server.shutdown()
+
+
+def test_metrics_count_every_answered_request(encoder):
+    """/metrics counts every request whose answer the client already holds:
+    50 sequential /search calls, /metrics read after each. The server
+    records a request before it writes the reply; recorded after, the
+    /metrics request could run on another handler thread first. A record
+    that takes 10 ms widens any such window to where every call shows it."""
+    server = SearchServer(_pipe(encoder), port=0)
+    record = server.stats.record
+
+    def slow_record(*args):
+        time.sleep(0.01)
+        record(*args)
+
+    server.stats.record = slow_record
+    server.start_background()
+    try:
+        seen = []
+        for n in range(1, 51):
+            _call(server, "/search", {"queries": [CORPUS[n % len(CORPUS)]], "k": 2})
+            seen.append(_call(server, "/metrics")["/search"]["requests"])
+        assert seen == list(range(1, 51))
+    finally:
+        server.shutdown()
+
+
+def test_failed_body_read_is_answered_500_and_counted(encoder):
+    """An OSError while the body is read (a client reset mid-upload) is a
+    failure of a known endpoint like any other: answered 500 and recorded."""
+    server = SearchServer(_pipe(encoder), port=0)
+
+    def reset(handler):
+        raise ConnectionResetError("connection reset by peer")
+
+    server.httpd.RequestHandlerClass._read_json = reset
+    server.start_background()
+    try:
+        code, body = _http_error(server, "/search", {"queries": [CORPUS[0]], "k": 2})
+        assert code == 500 and "ConnectionResetError" in body["error"]
+        m = _call(server, "/metrics")["/search"]
+        assert m["requests"] == 1 and m["errors"] == 1
     finally:
         server.shutdown()
 

@@ -292,12 +292,16 @@ def test_mlm_mask_batch_law():
     np.testing.assert_array_equal(again[0].numpy(), corrupted)
 
 
-@pytest.mark.parametrize("kind", ["bi", "packed", "albert"])
+@pytest.mark.parametrize("kind", ["bi", "packed", "albert", "moe"])
 def test_remat_leaves_the_gradients_unchanged_with_dropout_on(tok, monkeypatch, kind):
     """tiny-test with hidden dropout 0.1: the loss's gradients from the same
     seed are equal with remat False, True and "dots", the generator ends in
-    the same state, and remat really recomputes (each layer runs twice)."""
+    the same state, and remat really recomputes (each layer runs twice).
+    ``moe``: 4 experts at capacity factor 0.5, each layer's (out, aux,
+    drop) through the checkpoint and the aux term in the loss."""
     kw = dict(share_layers=True, embed_factor_size=32, num_layers=3) if kind == "albert" else {}
+    if kind == "moe":
+        kw = dict(num_experts=4, expert_capacity_factor=0.5)
     arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size, **kw)
     params = TS.trainable({"encoder": TE.init_params(arch, torch.Generator().manual_seed(0))})
     pairs, t = _pairs(12, 4)
@@ -317,10 +321,11 @@ def test_remat_leaves_the_gradients_unchanged_with_dropout_on(tok, monkeypatch, 
     def grads(remat):
         g = torch.Generator().manual_seed(7)
         calls.clear()
-        loss, _, gr = TS.value_and_grad(loss_fn, params, batch, g, remat)
-        return float(loss.detach()), _flat(gr), g.get_state(), len(calls)
+        loss, aux, gr = TS.value_and_grad(loss_fn, params, batch, g, remat)
+        return float(loss.detach()), _flat(gr), g.get_state(), len(calls), aux
 
     base = grads(False)
+    assert (float(base[4]["moe_drop"].detach()) > 0) if kind == "moe" else "moe_drop" not in base[4]
     assert base[3] == 2 * arch.num_layers
     for remat in (True, "dots"):
         got = grads(remat)

@@ -55,8 +55,10 @@ tokens (the reference tiles to ``--target-len`` and reads past its table).
 ``build_server`` does the serve set-up (load the encoder, the corpus or
 saved pipeline and the cross-encoder, warm them) and returns the server;
 ``cmd_serve`` only serves it, so a caller can drive the same set-up without
-blocking. ``--pipe > 1``, ``--experts`` and ``serve --shards > 1`` exit with
-"not ported yet" and the ROADMAP item that ports them.
+blocking. ``--experts N`` (with ``--expert-top-k``) gives a random-init
+model MoE FFNs of N experts; a loaded model carries its own arch.
+``--pipe > 1`` and ``serve --shards > 1`` exit with "not ported yet" and
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def _train_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pipe", type=int, default=1,
                    help="pipeline-parallel stages (not ported yet: 1 only)")
     p.add_argument("--experts", type=int, default=0,
-                   help="MoE experts for a random-init model (not ported yet: 0 only)")
+                   help="MoE experts in each FFN of a random-init model (0: dense)")
     p.add_argument("--expert-top-k", type=int, default=2,
                    help="experts consulted per token (MoE routing)")
     p.add_argument("--packed", action="store_true",
@@ -122,8 +124,6 @@ def _check_ported(args) -> None:
     if getattr(args, "pipe", 1) > 1:
         raise SystemExit("--pipe > 1: pipeline parallelism is not ported yet "
                          "(ROADMAP queue 1 item 10)")
-    if getattr(args, "experts", 0) > 0:
-        raise SystemExit("--experts > 0: MoE is not ported yet (ROADMAP queue 1 item 9)")
 
 
 def _tokenizer(args, texts=None):
@@ -138,7 +138,8 @@ def _tokenizer(args, texts=None):
 
 def _encoder(args, tokenizer=None, texts=None):
     """A SentenceEncoder on ``--device``: loaded from ``--model``, else
-    random weights of ``--arch`` drawn from ``--seed``."""
+    random weights of ``--arch`` drawn from ``--seed`` (with ``--experts``,
+    MoE FFNs)."""
     from ..core.config import ARCH_PRESETS
     from ..models import SentenceEncoder, init_params
 
@@ -149,6 +150,8 @@ def _encoder(args, tokenizer=None, texts=None):
         return SentenceEncoder.load(args.model, bf16=not args.fp32, device=args.device)
     tok = tokenizer or _tokenizer(args, texts)
     arch = ARCH_PRESETS[args.arch].replace(vocab_size=tok.vocab_size)
+    if getattr(args, "experts", 0):
+        arch = arch.replace(num_experts=args.experts, expert_top_k=args.expert_top_k)
     params = init_params(arch, torch.Generator().manual_seed(args.seed))
     return SentenceEncoder(params, arch, tokenizer=tok, pooling=args.pooling or "mean",
                            precision=precision_for(not args.fp32), device=args.device)

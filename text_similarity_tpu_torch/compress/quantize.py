@@ -16,8 +16,8 @@ weights (the reference quantizes them eagerly) and max|x| × f32(1/127) for
 embeddings and activations, which the reference quantizes under ``jit``,
 where XLA turns the division by the constant into that product: the
 scales then agree to the bit. ``int8_mm`` is the exact int8×int8→int32
-product all of them use: ``torch._int_mm`` (padding the rows to its
-minimum of 17 on the card).
+product all of them use: ``torch._int_mm`` (on the card, the rows padded
+to a multiple of 32).
 """
 
 from __future__ import annotations
@@ -111,11 +111,14 @@ def quantize_embeddings_int8(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 
 def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact (M, K) int8 @ (K, N) int8 → (M, N) int32. On the card
-    ``torch._int_mm`` needs M > 16 and K, N multiples of 8: M is padded with
-    zero rows (exact), K and N must already be multiples of 8."""
+    ``torch._int_mm`` needs M > 16 and K, N multiples of 8, and cuBLASLt
+    refuses some M at a small K (CUBLAS_STATUS_NOT_SUPPORTED: at K 64 only
+    multiples of 32 ran on an H100 with CUDA 12.8, every M > 16 at K ≥
+    128): M is padded with zero rows (exact) to a multiple of 32; K and N
+    must already be multiples of 8."""
     m = a.shape[0]
     if a.is_cuda:
-        rows = max(17, -(-m // 8) * 8)
+        rows = -(-m // 32) * 32
         if rows != m:
             a = torch.cat([a, a.new_zeros((rows - m, a.shape[1]))])
         return torch._int_mm(a.contiguous(), b.contiguous())[:m]

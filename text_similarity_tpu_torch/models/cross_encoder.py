@@ -231,12 +231,16 @@ class CrossEncoder:
         True packs into rows of the widest pair's bucket; False runs
         in-order batches of ``batch_size``, each padded to its bucket;
         "auto" packs more than 8 pairs under cls pooling when the bucketed
-        tokens reach ``PACK_AUTO_RATIO`` × the packed estimate."""
+        tokens reach ``PACK_AUTO_RATIO`` × the packed estimate; a Performer
+        model, whose linear attention has no block-diagonal form, never
+        packs under "auto"."""
         if self.tokenizer is None:
             raise ValueError("cross encoder has no tokenizer")
         a = [p[0] for p in pairs]
         b = [p[1] for p in pairs]
-        if packed is True or (packed == "auto" and self.pooling == "cls" and len(pairs) > 8):
+        auto = (packed == "auto" and self.pooling == "cls" and len(pairs) > 8
+                and self.arch.attention_type != "performer")
+        if packed is True or auto:
             fast = hasattr(self.tokenizer, "encode_bodies")
             if fast:
                 # a pair's packed length is min(la + lb, budget) + 3 after

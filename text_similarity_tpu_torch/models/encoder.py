@@ -64,7 +64,18 @@ attention. ``output_hidden_states`` returns the (L + 1, B, S, H) stack, the
 embedding output first. A pruned arch (``head_dim_override``) keeps its
 head width: q, k, v are (H, nh·hd) and o (nh·hd, H).
 
-Not ported yet: MoE, performer attention.
+MoE (``arch.num_experts > 0``): the stack holds a router (L, H, E) and the
+experts (L, E, H, I) / (L, E, I, H) with (L, E, ·) biases, and each layer's
+FFN is ``ops.moe.moe_ffn``; ``encoder_forward`` returns the load-balance
+loss and the dropped fraction, each the mean over the L layers, as
+``moe_aux`` / ``moe_drop``. An int8 tree quantizes the experts and keeps
+the router in f32.
+
+Performer (``attention_type="performer"``): every layer runs
+``impl="performer"`` (FAVOR+, ``ops.performer``; never K5 or K7) with the
+projection ``ops.performer.projection`` draws (seeded 42, or the epoch of
+``performer_step`` when the arch redraws), or an explicit
+``performer_proj``.
 """
 
 from __future__ import annotations
@@ -81,7 +92,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
 from ..core.precision import DEFAULT_PRECISION, Precision
+from ..ops import performer as _performer
 from ..ops.attention import multi_head_attention
+from ..ops.moe import moe_ffn
 from .pooling import bert_pooler
 
 
@@ -89,17 +102,8 @@ class EncoderOutput(NamedTuple):
     last_hidden_state: torch.Tensor         # (B, S, H)
     pooler_output: Optional[torch.Tensor]   # (B, H) tanh(W·cls) or None
     hidden_states: Optional[torch.Tensor] = None  # (L + 1, B, S, H), embeddings first
-
-
-def _check_supported(arch: EncoderArch) -> None:
-    bad = ["num_experts"] if arch.num_experts else []
-    if arch.attention_type != "softmax":
-        bad.append(f"attention_type={arch.attention_type!r}")
-    if bad:
-        raise NotImplementedError(
-            f"encoder options not ported yet: {', '.join(bad)} "
-            "(ROADMAP queue 1: MoE, performer)"
-        )
+    moe_aux: Optional[torch.Tensor] = None        # MoE: load-balance loss, mean over layers
+    moe_drop: Optional[torch.Tensor] = None       # MoE: dropped fraction, mean over layers
 
 
 def _param_shapes(arch: EncoderArch) -> dict:
@@ -123,6 +127,13 @@ def _param_shapes(arch: EncoderArch) -> dict:
             "mlp_ln": ln(l, h),
         },
     }
+    if arch.num_experts > 0:
+        ne = arch.num_experts
+        shapes["layers"]["mlp"] = {
+            "router": {"w": (l, h, ne)},
+            "in": {"w": (l, ne, h, i), "b": (l, ne, i)},
+            "out": {"w": (l, ne, i, h), "b": (l, ne, h)},
+        }
     if arch.has_token_type:
         shapes["embeddings"]["token_type"] = (arch.type_vocab_size, e)
     if arch.embed_factor_size:
@@ -145,7 +156,6 @@ def init_params(
     from ``generator`` in a fixed tree order. The numbers differ from the
     JAX package's ``init_params`` (another RNG); carry JAX weights across
     with :func:`params_from_jax` instead."""
-    _check_supported(arch)
 
     def make(tree):
         out = {}
@@ -204,7 +214,6 @@ def params_from_jax(tree: dict, arch: EncoderArch, device="cpu") -> dict:
     shapes ``arch`` implies. A quantized leaf ``{"q": int8, "s": scale}``
     (``quantize_params_int8``) carries across as int8 codes and f32 scales
     whose contraction axis (-2) is 1."""
-    _check_supported(arch)
     return _tree_from_jax(_param_shapes(arch), tree, "", device)
 
 
@@ -333,9 +342,14 @@ def transformer_layer(
     generator: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
     head_mask: Optional[torch.Tensor] = None,    # (nh,) multiplier a head
-) -> torch.Tensor:
+    performer_proj: Optional[torch.Tensor] = None,  # (m, hd): impl="performer"
+    with_aux: bool = False,
+):
     """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
-    dropout on the attention output and the FFN output in training."""
+    dropout on the attention output and the FFN output in training. For an
+    MoE arch the FFN is the routed expert block; ``with_aux=True`` returns
+    ``(out, aux, drop)``: the layer's load-balance loss and dropped
+    fraction (zeros for a dense arch)."""
     b, s, h = hx.shape
     nh, hd = arch.num_heads, arch.head_dim
     attn, mlp = lp["attn"], lp["mlp"]
@@ -362,20 +376,38 @@ def transformer_layer(
     ctx = multi_head_attention(
         q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
         window=arch.attention_window, window_global_cls=arch.window_global_cls,
-        segment_ids=segment_ids,
+        segment_ids=segment_ids, performer_proj=performer_proj,
+        performer_kernel=arch.performer_kernel,
+        performer_local_heads=arch.performer_local_heads,
+        performer_local_window=arch.performer_local_window,
     ).reshape(b, s, nh * hd)   # nh·hd < h after head pruning
     ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
     hx1 = _layer_norm(
         hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
         arch.layer_norm_eps,
     )
-    ff = _dense(hx1, mlp["in"])
-    ff = _act(arch.hidden_act)(ff.float()).to(hx1.dtype)
-    ff = dropout(_dense(ff, mlp["out"]), arch.hidden_dropout, generator, deterministic)
-    return _layer_norm(
+    act = _act(arch.hidden_act)
+    aux = drop = None
+    if arch.num_experts > 0:
+        ff, aux, drop = moe_ffn(
+            hx1, attention_mask, mlp["router"]["w"], mlp["in"]["w"], mlp["in"]["b"],
+            mlp["out"]["w"], mlp["out"]["b"], top_k=arch.expert_top_k,
+            capacity_factor=arch.expert_capacity_factor, activation=act,
+        )
+    else:
+        ff = _dense(hx1, mlp["in"])
+        ff = act(ff.float()).to(hx1.dtype)
+        ff = _dense(ff, mlp["out"])
+    ff = dropout(ff, arch.hidden_dropout, generator, deterministic)
+    out = _layer_norm(
         hx1 + ff, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"],
         arch.layer_norm_eps,
     )
+    if not with_aux:
+        return out
+    if aux is None:
+        aux = drop = torch.zeros((), dtype=torch.float32, device=hx.device)
+    return out, aux, drop
 
 
 def embed_inputs(
@@ -451,6 +483,8 @@ def encoder_forward(
     remat=False,                                  # False | True | "dots"
     head_mask: Optional[torch.Tensor] = None,     # (L, nh)
     output_hidden_states: bool = False,
+    performer_step: Optional[int] = None,         # train step, for feature redraw
+    performer_proj: Optional[torch.Tensor] = None,  # (m, hd) in place of the draw
 ) -> EncoderOutput:
     """Run the encoder: embeddings, then a loop over the L stacked layers
     (the reference's ``lax.scan``; ALBERT runs its one layer L times), then
@@ -462,7 +496,11 @@ def encoder_forward(
     matmul outputs ("dots"). ``head_mask`` (L, nh): layer l's attention
     probabilities scaled by row l (the reference attention).
     ``output_hidden_states``: also the (L + 1, B, S, H) stack of the
-    embedding output and every layer's output."""
+    embedding output and every layer's output. A Performer arch runs
+    ``impl="performer"`` whatever ``attention_impl`` says, with
+    ``performer_proj`` or the drawn projection (the epoch of
+    ``performer_step`` when the arch redraws). An MoE arch returns
+    ``moe_aux`` / ``moe_drop``, the means over the L layers."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
@@ -476,21 +514,35 @@ def encoder_forward(
         layers = _unstack_tree(layers, 1) * arch.num_layers   # one set, L iterations
     else:
         layers = _unstack_tree(layers, arch.num_layers)
+    if arch.attention_type == "performer":
+        attention_impl = "performer"
+        if performer_proj is None:
+            performer_proj = _performer.projection(arch, performer_step, x.device)
+    moe = arch.num_experts > 0
     kw = dict(arch=arch, attention_impl=attention_impl, deterministic=deterministic,
-              generator=generator, segment_ids=segment_ids)
+              generator=generator, segment_ids=segment_ids, performer_proj=performer_proj,
+              with_aux=moe)
     states = [x]
+    sums = torch.zeros((2,), dtype=torch.float32, device=x.device) if moe else None
     for i, lp in enumerate(layers):
         hm = None if head_mask is None else head_mask[i].float()
         if remat and torch.is_grad_enabled():
             x = _remat_layer(x, lp, attention_mask, remat, head_mask=hm, **kw)
         else:
             x = transformer_layer(x, lp, attention_mask, head_mask=hm, **kw)
+        if moe:
+            x, aux, drop = x
+            sums = sums + torch.stack([aux, drop])
         states.append(x)
     pooler_out = None
     if arch.has_pooler and "pooler" in params:
         pw = params["pooler"]
         pooler_out = bert_pooler(x, dequant_weight(pw["w"]), pw["b"])
-    return EncoderOutput(x, pooler_out, torch.stack(states) if output_hidden_states else None)
+    moe_aux = moe_drop = None
+    if moe:
+        moe_aux, moe_drop = sums[0] / arch.num_layers, sums[1] / arch.num_layers
+    return EncoderOutput(x, pooler_out, torch.stack(states) if output_hidden_states else None,
+                         moe_aux, moe_drop)
 
 
 def num_params(params: dict) -> int:
@@ -509,7 +561,8 @@ def _remat_layer(x, lp, attention_mask, remat, *, generator, deterministic, **kw
     the default generators, so the layer's own ``generator`` is put back to
     its state at the layer's entry for the recompute (and returned to where
     the backward found it after), so the recompute draws the forward's
-    dropout masks."""
+    dropout masks. An MoE layer's (out, aux, drop) goes through as a
+    tuple."""
     draws = generator is not None and not deterministic
     entry = generator.get_state() if draws else None
     calls = []
@@ -567,7 +620,6 @@ class Encoder(nn.Module):
         precision: Precision = DEFAULT_PRECISION,
     ):
         super().__init__()
-        _check_supported(arch)
         self.arch = arch
         self.precision = precision
         self.params = _ParamTree(params)

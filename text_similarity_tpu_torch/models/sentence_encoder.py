@@ -34,7 +34,17 @@ model (``attention_window > 0``) never packs, where the reference's rule
 reads no window. A packed row would band by row position and give the
 global CLS to its first segment only, and segment masking runs the plain
 attention at the row's full width; so ``"auto"`` runs such a model
-bucketed and ``packed=True`` raises.
+bucketed and ``packed=True`` raises. The same holds for a Performer model
+(``attention_type="performer"``), whose linear attention has no
+block-diagonal form (its global sums would mix a row's segments); the
+reference's ``"auto"`` packs it by length and then raises.
+
+MoE (``num_experts > 0``): an expert's capacity counts the batch's tokens,
+padding included, so a text's embedding depends on the batch it is encoded
+in (bucketed, packed, alone). ``encode`` therefore runs the reference's
+batch shapes for an MoE model: a bucket's tail batch keeps its padding
+rows, and a packed forward is padded to ``rows_per_batch`` rows.
+``to_int8`` quantizes the experts and keeps the router in f32.
 
 ``from_hf`` converts a live ``transformers`` model (``models.hf_convert``);
 ``embed_token_stack`` embeds an (n, B, L) stack of pre-tokenized batches.
@@ -201,6 +211,12 @@ class SentenceEncoder(nn.Module):
         for st in range(0, packed["ids"].shape[0], rows_per_batch):
             chunk = {key: packed[key][st:st + rows_per_batch]
                      for key in ("ids", "segments", "positions", "owners")}
+            pad = rows_per_batch - chunk["ids"].shape[0]
+            if pad and self.arch.num_experts > 0:
+                # MoE capacity counts the reference's padded rows
+                chunk = {key: np.pad(val, ((0, pad), (0, 0)),
+                                     constant_values=-1 if key == "owners" else 0)
+                         for key, val in chunk.items()}
             emb = self.embed_tokens_packed(chunk["ids"], chunk["segments"], chunk["positions"], m)
             ow = chunk["owners"]
             ow = np.pad(ow, ((0, 0), (0, m - ow.shape[1])), constant_values=-1)
@@ -216,6 +232,11 @@ class SentenceEncoder(nn.Module):
             raise ValueError(
                 "packed encode does not support a windowed model (attention_window="
                 f"{self.arch.attention_window}): encode it with packed=False"
+            )
+        if self.arch.attention_type == "performer":
+            raise ValueError(
+                "packed encode does not support Performer attention (its linear sums would "
+                "mix a row's segments): encode it with packed=False"
             )
 
     def forward(self, ids, mask) -> torch.Tensor:
@@ -244,8 +265,10 @@ class SentenceEncoder(nn.Module):
         pooling, and the bucketed tokens (same-bucket groups of
         ``batch_size`` rows, tail batches counted full) ≥ PACK_AUTO_RATIO ×
         the packed estimate (rows of the widest row's bucket, filled to
-        98%). Unlike the reference, a windowed model never packs."""
-        if self.pooling != "mean" or self.arch.attention_window > 0 or len(row_ids) <= 8:
+        98%). Unlike the reference, a windowed or a Performer model never
+        packs."""
+        if (self.pooling != "mean" or self.arch.attention_window > 0
+                or self.arch.attention_type == "performer" or len(row_ids) <= 8):
             return False
         lens = np.asarray([len(r) for r in row_ids], np.int64)
         width = pick_bucket(int(lens.max()), buckets)
@@ -284,13 +307,19 @@ class SentenceEncoder(nn.Module):
             )
         out = torch.zeros((n, self.embedding_dim), dtype=torch.float32, device=self.device)
         batcher = LengthBucketBatcher(batch_size, buckets=buckets, shuffle_batches=False)
+        moe = self.arch.num_experts > 0
         for batch in batcher.batches(row_ids, pad_id=self.tokenizer.pad_id):
             sel = batch["valid"]
+            idx = torch.as_tensor(batch["index"][sel]).to(self.device)
+            if moe:
+                # an expert's capacity counts the whole batch, padding rows
+                # included, as in the reference
+                emb = self.embed_tokens(batch["ids"], batch["mask"])
+                out[idx] = emb[torch.as_tensor(np.flatnonzero(sel)).to(self.device)]
+                continue
             # padding rows of the tail batch are dropped before the
             # forward: rows are independent, so this changes no vector
-            emb = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
-            idx = torch.as_tensor(batch["index"][sel]).to(self.device)
-            out[idx] = emb
+            out[idx] = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
         return out if device_output else out.cpu().numpy()
 
     def _set_params(self, params: dict) -> "SentenceEncoder":
@@ -300,7 +329,9 @@ class SentenceEncoder(nn.Module):
     def to_int8(self) -> "SentenceEncoder":
         """Quantize the weights to int8 for serving (inference only):
         kernels and embedding tables become per-channel int8 with f32
-        scales; dense layers then quantize their input per token."""
+        scales; dense layers then quantize their input per token. MoE
+        experts quantize too (per-slot activation scales); the router
+        stays f32."""
         return self._set_params(quantize_params_int8(self.params))
 
     def to_bf16(self) -> "SentenceEncoder":

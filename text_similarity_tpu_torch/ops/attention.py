@@ -29,10 +29,13 @@
   ``PackedAttentionFunction``, whose backward is autograd of
   ``attention_reference`` with the mask, as the reference's ``custom_vjp``.
 * ``multi_head_attention``: the dispatch the encoder calls, with the JAX
-  package's ``impl="auto"`` rule (``auto_impl``) and its guards.
+  package's ``impl="auto"`` rule (``auto_impl``) and its guards, and
+  ``impl="performer"`` (``ops.performer``): FAVOR+ linear attention, causal
+  on request, its first ``performer_local_heads`` heads exact windowed
+  attention (``attention_reference`` with ``causal``), the head mask
+  scaling the output. A Performer call never reaches K5 or K7.
 
-Not ported yet: causal attention, performer and the context-parallel
-strategies.
+Not ported yet: the context-parallel strategies.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ def attention_reference(
     global_cls: bool = True,   # with window: position 0 global both ways
     segment_ids: Optional[torch.Tensor] = None,  # (B, S): a token sees only
                                                  # keys of its own segment
+    causal: bool = False,      # a query sees only keys at or before it
 ) -> torch.Tensor:
     d = q.shape[-1]
     s = q.shape[1]
@@ -89,9 +93,13 @@ def attention_reference(
     if segment_ids is not None:
         same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
         logits = torch.where(same, logits, NEG_INF)
-    if window > 0:
+    if window > 0 or causal:
         pos = torch.arange(s, device=logits.device)
-        logits = torch.where(_band(pos, pos, window, global_cls), logits, NEG_INF)
+        keep = (_band(pos, pos, window, global_cls) if window > 0
+                else torch.ones((s, s), dtype=torch.bool, device=logits.device))
+        if causal:
+            keep = keep & (pos[None, :] <= pos[:, None])
+        logits = torch.where(keep, logits, NEG_INF)
     if q.dtype == torch.bfloat16:
         # scores materialised in bf16 (the reference's AMP analogue); the
         # max, exp and sum still run in f32
@@ -556,20 +564,35 @@ def multi_head_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     head_mask: Optional[torch.Tensor] = None,
-    impl: str = "auto",        # auto | flash | packed | reference
+    impl: str = "auto",        # auto | flash | packed | reference | performer
     window: int = 0,
     window_global_cls: bool = False,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
+    performer_proj: Optional[torch.Tensor] = None,  # (m, D) random features
+    causal: bool = False,
+    performer_kernel: str = "softmax",   # softmax | relu
+    performer_local_heads: int = 0,
+    performer_local_window: int = 64,
 ) -> torch.Tensor:
     """Dispatching MHA: ``auto`` resolves through :func:`auto_impl`, so on
     the CPU it runs the reference, as the JAX package does there; only an
     explicit ``impl="flash"`` / ``"packed"`` runs K5's / K7's plain version
     on the CPU. Segment ids go with auto or the reference only; flash and
-    packed refuse a head mask, packed a window or the global CLS."""
+    packed refuse a head mask, packed a window or the global CLS.
+    ``performer`` needs ``performer_proj``; with ``performer_local_heads``
+    N > 0 the first N heads run exact attention over a band of
+    ``performer_local_window`` (causal when asked) and the rest stay linear.
+    ``causal`` goes with ``performer`` only (the reference ignores it on
+    the exact paths)."""
     if segment_ids is not None and impl not in ("auto", "reference"):
         raise ValueError(
             "segment_ids (packed batches) is only supported by the reference/auto attention path"
         )
+    if causal and impl != "performer":
+        raise ValueError("causal attention is only supported by impl='performer'")
+    if impl == "performer":
+        return _performer_heads(q, k, v, mask, head_mask, performer_proj, causal,
+                                performer_kernel, performer_local_heads, performer_local_window)
     if impl == "auto":
         impl = auto_impl(q.shape[1], q.is_cuda, head_mask, segment_ids)
     if impl == "packed":
@@ -590,4 +613,32 @@ def multi_head_attention(
             q, k, v, mask, head_mask, window=window, global_cls=window_global_cls,
             segment_ids=segment_ids,
         )
-    raise ValueError(f"attention impl {impl!r}: the port has auto, flash, packed and reference")
+    raise ValueError(
+        f"attention impl {impl!r}: the port has auto, flash, packed, reference and performer"
+    )
+
+
+def _performer_heads(q, k, v, mask, head_mask, proj, causal, kernel, local_heads, local_window):
+    """The performer branch of ``multi_head_attention``: exact banded
+    attention on the first ``local_heads`` heads, FAVOR+ on the rest, then
+    the head mask on the output."""
+    from .performer import performer_attention, performer_attention_causal
+
+    if proj is None:
+        raise ValueError("performer impl needs performer_proj features")
+
+    def linear_part(q_, k_, v_):
+        fn = performer_attention_causal if causal else performer_attention
+        return fn(q_, k_, v_, proj, mask, kernel=kernel)
+
+    lh = min(local_heads, q.shape[2])
+    if lh > 0:
+        out = attention_reference(q[:, :, :lh], k[:, :, :lh], v[:, :, :lh], mask,
+                                  window=local_window, global_cls=False, causal=causal)
+        if lh < q.shape[2]:
+            out = torch.cat([out, linear_part(q[:, :, lh:], k[:, :, lh:], v[:, :, lh:])], dim=2)
+    else:
+        out = linear_part(q, k, v)
+    if head_mask is not None:
+        out = out * head_mask[None, None, :, None].to(out.dtype)
+    return out

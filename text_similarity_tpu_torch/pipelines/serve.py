@@ -236,33 +236,35 @@ class SearchServer:
                                       "ivf": p.ivf is not None, "sharded": False})
 
             def do_POST(self):  # noqa: N802
-                # only known endpoints are recorded, so random paths cannot
-                # grow /metrics; monotonic, so a clock step cannot poison it
+                if self.path not in handlers:
+                    # only known endpoints are recorded, so random paths
+                    # cannot grow /metrics
+                    return self._reply(404, {"error": "unknown endpoint"})
+                # monotonic, so a clock step cannot poison the latencies
                 t0 = time.monotonic()
-                known = self.path in handlers
-                ok = False
+                code, out = self._answer()
+                # recorded before the reply is written: a client that holds
+                # its answer and asks /metrics at once finds it counted
+                server.stats.record(self.path, time.monotonic() - t0, code == 200)
+                self._reply(code, out)
+
+            def _answer(self):
+                """(status, payload) of a known endpoint's request; every
+                failure, reading the body included, becomes a status."""
                 try:
-                    if not known:
-                        return self._reply(404, {"error": "unknown endpoint"})
                     req = self._read_json()
                     if req is None:
-                        return self._reply(400, {"error": "invalid JSON body"})
+                        return 400, {"error": "invalid JSON body"}
                     if self.path == "/search" and server.batcher is not None:
                         # the batcher takes the pipeline lock itself
-                        out = server._search_batched(req)
-                    else:
-                        with server.lock, torch.no_grad():
-                            out = handlers[self.path](req)
-                    ok = True
-                    self._reply(200, out)
+                        return 200, server._search_batched(req)
+                    with server.lock, torch.no_grad():
+                        return 200, handlers[self.path](req)
                 except (KeyError, TypeError, ValueError) as e:
-                    self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                    return 400, {"error": f"{type(e).__name__}: {e}"}
                 except Exception as e:  # unexpected: 500, keep serving
                     logger.exception("request failed")
-                    self._reply(500, {"error": f"{type(e).__name__}: {e}"})
-                finally:
-                    if known:
-                        server.stats.record(self.path, time.monotonic() - t0, ok)
+                    return 500, {"error": f"{type(e).__name__}: {e}"}
 
         class _Server(ThreadingHTTPServer):
             # the default listen backlog of 5 resets bursts of concurrent

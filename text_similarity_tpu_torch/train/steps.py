@@ -18,9 +18,17 @@ saves in the shared checkpoint format. Packed steps scatter each segment's
 output to its pair's slot through an explicit trash row for empty slots.
 
 The FastFormers step runs the frozen teacher under ``torch.no_grad()``;
-the theseus step lives with its forward in ``compress.theseus``.
+the theseus step lives with its forward in ``compress.theseus``; both
+refuse MoE archs, as the reference does.
 
-Not ported yet: pipeline parallelism and MoE auxiliary losses.
+MoE archs: every other step adds ``moe_aux_weight`` × the encoder's
+load-balance loss (the mean of the two towers' for twin-tower steps) and
+reports ``moe_aux`` / ``moe_drop``. Performer archs with
+``performer_redraw_every`` > 0: the bi-encoder and MLM steps pass the
+state's step into the forward, so the projection's epoch advances (the
+reference's ``_redraw_step``); the packed steps refuse Performer.
+
+Not ported yet: pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -71,17 +79,45 @@ def init_train_state(params: dict, tx: AdamW, seed: int = 0, device="cuda") -> T
     return TrainState(params, tx.init(params), 0, torch.Generator(device=dev).manual_seed(seed))
 
 
+def _moe_stats_of(out) -> torch.Tensor:
+    """(2,) [load-balance loss, dropped fraction] of an ``EncoderOutput``
+    (zeros for a dense arch)."""
+    if out.moe_aux is None:
+        return torch.zeros((2,), dtype=torch.float32, device=out.last_hidden_state.device)
+    return torch.stack([out.moe_aux, out.moe_drop])
+
+
+def _with_moe(arch: EncoderArch, loss, aux: dict, moe: torch.Tensor):
+    """For an MoE arch: loss + ``moe_aux_weight`` × the load-balance loss,
+    and ``moe_aux`` / ``moe_drop`` in the metrics → (loss, aux)."""
+    if arch.num_experts > 0:
+        loss = loss + arch.moe_aux_weight * moe[0]
+        aux = {**aux, "moe_aux": moe[0], "moe_drop": moe[1]}
+    return loss, aux
+
+
+def _redraw_step(arch: EncoderArch, state: "TrainState") -> Optional[int]:
+    """The step a Performer arch that redraws its features passes into the
+    forward (the projection is a function of ``step // every``), else
+    None."""
+    if arch.attention_type == "performer" and arch.performer_redraw_every > 0:
+        return state.step
+    return None
+
+
 def _embed(
     enc_params: dict, ids, mask, *, arch: EncoderArch, precision: Precision, pooling: str,
     generator: Optional[torch.Generator], deterministic: bool, attention_impl: str = "auto",
-    remat=False,
-) -> torch.Tensor:
-    """Encoder → pooling → the optional ``projection`` head → (B, D)."""
+    remat=False, performer_step: Optional[int] = None,
+):
+    """Encoder → pooling → the optional ``projection`` head → ((B, D), (2,)
+    MoE stats)."""
     out = encoder_forward(
         enc_params, ids, mask, arch=arch, precision=precision, attention_impl=attention_impl,
         deterministic=deterministic, generator=generator, remat=remat,
+        performer_step=performer_step,
     )
-    return _project(enc_params, pool(pooling, out.last_hidden_state, mask))
+    return _project(enc_params, pool(pooling, out.last_hidden_state, mask)), _moe_stats_of(out)
 
 
 def _project(enc_params: dict, pooled: torch.Tensor) -> torch.Tensor:
@@ -96,12 +132,13 @@ def classifier_forward(
     params: dict, ids, mask, type_ids=None, *, arch: EncoderArch,
     precision: Precision = DEFAULT_PRECISION, pooling: str = "cls",
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
-    head_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    head_mask: Optional[torch.Tensor] = None, with_moe_aux: bool = False,
+):
     """Encoder → pool → linear head → (B, C) f32 logits (dropout with
     ``deterministic=False``). ``cls`` pooling takes the tanh pooler's
     output where the arch has one, else the CLS state; any other pooling
-    the masked mean. ``head_mask`` (L, nh) scales the heads' attention."""
+    the masked mean. ``head_mask`` (L, nh) scales the heads' attention.
+    ``with_moe_aux=True`` returns ``(logits, (2,) MoE stats)``."""
     out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision,
                           deterministic=deterministic, generator=generator, head_mask=head_mask)
     if pooling == "cls":
@@ -110,7 +147,8 @@ def classifier_forward(
     else:
         pooled = mean_pool(out.last_hidden_state, mask)
     head = params["head"]
-    return pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
+    logits = pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
+    return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
 def init_classifier_head(
@@ -156,19 +194,25 @@ def bi_encoder_loss(
     params: dict, batch: dict, *, arch: EncoderArch, loss_type: str = "cosine_mse",
     pooling: str = "mean", precision: Precision = DEFAULT_PRECISION, margin: float = 0.5,
     generator: Optional[torch.Generator] = None, deterministic: bool = False,
-    attention_impl: str = "auto", remat=False,
+    attention_impl: str = "auto", remat=False, performer_step: Optional[int] = None,
 ):
     """The bi-encoder objective on one batch (device tensors ids_a, mask_a,
     ids_b, mask_b, target, valid): two tower passes over the shared
-    encoder, then the pair loss → (loss, aux metrics). ``distill_mse``
-    reads the a side only, so the b tower does not run."""
+    encoder, then the pair loss → (loss, aux metrics); an MoE arch adds the
+    towers' mean load-balance loss. ``distill_mse`` reads the a side only,
+    so the b tower does not run (its MoE term is the a tower's)."""
     kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
-              deterministic=deterministic, attention_impl=attention_impl, remat=remat)
+              deterministic=deterministic, attention_impl=attention_impl, remat=remat,
+              performer_step=performer_step)
     enc = params["encoder"]
-    u = _embed(enc, batch["ids_a"], batch["mask_a"], **kw)
-    v = None if loss_type == "distill_mse" else _embed(enc, batch["ids_b"], batch["mask_b"], **kw)
-    return _pair_objective(loss_type, params, u, v, batch.get("target"), batch.get("valid"),
-                           margin)
+    u, moe = _embed(enc, batch["ids_a"], batch["mask_a"], **kw)
+    v = None
+    if loss_type != "distill_mse":
+        v, moe_v = _embed(enc, batch["ids_b"], batch["mask_b"], **kw)
+        moe = 0.5 * (moe + moe_v)
+    loss, aux = _pair_objective(loss_type, params, u, v, batch.get("target"),
+                                batch.get("valid"), margin)
+    return _with_moe(arch, loss, aux, moe)
 
 
 def _like(tree: dict, flat: list) -> dict:
@@ -202,12 +246,14 @@ def value_and_grad(loss_fn: Callable, params: dict, *args, **kwargs):
     return loss, aux, _like(params, grads)
 
 
-def _make_step(loss_fn: Callable, tx: AdamW, device) -> Callable:
+def _make_step(loss_fn: Callable, tx: AdamW, device, redraw_arch: Optional[EncoderArch] = None
+               ) -> Callable:
     """step(state, batch, *extra) → (state, metrics) of ``loss_fn(params,
     batch, generator, *extra) → (loss, aux)``: its gradients, then ``tx``'s
     in-place update. The state's parameters must lie on ``device``; the
     batch may be host arrays or tensors there. metrics: {"loss", …} as
-    device scalars."""
+    device scalars. With ``redraw_arch``, ``loss_fn`` also takes
+    ``performer_step`` (``_redraw_step`` of the state)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: dict, *extra):
@@ -215,7 +261,8 @@ def _make_step(loss_fn: Callable, tx: AdamW, device) -> Callable:
         if leaf.device.type != dev.type:
             raise ValueError(f"the state lies on {leaf.device}, the step runs on {dev}")
         batch = batch_to(batch, leaf.device)
-        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra)
+        kw = {} if redraw_arch is None else {"performer_step": _redraw_step(redraw_arch, state)}
+        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra, **kw)
         tx.step(state.params, grads, state.opt_state)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
         return state._replace(step=state.step + 1), metrics
@@ -239,14 +286,14 @@ def make_bi_encoder_train_step(
     mask_a, ids_b, mask_b, target (labels, scores or teacher embeddings),
     valid (B,)."""
 
-    def loss_fn(params, batch, generator):
+    def loss_fn(params, batch, generator, performer_step=None):
         return bi_encoder_loss(
             params, batch, arch=arch, loss_type=loss_type, pooling=pooling,
             precision=precision, margin=margin, generator=generator, deterministic=False,
-            remat=remat,
+            remat=remat, performer_step=performer_step,
         )
 
-    return _make_step(loss_fn, tx, device)
+    return _make_step(loss_fn, tx, device, redraw_arch=arch)
 
 
 def make_classifier_train_step(
@@ -260,13 +307,15 @@ def make_classifier_train_step(
     type_ids (optional), labels, valid. metrics: loss, accuracy."""
 
     def loss_fn(params, batch, generator):
-        logits = classifier_forward(
+        logits, moe = classifier_forward(
             params, batch["ids"], batch["mask"], batch.get("type_ids"), arch=arch,
             precision=precision, pooling=pooling, generator=generator, deterministic=False,
+            with_moe_aux=True,
         )
         valid = batch.get("valid")
         loss = L.cross_entropy_loss(logits, batch["labels"], valid)
-        return loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)}
+        return _with_moe(arch, loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)},
+                         moe)
 
     return _make_step(loss_fn, tx, device)
 
@@ -291,11 +340,11 @@ def _scatter_segments(emb: torch.Tensor, owners: torch.Tensor, n_slots: int) -> 
 def _packed_embed(
     enc_params: dict, ids, segments, positions, owners, n_slots: int, *, arch: EncoderArch,
     precision: Precision, pooling: str, generator, deterministic: bool, remat=False,
-) -> torch.Tensor:
+):
     """The packed counterpart of ``_embed``: the encoder over packed rows
     (block-diagonal attention, per-segment positions), a per-segment pool
     (first token for ``cls``, else the mean), the projection head, then the
-    owner scatter → (n_slots, D)."""
+    owner scatter → ((n_slots, D), (2,) MoE stats)."""
     mask = (segments > 0).to(torch.int32)
     out = encoder_forward(
         enc_params, ids, mask, arch=arch, precision=precision, deterministic=deterministic,
@@ -304,7 +353,7 @@ def _packed_embed(
     m = owners.shape[1]
     seg_pool = segment_first_pool if pooling == "cls" else segment_mean_pool
     pooled = _project(enc_params, seg_pool(out.last_hidden_state, segments, m))
-    return _scatter_segments(pooled, owners, n_slots)
+    return _scatter_segments(pooled, owners, n_slots), _moe_stats_of(out)
 
 
 def _check_packable(arch: EncoderArch) -> None:
@@ -326,12 +375,13 @@ def packed_bi_encoder_loss(
     kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
               deterministic=deterministic, remat=remat)
     enc = params["encoder"]
-    u = _packed_embed(enc, batch["ids_a"], batch["segments_a"], batch["positions_a"],
-                      batch["owners_a"], n_slots, **kw)
-    v = _packed_embed(enc, batch["ids_b"], batch["segments_b"], batch["positions_b"],
-                      batch["owners_b"], n_slots, **kw)
-    return _pair_objective(loss_type, params, u, v, batch.get("target"), batch.get("valid"),
-                           margin)
+    u, moe_u = _packed_embed(enc, batch["ids_a"], batch["segments_a"], batch["positions_a"],
+                             batch["owners_a"], n_slots, **kw)
+    v, moe_v = _packed_embed(enc, batch["ids_b"], batch["segments_b"], batch["positions_b"],
+                             batch["owners_b"], n_slots, **kw)
+    loss, aux = _pair_objective(loss_type, params, u, v, batch.get("target"),
+                                batch.get("valid"), margin)
+    return _with_moe(arch, loss, aux, 0.5 * (moe_u + moe_v))
 
 
 def make_packed_bi_encoder_train_step(
@@ -361,11 +411,12 @@ def packed_classifier_forward(
     params: dict, ids, segments, positions, type_ids, owners, n_slots: int, *,
     arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
     generator: Optional[torch.Generator] = None, deterministic: bool = True, remat=False,
-) -> torch.Tensor:
+    with_moe_aux: bool = False,
+):
     """Packed cross-encoder forward: several [CLS] a [SEP] b [SEP] pairs a
     row → (n_slots, C) f32 logits, each pair read at its own [CLS] through
     the tanh pooler where the arch has one (``classifier_forward`` with cls
-    pooling)."""
+    pooling); ``with_moe_aux=True`` → (logits, (2,) MoE stats)."""
     enc = params["encoder"]
     mask = (segments > 0).to(torch.int32)
     out = encoder_forward(
@@ -378,7 +429,8 @@ def packed_classifier_forward(
         pooled = torch.tanh(pooled.float() @ dequant_weight(pw["w"]).float() + pw["b"])
     head = params["head"]
     logits = pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
-    return _scatter_segments(logits, owners, n_slots)
+    logits = _scatter_segments(logits, owners, n_slots)
+    return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
 def make_packed_classifier_train_step(
@@ -394,14 +446,15 @@ def make_packed_classifier_train_step(
     _check_packable(arch)
 
     def loss_fn(params, batch, generator):
-        logits = packed_classifier_forward(
+        logits, moe = packed_classifier_forward(
             params, batch["ids"], batch["segments"], batch["positions"], batch.get("type_ids"),
             batch["owners"], batch["labels"].shape[0], arch=arch, precision=precision,
-            generator=generator, deterministic=False, remat=remat,
+            generator=generator, deterministic=False, remat=remat, with_moe_aux=True,
         )
         valid = batch.get("valid")
         loss = L.cross_entropy_loss(logits, batch["labels"], valid)
-        return loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)}
+        return _with_moe(arch, loss, {"accuracy": _masked_accuracy(logits, batch["labels"], valid)},
+                         moe)
 
     return _make_step(loss_fn, tx, device)
 
@@ -413,12 +466,15 @@ def make_packed_classifier_train_step(
 def token_classifier_forward(
     params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
-) -> torch.Tensor:
-    """Encoder → per-token linear head → (B, S, T) f32 logits."""
+    with_moe_aux: bool = False,
+):
+    """Encoder → per-token linear head → (B, S, T) f32 logits
+    (``with_moe_aux=True``: with the (2,) MoE stats)."""
     out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
                           deterministic=deterministic, generator=generator)
     head = params["head"]
-    return out.last_hidden_state.float() @ head["w"] + head["b"]
+    logits = out.last_hidden_state.float() @ head["w"] + head["b"]
+    return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
 def make_token_classifier_train_step(
@@ -432,16 +488,16 @@ def make_token_classifier_train_step(
     metrics: loss, accuracy over the tagged tokens."""
 
     def loss_fn(params, batch, generator):
-        logits = token_classifier_forward(params, batch["ids"], batch["mask"], arch=arch,
-                                          precision=precision, generator=generator,
-                                          deterministic=False)
+        logits, moe = token_classifier_forward(params, batch["ids"], batch["mask"], arch=arch,
+                                               precision=precision, generator=generator,
+                                               deterministic=False, with_moe_aux=True)
         tags = batch["tags"].long()
         w = ((tags >= 0) & (batch["mask"] > 0)).float()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, tags.clamp_min(0)[..., None])[..., 0]
         n = w.sum().clamp_min(1.0)
         acc = ((logits.argmax(dim=-1) == tags).float() * w).sum() / n
-        return (nll * w).sum() / n, {"accuracy": acc}
+        return _with_moe(arch, (nll * w).sum() / n, {"accuracy": acc}, moe)
 
     return _make_step(loss_fn, tx, device)
 
@@ -490,17 +546,20 @@ def _check_tied_head(arch: EncoderArch) -> None:
 def mlm_forward(
     params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
-) -> torch.Tensor:
+    performer_step: Optional[int] = None, with_moe_aux: bool = False,
+):
     """Encoder → the output head tied to the word table (f32) → (B, S, V)
-    logits, plus ``params["mlm_bias"]`` where present."""
+    logits, plus ``params["mlm_bias"]`` where present
+    (``with_moe_aux=True``: with the (2,) MoE stats)."""
     _check_tied_head(arch)
     out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
-                          deterministic=deterministic, generator=generator)
+                          deterministic=deterministic, generator=generator,
+                          performer_step=performer_step)
     word = params["encoder"]["embeddings"]["word"]
     logits = out.last_hidden_state.float() @ word.float().T
     if "mlm_bias" in params:
         logits = logits + params["mlm_bias"]
-    return logits
+    return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
 def make_mlm_train_step(
@@ -517,17 +576,18 @@ def make_mlm_train_step(
     masked_tokens."""
     _check_tied_head(arch)
 
-    def loss_fn(params, batch, generator):
+    def loss_fn(params, batch, generator, performer_step=None):
         corrupted, labels = mlm_mask_batch(
             generator, batch["ids"], batch["mask"], arch.vocab_size, mask_token_id, mask_prob,
             special_ids=special_ids,
         )
-        logits = mlm_forward(params, corrupted, batch["mask"], arch=arch, precision=precision,
-                             generator=generator, deterministic=False)
+        logits, moe = mlm_forward(params, corrupted, batch["mask"], arch=arch,
+                                  precision=precision, generator=generator, deterministic=False,
+                                  performer_step=performer_step, with_moe_aux=True)
         loss = L.mlm_loss(logits, labels)
-        return loss, {"masked_tokens": (labels >= 0).float().sum()}
+        return _with_moe(arch, loss, {"masked_tokens": (labels >= 0).float().sum()}, moe)
 
-    return _make_step(loss_fn, tx, device)
+    return _make_step(loss_fn, tx, device, redraw_arch=arch)
 
 
 # ---------------------------------------------------------------------------
@@ -550,16 +610,16 @@ def make_word_encoder_train_step(
     def word_vec(enc, ids, mask, span, generator):
         out = encoder_forward(enc, ids, mask, arch=arch, precision=precision,
                               deterministic=False, generator=generator)
-        return word_span_pool(out.last_hidden_state, span)
+        return word_span_pool(out.last_hidden_state, span), _moe_stats_of(out)
 
     def loss_fn(params, batch, generator):
         enc = params["encoder"]
-        u = word_vec(enc, batch["ids_a"], batch["mask_a"], batch["span_a"], generator)
-        v = word_vec(enc, batch["ids_b"], batch["mask_b"], batch["span_b"], generator)
+        u, moe_u = word_vec(enc, batch["ids_a"], batch["mask_a"], batch["span_a"], generator)
+        v, moe_v = word_vec(enc, batch["ids_b"], batch["mask_b"], batch["span_b"], generator)
         objective = (L.online_contrastive_loss if loss_type == "online_contrastive"
                      else L.contrastive_loss)
         loss, _ = objective(u, v, batch["target"], margin, batch.get("valid"))
-        return loss, {}
+        return _with_moe(arch, loss, {}, 0.5 * (moe_u + moe_v))
 
     return _make_step(loss_fn, tx, device)
 
