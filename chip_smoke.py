@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
 packed-encode, serving, training-entry-point, command-line, compression /
-clustering / word-model and MoE / Performer paths on one NVIDIA card.
+clustering / word-model, MoE / Performer and distributed serving paths on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -348,7 +349,44 @@ Phases (any failure exits non-zero):
       heads equal to the banded causal attention; 8 bi-encoder steps with a
       redraw every 4 (two matrices drawn, new at step 4 only); ``encode``
       under ``packed="auto"`` of mixed lengths does not pack.
- 14. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 14. The distributed serving path, every shard or position on the one
+    card (``make_mesh(..., devices=["cuda:0"] * 4)``; no rate is a
+    multi-card number):
+    - phase 3's 1M × 384 rows over a 4-shard ``ShardedIVFIndex`` (C 2048
+      global clusters by the distributed k-means, 56 probes, 8 iterations,
+      bf16 slabs): recall@10 against phase 3's exact top-10 ≥ 0.95 beside
+      the unsharded index's, QPS of both, K1 four launches a 4096-query
+      call; each shard's K1 at its shapes against its plain version (phase
+      3's gate; the route the kernel library took) and the sharded merge
+      bit-equal to a host merge of the four answers;
+    - phase 4's 120,000 minilm-l6 vectors over a 4-shard
+      ``ShardedBruteForceIndex``: K2 four launches a call, each shard's K2
+      against its plain version, the ids equal to ``BruteForceIndex``'s
+      where the f32 scores are separated;
+    - the daemon: ``SearchServer`` over a brute-force
+      ``ShardedSearchPipeline`` of 20,000 documents (minilm-l6 bf16, the
+      encode data-parallel over 4 positions: its min cosine to the
+      mesh-less encode ≥ ``DP_MIN_COS``) on port 0: ``/health`` with
+      ``sharded: true``, 32 one-text and one 64-text ``/search`` finding
+      themselves (≥ 95%), ``/remove`` of 5 never answered after; an IVF
+      ``ShardedSearchPipeline`` over the same documents (32 one-text
+      requests, tombstones); save → load the same answers; K1's and K2's
+      counters zeroed just before these pipelines are built and read after
+      (the kernels line's ``launches_sharded``); then, at a one-text and
+      a 64-text request, each IVF shard's K1 at ``kernel_plan``'s blocks
+      against its plain version (its route printed) with the merge
+      bit-equal to a host merge, and each brute-force shard's K2 at k 10
+      and the over-fetched k 16; ``serve --shards 2`` through
+      ``build_server`` refused on this one card, naming the count;
+    - roberta-base at 4,098 positions, window 0, bf16: 8 documents of up
+      to 4096 tokens through ``encoder_forward_cp`` with seq 4, ring and
+      Ulysses, against the single-device exact path (K5, 12 launches) on
+      valid rows within phase 6's ``AGREE_MEAN`` / ``AGREE_MAX``, the next
+      document's rows 10 × the mean limit away; ``encode_long`` of both
+      strategies against ``encode`` (min cosine ≥ ``LONG_MIN_COS``, the
+      next document's vector below it), both timed (docs/s); the card
+      against the CPU on a 2-layer cut at 1 × 4096, f32 (``CP_CARD_CPU``).
+ 15. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -358,8 +396,9 @@ Phases (any failure exits non-zero):
     ``library_ms_by_q``; K7 its timed ``path`` and, beside its times as
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
-    and on the score tile).
- 15. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+    and on the score tile); K1 and K2 also carry ``launches_sharded``, their
+    launches in phase 14's counted window.
+ 16. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -5030,6 +5069,452 @@ def phase_moe_performer(torch, card, ctx):
     log(f"phase 13: {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the distributed serving path (the mesh, the sharded indexes,
+# ShardedSearchPipeline behind SearchServer, the data-parallel and the
+# context-parallel encode), every shard or position on the one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+# four shards or positions share the one card here: no rate below is a
+# multi-card number
+ONE_CARD = f"{SHARDS} shards on one card"
+# the data-parallel encode (rows split over 4 positions) against the
+# mesh-less encode, minilm-l6 bf16: min cosine of the unit embeddings
+DP_MIN_COS = 0.9999
+# the context-parallel forward (ring, Ulysses) on the card against the CPU,
+# a 2-layer cut of roberta-base at 4096, f32: max |Δ| of last_hidden_state
+CP_CARD_CPU = 1e-5
+# encode_long (ring, Ulysses; seq 4) against encode (K5) of the same 8
+# documents, roberta-base bf16: min cosine of the unit embeddings (1 - cos
+# read 7e-7 to 1.5e-6); the control, each encode_long vector against the
+# next document's encode vector, must fall below it (1 - cos read 2.2e-4:
+# random weights barely spread long documents)
+LONG_MIN_COS = 0.99999
+
+
+def host_merge(parts, k):
+    """Per-shard (scores, ids) numpy lists → the top k of each row by
+    (score desc, id asc), merged on the host."""
+    s = np.concatenate([p[0] for p in parts], axis=1)
+    i = np.concatenate([p[1] for p in parts], axis=1)
+    order = np.lexsort((i, -s), axis=1)[:, :k]
+    return np.take_along_axis(s, order, 1), np.take_along_axis(i, order, 1)
+
+
+def sharded_k1_held(torch, sidx, queries, k, label, card, timed=False):
+    """Each shard's K1 at the shapes ``ShardedIVFIndex.shard_query`` gives
+    it (``kernel_plan``: query block, probe union, merge mode) against its
+    plain version, as ``check_pair`` holds it, the route the kernel library
+    took printed; these launches leave K1's counters as they were. → the
+    shards' (scores, ids) in query order (numpy) and how many ran on the
+    wgmma tile."""
+    from types import SimpleNamespace
+
+    from text_similarity_tpu_torch.index.ivf import (
+        _plan_probes, ivf_scan_cuda, ivf_scan_reference,
+    )
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
+
+    counts = ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile
+    q = l2_normalize(torch.as_tensor(queries).float())
+    block_q, union, w, slots = sidx.kernel_plan(q.shape[0], k, sidx.num_probes)
+    parts, on_tile = [], 0
+    for si, (data, ids) in enumerate(zip(sidx.data_padded, sidx.ids_padded)):
+        qs, probes, order = _plan_probes(q.to(data.device), sidx.centroids.to(data.device),
+                                         sidx.num_base_clusters, data.shape[0], block_q, union)
+        args = (qs, probes, data, ids, k, block_q, w, slots)
+        path, plan = scan_path(SimpleNamespace(data_padded=data, ids_padded=ids), qs, probes,
+                               block_q, k, w, slots)
+        tiles = ivf_scan_cuda.launches_tile
+        ks, ki = ivf_scan_cuda(*args)
+        rs, ri = ivf_scan_reference(*args)
+        on_tile += ivf_scan_cuda.launches_tile - tiles
+        ms = time_ms(torch, lambda: ivf_scan_cuda(*args), iters=5, warmup=1) if timed else None
+        check_pair(f"K1 {label}, shard {si} (B {qs.shape[0]}, block_q {block_q}, U "
+                   f"{probes.shape[1]}, Mc {data.shape[1]}, k {k}, "
+                   f"{f'deferred w={w} S={slots}' if w else 'exact'} merge, on the {path})",
+                   ks, ki, rs, ri, card, ms=ms, k1_ms=ms)
+        inv = torch.argsort(order)
+        parts.append((ks[inv].cpu().numpy(), ki[inv].cpu().numpy()))
+    ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile = counts
+    return parts, on_tile
+
+
+def sharded_ivf_records(torch, card, corpus, queries, exact, ivf):
+    """Phase 3's 1M × 384 corpus over 4 index shards at bench.py's index
+    settings (C 2048, 56 probes, 8 k-means iterations), bf16 slabs: recall
+    and QPS beside the unsharded index, K1 four launches a call, each
+    shard's K1 against its plain version at the shard's shapes, the merge
+    against a host merge."""
+    from text_similarity_tpu_torch.core.config import IndexConfig
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.index.sharded import ShardedIVFIndex, _unpack_results
+
+    mesh = make_mesh(data=1, index=SHARDS, devices=["cuda:0"] * SHARDS)
+    cfg = IndexConfig(num_clusters=2048, num_probes=56, kmeans_iters=8)
+    torch.cuda.synchronize()
+    t = time.time()
+    sidx = ShardedIVFIndex.build(mesh, corpus, cfg, data_dtype=torch.bfloat16,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    c_tot, mc = sidx.data_padded[0].shape[:2]
+    n_base = sidx.num_base_clusters
+    log(f"sharded IVF build [{card}, {ONE_CARD}]: {build_s:.2f} s for {corpus.shape[0]}x"
+        f"{corpus.shape[1]}, C={n_base} global clusters, per shard Mc={mc}, "
+        f"{c_tot - n_base} overflow slabs")
+
+    sidx.query(queries[:64], k=10)          # warm outside the counted window
+    before, tiles = ivf_scan_cuda.launches, ivf_scan_cuda.launches_tile
+    _, got = sidx.query(queries, k=10)
+    k1 = ivf_scan_cuda.launches - before
+    on_tile = ivf_scan_cuda.launches_tile - tiles
+    recall = overlap(got, exact)
+    _, base = ivf.query(queries, k=10, block_q=64, union_factor=1, approx_width=2048)
+    base_recall = overlap(base.cpu().numpy(), exact)
+    t_s = time_ms(torch, lambda: sidx.query_packed(queries, k=10), iters=3, warmup=1)
+    t_u = time_ms(torch, lambda: ivf.query(queries, k=10, block_q=64, union_factor=1,
+                                           approx_width=2048), iters=3, warmup=1)
+    n_q = queries.shape[0]
+    log(f"sharded IVF recall@10 vs exact: {recall:.4f} (gate 0.95; the unsharded index "
+        f"{base_recall:.4f}); {n_q} queries @k=10 {t_s:.2f} ms = {n_q / t_s * 1e3:.0f} QPS "
+        f"(unsharded {t_u:.2f} ms = {n_q / t_u * 1e3:.0f} QPS) [{card}, {ONE_CARD}]; K1 "
+        f"launches a call {k1} ({on_tile} on the wgmma tile)")
+    if recall < 0.95:
+        raise AssertionError(f"sharded IVF recall@10 {recall:.4f} below 0.95")
+    if k1 != SHARDS:
+        raise AssertionError(f"K1 launched {k1} times in one sharded query, expected {SHARDS}")
+
+    # each shard's K1 at its shapes against the plain version, then the merge
+    parts, _ = sharded_k1_held(torch, sidx, queries, 10, "at the bench shape", card, timed=True)
+    ms_, mi_ = host_merge(parts, 10)
+    packed, k_eff = sidx.query_packed(queries, k=10)
+    ds, di = _unpack_results(packed, k_eff, n_q)
+    same = np.array_equal(di, mi_) and np.array_equal(ds, ms_)
+    log(f"sharded IVF merge against a host merge of the four shards' K1 answers: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the sharded IVF merge differs from the host merge")
+    del sidx
+
+
+def sharded_brute_records(torch, card, ctx):
+    """Phase 4's 120,000 minilm-l6 corpus vectors over 4 index shards: K2
+    four launches a call, each shard's K2 against its plain version, the
+    answer against ``BruteForceIndex`` where the f32 scores are separated."""
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.index import BruteForceIndex
+    from text_similarity_tpu_torch.index.sharded import ShardedBruteForceIndex
+    from text_similarity_tpu_torch.ops.topk import (
+        cosine_topk_cuda, cosine_topk_reference, l2_normalize,
+    )
+
+    emb = ctx["big"].store.view
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = torch.linspace(0, emb.shape[0] - 1, 256, device="cuda").long()
+    q = l2_normalize(emb[rows] + 0.05 * torch.randn((256, emb.shape[1]), device="cuda",
+                                                    generator=gen))
+    mesh = make_mesh(data=1, index=SHARDS, devices=["cuda:0"] * SHARDS)
+    sbf = ShardedBruteForceIndex.build(mesh, emb)
+    sbf.query(q[:8], k=10)
+    before = cosine_topk_cuda.launches
+    s, i = sbf.query(q, k=11)
+    k2 = cosine_topk_cuda.launches - before
+    rs, ri = BruteForceIndex.from_embeddings(emb).query(q, k=11)
+    ok = separated_ids_equal(i[:, :10], ri[:, :10], rs[:, :10], next_scores=rs[:, 10])
+    err = float(np.abs(s - rs).max())
+    t_s = host_ms(torch, lambda: sbf.query(q, k=10))
+    single = BruteForceIndex.from_embeddings(emb)
+    t_u = host_ms(torch, lambda: single.query(q, k=10))
+    log(f"sharded brute force ({emb.shape[0]} x {emb.shape[1]} f32, {sbf.shard_rows} rows a "
+        f"shard): K2 launches a call {k2}; ids equal to BruteForceIndex's where separated: {ok}, "
+        f"max|Δscore| {err:.2e}; 256 queries @k=10 to the host {t_s:.3f} ms (BruteForceIndex "
+        f"{t_u:.3f} ms) [{card}, {ONE_CARD}]")
+    qf = l2_normalize(q.float())
+    for si, shard in enumerate(sbf.shards):
+        ks, ki = cosine_topk_cuda(qf, shard, 10)
+        rs_, ri_ = cosine_topk_reference(qf, shard, 10)
+        check_pair(f"K2 shard {si} (Q 256, N {shard.shape[0]}, k 10)", ks, ki, rs_, ri_, card)
+    if k2 != SHARDS:
+        raise AssertionError(f"K2 launched {k2} times in one sharded query, expected {SHARDS}")
+    if not ok or err > 1e-5:
+        raise AssertionError("the sharded brute-force answer differs from BruteForceIndex's")
+
+
+def sharded_pipeline_records(torch, card, ctx):
+    """The daemon over a ``ShardedSearchPipeline`` (minilm-l6, bf16, random
+    weights; 4 index shards; the encode data-parallel over 4 positions):
+    the counted window of this slice's path (K1, K2); → their launches."""
+    import tempfile
+
+    from text_similarity_tpu_torch.cli.main import build_parser, build_server
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+    from text_similarity_tpu_torch.pipelines import SearchServer, ShardedSearchPipeline
+
+    corpus, tok, base = ctx["corpus"], ctx["tok"], ctx["enc"]
+    docs = corpus[:20_000]
+    devs = ["cuda:0"] * SHARDS
+    enc = SentenceEncoder(base.params, base.arch, tokenizer=tok, precision=base.precision,
+                          device="cuda", mesh=make_mesh(data=SHARDS, devices=devs))
+    mesh = make_mesh(data=1, index=SHARDS, devices=devs)
+    probe = corpus[-2000:]
+    enc.encode(probe[:256])
+    torch.cuda.synchronize()
+    t = time.time()
+    dp = enc.encode(probe)
+    torch.cuda.synchronize()
+    dp_s = time.time() - t
+    t = time.time()
+    alone = base.encode(probe)
+    torch.cuda.synchronize()
+    alone_s = time.time() - t
+    cos = float((dp * alone).sum(axis=1).min())
+    log(f"data-parallel encode (data={SHARDS}) against the mesh-less encode, 2,000 "
+        f"sentences: min cosine {cos:.7f} (gate {DP_MIN_COS}); {len(probe) / dp_s:.0f} against "
+        f"{len(probe) / alone_s:.0f} sentences/s [{card}, {ONE_CARD}]")
+    if cos < DP_MIN_COS:
+        raise AssertionError(f"data-parallel encode min cosine {cos:.7f} below {DP_MIN_COS}")
+
+    # the counted window: serving on the sharded pipelines
+    cosine_topk_cuda.launches = 0
+    ivf_scan_cuda.launches = 0
+    t = time.time()
+    brute = ShardedSearchPipeline(enc, mesh, corpus=docs, use_ivf=False)
+    ivf_pipe = ShardedSearchPipeline(enc, mesh, corpus=docs, use_ivf=True)
+    torch.cuda.synchronize()
+    log(f"two sharded pipelines over {len(docs)} documents (brute force; IVF "
+        f"C={ivf_pipe.index.num_base_clusters}, Mc={ivf_pipe.index.data_padded[0].shape[1]}): "
+        f"{time.time() - t:.1f} s, two data-parallel encodes and the builds")
+    server = SearchServer(brute, port=0, batch_window=0.002)
+    server.start_background()
+    rng = np.random.default_rng(14)
+    picks = [int(j) for j in rng.choice(len(docs), 96, replace=False)]
+    try:
+        health, _ = http_ok(server.port, "/health")
+        if health != {"status": "ok", "size": len(docs), "ivf": False, "sharded": True}:
+            raise AssertionError(f"/health of the sharded daemon: {health}")
+        hits, ms = 0, []
+        for j in picks[:32]:
+            body, dt = http_ok(server.port, "/search", {"queries": [docs[j]], "k": 10})
+            hits += any(r["id"] == j and r["score"] >= 0.99 for r in body["results"][0])
+            ms.append(dt)
+        body, dt64 = http_ok(server.port, "/search", {"queries": [docs[j] for j in picks[32:]],
+                                                      "k": 10})
+        hits64 = sum(any(r["id"] == j and r["score"] >= 0.99 for r in row)
+                     for j, row in zip(picks[32:], body["results"]))
+        gone = picks[:5]
+        removed, _ = http_ok(server.port, "/remove", {"ids": gone})
+        body, _ = http_ok(server.port, "/search", {"queries": [docs[j] for j in gone], "k": 10})
+        back = sum(r["id"] in gone for row in body["results"] for r in row)
+        log(f"sharded daemon (brute force) [{card}, {ONE_CARD}]: /health {health}; one-text "
+            f"/search {hits}/32 find themselves (median {np.median(ms):.2f} ms); a 64-text "
+            f"request {hits64}/64 ({dt64:.1f} ms); /remove of 5 -> {removed['removed']}, "
+            f"{back} of them answered after")
+    finally:
+        server.shutdown()
+    ivf_hits = 0
+    for j in picks[:32]:
+        ivf_hits += any(d == j and sc >= 0.99 for _, sc, d in ivf_pipe([docs[j]], 10)[0])
+    ivf_pipe.remove_documents(picks[:5])
+    ivf_back = sum(d in picks[:5] for row in ivf_pipe([docs[j] for j in picks[:5]], 10)
+                   for _, _, d in row)
+    launches = {"cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
+    log(f"sharded IVF pipeline: one-text requests {ivf_hits}/32 find themselves; after "
+        f"removing 5, {ivf_back} of them answered; launches in the counted window {launches}")
+    merged = sharded_requests_held(torch, card, enc, brute, ivf_pipe,
+                                   {"one-text": [docs[picks[0]]],
+                                    "64-text": [docs[j] for j in picks[32:]]})
+
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        brute.save(os.path.join(tmp, "sp"))
+        loaded = ShardedSearchPipeline.load(os.path.join(tmp, "sp"), enc, mesh)
+        texts = [docs[j] for j in picks[32:48]]
+        same = ([[(d, i) for d, _, i in r] for r in loaded(texts, 10)]
+                == [[(d, i) for d, _, i in r] for r in brute(texts, 10)])
+        base.save(os.path.join(tmp, "enc"))
+        try:
+            build_server(build_parser().parse_args(
+                ["serve", "--model", os.path.join(tmp, "enc"), "--shards", "2", "--port", "0"]
+            )).shutdown()
+            refused = None
+        except SystemExit as e:
+            refused = str(e)
+    log(f"sharded pipeline save -> load: the same answers to 16 requests: {same}")
+    log(f"serve --shards 2 on this machine: {refused!r}")
+
+    if hits < 0.95 * 32 or hits64 < 0.95 * 64 or ivf_hits < 0.95 * 32:
+        raise AssertionError(f"sharded self-retrieval below 95%: {hits}/32, {hits64}/64, "
+                             f"IVF {ivf_hits}/32")
+    if removed["removed"] != 5 or back or ivf_back:
+        raise AssertionError(f"removed documents came back: daemon {back}, IVF {ivf_back}")
+    if not same:
+        raise AssertionError("a loaded sharded pipeline answers otherwise")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2 and (refused is None or f"{n_cards} visible" not in refused):
+        raise AssertionError(f"serve --shards 2 on {n_cards} card(s) did not refuse: {refused!r}")
+    if launches["cosine_topk"] == 0 or launches["ivf_scan"] == 0:
+        raise AssertionError(f"a kernel of the sharded path never launched: {launches}")
+    if not merged:
+        raise AssertionError("the sharded IVF pipeline's merge differs from the host merge")
+    return launches
+
+
+def sharded_requests_held(torch, card, enc, brute, ivf_pipe, requests):
+    """K1 and K2 at the shapes the sharded pipelines gave them, after the
+    removals: each request's texts encoded and padded as ``__call__`` does;
+    each IVF shard's K1 at ``kernel_plan``'s blocks (16-query blocks, union
+    factor 3 below 32 probes) and the merge against a host merge of their
+    answers; each brute-force shard's K2 at the k before the removals and
+    at the over-fetched k after them (``k + n_pad`` a shard). → whether
+    every merge was bit-equal."""
+    from text_similarity_tpu_torch.index.sharded import _unpack_results
+    from text_similarity_tpu_torch.ops.topk import MAX_K, l2_normalize
+    from text_similarity_tpu_torch.pipelines.search import _pad_pow2
+
+    idx = brute.index
+    fetch = 1 << (10 + len(brute._removed) - 1).bit_length()
+    k_local = sorted({min(k + idx.n_pad, idx.shard_rows, MAX_K)
+                      for k in (10, min(fetch, len(brute.corpus), MAX_K))})
+    merged, tiles, held = True, 0, 0
+    for label, texts in requests.items():
+        q = _pad_pow2(enc.encode(texts, device_output=True))
+        parts, on_tile = sharded_k1_held(torch, ivf_pipe.index, q, 10,
+                                         f"at a {label} request", card)
+        tiles, held = tiles + on_tile, held + len(parts)
+        packed, k_eff = ivf_pipe.index.query_packed(q, k=10)
+        got = _unpack_results(packed, k_eff, q.shape[0])
+        want = host_merge([(s_[:q.shape[0]], i_[:q.shape[0]]) for s_, i_ in parts], k_eff)
+        same = np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        log(f"sharded IVF pipeline merge at a {label} request against a host merge of the "
+            f"shards' K1 answers: {'bit-equal' if same else 'DIFFERENT'}")
+        merged &= same
+        for si, shard in enumerate(idx.shards):
+            k2_held(torch, l2_normalize(q), shard, k_local,
+                    f"a {label} request, brute-force shard {si}", card)
+    log(f"K1 at the sharded pipeline's requests: {tiles} of {held} held launches on the "
+        f"wgmma tile, the rest on the CUDA-core kernel [{card}, {ONE_CARD}]")
+    return merged
+
+
+def context_parallel_records(torch, card, ctx):
+    """roberta-base at 4098 positions (phase 6's weights), window 0, bf16:
+    8 documents of up to 4096 tokens through ``encode_long`` with seq 4,
+    ring and Ulysses, against the single-device exact path (K5); the card
+    against the CPU on a 2-layer cut, f32."""
+    from text_similarity_tpu_torch.core.mesh import SEQ_AXIS, make_mesh, replicate
+    from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+    from text_similarity_tpu_torch.models import SentenceEncoder, encoder_forward
+    from text_similarity_tpu_torch.models.long_context import encoder_forward_cp
+    from text_similarity_tpu_torch.ops.attention import flash_attention_cuda
+
+    tok = ctx["tok"]
+    docs = long_documents(tok, ctx["corpus"][:24_000], np.random.default_rng(6), 8, 0)
+    params, arch = long_arch_params(torch)
+    arch = arch.replace(attention_window=0, window_global_cls=False)
+    enc = SentenceEncoder(params, arch, tokenizer=tok, device="cuda")
+    seq = make_mesh(data=1, seq=SHARDS, devices=["cuda:0"] * SHARDS)
+    ids, mask = tok.encode_batch(docs, 4096)
+    ids = np.pad(ids, ((0, 0), (0, 4096 - ids.shape[1])), constant_values=tok.pad_id)
+    mask = np.pad(mask, ((0, 0), (0, 4096 - mask.shape[1])))
+    ids_t, mask_t = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    valid = mask_t.bool()
+    both = valid & valid.roll(1, 0)
+    with torch.no_grad():
+        before = flash_attention_cuda.launches
+        ref = encoder_forward(enc.params, ids_t, mask_t, arch=arch,
+                              precision=enc.precision).last_hidden_state.float()
+        k5 = flash_attention_cuda.launches - before
+        agree = {}
+        for strategy in ("ring", "ulysses"):
+            h = encoder_forward_cp(enc.params, ids_t, mask_t, arch=arch, mesh=seq,
+                                   strategy=strategy, precision=enc.precision).float()
+            diff = (h - ref).abs()[valid]
+            agree[strategy] = (float(diff.mean()), float(diff.max()),
+                               float((h - ref.roll(1, 0)).abs()[both].mean()))
+    rates = {}
+    kw = dict(max_len=4096, buckets=(4096,), batch_size=8, packed=False)
+    enc.encode(docs, **kw)
+    torch.cuda.synchronize()
+    t = time.time()
+    single = enc.encode(docs, **kw)
+    torch.cuda.synchronize()
+    rates["single device (K5)"] = len(docs) / (time.time() - t)
+    vecs = {}
+    for strategy in ("ring", "ulysses"):
+        enc.encode_long(docs[:2], seq, max_len=4096, strategy=strategy, batch_size=8)
+        torch.cuda.synchronize()
+        t = time.time()
+        vecs[strategy] = enc.encode_long(docs, seq, max_len=4096, strategy=strategy,
+                                         batch_size=8)
+        torch.cuda.synchronize()
+        rates[strategy] = len(docs) / (time.time() - t)
+    cos = {s: float((v * single).sum(axis=1).min()) for s, v in vecs.items()}
+    cos_next = {s: float((v * np.roll(single, 1, axis=0)).sum(axis=1).max())
+                for s, v in vecs.items()}
+    for strategy, (mean, worst, control) in agree.items():
+        log(f"context-parallel {strategy} (seq {SHARDS}) against the single-device exact path "
+            f"(K5, {k5} launches), 8 x 4096 roberta-base bf16: last_hidden_state mean|Δ| "
+            f"{mean:.3e}, max|Δ| {worst:.3e} (the next document's rows: mean|Δ| {control:.3e}); "
+            f"encode_long min cosine to encode {cos[strategy]:.7f} (gate {LONG_MIN_COS}; the "
+            f"next document's vector: max cosine {cos_next[strategy]:.7f})")
+    log("long encode docs/s [" + card + f", {ONE_CARD}]: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+
+    # the card against the CPU, a 2-layer cut, f32, one document
+    cut, cut_arch = long_arch_params(torch, layers=2)
+    cut_arch = cut_arch.replace(attention_window=0, window_global_cls=False)
+    worst_cpu = {}
+    with torch.no_grad():
+        for strategy in ("ring", "ulysses"):
+            out = {}
+            for dev in ("cpu", "cuda:0"):
+                mesh = make_mesh(data=1, seq=SHARDS, devices=[dev] * SHARDS)
+                out[dev] = encoder_forward_cp(
+                    replicate(mesh, cut, SEQ_AXIS)[0], ids_t[:1].to(dev), mask_t[:1].to(dev),
+                    arch=cut_arch, mesh=mesh, strategy=strategy,
+                    precision=FP32_PRECISION).cpu()
+            worst_cpu[strategy] = float((out["cuda:0"] - out["cpu"])[mask_t[:1].cpu().bool()]
+                                        .abs().max())
+    log(f"context-parallel on the card against the CPU (2 layers, 1 x 4096, f32): max|Δ| "
+        f"{worst_cpu} (gate {CP_CARD_CPU})")
+    if k5 != arch.num_layers:
+        raise AssertionError(f"the single-device path launched K5 {k5} times, expected "
+                             f"{arch.num_layers}")
+    for strategy, (mean, worst, control) in agree.items():
+        if mean > AGREE_MEAN or worst > AGREE_MAX:
+            raise AssertionError(f"{strategy}: the context-parallel and the K5 path disagree "
+                                 f"(mean|Δ| {mean:.3e}, max|Δ| {worst:.3e})")
+        if control < 10 * AGREE_MEAN:
+            raise AssertionError(f"{strategy}: the next document's rows differ by only "
+                                 f"{control:.3e}")
+    if max(worst_cpu.values()) > CP_CARD_CPU:
+        raise AssertionError(f"context-parallel card against CPU: {worst_cpu}")
+    for strategy in vecs:
+        if cos[strategy] < LONG_MIN_COS:
+            raise AssertionError(f"{strategy}: encode_long min cosine to encode "
+                                 f"{cos[strategy]:.7f} below {LONG_MIN_COS}")
+        if cos_next[strategy] >= LONG_MIN_COS:
+            raise AssertionError(f"{strategy}: the next document's vector reaches cosine "
+                                 f"{cos_next[strategy]:.7f}, the gate cannot tell them apart")
+
+
+def phase_distributed(torch, card, ctx, corpus, queries, exact, ivf):
+    """Phase 14: the distributed serving path; → K1's and K2's launches in
+    its counted window (the sharded pipelines' serving)."""
+    t0 = time.time()
+    sharded_ivf_records(torch, card, corpus, queries, exact, ivf)
+    sharded_brute_records(torch, card, ctx)
+    launches = sharded_pipeline_records(torch, card, ctx)
+    context_parallel_records(torch, card, ctx)
+    log(f"phase 14: {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -5064,7 +5549,7 @@ def main() -> int:
     k3 = phase_int8_topk(torch, card)
     k4, ivf8 = phase_int8_ivf(torch, card, corpus, queries, exact)
     modes = phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact)
-    del exact, ivf, ivf8
+    del ivf8
     launches8 = phase_int8_pipeline(torch, card, ctx)
     k5 = phase_flash(torch, card)
     k5["launches"] = phase_long_documents(torch, card, ctx)
@@ -5079,9 +5564,11 @@ def main() -> int:
     phase_commands(torch, card, ctx, corpus, queries)
     phase_compression(torch, card, ctx)
     phase_moe_performer(torch, card, ctx)
+    sharded = phase_distributed(torch, card, ctx, corpus, queries, exact.cpu().numpy(), ivf)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
+        kern["launches_sharded"] = sharded[kern["name"]]
     for kern in (k3, k4):
         kern["launches"] = launches8[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

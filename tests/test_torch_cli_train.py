@@ -263,7 +263,8 @@ def test_pretrain_long_full_roberta_row_stays_finite(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["train-wic", "--data", "x", "--pipe", "2"], 10), (["distill", "--pipe", "2"], 10),
-    (["theseus", "--data", "x", "--pipe", "2"], 10), (["serve", "--shards", "2"], 10),
+    (["theseus", "--data", "x", "--pipe", "2"], 10),
+    (["train-paws", "--data", "x", "--pipe", "2"], 10),
     (["train-sts", "--data", "STS", "--pipe", "2"], 10),
     (["train-nli", "--data", "STS", "--pipe", "2"], 10),
 ])

@@ -2111,3 +2111,94 @@ def test_performer_attention_on_card_matches_cpu(cuda):
             got = fn(q.to(cuda), k.to(cuda), v.to(cuda), proj.to(cuda), mask.to(cuda),
                      kernel=kernel)
             assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _clustered_rows(n, d, n_centers, seed=0):
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(n_centers, d).astype(np.float32)
+    return _unit(centers[rng.randint(0, n_centers, n)] * 3.0 + rng.randn(n, d).astype(np.float32))
+
+
+def _four_shards(cuda):
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+
+    return (make_mesh(data=1, index=4, devices=[cuda] * 4),
+            make_mesh(data=1, index=4, devices=["cpu"] * 4))
+
+
+def test_sharded_brute_force_on_card_matches_plain(cuda):
+    """Four shards on one card: K2 once a shard, the merge, against the
+    same index on the CPU (the plain top-k)."""
+    from text_similarity_tpu_torch.index.sharded import ShardedBruteForceIndex
+
+    card, cpu = _four_shards(cuda)
+    x = _unit(np.random.RandomState(0).randn(10_001, 384))
+    q = _unit(np.random.RandomState(1).randn(64, 384))
+    before = cosine_topk_cuda.launches
+    s, i = ShardedBruteForceIndex.build(card, x).query(q, k=10)
+    assert cosine_topk_cuda.launches == before + 4
+    rs, ri = ShardedBruteForceIndex.build(cpu, x).query(q, k=10)
+    assert np.abs(s - rs).max() <= 1e-5
+    assert _overlap(i, ri) >= 0.999
+
+
+@pytest.mark.parametrize("probes", [40, 8])
+def test_sharded_ivf_on_card_matches_plain(cuda, probes):
+    """Four shards on one card, bf16 slabs, built on the card (its
+    distributed k-means): K1 once a shard on ``impl="auto"``, the answer
+    against the plain scan's (``impl="kernel"``) over the same layout on
+    the CPU; 40 probes take 64-query blocks with union factor 1, 8 probes
+    16-query blocks with factor 3."""
+    from text_similarity_tpu_torch.index.sharded import ShardedIVFIndex
+
+    card, cpu = _four_shards(cuda)
+    x = _clustered_rows(40_000, 384, 200)
+    q = _unit(x[:100] + 0.05 * np.random.RandomState(2).randn(100, 384).astype(np.float32))
+    cfg = IndexConfig(num_clusters=128, num_probes=probes, kmeans_iters=4)
+    idx = ShardedIVFIndex.build(card, x, cfg, data_dtype=torch.bfloat16)
+    ref = ShardedIVFIndex(cpu, idx.centroids.cpu(), [d.cpu() for d in idx.data_padded],
+                          [i.cpu() for i in idx.ids_padded], cfg.num_probes)
+    before = ivf_scan_cuda.launches
+    s, i = idx.query(q, k=10)
+    assert ivf_scan_cuda.launches == before + 4
+    rs, ri = ref.query(q, k=10, impl="kernel")
+    assert np.abs(s - rs).max() <= 1e-4
+    assert _overlap(i, ri) >= 0.99
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_cp_attention_on_card_matches_cpu(cuda, strategy):
+    """Ring and Ulysses at seq 4 on one card against the CPU, f32."""
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 512, 8, 64), generator=g) for _ in range(3))
+    mask = torch.ones((2, 512), dtype=torch.int32)
+    mask[1, 300:] = 0
+    out = {}
+    for dev in ("cpu", cuda):
+        devs = make_mesh(data=1, seq=4, devices=[dev] * 4).axis_devices("seq")
+        pieces = [list(t.to(dev).chunk(4, dim=1)) for t in (q, k, v, mask)]
+        out[str(dev)] = torch.cat(
+            multi_head_attention(*pieces[:3], mask=pieces[3], impl=strategy, cp_group=devs),
+            dim=1).cpu()
+    assert float((out[str(cuda)] - out["cpu"]).abs().max()) <= 1e-5
+
+
+def test_encode_long_on_card_matches_cpu(cuda):
+    """``encode_long`` at seq 4 on one card (both strategies) against the
+    CPU, f32 weights."""
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+
+    texts = [" ".join(f"w{i % 50} x{i % 7}" for i in range(j, j + 150)) for j in range(5)]
+    tok = WordPieceTokenizer(train_wordpiece_vocab(texts, 256, min_freq=1))
+    arch = ARCH_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size, max_position=512)
+    params = init_params(arch, torch.Generator().manual_seed(0))
+    for strategy in ("ring", "ulysses"):
+        vecs = []
+        for dev in ("cpu", cuda):
+            enc = SentenceEncoder(params, arch, tokenizer=tok, precision=FP32_PRECISION,
+                                  device=dev)
+            vecs.append(enc.encode_long(texts, make_mesh(data=1, seq=4, devices=[dev] * 4),
+                                        max_len=512, strategy=strategy, batch_size=4))
+        assert np.abs(vecs[0] - vecs[1]).max() <= 1e-5

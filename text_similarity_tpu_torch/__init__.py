@@ -18,5 +18,9 @@ int8 store and int8 IVF slabs with a bf16 rescore — long-document encode
 training (``train``: the pair losses, AdamW, the train step, the Trainer).
 The four search kernels (exact top-k and the IVF scan, each over float and
 int8 rows) and the flash forward and backward are hand-written CUDA under
-``csrc/``.
+``csrc/``. The distributed serving path runs as one controller over a
+``core.mesh.Mesh``: the sharded indexes (``index.sharded``) behind
+``ShardedSearchPipeline`` and ``serve --shards``, the data-parallel encode
+(``SentenceEncoder(mesh=)``) and the context-parallel long encode
+(``models.long_context``, ring or Ulysses attention).
 """

@@ -57,8 +57,12 @@ saved pipeline and the cross-encoder, warm them) and returns the server;
 ``cmd_serve`` only serves it, so a caller can drive the same set-up without
 blocking. ``--experts N`` (with ``--expert-top-k``) gives a random-init
 model MoE FFNs of N experts; a loaded model carries its own arch.
-``--pipe > 1`` and ``serve --shards > 1`` exit with "not ported yet" and
-the ROADMAP item that ports them.
+``serve --shards N`` (N > 1) serves a ``ShardedSearchPipeline`` over the
+first N cards (``--device cpu``: N shards on the CPU), the corpus on the
+mesh's index axis and the encode data-parallel over the same devices when
+N divides the 128-row batch; it raises where fewer than N cards are
+visible. ``--pipe > 1`` exits with "not ported yet" and the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -841,20 +845,21 @@ def build_server(args):
     if unread:
         raise SystemExit(f"serve reads no {', '.join(unread)}: it serves the --model "
                          "directory's own tokenizer, architecture and pooling")
-    if args.shards > 1:
-        raise SystemExit("--shards > 1: the sharded pipeline is not ported yet "
-                         "(ROADMAP queue 1 item 10)")
     if not args.model or not os.path.isdir(args.model):
         raise SystemExit(f"--model dir not found: {args.model!r}")
-    device = resolve_device(args.device)
-    enc = SentenceEncoder.load(args.model, bf16=not args.fp32, device=device)
-    if args.int8:
-        enc.to_int8()
-    pipe = SemanticSearchPipeline(enc, device=device)
-    if args.load:
-        pipe.load_corpus(args.load)
-    elif args.corpus:
-        pipe.add_documents(_lines(args.corpus))
+    if args.shards > 1:
+        pipe = _sharded_pipeline(args)
+        device = pipe.encoder.device
+    else:
+        device = resolve_device(args.device)
+        enc = SentenceEncoder.load(args.model, bf16=not args.fp32, device=device)
+        if args.int8:
+            enc.to_int8()
+        pipe = SemanticSearchPipeline(enc, device=device)
+        if args.load:
+            pipe.load_corpus(args.load)
+        elif args.corpus:
+            pipe.add_documents(_lines(args.corpus))
     if args.warmup:
         n = pipe.warmup(max_queries=args.warmup)
         print(f"warmed {n} (bucket, k) serving shapes", flush=True)
@@ -873,6 +878,35 @@ def build_server(args):
         pipe, host=args.host, port=args.port, batch_window=args.batch_window_ms / 1000.0,
         reranker=reranker,
     )
+
+
+def _sharded_pipeline(args):
+    """``serve --shards N``: the corpus over the index axis of the first N
+    cards (N CPU shards with ``--device cpu``); the encode data-parallel
+    over the same devices where N divides the 128-row encode batch."""
+    from ..core.mesh import make_mesh
+    from ..models.sentence_encoder import SentenceEncoder
+    from ..pipelines.search import ShardedSearchPipeline
+
+    n = args.shards
+    if args.device == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            raise SystemExit(f"--shards {n} needs {n} cards; {visible} visible")
+        devs = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devs = [resolve_device(args.device)] * n
+    enc_mesh = make_mesh(data=n, devices=devs) if 128 % n == 0 else None
+    enc = SentenceEncoder.load(args.model, bf16=not args.fp32, device=devs[0], mesh=enc_mesh)
+    if args.int8:
+        enc.to_int8()
+    mesh = make_mesh(data=1, index=n, devices=devs)
+    if args.load:
+        return ShardedSearchPipeline.load(args.load, enc, mesh)
+    pipe = ShardedSearchPipeline(enc, mesh)
+    if args.corpus:
+        pipe.add_documents(_lines(args.corpus))
+    return pipe
 
 
 def cmd_serve(args) -> None:
@@ -1057,7 +1091,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-window-ms", type=float, default=2.0,
                    help="micro-batch window for concurrent /search requests (0 disables)")
     p.add_argument("--shards", type=int, default=1,
-                   help=">1: shard the corpus over this many devices (not ported yet)")
+                   help=">1: shard the corpus over this many devices (the first N cards; N "
+                        "shards on the CPU with --device cpu)")
     p.add_argument("--warmup", type=int, default=0,
                    help="run the query buckets up to this many queries before accepting "
                         "requests")

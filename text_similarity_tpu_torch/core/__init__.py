@@ -1,4 +1,8 @@
 from .config import ARCH_PRESETS, EncoderArch, IndexConfig, TrainConfig
+from .mesh import (
+    DATA_AXIS, EXPERT_AXIS, INDEX_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh, local_mesh,
+    make_mesh,
+)
 from .precision import (
     DEFAULT_PRECISION,
     FP32_PRECISION,
@@ -12,6 +16,15 @@ __all__ = [
     "EncoderArch",
     "IndexConfig",
     "TrainConfig",
+    "DATA_AXIS",
+    "EXPERT_AXIS",
+    "INDEX_AXIS",
+    "MODEL_AXIS",
+    "PIPE_AXIS",
+    "SEQ_AXIS",
+    "Mesh",
+    "local_mesh",
+    "make_mesh",
     "DEFAULT_PRECISION",
     "FP32_PRECISION",
     "Precision",

@@ -5,10 +5,13 @@ from .encoder import (
     embed_inputs,
     encoder_forward,
     init_params,
+    layer_after_attention,
+    layer_qkv,
     num_params,
     params_from_jax,
     transformer_layer,
 )
+from .long_context import encoder_forward_cp
 from .hf_convert import arch_from_hf_config, convert_hf_model, convert_state_dict
 from .pooling import (
     cls_pool, max_pool, mean_pool, segment_first_pool, segment_mean_pool, word_span_pool,
@@ -22,6 +25,9 @@ __all__ = [
     "embed_inputs",
     "encoder_forward",
     "init_params",
+    "layer_after_attention",
+    "layer_qkv",
+    "encoder_forward_cp",
     "num_params",
     "params_from_jax",
     "transformer_layer",

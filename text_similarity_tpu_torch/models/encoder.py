@@ -331,29 +331,14 @@ def dropout(
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def transformer_layer(
-    hx: torch.Tensor,              # (B, S, H) in the compute dtype
-    lp: dict,                      # one layer's params (unstacked, cast)
-    attention_mask: torch.Tensor,  # (B, S)
-    *,
-    arch: EncoderArch,
-    attention_impl: str = "auto",  # auto | flash | packed | reference
-    deterministic: bool = True,
-    generator: Optional[torch.Generator] = None,
-    segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
-    head_mask: Optional[torch.Tensor] = None,    # (nh,) multiplier a head
-    performer_proj: Optional[torch.Tensor] = None,  # (m, hd): impl="performer"
-    with_aux: bool = False,
-):
-    """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
-    dropout on the attention output and the FFN output in training. For an
-    MoE arch the FFN is the routed expert block; ``with_aux=True`` returns
-    ``(out, aux, drop)``: the layer's load-balance loss and dropped
-    fraction (zeros for a dense arch)."""
+def layer_qkv(hx: torch.Tensor, lp: dict, *, arch: EncoderArch):
+    """A layer's attention inputs: the fused head-interleaved QKV product
+    (the reference's (h, nh, 3, hd) stack; int8 kernels through the int8
+    product) → q, k, v (B, S, nh, hd), strided views of it (K5 reads them
+    in place)."""
     b, s, h = hx.shape
     nh, hd = arch.num_heads, arch.head_dim
-    attn, mlp = lp["attn"], lp["mlp"]
-    # fused QKV with the reference's head-interleaved (h, nh, 3, hd) stack
+    attn = lp["attn"]
     quant = _is_q(attn["q"]["w"])
     w_qkv = torch.stack(
         [(attn[n]["w"]["q"] if quant else attn[n]["w"]).reshape(h, nh, hd)
@@ -371,16 +356,28 @@ def transformer_layer(
         qkv = (qkv * hs[..., None, None] * s_qkv).to(hx.dtype) + b_qkv
     else:
         qkv = torch.matmul(hx, w_qkv).reshape(b, s, nh, 3, hd) + b_qkv
-    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-    # q, k, v stay strided views of the fused QKV: K5 reads them in place
-    ctx = multi_head_attention(
-        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
-        window=arch.attention_window, window_global_cls=arch.window_global_cls,
-        segment_ids=segment_ids, performer_proj=performer_proj,
-        performer_kernel=arch.performer_kernel,
-        performer_local_heads=arch.performer_local_heads,
-        performer_local_window=arch.performer_local_window,
-    ).reshape(b, s, nh * hd)   # nh·hd < h after head pruning
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+
+def layer_after_attention(
+    hx: torch.Tensor,              # (B, S, H): the layer's input
+    ctx: torch.Tensor,             # (B, S, nh, hd): the attention output
+    lp: dict,
+    attention_mask: torch.Tensor,  # (B, S)
+    *,
+    arch: EncoderArch,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    with_aux: bool = False,
+):
+    """The rest of a post-LN block after attention: output projection (+
+    dropout), residual + LN, FFN (the routed experts for an MoE arch; +
+    dropout), residual + LN. Position-wise but for the MoE capacity, which
+    counts the tokens of the rows given. ``with_aux`` as in
+    ``transformer_layer``."""
+    b, s, _ = hx.shape
+    attn, mlp = lp["attn"], lp["mlp"]
+    ctx = ctx.reshape(b, s, -1)    # nh·hd < h after head pruning
     ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
     hx1 = _layer_norm(
         hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
@@ -408,6 +405,42 @@ def transformer_layer(
     if aux is None:
         aux = drop = torch.zeros((), dtype=torch.float32, device=hx.device)
     return out, aux, drop
+
+
+def transformer_layer(
+    hx: torch.Tensor,              # (B, S, H) in the compute dtype
+    lp: dict,                      # one layer's params (unstacked, cast)
+    attention_mask: torch.Tensor,  # (B, S)
+    *,
+    arch: EncoderArch,
+    attention_impl: str = "auto",  # auto | flash | packed | reference
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
+    head_mask: Optional[torch.Tensor] = None,    # (nh,) multiplier a head
+    performer_proj: Optional[torch.Tensor] = None,  # (m, hd): impl="performer"
+    with_aux: bool = False,
+):
+    """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
+    dropout on the attention output and the FFN output in training
+    (``layer_qkv`` → ``multi_head_attention`` → ``layer_after_attention``;
+    ``models.long_context`` runs the two parts per sequence piece around a
+    context-parallel attention). For an MoE arch the FFN is the routed
+    expert block; ``with_aux=True`` returns ``(out, aux, drop)``: the
+    layer's load-balance loss and dropped fraction (zeros for a dense
+    arch)."""
+    q, k, v = layer_qkv(hx, lp, arch=arch)
+    ctx = multi_head_attention(
+        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
+        window=arch.attention_window, window_global_cls=arch.window_global_cls,
+        segment_ids=segment_ids, performer_proj=performer_proj,
+        performer_kernel=arch.performer_kernel,
+        performer_local_heads=arch.performer_local_heads,
+        performer_local_window=arch.performer_local_window,
+    )
+    return layer_after_attention(hx, ctx, lp, attention_mask, arch=arch,
+                                 deterministic=deterministic, generator=generator,
+                                 with_aux=with_aux)
 
 
 def embed_inputs(

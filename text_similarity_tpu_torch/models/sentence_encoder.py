@@ -49,8 +49,19 @@ rows, and a packed forward is padded to ``rows_per_batch`` rows.
 ``from_hf`` converts a live ``transformers`` model (``models.hf_convert``);
 ``embed_token_stack`` embeds an (n, B, L) stack of pre-tokenized batches.
 
-Not ported yet: ``encode_long`` (the context-parallel encode over a device
-mesh).
+Data-parallel encode (``mesh=``, a ``core.mesh.Mesh``): each bucketed or
+packed batch splits by rows over the mesh ``data`` axis
+(``core.mesh.shard_batch``), each piece runs on its device with the weights
+copied there once, and the vectors gather back onto the encoder's device.
+Rows are independent, so the vectors are those of the mesh-less encode up
+to the order of float sums. An MoE model keeps each batch whole (its
+capacity counts the batch) and takes the data devices in turn.
+
+``encode_long(texts, mesh, strategy="ring" | "ulysses")`` encodes documents
+context-parallel over the mesh ``seq`` axis (``models.long_context``):
+exact full attention with the sequence split across the axis, at a width
+snapped to a power-of-2 bucket that divides over the axis, then
+``encode``'s pool → projection → L2 tail.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from torch import nn
 from ..compress.quantize import dequantize_params, quantize_params_int8
 from ..core import checkpoint as ckpt
 from ..core.config import EncoderArch
+from ..core.mesh import DATA_AXIS, SEQ_AXIS, on_devices, shard_batch
 from ..core.precision import DEFAULT_PRECISION, Precision, precision_for, resolve_device
 from ..data.batching import BUCKETS, LengthBucketBatcher, pick_bucket
 from ..data.packing import pack_sequences
@@ -90,6 +102,7 @@ class SentenceEncoder(nn.Module):
         pooling: str = "mean",
         precision: Precision = DEFAULT_PRECISION,
         device="cuda",
+        mesh=None,        # a core.mesh.Mesh: data-parallel encode over its data axis
     ):
         super().__init__()
         self.device = resolve_device(device)
@@ -99,6 +112,9 @@ class SentenceEncoder(nn.Module):
         self.tokenizer = tokenizer
         self.pooling = pooling
         self.precision = precision
+        self.mesh = mesh
+        self._replicas: dict = {}   # the weights on each data device
+        self._turn = 0              # the data device an MoE batch takes next
 
     @property
     def params(self) -> dict:
@@ -133,12 +149,31 @@ class SentenceEncoder(nn.Module):
     def embed_tokens(self, ids, mask) -> torch.Tensor:
         """Embed a pre-tokenized (B, L) batch → (B, D) normalized f32 on
         the encoder's device."""
-        ids, mask = self._as_device(ids), self._as_device(mask)
-        params = self.params
-        out = encoder_forward(
-            params, ids, mask, arch=self.arch, precision=self.precision
-        )
-        return self._project_normalize(params, pool(self.pooling, out.last_hidden_state, mask))
+        def run(params, ids, mask):
+            out = encoder_forward(params, ids, mask, arch=self.arch, precision=self.precision)
+            return self._project_normalize(params, pool(self.pooling, out.last_hidden_state, mask))
+
+        return self._data_parallel(run, self._as_device(ids), self._as_device(mask))
+
+    def _params_on(self, device: torch.device) -> dict:
+        if device not in self._replicas:
+            self._replicas = on_devices(self.params, self.mesh.axis_devices(DATA_AXIS))
+        return self._replicas[device]
+
+    def _data_parallel(self, fn, *arrays: torch.Tensor) -> torch.Tensor:
+        """``fn(params, *arrays)`` → rows on the encoder's device: with a
+        mesh whose data axis is longer than 1, the rows split over it and
+        gather back (an MoE batch stays whole on the next data device)."""
+        if self.mesh is None or self.mesh.shape[DATA_AXIS] == 1:
+            return fn(self.params, *arrays)
+        if self.arch.num_experts > 0:
+            devs = self.mesh.axis_devices(DATA_AXIS)
+            dev = devs[self._turn % len(devs)]
+            self._turn += 1
+            return fn(self._params_on(dev), *(a.to(dev) for a in arrays)).to(self.device)
+        outs = [fn(self._params_on(piece[0].device), *piece)
+                for piece in shard_batch(self.mesh, arrays) if piece[0].shape[0]]
+        return torch.cat([o.to(self.device) for o in outs])
 
     @torch.no_grad()
     def embed_token_stack(self, ids, mask) -> torch.Tensor:
@@ -159,13 +194,15 @@ class SentenceEncoder(nn.Module):
         slot. M is ``max_segments``, or the largest segment tag."""
         self._check_packable()
         m = max_segments or int(np.max(np.asarray(segments)))
-        ids, segments, positions = (self._as_device(x) for x in (ids, segments, positions))
-        params = self.params
-        out = encoder_forward(
-            params, ids, (segments > 0).to(torch.int32), arch=self.arch,
-            precision=self.precision, segment_ids=segments, position_ids=positions,
-        )
-        return self._project_normalize(params, segment_mean_pool(out.last_hidden_state, segments, m))
+        def run(params, ids, segments, positions):
+            out = encoder_forward(
+                params, ids, (segments > 0).to(torch.int32), arch=self.arch,
+                precision=self.precision, segment_ids=segments, position_ids=positions,
+            )
+            return self._project_normalize(params,
+                                           segment_mean_pool(out.last_hidden_state, segments, m))
+
+        return self._data_parallel(run, *(self._as_device(x) for x in (ids, segments, positions)))
 
     def encode_packed(
         self,
@@ -322,8 +359,56 @@ class SentenceEncoder(nn.Module):
             out[idx] = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
         return out if device_output else out.cpu().numpy()
 
+    @torch.no_grad()
+    def encode_long(
+        self,
+        texts: Sequence[str],
+        mesh,
+        max_len: int = 4096,
+        strategy: str = "ring",    # ring | ulysses (models.long_context)
+        batch_size: int = 8,
+    ) -> np.ndarray:
+        """Encode documents context-parallel over ``mesh``'s seq axis →
+        (N, D) normalized f32 numpy. The width snaps to a power-of-2 bucket
+        from the axis length up (at most ``max_len``, a multiple of the
+        axis); batches of ``batch_size`` rows, the tail padded with rows
+        that keep one valid position."""
+        from .long_context import encoder_forward_cp
+
+        if self.tokenizer is None:
+            raise ValueError("encoder has no tokenizer")
+        n_seq = mesh.shape[SEQ_AXIS]
+        ids, mask = self.tokenizer.encode_batch(list(texts), max_len)
+        width = ids.shape[1]
+        bucket = n_seq
+        while bucket < width:
+            bucket *= 2
+        bucket = min(bucket, max(max_len, n_seq))
+        if bucket % n_seq:
+            bucket = (bucket + n_seq - 1) // n_seq * n_seq
+        if bucket < width:     # max_len caps the tokenized width
+            ids, mask = ids[:, :bucket], mask[:, :bucket]
+        elif bucket > width:
+            ids = np.pad(ids, ((0, 0), (0, bucket - width)))
+            mask = np.pad(mask, ((0, 0), (0, bucket - width)))
+        params = self.params
+        out = np.zeros((len(texts), self.embedding_dim), np.float32)
+        for start in range(0, len(texts), batch_size):
+            stop = min(start + batch_size, len(texts))
+            pad = batch_size - (stop - start)
+            i_b = np.pad(ids[start:stop], ((0, pad), (0, 0)))
+            m_b = np.pad(mask[start:stop], ((0, pad), (0, 0)))
+            m_b[stop - start:, 0] = 1     # padding rows: one valid position
+            i_t, m_t = self._as_device(i_b), self._as_device(m_b)
+            h = encoder_forward_cp(params, i_t, m_t, arch=self.arch, mesh=mesh,
+                                   strategy=strategy, precision=self.precision)
+            emb = self._project_normalize(params, pool(self.pooling, h.to(self.device), m_t))
+            out[start:stop] = emb[: stop - start].cpu().numpy()
+        return out
+
     def _set_params(self, params: dict) -> "SentenceEncoder":
         self.encoder = Encoder(self.arch, params, self.precision)
+        self._replicas = {}
         return self
 
     def to_int8(self) -> "SentenceEncoder":
@@ -363,11 +448,11 @@ class SentenceEncoder(nn.Module):
         return cls(params, arch, tokenizer=tokenizer, pooling=pooling, device=dev, **kw)
 
     @classmethod
-    def load(cls, path: str, bf16: bool = True, device="cuda") -> "SentenceEncoder":
+    def load(cls, path: str, bf16: bool = True, device="cuda", mesh=None) -> "SentenceEncoder":
         """Load a directory written by either package. A checkpoint in the
         int8 deployment format dequantizes to bf16 (``bf16=True``) or f32
         weights, as the reference does; a tree saved after ``to_int8``
-        keeps its int8 leaves."""
+        keeps its int8 leaves. ``mesh``: the data-parallel encode's."""
         with open(os.path.join(path, "arch.json")) as f:
             arch = EncoderArch.from_json(f.read())
         cdir = ckpt.latest_checkpoint(path)
@@ -388,6 +473,7 @@ class SentenceEncoder(nn.Module):
             pooling=meta.get("pooling", "mean"),
             precision=precision_for(bf16),
             device=device,
+            mesh=mesh,
         )
 
 

@@ -33,9 +33,11 @@
   ``impl="performer"`` (``ops.performer``): FAVOR+ linear attention, causal
   on request, its first ``performer_local_heads`` heads exact windowed
   attention (``attention_reference`` with ``causal``), the head mask
-  scaling the output. A Performer call never reaches K5 or K7.
-
-Not ported yet: the context-parallel strategies.
+  scaling the output. A Performer call never reaches K5 or K7;
+  ``impl="ring"`` / ``"ulysses"``: the context-parallel strategies
+  (``ops.ring_attention``, ``ops.ulysses``), whose q, k, v and mask are
+  lists of the sequence's pieces, one a position of ``cp_group`` (the
+  mesh ``seq`` axis's devices; ``models.long_context`` wires the encoder).
 """
 
 from __future__ import annotations
@@ -564,7 +566,7 @@ def multi_head_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     head_mask: Optional[torch.Tensor] = None,
-    impl: str = "auto",        # auto | flash | packed | reference | performer
+    impl: str = "auto",        # auto | flash | packed | reference | performer | ring | ulysses
     window: int = 0,
     window_global_cls: bool = False,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S): packed rows
@@ -573,6 +575,7 @@ def multi_head_attention(
     performer_kernel: str = "softmax",   # softmax | relu
     performer_local_heads: int = 0,
     performer_local_window: int = 64,
+    cp_group=None,             # ring / ulysses: the seq axis's devices
 ) -> torch.Tensor:
     """Dispatching MHA: ``auto`` resolves through :func:`auto_impl`, so on
     the CPU it runs the reference, as the JAX package does there; only an
@@ -583,11 +586,17 @@ def multi_head_attention(
     N > 0 the first N heads run exact attention over a band of
     ``performer_local_window`` (causal when asked) and the rest stay linear.
     ``causal`` goes with ``performer`` only (the reference ignores it on
-    the exact paths)."""
+    the exact paths). ``ring`` / ``ulysses`` take q, k, v and mask as lists
+    of sequence pieces, piece i on ``cp_group[i]``, and return such a list;
+    they raise without ``cp_group``, as the reference raises without
+    ``cp_axis``."""
     if segment_ids is not None and impl not in ("auto", "reference"):
         raise ValueError(
             "segment_ids (packed batches) is only supported by the reference/auto attention path"
         )
+    if impl in ("ring", "ulysses"):
+        return _context_parallel(q, k, v, mask, head_mask, impl, cp_group,
+                                 window or window_global_cls or causal)
     if causal and impl != "performer":
         raise ValueError("causal attention is only supported by impl='performer'")
     if impl == "performer":
@@ -614,8 +623,30 @@ def multi_head_attention(
             segment_ids=segment_ids,
         )
     raise ValueError(
-        f"attention impl {impl!r}: the port has auto, flash, packed, reference and performer"
+        f"attention impl {impl!r}: the port has auto, flash, packed, reference, performer, "
+        "ring and ulysses"
     )
+
+
+def _context_parallel(q, k, v, mask, head_mask, impl, cp_group, banded_or_causal):
+    """The ring / ulysses branch of ``multi_head_attention`` over lists of
+    sequence pieces."""
+    from .ring_attention import ring_attention
+    from .ulysses import ulysses_attention
+
+    if cp_group is None:
+        raise ValueError(f"impl={impl!r} needs cp_group (the devices of the mesh seq axis)")
+    if banded_or_causal:
+        raise ValueError("context-parallel attention is full+non-causal")
+    if len(q) != len(cp_group) or any(x.device != d for x, d in zip(q, cp_group)):
+        raise ValueError("context-parallel attention needs piece i of q on cp_group[i]")
+    if mask is None:
+        mask = [torch.ones(x.shape[:2], dtype=torch.int32, device=x.device) for x in q]
+    fn = ring_attention if impl == "ring" else ulysses_attention
+    out = fn(q, k, v, mask)
+    if head_mask is not None:
+        out = [o * head_mask.to(o.device, o.dtype)[None, None, :, None] for o in out]
+    return out
 
 
 def _performer_heads(q, k, v, mask, head_mask, proj, causal, kernel, local_heads, local_window):

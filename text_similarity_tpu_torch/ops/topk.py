@@ -62,6 +62,14 @@ def select_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.
     return torch.gather(s, -1, by_score), torch.gather(i, -1, by_score)
 
 
+def topk_merge(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard top-k lists (..., S, k') into the global top k (...,
+    k) by (score desc, id asc): the reference's merge after the all-gather
+    over the index axis."""
+    *lead, s, kk = scores.shape
+    return select_topk(scores.reshape(*lead, s * kk), ids.reshape(*lead, s * kk), k)
+
+
 def _dot_dtype_queries(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     # the reference casts the queries to the corpus dtype before the dot
     if corpus.dtype == torch.bfloat16:

@@ -11,13 +11,22 @@ bf16 rescore copy (kernel K4 + rescore); with an int8 encoder
 Documents added after the IVF build go into the built index (no rebuild);
 ``remove_documents`` tombstones the store and clears the index's slots.
 
+``ShardedSearchPipeline`` serves a corpus sharded over a device mesh's
+``index`` axis (``index.sharded``): each shard scanned on its device (IVF
+with global clusters, K1 a shard; exact brute force, K2 a shard below
+100k documents) and the per-shard top-k merged on the first device. Same
+request surface as ``SemanticSearchPipeline``, so ``SearchServer`` serves
+it; ``add_documents`` rebuilds the sharded layout (a bulk load),
+``remove_documents`` tombstones in place (the IVF id maps and sentinel
+column; brute force over-fetches and filters). ``save`` / ``load`` keep the
+reference's ``sharded_store.npz`` + ``corpus.txt`` and rebuild on load, so
+a directory either package saved loads in the other.
+
 ``SentenceMiningPipeline`` finds likely paraphrase pairs inside a corpus:
 exact all-pairs mining through ``BruteForceIndex.mine`` (K2) below 100k
 documents, the corpus queried against its own IVF index (K1) from 100k
 up. ``compare_models`` is the teacher / student top-k overlap of two
 brute-force pipelines over one corpus.
-
-Not ported yet: the sharded pipeline.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..index import BruteForceIndex, EmbeddingStore, IVFIndex
-from ..ops.topk import l2_normalize
+from ..ops.topk import MAX_K, l2_normalize
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +57,41 @@ def _pad_pow2(q_emb: torch.Tensor) -> torch.Tensor:
     if bucket != n_q:
         q_emb = torch.cat([q_emb, q_emb[-1:].expand(bucket - n_q, q_emb.shape[1])])
     return q_emb
+
+
+def _warmup_pipeline(pipe, ks: Sequence[int], max_queries: int) -> int:
+    """Run every power-of-2 query bucket up to ``max_queries`` (and the
+    bucket above it) × each k once — builds the kernels and the index
+    before the first user request. → the number of calls."""
+    if not pipe.corpus:
+        return 0
+    n = 0
+    bucket = 1
+    while bucket // 2 < max(1, max_queries):
+        probe = [pipe.corpus[0]] * bucket
+        for k in ks:
+            pipe(probe, max_num_results=k)
+            n += 1
+        bucket *= 2
+    return n
+
+
+def _rows(corpus: Sequence[str], s: np.ndarray, i: np.ndarray, n_rows: int, k: int,
+          removed=()) -> List[List[Tuple[str, float, int]]]:
+    """Per query row: [(document, score, id)] best first, at most k,
+    skipping ids < 0, non-finite scores and ``removed`` ids."""
+    out = []
+    for r in range(n_rows):
+        row = []
+        for score, idx in zip(s[r], i[r]):
+            idx = int(idx)
+            if idx < 0 or not np.isfinite(score) or idx in removed:
+                continue
+            row.append((corpus[idx], float(score), idx))
+            if len(row) >= k:
+                break
+        out.append(row)
+    return out
 
 
 class SemanticSearchPipeline:
@@ -163,31 +207,12 @@ class SemanticSearchPipeline:
                 i = np.where(i >= 0, self._id_remap[np.maximum(i, 0)], -1)
         else:
             s, i = BruteForceIndex(self.store).query(q_emb, k=max_num_results)
-        out = []
-        for r in range(len(queries)):
-            row = []
-            for score, idx in zip(s[r], i[r]):
-                if idx < 0 or not np.isfinite(score):
-                    continue
-                row.append((self.corpus[int(idx)], float(score), int(idx)))
-            out.append(row)
-        return out
+        return _rows(self.corpus, s, i, len(queries), max_num_results)
 
     def warmup(self, ks: Sequence[int] = (10,), max_queries: int = 16) -> int:
-        """Run every power-of-2 query bucket up to ``max_queries`` (and the
-        bucket above it) × each k once — builds the kernels and the IVF
-        index before the first user request. → the number of calls."""
-        if not self.corpus:
-            return 0
-        n = 0
-        bucket = 1
-        while bucket // 2 < max(1, max_queries):
-            probe = [self.corpus[0]] * bucket
-            for k in ks:
-                self(probe, max_num_results=k)
-                n += 1
-            bucket *= 2
-        return n
+        """Each power-of-2 query bucket up to ``max_queries`` × each k once
+        (``_warmup_pipeline``). → the number of calls."""
+        return _warmup_pipeline(self, ks, max_queries)
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
@@ -209,6 +234,169 @@ class SemanticSearchPipeline:
         self.ivf = IVFIndex.load(ivf_path, device=self.device) if os.path.exists(ivf_path) else None
         remap_path = os.path.join(path, "id_remap.npy")
         self._id_remap = np.load(remap_path) if os.path.exists(remap_path) else None
+
+
+class ShardedSearchPipeline:
+    """corpus texts → embeddings → an index sharded over ``mesh``'s index
+    axis → query API (the reference's north-star multi-device shape)."""
+
+    IVF_MIN_DOCS = 100_000
+
+    def __init__(
+        self,
+        encoder,                       # SentenceEncoder
+        mesh,                          # core.mesh.Mesh with the index axis
+        corpus: Optional[Sequence[str]] = None,
+        index_config: Optional[IndexConfig] = None,
+        use_ivf: Optional[bool] = None,   # None: IVF from 100k documents
+        batch_size: int = 128,
+    ):
+        _check_encoder_device(encoder, mesh.first_device)
+        self.encoder = encoder
+        self.mesh = mesh
+        self.index_config = index_config
+        self.use_ivf = use_ivf
+        self.batch_size = batch_size
+        self.corpus: List[str] = []
+        self._emb: Optional[np.ndarray] = None   # host copy for rebuilds
+        self._removed: set = set()
+        self.index = None
+        self.ivf = None       # the sharded IVF index when it serves (/health)
+        self.store = None     # no single-device store
+        if corpus:
+            self.add_documents(corpus)
+
+    @property
+    def size(self) -> int:
+        return len(self.corpus) - len(self._removed)
+
+    def _want_ivf(self) -> bool:
+        if self.use_ivf is not None:
+            return self.use_ivf
+        return len(self.corpus) >= self.IVF_MIN_DOCS
+
+    def _rebuild(self) -> None:
+        from ..index.sharded import ShardedBruteForceIndex, ShardedIVFIndex
+
+        if self._want_ivf():
+            cfg = self.index_config or IndexConfig.auto(len(self.corpus))
+            # bf16 slabs, as the single-device pipeline's
+            self.index = ShardedIVFIndex.build(self.mesh, self._emb, cfg,
+                                               data_dtype=torch.bfloat16)
+            self.ivf = self.index
+            if self._removed:
+                self._tombstone(sorted(self._removed))
+        else:
+            self.index = ShardedBruteForceIndex.build(self.mesh, self._emb)
+            self.ivf = None
+        logger.info("built sharded %s index: %d rows over %d shards",
+                    "IVF" if self.ivf is not None else "brute-force", len(self.corpus),
+                    self.mesh.shape["index"])
+
+    def add_documents(self, texts: Sequence[str]) -> np.ndarray:
+        """Bulk load: encode, extend the corpus, rebuild the sharded layout
+        (a per-shard capped layout takes no cross-shard insert). → the new
+        corpus ids."""
+        emb = np.asarray(self.encoder.encode(list(texts), batch_size=self.batch_size),
+                         np.float32)
+        start = len(self.corpus)
+        self.corpus.extend(texts)
+        self._emb = emb if self._emb is None else np.concatenate([self._emb, emb])
+        self._rebuild()
+        return np.arange(start, len(self.corpus))
+
+    def _tombstone(self, ids: Sequence[int]) -> None:
+        """Clear global ids from every shard's IVF id map in place (and
+        zero their sentinel column, which the idless scan masks by)."""
+        rem = torch.as_tensor(sorted(ids), dtype=torch.int32)
+        index = self.index
+        for si, flat in enumerate(index.ids_padded):
+            r = rem.to(flat.device)
+            pos = torch.searchsorted(r, flat).clamp(0, r.shape[0] - 1)
+            hit = (r[pos] == flat) & (flat >= 0)
+            index.ids_padded[si] = torch.where(hit, -1, flat)
+            if index.sentinel:
+                col = index.data_padded[si][..., -1]
+                col.copy_(torch.where(hit, torch.zeros_like(col), col))
+
+    def remove_documents(self, ids: Sequence[int]) -> int:
+        """Tombstone live corpus ids. → how many were alive."""
+        fresh = [int(i) for i in ids
+                 if 0 <= int(i) < len(self.corpus) and int(i) not in self._removed]
+        if not fresh:
+            return 0
+        self._removed.update(fresh)
+        if self.ivf is not None:
+            self._tombstone(fresh)
+        # brute-force shards have no id map: __call__ over-fetches instead
+        return len(fresh)
+
+    def __call__(
+        self, queries: Sequence[str], max_num_results: int = 10
+    ) -> List[List[Tuple[str, float, int]]]:
+        """→ per query: [(document, score, corpus_id), ...] best-first."""
+        if len(queries) == 0:
+            return []
+        if self.index is None:   # nothing loaded yet
+            return [[] for _ in queries]
+        q_emb = _pad_pow2(self.encoder.encode(list(queries), batch_size=self.batch_size,
+                                              device_output=True))
+        k = min(max_num_results, len(self.corpus))
+        if self.ivf is None and self._removed:
+            # over-fetch past the tombstones, snapped to a power of 2 (one
+            # query shape a range of removals) and held to the kernel's k
+            b = 1
+            while b < k + len(self._removed):
+                b *= 2
+            k = min(b, len(self.corpus), MAX_K)
+        s, i = self.index.query(q_emb, k=k)
+        return _rows(self.corpus, s, i, len(queries), max_num_results, self._removed)
+
+    def warmup(self, ks: Sequence[int] = (10,), max_queries: int = 16) -> int:
+        """``SemanticSearchPipeline.warmup``'s contract."""
+        return _warmup_pipeline(self, ks, max_queries)
+
+    # -- persistence: the layout depends on the mesh, so the corpus state
+    # persists and a load rebuilds ----------------------------------------
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        emb = (self._emb if self._emb is not None
+               else np.zeros((0, self.encoder.embedding_dim), np.float32))
+        cfg = self.index_config
+        np.savez(
+            os.path.join(path, "sharded_store.npz"),
+            emb=emb,
+            removed=np.asarray(sorted(self._removed), np.int64),
+            # the index choice, so a load does not re-run the size rule
+            use_ivf=np.int8(-1 if self.use_ivf is None else int(self.use_ivf)),
+            num_clusters=np.int32(cfg.num_clusters if cfg else -1),
+            num_probes=np.int32(cfg.num_probes if cfg else -1),
+        )
+        with open(os.path.join(path, "corpus.txt"), "w", encoding="utf-8") as f:
+            for t in self.corpus:
+                f.write(t.replace("\n", " ") + "\n")
+
+    @classmethod
+    def load(cls, path: str, encoder, mesh, index_config: Optional[IndexConfig] = None,
+             use_ivf: Optional[bool] = None) -> "ShardedSearchPipeline":
+        with np.load(os.path.join(path, "sharded_store.npz")) as z:
+            emb = z["emb"]
+            removed = {int(i) for i in z["removed"]}
+            if use_ivf is None and "use_ivf" in z.files:
+                saved = int(z["use_ivf"])
+                use_ivf = None if saved < 0 else bool(saved)
+            if index_config is None and "num_clusters" in z.files and int(z["num_clusters"]) > 0:
+                index_config = IndexConfig(num_clusters=int(z["num_clusters"]),
+                                           num_probes=int(z["num_probes"]))
+        pipe = cls(encoder, mesh, index_config=index_config, use_ivf=use_ivf)
+        pipe._removed = removed
+        with open(os.path.join(path, "corpus.txt"), encoding="utf-8") as f:
+            pipe.corpus = [line.rstrip("\n") for line in f]
+        if emb.shape[0]:
+            pipe._emb = np.asarray(emb, np.float32)
+            pipe._rebuild()
+        return pipe
 
 
 def _check_encoder_device(encoder, device: torch.device) -> None:

@@ -1,10 +1,12 @@
 """HTTP serving daemon for the semantic-search pipeline (port of
 ``text_similarity_tpu.pipelines.serve``): JSON over the standard library's
-``http.server``, one pipeline on one device.
+``http.server``, one pipeline: a ``SemanticSearchPipeline`` on one device
+or a ``ShardedSearchPipeline`` over a device mesh.
 
 Endpoints (all JSON):
 
-- ``GET  /health``   → ``{"status": "ok", "size": N, "ivf": bool, "sharded": false}``
+- ``GET  /health``   → ``{"status": "ok", "size": N, "ivf": bool, "sharded": bool}``
+  (a sharded pipeline's size counts its live documents)
 - ``POST /search``   ``{"queries": [...], "k": 10}`` →
   ``{"results": [[{"document", "score", "id"}, ...], ...]}``
 - ``POST /rerank``   the same, re-scored by the cross-encoder (needs a
@@ -30,8 +32,6 @@ a 400 (it killed the reference's batcher thread), the batch's padding to a
 power of two runs inside the batcher's error handling and never exceeds
 the power of two at or above ``max_batch``, and (in ``cli.main``) the
 rerank path is warmed whenever a reranker is configured.
-
-Not ported yet: the sharded pipeline.
 """
 
 from __future__ import annotations
@@ -231,9 +231,12 @@ class SearchServer:
                     return self._reply(404, {"error": "unknown endpoint"})
                 with server.lock:
                     p = server.pipeline
-                    size = p.store.size if getattr(p, "store", None) is not None else 0
+                    if getattr(p, "store", None) is not None:
+                        size = p.store.size
+                    else:   # a sharded pipeline has no single-device store
+                        size = getattr(p, "size", 0)
                     self._reply(200, {"status": "ok", "size": int(size),
-                                      "ivf": p.ivf is not None, "sharded": False})
+                                      "ivf": p.ivf is not None, "sharded": hasattr(p, "mesh")})
 
             def do_POST(self):  # noqa: N802
                 if self.path not in handlers:
