@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's semantic-search, long-document, training,
 packed-encode, serving, training-entry-point, command-line, compression /
-clustering / word-model, MoE / Performer and distributed serving paths on
-one NVIDIA card.
+clustering / word-model, MoE / Performer, distributed serving and
+distributed training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -386,7 +386,38 @@ Phases (any failure exits non-zero):
       strategies against ``encode`` (min cosine ≥ ``LONG_MIN_COS``, the
       next document's vector below it), both timed (docs/s); the card
       against the CPU on a 2-layer cut at 1 × 4096, f32 (``CP_CARD_CPU``).
- 15. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
+ 15. Distributed training, every position on the one card
+    (``devices=["cuda:0"] * 4``; no rate is a multi-card number). Gradients
+    are held per leaf as phase 7 holds them (‖Δg‖/‖g‖ ≤ ``GRAD_F32`` in f32;
+    in bf16 ≤ ``GRAD_BF16`` or, where larger, twice the leaf's distance
+    between the mesh-less bf16 and f32 runs; another batch ≥ 10 ×
+    ``GRAD_BF16`` away), dropout 0 where results are compared:
+    - data 4 and FSDP 4 (``fsdp_param_pspecs``): minilm-l6, MNRL on 64 pairs
+      × 128 tokens, bf16 and f32, against the mesh-less step: the loss, the
+      gradients, the parameters after 4 steps (‖p − p_ref‖/‖p_ref − p0‖,
+      ``GRAD_BF16``, the leaves whose gradient is rounding noise named and
+      not gated), pairs/s of both; FSDP: every split leaf's piece ¼, each
+      position's bytes of parameters and moments beside the replicated
+      bytes;
+    - data 2 × model 2 (``param_pspecs``): roberta-base at 4,098 positions
+      (phase 6's weights), 4 pairs at 4096, window 256 + CLS: the gradients
+      of phase 7's projection loss in bf16 and f32 against the mesh-less
+      path, one MNRL step with K5 96 and K6 192 launches (each model
+      position's 6 heads), pairs/s beside the mesh-less step's; K5 and K6
+      held to their plain versions at (2, 4096, 6, 64) and at the pipe's
+      (1, 4096, 12, 64);
+    - pipe 4 × 4 microbatches (3 layers a stage): ``encoder_forward_pp``'s
+      last_hidden_state against ``encoder_forward`` on valid rows (phase 6's
+      ``AGREE_MEAN`` / ``AGREE_MAX``), the gradients as above, one MNRL step
+      with K5 96 and K6 192 launches; with dropout 0.1 the loss finite and
+      two identical microbatches different;
+    - data 2 × expert 2: minilm-l6 with 8 experts, top-2, f32: the forward's
+      states, ``moe_aux`` and ``moe_drop`` against the replicated forward,
+      the MNRL gradients;
+    - ``dryrun_multichip(4)``; the data-parallel encoder unsharded, saved,
+      loaded and searched (K2, every document first); ``train-sts --pipe
+      2`` refused, naming the card count.
+ 16. One JSON line ``{"kernels": [...]}`` for K1-K8, K1-opt (per_probe,
     emit_acc), K9, K10, K11a and K11b: launches in the counted window of
     their phase (2b, 4, 5, 5b, 6, 7 or 8), time, plain time, bound and
     library time at the phase-2/2b/3/5/5b/6/7/8 shapes; K5 and K6 carry
@@ -397,8 +428,9 @@ Phases (any failure exits non-zero):
     the host calls it, its device times in a CUDA graph (``device_ms`` /
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile); K1 and K2 also carry ``launches_sharded``, their
-    launches in phase 14's counted window.
- 16. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
+    launches in phase 14's counted window; K5 and K6 ``launches_distributed``,
+    theirs in phase 15's two counted steps.
+ 17. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
 the host clock around synchronised work (pipeline). f32 matmuls run
@@ -2431,12 +2463,12 @@ def phase_flash_backward(torch, card):
     }
 
 
-def document_pairs(tok, sentences, rng, n):
-    """n pairs (a document of 3000-4000 tokens joined from corpus
-    sentences, the same sentences in another order)."""
+def document_pairs(tok, sentences, rng, n, lengths=(3000, 4001)):
+    """n pairs (a document of ``lengths`` tokens, 3000-4000 by default,
+    joined from corpus sentences, the same sentences in another order)."""
     counts = [len(r) for r in tok.tokenize_many(sentences)]
     pairs, pos = [], 0
-    for target in rng.integers(3000, 4001, n):
+    for target in rng.integers(*lengths, n):
         parts, total = [], 0
         while total < target:
             parts.append(sentences[pos % len(sentences)])
@@ -2575,6 +2607,22 @@ def phase_long_training(torch, card, ctx):
     return launches["K6"], pairs
 
 
+def grad_rel(a, b):
+    """Per leaf ‖a − b‖ / ‖b‖ of two flat gradient trees (‖b‖ floored at
+    1e-3 of the whole gradient's norm; those leaves are named), and over
+    all leaves."""
+    norms = {k: float(ref.norm()) for k, ref in b.items()}
+    whole = sum(n * n for n in norms.values()) ** 0.5
+    out, floored, num = {}, [], 0.0
+    for k, ref in b.items():
+        d = float((a[k] - ref).norm())
+        num += d * d
+        if norms[k] < 1e-3 * whole:
+            floored.append(k)
+        out[k] = d / max(norms[k], 1e-3 * whole)
+    return out, num ** 0.5 / whole, floored
+
+
 def phase_grad_agreement(torch, card, tok, pairs):
     """A 2-layer cut of roberta-base-long at full width, one pair at 4096:
     the gradient of a fixed random projection of both towers'
@@ -2616,20 +2664,7 @@ def phase_grad_agreement(torch, card, tok, pairs):
         loss, _, g = value_and_grad(projection_loss, leaves, batch_to(batch, dev), impl, precision)
         return float(loss.detach()), {k: v.float() for k, v in flat_leaves(g).items()}
 
-    def rel(a, b):
-        """Per leaf ‖a − b‖ / ‖b‖ (‖b‖ floored at 1e-3 of the whole
-        gradient's norm; those leaves are named), and over all leaves."""
-        norms = {k: float(ref.norm()) for k, ref in b.items()}
-        whole = sum(n * n for n in norms.values()) ** 0.5
-        out, floored, num = {}, [], 0.0
-        for k, ref in b.items():
-            d = float((a[k] - ref).norm())
-            num += d * d
-            if norms[k] < 1e-3 * whole:
-                floored.append(k)
-            out[k] = d / max(norms[k], 1e-3 * whole)
-        return out, num ** 0.5 / whole, floored
-
+    rel = grad_rel
     readings = {}
     for name, precision, limit in (("f32", FP32_PRECISION, GRAD_F32),
                                    ("bf16", DEFAULT_PRECISION, GRAD_BF16)):
@@ -5515,6 +5550,506 @@ def phase_distributed(torch, card, ctx, corpus, queries, exact, ivf):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: distributed training on the one card
+# ---------------------------------------------------------------------------
+
+POSITIONS = 4
+ONE_CARD_TRAIN = f"{POSITIONS} positions on one card"
+# phase 7's gradient limits (worst leaf ‖Δg‖ / ‖g‖; another batch at least
+# 10x the bf16 limit away); the same limits hold the parameters' movement
+# after 4 steps (‖Δp‖ / ‖p − p0‖ of the mesh-less run's). The sharded path
+# only reorders sums, so in f32 it must meet GRAD_F32. In bf16 a leaf whose
+# gradient is a sum that cancels (a LayerNorm bias, the token-type row)
+# moves with every rounding: the mesh-less bf16 step itself lies 13.5% from
+# its f32 step on minilm-l6's mlp_ln bias (a CPU rehearsal). Two bf16 runs
+# that each lie within r of the f32 run lie within 2r of each other, so a
+# bf16 leaf is held to GRAD_BF16 or, where larger, to twice that leaf's
+# distance between the mesh-less bf16 and f32 runs (BF16_RESOLUTION). The
+# parameters after the steps are held to GRAD_BF16 in f32 too: AdamW divides
+# each element by its own gradient's root mean square, so an element whose
+# gradient is near zero turns its rounding into a step of its own (an H100
+# read 1.35e-3 on attn/o/b, where the f32 gradients agree to 6.9e-5).
+BF16_RESOLUTION = 2.0
+DIST_PAIRS, DIST_LEN, DIST_STEPS, DIST_TIMED = 64, 128, 4, 10
+
+
+def whole_flat(tree):
+    """A (possibly sharded) tree's leaves whole, f32, by path."""
+    from text_similarity_tpu_torch.core.mesh import unshard
+
+    return {k: v.detach().float().clone() for k, v in flat_leaves(unshard(tree)).items()}
+
+
+def grads_of(loss_fn, params, batch, *args):
+    """(loss, the gradient of every leaf whole by path) of ``loss_fn``."""
+    from text_similarity_tpu_torch.train.steps import value_and_grad
+
+    loss, _, g = value_and_grad(loss_fn, params, batch, *args)
+    return float(loss.detach()), whole_flat(g)
+
+
+def gate_leaves(label, per, limit, card, noise=None, extra=""):
+    """Every leaf's reading within ``limit`` or, where larger, the leaf's
+    bf16 resolution in ``noise``."""
+    allowed = {k: max(limit, (noise or {}).get(k, 0.0)) for k in per}
+    worst = max(per, key=lambda k: per[k] / allowed[k])
+    over = sorted(k for k in per if per[k] > limit)
+    log(f"{label} [{card}, {ONE_CARD_TRAIN}]: per leaf max {per[worst]:.3e} ({worst}, allowed "
+        f"{allowed[worst]:.3e}), median {float(np.median(list(per.values()))):.3e} (limit "
+        f"{limit}{'; above it, within the bf16 resolution: ' + str(over) if over else ''}){extra}")
+    if per[worst] > allowed[worst]:
+        raise AssertionError(f"{label}: {worst} differs by {per[worst]:.3e} > {allowed[worst]:.3e}")
+
+
+def gate_grads(label, got, want, control, limit, card, noise=None):
+    """``got`` against ``want``: per leaf ‖Δg‖/‖g‖ (``gate_leaves``);
+    ``control`` (another batch's gradient) at least 10 × the bf16 limit
+    away."""
+    per, whole, floored = grad_rel(got, want)
+    _, ctrl, _ = grad_rel(control, want)
+    gate_leaves(f"{label}: ‖Δg‖/‖g‖", per, limit, card, noise,
+                f"; all leaves {whole:.3e}; another batch {ctrl:.3e} (must be >= "
+                f"{10 * GRAD_BF16:.2e}); against 1e-3 of the whole norm: {floored}")
+    if ctrl < 10 * GRAD_BF16:
+        raise AssertionError(f"{label}: another batch's gradient differs by only {ctrl:.3e}")
+
+
+def moved_rel(got, want, start, skip=()):
+    """Per leaf ‖p − p_ref‖ / ‖p_ref − p0‖ of the leaves that moved, but for
+    ``skip``: leaves whose gradient is rounding noise (below 1e-3 of the
+    whole gradient's norm, such as the key bias, zero in exact arithmetic),
+    which AdamW's normalisation turns into full-size steps."""
+    per = {}
+    for k, ref in want.items():
+        moved = float((ref - start[k]).norm())
+        if moved > 0 and k not in skip:
+            per[k] = float((got[k] - ref).norm()) / moved
+    return per
+
+
+def dist_text_pairs(corpus, rng, n):
+    """n pairs of texts of three corpus sentences each."""
+    idx = rng.choice(len(corpus), (n, 2, 3))
+    return [(" ".join(corpus[i] for i in a), " ".join(corpus[i] for i in b)) for a, b in idx]
+
+
+def piece_bytes(torch, tree, device_index):
+    """Bytes of the pieces (or whole leaves) a position holds: every piece
+    of a sharded leaf whose place in its grid names the position on the
+    data axis, a replicated leaf's one piece on position 0."""
+    total = 0
+    for leaf in flat_leaves(tree).values():
+        pieces = getattr(leaf, "pieces", [leaf])
+        if len(pieces) == POSITIONS:
+            total += pieces[device_index].numel() * pieces[device_index].element_size()
+        elif device_index == 0:
+            total += sum(p.numel() * p.element_size() for p in pieces)
+    return total
+
+
+def dp_fsdp_records(torch, card, ctx):
+    """minilm-l6 at full width, MNRL on 64 pairs × 128 tokens (f32 master
+    weights, bf16 compute; f32 beside it; dropout 0): data 4 and FSDP 4
+    against the mesh-less step → the data-parallel state after its steps
+    and the arch (for the save → load → search check)."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.models import fsdp_param_pspecs
+    from text_similarity_tpu_torch.train import (
+        init_sharded_train_state, init_train_state, make_bi_encoder_train_step, make_optimizer,
+        shard_batch_for,
+    )
+    from text_similarity_tpu_torch.train.steps import batch_to, bi_encoder_loss
+
+    tok, dev = ctx["tok"], torch.device("cuda")
+    arch = ctx["enc"].arch.replace(hidden_dropout=0.0, attention_dropout=0.0)
+    params = dict(ctx["params"])
+    pad = -arch.vocab_size % POSITIONS     # FSDP splits the word table's rows
+    if pad:
+        emb = dict(params["embeddings"])
+        emb["word"] = torch.cat([emb["word"], emb["word"].new_zeros((pad, arch.hidden_size))])
+        params["embeddings"] = emb
+        arch = arch.replace(vocab_size=arch.vocab_size + pad)
+    params = {"encoder": params}
+    rng = np.random.default_rng(15)
+    batches = [build_pair_batches(tok, dist_text_pairs(ctx["corpus"], rng, DIST_PAIRS),
+                                  np.zeros(DIST_PAIRS, np.float32), batch_size=DIST_PAIRS,
+                                  max_len=DIST_LEN, shuffle=False)[0] for _ in range(2)]
+    widths = [b["ids_a"].shape[1] for b in batches]
+    b0, b1 = (batch_to(b, dev) for b in batches)
+    cfg = TrainConfig(lr=2e-5, warmup_ratio=0.1)
+    precisions = {"bf16": DEFAULT_PRECISION, "f32": FP32_PRECISION}
+
+    def mnrl(precision):
+        def loss_fn(p, batch, generator):
+            return bi_encoder_loss(p, batch, arch=arch, loss_type="mnrl", precision=precision,
+                                   deterministic=True)
+        return loss_fn
+
+    def run(state, tx, mesh, precision):
+        """DIST_STEPS steps on the first batch (the first has lr 0) → (the
+        parameters after them, then pairs/s over DIST_TIMED more steps)."""
+        step = make_bi_encoder_train_step(arch, tx, loss_type="mnrl", precision=precision)
+        placed = batches[0] if mesh is None else shard_batch_for(mesh, batches[0])
+        for _ in range(DIST_STEPS):
+            state, _ = step(state, placed)
+        after = whole_flat(state.params)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(DIST_TIMED):
+            state, _ = step(state, placed)
+        torch.cuda.synchronize()
+        return after, DIST_PAIRS * DIST_TIMED / (time.time() - t)
+
+    ref = {}
+    for name, precision in precisions.items():
+        tx = make_optimizer(cfg, DIST_STEPS, params)
+        state = init_train_state(params, tx, device=dev)
+        loss, g = grads_of(mnrl(precision), state.params, b0, None)
+        _, ctrl = grads_of(mnrl(precision), state.params, b1, None)
+        start = whole_flat(state.params)
+        after, pps = run(state, tx, None, precision)
+        ref[name] = {"loss": loss, "g": g, "ctrl": ctrl, "after": after, "pps": pps}
+        del state, tx
+    # how far bf16 compute itself moves each leaf: the mesh-less bf16 run
+    # against the mesh-less f32 run
+    g_noise, _, noisy = grad_rel(ref["bf16"]["g"], ref["f32"]["g"])
+    p_noise = moved_rel(ref["f32"]["after"], ref["bf16"]["after"], start, noisy)
+    g_noise = {k: BF16_RESOLUTION * v for k, v in g_noise.items()}
+    p_noise = {k: BF16_RESOLUTION * v for k, v in p_noise.items()}
+
+    out = {}
+    for label, specs in (("data 4", None), ("FSDP 4", {"encoder": fsdp_param_pspecs(arch)})):
+        mesh = make_mesh(data=POSITIONS, devices=[dev] * POSITIONS)
+        for name, precision in precisions.items():
+            tx = make_optimizer(cfg, DIST_STEPS, params)
+            state = init_sharded_train_state(params, tx, mesh, param_specs=specs)
+            loss, g = grads_of(mnrl(precision), state.params, b0, None)
+            log(f"{label} MNRL loss {name} {loss:.6f} against the mesh-less step's "
+                f"{ref[name]['loss']:.6f} (64 pairs at widths {widths}, minilm-l6)")
+            if abs(loss - ref[name]["loss"]) > GRAD_F32 * abs(ref[name]["loss"]):
+                raise AssertionError(f"{label} {name}: the loss differs: {loss} against "
+                                     f"{ref[name]['loss']}")
+            limit = GRAD_BF16 if name == "bf16" else GRAD_F32
+            noise = g_noise if name == "bf16" else None
+            gate_grads(f"{label} MNRL gradients {name} against the mesh-less step's", g,
+                       ref[name]["g"], ref[name]["ctrl"], limit, card, noise)
+            if specs is not None and name == "bf16":
+                leaves = flat_leaves(state.params)
+                split = {k: v for k, v in leaves.items() if len(v.pieces) > 1}
+                for k, v in split.items():
+                    if any(p.numel() * POSITIONS != v.shape.numel() for p in v.pieces):
+                        raise AssertionError(f"FSDP piece of {k} is not 1/{POSITIONS} of the leaf")
+                rep_bytes = sum(v.shape.numel() * 4 for v in leaves.values())
+                held = [(piece_bytes(torch, state.params, i),
+                         2 * piece_bytes(torch, state.opt_state["mu"], i))
+                        for i in range(POSITIONS)]
+                first = next(iter(split))
+                log(f"FSDP {POSITIONS}: {len(split)} of {len(leaves)} leaves split, each piece "
+                    f"1/{POSITIONS} (e.g. {first} {tuple(split[first].pieces[0].shape)} of "
+                    f"{tuple(split[first].shape)}); bytes a position (parameters, moments mu + "
+                    f"nu; the replicated leaves on position 0): {held}; replicated: {rep_bytes} "
+                    f"and {2 * rep_bytes} at every position")
+            after, pps = run(state, tx, mesh, precision)
+            if label == "data 4" and name == "bf16":
+                out["state"] = state    # trained further in the timed window
+            per = moved_rel(after, ref[name]["after"], start, noisy)
+            gate_leaves(f"{label} parameters {name} after {DIST_STEPS} steps against the mesh-less "
+                        f"run's: ‖p − p_ref‖/‖p_ref − p0‖ (not gated: {noisy})", per, GRAD_BF16,
+                        card, p_noise if name == "bf16" else None)
+            log(f"{label} MNRL step {name} [{card}, {ONE_CARD_TRAIN}]: {pps:.1f} pairs/s against "
+                f"the mesh-less step's {ref[name]['pps']:.1f} ({DIST_TIMED} steps each)")
+            del state, tx
+    return out["state"], arch
+
+
+def timed_step(torch, step, state, batch):
+    """One step (lr 0), then one timed and counted → (its metrics, seconds,
+    (K5, K6) launches)."""
+    from text_similarity_tpu_torch.ops.attention import (
+        flash_attention_backward_cuda, flash_attention_cuda,
+    )
+
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    flash_attention_cuda.launches = flash_attention_backward_cuda.launches = 0
+    t = time.time()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return m, time.time() - t, (flash_attention_cuda.launches,
+                                flash_attention_backward_cuda.launches)
+
+
+def tp_pp_records(torch, card, ctx, pairs):
+    """roberta-base at 4,098 positions (phase 6's weights), window 256 +
+    CLS, dropout 0: data 2 × model 2 and pipe 4 × 4 microbatches against
+    the mesh-less path, gradients in bf16 and f32 → K5's and K6's launches
+    in the counted (bf16) steps."""
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.models import encoder_forward, encoder_forward_pp, param_pspecs
+    from text_similarity_tpu_torch.train import (
+        init_sharded_train_state, init_train_state, make_bi_encoder_train_step, make_optimizer,
+        shard_batch_for,
+    )
+    from text_similarity_tpu_torch.train.steps import batch_to
+
+    tok, dev = ctx["tok"], torch.device("cuda")
+    params, arch = long_arch_params(torch)
+    arch = arch.replace(hidden_dropout=0.0, attention_dropout=0.0)
+    params = {"encoder": params}
+    # the control: 4 other pairs of 1,500-2,500 tokens (4 pairs like the
+    # first batch's average their documents' common part, which random
+    # weights make large: other 3,000-4,000-token documents read 0.3004)
+    other = document_pairs(tok, ctx["corpus"][-24_000:], np.random.default_rng(17), 4,
+                           lengths=(1500, 2501))
+    batches = [build_pair_batches(tok, group, np.zeros(4, np.float32), batch_size=4,
+                                  max_len=TRAIN_BUCKET, shuffle=False)[0]
+               for group in (pairs[:4], other)]
+    if any(b["ids_a"].shape[1] != TRAIN_BUCKET for b in batches):
+        raise AssertionError(f"the pairs are not at bucket {TRAIN_BUCKET}")
+    w = torch.randn(TRAIN_BUCKET, arch.hidden_size,
+                    generator=torch.Generator(device=dev).manual_seed(15), device=dev)
+    pp_mesh = make_mesh(data=1, pipe=POSITIONS, devices=[dev] * POSITIONS)
+
+    def projection(precision, pp=False):
+        """A fixed random projection of both towers' states (phase 7's
+        gradient loss: a pair loss is ill-conditioned on random weights)."""
+        def loss_fn(p, batch, generator):
+            total = 0.0
+            for side in ("a", "b"):
+                ids, mask = batch[f"ids_{side}"], batch[f"mask_{side}"]
+                if pp:
+                    h = encoder_forward_pp(p["encoder"], ids, mask, arch=arch, mesh=pp_mesh,
+                                           microbatches=POSITIONS, precision=precision)
+                else:
+                    h = encoder_forward(p["encoder"], ids, mask, arch=arch,
+                                        precision=precision).last_hidden_state
+                total = total + (h.float() * w * mask[..., None]).sum()
+            return total, {}
+        return loss_fn
+
+    cfg = TrainConfig(lr=2e-5, warmup_ratio=0.1)
+    precisions = {"bf16": DEFAULT_PRECISION, "f32": FP32_PRECISION}
+    b0, b1 = (batch_to(b, dev) for b in batches)
+    tx = make_optimizer(cfg, 4, params)
+    ref = init_train_state(params, tx, device=dev)
+    plain_s = timed_step(torch, make_bi_encoder_train_step(arch, tx, loss_type="mnrl"), ref,
+                         batches[0])[1]
+    ref = init_train_state(params, tx, device=dev)
+    want = {name: grads_of(projection(prec), ref.params, b0, None)[1]
+            for name, prec in precisions.items()}
+    ctrl = grads_of(projection(DEFAULT_PRECISION), ref.params, b1, None)[1]
+    noise = {k: BF16_RESOLUTION * v for k, v in grad_rel(want["bf16"], want["f32"])[0].items()}
+
+    def gate(label, params_, pp=False):
+        for name, prec in precisions.items():
+            got = grads_of(projection(prec, pp), params_, b0, None)[1]
+            gate_grads(f"{label} gradients {name} against the mesh-less path's (roberta-base, "
+                       f"4 pairs at 4096, window 256 + CLS)", got, want[name], ctrl,
+                       GRAD_BF16 if name == "bf16" else GRAD_F32, card,
+                       noise if name == "bf16" else None)
+
+    # data 2 × model 2: K5 / K6 on each model position's 6 heads
+    mesh = make_mesh(data=2, model=2, devices=[dev] * POSITIONS)
+    tx = make_optimizer(cfg, 4, params)
+    state = init_sharded_train_state(params, tx, mesh, {"encoder": param_pspecs(arch)})
+    gate("data 2 × model 2", state.params)
+    placed = shard_batch_for(mesh, batches[0])
+    step = make_bi_encoder_train_step(arch, tx, loss_type="mnrl")
+    launches = {}
+    m, tp_s, launches["tp"] = timed_step(torch, step, state, placed)
+    log(f"data 2 × model 2 MNRL step bf16 [{card}, {ONE_CARD_TRAIN}]: loss {float(m['loss']):.5f}, "
+        f"{4 / tp_s:.2f} pairs/s (mesh-less {4 / plain_s:.2f}); K5 {launches['tp'][0]} and K6 "
+        f"{launches['tp'][1]} launches (expected 12 layers x 2 towers x 4 positions = 96, K6 2 x "
+        f"that)")
+    del state, tx, step
+
+    # pipe 4 × 4 microbatches of one row: 3 layers a stage
+    with torch.no_grad():
+        ids, mask = b0["ids_a"], b0["mask_a"]
+        plain = encoder_forward(ref.params["encoder"], ids, mask, arch=arch).last_hidden_state
+        piped = encoder_forward_pp(ref.params["encoder"], ids, mask, arch=arch, mesh=pp_mesh,
+                                   microbatches=POSITIONS)
+        valid = mask.bool()
+        diff = (piped.float() - plain.float()).abs()[valid]
+        other = (piped.float() - plain.float().roll(1, 0)).abs()[valid & valid.roll(1, 0)]
+    log(f"pipe {POSITIONS} x {POSITIONS} microbatches against encoder_forward, 4 x 4096 "
+        f"roberta-base bf16, valid rows: mean|Δ| {float(diff.mean()):.3e}, max|Δ| "
+        f"{float(diff.max()):.3e} (the next document's rows: mean|Δ| {float(other.mean()):.3e})")
+    if float(diff.mean()) > AGREE_MEAN or float(diff.max()) > AGREE_MAX:
+        raise AssertionError("the pipelined forward differs from encoder_forward")
+    if float(other.mean()) < 10 * AGREE_MEAN:
+        raise AssertionError("the next document's rows are within the agreement gate")
+    del plain, piped, diff, other
+    gate(f"pipe {POSITIONS}", ref.params, pp=True)
+    del want, ctrl
+    tx = make_optimizer(cfg, 4, params)
+    pp_state = init_train_state(params, tx, device=dev)
+    pp_step = make_bi_encoder_train_step(arch, tx, loss_type="mnrl", pp_mesh=pp_mesh,
+                                         pp_microbatches=POSITIONS)
+    m, pp_s, launches["pp"] = timed_step(torch, pp_step, pp_state, batches[0])
+    log(f"pipe {POSITIONS} MNRL step [{card}, {ONE_CARD_TRAIN}]: loss {float(m['loss']):.5f}, "
+        f"{4 / pp_s:.2f} pairs/s (mesh-less {4 / plain_s:.2f}); K5 {launches['pp'][0]} and K6 "
+        f"{launches['pp'][1]} launches (expected 12 layers x 2 towers x 4 microbatches = 96, K6 "
+        f"2 x that)")
+    del pp_state, tx, pp_step
+
+    # dropout on: a finite loss, and identical microbatches draw other masks
+    drop_arch = arch.replace(hidden_dropout=0.1)
+    tx = make_optimizer(cfg, 4, params)
+    st = init_train_state(params, tx, device=dev)
+    drop_step = make_bi_encoder_train_step(drop_arch, tx, loss_type="mnrl", pp_mesh=pp_mesh)
+    st, m = drop_step(st, batches[0])
+    with torch.no_grad():
+        same = b0["ids_a"][:1].repeat(POSITIONS, 1), b0["mask_a"][:1].repeat(POSITIONS, 1)
+        rows = encoder_forward_pp(st.params["encoder"], *same, arch=drop_arch, mesh=pp_mesh,
+                                  deterministic=False, generator=st.rng)
+        apart = float((rows[0].float() - rows[1].float()).abs().max())
+    log(f"pipe {POSITIONS} with dropout 0.1: MNRL loss {float(m['loss']):.5f}; two identical "
+        f"microbatches differ by max|Δ| {apart:.3e}")
+    if not np.isfinite(float(m["loss"])) or apart == 0.0:
+        raise AssertionError("the pipelined step with dropout: a non-finite loss or shared masks")
+    del st, tx, drop_step, ref
+    lens = b0["mask_a"].sum(1).tolist()
+    tp_kernels_held(torch, card, lens)
+    for name, (k5, k6) in launches.items():
+        if k5 != 96 or k6 != 192:
+            raise AssertionError(f"{name}: K5 / K6 launched {k5} / {k6}, expected 96 / 192")
+    return {"K5": launches["tp"][0] + launches["pp"][0],
+            "K6": launches["tp"][1] + launches["pp"][1]}
+
+
+def tp_kernels_held(torch, card, lengths):
+    """K5 and K6 against their plain versions at the shape a model position
+    gives them: (2, 4096, 6, 64) bf16, window 256 + CLS, q, k, v as views of
+    the position's fused QKV (phase 6's and 7's gates); then at the pipe's
+    one-row microbatch, 12 heads."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    for b, h, lens in ((2, 6, lengths[:2]), (1, 12, lengths[:1])):
+        x = torch.randn(b, TRAIN_BUCKET, h, 3, 64, generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err, mean, lse_err, zero_ok = flash_case(torch, q, k, v, ln, 256, True)
+        ok5 = err <= 1e-2 and mean <= 5e-4 and lse_err <= 1e-4
+        err6, mean6, rel6, _ = k6_case(torch, q, k, v, ln, 256, True, g)
+        ok6 = rel6 <= K6_BF16_REL and mean6 <= K6_BF16_MEAN
+        log(f"K5 at ({b}, {TRAIN_BUCKET}, {h}, 64) bf16 window 256 + CLS lens {list(lens)}: "
+            f"max|Δ| {err:.2e}, mean|Δ| {mean:.2e}, lse {lse_err:.2e} -> "
+            f"{'ok' if ok5 else 'FAIL'}; "
+            f"K6 max|Δ|/max(1,|ref|) {rel6:.3e}, mean|Δ| {mean6:.3e} -> "
+            f"{'ok' if ok6 else 'FAIL'} [{card}]")
+        if not (ok5 and ok6):
+            raise AssertionError(f"K5 / K6 disagree with their plain versions at ({b}, "
+                                 f"{TRAIN_BUCKET}, {h}, 64)")
+
+
+def ep_records(torch, card, ctx):
+    """minilm-l6 with 8 experts, top-2, data 2 × expert 2, f32 (a routing
+    decision flips on a bf16 rounding): the forward's states, moe_aux and
+    moe_drop against the replicated forward; one step's gradients."""
+    from text_similarity_tpu_torch.core.config import ARCH_PRESETS
+    from text_similarity_tpu_torch.core.mesh import make_mesh, place
+    from text_similarity_tpu_torch.core.precision import FP32_PRECISION
+    from text_similarity_tpu_torch.data.pairs import build_pair_batches
+    from text_similarity_tpu_torch.models import encoder_forward, init_params, param_pspecs
+    from text_similarity_tpu_torch.train.steps import batch_to, bi_encoder_loss, trainable
+
+    tok, dev = ctx["tok"], torch.device("cuda")
+    arch = ARCH_PRESETS["minilm-l6"].replace(num_experts=8, expert_top_k=2, hidden_dropout=0.0,
+                                             attention_dropout=0.0)
+    params = init_params(arch, torch.Generator().manual_seed(15))
+    rng = np.random.default_rng(16)
+    batches = [build_pair_batches(tok, dist_text_pairs(ctx["corpus"], rng, 32),
+                                  np.zeros(32, np.float32), batch_size=32, max_len=DIST_LEN,
+                                  shuffle=False)[0] for _ in range(2)]
+    mesh = make_mesh(data=2, expert=2, devices=[dev] * POSITIONS)
+    placed = place(params, mesh, param_pspecs(arch))
+    b0 = batch_to(batches[0], dev)
+    with torch.no_grad():
+        want = encoder_forward(trainable(params, dev), b0["ids_a"], b0["mask_a"], arch=arch,
+                               precision=FP32_PRECISION)
+        got = encoder_forward(placed, b0["ids_a"], b0["mask_a"], arch=arch,
+                              precision=FP32_PRECISION)
+    rel = float((got.last_hidden_state - want.last_hidden_state).norm()
+                / want.last_hidden_state.norm())
+    d_aux, d_drop = abs(float(got.moe_aux - want.moe_aux)), abs(float(got.moe_drop - want.moe_drop))
+    log(f"expert 2 x data 2 forward against the replicated forward (minilm-l6, 8 experts, top-2, "
+        f"32 x {b0['ids_a'].shape[1]}, f32) [{card}, {ONE_CARD_TRAIN}]: states ‖Δ‖/‖ref‖ "
+        f"{rel:.3e}; moe_aux {float(got.moe_aux):.6f} (|Δ| {d_aux:.1e}), moe_drop "
+        f"{float(got.moe_drop):.6f} (|Δ| {d_drop:.1e})")
+    if rel > GRAD_F32 or d_aux > 1e-5 or d_drop > 1e-5:
+        raise AssertionError("the expert-parallel forward differs from the replicated one")
+
+    def loss_fn(p, batch, generator):
+        return bi_encoder_loss(p, batch, arch=arch, loss_type="mnrl", precision=FP32_PRECISION,
+                               deterministic=True)
+
+    ref = trainable({"encoder": params}, dev)
+    _, ref_g = grads_of(loss_fn, ref, b0, None)
+    _, ctrl_g = grads_of(loss_fn, ref, batch_to(batches[1], dev), None)
+    _, g = grads_of(loss_fn, trainable({"encoder": placed}), b0, None)
+    gate_grads("expert 2 x data 2 MNRL gradients against the replicated step's (f32)", g, ref_g,
+               ctrl_g, GRAD_F32, card)
+
+
+def phase_distributed_training(torch, card, ctx, pairs):
+    """Phase 15: distributed training, every position on the one card →
+    K5's and K6's launches in its counted steps (data 2 × model 2 and pipe
+    4)."""
+    import tempfile
+
+    from text_similarity_tpu_torch.cli.main import main as cli_main
+    from text_similarity_tpu_torch.core.mesh import unshard
+    from text_similarity_tpu_torch.dryrun import dryrun_multichip
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_cuda
+
+    t0 = time.time()
+    dp_state, arch = dp_fsdp_records(torch, card, ctx)
+    launches = tp_pp_records(torch, card, ctx, pairs)
+    tok = ctx["tok"]
+    ep_records(torch, card, ctx)
+    t = time.time()
+    dry = dryrun_multichip(POSITIONS)
+    log(f"dryrun_multichip({POSITIONS}) on the card: {time.time() - t:.1f} s, recall@10 "
+        f"{dry['recall_at_10']:.2f}, pp losses {dry['pp_losses']}, MoE {dry['moe']}")
+
+    # the data-parallel encoder, unsharded, saved, loaded and searched (K2)
+    docs = ctx["corpus"][:2000]
+    with tempfile.TemporaryDirectory() as tmp:
+        enc = SentenceEncoder(unshard(dp_state.params["encoder"]), arch, tokenizer=tok,
+                              device="cuda")
+        enc.save(os.path.join(tmp, "model"))
+        loaded = SentenceEncoder.load(os.path.join(tmp, "model"), device="cuda")
+        count = cosine_topk_cuda.launches
+        found, low = self_retrieval(torch, enc, loaded, docs, card)
+        k2 = cosine_topk_cuda.launches - count
+    log(f"the data-parallel encoder unsharded, saved, loaded: K2 ({k2} launch) finds "
+        f"{found}/{len(docs)} documents first (lowest top-1 score {low:.4f})")
+    if found != len(docs) or k2 == 0:
+        raise AssertionError("the data-parallel encoder did not survive save -> load -> search")
+
+    n_cards = torch.cuda.device_count()
+    stages = max(n_cards + 1, 2)
+    try:   # the count is checked before the data is read
+        cli_main(["train-sts", "--data", "unread.tsv", "--pipe", str(stages)])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    log(f"train-sts --pipe {stages} on this machine: {refused!r}")
+    if refused is None or f"{n_cards} visible" not in refused:
+        raise AssertionError(f"train-sts --pipe {stages} did not refuse naming the count")
+    log(f"phase 15: {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -5565,10 +6100,12 @@ def main() -> int:
     phase_compression(torch, card, ctx)
     phase_moe_performer(torch, card, ctx)
     sharded = phase_distributed(torch, card, ctx, corpus, queries, exact.cpu().numpy(), ivf)
+    distributed = phase_distributed_training(torch, card, ctx, pairs)
     kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
         kern["launches_sharded"] = sharded[kern["name"]]
+    k5["launches_distributed"], k6["launches_distributed"] = distributed["K5"], distributed["K6"]
     for kern in (k3, k4):
         kern["launches"] = launches8[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -262,13 +262,20 @@ def test_pretrain_long_full_roberta_row_stays_finite(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train-wic", "--data", "x", "--pipe", "2"], 10), (["distill", "--pipe", "2"], 10),
-    (["theseus", "--data", "x", "--pipe", "2"], 10),
-    (["train-paws", "--data", "x", "--pipe", "2"], 10),
-    (["train-sts", "--data", "STS", "--pipe", "2"], 10),
-    (["train-nli", "--data", "STS", "--pipe", "2"], 10),
+    (["train-wic", "--data", "x", "--pipe", "N"], "cards"),
+    (["distill", "--pipe", "N"], "distill does not train pipeline-parallel"),
+    (["theseus", "--data", "x", "--pipe", "N"], "theseus does not train pipeline-parallel"),
+    (["train-paws", "--data", "x", "--pipe", "N"], "cards"),
+    (["train-sts", "--data", "STS", "--pipe", "N"], "cards"),
+    (["train-nli", "--data", "STS", "--pipe", "N"], "cards"),
 ])
 def test_commands_not_ported_yet_exit_naming_their_item(tmp_path, files, argv, item):
-    argv = [files["sts"] if a == "STS" else a for a in argv] + ["--device", "cpu"]
-    with pytest.raises(SystemExit, match=f"not ported yet \\(ROADMAP queue 1 item {item}\\)"):
-        main(argv)
+    """Every command is ported now: ``--pipe N`` with more stages than cards
+    exits naming the count before any work, and a command that does not
+    train pipeline-parallel refuses the flag (the reference ignores it)."""
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(visible + 1, 2)
+    argv = [files["sts"] if a == "STS" else str(n) if a == "N" else a for a in argv]
+    want = f"--pipe {n} needs {n} cards; {visible} visible" if item == "cards" else item
+    with pytest.raises(SystemExit, match=want):
+        main(argv + ["--device", "cuda"])

@@ -2202,3 +2202,104 @@ def test_encode_long_on_card_matches_cpu(cuda):
             vecs.append(enc.encode_long(texts, make_mesh(data=1, seq=4, devices=[dev] * 4),
                                         max_len=512, strategy=strategy, batch_size=4))
         assert np.abs(vecs[0] - vecs[1]).max() <= 1e-5
+
+
+def test_tp_step_runs_k5_k6_on_head_slices(cuda):
+    """data 2 × model 2 on one card, a tiny long arch with 4 heads of 32 (2
+    a model position), f32, S 512, ``attention_impl="flash"``: K5 once a
+    layer, tower and position forward, K6 twice that backward, each on a
+    (1, 512, 2, 32) head slice; the loss and the gradients against the same
+    sharded step on the CPU (the plain versions), as
+    ``test_train_step_on_card_matches_cpu`` holds them."""
+    from text_similarity_tpu_torch.core.mesh import make_mesh
+    from text_similarity_tpu_torch.models import param_pspecs
+    from text_similarity_tpu_torch.train import init_sharded_train_state, make_optimizer
+    from text_similarity_tpu_torch.core.config import TrainConfig
+    from text_similarity_tpu_torch.core.mesh import unshard
+    from text_similarity_tpu_torch.train.steps import bi_encoder_loss, value_and_grad
+
+    arch = ARCH_PRESETS["tiny-test"].replace(hidden_size=128, num_heads=4, hidden_dropout=0.0,
+                                             max_position=512, attention_window=256,
+                                             window_global_cls=True)
+    params = {"encoder": init_params(arch, torch.Generator().manual_seed(3))}
+    rng = np.random.default_rng(6)
+    s = 512
+    batch = {}
+    for side, n in (("a", (512, 300)), ("b", (400, 512))):
+        mask = (np.arange(s)[None] < np.asarray(n)[:, None]).astype(np.int32)
+        batch[f"ids_{side}"] = (rng.integers(5, arch.vocab_size, (2, s)) * mask).astype(np.int32)
+        batch[f"mask_{side}"] = mask
+    batch["target"] = np.array([0.2, 0.9], np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_mesh(data=2, model=2, devices=[dev] * 4)
+        tx = make_optimizer(TrainConfig(), 4, params)
+        state = init_sharded_train_state(params, tx, mesh, {"encoder": param_pspecs(arch)})
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        f0, b0 = flash_attention_cuda.launches, flash_attention_backward_cuda.launches
+        loss, _, grads = value_and_grad(bi_encoder_loss, state.params, tb, arch=arch,
+                                        precision=FP32_PRECISION, deterministic=True,
+                                        attention_impl="flash")
+        if dev.type == "cuda":
+            assert flash_attention_cuda.launches == f0 + 2 * arch.num_layers * 4
+            assert flash_attention_backward_cuda.launches == b0 + 4 * arch.num_layers * 4
+        flat = unshard(grads, "cpu")
+        out[dev.type] = (float(loss.detach()), dict(zip(_flat_names(flat), _grad_leaves(flat))))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    whole = float(torch.sqrt(sum((y * y).sum() for y in out["cpu"][1].values())))
+    for name, y in out["cpu"][1].items():
+        floor = max(float(y.norm()), 1e-3 * whole)
+        assert float((out["cuda"][1][name] - y).norm()) <= 1e-3 * floor, name
+
+
+def _grad_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _grad_leaves(v)
+        else:
+            yield v
+
+
+def test_adamw_over_pieces_on_one_card(cuda):
+    """Pieces of four positions on cuda:0 (replicated, data-split and
+    model-split leaves): the clipped update equals the whole tree's on the
+    card."""
+    from text_similarity_tpu_torch.core.mesh import PartitionSpec as P
+    from text_similarity_tpu_torch.core.mesh import make_mesh, place, shard_leaf, unshard
+    from text_similarity_tpu_torch.train import AdamW, linear_warmup_schedule
+
+    g = torch.Generator().manual_seed(0)
+    whole = {"a": torch.randn(8, 6, generator=g), "b": {"w": torch.randn(4, 8, generator=g),
+                                                        "bias": torch.randn(8, generator=g)}}
+    grads = [{"a": torch.randn(8, 6, generator=g) * 3,
+              "b": {"w": torch.randn(4, 8, generator=g) * 3, "bias": torch.randn(8, generator=g)}}
+             for _ in range(3)]
+    mesh = make_mesh(data=2, model=2, devices=[cuda] * 4)
+    specs = {"a": P("data", None), "b": {"w": P(None, "model"), "bias": P()}}
+    ps = place(whole, mesh, specs)
+    pw = {"a": whole["a"].to(cuda), "b": {k: v.to(cuda) for k, v in whole["b"].items()}}
+    tx_w, tx_s = (AdamW(linear_warmup_schedule(1e-2, 10, 1), weight_decay=0.1) for _ in range(2))
+    sw, ss = tx_w.init(pw), tx_s.init(ps)
+    assert all(p.device == cuda or p.is_cuda for p in ss["mu"]["a"].pieces)
+    for gr in grads:
+        tx_w.step(pw, {"a": gr["a"].to(cuda), "b": {k: v.to(cuda) for k, v in gr["b"].items()}},
+                  sw)
+        tx_s.step(ps, {"a": shard_leaf(gr["a"].to(cuda), mesh, specs["a"]),
+                       "b": {k: shard_leaf(v.to(cuda), mesh, specs["b"][k])
+                             for k, v in gr["b"].items()}}, ss)
+    got = unshard(ps)
+    torch.testing.assert_close(got["a"], pw["a"], rtol=1e-6, atol=1e-7)
+    for k in ("w", "bias"):
+        torch.testing.assert_close(got["b"][k], pw["b"][k], rtol=1e-6, atol=1e-7)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """Every mesh axis over four positions on the visible cards (cycled):
+    the DP × TP step, ring and Ulysses, K2 and K1 shards, the pipe-2 and
+    expert-2 steps."""
+    from text_similarity_tpu_torch.dryrun import dryrun_multichip
+
+    before = (cosine_topk_cuda.launches, ivf_scan_cuda.launches)
+    out = dryrun_multichip(4)
+    assert out["recall_at_10"] >= 0.9 and np.isfinite(out["loss"])
+    assert cosine_topk_cuda.launches > before[0] and ivf_scan_cuda.launches > before[1]

@@ -80,7 +80,8 @@ def test_port_imports_with_jax_blocked():
         "ops.density", "ops.segment", "pipelines.clustering", "pipelines.topic",
         "models.word_encoder", "utils.lexicon", "utils.senses", "utils.profiling",
         "ops.performer", "ops.moe", "drives.moe_router_skew", "core.mesh", "index.sharded",
-        "ops.ring_attention", "ops.ulysses", "models.long_context",
+        "ops.ring_attention", "ops.ulysses", "models.long_context", "models.pipeline",
+        "models.sharded", "dryrun",
     )} <= set(MODULES)
 
 
@@ -134,7 +135,7 @@ def _tiny_encoder_args():
               "from_hf", "mining_pipeline", "compare_models", "quantize_cli", "encode_cli",
               "search_cli", "mine_cli", "compare_models_cli", "churn_drive", "serve_load_drive",
               "export_cli", "cluster_cli", "topics_cli", "distill_cli", "word_encoder",
-              "exported_params", "moe_router_skew_drive", "make_mesh"]
+              "exported_params", "moe_router_skew_drive", "make_mesh", "dryrun"]
 )
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Without device=..., every entry point asks for CUDA: it raises when no
@@ -192,6 +193,10 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
             from text_similarity_tpu_torch.core.mesh import make_mesh
 
             return make_mesh()
+        if entry == "dryrun":
+            from text_similarity_tpu_torch.dryrun import dryrun_multichip
+
+            return dryrun_multichip(2)
         if entry == "from_hf":
             return SentenceEncoder.from_hf(_TinyHF(), precision=FP32_PRECISION)
         if entry == "churn_drive":

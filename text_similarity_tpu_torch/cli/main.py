@@ -61,8 +61,12 @@ model MoE FFNs of N experts; a loaded model carries its own arch.
 first N cards (``--device cpu``: N shards on the CPU), the corpus on the
 mesh's index axis and the encode data-parallel over the same devices when
 N divides the 128-row batch; it raises where fewer than N cards are
-visible. ``--pipe > 1`` exits with "not ported yet" and the ROADMAP item
-that ports it.
+visible. ``--pipe N`` (N > 1; the bi-encoder, classification, cross-encoder,
+NER, WiC and ``pretrain-long`` training) runs the layer stack in N pipeline
+stages (``models.pipeline``) over the visible cards, the rest of them data
+parallel; it exits naming the count where fewer than N are visible, and
+``--device cpu`` puts the N stages on the CPU. ``--pipe`` and ``--packed``
+exclude each other, as in the reference.
 """
 
 from __future__ import annotations
@@ -107,7 +111,9 @@ def _train_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--warmup-ratio", type=float, default=0.1)
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--pipe", type=int, default=1,
-                   help="pipeline-parallel stages (not ported yet: 1 only)")
+                   help="pipeline-parallel stages: the layer stack over a pipe mesh axis "
+                        "(the remaining cards go to data parallelism; --device cpu: N "
+                        "stages on the CPU)")
     p.add_argument("--experts", type=int, default=0,
                    help="MoE experts in each FFN of a random-init model (0: dense)")
     p.add_argument("--expert-top-k", type=int, default=2,
@@ -124,10 +130,28 @@ def _train_common(p: argparse.ArgumentParser) -> None:
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def _check_ported(args) -> None:
+def _pp_mesh(args):
+    """The mesh of ``--pipe N``: N pipeline stages over the visible cards,
+    the rest data parallel (the reference's ``make_mesh(data=-1,
+    pipe=N)``); ``--device cpu``: N stages on the CPU. None for N ≤ 1."""
+    n = getattr(args, "pipe", 1)
+    if n <= 1:
+        return None
+    from ..core.mesh import make_mesh
+
+    if args.device == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            raise SystemExit(f"--pipe {n} needs {n} cards; {visible} visible")
+        devs = [torch.device("cuda", i) for i in range(visible - visible % n)]
+    else:
+        devs = [resolve_device(args.device)] * n
+    return make_mesh(data=-1, pipe=n, devices=devs)
+
+
+def _no_packed_pipe(args) -> None:
     if getattr(args, "pipe", 1) > 1:
-        raise SystemExit("--pipe > 1: pipeline parallelism is not ported yet "
-                         "(ROADMAP queue 1 item 10)")
+        raise SystemExit("--packed and --pipe are mutually exclusive")
 
 
 def _tokenizer(args, texts=None):
@@ -191,6 +215,7 @@ def _run_bi_encoder_training(args, pairs, targets, loss_type, eval_fn=None,
     texts = [p[0] for p in pairs] + [p[1] for p in pairs]
     enc = encoder or _encoder(args, texts=texts)
     if args.packed:
+        _no_packed_pipe(args)
         batches = build_packed_pair_batches(
             enc.tokenizer, pairs, targets, rows_per_side=args.packed_rows, width=args.max_len,
             seed=args.seed, target_dtype=target_dtype,
@@ -212,9 +237,10 @@ def _run_bi_encoder_training(args, pairs, targets, loss_type, eval_fn=None,
     state = init_train_state(params, tx, seed=args.seed, device=args.device)
     # the loaded encoder's pooling unless --pooling: training with another
     # pooler than encode() would mismatch the objective and the eval
+    kw = {} if args.packed else {"pp_mesh": _pp_mesh(args)}
     make = make_packed_bi_encoder_train_step if args.packed else make_bi_encoder_train_step
     step = make(enc.arch, tx, loss_type=loss_type, pooling=args.pooling or enc.pooling,
-                precision=precision_for(cfg.bf16), device=args.device)
+                precision=precision_for(cfg.bf16), device=args.device, **kw)
     result = _fit(args, step, state, batches, cfg.epochs, eval_fn=eval_fn,
                   tracked_metric=getattr(args, "metric", "loss"),
                   direction="max" if eval_fn else "min")
@@ -291,7 +317,8 @@ def cmd_train_classification(args):
     tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
     state = init_train_state(params, tx, seed=args.seed, device=args.device)
     step = make_classifier_train_step(enc.arch, tx, pooling="cls",
-                                      precision=precision_for(cfg.bf16), device=args.device)
+                                      precision=precision_for(cfg.bf16), device=args.device,
+                                      pp_mesh=_pp_mesh(args))
     result = _fit(args, step, state, batches, cfg.epochs)
     with open(os.path.join(args.save_path, "arch.json"), "w") as f:
         f.write(enc.arch.to_json())
@@ -319,6 +346,7 @@ def cmd_train_cross_encoder(args):
     enc = _encoder(args, texts=[a for a, _, _ in rows] + [b for _, b, _ in rows])
     pairs, labels = [(a, b) for a, b, _ in rows], [lab for _, _, lab in rows]
     if args.packed:
+        _no_packed_pipe(args)
         batches = build_packed_pair_batches(
             enc.tokenizer, pairs, labels, rows_per_side=args.packed_rows, width=args.max_len,
             mode="cross", target_dtype=np.int32, seed=args.seed,
@@ -342,7 +370,7 @@ def cmd_train_cross_encoder(args):
                                                  device=args.device)
     else:
         step = make_classifier_train_step(enc.arch, tx, pooling="cls", precision=precision,
-                                          device=args.device)
+                                          device=args.device, pp_mesh=_pp_mesh(args))
     result = _fit(args, step, state, batches, cfg.epochs)
     ce = CrossEncoder(result["state"].params, enc.arch, tokenizer=enc.tokenizer,
                       num_classes=num_classes, precision=precision, device=args.device)
@@ -405,7 +433,8 @@ def cmd_train_ner(args):
     }
     tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
     state = init_train_state(params, tx, device=args.device)
-    step = make_token_classifier_train_step(enc.arch, tx, device=args.device)
+    step = make_token_classifier_train_step(enc.arch, tx, device=args.device,
+                                            pp_mesh=_pp_mesh(args))
     result = _fit(args, step, state, batches, cfg.epochs)
     print(json.dumps({"tags": tags, "best": result["best_metric"]}))
 
@@ -427,7 +456,8 @@ def cmd_train_wic(args):
     tx = make_optimizer(cfg, len(batches) * cfg.epochs, params_example=params)
     state = init_train_state(params, tx, seed=args.seed, device=args.device)
     precision = precision_for(cfg.bf16)
-    step = make_word_encoder_train_step(enc.arch, tx, precision=precision, device=args.device)
+    step = make_word_encoder_train_step(enc.arch, tx, precision=precision, device=args.device,
+                                        pp_mesh=_pp_mesh(args))
     result = _fit(args, step, state, batches, cfg.epochs)
     trained = result["state"].params["encoder"]
     metrics = WordEncoder(trained, enc.arch, tokenizer=enc.tokenizer, precision=precision,
@@ -583,7 +613,8 @@ def cmd_pretrain_long(args):
                        tok.sep_id, tok.mask_id})
     step = make_mlm_train_step(arch, tx, mask_token_id=tok.mask_id, mask_prob=args.mask_prob,
                                special_ids=tuple(specials),
-                               precision=precision_for(cfg.bf16), device=args.device)
+                               precision=precision_for(cfg.bf16), device=args.device,
+                               pp_mesh=_pp_mesh(args))
     first = last = None
     for _ in range(cfg.epochs):
         pend = []
@@ -1108,9 +1139,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# the commands whose training runs pipeline-parallel under --pipe N (the
+# reference wires the same ones and ignores the flag elsewhere)
+_PIPELINED = {cmd_train_sts, cmd_train_nli, cmd_train_paws, cmd_train_classification,
+              cmd_train_cross_encoder, cmd_train_ner, cmd_train_wic, cmd_pretrain_long}
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    _check_ported(args)
+    if getattr(args, "pipe", 1) > 1:
+        if args.fn not in _PIPELINED:
+            raise SystemExit(f"--pipe {args.pipe}: {args.cmd} does not train pipeline-parallel")
+        _pp_mesh(args)   # too few cards: exit naming the count before any work
     args.fn(args)
 
 

@@ -1,7 +1,7 @@
 from .config import ARCH_PRESETS, EncoderArch, IndexConfig, TrainConfig
 from .mesh import (
-    DATA_AXIS, EXPERT_AXIS, INDEX_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh, local_mesh,
-    make_mesh,
+    DATA_AXIS, EXPERT_AXIS, INDEX_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh, PartitionSpec,
+    ShardedLeaf, gather_leaf, local_mesh, make_mesh, place, shard_leaf, unshard,
 )
 from .precision import (
     DEFAULT_PRECISION,
@@ -23,8 +23,14 @@ __all__ = [
     "PIPE_AXIS",
     "SEQ_AXIS",
     "Mesh",
+    "PartitionSpec",
+    "ShardedLeaf",
+    "gather_leaf",
     "local_mesh",
     "make_mesh",
+    "place",
+    "shard_leaf",
+    "unshard",
     "DEFAULT_PRECISION",
     "FP32_PRECISION",
     "Precision",

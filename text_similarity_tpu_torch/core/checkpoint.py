@@ -9,7 +9,9 @@ between the two packages (a trained encoder saved here loads in the JAX
 package). The port's optimizer state has its own tree (``train.optim``),
 so an ``opt_state.npz`` resumes only in the package that wrote it.
 Sharding metadata is not written; any that a JAX checkpoint carries is
-ignored.
+ignored: a sharded leaf (``core.mesh.ShardedLeaf``) is saved whole
+(``unshard``), so the mesh-less port and the JAX package load what a sharded
+run trained.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .mesh import ShardedLeaf, shard_leaf, unshard
+
 _SEP = "/"
 
 
@@ -30,6 +34,8 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     flat = {}
     for key, val in tree.items():
         path = f"{prefix}{_SEP}{key}" if prefix else str(key)
+        if isinstance(val, ShardedLeaf):
+            val = unshard(val)
         if isinstance(val, dict):
             flat.update(_flatten(val, path))
         elif isinstance(val, torch.Tensor):
@@ -101,8 +107,8 @@ def restore_checkpoint_raw(ckpt_dir: str) -> Tuple[dict, int, Dict[str, Any]]:
 
 def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
     """The template's tree with each leaf read from ``flat``: a tensor leaf
-    becomes a tensor of its dtype on its device, a Python number a number
-    of its type."""
+    becomes a tensor of its dtype on its device, a sharded leaf a sharded
+    leaf placed alike, a Python number a number of its type."""
     out = {}
     for key, val in template.items():
         path = f"{prefix}{_SEP}{key}" if prefix else str(key)
@@ -112,7 +118,12 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
         if path not in flat:
             raise KeyError(f"checkpoint missing key {path!r}")
         arr = flat[path]
-        if isinstance(val, torch.Tensor):
+        if isinstance(val, ShardedLeaf):   # placed as the template is
+            if tuple(arr.shape) != tuple(val.shape):
+                raise ValueError(f"{path}: shape {arr.shape} != template {tuple(val.shape)}")
+            out[key] = shard_leaf(torch.from_numpy(np.ascontiguousarray(arr)).to(val.dtype),
+                                  val.mesh, val.spec)
+        elif isinstance(val, torch.Tensor):
             if tuple(arr.shape) != tuple(val.shape):
                 raise ValueError(f"{path}: shape {arr.shape} != template {tuple(val.shape)}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(val.device, val.dtype)

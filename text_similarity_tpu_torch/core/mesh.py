@@ -19,7 +19,22 @@ non_blocking=True)``, a peer copy between cards):
 An explicit device list may name one device more than once: several shards
 then share a card (or the CPU), as the JAX tests place them on virtual CPU
 devices. A copy to the device a tensor already lies on is no copy, so a
-result may alias its input: nothing here updates a piece in place.
+collective's result may alias its input: nothing here updates such a piece in
+place.
+
+Placed parameters (the sharded train state): a :class:`PartitionSpec` names,
+per tensor dim, the mesh axis it is split over (or None), as JAX's
+``PartitionSpec`` does. ``shard_leaf`` cuts a tensor into a
+:class:`ShardedLeaf`: one piece a distinct shard, each owning its storage
+(the optimizer updates pieces in place), on the device of its position with
+every axis the spec does not name at 0. A replicated leaf is one piece on
+the first device; a leaf split over ``data`` (FSDP) one piece a data
+position; over ``model`` (tensor parallelism) one a model position.
+``gather_leaf`` assembles a leaf, or the slice of it that one position
+holds, on a device by differentiable copies, so the gradients of the copies
+sum back into the pieces in the backward (the psum of a replicated leaf's
+gradient, the reduce-scatter of an FSDP piece's). ``unshard`` turns a tree
+back into whole tensors on one device (saving, tests).
 
 The axes:
 
@@ -33,6 +48,7 @@ The axes:
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -216,3 +232,164 @@ def all_to_all(xs: Sequence[torch.Tensor], split_axis: int, concat_axis: int) ->
                   dim=concat_axis)
         for j in range(n)
     ]
+
+
+# ---------------------------------------------------------------------------
+# Placed parameters: specs, sharded leaves
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """Per tensor dim, the mesh axis it is split over or None (whole), as
+    ``jax.sharding.PartitionSpec``; a spec shorter than the tensor leaves
+    its trailing dims whole."""
+
+    def __new__(cls, *dims):
+        for a in dims:
+            if a is not None and a not in AXES:
+                raise ValueError(f"unknown mesh axis {a!r} in a spec (axes: {AXES})")
+        named = [a for a in dims if a is not None]
+        if len(set(named)) != len(named):
+            raise ValueError(f"a spec names an axis twice: {dims}")
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class ShardedLeaf:
+    """One parameter placed on a mesh by a spec. ``pieces`` holds one tensor
+    a distinct shard, in row-major order over the spec's axes (in dim
+    order); ``shape`` is the whole leaf's."""
+
+    __slots__ = ("pieces", "spec", "mesh", "shape")
+
+    def __init__(self, pieces: List[torch.Tensor], spec: PartitionSpec, mesh: Mesh, shape):
+        self.pieces = list(pieces)
+        self.spec = spec
+        self.mesh = mesh
+        self.shape = torch.Size(shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    @property
+    def split_dims(self) -> List[Tuple[int, str]]:
+        """(dim, axis) for every dim the spec splits, in dim order."""
+        return [(d, a) for d, a in enumerate(self.spec) if a is not None]
+
+    def like(self, pieces: List[torch.Tensor]) -> "ShardedLeaf":
+        """Another leaf with this one's placement (gradients, moments)."""
+        return ShardedLeaf(pieces, self.spec, self.mesh, self.shape)
+
+    def __repr__(self) -> str:
+        return (f"ShardedLeaf({tuple(self.shape)}, {self.spec!r}, {len(self.pieces)} pieces, "
+                f"{self.dtype})")
+
+
+def _piece_device(mesh: Mesh, split: List[Tuple[int, str]], index: Tuple[int, ...]) -> torch.device:
+    pos = [0] * len(AXES)
+    for (_, axis), i in zip(split, index):
+        pos[AXES.index(axis)] = i
+    return mesh.devices[tuple(pos)]
+
+
+def shard_leaf(x: torch.Tensor, mesh: Mesh, spec: PartitionSpec) -> ShardedLeaf:
+    """Cut ``x`` by ``spec`` into a :class:`ShardedLeaf`. Every split dim
+    must divide evenly over its axis (JAX refuses an uneven ``device_put``
+    too). Each piece is a contiguous clone on its device, so no piece is a
+    view of another, even where positions share a device."""
+    spec = PartitionSpec(*spec)
+    if len(spec) > x.ndim:
+        raise ValueError(f"spec {spec!r} has more dims than the tensor's {tuple(x.shape)}")
+    spec = PartitionSpec(*spec, *([None] * (x.ndim - len(spec))))
+    leaf = ShardedLeaf([], spec, mesh, x.shape)
+    split = leaf.split_dims
+    for d, a in split:
+        if x.shape[d] % mesh.shape[a]:
+            raise ValueError(f"dim {d} of size {x.shape[d]} does not split evenly over axis "
+                             f"{a!r} of size {mesh.shape[a]}")
+    for index in itertools.product(*(range(mesh.shape[a]) for _, a in split)):
+        piece = x
+        for (d, a), i in zip(split, index):
+            piece = piece.chunk(mesh.shape[a], dim=d)[i]
+        dev = _piece_device(mesh, split, index)
+        leaf.pieces.append(piece.detach().to(dev).contiguous().clone())
+    return leaf
+
+
+def gather_leaf(leaf: ShardedLeaf, device, keep: Optional[Dict[str, int]] = None
+                ) -> torch.Tensor:
+    """The leaf on ``device``, by differentiable copies: a dim split over an
+    axis named in ``keep`` takes that position's piece only (a model
+    position's head slice), every other split dim is concatenated whole
+    (the FSDP all-gather)."""
+    keep = keep or {}
+    dev = _device(device)
+    split = leaf.split_dims
+    grid = np.empty(len(leaf.pieces), dtype=object)
+    for i, piece in enumerate(leaf.pieces):   # element-wise: numpy would unpack tensors
+        grid[i] = piece
+    grid = grid.reshape([leaf.mesh.shape[a] for _, a in split])
+    idx = tuple(keep[a] if a in keep else slice(None) for _, a in split)
+    grid = grid[idx]
+    dims = [d for d, a in split if a not in keep]
+
+    def assemble(g, ds):
+        if not ds:
+            return _to(g if isinstance(g, torch.Tensor) else g.item(), dev)
+        return torch.cat([assemble(sub, ds[1:]) for sub in g], dim=ds[0])
+
+    return assemble(grid, dims)
+
+
+def pieces_of(x) -> List[torch.Tensor]:
+    """The tensors that hold a leaf: a sharded leaf's pieces, else the leaf."""
+    return x.pieces if isinstance(x, ShardedLeaf) else [x]
+
+
+def mesh_of(tree) -> Optional[Mesh]:
+    """The mesh of the first sharded leaf of ``tree``, None if it has none."""
+    if isinstance(tree, ShardedLeaf):
+        return tree.mesh
+    if isinstance(tree, dict):
+        for v in tree.values():
+            m = mesh_of(v)
+            if m is not None:
+                return m
+    return None
+
+
+def place(tree, mesh: Mesh, specs=None):
+    """Every tensor of ``tree`` as a :class:`ShardedLeaf` by the spec at its
+    path in ``specs`` (a tree like ``tree``; None replicates every leaf:
+    one piece on the first device)."""
+    if isinstance(tree, dict):
+        if specs is not None and not isinstance(specs, dict):
+            raise ValueError(f"spec {specs!r} given for a subtree")
+        out = {}
+        for k, v in tree.items():
+            if specs is not None and k not in specs:
+                raise KeyError(f"no spec for {k!r}")
+            out[k] = place(v, mesh, None if specs is None else specs[k])
+        return out
+    return shard_leaf(torch.as_tensor(tree), mesh, PartitionSpec() if specs is None else specs)
+
+
+@torch.no_grad()
+def unshard(tree, device=None):
+    """Every :class:`ShardedLeaf` of ``tree`` as one whole tensor on
+    ``device`` (default: its first piece's device); other leaves as they
+    are. For saving a sharded state and for comparing it."""
+    if isinstance(tree, dict):
+        return {k: unshard(v, device) for k, v in tree.items()}
+    if isinstance(tree, ShardedLeaf):
+        return gather_leaf(tree, device if device is not None else tree.pieces[0].device)
+    return tree

@@ -91,6 +91,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.config import EncoderArch
+from ..core.mesh import PartitionSpec as P
+from ..core.mesh import mesh_of
 from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops import performer as _performer
 from ..ops.attention import multi_head_attention
@@ -173,6 +175,90 @@ def init_params(
         return out
 
     return make(_param_shapes(arch))
+
+
+# ---------------------------------------------------------------------------
+# Placement specs (core.mesh.PartitionSpec trees, the JAX package's layouts)
+# ---------------------------------------------------------------------------
+
+def param_pspecs(arch: EncoderArch, model_axis: str = "model", expert_axis: str = "expert") -> dict:
+    """Megatron tensor parallelism: Q, K, V and MLP-in split their output
+    columns over ``model_axis``, O and MLP-out their input rows (the partial
+    products are summed, then the replicated bias is added once). An MoE
+    arch splits its experts over ``expert_axis`` and keeps the column / row
+    split inside each expert. Everything else is replicated."""
+    m = model_axis
+    col = {"w": P(None, None, m), "b": P(None, m)}
+    row = {"w": P(None, m, None), "b": P(None, None)}
+    ln2 = {"scale": P(None, None), "bias": P(None, None)}
+    specs = {
+        "embeddings": {
+            "word": P(None, None),
+            "position": P(None, None),
+            "ln": {"scale": P(None), "bias": P(None)},
+        },
+        "layers": {
+            "attn": {"q": dict(col), "k": dict(col), "v": dict(col), "o": dict(row)},
+            "attn_ln": dict(ln2),
+            "mlp": {"in": dict(col), "out": dict(row)},
+            "mlp_ln": dict(ln2),
+        },
+    }
+    if arch.num_experts > 0:
+        ex = expert_axis
+        specs["layers"]["mlp"] = {
+            "router": {"w": P(None, None, None)},
+            "in": {"w": P(None, ex, None, m), "b": P(None, ex, m)},
+            "out": {"w": P(None, ex, m, None), "b": P(None, ex, None)},
+        }
+    if arch.has_token_type:
+        specs["embeddings"]["token_type"] = P(None, None)
+    if arch.embed_factor_size:
+        specs["embeddings"]["proj"] = {"w": P(None, None), "b": P(None)}
+    if arch.has_pooler:
+        specs["pooler"] = {"w": P(None, None), "b": P(None)}
+    if arch.projection_dim:
+        specs["projection"] = {"w": P(None, None), "b": P(None)}
+    return specs
+
+
+def fsdp_param_pspecs(arch: EncoderArch, data_axis: str = "data") -> dict:
+    """ZeRO-3 / FSDP: every stacked layer kernel splits its widest feature
+    dim over the data axis (the word table its vocabulary rows, the pooler
+    and projection their output columns); each is gathered where it is used
+    and its gradient comes back split. Like the reference, the tree has no
+    entry for ALBERT's ``embeddings.proj``, so placing an ALBERT tree by it
+    raises."""
+    d = data_axis
+    col = {"w": P(None, None, d), "b": P(None, d)}
+    row = {"w": P(None, d, None), "b": P(None, None)}
+    ln2 = {"scale": P(None, None), "bias": P(None, None)}
+    specs = {
+        "embeddings": {
+            "word": P(d, None),
+            "position": P(None, None),
+            "ln": {"scale": P(None), "bias": P(None)},
+        },
+        "layers": {
+            "attn": {"q": dict(col), "k": dict(col), "v": dict(col), "o": dict(row)},
+            "attn_ln": dict(ln2),
+            "mlp": {"in": dict(col), "out": dict(row)},
+            "mlp_ln": dict(ln2),
+        },
+    }
+    if arch.num_experts > 0:
+        specs["layers"]["mlp"] = {
+            "router": {"w": P(None, None, None)},
+            "in": {"w": P(None, None, None, d), "b": P(None, None, d)},
+            "out": {"w": P(None, None, d, None), "b": P(None, None, None)},
+        }
+    if arch.has_token_type:
+        specs["embeddings"]["token_type"] = P(None, None)
+    if arch.has_pooler:
+        specs["pooler"] = {"w": P(None, d), "b": P(d)}
+    if arch.projection_dim:
+        specs["projection"] = {"w": P(None, d), "b": P(d)}
+    return specs
 
 
 def _leaf_from_jax(arr, shp, name: str, kind: str, device) -> torch.Tensor:
@@ -321,13 +407,17 @@ def dropout(
     x: torch.Tensor, rate: float, generator: Optional[torch.Generator], deterministic: bool
 ) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 − rate (a
-    uniform draw from ``generator`` below 1 − rate) and scale it by 1 / (1 −
-    rate), in x's dtype; the identity when deterministic or rate is 0."""
+    uniform draw from ``generator`` below 1 − rate, drawn on the generator's
+    device) and scale it by 1 / (1 − rate), in x's dtype; the identity when
+    deterministic or rate is 0."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator (deterministic=False)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    # drawn where the generator lives, then moved: a sharded forward runs
+    # positions on other devices than the step's one generator
+    keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - rate
+    keep = keep.to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -359,6 +449,21 @@ def layer_qkv(hx: torch.Tensor, lp: dict, *, arch: EncoderArch):
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
 
+def residual_norm(
+    x: torch.Tensor, delta: torch.Tensor, ln: dict, *, arch: EncoderArch,
+    deterministic: bool = True, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """LN(x + dropout(delta)): the close of a block's attention or FFN half."""
+    delta = dropout(delta, arch.hidden_dropout, generator, deterministic)
+    return _layer_norm(x + delta, ln["scale"], ln["bias"], arch.layer_norm_eps)
+
+
+def mlp_hidden(hx: torch.Tensor, mlp: dict, *, arch: EncoderArch) -> torch.Tensor:
+    """The dense FFN's activated hidden layer, act(x·W_in + b) in x's dtype
+    (the activation in f32)."""
+    return _act(arch.hidden_act)(_dense(hx, mlp["in"]).float()).to(hx.dtype)
+
+
 def layer_after_attention(
     hx: torch.Tensor,              # (B, S, H): the layer's input
     ctx: torch.Tensor,             # (B, S, nh, hd): the attention output
@@ -378,33 +483,49 @@ def layer_after_attention(
     b, s, _ = hx.shape
     attn, mlp = lp["attn"], lp["mlp"]
     ctx = ctx.reshape(b, s, -1)    # nh·hd < h after head pruning
-    ctx = dropout(_dense(ctx, attn["o"]), arch.hidden_dropout, generator, deterministic)
-    hx1 = _layer_norm(
-        hx + ctx, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
-        arch.layer_norm_eps,
-    )
-    act = _act(arch.hidden_act)
+    hx1 = residual_norm(hx, _dense(ctx, attn["o"]), lp["attn_ln"], arch=arch,
+                        deterministic=deterministic, generator=generator)
     aux = drop = None
     if arch.num_experts > 0:
         ff, aux, drop = moe_ffn(
             hx1, attention_mask, mlp["router"]["w"], mlp["in"]["w"], mlp["in"]["b"],
             mlp["out"]["w"], mlp["out"]["b"], top_k=arch.expert_top_k,
-            capacity_factor=arch.expert_capacity_factor, activation=act,
+            capacity_factor=arch.expert_capacity_factor, activation=_act(arch.hidden_act),
         )
     else:
-        ff = _dense(hx1, mlp["in"])
-        ff = act(ff.float()).to(hx1.dtype)
-        ff = _dense(ff, mlp["out"])
-    ff = dropout(ff, arch.hidden_dropout, generator, deterministic)
-    out = _layer_norm(
-        hx1 + ff, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"],
-        arch.layer_norm_eps,
-    )
+        ff = _dense(mlp_hidden(hx1, mlp, arch=arch), mlp["out"])
+    out = residual_norm(hx1, ff, lp["mlp_ln"], arch=arch, deterministic=deterministic,
+                        generator=generator)
     if not with_aux:
         return out
     if aux is None:
         aux = drop = torch.zeros((), dtype=torch.float32, device=hx.device)
     return out, aux, drop
+
+
+def layer_attention(
+    hx: torch.Tensor,              # (B, S, H)
+    lp: dict,
+    attention_mask: torch.Tensor,  # (B, S)
+    *,
+    arch: EncoderArch,
+    attention_impl: str = "auto",
+    segment_ids: Optional[torch.Tensor] = None,
+    head_mask: Optional[torch.Tensor] = None,
+    performer_proj: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """A layer's attention: ``layer_qkv`` → ``multi_head_attention`` with
+    the arch's window and Performer settings → (B, S, nh, hd). A tensor-
+    parallel position passes an arch of its own head count."""
+    q, k, v = layer_qkv(hx, lp, arch=arch)
+    return multi_head_attention(
+        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
+        window=arch.attention_window, window_global_cls=arch.window_global_cls,
+        segment_ids=segment_ids, performer_proj=performer_proj,
+        performer_kernel=arch.performer_kernel,
+        performer_local_heads=arch.performer_local_heads,
+        performer_local_window=arch.performer_local_window,
+    )
 
 
 def transformer_layer(
@@ -423,21 +544,15 @@ def transformer_layer(
 ):
     """One post-LN block: MHA + residual + LN, FFN + residual + LN, with
     dropout on the attention output and the FFN output in training
-    (``layer_qkv`` → ``multi_head_attention`` → ``layer_after_attention``;
+    (``layer_attention`` → ``layer_after_attention``;
     ``models.long_context`` runs the two parts per sequence piece around a
     context-parallel attention). For an MoE arch the FFN is the routed
     expert block; ``with_aux=True`` returns ``(out, aux, drop)``: the
     layer's load-balance loss and dropped fraction (zeros for a dense
     arch)."""
-    q, k, v = layer_qkv(hx, lp, arch=arch)
-    ctx = multi_head_attention(
-        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
-        window=arch.attention_window, window_global_cls=arch.window_global_cls,
-        segment_ids=segment_ids, performer_proj=performer_proj,
-        performer_kernel=arch.performer_kernel,
-        performer_local_heads=arch.performer_local_heads,
-        performer_local_window=arch.performer_local_window,
-    )
+    ctx = layer_attention(hx, lp, attention_mask, arch=arch, attention_impl=attention_impl,
+                          segment_ids=segment_ids, head_mask=head_mask,
+                          performer_proj=performer_proj)
     return layer_after_attention(hx, ctx, lp, attention_mask, arch=arch,
                                  deterministic=deterministic, generator=generator,
                                  with_aux=with_aux)
@@ -533,7 +648,20 @@ def encoder_forward(
     ``impl="performer"`` whatever ``attention_impl`` says, with
     ``performer_proj`` or the drawn projection (the epoch of
     ``performer_step`` when the arch redraws). An MoE arch returns
-    ``moe_aux`` / ``moe_drop``, the means over the L layers."""
+    ``moe_aux`` / ``moe_drop``, the means over the L layers. A tree of
+    ``core.mesh.ShardedLeaf`` (a sharded train state) runs
+    ``models.sharded.encoder_forward_sharded``, the same function over the
+    mesh, as GSPMD runs the reference's unsharded one."""
+    if mesh_of(params) is not None:
+        from .sharded import encoder_forward_sharded
+
+        return encoder_forward_sharded(
+            params, input_ids, attention_mask, token_type_ids, arch=arch, precision=precision,
+            attention_impl=attention_impl, deterministic=deterministic, generator=generator,
+            segment_ids=segment_ids, position_ids=position_ids, remat=remat,
+            head_mask=head_mask, output_hidden_states=output_hidden_states,
+            performer_step=performer_step, performer_proj=performer_proj,
+        )
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32, device=input_ids.device)
@@ -590,35 +718,40 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten
 
 
 def _remat_layer(x, lp, attention_mask, remat, *, generator, deterministic, **kw):
-    """One layer under ``torch.utils.checkpoint``. Checkpoint restores only
-    the default generators, so the layer's own ``generator`` is put back to
-    its state at the layer's entry for the recompute (and returned to where
-    the backward found it after), so the recompute draws the forward's
-    dropout masks. An MoE layer's (out, aux, drop) goes through as a
-    tuple."""
-    draws = generator is not None and not deterministic
-    entry = generator.get_state() if draws else None
-    calls = []
-
+    """One layer under ``torch.utils.checkpoint`` (``remat_call``). An MoE
+    layer's (out, aux, drop) goes through as a tuple."""
     def layer(h):
         return transformer_layer(h, lp, attention_mask, generator=generator,
                                  deterministic=deterministic, **kw)
 
-    def run(h):
+    return remat_call(layer, (x,), remat, generator=generator, deterministic=deterministic)
+
+
+def remat_call(fn, args: tuple, remat, *, generator, deterministic):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (``remat="dots"``: the
+    matmul outputs kept). Checkpoint restores only the default generators,
+    so ``generator`` is put back to its state at the call's entry for the
+    recompute (and returned to where the backward found it after), so the
+    recompute draws the forward's dropout masks."""
+    draws = generator is not None and not deterministic
+    entry = generator.get_state() if draws else None
+    calls = []
+
+    def run(*a):
         if not draws or not calls:       # the forward
             calls.append(1)
-            return layer(h)
+            return fn(*a)
         now = generator.get_state()      # the recompute
         generator.set_state(entry)
         try:
-            return layer(h)
+            return fn(*a)
         finally:
             generator.set_state(now)
 
     context = {}
     if remat == "dots":
         context["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _DOTS)
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **context)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
 
 def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:

@@ -9,10 +9,15 @@
   that picked the same expert this round + the slots earlier rounds took;
   the Switch load-balance loss over round 0 and the dropped fraction over
   the valid tokens' assignments.
-* ``moe_ffn``: one scatter of token ids into E·C slots plus a trash slot
-  (overflow and padding; its content is undefined on the card and cut), one
-  gather into (E, C, H), the expert GEMMs as batched products of the
-  compute dtype accumulated and returned in f32, the activation in f32, the gate-weighted combine in f32.
+* ``moe_ffn`` = ``moe_route`` (the router, then one scatter of token ids
+  into E·C slots plus a trash slot (overflow and padding; its content is
+  undefined on the card and cut) and one gather into (E, C, H)) →
+  ``expert_partial`` (the expert GEMMs as batched products of the compute
+  dtype accumulated and returned in f32, the activation in f32) + the
+  output bias → ``moe_combine`` (the gate-weighted combine in f32). The
+  expert-parallel forward (``models.sharded``) routes the whole batch once,
+  splits the (E, C, H) buffer over the expert axis and runs
+  ``expert_partial`` on each position's experts.
   Quantized experts (``{"q", "s"}`` leaves from ``compress.quantize``) run
   int8 × int8 → int32 expert by expert (``int8_mm``) with per-slot
   activation scales.
@@ -33,7 +38,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -159,22 +164,22 @@ def _expert_gemm(x: torch.Tensor, w) -> torch.Tensor:
     return _LowPrecisionProduct.apply(x, w)
 
 
-def moe_ffn(
-    x: torch.Tensor,          # (B, S, H) hidden states
-    mask: torch.Tensor,       # (B, S) 1 = real token
-    router_w: torch.Tensor,   # (H, E)
-    wi,                       # (E, H, I) or {"q", "s"}
-    bi: torch.Tensor,         # (E, I)
-    wo,                       # (E, I, H) or {"q", "s"}
-    bo: torch.Tensor,         # (E, H)
-    *,
-    top_k: int = 2,
-    capacity_factor: float = 1.25,
-    activation: Optional[Callable] = None,   # default: tanh GELU, as ``jax.nn.gelu``
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The sparse FFN in place of the dense MLP → (output (B, S, H) in x's
-    dtype, load-balance loss, dropped fraction). A dropped or padding token
-    gets a zero delta (the residual carries it)."""
+class MoeRoute(NamedTuple):
+    """The routing of T tokens into E experts of C slots."""
+    xe: torch.Tensor        # (E, C, H) the dispatched tokens (empty slots zero)
+    flat: torch.Tensor      # (k, T) each assignment's flat slot, E·C (the trash) if dropped
+    gate: torch.Tensor      # (k, T) f32 gates, zero where dropped
+    aux: torch.Tensor       # the load-balance loss
+    dropped: torch.Tensor   # the dropped fraction
+
+
+def moe_route(
+    x: torch.Tensor, mask: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
+    capacity_factor: float,
+) -> MoeRoute:
+    """Router and dispatch over every token of ``x`` (B, S, H): the capacity
+    counts T = B·S and slots go in token order, so a sharded batch is routed
+    as a whole (the reference's GSPMD function is the unsharded one)."""
     b, s, h = x.shape
     e = router_w.shape[1]
     if not 1 <= top_k <= e:
@@ -196,18 +201,52 @@ def moe_ffn(
             slot_token.scatter_(0, flat[r], tok_ids)
         xt_pad = torch.cat([xt, xt.new_zeros((1, h))])
         xe = xt_pad[slot_token[:trash]].reshape(e, cap, h)             # (E, C, H)
+    return MoeRoute(xe, flat, gate, aux, dropped)
 
-    with _span("moe_experts"):
-        hidden = _expert_gemm(xe, wi) + bi[:, None].float()
-        if activation is None:
-            activation = functools.partial(F.gelu, approximate="tanh")
-        hidden = activation(hidden).to(xe.dtype)
-        ye = (_expert_gemm(hidden, wo) + bo[:, None].float()).to(xe.dtype)
 
+def expert_partial(xe: torch.Tensor, wi, bi: torch.Tensor, wo,
+                   activation: Optional[Callable] = None) -> torch.Tensor:
+    """The experts of ``xe`` (E, C, H) without the output bias → f32 (E, C,
+    H): act(xe·W_in + b_in) in xe's dtype, then ·W_out accumulated in f32.
+    A tensor-parallel position passes its slice of the inner width and the
+    partial products are summed before ``bo``."""
+    if activation is None:
+        activation = functools.partial(F.gelu, approximate="tanh")
+    hidden = _expert_gemm(xe, wi) + bi[:, None].float()
+    hidden = activation(hidden).to(xe.dtype)
+    return _expert_gemm(hidden, wo)
+
+
+def moe_combine(route: MoeRoute, ye: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Each token's k expert outputs (``ye`` (E, C, H)) weighted by its gates
+    → (B, S, H) in the dtype of ``like`` (the layer's input)."""
+    b, s, h = like.shape
     with _span("moe_combine"):
-        # each token's k expert outputs, weighted by the gates
-        ye_pad = torch.cat([ye.reshape(trash, h), ye.new_zeros((1, h))])
-        y = torch.zeros((t, h), dtype=torch.float32, device=x.device)
-        for r in range(top_k):
-            y = y + gate[r][:, None] * ye_pad[flat[r]].float()
-    return y.reshape(b, s, h).to(x.dtype), aux, dropped
+        ye_pad = torch.cat([ye.reshape(-1, h), ye.new_zeros((1, h))])
+        y = torch.zeros((b * s, h), dtype=torch.float32, device=like.device)
+        for r in range(route.flat.shape[0]):
+            y = y + route.gate[r][:, None] * ye_pad[route.flat[r]].float()
+    return y.reshape(b, s, h).to(like.dtype)
+
+
+def moe_ffn(
+    x: torch.Tensor,          # (B, S, H) hidden states
+    mask: torch.Tensor,       # (B, S) 1 = real token
+    router_w: torch.Tensor,   # (H, E)
+    wi,                       # (E, H, I) or {"q", "s"}
+    bi: torch.Tensor,         # (E, I)
+    wo,                       # (E, I, H) or {"q", "s"}
+    bo: torch.Tensor,         # (E, H)
+    *,
+    top_k: int = 2,
+    capacity_factor: float = 1.25,
+    activation: Optional[Callable] = None,   # default: tanh GELU, as ``jax.nn.gelu``
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse FFN in place of the dense MLP → (output (B, S, H) in x's
+    dtype, load-balance loss, dropped fraction). A dropped or padding token
+    gets a zero delta (the residual carries it)."""
+    route = moe_route(x, mask, router_w, top_k=top_k, capacity_factor=capacity_factor)
+    with _span("moe_experts"):
+        ye = (expert_partial(route.xe, wi, bi, wo, activation)
+              + bo[:, None].float()).to(route.xe.dtype)
+    return moe_combine(route, ye, x), route.aux, route.dropped

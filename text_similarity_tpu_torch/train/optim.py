@@ -8,6 +8,14 @@ with the arithmetic of the JAX package's optax chain
 The optimizer updates the parameter tensors in place; its state is a plain
 tree (tensors and Python counters) that ``core.checkpoint`` saves as
 ``opt_state.npz``.
+
+A sharded state (``core.mesh.ShardedLeaf`` leaves, ``train.steps.
+init_sharded_train_state``) is updated piece by piece: each piece's moments
+lie on the piece's device, the global norm counts every piece once (a
+replicated leaf once, not once a position, as ``optax.clip_by_global_norm``
+counts the sharded tree), its per-device partial norms are reduced on the
+first piece's device, and each formula runs as one ``_foreach`` pass a
+device.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.config import TrainConfig
+from ..core.mesh import ShardedLeaf, pieces_of
 
 _NO_DECAY_SUBTREES = ("ln", "attn_ln", "mlp_ln")
 _NO_DECAY_LEAVES = ("b", "bias", "scale")
@@ -53,17 +62,40 @@ def linear_warmup_schedule(lr: float, total_steps: int, warmup_steps: int) -> Ca
 
 
 def _leaves(tree: dict) -> list:
+    """The tensors of a tree in order: a sharded leaf's pieces in its place."""
     out = []
     for val in tree.values():
-        out.extend(_leaves(val) if isinstance(val, dict) else [val])
+        out.extend(_leaves(val) if isinstance(val, dict) else pieces_of(val))
+    return out
+
+
+def _piece_mask(mask: dict, params: dict) -> list:
+    """A per-leaf tree of flags, one a tensor of ``params`` (``_leaves``
+    order)."""
+    out = []
+    for key, val in params.items():
+        if isinstance(val, dict):
+            out.extend(_piece_mask(mask[key], val))
+        else:
+            out.extend([mask[key]] * len(pieces_of(val)))
     return out
 
 
 def _zeros_like(tree: dict) -> dict:
-    return {
-        k: _zeros_like(v) if isinstance(v, dict) else torch.zeros_like(v, dtype=torch.float32)
-        for k, v in tree.items()
-    }
+    def zeros(v):
+        if isinstance(v, ShardedLeaf):
+            return v.like([torch.zeros_like(p, dtype=torch.float32) for p in v.pieces])
+        return torch.zeros_like(v, dtype=torch.float32)
+
+    return {k: _zeros_like(v) if isinstance(v, dict) else zeros(v) for k, v in tree.items()}
+
+
+def _by_device(tensors: list) -> dict:
+    """Indices of ``tensors`` grouped by device, in first-seen order."""
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
 
 
 class AdamW:
@@ -113,7 +145,7 @@ class AdamW:
         """Fold ``grads`` (a tree like params) in and update params and state
         in place → whether the parameters moved (False on the first k − 1
         micro-steps of an accumulation). Each formula is one ``_foreach``
-        pass over all the leaves."""
+        pass over the leaves of a device."""
         g = [x.float() for x in _leaves(grads)]
         if self.grad_accum_steps > 1:
             acc = _leaves(state["acc"])
@@ -127,32 +159,41 @@ class AdamW:
             g = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
             state["gradient_step"] += 1
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        groups = _by_device(g)
+        first = g[0].device
+        # ‖g‖ over every tensor once: each device's norms, reduced on the first
+        norms = [torch.stack(torch._foreach_norm([g[i] for i in idx])).to(first)
+                 for idx in groups.values()]
+        norm = torch.linalg.vector_norm(torch.cat(norms))
         # optax: (g / ‖g‖) · max_norm when ‖g‖ ≥ max_norm, else g (g / 1 · 1)
         keep = norm < self.max_grad_norm
         one = torch.ones_like(norm)
-        g = torch._foreach_div(g, torch.where(keep, one, norm))
-        torch._foreach_mul_(g, torch.where(keep, one, one * self.max_grad_norm))
+        div, mul = torch.where(keep, one, norm), torch.where(keep, one, one * self.max_grad_norm)
 
         count = state["count"]
         lr = self.schedule(count)
         bc1 = 1.0 - float(torch.tensor(self.b1) ** (count + 1))
         bc2 = 1.0 - float(torch.tensor(self.b2) ** (count + 1))
-        p, mu, nu = _leaves(params), _leaves(state["mu"]), _leaves(state["nu"])
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
-        u = torch._foreach_div(mu, bc1)
-        den = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        torch._foreach_div_(u, den)
-        if self.weight_decay:
-            decays = [i for i, m in enumerate(_leaves(self.decay_mask)) if m]
-            torch._foreach_add_([u[i] for i in decays], [p[i] for i in decays],
-                                alpha=self.weight_decay)
-        torch._foreach_add_(p, [x.to(t.dtype) for x, t in zip(u, p)], alpha=-lr)
+        p_all, mu_all, nu_all = _leaves(params), _leaves(state["mu"]), _leaves(state["nu"])
+        decay = _piece_mask(self.decay_mask, params) if self.weight_decay else None
+        for device, idx in groups.items():
+            gd = torch._foreach_div([g[i] for i in idx], div.to(device))
+            torch._foreach_mul_(gd, mul.to(device))
+            p, mu, nu = ([t[i] for i in idx] for t in (p_all, mu_all, nu_all))
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, gd, alpha=1.0 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_add_(nu, torch._foreach_mul(gd, gd), alpha=1.0 - self.b2)
+            u = torch._foreach_div(mu, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            torch._foreach_div_(u, den)
+            if self.weight_decay:
+                decays = [j for j, i in enumerate(idx) if decay[i]]
+                torch._foreach_add_([u[j] for j in decays], [p[j] for j in decays],
+                                    alpha=self.weight_decay)
+            torch._foreach_add_(p, [x.to(t.dtype) for x, t in zip(u, p)], alpha=-lr)
         state["count"] = count + 1
         return True
 

@@ -4,7 +4,9 @@
 A background thread stays ``depth`` batches ahead of the training loop: it
 turns each host batch (a dict of numpy arrays) into pinned tensors and
 copies them to the card on a side stream, so a step dequeues data that is
-already resident. On the CPU it only converts.
+already resident. On the CPU it only converts. With ``mesh`` each batch is
+split over the mesh's data positions (``train.steps.shard_batch_for``): a
+list of per-position dicts, each on its position's device.
 """
 
 from __future__ import annotations
@@ -28,19 +30,25 @@ class DevicePrefetcher:
 
     _END = object()
 
-    def __init__(self, batches: Iterable, depth: int = 2, device="cuda"):
+    def __init__(self, batches: Iterable, depth: int = 2, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._thread = threading.Thread(target=self._produce, args=(iter(batches),), daemon=True)
         self._thread.start()
 
-    def _place(self, batch: dict) -> dict:
+    def _place(self, batch: dict):
         host = {
             k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
             for k, v in batch.items()
         }
+        if self.mesh is not None:
+            from .steps import shard_batch_for
+
+            # pageable host memory: each copy has finished when it returns
+            return shard_batch_for(self.mesh, host)
         if self._stream is None:
             return {k: v.to(self.device) for k, v in host.items()}
         with torch.cuda.stream(self._stream):
@@ -99,7 +107,7 @@ class DevicePrefetcher:
             raise StopIteration
         if isinstance(item, BaseException):
             raise item
-        if self._stream is not None:
+        if self._stream is not None and self.mesh is None:
             # made on the side stream, used on the consumer's: the caching
             # allocator must not hand the memory back before that use ends
             current = torch.cuda.current_stream(self.device)

@@ -28,7 +28,20 @@ reports ``moe_aux`` / ``moe_drop``. Performer archs with
 state's step into the forward, so the projection's epoch advances (the
 reference's ``_redraw_step``); the packed steps refuse Performer.
 
-Not ported yet: pipeline parallelism.
+Distributed training on the one-controller mesh (``core.mesh``):
+``init_sharded_train_state`` places the parameters by a spec tree
+(``models.encoder.param_pspecs`` for tensor and expert parallelism,
+``fsdp_param_pspecs``; replicated by default), then the optimizer's moments
+on the pieces. Every step takes such a state as it is: ``encoder_forward``
+runs ``models.sharded`` over the mesh (the batch rows over the data axis),
+the last hidden states come back to the first device, and the objective
+runs there once over the global batch (an MNRL step's in-batch negatives
+span every data position, as the reference's jitted step computes them
+over the global arrays). The batch may be host arrays, tensors, or the
+per-position pieces of ``shard_batch_for``. With ``pp_mesh`` (the
+bi-encoder, classifier, token-classifier, word-encoder and MLM steps) the
+layer stack runs pipeline-parallel (``models.pipeline``) over a whole
+state, with the reference's refusals (head masks, MoE) and its pooler tail.
 """
 
 from __future__ import annotations
@@ -39,11 +52,12 @@ import numpy as np
 import torch
 
 from ..core.config import EncoderArch
+from ..core.mesh import DATA_AXIS, Mesh, ShardedLeaf, gather_leaf, mesh_of, place, shard_batch
 from ..core.precision import DEFAULT_PRECISION, Precision, resolve_device
 from ..models import losses as L
-from ..models.encoder import dequant_weight, encoder_forward
+from ..models.encoder import EncoderOutput, dequant_weight, encoder_forward
 from ..models.pooling import (
-    cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool, word_span_pool,
+    bert_pooler, cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool, word_span_pool,
 )
 from .optim import AdamW, _leaves
 
@@ -57,13 +71,17 @@ class TrainState(NamedTuple):
 
 def trainable(tree: dict, device=None) -> dict:
     """A copy of ``tree`` as f32 leaf tensors that require grad (on
-    ``device``, or where each leaf lies)."""
+    ``device``, or where each leaf lies; a sharded leaf's pieces where they
+    lie)."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             if set(val) == {"q", "s"}:
                 raise ValueError("int8 leaves cannot train; train the float weights")
             out[key] = trainable(val, device)
+        elif isinstance(val, ShardedLeaf):
+            out[key] = val.like([p.detach().float().clone().requires_grad_(True)
+                                 for p in val.pieces])
         else:
             t = torch.as_tensor(np.asarray(val)) if not isinstance(val, torch.Tensor) else val
             t = t.detach().to(device or t.device, torch.float32)
@@ -77,6 +95,74 @@ def init_train_state(params: dict, tx: AdamW, seed: int = 0, device="cuda") -> T
     dev = resolve_device(device)
     params = trainable(params, dev)
     return TrainState(params, tx.init(params), 0, torch.Generator(device=dev).manual_seed(seed))
+
+
+def init_sharded_train_state(params: dict, tx: AdamW, mesh: Mesh, param_specs=None,
+                             seed: int = 0) -> TrainState:
+    """A train state placed on ``mesh``: the parameters first, by
+    ``param_specs`` (a tree of ``core.mesh.PartitionSpec`` like ``params``,
+    e.g. ``{"encoder": param_pspecs(arch), "head": ...}``; None replicates
+    every leaf), as f32 pieces that require grad, then ``tx.init`` over the
+    pieces, so each moment lies beside its piece. The generator lies on the
+    mesh's first device."""
+    placed = trainable(place(params, mesh, param_specs))
+    gen = torch.Generator(device=mesh.first_device).manual_seed(seed)
+    return TrainState(placed, tx.init(placed), 0, gen)
+
+
+def shard_batch_for(mesh: Optional[Mesh], batch: dict):
+    """``batch`` split over the mesh's data positions (one dict a position,
+    on its device; ``core.mesh.shard_batch``), or as it is without a mesh.
+    The rows must divide evenly, as the reference's placement requires."""
+    if mesh is None:
+        return batch
+    n = mesh.shape[DATA_AXIS]
+    for key, val in batch.items():
+        if len(val) % n:
+            raise ValueError(f"{key}: {len(val)} rows do not split over the data axis ({n})")
+    return shard_batch(mesh, batch)
+
+
+def _encoder_out(
+    enc_params: dict, ids, mask, type_ids=None, *, arch: EncoderArch, precision: Precision,
+    generator: Optional[torch.Generator] = None, deterministic: bool = True,
+    attention_impl: str = "auto", head_mask=None, remat=False,
+    performer_step: Optional[int] = None, pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
+) -> EncoderOutput:
+    """``encoder_forward``, or with ``pp_mesh`` the layer stack pipeline-
+    parallel over its pipe axis (``models.pipeline.encoder_forward_pp``,
+    composed with its data axis) and the pooler after it, as the
+    reference's ``_encoder_out``. Every step's encoder forward goes through
+    here, so ``pp_mesh`` works alike across objectives."""
+    if pp_mesh is None:
+        return encoder_forward(
+            enc_params, ids, mask, type_ids, arch=arch, precision=precision,
+            attention_impl=attention_impl, deterministic=deterministic, generator=generator,
+            head_mask=head_mask, remat=remat, performer_step=performer_step,
+        )
+    if head_mask is not None:
+        raise ValueError("head_mask is not supported with pp_mesh")
+    if arch.num_experts > 0:
+        raise ValueError(
+            "MoE archs are not supported with pp_mesh (the pipelined "
+            "stack would drop the load-balance aux loss); use DP/TP/EP"
+        )
+    if mesh_of(enc_params) is not None:
+        raise ValueError("pp_mesh runs a whole parameter tree, not a sharded one")
+    from ..models.pipeline import encoder_forward_pp
+
+    hidden = encoder_forward_pp(
+        enc_params, ids, mask, arch=arch, mesh=pp_mesh, microbatches=pp_microbatches,
+        precision=precision, token_type_ids=type_ids, attention_impl=attention_impl,
+        remat=remat, deterministic=deterministic, generator=generator,
+        performer_step=performer_step,
+    )
+    pooler_out = None
+    if arch.has_pooler and "pooler" in enc_params:
+        pw = enc_params["pooler"]   # the tail of encoder_forward
+        pooler_out = bert_pooler(hidden, dequant_weight(pw["w"]), pw["b"])
+    return EncoderOutput(hidden, pooler_out)
 
 
 def _moe_stats_of(out) -> torch.Tensor:
@@ -108,23 +194,32 @@ def _redraw_step(arch: EncoderArch, state: "TrainState") -> Optional[int]:
 def _embed(
     enc_params: dict, ids, mask, *, arch: EncoderArch, precision: Precision, pooling: str,
     generator: Optional[torch.Generator], deterministic: bool, attention_impl: str = "auto",
-    remat=False, performer_step: Optional[int] = None,
+    remat=False, performer_step: Optional[int] = None, pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ):
     """Encoder → pooling → the optional ``projection`` head → ((B, D), (2,)
     MoE stats)."""
-    out = encoder_forward(
+    out = _encoder_out(
         enc_params, ids, mask, arch=arch, precision=precision, attention_impl=attention_impl,
         deterministic=deterministic, generator=generator, remat=remat,
-        performer_step=performer_step,
+        performer_step=performer_step, pp_mesh=pp_mesh, pp_microbatches=pp_microbatches,
     )
     return _project(enc_params, pool(pooling, out.last_hidden_state, mask)), _moe_stats_of(out)
+
+
+def _whole(leaf, device) -> torch.Tensor:
+    """A head leaf on ``device``: a sharded one gathered by differentiable
+    copies (the objective runs on the mesh's first device)."""
+    if isinstance(leaf, ShardedLeaf):
+        return gather_leaf(leaf, device)
+    return leaf
 
 
 def _project(enc_params: dict, pooled: torch.Tensor) -> torch.Tensor:
     """The optional ``projection`` head (dimension-reduced students)."""
     if "projection" in enc_params:
         pw = enc_params["projection"]
-        pooled = pooled.float() @ pw["w"] + pw["b"]
+        pooled = pooled.float() @ _whole(pw["w"], pooled.device) + _whole(pw["b"], pooled.device)
     return pooled
 
 
@@ -133,22 +228,30 @@ def classifier_forward(
     precision: Precision = DEFAULT_PRECISION, pooling: str = "cls",
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
     head_mask: Optional[torch.Tensor] = None, with_moe_aux: bool = False,
+    pp_mesh: Optional[Mesh] = None, pp_microbatches: Optional[int] = None,
 ):
     """Encoder → pool → linear head → (B, C) f32 logits (dropout with
     ``deterministic=False``). ``cls`` pooling takes the tanh pooler's
     output where the arch has one, else the CLS state; any other pooling
     the masked mean. ``head_mask`` (L, nh) scales the heads' attention.
     ``with_moe_aux=True`` returns ``(logits, (2,) MoE stats)``."""
-    out = encoder_forward(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision,
-                          deterministic=deterministic, generator=generator, head_mask=head_mask)
+    out = _encoder_out(params["encoder"], ids, mask, type_ids, arch=arch, precision=precision,
+                       deterministic=deterministic, generator=generator, head_mask=head_mask,
+                       pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
     if pooling == "cls":
         pooled = (out.pooler_output if out.pooler_output is not None
                   else cls_pool(out.last_hidden_state, mask))
     else:
         pooled = mean_pool(out.last_hidden_state, mask)
+    return (_head(params, pooled), _moe_stats_of(out)) if with_moe_aux else _head(params, pooled)
+
+
+def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x · head.w + head.b in f32 (an int8 w dequantized, a sharded one
+    gathered to x's device)."""
     head = params["head"]
-    logits = pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
-    return (logits, _moe_stats_of(out)) if with_moe_aux else logits
+    w = dequant_weight(_whole(head["w"], x.device))
+    return x.float() @ w.float() + _whole(head["b"], x.device).float()
 
 
 def init_classifier_head(
@@ -173,7 +276,8 @@ def _pair_objective(loss_type: str, params: dict, u, v, target, valid, margin: f
     aux = {}
     if loss_type == "softmax":
         head = params["head"]
-        loss, logits = L.softmax_loss(u, v, head["w"], head["b"], target, valid)
+        loss, logits = L.softmax_loss(u, v, _whole(head["w"], u.device),
+                                      _whole(head["b"], u.device), target, valid)
         aux["accuracy"] = _masked_accuracy(logits, target, valid)
     elif loss_type == "cosine_mse":
         loss, _ = L.cosine_mse_loss(u, v, target, valid)
@@ -195,6 +299,7 @@ def bi_encoder_loss(
     pooling: str = "mean", precision: Precision = DEFAULT_PRECISION, margin: float = 0.5,
     generator: Optional[torch.Generator] = None, deterministic: bool = False,
     attention_impl: str = "auto", remat=False, performer_step: Optional[int] = None,
+    pp_mesh: Optional[Mesh] = None, pp_microbatches: Optional[int] = None,
 ):
     """The bi-encoder objective on one batch (device tensors ids_a, mask_a,
     ids_b, mask_b, target, valid): two tower passes over the shared
@@ -203,7 +308,7 @@ def bi_encoder_loss(
     so the b tower does not run (its MoE term is the a tower's)."""
     kw = dict(arch=arch, precision=precision, pooling=pooling, generator=generator,
               deterministic=deterministic, attention_impl=attention_impl, remat=remat,
-              performer_step=performer_step)
+              performer_step=performer_step, pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
     enc = params["encoder"]
     u, moe = _embed(enc, batch["ids_a"], batch["mask_a"], **kw)
     v = None
@@ -216,18 +321,28 @@ def bi_encoder_loss(
 
 
 def _like(tree: dict, flat: list) -> dict:
-    """``flat`` (in ``_leaves`` order) in the structure of ``tree``."""
+    """``flat`` (in ``_leaves`` order: a sharded leaf's pieces in its place)
+    in the structure of ``tree``."""
     it = iter(flat)
 
+    def leaf(v):
+        if isinstance(v, ShardedLeaf):
+            return v.like([next(it) for _ in v.pieces])
+        return next(it)
+
     def build(t):
-        return {k: build(v) if isinstance(v, dict) else next(it) for k, v in t.items()}
+        return {k: build(v) if isinstance(v, dict) else leaf(v) for k, v in t.items()}
 
     return build(tree)
 
 
-def batch_to(batch: dict, device: torch.device) -> dict:
+def batch_to(batch, device: torch.device) -> dict:
     """Host (numpy) or device arrays → tensors on ``device`` (a copy only
-    where needed)."""
+    where needed). A list of per-position batches (``shard_batch_for``) is
+    joined back, rows in position order."""
+    if isinstance(batch, (list, tuple)):
+        return {k: torch.cat([part[k].to(device, non_blocking=True) for part in batch])
+                for k in batch[0]}
     return {
         k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(
             device, non_blocking=True)
@@ -250,17 +365,19 @@ def _make_step(loss_fn: Callable, tx: AdamW, device, redraw_arch: Optional[Encod
                ) -> Callable:
     """step(state, batch, *extra) → (state, metrics) of ``loss_fn(params,
     batch, generator, *extra) → (loss, aux)``: its gradients, then ``tx``'s
-    in-place update. The state's parameters must lie on ``device``; the
-    batch may be host arrays or tensors there. metrics: {"loss", …} as
-    device scalars. With ``redraw_arch``, ``loss_fn`` also takes
+    in-place update. The state's parameters must lie on ``device`` (a
+    sharded state: its mesh's first device, where the batch is joined); the
+    batch may be host arrays, tensors or per-position pieces. metrics:
+    {"loss", …} as device scalars. With ``redraw_arch``, ``loss_fn`` also takes
     ``performer_step`` (``_redraw_step`` of the state)."""
     dev = resolve_device(device)
 
-    def step(state: TrainState, batch: dict, *extra):
-        leaf = _leaves(state.params)[0]
-        if leaf.device.type != dev.type:
-            raise ValueError(f"the state lies on {leaf.device}, the step runs on {dev}")
-        batch = batch_to(batch, leaf.device)
+    def step(state: TrainState, batch, *extra):
+        mesh = mesh_of(state.params)
+        home = mesh.first_device if mesh is not None else _leaves(state.params)[0].device
+        if home.type != dev.type:
+            raise ValueError(f"the state lies on {home}, the step runs on {dev}")
+        batch = batch_to(batch, home)
         kw = {} if redraw_arch is None else {"performer_step": _redraw_step(redraw_arch, state)}
         loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra, **kw)
         tx.step(state.params, grads, state.opt_state)
@@ -280,17 +397,21 @@ def make_bi_encoder_train_step(
     margin: float = 0.5,
     remat=False,
     device="cuda",
+    pp_mesh: Optional[Mesh] = None,         # pipeline parallelism: layer
+    pp_microbatches: Optional[int] = None,  # stages over the pipe axis
 ) -> Callable:
     """Returns step(state, batch) → (state, metrics): the loss and its
     gradients (dropout on), then ``tx``'s in-place update. batch: ids_a,
     mask_a, ids_b, mask_b, target (labels, scores or teacher embeddings),
-    valid (B,)."""
+    valid (B,). With ``pp_mesh`` each tower runs pipeline-parallel over its
+    pipe axis (composed with its data axis)."""
 
     def loss_fn(params, batch, generator, performer_step=None):
         return bi_encoder_loss(
             params, batch, arch=arch, loss_type=loss_type, pooling=pooling,
             precision=precision, margin=margin, generator=generator, deterministic=False,
-            remat=remat, performer_step=performer_step,
+            remat=remat, performer_step=performer_step, pp_mesh=pp_mesh,
+            pp_microbatches=pp_microbatches,
         )
 
     return _make_step(loss_fn, tx, device, redraw_arch=arch)
@@ -302,15 +423,18 @@ def make_classifier_train_step(
     pooling: str = "cls",
     precision: Precision = DEFAULT_PRECISION,
     device="cuda",
+    pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ) -> Callable:
     """Cross-encoder / document-classifier step. batch: ids, mask,
-    type_ids (optional), labels, valid. metrics: loss, accuracy."""
+    type_ids (optional), labels, valid. metrics: loss, accuracy.
+    ``pp_mesh`` as for the bi-encoder step."""
 
     def loss_fn(params, batch, generator):
         logits, moe = classifier_forward(
             params, batch["ids"], batch["mask"], batch.get("type_ids"), arch=arch,
             precision=precision, pooling=pooling, generator=generator, deterministic=False,
-            with_moe_aux=True,
+            with_moe_aux=True, pp_mesh=pp_mesh, pp_microbatches=pp_microbatches,
         )
         valid = batch.get("valid")
         loss = L.cross_entropy_loss(logits, batch["labels"], valid)
@@ -426,10 +550,9 @@ def packed_classifier_forward(
     pooled = segment_first_pool(out.last_hidden_state, segments, owners.shape[1])
     if arch.has_pooler and "pooler" in enc:
         pw = enc["pooler"]
-        pooled = torch.tanh(pooled.float() @ dequant_weight(pw["w"]).float() + pw["b"])
-    head = params["head"]
-    logits = pooled.float() @ dequant_weight(head["w"]).float() + head["b"].float()
-    logits = _scatter_segments(logits, owners, n_slots)
+        w = dequant_weight(_whole(pw["w"], pooled.device))
+        pooled = torch.tanh(pooled.float() @ w.float() + _whole(pw["b"], pooled.device))
+    logits = _scatter_segments(_head(params, pooled), owners, n_slots)
     return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
@@ -466,14 +589,17 @@ def make_packed_classifier_train_step(
 def token_classifier_forward(
     params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
-    with_moe_aux: bool = False,
+    with_moe_aux: bool = False, pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ):
     """Encoder → per-token linear head → (B, S, T) f32 logits
     (``with_moe_aux=True``: with the (2,) MoE stats)."""
-    out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
-                          deterministic=deterministic, generator=generator)
+    out = _encoder_out(params["encoder"], ids, mask, arch=arch, precision=precision,
+                       deterministic=deterministic, generator=generator, pp_mesh=pp_mesh,
+                       pp_microbatches=pp_microbatches)
     head = params["head"]
-    logits = out.last_hidden_state.float() @ head["w"] + head["b"]
+    h = out.last_hidden_state
+    logits = h.float() @ _whole(head["w"], h.device) + _whole(head["b"], h.device)
     return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
@@ -482,6 +608,8 @@ def make_token_classifier_train_step(
     tx: AdamW,
     precision: Precision = DEFAULT_PRECISION,
     device="cuda",
+    pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ) -> Callable:
     """batch: ids, mask, tags (B, S) with −100 where no tag is predicted
     (sub-word continuations, specials, padding); padding is ignored too.
@@ -490,7 +618,8 @@ def make_token_classifier_train_step(
     def loss_fn(params, batch, generator):
         logits, moe = token_classifier_forward(params, batch["ids"], batch["mask"], arch=arch,
                                                precision=precision, generator=generator,
-                                               deterministic=False, with_moe_aux=True)
+                                               deterministic=False, with_moe_aux=True,
+                                               pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
         tags = batch["tags"].long()
         w = ((tags >= 0) & (batch["mask"] > 0)).float()
         logp = torch.log_softmax(logits, dim=-1)
@@ -547,18 +676,21 @@ def mlm_forward(
     params: dict, ids, mask, *, arch: EncoderArch, precision: Precision = DEFAULT_PRECISION,
     generator: Optional[torch.Generator] = None, deterministic: bool = True,
     performer_step: Optional[int] = None, with_moe_aux: bool = False,
+    pp_mesh: Optional[Mesh] = None, pp_microbatches: Optional[int] = None,
 ):
     """Encoder → the output head tied to the word table (f32) → (B, S, V)
     logits, plus ``params["mlm_bias"]`` where present
     (``with_moe_aux=True``: with the (2,) MoE stats)."""
     _check_tied_head(arch)
-    out = encoder_forward(params["encoder"], ids, mask, arch=arch, precision=precision,
-                          deterministic=deterministic, generator=generator,
-                          performer_step=performer_step)
-    word = params["encoder"]["embeddings"]["word"]
-    logits = out.last_hidden_state.float() @ word.float().T
+    out = _encoder_out(params["encoder"], ids, mask, arch=arch, precision=precision,
+                       deterministic=deterministic, generator=generator,
+                       performer_step=performer_step, pp_mesh=pp_mesh,
+                       pp_microbatches=pp_microbatches)
+    h = out.last_hidden_state
+    word = _whole(params["encoder"]["embeddings"]["word"], h.device)
+    logits = h.float() @ word.float().T
     if "mlm_bias" in params:
-        logits = logits + params["mlm_bias"]
+        logits = logits + _whole(params["mlm_bias"], h.device)
     return (logits, _moe_stats_of(out)) if with_moe_aux else logits
 
 
@@ -570,10 +702,12 @@ def make_mlm_train_step(
     mask_prob: float = 0.15,
     special_ids=(0, 1, 2, 3, 4),
     device="cuda",
+    pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ) -> Callable:
     """batch: ids, mask. The masking is drawn anew each step from the
     state's generator (then the dropout masks). metrics: loss,
-    masked_tokens."""
+    masked_tokens. ``pp_mesh`` as for the bi-encoder step."""
     _check_tied_head(arch)
 
     def loss_fn(params, batch, generator, performer_step=None):
@@ -583,7 +717,8 @@ def make_mlm_train_step(
         )
         logits, moe = mlm_forward(params, corrupted, batch["mask"], arch=arch,
                                   precision=precision, generator=generator, deterministic=False,
-                                  performer_step=performer_step, with_moe_aux=True)
+                                  performer_step=performer_step, with_moe_aux=True,
+                                  pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
         loss = L.mlm_loss(logits, labels)
         return _with_moe(arch, loss, {"masked_tokens": (labels >= 0).float().sum()}, moe)
 
@@ -601,6 +736,8 @@ def make_word_encoder_train_step(
     margin: float = 0.5,
     loss_type: str = "contrastive",   # contrastive | online_contrastive
     device="cuda",
+    pp_mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ) -> Callable:
     """batch: ids_a / mask_a / span_a, ids_b / mask_b / span_b, target
     (0/1), valid. Both sides run the shared encoder (dropout on) and pool
@@ -608,8 +745,8 @@ def make_word_encoder_train_step(
     vectors' cosine."""
 
     def word_vec(enc, ids, mask, span, generator):
-        out = encoder_forward(enc, ids, mask, arch=arch, precision=precision,
-                              deterministic=False, generator=generator)
+        out = _encoder_out(enc, ids, mask, arch=arch, precision=precision, deterministic=False,
+                           generator=generator, pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
         return word_span_pool(out.last_hidden_state, span), _moe_stats_of(out)
 
     def loss_fn(params, batch, generator):
@@ -663,8 +800,7 @@ def make_fastformers_distill_step(
                       else cls_pool(out.last_hidden_state, batch["mask"]))
         else:
             pooled = mean_pool(out.last_hidden_state, batch["mask"])
-        head = params["head"]
-        return pooled.float() @ head["w"] + head["b"], out.hidden_states
+        return _head(params, pooled), out.hidden_states
 
     def loss_fn(params, batch, generator, teacher_params):
         with torch.no_grad():

@@ -11,6 +11,9 @@
   next step's in-place update on the same stream), and a writer thread
   moves the copy to the host and writes it; a failed write raises at the
   next save or ``join_pending_save``.
+- A sharded state (``train.steps.init_sharded_train_state``) is saved
+  whole and resumes placed as the running state is; with ``mesh`` the
+  prefetcher splits each batch over the mesh's data positions.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from ..core import checkpoint as ckpt
+from ..core.mesh import ShardedLeaf, unshard
 from ..core.precision import resolve_device
 from .steps import trainable
 
@@ -33,9 +37,13 @@ logger = logging.getLogger("text_similarity_tpu_torch.trainer")
 
 
 def _device_copy(tree):
-    """Tensors cloned on their device (Python numbers as they are)."""
+    """Tensors cloned on their device (Python numbers as they are); a
+    sharded leaf whole on its first piece's device (``core.mesh.unshard``
+    makes a new tensor)."""
     if isinstance(tree, dict):
         return {k: _device_copy(v) for k, v in tree.items()}
+    if isinstance(tree, ShardedLeaf):
+        return unshard(tree)
     return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -54,6 +62,7 @@ class Trainer:
         prefetch: int = 2,                   # device-prefetch depth; 0 = off
         async_checkpoint: bool = True,
         device="cuda",
+        mesh=None,                           # split prefetched batches over its data axis
     ):
         self.step_fn = step_fn
         self.state = state
@@ -67,6 +76,7 @@ class Trainer:
         self.prefetch = prefetch
         self.async_checkpoint = async_checkpoint
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.best_metric = -math.inf if direction == "max" else math.inf
         self.history = []
         self._save_thread = None
@@ -98,7 +108,7 @@ class Trainer:
                 from .prefetch import DevicePrefetcher
 
                 epoch_batches = prefetcher = DevicePrefetcher(
-                    epoch_batches, depth=self.prefetch, device=self.device
+                    epoch_batches, depth=self.prefetch, device=self.device, mesh=self.mesh
                 )
             try:
                 for batch in epoch_batches:
