@@ -14,6 +14,12 @@ Phases (any failure exits non-zero):
     D = 384, Q ∈ {1, 7, 256}, k ∈ {10, 20}, f32 and bf16 corpora with
     duplicated rows; timed at Q 1, 8 and 64 (the pipeline's padded request
     sizes) and 256, each beside ``torch.topk(q @ cᵀ)`` and its bound.
+    Then the large-k route (``csrc/topk_select.cu``): K2 (f32, bf16) and K3
+    (int8) at k ∈ {300, 1000, 4096} on the same Q 256 × N 100,003 corpus
+    against their plain versions (f32 and int8 ids equal where the scores
+    are separated, bf16 overlap ≥ 0.99), f32 at k 300 bit-equal to the
+    selector at k 256 on its first 256, each timed beside ``torch.topk(q @
+    cᵀ, k)`` and its bound.
  2b. K8 (certified two-pass top-k) through ``cosine_topk_2pass`` at phase
     2's shapes (f32 and bf16, Q ∈ {1, 7, 256}, k ∈ {10, 20}) and at Q 1024,
     k 10, with its counters zeroed just before: pass A launches on every
@@ -25,13 +31,19 @@ Phases (any failure exits non-zero):
     plain versions, pass A's kept scores equal to K2's bit for bit; a
     collision corpus (two near-copies 2048 rows apart) must fall back to K2
     once and keep both copies. Timed at Q = 256, k = 10 beside K2 and
-    ``torch.topk(q @ cᵀ)``, each pass with its bound.
+    ``torch.topk(q @ cᵀ)``, each pass with its bound. Then the call at k
+    300 (Q 256, f32; pass A's select kernel counted) and pass A alone
+    against their plain versions, timed.
  3. K1 (IVF scan) against its plain version on a 1M × 384 IVF index built
     on the card from the bench recipe (4096 gaussian centres ×3 + unit
     noise; queries = corpus rows + 0.1 noise), bf16 slabs,
     ``IndexConfig.auto(1M)``, 4096 queries with the serving args at k = 10
     and k = 100 (deferred merge) and approx_width = 0 (exact merge); IVF
-    recall@10 against K2's exact top-k over the f32 corpus ≥ 0.95.
+    recall@10 against K2's exact top-k over the f32 corpus ≥ 0.95. Then
+    the exact scan at k 300 for a 256-query slice: ``IVFIndex.query``
+    through the large-k route (emit_acc probe by probe, the select kernel),
+    counted, and the scan held to the plain scan (overlap ≥ 0.99, |Δ| ≤
+    1e-4) and timed.
  4. The pipeline at the full width of minilm-l6 (random weights from a
     seed, vocab trained on a synthetic corpus): 120,000 documents (the IVF
     path, K1) and 2,000 documents (the brute-force path, K2), requests of 1,
@@ -54,12 +66,17 @@ Phases (any failure exits non-zero):
       scores are separated); timed at
       Q 1, 8, 64 (the pipeline's padded request sizes) and 256, k = 10,
       each beside ``torch.topk((q @ c.float().T) * s, k)`` and its bound;
+      an int8 ``BruteForceIndex`` over the same corpus at k 200 (its 2k
+      over-fetch through K3's large-k route, counted: the kernels line's
+      launches) against the plain version;
     - K4 (int8 IVF scan) against its plain version on an int8 index of the
       phase-3 corpus (``IndexConfig.auto(1M)``, ``quantize_int8=True``, bf16
       rescore copy), 4096 queries with the serving args: k = 10 raw, the
       rescore's k_scan = 20 (deferred, S = 2) and the exact merge; recall@10
       of int8 + rescore against K2's exact top-10 ≥ 0.95 (raw int8
-      recall and both QPS printed);
+      recall and both QPS printed); K4 exact at k 300 through the large-k
+      route as K1 in phase 3 (``IVFIndex.query`` with its rescore: the
+      scan at 600);
     - the int8 pipeline: the phase-4 minilm-l6 weights through ``to_int8``,
       the 120,000 documents with an int8 IVF (``IndexConfig.auto`` with
       ``quantize_int8=True``), requests of 1, 5 and 64 under phase 4's
@@ -309,7 +326,11 @@ Phases (any failure exits non-zero):
       the matching 0/1 head mask (f32, ``PRUNE_F32``); ``prune`` →
       ``eval-classification`` through the CLI;
     - export: b 32 × s 128 int8 on the card, reloaded, equal to the eager
-      int8 encoder (max |Δ| ≤ 1e-5); ms a call beside the eager one;
+      int8 encoder (max |Δ| ≤ 1e-5); ms a call beside the eager one; then
+      b 2 × s 4096 int8 of phase 6's roberta-base at 4,098 positions,
+      whose program carries K5's registered op: reloaded, equal to the
+      eager int8 encoder (max |Δ| ≤ 1e-5), K5 12 launches a call, ms a
+      call beside the eager one;
     - ``cluster`` (20,000 sentences, 50 clusters) and ``topics`` (5,000
       documents; kmeans + pca, hdbscan + spectral, whose k-NN graph is K2)
       through the CLI; ``train-wic`` on 512 synthetic rows (finite loss,
@@ -368,7 +389,11 @@ Phases (any failure exits non-zero):
       encode data-parallel over 4 positions: its min cosine to the
       mesh-less encode ≥ ``DP_MIN_COS``) on port 0: ``/health`` with
       ``sharded: true``, 32 one-text and one 64-text ``/search`` finding
-      themselves (≥ 95%), ``/remove`` of 5 never answered after; an IVF
+      themselves (≥ 95%), ``/remove`` of 5 never answered after; then a
+      query's 300 nearest documents removed: its k = 10 answer (512 a
+      shard over the tombstones, K2's large-k route counted: the kernels
+      line's launches) holds 10 live rows, none removed, the host's top 10
+      of the live documents where separated; an IVF
       ``ShardedSearchPipeline`` over the same documents (32 one-text
       requests, tombstones); save → load the same answers; K1's and K2's
       counters zeroed just before these pipelines are built and read after
@@ -429,7 +454,17 @@ Phases (any failure exits non-zero):
     ``library_device_ms``); K8's pass B has two rows (over the kept scores,
     and on the score tile); K1 and K2 also carry ``launches_sharded``, their
     launches in phase 14's counted window; K5 and K6 ``launches_distributed``,
-    theirs in phase 15's two counted steps.
+    theirs in phase 15's two counted steps. The large-k route has four
+    rows: K2's (``cosine_topk_large``: ms at k 1000, ``ms_by_k`` at 300,
+    1000 and 4096 beside ``library_ms_by_k``, launches in phase 14's
+    removal window), K3's (``cosine_topk_int8_large``, launches in phase
+    5's brute-force window), K8's pass A (``topk_2pass_fold_large``, k 300,
+    launches in its phase-2b window) and K1 / K4's exact scan
+    (``ivf_scan_large_k``, k 300; launches, the emit_acc and select launches
+    together and apart as ``launches_emit`` / ``launches_select``, in phase
+    3's and, with ``_int8``, phase 5's ``IVFIndex.query``; its bound is the
+    scan's own bytes and operations, ``candidates_ms`` the design's (U, B,
+    Mc) candidate round trip beside it).
  17. The card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every time is measured here, on this card, with CUDA events (kernels) or
@@ -626,6 +661,113 @@ def phase_topk(torch, card):
     }
 
 
+LARGE_KS = (300, 1000, 4096)
+
+
+def phase_large_k(torch, card):
+    """The large-k route (``csrc/topk_select.cu``) of K2 (f32, bf16) and K3
+    (int8) at k ∈ ``LARGE_KS`` on phase 2's corpus (Q 256 × N 100,003 × D
+    384, exact ties), against the plain versions: f32 and int8 ids equal
+    where the scores are separated, scores allclose 1e-5, and f32 at k 300
+    equal to the selector's answer at k 256 bit for bit on its first 256
+    (the same score bits, the same tie rule); bf16 id overlap ≥ 0.99. Each
+    time beside ``torch.topk(q @ cᵀ, k)``'s and the bound (the f32
+    operations, or the corpus read and the (Q, N) score write and read).
+    → the rows of the K2 and K3 routes (launches filled in by phases 14 and
+    5)."""
+    from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
+    from text_similarity_tpu_torch.ops import topk
+
+    corpus, queries = topk_inputs(torch)
+    n, d = corpus.shape
+    q = queries.contiguous()
+    qn = q.shape[0]
+    codes, scales = quantize_embeddings_int8(corpus)
+    kinds = {"f32": corpus, "bf16": corpus.to(torch.bfloat16).contiguous(), "int8": codes}
+
+    def run(kind, k, plain=False):
+        if kind == "int8":
+            fn = topk.cosine_topk_int8_reference if plain else topk.cosine_topk_int8_cuda
+            return fn(q, codes, scales, k)
+        fn = topk.cosine_topk_reference if plain else topk.cosine_topk_cuda
+        return fn(q, kinds[kind], k)
+
+    before = (topk.cosine_topk_cuda.launches, topk.cosine_topk_int8_cuda.launches)
+    worst = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
+    for kind in kinds:
+        for k in LARGE_KS:
+            ks, ki = run(kind, k)
+            rs, ri = run(kind, k + 1, plain=True)
+            torch.cuda.synchronize()
+            sorted_ok = bool((ks[:, 1:] <= ks[:, :-1]).all())
+            err, ok, detail = agree_topk(ks, ki, rs[:, :k], ri[:, :k], kind != "bf16",
+                                         next_scores=rs[:, k].cpu().numpy())
+            ov = overlap(ki.cpu().numpy(), ri[:, :k].cpu().numpy())
+            ok = ok and sorted_ok and ov >= 0.99
+            worst[kind] = max(worst[kind], err)
+            log(f"large-k route {kind} Q={qn} k={k}: max|Δscore| {err:.2e}, {detail}, id-set "
+                f"overlap {ov:.4f}, sorted {sorted_ok} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the large-k route ({kind}, k {k}) disagrees with its "
+                                     "plain version")
+    ls, li = topk.cosine_topk_cuda(q, corpus, 300)
+    ss, si = topk.cosine_topk_cuda(q, corpus, 256)
+    same = bool(torch.equal(ls[:, :256], ss) and torch.equal(li[:, :256], si))
+    log(f"large-k route at k 300 against the selector at k 256 (f32): first 256 bit-equal {same}")
+    after = (topk.cosine_topk_cuda.launches, topk.cosine_topk_int8_cuda.launches)
+    if not same or after != (before[0] + 1, before[1]):
+        raise AssertionError(f"the large-k route's first 256 differ from the selector's, or a "
+                             f"selector kernel ran above 256 (launches {before} -> {after})")
+
+    rows = []
+    for kind, name, replaces in (
+        ("f32", "cosine_topk_large", "text_similarity_tpu/ops/topk.py:307"),
+        ("int8", "cosine_topk_int8_large", "text_similarity_tpu/ops/topk.py:617"),
+    ):
+        by_k, lib_by_k, bound_by_k, bf16_by_k = {}, {}, {}, {}
+        for k in LARGE_KS:
+            by_k[k] = time_ms(torch, lambda: run(kind, k))
+            if kind == "int8":
+                lib_by_k[k] = time_ms(torch, lambda: torch.topk((q @ codes.float().T) * scales, k,
+                                                                dim=1))
+                c_bytes = n * d + n * 4
+            else:
+                lib_by_k[k] = time_ms(torch, lambda: torch.topk(q @ corpus.T, k, dim=1))
+                bf16_by_k[k] = time_ms(torch, lambda: run("bf16", k))
+                c_bytes = n * d * 4
+            # inputs once, the (Q, N) scores written and read once, the answer
+            bound_by_k[k] = bound_ms(qn * d * 4 + c_bytes + 2 * qn * n * 4 + qn * k * 8,
+                                     2.0 * qn * n * d, PEAK_F32)
+            bf16 = f", bf16 corpus {bf16_by_k[k]:.3f} ms" if bf16_by_k else ""
+            log(f"large-k route {kind} Q={qn} N={n} k={k} [{card}]: kernels {by_k[k]:.3f} ms"
+                f"{bf16}, torch.topk {lib_by_k[k]:.3f} ms, bound {bound_by_k[k][0]:.4f} ms "
+                f"({bound_by_k[k][1]})")
+        plain = time_ms(torch, lambda: run(kind, 1000, plain=True), iters=3, warmup=1)
+        b_ms, b_by = bound_by_k[1000]
+        if kind == "f32":
+            # where the time goes: the select kernel alone over these scores
+            scores = q @ corpus.T
+            select_by_k = {k: time_ms(torch, lambda: topk.topk_select_cuda(scores, k))
+                           for k in LARGE_KS}
+            del scores
+            log(f"large-k route f32 [{card}]: the select and sort alone over the (256, {n}) "
+                f"scores " + ", ".join(f"k {k} {v:.3f} ms" for k, v in select_by_k.items()))
+        row = {
+            "name": name, "route": "cuda", "source": "text_similarity_tpu_torch/csrc/topk_select.cu",
+            "replaces": replaces, "max_abs_err": worst[kind], "ms": by_k[1000], "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_by_k[1000],
+            "shape": f"Q={qn} N={n} D={d} k=1000 {kind}", "ms_by_k": by_k,
+            "bound_ms_by_k": {k: b for k, (b, _) in bound_by_k.items()},
+            "library_ms_by_k": lib_by_k,
+        }
+        if bf16_by_k:
+            row["ms_bf16_by_k"] = bf16_by_k
+            row["max_abs_err_bf16"] = worst["bf16"]
+            row["select_ms_by_k"] = select_by_k
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 2b: K8 (the certified two-pass top-k)
 # ---------------------------------------------------------------------------
@@ -759,6 +901,39 @@ def phase_topk_2pass(torch, card):
         if not ok:
             raise AssertionError("K8 did not fall back to K2 on the collision corpus")
 
+    # the large-k route: the call at k 300 (Q 256, f32), counted; pass A
+    # selects its classes' winners with the select kernel
+    q, c, k = queries[:256].contiguous(), corpora[torch.float32], 300
+    topk.topk_2pass_fold_cuda.launches_large = 0
+    before = topk.cosine_topk_2pass.fallbacks
+    ks, ki = topk.cosine_topk_2pass(q, c, k)
+    torch.cuda.synchronize()
+    large = topk.topk_2pass_fold_cuda.launches_large
+    fell = topk.cosine_topk_2pass.fallbacks > before
+    before = topk.cosine_topk_2pass.fallbacks
+    rs, ri = topk.cosine_topk_2pass_reference(q, c, k)
+    plain_fell = topk.cosine_topk_2pass.fallbacks > before
+    err300, ok, detail = agree_topk(ks, ki, rs, ri, True)
+    fs, fi = topk.topk_2pass_fold_cuda(q, c, k)
+    ps, pi = topk.topk_2pass_fold_plain(q, c, k, 2048)
+    ferr300, fok, fdetail = agree_topk(fs, fi, ps, pi, True)
+    ok = ok and fok and fell == plain_fell and large == 1
+    log(f"K8 large-k route f32 Q=256 k={k}: pass A's select launches {large}; fell back {fell} "
+        f"(plain {plain_fell}); against the plain version max|Δscore| {err300:.2e}, {detail}; "
+        f"pass A alone max|Δ| {ferr300:.2e}, {fdetail} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K8 at k 300 disagrees with its plain version")
+    ms_fold300 = time_ms(torch, lambda: topk.topk_2pass_fold_cuda(q, c, k))
+    ms_call300 = time_ms(torch, lambda: topk.cosine_topk_2pass(q, c, k))
+    plain_fold300 = time_ms(torch, lambda: topk.topk_2pass_fold_plain(q, c, k, 2048), iters=1,
+                            warmup=1)
+    lib300 = time_ms(torch, lambda: torch.topk(q @ c.T, k, dim=1))
+    fold300_b, fold300_by = bound_ms(q.shape[0] * d * 4 + n * d * 4 + q.shape[0] * k * 8,
+                                     2.0 * q.shape[0] * n * d, PEAK_F32)
+    log(f"K8 large-k times [{card}]: f32 Q=256 k={k}: pass A {ms_fold300:.3f} ms (plain "
+        f"{plain_fold300:.3f}), the call {ms_call300:.3f} ms with its fallback, torch.topk(q@cT) "
+        f"{lib300:.3f} ms, bound {fold300_b:.4f} ms ({fold300_by})")
+
     # times at the main shape: f32 corpus, Q = 256, k = 10
     q, c, k = queries[:256].contiguous(), corpora[torch.float32], 10
     qn = q.shape[0]
@@ -814,6 +989,12 @@ def phase_topk_2pass(torch, card):
          "launches": launches["count (scores)"], "max_abs_err": worst["count (scores)"],
          "ms": ms_count_scores, "plain_ms": plain_count_scores, "bound_ms": stream_b,
          "bound_by": stream_by, "library_ms": None},
+        {"name": "topk_2pass_fold_large", "route": "cuda",
+         "source": "text_similarity_tpu_torch/csrc/topk_select.cu",
+         "replaces": "text_similarity_tpu/ops/topk.py:445", "shape": f"Q={qn} N={n} D={d} k=300 f32",
+         "launches": large, "max_abs_err": max(err300, ferr300), "ms": ms_fold300,
+         "plain_ms": plain_fold300, "bound_ms": fold300_b, "bound_by": fold300_by,
+         "library_ms": lib300, "ms_call": ms_call300},
     ]
 
 
@@ -897,6 +1078,67 @@ def scan_at_requests(torch, ivf, encode, texts, k, kernel, card):
                    ks, ki, rs, ri, card)
 
 
+def ivf_large_k(torch, card, ivf, queries, kernel, k=300):
+    """The large-k route of K1 / K4 (``ivf_scan_large_k_cuda``: the tile's
+    emit_acc probe by probe, then the select kernel) in exact mode at k 300
+    for a 256-query slice: ``IVFIndex.query`` with the serving args and
+    ``approx_width=0`` counted (its scan at k_scan, 600 with the int8
+    index's rescore; emit_acc and select launches apart), then the scan
+    alone at the path's plan held to the plain scan (overlap ≥ 0.99,
+    |Δscore| ≤ 1e-4) and timed. Its bound is the function's own work: the
+    live rows of the probed slabs and their ids read once, the queries, the
+    (B, k) answer, 2·block_q·D·(live rows of each block's probes)
+    operations. The (U, B, Mc) candidates that this design writes and
+    reads back are its own overhead, printed apart (``candidates_ms`` at
+    the HBM rate), not part of the bound. → (launches dict, row fields)."""
+    from text_similarity_tpu_torch.index import ivf_modes
+    from text_similarity_tpu_torch.index.ivf import ivf_scan_cuda, ivf_scan_reference
+
+    route = ivf_modes.ivf_scan_large_k_cuda
+    qargs = dict(k=k, block_q=64, union_factor=1, approx_width=0)
+    route.launches_emit = route.launches_select = 0
+    s, i = ivf.query(queries, **qargs)
+    torch.cuda.synchronize()
+    counts = {"launches": route.launches_emit + route.launches_select,
+              "launches_emit": route.launches_emit, "launches_select": route.launches_select}
+    live = int((i >= 0).sum(dim=1).min())
+    log(f"{kernel} IVFIndex.query at k {k}, exact, {queries.shape[0]} queries: large-k route "
+        f"emit_acc launches {counts['launches_emit']}, select launches "
+        f"{counts['launches_select']}, answer {tuple(s.shape)}, live results a query ≥ {live}")
+    if not (counts["launches_emit"] and counts["launches_select"]) \
+            or tuple(s.shape) != (queries.shape[0], k):
+        raise AssertionError(f"{kernel} at k {k} did not take the large-k route")
+    q_s, probes, _, block_q = serving_plan(ivf, queries)
+    args = (q_s, probes, ivf.data_padded, ivf.ids_padded, k, block_q, 0, 1)
+    sc = ivf.scales_padded
+    ks, ki = ivf_scan_cuda(*args, scales=sc)
+    rs, ri = ivf_scan_reference(*args, scales=sc)
+    torch.cuda.synchronize()
+    n_q, d = q_s.shape
+    mc = ivf.data_padded.shape[1]
+    u = probes.shape[1]
+    ms = time_ms(torch, lambda: ivf_scan_cuda(*args, scales=sc), iters=5, warmup=1)
+    err = check_pair(f"{kernel} exact at k {k} through the large-k route (B {n_q}, U {u}, "
+                     f"Mc {mc}, block_q {block_q})", ks, ki, rs, ri, card)
+    plain = time_ms(torch, lambda: ivf_scan_reference(*args, scales=sc), iters=1, warmup=1)
+    ms_query = time_ms(torch, lambda: ivf.query(queries, **qargs), iters=3, warmup=1)
+    valid = (ivf.ids_padded >= 0).sum(dim=1)
+    slabs = torch.unique(probes[probes >= 0])
+    row_bytes = d + 4 if sc is not None else d * 2
+    n_bytes = (float(valid[slabs].sum()) * row_bytes + slabs.numel() * mc * 4 + n_q * d * 4
+               + n_q * k * 8)
+    ops = 2.0 * block_q * d * float(valid[probes[probes >= 0].long()].sum())
+    b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
+    cand_ms = 2 * n_q * u * mc * 8 / PEAK_BYTES * 1e3
+    log(f"{kernel} large-k times [{card}]: the scan at k {k} {ms:.3f} ms (plain {plain:.3f} ms), "
+        f"IVFIndex.query {ms_query:.3f} ms; bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.2f} GFLOP); the design's candidate write and read-back "
+        f"{cand_ms:.4f} ms more at the HBM rate")
+    return counts, {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "candidates_ms": cand_ms, "ms_query": ms_query,
+                    "shape": f"B={n_q} U={u} Mc={mc} D={d} k={k} exact"}
+
+
 def phase_ivf(torch, card):
     from text_similarity_tpu_torch.core.config import IndexConfig
     from text_similarity_tpu_torch.index.ivf import IVFIndex, ivf_scan_cuda, ivf_scan_reference
@@ -966,7 +1208,12 @@ def phase_ivf(torch, card):
     ops = 2.0 * block_q * d * float(per_block.sum())
     b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
     log(f"K1 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
+    large_launches, large = ivf_large_k(torch, card, ivf, queries[:256].contiguous(), "K1")
     return {
+        "large_k": {"name": "ivf_scan_large_k", "route": "cuda",
+                    "source": "text_similarity_tpu_torch/csrc/topk_select.cu",
+                    "replaces": "text_similarity_tpu/index/ivf.py:1945",
+                    "library_ms": None, **large_launches, **large},
         "name": "ivf_scan", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/ivf_tile.cu",
         "replaces": "text_similarity_tpu/index/ivf.py:1945",
@@ -1343,7 +1590,9 @@ def phase_int8_topk(torch, card):
     ms, lib, (b_ms, b_by) = by_q[256], lib_by_q[256], bound_by_q[256]
     log(f"K3 times [{card}]: int8 Q=256 k=10 kernel {ms:.3f} ms, plain {plain:.3f} ms, "
         f"torch.topk((q@c.float()T)*s) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    large = int8_brute_large_k(torch, card, corpus, queries[:64].contiguous())
     return {
+        "launches_large": large,
         "name": "cosine_topk_int8", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/topk.cu",
         "replaces": "text_similarity_tpu/ops/topk.py:617",
@@ -1353,6 +1602,36 @@ def phase_int8_topk(torch, card):
         "ms_by_q": by_q, "bound_ms_by_q": {q_n: b for q_n, (b, _) in bound_by_q.items()},
         "library_ms_by_q": lib_by_q,
     }
+
+
+def int8_brute_large_k(torch, card, corpus, queries, k=200):
+    """The int8 ``BruteForceIndex`` over phase 5's corpus at k 200: its 2k
+    over-fetch (400) takes K3's large-k route, counted; the answer against
+    the plain version (ids equal where the scores are separated, |Δ| ≤
+    1e-5). → the route's launches."""
+    from text_similarity_tpu_torch.index import BruteForceIndex, EmbeddingStore
+    from text_similarity_tpu_torch.ops.topk import (
+        cosine_topk_int8_reference, cosine_topk_large_cuda,
+    )
+
+    store = EmbeddingStore(corpus.shape[0], corpus.shape[1], quantized=True, device="cuda")
+    store.add(corpus)
+    codes, scales = store.view, store.scales_view
+    cosine_topk_large_cuda.launches_int8 = 0
+    s, i = BruteForceIndex(store).query(queries, k=k)
+    launches = cosine_topk_large_cuda.launches_int8
+    rs, ri = cosine_topk_int8_reference(queries, codes, scales, k + 1)
+    rs, ri = rs.cpu().numpy(), ri.cpu().numpy()
+    err = float(np.abs(s - rs[:, :k]).max())
+    ok = (launches == 1 and err <= 1e-5
+          and separated_ids_equal(i, ri[:, :k], rs[:, :k], next_scores=rs[:, k]))
+    log(f"int8 BruteForceIndex.query at k {k} (Q {queries.shape[0]}, the 2k over-fetch through "
+        f"K3's large-k route): launches {launches}, max|Δscore| {err:.2e} [{card}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 brute-force answer at k 200 disagrees with K3's plain "
+                             "version, or did not take the large-k route once")
+    return launches
 
 
 def phase_int8_ivf(torch, card, corpus, queries, exact):
@@ -1432,7 +1711,9 @@ def phase_int8_ivf(torch, card, corpus, queries, exact):
     ops = 2.0 * block_q * d * float(valid[args[1].long()].sum())
     b_ms, b_by = bound_ms(n_bytes, ops, PEAK_BF16)
     log(f"K4 bound [{card}]: {n_bytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP -> {b_ms:.4f} ms ({b_by})")
+    large_launches, large = ivf_large_k(torch, card, ivf, queries[:256].contiguous(), "K4")
     return {
+        "large_k": {f"{key}_int8": v for key, v in {**large_launches, **large}.items()},
         "name": "ivf_scan_int8", "route": "cuda",
         "source": "text_similarity_tpu_torch/csrc/ivf_tile.cu",
         "replaces": "text_similarity_tpu/index/ivf.py:1945 (_ivf_kernel_int8 :1709)",
@@ -4527,7 +4808,56 @@ def export_records(torch, card, ctx, tmp):
         f"max|Δ| {err:.3e} (limit 1e-5); {ms:.3f} ms a call, eager {eager_ms:.3f} ms [{card}]")
     if err > 1e-5 or f["platforms"] != ["cuda"]:
         raise AssertionError(f"export: max|Δ| {err}, platforms {f['platforms']}")
-    return {"export_ms": ms, "eager_int8_ms": eager_ms}
+    return {"export_ms": ms, "eager_int8_ms": eager_ms, **long_export_records(torch, card, ctx, tmp)}
+
+
+def long_export_records(torch, card, ctx, tmp):
+    """b 2 × s 4096 int8: phase 6's roberta-base at 4,098 positions (window
+    256 + CLS), exported on the card, where the eager encoder runs K5: the
+    program carries K5's op. Reloaded on the card it must equal the eager
+    int8 encoder (max |Δ| ≤ 1e-5, the short export's gate) and move K5's
+    counter by the 12 layers on each call."""
+    from text_similarity_tpu_torch.compress.export import (
+        export_encoder, load_exported_fn, load_exported_params,
+    )
+    from text_similarity_tpu_torch.models import SentenceEncoder
+    from text_similarity_tpu_torch.ops.attention import flash_attention_cuda
+
+    params, arch = long_arch_params(torch)
+    enc = SentenceEncoder(params, arch, tokenizer=ctx["tok"], device="cuda")
+    path = os.path.join(tmp, "bundle_4096")
+    t = time.time()
+    manifest = export_encoder(enc, path, batch_sizes=(2,), seq_lens=(4096,))
+    dt = time.time() - t
+    (f,) = manifest["functions"]
+    fn = load_exported_fn(path, f["name"])
+    shipped = load_exported_params(path, device="cuda")
+    rng = np.random.default_rng(12)
+    docs = long_documents(ctx["tok"], ctx["corpus"][:24_000], rng, 2, 0)
+    ids_np, mask_np = ctx["tok"].encode_batch(docs, 4096, pad_to=4096)
+    ids, mask = torch.as_tensor(ids_np).cuda(), torch.as_tensor(mask_np).cuda()
+    eager = SentenceEncoder(params, arch, tokenizer=ctx["tok"], device="cuda")
+    eager.to_int8()
+    launches = []
+    with torch.no_grad():
+        for _ in range(2):
+            before = flash_attention_cuda.launches
+            got = fn(shipped, ids, mask)
+            torch.cuda.synchronize()
+            launches.append(flash_attention_cuda.launches - before)
+        want = eager.embed_tokens(ids_np, mask_np)
+        err = float((got - want).abs().max())
+        ms = time_ms(torch, lambda: fn(shipped, ids, mask), iters=5, warmup=1)
+        eager_ms = time_ms(torch, lambda: eager.embed_tokens(ids_np, mask_np), iters=5, warmup=1)
+    ok = err <= 1e-5 and launches == [arch.num_layers] * 2 and f["platforms"] == ["cuda"]
+    log(f"export at 4096: {f['name']} (roberta-base-long int8, {f['bytes']} bytes, lengths "
+        f"{mask_np.sum(axis=1).tolist()}) traced in {dt:.1f} s; K5 launches a call {launches} "
+        f"(12 layers); reloaded program vs the eager int8 encoder max|Δ| {err:.3e} (limit "
+        f"1e-5); {ms:.3f} ms a call, eager {eager_ms:.3f} ms [{card}] -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"export at 4096: max|Δ| {err}, K5 launches {launches}")
+    return {"export_4096_ms": ms, "eager_int8_4096_ms": eager_ms}
 
 
 def wic_rows(rng, corpus, n):
@@ -5361,6 +5691,7 @@ def sharded_pipeline_records(torch, card, ctx):
     launches = {"cosine_topk": cosine_topk_cuda.launches, "ivf_scan": ivf_scan_cuda.launches}
     log(f"sharded IVF pipeline: one-text requests {ivf_hits}/32 find themselves; after "
         f"removing 5, {ivf_back} of them answered; launches in the counted window {launches}")
+    launches["cosine_topk_large"] = nearest_removed(torch, card, brute, docs[picks[40]])
     merged = sharded_requests_held(torch, card, enc, brute, ivf_pipe,
                                    {"one-text": [docs[picks[0]]],
                                     "64-text": [docs[j] for j in picks[32:]]})
@@ -5399,6 +5730,46 @@ def sharded_pipeline_records(torch, card, ctx):
     return launches
 
 
+def nearest_removed(torch, card, brute, text):
+    """The sharded brute-force pipeline with a query's 300 nearest
+    documents removed: its k = 10 answer over-fetches past the tombstones
+    (512 a shard, K2's large-k route) and must hold 10 live rows, none of
+    the removed, equal to the host's top 10 of the live documents where the
+    scores are separated. The window from the k = 300 answer to the k = 10
+    one counted. → the large-k route's launches."""
+    from text_similarity_tpu_torch.ops.topk import cosine_topk_large_cuda
+
+    cosine_topk_large_cuda.launches = 0
+    near = brute([text], max_num_results=300)[0]
+    removed = [i for _, _, i in near]
+    gone = brute.remove_documents(removed)
+    t = time.time()
+    row = brute([text], max_num_results=10)[0]
+    ms = (time.time() - t) * 1e3
+    launches = cosine_topk_large_cuda.launches
+    emb = brute._emb
+    q = np.asarray(brute.encoder.encode([text]), np.float32)[0]
+    sc = emb @ q
+    sc[sorted(brute._removed)] = -np.inf
+    order = np.argsort(-sc, kind="stable")[:11]
+    got_i = np.array([[i for _, _, i in row]])
+    got_s = np.array([[s_ for _, s_, _ in row]])
+    same = separated_ids_equal(got_i, order[None, :10], sc[order][None, :10],
+                               next_scores=sc[order][None, 10])
+    err = float(np.abs(got_s - sc[order][None, :10]).max())
+    ok = (len(row) == 10 and gone == 300 and not set(got_i[0]) & set(removed) and same
+          and err <= 1e-4 and launches > 0)
+    log(f"sharded brute force with the query's 300 nearest removed: {len(row)} live rows, "
+        f"removed ids among them {len(set(got_i[0]) & set(removed))}, equal to the host's top "
+        f"10 of the live documents where separated {same} (max|Δscore| {err:.2e}); K2 large-k "
+        f"launches from the k 300 answer to the k 10 one {launches}; the k 10 request "
+        f"{ms:.1f} ms [{card}, {ONE_CARD}] -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sharded brute-force pipeline's answer after removing the 300 "
+                             "nearest documents is wrong")
+    return launches
+
+
 def sharded_requests_held(torch, card, enc, brute, ivf_pipe, requests):
     """K1 and K2 at the shapes the sharded pipelines gave them, after the
     removals: each request's texts encoded and padded as ``__call__`` does;
@@ -5408,13 +5779,13 @@ def sharded_requests_held(torch, card, enc, brute, ivf_pipe, requests):
     at the over-fetched k after them (``k + n_pad`` a shard). → whether
     every merge was bit-equal."""
     from text_similarity_tpu_torch.index.sharded import _unpack_results
-    from text_similarity_tpu_torch.ops.topk import MAX_K, l2_normalize
+    from text_similarity_tpu_torch.ops.topk import l2_normalize
     from text_similarity_tpu_torch.pipelines.search import _pad_pow2
 
     idx = brute.index
     fetch = 1 << (10 + len(brute._removed) - 1).bit_length()
-    k_local = sorted({min(k + idx.n_pad, idx.shard_rows, MAX_K)
-                      for k in (10, min(fetch, len(brute.corpus), MAX_K))})
+    k_local = sorted({min(k + idx.n_pad, idx.shard_rows)
+                      for k in (10, min(fetch, len(brute.corpus)))})
     merged, tiles, held = True, 0, 0
     for label, texts in requests.items():
         q = _pad_pow2(enc.encode(texts, device_output=True))
@@ -6078,11 +6449,15 @@ def main() -> int:
     log(f"kernels built in {time.time() - t:.1f} s")
 
     k2 = phase_topk(torch, card)
+    k2_large, k3_large = phase_large_k(torch, card)
     k8 = phase_topk_2pass(torch, card)
     k1, (corpus, queries, exact, ivf) = phase_ivf(torch, card)
+    k1_large = k1.pop("large_k")
     launches, ctx = phase_pipeline(torch, card)
     k3 = phase_int8_topk(torch, card)
+    k3_large["launches"] = k3.pop("launches_large")
     k4, ivf8 = phase_int8_ivf(torch, card, corpus, queries, exact)
+    k1_large.update(k4.pop("large_k"))
     modes = phase_ivf_options(torch, card, ivf, ivf8, corpus, queries, exact)
     del ivf8
     launches8 = phase_int8_pipeline(torch, card, ctx)
@@ -6101,10 +6476,11 @@ def main() -> int:
     phase_moe_performer(torch, card, ctx)
     sharded = phase_distributed(torch, card, ctx, corpus, queries, exact.cpu().numpy(), ivf)
     distributed = phase_distributed_training(torch, card, ctx, pairs)
-    kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes]
+    kernels = [k1, k2, k3, k4, k5, k6, k7, *k8, *modes, k2_large, k3_large, k1_large]
     for kern in (k1, k2):
         kern["launches"] = launches[kern["name"]]
         kern["launches_sharded"] = sharded[kern["name"]]
+    k2_large["launches"] = sharded["cosine_topk_large"]
     k5["launches_distributed"], k6["launches_distributed"] = distributed["K5"], distributed["K6"]
     for kern in (k3, k4):
         kern["launches"] = launches8[kern["name"]]

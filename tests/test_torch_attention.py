@@ -158,7 +158,9 @@ def test_auto_runs_the_reference_on_cpu(monkeypatch):
 
     q, k, v = (torch.from_numpy(x) for x in _qkv(seed=4, s=256))
     calls = []
-    monkeypatch.setattr(attn, "flash_attention_plain", lambda *a, **kw: calls.append("plain"))
+    plain = attn.flash_attention_plain   # its answer goes on through K5's registered op
+    monkeypatch.setattr(attn, "flash_attention_plain",
+                        lambda *a, **kw: calls.append("plain") or plain(*a, **kw))
     multi_head_attention(q, k, v, impl="auto", window=16, window_global_cls=True)
     assert calls == []
     multi_head_attention(q, k, v, impl="flash", window=16, window_global_cls=True)

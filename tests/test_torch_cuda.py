@@ -50,6 +50,7 @@ from text_similarity_tpu_torch.ops.topk import (
     cosine_topk_2pass,
     cosine_topk_2pass_reference,
     cosine_topk_cuda,
+    cosine_topk_large_cuda,
     cosine_topk_int8,
     cosine_topk_int8_cuda,
     cosine_topk_int8_reference,
@@ -58,6 +59,7 @@ from text_similarity_tpu_torch.ops.topk import (
     topk_2pass_count_plain,
     topk_2pass_fold_cuda,
     topk_2pass_fold_plain,
+    topk_select_cuda,
 )
 from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
 
@@ -119,7 +121,7 @@ def test_topk_kernel_rejects_bad_inputs(cuda):
     x = torch.nn.functional.normalize(torch.randn(1000, 64, device=cuda), dim=1)
     q = x[:4].contiguous()
     with pytest.raises(ValueError):
-        cosine_topk_cuda(q, x, k=257)
+        cosine_topk_cuda(q, x, k=1001)                    # k > N
     with pytest.raises(ValueError):
         cosine_topk_cuda(q, x.T.contiguous().T, k=5)      # not contiguous
     with pytest.raises(TypeError):
@@ -1570,7 +1572,7 @@ def test_k8_collision_falls_back_to_k2(cuda, dtype):
 
 
 def test_k8_refuses_what_it_cannot_run(cuda):
-    """CPU tensors, D not a multiple of 32, k above 256, a block_c out of
+    """CPU tensors, D not a multiple of 32, k above N, a block_c out of
     range: no launch."""
     x = torch.nn.functional.normalize(torch.randn(1000, 64, device=cuda), dim=1)
     q = x[:4].contiguous()
@@ -1582,7 +1584,7 @@ def test_k8_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError):
         topk_2pass_fold_cuda(q[:, :40].contiguous(), x[:, :40].contiguous(), 5)
     with pytest.raises(ValueError):
-        topk_2pass_fold_cuda(q, x, 257)
+        topk_2pass_fold_cuda(q, x, 1001)
     with pytest.raises(ValueError):
         topk_2pass_fold_cuda(q, x, 5, block_c=0)
     assert _k8_counts() == before
@@ -1988,7 +1990,9 @@ def test_export_bundle_on_card(cuda, tmp_path):
     """``export_encoder`` on the card (b 2, s 16, int8): the program records
     the card as its platform, and reloaded with its params on the card it
     equals the eager int8 encoder there (max |Δ| ≤ 1e-5); at 4096 tokens,
-    where the eager encoder runs K5, the export is refused."""
+    where the eager encoder runs K5, the program carries K5's op: reloaded
+    it equals the eager int8 encoder (max |Δ| ≤ 1e-5) and launches K5 once
+    a layer a call."""
     from text_similarity_tpu_torch.compress.export import (
         export_encoder, load_exported_fn, load_exported_params,
     )
@@ -2008,9 +2012,24 @@ def test_export_bundle_on_card(cuda, tmp_path):
     want = SentenceEncoder(params, arch, precision=FP32_PRECISION, device="cuda").to_int8() \
         .embed_tokens(ids.cpu().numpy(), mask.cpu().numpy())
     assert float((got - want).abs().max()) <= 1e-5
-    with pytest.raises(ValueError, match=r"K5"):
-        export_encoder(enc, str(tmp_path / "long"), batch_sizes=(1,), seq_lens=(4096,))
-    assert not (tmp_path / "long").exists()
+    long_arch = arch.replace(max_position=4096, num_heads=2)      # head dim 32
+    long_params = init_params(long_arch, torch.Generator().manual_seed(1))
+    long_enc = SentenceEncoder(long_params, long_arch, precision=FP32_PRECISION, device="cuda")
+    (f,) = export_encoder(long_enc, str(tmp_path / "long"), batch_sizes=(1,),
+                          seq_lens=(4096,))["functions"]
+    fn = load_exported_fn(str(tmp_path / "long"), f["name"])
+    shipped = load_exported_params(str(tmp_path / "long"), device="cuda")
+    ids = torch.randint(5, arch.vocab_size, (1, 4096), device=cuda, dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[0, 3000:] = 0
+    before = flash_attention_cuda.launches
+    got = fn(shipped, ids, mask)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + long_arch.num_layers
+    want = SentenceEncoder(long_params, long_arch, precision=FP32_PRECISION,
+                           device="cuda").to_int8().embed_tokens(ids.cpu().numpy(),
+                                                                 mask.cpu().numpy())
+    assert float((got - want).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("k", [64, 384])
@@ -2303,3 +2322,204 @@ def test_dryrun_multichip_on_the_card(cuda):
     out = dryrun_multichip(4)
     assert out["recall_at_10"] >= 0.9 and np.isfinite(out["loss"])
     assert cosine_topk_cuda.launches > before[0] and ivf_scan_cuda.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# The large-k route (csrc/topk_select.cu): k above the selectors' 256
+# ---------------------------------------------------------------------------
+
+def _large_k_data(cuda, q_n, n=30_011, d=64, seed=21):
+    """Unit rows with three copies of each query's source row and 500 more
+    duplicated rows (exact ties at the top and inside a large k)."""
+    rng = np.random.default_rng(seed)
+    x = _unit(rng.standard_normal((n, d)))
+    src = rng.choice(n // 3, q_n, replace=False)
+    dst = rng.choice(np.arange(n // 3, n), 2 * q_n + 500, replace=False)
+    x[dst[:q_n]] = x[src]
+    x[dst[q_n:2 * q_n]] = x[src]
+    x[dst[2 * q_n:]] = x[rng.choice(n // 3, 500)]
+    q = _unit(x[src] + 0.05 * rng.standard_normal((q_n, d)))
+    return torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("q_n,k", [(1, 257), (7, 300), (64, 1000), (5, 8193), (2, 20011)])
+def test_large_k_route_matches_plain(cuda, kind, q_n, k):
+    """K2 (f32, bf16) and K3 (int8) above 256 take the large-k route (no
+    launch of the selector kernels): scores allclose 1e-5, sorted; f32 and
+    int8 ids equal where separated, bf16 overlap ≥ 0.99; past 8,192
+    winners the merge passes run."""
+    q, x = _large_k_data(cuda, q_n)
+    before = (cosine_topk_cuda.launches, cosine_topk_int8_cuda.launches,
+              cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8)
+    if kind == "int8":
+        codes, scales = quantize_embeddings_int8(x)
+        ks, ki = cosine_topk_int8_cuda(q, codes, scales, k)
+        rs, ri = cosine_topk_int8_reference(q, codes, scales, k)
+    else:
+        c = x.to(torch.bfloat16) if kind == "bf16" else x
+        ks, ki = cosine_topk_cuda(q, c, k)
+        rs, ri = cosine_topk_reference(q, c, k)
+    torch.cuda.synchronize()
+    after = (cosine_topk_cuda.launches, cosine_topk_int8_cuda.launches,
+             cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8)
+    assert after == (before[0], before[1], before[2] + 1)
+    assert bool((ks[:, 1:] <= ks[:, :-1]).all())
+    _assert_agree(ks, ki, rs, ri, kind != "bf16")
+
+
+@pytest.mark.parametrize("rows,n,k", [(3, 5000, 700), (2, 300, 500), (4, 40_000, 9000),
+                                      (1, 70_000, 70_000)])
+def test_select_kernel_is_exact_on_ties(cuda, rows, n, k):
+    """The select kernel against the plain (score desc, id asc) order, bit
+    for bit: scores on a 1/8 grid (ties everywhere, −0 beside +0), ids a
+    permutation; k past n pads (−inf, −1); past 8,192 the merge passes."""
+    g = torch.Generator().manual_seed(n)
+    s = torch.round(torch.randn((rows, n), generator=g) * 8) / 8
+    s[:, ::7] = -0.0
+    i = torch.stack([torch.randperm(n, generator=g) for _ in range(rows)]).to(torch.int32)
+    before = topk_select_cuda.launches
+    ks, ki = topk_select_cuda(s.to(cuda), k, i.to(cuda))
+    ps, pi = topk_select_cuda(s.to(cuda), k)                 # ids: positions
+    torch.cuda.synchronize()
+    assert topk_select_cuda.launches == before + 2
+    kk = min(k, n)
+    order = np.lexsort((i.numpy(), -s.numpy()), axis=1)[:, :kk]
+    assert np.array_equal(ki.cpu().numpy()[:, :kk], np.take_along_axis(i.numpy(), order, 1))
+    assert np.array_equal(ks.cpu().numpy()[:, :kk], np.take_along_axis(s.numpy(), order, 1))
+    by_pos = np.lexsort((np.arange(n)[None].repeat(rows, 0), -s.numpy()), axis=1)[:, :kk]
+    assert np.array_equal(pi.cpu().numpy()[:, :kk], by_pos)
+    if k > n:
+        assert bool((ks[:, n:] == -float("inf")).all()) and bool((ki[:, n:] == -1).all())
+
+
+def test_select_kernel_reads_segments_in_place(cuda):
+    """(U, R, M) per-probe scores read as R rows of U·M candidates equal the
+    select over the rows laid out flat."""
+    g = torch.Generator().manual_seed(3)
+    s = torch.randn((6, 5, 200), generator=g)
+    i = torch.randint(0, 1 << 20, (6, 5, 200), generator=g, dtype=torch.int32)
+    i[:, :, ::9] = -1
+    s[:, :, ::9] = -float("inf")
+    ks, ki = topk_select_cuda(s.to(cuda), 900, i.to(cuda), segments=True)
+    flat_s = s.permute(1, 0, 2).reshape(5, 1200)
+    flat_i = i.permute(1, 0, 2).reshape(5, 1200)
+    ws, wi = topk_select_cuda(flat_s.to(cuda), 900, flat_i.to(cuda))
+    assert torch.equal(ks, ws) and torch.equal(ki, wi)
+
+
+def _large_k_counts():
+    """(emit_acc, packet, select) launches of the IVF's large-k route."""
+    fn = ivf_modes.ivf_scan_large_k_cuda
+    return fn.launches_emit, fn.launches_pack, fn.launches_select
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_large_k_ivf_scans_match_plain(cuda, dtype):
+    """K1 / K4 at k 300 on the card: exact (U·Mc = 1200 candidates, one
+    block's probe −1), per_probe (k past Mc: padded), the deferred fold at
+    (200, 2) — each from emit_acc's scores through the select kernel —
+    against the plain scan at k + 1; none runs the tile's selection."""
+    q, probes, data, ids, scales = _scan_inputs(cuda, dtype, 64)
+    cases = [dict(), dict(per_probe=True), dict(approx_width=200, acc_slots=2)]
+    for opts in cases:
+        before = _large_k_counts()
+        counts = _mode_counts()
+        empty_s, _ = ivf_scan_cuda(q[:0], probes[:0], data, ids, 300, 8, scales=scales, **opts)
+        assert _large_k_counts() == before and empty_s.numel() == 0
+        ks, ki = ivf_scan_cuda(q, probes, data, ids, 300, 8, scales=scales, **opts)
+        torch.cuda.synchronize()
+        # one emit_acc and one select launch (one chunk of query blocks)
+        assert _large_k_counts() == (before[0] + 1, before[1], before[2] + 1)
+        assert _mode_counts() == counts
+        w = opts.get("approx_width", 0)
+        rs, ri = ivf_scan_reference(q.cpu(), probes.cpu(), data.cpu(), ids.cpu(), 301, 8, w,
+                                    opts.get("acc_slots", 1),
+                                    None if scales is None else scales.cpu(),
+                                    per_probe=opts.get("per_probe", False))
+        _agree_flat(ks, ki, rs, ri, dtype)
+
+
+def test_large_k_ivf_modes_match_plain(cuda):
+    """K10, K11a, K11b and K9 past 256 on the card (their fold from
+    emit_acc's scores, then the select kernel; K9's packets on int keys)
+    against their plain versions."""
+    from text_similarity_tpu_torch.index.ivf_modes import PACK_SCALE, _unpack_candidates
+
+    q, probes, data, ids, _ = _scan_inputs(cuda, torch.bfloat16, 64, mc=512)
+    for fn, plain, extra in (
+        (ivf_modes.ivf_scan_dma_cuda, ivf_modes.ivf_scan_dma_reference, (2, 2)),
+        (ivf_modes.ivf_scan_multiprobe_cuda, ivf_modes.ivf_scan_multiprobe_reference, (3,)),
+    ):
+        ks, ki = fn(q, probes, data, ids, 300, 8, *extra)
+        rs, ri = plain(q.cpu(), probes.cpu(), data.cpu(), ids.cpu(), 300, 8, *extra)
+        _agree_flat(ks, ki, *(torch.cat([t, t[:, -1:]], 1) for t in (rs, ri)), torch.bfloat16)
+    qs, ps, ds, _, _ = _scan_inputs(cuda, torch.bfloat16, 65, mc=512, sentinel=True)
+    ks, ki = ivf_modes.ivf_scan_idless_cuda(qs, ps, ds, 300, 8, 512)
+    rs, ri = ivf_modes.ivf_scan_idless_reference(qs.cpu(), ps.cpu(), ds.cpu(), 300, 8, 512)
+    _agree_flat(ks, ki, *(torch.cat([t, t[:, -1:]], 1) for t in (rs, ri)), torch.bfloat16)
+    for width, slots in ((512, 1), (256, 2)):
+        before = _large_k_counts()
+        kp = ivf_modes.ivf_scan_packed_cuda(q, probes, data, ids, 300, 8, width, slots)
+        rp = ivf_modes.ivf_scan_packed_reference(q, probes, data, ids, 300, 8, width, slots)
+        torch.cuda.synchronize()
+        # emit_acc, the packet kernel, then the class select and the final one
+        assert _large_k_counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+        assert bool((kp[:, 1:] <= kp[:, :-1]).all())
+        ks, ki = (t.cpu().numpy() for t in _unpack_candidates(kp, probes, ids, 8))
+        rs, ri = (t.cpu().numpy() for t in _unpack_candidates(rp, probes, ids, 8))
+        col = np.arange(300)
+        assert _overlap(np.where(ki < 0, -1 - col, ki), np.where(ri < 0, -1 - col, ri)) >= 0.99
+        np.testing.assert_allclose(np.sort(ks, 1), np.sort(rs, 1), atol=1.0 / PACK_SCALE + 1e-6)
+        assert (kp.cpu().numpy() == rp.cpu().numpy()).mean() >= 0.95
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [300, 2100])
+def test_k8_large_k_matches_plain(cuda, dtype, k):
+    """K8 past 256: pass A selects its classes' winners with the select
+    kernel (past block_c 2048 the rounds' (−inf, lowest id) tail) against
+    the plain k rounds; the call against its plain version."""
+    q, x = _large_k_data(cuda, 4)
+    c = x.to(dtype)
+    before = topk_2pass_fold_cuda.launches_large
+    ks, ki = topk_2pass_fold_cuda(q, c, k)
+    rs, ri = topk_2pass_fold_plain(q.cpu(), c.cpu(), k, 2048)
+    torch.cuda.synchronize()
+    assert topk_2pass_fold_cuda.launches_large == before + 1
+    n_cls = min(k, 2048)
+    _assert_agree(ks[:, :n_cls], ki[:, :n_cls], rs[:, :n_cls], ri[:, :n_cls],
+                  dtype == torch.float32)
+    if k > 2048:
+        assert bool((ks[:, n_cls:] == -float("inf")).all())
+        assert torch.equal(ki[:, n_cls:].cpu(), ri[:, n_cls:])
+    ks, ki = cosine_topk_2pass(q, c, k)
+    rs, ri = cosine_topk_2pass_reference(q.cpu(), c.cpu(), k)
+    _assert_agree(ks, ki, rs, ri, dtype == torch.float32)
+
+
+def test_large_k_never_sorts_or_falls_back(cuda, monkeypatch):
+    """Past 256 no selection on a CUDA tensor reaches torch.topk,
+    torch.sort, torch.argsort or a plain version: K2, K3, K8, the IVF exact
+    scan, the sharded merge."""
+    from text_similarity_tpu_torch.ops.topk import select_topk
+
+    q, x = _large_k_data(cuda, 8)
+    codes, scales = quantize_embeddings_int8(x)
+    sq, sp, sd, si, _ = _scan_inputs(cuda, torch.bfloat16, 64)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a sort or a plain version ran on CUDA tensors")
+
+    for name in ("topk", "sort", "argsort"):
+        monkeypatch.setattr(torch, name, refuse)
+    for name in ("cosine_topk_reference", "exact_merge_rounds", "topk_2pass_fold_plain"):
+        monkeypatch.setattr(topk_mod, name, refuse)
+    monkeypatch.setattr(ivf_modes, "scan_plain", refuse)
+    cosine_topk_cuda(q, x, 1000)
+    cosine_topk_int8_cuda(q, codes, scales, 1000)
+    cosine_topk_2pass(q, x, 300)
+    ivf_scan_cuda(sq, sp, sd, si, 300, 8)
+    select_topk(torch.randn((3, 4, 500), device=cuda),
+                torch.randint(0, 9999, (3, 4, 500), device=cuda, dtype=torch.int32), 1000)
+    torch.cuda.synchronize()

@@ -3,7 +3,9 @@ the CPU at b 2 × s 16, beside the JAX package's StableHLO bundle of the
 same tiny-test encoder: the manifest's keys, the reloaded program against
 the eager int8 encoder, the params read by the JAX package's
 ``restore_checkpoint_raw`` and the JAX bundle's params loaded by the port,
-and the ``export`` command."""
+and the ``export`` command; K5's registered op under ``torch.library``'s
+checks, and a CPU export that the attention rule sends to flash, whose
+graph holds the op."""
 
 import contextlib
 import io
@@ -29,6 +31,7 @@ from text_similarity_tpu_torch.compress.export import load_exported_fn, load_exp
 from text_similarity_tpu_torch.core import checkpoint as ckpt
 from text_similarity_tpu_torch.data.tokenization import WordPieceTokenizer, train_wordpiece_vocab
 from text_similarity_tpu_torch.models import SentenceEncoder, params_from_jax
+from text_similarity_tpu_torch.ops import attention as attn
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -148,17 +151,76 @@ def test_export_command(bundles):
     assert bundles["manifest"]["int8"] is True and meta == {"int8": True}
 
 
-@pytest.mark.parametrize("seq_lens", [(4096,), (128, 8192)])
-def test_export_refuses_lengths_where_the_card_runs_k5(tmp_path, seq_lens):
-    """An encoder on the card whose eager path would run K5 at a requested
-    length (S % 128 == 0, S ≥ 4096) is refused before anything is written:
-    the program could carry only the plain attention. The check reads the
-    device alone, so an encoder that names the card stands in here."""
-    from types import SimpleNamespace
+@pytest.mark.parametrize("dtype,window,cls,lse", [
+    (torch.float32, 0, False, True), (torch.float32, 8, True, False),
+    (torch.bfloat16, 4, False, True),
+])
+def test_flash_fwd_op_passes_opcheck(dtype, window, cls, lse):
+    """K5's registered op (its CPU implementation is the plain version):
+    schema, fake tensor and AOT dispatch checks of ``torch.library``, and
+    the op's answer equals ``flash_attention_plain``'s."""
+    from text_similarity_tpu_torch.ops.attention import flash_attention_plain, flash_fwd_op
 
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 48, 2, 32), generator=g).to(dtype) for _ in range(3))
+    lengths = torch.tensor([48, 30], dtype=torch.int32)
+    args = (q, k, v, lengths, window, cls, lse)
+    results = torch.library.opcheck(flash_fwd_op, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+    out, got_lse = flash_fwd_op(*args)
+    want, want_lse = flash_attention_plain(q, k, v, lengths, window, cls, return_lse=True)
+    assert torch.equal(out, want)
+    assert torch.equal(got_lse, want_lse) if lse else got_lse.shape == (0,)
+
+
+@pytest.fixture(scope="module")
+def flash_bundle(bundles, tmp_path_factory):
+    """The tiny-test encoder exported on the CPU with the attention rule
+    sending it to flash, as the card's rule does from 4,096 tokens (the
+    plain K5 through its op), and its program."""
     from text_similarity_tpu_torch.compress.export import export_encoder
 
-    on_card = SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(ValueError, match=r"K5"):
-        export_encoder(on_card, str(tmp_path / "bundle"), batch_sizes=(1,), seq_lens=seq_lens)
-    assert not (tmp_path / "bundle").exists()
+    path = str(tmp_path_factory.mktemp("flash_export"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attn, "auto_impl", lambda *a, **kw: "flash")
+        manifest = export_encoder(bundles["enc"], path, batch_sizes=(2,), seq_lens=(16,))
+    name = manifest["functions"][0]["name"]
+    return path, name, torch.export.load(os.path.join(path, name))
+
+
+def test_cpu_export_with_flash_carries_the_op(bundles, flash_bundle):
+    """The traced graph holds K5's op, once a layer; reloaded, the program
+    equals the eager int8 encode step on the flash path (max |Δ| ≤ 1e-5:
+    the same ops) and the reference-attention program within 1e-5."""
+    from text_similarity_tpu_torch.compress.export import _EncodeStep
+    from text_similarity_tpu_torch.compress.quantize import quantize_params_int8
+
+    path, name, program = flash_bundle
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert sum("text_similarity_tpu_torch.flash_fwd" in t for t in targets) == \
+        bundles["enc"].arch.num_layers
+    fn = load_exported_fn(path, name)
+    params = load_exported_params(path, device="cpu")
+    ids, mask = (torch.from_numpy(a) for a in _batch(bundles["enc"].arch.vocab_size))
+    got = fn(params, ids, mask)
+    enc = bundles["enc"]
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attn, "auto_impl", lambda *a, **kw: "flash")
+        want = _EncodeStep(enc.arch, enc.precision, enc.pooling)(
+            quantize_params_int8(enc.params), ids, mask)
+    assert float((got - want).abs().max()) <= 1e-5
+    ref = load_exported_fn(bundles["tdir"], "encode_b2_s16.pt2")(params, ids, mask)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_the_jax_package_reads_the_flash_bundle_params(bundles, flash_bundle):
+    """The flash bundle's params, read by the JAX package's
+    ``restore_checkpoint_raw``, equal its own bundle's leaf for leaf."""
+    path, _, _ = flash_bundle
+    tree, _, meta = jax_ckpt.restore_checkpoint_raw(jax_ckpt.latest_checkpoint(path))
+    jtree, _, _ = jax_ckpt.restore_checkpoint_raw(jax_ckpt.latest_checkpoint(bundles["jdir"]))
+    assert meta == {"int8": True}
+    got, want = _flat(tree), _flat(jtree)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-7, atol=0, err_msg=k)

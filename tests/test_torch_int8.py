@@ -101,7 +101,7 @@ def test_k3_dispatch_on_cpu_uses_plain_version():
     with pytest.raises(ValueError):
         cosine_topk_int8_cuda(torch.from_numpy(q), ts.view, ts.scales_view, k=5)
     with pytest.raises(ValueError):
-        cosine_topk_int8(torch.from_numpy(q), ts.view, ts.scales_view, k=257)
+        cosine_topk_int8(torch.from_numpy(q), ts.view, ts.scales_view, k=501)   # k > N
 
 
 def test_int8_store_matches_jax_and_grows():

@@ -663,3 +663,43 @@ def test_idless_plain_ids_are_flat_slots(saved, corpus):
     ws, wi = ivf_scan(qs, probes, tivf.data_padded, tivf.ids_padded, 10, 8, 256, 1)
     assert (s >= 1).all()                 # every result a live row (+2)
     assert torch.equal(flat, wi) and torch.allclose(s, ws)
+
+
+# ---------------------------------------------------------------------------
+# k = 300: past the tile's 256 winners, each option raises where the
+# reference raises and answers as it answers elsewhere
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,opts", [
+    ("f32", dict()),
+    ("bf16", dict()),
+    ("int8", dict()),
+    ("group2", dict()),
+    ("sentinel", dict()),
+    ("f32", dict(per_probe=True)),
+    ("f32", dict(approx_width=128)),
+    ("bf16", dict(approx_width=256, acc_slots=2)),
+    ("f32", dict(approx_width=128, final_merge="xla")),
+    ("f32", dict(approx_width=128, final_merge="xla_approx")),
+    ("f32", dict(approx_width=128, final_merge="packed")),
+    ("f32", dict(dma_pipeline=True)),
+    ("f32", dict(approx_width=256, probes_per_step=2)),
+    ("f32", dict(approx_width=128, acc_slots=2)),
+    ("sentinel", dict(approx_width=256, acc_slots=1)),
+])
+def test_options_at_k300_match_jax(saved, corpus, name, opts):
+    """Each option at k = 300 raises exactly where ``query(...,
+    impl="pallas")`` raises; where both answer, the answers agree as at k
+    10 (missing results (−inf, −1) included)."""
+    q, _ = corpus
+    jivf, tivf = _pair(saved, name)
+    args = dict(dict(k=300, block_q=8, union_factor=1), **opts)
+    try:
+        js, ji = jivf.query(jnp.asarray(q[:8]), impl="pallas", **args)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tivf.query(torch.from_numpy(q[:8]), **args)
+        return
+    ts, ti = tivf.query(torch.from_numpy(q[:8]), **args)
+    assert ti.shape == (8, 300)
+    _agree(name, ts, ti, js, ji, packed=opts.get("final_merge") == "packed")

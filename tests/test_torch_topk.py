@@ -95,7 +95,9 @@ def test_dispatch_uses_plain_version_on_cpu():
     with pytest.raises(ValueError):
         cosine_topk_cuda(torch.from_numpy(q), torch.from_numpy(x), k=5)
     with pytest.raises(ValueError):
-        cosine_topk(torch.from_numpy(q), torch.from_numpy(x), k=257)
+        cosine_topk(torch.from_numpy(q), torch.from_numpy(x), k=501)   # k > N
+    with pytest.raises(ValueError):
+        cosine_topk(torch.from_numpy(q), torch.from_numpy(x), k=0)
 
 
 def test_select_topk_order():

@@ -191,4 +191,4 @@ def test_passes_and_cuda_wrappers_on_cpu():
         topk_2pass_count_cuda(tq, tx, s[:, 9].contiguous())
     assert (topk_2pass_fold_cuda.launches, topk_2pass_count_cuda.launches) == launches
     with pytest.raises(ValueError):
-        cosine_topk_2pass(tq, tx, k=257)
+        cosine_topk_2pass(tq, tx, k=tx.shape[0] + 1)

@@ -13,13 +13,13 @@ are ``encode_b{b}_s{s}.pt2`` files (``torch.export.save``) where the
 reference writes StableHLO; ``platforms`` records the device the program
 was traced on, where it runs.
 
-The traced encoder runs ``attention_impl="reference"``: K5 is a bare
-ctypes call (``ops/_cuda.py``), not a registered torch op, so
-``torch.export`` cannot capture it and the program carries the plain
-attention. That is what the eager encoder runs on the card below 4,096
-tokens, and on the CPU at every length (``ops.attention.auto_impl``). At
-a length where the eager encoder on the card would run K5, ``export_encoder``
-raises instead of shipping a program that quietly runs the plain attention.
+The traced encoder takes the eager encoder's own attention rule
+(``attention_impl="auto"``, ``ops.attention.auto_impl``): on the card at
+S ≥ 4,096 with S % 128 == 0 it runs K5, which ``torch.export`` keeps as
+the registered op ``text_similarity_tpu_torch::flash_fwd``; elsewhere the
+plain attention. Unlike the reference's StableHLO, whose blob carries its
+kernel, a program that names the op runs only where the port is
+installed: ``load_exported_fn`` imports the op's registration first.
 """
 
 from __future__ import annotations
@@ -49,8 +49,7 @@ class _EncodeStep(nn.Module):
         from ..models.pooling import pool
         from ..models.sentence_encoder import SentenceEncoder
 
-        out = encoder_forward(params, ids, mask, arch=self.arch, precision=self.precision,
-                              attention_impl="reference")
+        out = encoder_forward(params, ids, mask, arch=self.arch, precision=self.precision)
         return SentenceEncoder._project_normalize(
             params, pool(self.pooling, out.last_hidden_state, mask))
 
@@ -64,20 +63,15 @@ def export_encoder(
 ) -> dict:
     """Export the encode step for each (batch, seq) shape on the encoder's
     device, traced on the params the bundle ships (quantized first when
-    ``quantize``) → the manifest (also written as ``manifest.json``)."""
+    ``quantize``) with the eager encoder's attention rule (K5 on the card
+    from 4,096 tokens) → the manifest (also written as
+    ``manifest.json``)."""
     from ..core.checkpoint import save_checkpoint
     from ..models.sentence_encoder import _tree_to
-    from ..ops.attention import auto_impl
     from .quantize import quantize_params_int8
 
-    dev = encoder.device
-    flash = [s for s in seq_lens if auto_impl(s, dev.type == "cuda") != "reference"]
-    if flash:
-        raise ValueError(
-            f"export_encoder: at seq_lens {flash} the encoder on {dev} runs kernel K5, which "
-            "an exported program cannot carry (a ctypes call torch.export does not trace); "
-            "export below 4096 tokens or on the CPU")
     os.makedirs(path, exist_ok=True)
+    dev = encoder.device
     params = _tree_to(encoder.params, encoder.device)
     if quantize:
         params = quantize_params_int8(params)
@@ -110,7 +104,10 @@ def export_encoder(
 def load_exported_fn(path: str, name: str):
     """One exported program as a callable fn(params, ids, mask), with the
     params of :func:`load_exported_params` on the device the manifest's
-    ``platforms`` names."""
+    ``platforms`` names. K5's op is registered first (importing
+    ``ops.attention``), since a program traced with it names it."""
+    from ..ops import attention  # noqa: F401 (registers text_similarity_tpu_torch::flash_fwd)
+
     return torch.export.load(os.path.join(path, name)).module()
 
 

@@ -2,8 +2,9 @@
 
 ``EncoderArch`` keeps every field of the reference so that an ``arch.json``
 written by the JAX package (``EncoderArch.to_json``) reads back here
-unchanged. ``TrainConfig`` carries the optimizer's hyper-parameters;
-mesh and run configs stay with the JAX package until the port needs them.
+unchanged. ``TrainConfig`` carries the optimizer's hyper-parameters and
+the reference's run fields; ``MeshConfig`` and ``RunConfig`` read and write
+the JAX package's run JSON (``RunConfig.to_json`` / ``from_json``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -145,12 +147,31 @@ class IndexConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout, the JAX package's fields: ``data`` (data
+    parallel), ``model`` (tensor parallel), ``index`` (corpus shards); a
+    size of 1 leaves the axis unused. ``core.mesh.make_mesh`` builds the
+    mesh itself."""
+
+    data: int = 1
+    model: int = 1
+    index: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.index
+
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "model", "index")
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters, with the JAX package's names and
     defaults: AdamW with no-decay groups, linear warmup then decay, global
     norm clipping, gradient accumulation, and the run fields the CLI reads
-    (batch size, epochs, bf16 compute). The JAX config's other fields are
-    not read by the port."""
+    (batch size, epochs, bf16 compute). The last four fields are carried
+    for ``RunConfig``'s JSON; the port reads none of them."""
 
     lr: float = 2e-5
     weight_decay: float = 0.01
@@ -164,3 +185,37 @@ class TrainConfig:
     grad_accum_steps: int = 1
     seed: int = 0
     bf16: bool = True
+    max_seq_len: int = 256
+    eval_in_train: bool = True
+    save_best: bool = True
+    metric_direction: str = "max"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The run's whole configuration (the JAX package's ``RunConfig``): the
+    model's preset name and arch, the mesh, training and index configs and
+    the save path. ``to_json`` writes what the JAX package writes;
+    ``from_json`` reads either package's file."""
+
+    model_name: str = "minilm-l6"
+    arch: EncoderArch = field(default_factory=lambda: ARCH_PRESETS["minilm-l6"])
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    index: IndexConfig = field(default_factory=IndexConfig)
+    save_path: str = "checkpoints"
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RunConfig":
+        d = json.loads(s)
+        return cls(
+            model_name=d.get("model_name", "minilm-l6"),
+            arch=EncoderArch(**d["arch"]),
+            mesh=MeshConfig(**d["mesh"]),
+            train=TrainConfig(**d["train"]),
+            index=IndexConfig(**d["index"]),
+            save_path=d.get("save_path", "checkpoints"),
+        )

@@ -28,6 +28,11 @@
 // entries a query as the pairs above, and the merge pass and
 // pairs_to_packets follow. f32 slabs and the other shapes run the CUDA-core
 // kernel below.
+// Above k 256, where the selectors stop, K9 takes the large-k route:
+// emit_acc writes every probed slot's score probe by probe, pack_classes
+// below builds each candidate's packet in the lane-class layout, and
+// topk_select.cu selects on int keys (each class's S largest, then the k
+// largest of the (S·w) accumulator).
 //
 // K10 replaces _ivf_query_pallas_dma → _ivf_kernel_dma (:1533-1627): the
 // reference copies each probed slab and its ids into VMEM through a ring of
@@ -321,4 +326,44 @@ extern "C" int ts_ivf_scan_multiprobe(const float* q, const int* probes, const v
   if (P < 1 || U % P || data_kind < 0 || data_kind > 2) return (int)cudaErrorInvalidValue;
   return ivf_k1_scan(data_kind, q, probes, data, scales, ids, B, D, U, C_tot, Mc, block_q, k,
                      Mc, 1, 0, part_s, part_i, out_s, out_i, stream);
+}
+
+namespace {
+
+// One thread a candidate: (u, r, m) of the (U, R, Mc) scores goes to lane
+// class c = m % w of row r, entry u · (Mc / w) + m / w.
+__global__ void pack_classes(const float* __restrict__ s, const int* __restrict__ ids, int U,
+                             int R, int Mc, int w, int* __restrict__ out) {
+  const size_t total = (size_t)U * R * Mc;
+  const size_t row_len = (size_t)U * (Mc / w);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int m = (int)(e % Mc);
+    const size_t ur = e / Mc;
+    const int r = (int)(ur % R), u = (int)(ur / R);
+    out[((size_t)r * w + m % w) * row_len + (size_t)u * (Mc / w) + m / w] =
+        ids[e] >= 0 ? pack_candidate(s[e], u, m) : 0;
+  }
+}
+
+}  // namespace
+
+// K9 above the selectors' k: the per-probe scores (U, R, Mc) f32 and ids
+// of R queries (emit_acc at width Mc, one slot, the queries repeated once a
+// probe) → each candidate's packet (pack_candidate; a dead slot, id < 0,
+// gives 0), laid out as R·w rows of U·(Mc / w) packets, row r·w + c holding
+// query r's lane class c in (u, chunk) order: the select kernel's int-key
+// input for the fold. U ≤ 64, Mc ≤ 2048, w divides Mc.
+extern "C" int ts_ivf_pack_classes(const float* s, const int* ids, int U, int R, int Mc, int w,
+                                   int* out, void* stream) {
+  if (U < 1 || U > 64 || Mc < 1 || Mc > 2048 || w < 1 || Mc % w || R < 0)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  const size_t total = (size_t)U * R * Mc;
+  const int threads = 256;
+  const size_t need = (total + threads - 1) / threads;
+  const int blocks = need < 65535 * 8 ? (int)need : 65535 * 8;
+  pack_classes<<<blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(s, ids, U, R, Mc,
+                                                                             w, out);
+  return (int)cudaGetLastError();
 }

@@ -41,7 +41,10 @@
 //    query, those strictly above thr in registers, sums them in shared
 //    memory and adds one integer atomic a query.
 // Both counts are exact and order-free, so the certification compares
-// counts of exactly the scores the fold folded. A bf16 corpus rounds the
+// counts of exactly the scores the fold folded.
+//  * k > 256: the k rounds give way to topk_select.cu's select over the
+//    classes' winners (fold_splits, then ts_topk_select): the same top k by
+//    (score desc, id asc). A bf16 corpus rounds the
 // queries to bf16, as the reference; sums are f32 throughout.
 #include "score_tile.cuh"
 
@@ -189,6 +192,31 @@ select_winners(const float* __restrict__ win_s, const int* __restrict__ win_i, i
   }
 }
 
+// The large-k route's merge of pass A (k > 256): CTA (query, class chunk)
+// folds the splits of each class as select_winners does (strict >, in
+// split order: lower rows first) into cls (Q, block_c); topk_select.cu's
+// ts_topk_select then takes the top k of those winners, as the k rounds
+// would.
+__global__ void __launch_bounds__(kSelectThreads)
+fold_splits(const float* __restrict__ win_s, const int* __restrict__ win_i, int Q, int block_c,
+            int splits, float* __restrict__ cls_s, int* __restrict__ cls_i) {
+  const int c = blockIdx.y * kSelectThreads + threadIdx.x;
+  const int qi = blockIdx.x;
+  if (c >= block_c) return;
+  float s = -INFINITY;
+  int id = -1;
+  for (int sp = 0; sp < splits; ++sp) {
+    const size_t o = ((size_t)sp * Q + qi) * block_c + c;
+    const float v = win_s[o];
+    if (v > s) {
+      s = v;
+      id = win_i[o];
+    }
+  }
+  cls_s[(size_t)qi * block_c + c] = s;
+  cls_i[(size_t)qi * block_c + c] = id;
+}
+
 // Pass B: CTA (query tile, corpus split) adds, per query, the count of its
 // rows' scores strictly above thr[query].
 template <typename T, int QT>
@@ -276,23 +304,28 @@ cudaError_t launch_fold(const float* q, const T* corpus, int Q, int N, int D, in
 }
 
 template <typename T>
+cudaError_t run_fold_classes(const float* q, const T* corpus, int Q, int N, int D, int block_c,
+                             int splits, int blocks_per_split, float* win_s, int* win_i,
+                             float* scores, int ld, cudaStream_t st) {
+  switch (qt_for(Q, 1)) {
+    case 16:
+      return launch_fold<T, 16>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
+                                win_i, scores, ld, st);
+    case 64:
+      return launch_fold<T, 64>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
+                                win_i, scores, ld, st);
+    default:
+      return launch_fold<T, 128>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
+                                 win_i, scores, ld, st);
+  }
+}
+
+template <typename T>
 cudaError_t run_fold(const float* q, const T* corpus, int Q, int N, int D, int k, int block_c,
                      int splits, int blocks_per_split, float* win_s, int* win_i, float* out_s,
                      int* out_i, float* scores, int ld, cudaStream_t st) {
-  cudaError_t err;
-  switch (qt_for(Q, 1)) {
-    case 16:
-      err = launch_fold<T, 16>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
-                               win_i, scores, ld, st);
-      break;
-    case 64:
-      err = launch_fold<T, 64>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
-                               win_i, scores, ld, st);
-      break;
-    default:
-      err = launch_fold<T, 128>(q, corpus, Q, N, D, block_c, splits, blocks_per_split, win_s,
-                                win_i, scores, ld, st);
-  }
+  cudaError_t err = run_fold_classes(q, corpus, Q, N, D, block_c, splits, blocks_per_split,
+                                     win_s, win_i, scores, ld, st);
   if (err != cudaSuccess) return err;
   const size_t sel = (size_t)block_c * (sizeof(float) + sizeof(int));
   err = cudaFuncSetAttribute(select_winners, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,6 +377,38 @@ extern "C" int ts_topk_2pass_fold_scores(const float* q, const void* corpus, int
                          splits, blocks_per_split, win_s, win_i, out_s, out_i, scores, ld, st);
   return (int)run_fold(q, static_cast<const float*>(corpus), Q, N, D, k, block_c, splits,
                        blocks_per_split, win_s, win_i, out_s, out_i, scores, ld, st);
+}
+
+extern "C" int ts_topk_select(const float* scores, const int* ids, int R, int n, int seg_len,
+                              long long seg_stride, long long row_stride, int k, float* out_s,
+                              int* out_i, float* tmp_s, int* tmp_i, int int_keys,
+                              void* stream);
+
+// Pass A at k > 256: the fold (scores kept in scores (Q, ld) unless it is
+// NULL), the splits folded into cls_s / cls_i (Q, block_c), then the top
+// k_sel ≤ block_c of them → out_s / out_i (Q, k_sel), sorted, through
+// ts_topk_select (tmp_s / tmp_i (Q, k_sel) scratch above 8,192, else NULL).
+extern "C" int ts_topk_2pass_fold_large(const float* q, const void* corpus, int corpus_bf16,
+                                        int Q, int N, int D, int k_sel, int block_c, int splits,
+                                        int blocks_per_split, float* win_s, int* win_i,
+                                        float* cls_s, int* cls_i, float* out_s, int* out_i,
+                                        float* tmp_s, int* tmp_i, float* scores, int ld,
+                                        void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (corpus_bf16)
+    err = run_fold_classes(q, static_cast<const __nv_bfloat16*>(corpus), Q, N, D, block_c,
+                           splits, blocks_per_split, win_s, win_i, scores, ld, st);
+  else
+    err = run_fold_classes(q, static_cast<const float*>(corpus), Q, N, D, block_c, splits,
+                           blocks_per_split, win_s, win_i, scores, ld, st);
+  if (err != cudaSuccess) return (int)err;
+  fold_splits<<<dim3(Q, (block_c + kSelectThreads - 1) / kSelectThreads), kSelectThreads, 0,
+                st>>>(win_s, win_i, Q, block_c, splits, cls_s, cls_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return ts_topk_select(cls_s, cls_i, Q, block_c, block_c, 0, block_c, k_sel, out_s, out_i,
+                        tmp_s, tmp_i, 0, stream);
 }
 
 // q (Q, D) f32; corpus (N, D) f32 or bf16 (corpus_bf16); D % 32 == 0;

@@ -46,14 +46,16 @@ from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..ops import _cuda
 from ..ops.kmeans import assign_clusters_topk, kmeans
-from ..ops.topk import l2_normalize
+from ..ops.topk import MAX_K, l2_normalize, topk_select_cuda
 from .ivf_modes import (
     TILE_ROWS,
     _unpack_candidates,
     check_scan_inputs,
     data_kind,
+    emit_acc_cuda,
     ivf_scan_dma,
     ivf_scan_idless,
+    ivf_scan_large_k_cuda,
     ivf_scan_multiprobe,
     ivf_scan_packed,
     scan_plain,
@@ -185,9 +187,10 @@ def ivf_scan_cuda(
     card, in its merge, per-probe or raw-accumulator mode; same contract as
     ``ivf_scan_reference``. q (B, D) f32, probe_list (B/block_q, U) int32,
     data (C_tot, Mc, D), ids and scales (C_tot, Mc) int32 / f32 —
-    contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≤ 256, acc_slots
-    ≤ 4. Every mode runs on the wgmma tile where the kernel library's plan
-    takes the shape (``tile_plan_cuda``; per_probe asks it for the exact
+    contiguous CUDA tensors; D ≤ 1025 (any alignment), k ≥ 1 (above
+    ``MAX_K`` through ``ivf_scan_large_k_cuda``), acc_slots ≤ 4. Every
+    mode runs on the wgmma tile where the kernel library's plan takes the
+    shape (``tile_plan_cuda``; per_probe asks it for the exact
     mode, emit_acc at k 1: no selection runs), else on the CUDA-core
     kernel. Each mode counts its launches apart: ``ivf_scan_cuda.launches``,
     ``.launches_int8`` (merge; those on the tile also in
@@ -209,18 +212,16 @@ def ivf_scan_cuda(
     dev = q.device
     sc_ptr = scales.data_ptr() if int8 else None
     suffix = "_int8" if int8 else ""
+    if k > MAX_K and not emit_acc:
+        return ivf_scan_large_k_cuda(q, probe_list, data, ids, k, block_q, w, slots, scales,
+                                     per_probe)
     if emit_acc:
         out_s = torch.empty((b, slots * w), dtype=torch.float32, device=dev)
         out_i = torch.empty((b, slots * w), dtype=torch.int32, device=dev)
         if b == 0:
             return out_s, out_i
         plan = tile_plan_cuda(data_kind(data), d, mc, block_q, 1, w, slots)
-        err = _cuda.lib().ts_ivf_scan_emit_acc(
-            q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data), sc_ptr,
-            ids.data_ptr(), b, d, u, c_tot, mc, block_q, w, slots,
-            out_s.data_ptr(), out_i.data_ptr(), _cuda.stream_handle(dev),
-        )
-        _cuda.check(err, "ivf_scan emit_acc kernel")
+        emit_acc_cuda(q, probe_list, data, ids, block_q, w, slots, scales, out_s, out_i)
         _count(f"launches_emit_acc{suffix}")
         if plan:
             _count(f"launches_emit_acc_tile{suffix}")
@@ -394,7 +395,11 @@ def _rescore(q, i_c, rescore_data, k: int):
 
 def _top_by_position(s, i, k: int):
     """``lax.top_k`` order: score desc, the lower position first among
-    equal scores (a stable sort, not ``torch.topk``)."""
+    equal scores (a stable sort, not ``torch.topk``; on CUDA tensors above
+    ``MAX_K`` the select kernel, by position)."""
+    if s.is_cuda and k > MAX_K:
+        ts, pos = topk_select_cuda(s.float().contiguous(), min(k, s.shape[1]))
+        return ts, torch.gather(i, 1, pos.long())
     top = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
     return torch.gather(s, 1, top), torch.gather(i, 1, top)
 

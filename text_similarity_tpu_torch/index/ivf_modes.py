@@ -38,6 +38,10 @@ the dot; a probe id outside [0, C_tot) scans nothing.
 Each ``*_cuda`` wrapper launches its kernel (``csrc/ivf_modes.cu``,
 ``csrc/ivf_scan.cu``, ``csrc/ivf_tile.cu``) on CUDA tensors and counts its
 launches; each dispatcher takes the plain version only for CPU slabs.
+Above ``MAX_K`` the scans' selection stops; ``ivf_scan_large_k_cuda``
+takes their scores from the tile's emit_acc and selects with
+``csrc/topk_select.cu``; K9's packets are built from those scores by
+``ts_ivf_pack_classes`` (``csrc/ivf_modes.cu``) and selected on int keys.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import _cuda
-from ..ops.topk import MAX_K, select_topk
+from ..ops.topk import _SCORES_BYTES, MAX_K, select_topk, topk_select_cuda
 
 MAX_D = 1025                    # 1024 wide, +1 for the sentinel column
 PACK_SCORE_BITS = 14            # fixed-point cosine resolution ~1.2e-4
@@ -384,8 +388,8 @@ def check_scan_inputs(q, probe_list, data, ids, k: int, block_q: int, scales=Non
         raise ValueError(f"dims: q {d}, data {dd} (need equal, ≤ {MAX_D})")
     if block_q < 1 or b % block_q or probe_list.shape[0] != b // block_q:
         raise ValueError(f"B={b} must be n_blocks={probe_list.shape[0]} × block_q={block_q}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} must be in [1, {MAX_K}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be ≥ 1")
 
 
 def data_kind(data: torch.Tensor) -> int:
@@ -396,6 +400,123 @@ def data_kind(data: torch.Tensor) -> int:
 def _outputs(shape, dev):
     return (torch.empty(shape, dtype=torch.float32, device=dev),
             torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def emit_acc_cuda(q, probe_list, data, ids, block_q: int, width: int, slots: int, scales,
+                  out_s: torch.Tensor, out_i: torch.Tensor) -> None:
+    """The scan's raw accumulator (K1-opt emit_acc) at (``width``,
+    ``slots``) into out_s / out_i, contiguous (B, slots·width)."""
+    b, d = q.shape
+    c_tot, mc, _ = data.shape
+    err = _cuda.lib().ts_ivf_scan_emit_acc(
+        q.data_ptr(), probe_list.data_ptr(), data.data_ptr(), data_kind(data),
+        scales.data_ptr() if scales is not None else None, ids.data_ptr(), b, d,
+        probe_list.shape[1], c_tot, mc, block_q, width, slots, out_s.data_ptr(),
+        out_i.data_ptr(), _cuda.stream_handle(q.device),
+    )
+    _cuda.check(err, "ivf_scan emit_acc kernel")
+
+
+def _per_probe_scores(q, probe_list, data, ids, block_q: int, scales):
+    """Every probed slot's score, probe by probe, in one launch: emit_acc
+    at width Mc with one slot over the queries repeated once a probe, the
+    copy u of block i probing ``probe_list[i, u]`` alone, is each slab's
+    scores as they are (a dead slot −inf with id −1) → (s, i) (U, B,
+    Mc)."""
+    b = q.shape[0]
+    u, mc = probe_list.shape[1], data.shape[1]
+    s = torch.empty((u, b, mc), dtype=torch.float32, device=q.device)
+    i = torch.empty((u, b, mc), dtype=torch.int32, device=q.device)
+    emit_acc_cuda(q.repeat(u, 1), probe_list.t().reshape(-1, 1).contiguous(), data, ids,
+                  block_q, mc, 1, scales, s, i)
+    ivf_scan_large_k_cuda.launches_emit += 1
+    return s, i
+
+
+def _select_counted(scores, k: int, ids=None, segments: bool = False):
+    """``topk_select_cuda``, its launch also counted in
+    ``ivf_scan_large_k_cuda.launches_select``."""
+    out = topk_select_cuda(scores, k, ids, segments)
+    ivf_scan_large_k_cuda.launches_select += 1
+    return out
+
+
+def _block_chunks(n_blocks: int, block_q: int, u: int, mc: int):
+    """Query blocks a chunk, so that a chunk's (U, rows, Mc) scores and ids
+    stay within ``_SCORES_BYTES`` → (blocks, rows) slices a chunk."""
+    step = max(1, _SCORES_BYTES // (block_q * u * mc * 8))
+    for blk0 in range(0, n_blocks, step):
+        blk1 = min(n_blocks, blk0 + step)
+        yield slice(blk0, blk1), slice(blk0 * block_q, blk1 * block_q)
+
+
+def ivf_scan_large_k_cuda(q, probe_list, data, ids, k: int, block_q: int, width: int = 0,
+                          slots: int = 1, scales=None, per_probe: bool = False):
+    """The IVF scans above ``MAX_K`` on the card, where the tile's
+    selection stops: the scores come from the scan's own tile (emit_acc)
+    and ``topk_select_cuda`` selects, by (score desc, id asc), padding with
+    (−inf, −1):
+    - exact (``width`` 0): each block's union of probed slots, the scores
+      written probe by probe in one launch (``_per_probe_scores``) for a
+      chunk of query blocks at a time (≤ ``_SCORES_BYTES`` of scores and
+      ids), then the top k of a query's U·Mc candidates in place → (B, k);
+    - ``per_probe``: the same scores, each probe's row its own top k → (U,
+      B, k);
+    - deferred (width w, ``slots`` S): the fold's (B, S·w) accumulator, then
+      its top k → (B, k), as the tile's own merge takes it.
+    Each emit_acc launch adds one to ``ivf_scan_large_k_cuda.launches_emit``
+    and each select launch one to ``.launches_select``."""
+    b = q.shape[0]
+    n_blocks, u = probe_list.shape
+    mc = data.shape[1]
+    dev = q.device
+    shape = (u, b, k) if per_probe else (b, k)
+    if b == 0:
+        return _outputs(shape, dev)
+    if width:
+        acc_s, acc_i = _outputs((b, slots * width), dev)
+        emit_acc_cuda(q, probe_list, data, ids, block_q, width, slots, scales, acc_s, acc_i)
+        ivf_scan_large_k_cuda.launches_emit += 1
+        return _select_counted(acc_s, k, acc_i)
+    out_s, out_i = _outputs(shape, dev)
+    for blocks, rows in _block_chunks(n_blocks, block_q, u, mc):
+        s, i = _per_probe_scores(q[rows], probe_list[blocks], data, ids, block_q, scales)
+        if per_probe:
+            bc = s.shape[1]
+            ts, ti = _select_counted(s.view(u * bc, mc), k, i.view(u * bc, mc))
+            out_s[:, rows], out_i[:, rows] = ts.view(u, bc, k), ti.view(u, bc, k)
+        else:
+            out_s[rows], out_i[rows] = _select_counted(s, k, i, segments=True)
+    return out_s, out_i
+
+
+ivf_scan_large_k_cuda.launches_emit = 0
+ivf_scan_large_k_cuda.launches_pack = 0
+ivf_scan_large_k_cuda.launches_select = 0
+
+
+def _packed_large_k_cuda(q, probe_list, data, ids, k: int, block_q: int, w: int, slots: int,
+                         out: torch.Tensor) -> torch.Tensor:
+    """K9 above ``MAX_K``, chunked over query blocks as the exact scan is:
+    every probed slot's emit_acc score, then ``ts_ivf_pack_classes`` makes
+    each its packet (``_pack_candidates``' rule; a dead slot 0) laid out a
+    row per (query, lane class), then the select kernel on int keys takes
+    each class's top-``slots`` packets and the top k of the (S·w)
+    accumulator. The pack launches count in
+    ``ivf_scan_large_k_cuda.launches_pack``."""
+    n_blocks, u = probe_list.shape
+    mc = data.shape[1]
+    for blocks, rows in _block_chunks(n_blocks, block_q, u, mc):
+        s, i = _per_probe_scores(q[rows], probe_list[blocks], data, ids, block_q, None)
+        bc = s.shape[1]
+        cls = torch.empty((bc * w, u * (mc // w)), dtype=torch.int32, device=q.device)
+        err = _cuda.lib().ts_ivf_pack_classes(s.data_ptr(), i.data_ptr(), u, bc, mc, w,
+                                              cls.data_ptr(), _cuda.stream_handle(q.device))
+        _cuda.check(err, "ivf_scan packet kernel")
+        ivf_scan_large_k_cuda.launches_pack += 1
+        acc, _ = _select_counted(cls, slots)
+        out[rows], _ = _select_counted(acc.view(bc, w * slots), k)
+    return out
 
 
 def ivf_scan_packed_cuda(
@@ -421,6 +542,8 @@ def ivf_scan_packed_cuda(
     out = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out
+    if k > MAX_K:
+        return _packed_large_k_cuda(q, probe_list, data, ids, k, block_q, w, acc_slots, out)
     plan = None
     if data.dtype == torch.bfloat16:
         plan = tile_plan_cuda(1, d, mc, block_q, k, w, acc_slots)
@@ -468,6 +591,8 @@ def ivf_scan_dma_cuda(
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
+    if k > MAX_K:   # K1's fold at width Mc, then the select kernel
+        return ivf_scan_large_k_cuda(q, probe_list, data, ids, k, block_q, mc, acc_slots)
     plan = tile_plan_cuda(data_kind(data), d, mc, block_q, k, mc, acc_slots, n_buffers)
     n_part = tile_part_width(mc, k, acc_slots) if plan else -(-mc // 128) * k
     part_s, part_i = _outputs((b, n_part), dev)
@@ -510,6 +635,8 @@ def ivf_scan_multiprobe_cuda(
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
+    if k > MAX_K:   # K1's single-slot fold at width Mc, then the select kernel
+        return ivf_scan_large_k_cuda(q, probe_list, data, ids, k, block_q, mc, 1, scales)
     plan = tile_plan_cuda(data_kind(data), d, mc, block_q, k, mc, 1)
     part_s, part_i = _outputs((b, tile_part_width(mc, k, 1) if plan else -(-mc // 128) * k), dev)
     err = _cuda.lib().ts_ivf_scan_multiprobe(
@@ -559,6 +686,11 @@ def ivf_scan_idless_cuda(q, probe_list, data, k: int, block_q: int, approx_width
     out_s, out_i = _outputs((b, k), dev)
     if b == 0:
         return out_s, out_i
+    if k > MAX_K:
+        # the same fold through emit_acc with the flat slot ids as ids (all
+        # live, none masked), then the select kernel
+        flat = torch.arange(c_tot * mc, dtype=torch.int32, device=dev).view(c_tot, mc)
+        return ivf_scan_large_k_cuda(q, probe_list, data, flat, k, block_q, w, 1)
     plan = None
     if data.dtype == torch.bfloat16:
         plan = tile_plan_cuda(SENTINEL_KIND, d, mc, block_q, k, w, 1)

@@ -39,7 +39,7 @@ import torch
 
 from ..core.mesh import INDEX_AXIS, Mesh, on_devices
 from ..ops.kmeans import assign_clusters, kmeans_sharded
-from ..ops.topk import MAX_K, cosine_topk, l2_normalize, topk_merge
+from ..ops.topk import cosine_topk, l2_normalize, topk_merge
 from .ivf import _approx_merge_plan, _ivf_query_fused, _ivf_query_xla, _round_up
 from .ivf_modes import zero_tile_map
 
@@ -96,9 +96,9 @@ class ShardedBruteForceIndex:
     def query_packed(self, queries, k: int = 10) -> torch.Tensor:
         """→ the packed (Q, 2k) int32 answer on the first shard's device
         (``_pack_results``), with no host copy. Each shard takes its top
-        ``min(k + n_pad, shard_rows, MAX_K)``."""
+        ``min(k + n_pad, shard_rows)``, as the reference's."""
         k = min(k, self.n_total)
-        k_local = min(k + self.n_pad, self.shard_rows, MAX_K)
+        k_local = min(k + self.n_pad, self.shard_rows)
         q = torch.as_tensor(queries).float()
         qs = {d: l2_normalize(qd)
               for d, qd in on_devices(q, [s.device for s in self.shards]).items()}

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("topk.cu", "ivf_scan.cu", "ivf_tile.cu", "ivf_modes.cu", "flash_fwd.cu", "flash_bwd.cu",
-           "packed_attention.cu", "topk_2pass.cu")
+           "packed_attention.cu", "topk_2pass.cu", "topk_select.cu")
 HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh", "score_tile.cuh", "ivf_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,6 +74,8 @@ _SIGNATURES = {
     # slots, part_s, part_i, sel_s, sel_i, out_p, stream
     "ts_ivf_scan_packed": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P],
+    # s, ids, U, R, Mc, w, out, stream
+    "ts_ivf_pack_classes": [_P, _P, _I, _I, _I, _I, _P, _P],
     # q, probes, data, data_bf16, ids, B, D, U, C_tot, Mc, block_q, k,
     # slots, n_buf, part_s, part_i, out_s, out_i, stream
     "ts_ivf_scan_dma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -111,6 +113,18 @@ _SIGNATURES = {
                                   _P, _I, _P],
     # scores, ld, thr, Q, N, cnt, stream
     "ts_topk_2pass_count_scores": [_P, _I, _P, _I, _I, _P, _P],
+    # q, corpus, corpus_bf16, Q, N, D, k_sel, block_c, splits,
+    # blocks_per_split, win_s, win_i, cls_s, cls_i, out_s, out_i, tmp_s,
+    # tmp_i, scores (or NULL), ld, stream
+    "ts_topk_2pass_fold_large": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _I, _P],
+    # scores, ids (or NULL), R, n, seg_len, seg_stride, row_stride, k,
+    # out_s, out_i, tmp_s, tmp_i, int_keys, stream
+    "ts_topk_select": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _P, _P, _P, _I, _P],
+    # q, corpus, corpus_kind (0 f32, 1 bf16, 2 int8), scales (or NULL), Q,
+    # N, D, k, splits, rows_per_split, scores, ld, out_s, out_i, tmp_s,
+    # tmp_i, stream
+    "ts_topk_large": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -13,7 +13,9 @@
   lengths, the same band and global CLS, and the optional log-sum-exp
   residual. On a CUDA tensor it launches the hand-written kernel K5
   (``csrc/flash_fwd.cu``, via ``flash_attention_cuda``); on a CPU tensor it
-  runs ``flash_attention_plain``. Its numerics are the Pallas kernel's:
+  runs ``flash_attention_plain``; both through the registered op
+  ``text_similarity_tpu_torch::flash_fwd`` (``flash_fwd_op``), which
+  ``torch.export`` keeps in a traced program. Its numerics are the Pallas kernel's:
   scores stay in f32 and p is rounded to the input dtype before P·V. With
   grad enabled it runs through ``FlashAttentionFunction``: the forward
   keeps o and lse, the backward is K6 (``csrc/flash_bwd.cu``, via
@@ -223,6 +225,38 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 
 
+# K5's forward as a registered op, so that ``torch.export`` keeps it in a
+# traced program (a bare ctypes call cannot be traced): the CUDA kernel on
+# a CUDA tensor, the plain version on a CPU tensor, and a fake that gives
+# the shapes. Without ``return_lse`` the lse is an empty (0,) tensor.
+FLASH_FWD_OP = "text_similarity_tpu_torch::flash_fwd"
+
+
+@torch.library.custom_op(
+    FLASH_FWD_OP, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor lengths, int window, bool global_cls, "
+           "bool return_lse) -> (Tensor, Tensor)",
+)
+def flash_fwd_op(q, k, v, lengths, window, global_cls, return_lse):
+    out, lse = flash_attention_plain(q, k, v, lengths, window, global_cls, return_lse=True)
+    return out.contiguous(), lse if return_lse else lse.new_empty((0,))
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, lengths, window, global_cls, return_lse):
+    if return_lse:
+        return flash_attention_cuda(q, k, v, lengths, window, global_cls, return_lse=True)
+    out = flash_attention_cuda(q, k, v, lengths, window, global_cls)
+    return out, out.new_empty((0,), dtype=torch.float32)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, lengths, window, global_cls, return_lse):
+    b, s, h, d = q.shape
+    return (q.new_empty((b, s, h, d)),
+            q.new_empty((b, h, s) if return_lse else (0,), dtype=torch.float32))
+
+
 def _check_flash_inputs(q, k, v, lengths, window) -> tuple:
     """The checks K5 and K6 make → (B, S, H, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -383,10 +417,11 @@ def flash_attention(
     """Blockwise exact attention (the JAX package's ``flash_attention``):
     the mask is reduced to per-sequence key lengths (padding sits at the
     end, as length-bucketed batching guarantees). K5 on a CUDA tensor, its
-    plain version on a CPU tensor; with grad enabled and an input that
-    needs a gradient, through ``FlashAttentionFunction`` (K6 backward).
-    → out (B, S, H, D), plus lse (B, H, S) with ``return_lse`` (no
-    gradient path)."""
+    plain version on a CPU tensor, through the registered op
+    ``flash_fwd_op`` (so an exported program carries it); with grad
+    enabled and an input that needs a gradient, through
+    ``FlashAttentionFunction`` (K6 backward). → out (B, S, H, D), plus lse
+    (B, H, S) with ``return_lse`` (no gradient path)."""
     b, s = q.shape[:2]
     if mask is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
@@ -398,8 +433,8 @@ def flash_attention(
         if return_lse:
             raise ValueError("return_lse is for inference; the lse has no gradient path")
         return FlashAttentionFunction.apply(q, k, v, lengths, window, global_cls)
-    fn = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
-    return fn(q, k, v, lengths, window=window, global_cls=global_cls, return_lse=return_lse)
+    out, lse = flash_fwd_op(q, k, v, lengths, int(window), global_cls, bool(return_lse))
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------

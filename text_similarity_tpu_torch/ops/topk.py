@@ -32,6 +32,13 @@ queries in f32 (the semantics of the reference's Pallas kernel
   A keeps them and pass B counts over them instead of computing them
   again. On a CPU tensor their plain versions
   (``cosine_topk_2pass_reference``).
+* The large-k route (``csrc/topk_select.cu``): the selectors above hold at
+  most ``MAX_K`` = 256 winners a query, so above that K2 and K3 write
+  their scores (``cosine_topk_large_cuda``) and one CTA a query selects
+  the top k by a radix select, then sorts them; K8's pass A selects its
+  classes' winners the same way, and the IVF scans their candidates
+  (``topk_select_cuda``). ``MAX_K`` only chooses between the two routes:
+  every entry point takes 1 ≤ k ≤ N.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import torch
 
 from . import _cuda
 
-MAX_K = 256   # the kernel's selector holds at most 256 winners per query
+MAX_K = 256   # above this k the kernels take the large-k route (topk_select.cu)
 _INT_MAX = 2**31 - 1
+_SCORES_BYTES = 1 << 30   # the large-k route's score buffer, at most
+_SORT_RUN = 8192          # winners the select's sort takes in shared memory
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -54,7 +63,14 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 def select_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis by (score desc, id asc): sort by id, then
-    stably by score."""
+    stably by score (at most as many as there are). On CUDA tensors above
+    ``MAX_K`` the select kernel (``topk_select_cuda``) takes it."""
+    if scores.is_cuda and k > MAX_K:
+        *lead, n = scores.shape
+        k = min(k, n)
+        s, i = topk_select_cuda(scores.reshape(-1, n).float().contiguous(), k,
+                                ids.reshape(-1, n).to(torch.int32).contiguous())
+        return s.reshape(*lead, k).to(scores.dtype), i.reshape(*lead, k).to(ids.dtype)
     by_id = torch.argsort(ids, dim=-1, stable=True)
     s = torch.gather(scores, -1, by_id)
     i = torch.gather(ids, -1, by_id)
@@ -113,8 +129,118 @@ def cosine_topk_reference(
 
 
 def _check_k(k: int, n: int) -> None:
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k={k} must be in [1, min(N={n}, {MAX_K})]")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, N={n}]")
+
+
+# ---------------------------------------------------------------------------
+# The large-k route (k > MAX_K): csrc/topk_select.cu
+# ---------------------------------------------------------------------------
+
+def _sort_scratch(rows: int, k: int, dev):
+    """The merge passes' ping-pong buffer, needed above one sort run."""
+    if k <= _SORT_RUN:
+        return None, None
+    return (torch.empty((rows, k), dtype=torch.float32, device=dev),
+            torch.empty((rows, k), dtype=torch.int32, device=dev))
+
+
+def topk_select_cuda(
+    scores: torch.Tensor,
+    k: int,
+    ids: Optional[torch.Tensor] = None,
+    segments: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The large-k route's select kernel: the top k of each row by (score
+    desc, id asc), sorted; rows with fewer than k candidates pad with
+    (−inf, −1). scores (R, n) f32, or with ``segments`` (U, R, M), read as R
+    rows of U·M candidates (entry (u, r, m) is candidate u·M + m of row r:
+    the IVF scan's per-probe scores in place); ``ids`` int32 of the same
+    shape, or None for positions (a candidate's index in its row). An
+    int32 ``scores`` is taken as int keys (K9's packets), padded with 0.
+    Contiguous CUDA tensors. → (scores (R, k) of scores' dtype, ids (R, k)
+    int32)."""
+    _cuda.require_cuda(scores, "scores", (torch.float32, torch.int32), 3 if segments else 2)
+    if ids is not None:
+        _cuda.require_cuda(ids, "ids", (torch.int32,), scores.dim())
+        if ids.shape != scores.shape or ids.device != scores.device:
+            raise ValueError(f"ids {tuple(ids.shape)} must match scores {tuple(scores.shape)}")
+    if segments:
+        u, rows, m = scores.shape
+        n, seg_len, seg_stride = u * m, m, rows * m
+    else:
+        rows, n = scores.shape
+        seg_len, seg_stride = max(n, 1), 0
+    if k < 1:
+        raise ValueError(f"k={k} must be ≥ 1")
+    dev = scores.device
+    out_s = torch.empty((rows, k), dtype=scores.dtype, device=dev)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    if rows == 0:
+        return out_s, out_i
+    tmp_s, tmp_i = _sort_scratch(rows, k, dev)
+    err = _cuda.lib().ts_topk_select(
+        scores.data_ptr(), ids.data_ptr() if ids is not None else None, rows, n, seg_len,
+        seg_stride, seg_len, k, out_s.data_ptr(), out_i.data_ptr(),
+        tmp_s.data_ptr() if tmp_s is not None else None,
+        tmp_i.data_ptr() if tmp_i is not None else None,
+        int(scores.dtype == torch.int32), _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "top-k select kernel")
+    topk_select_cuda.launches += 1
+    return out_s, out_i
+
+
+topk_select_cuda.launches = 0
+
+
+def cosine_topk_large_cuda(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (and K3 with ``scales``) at any k on the card, the route taken
+    above ``MAX_K``: for each chunk of queries whose (Qc, N) f32 scores fit
+    ``_SCORES_BYTES``, the score tile writes them (K2's and K3's bits),
+    then the select kernel takes each query's top k by (score desc, id asc)
+    and sorts it (``csrc/topk_select.cu``). Inputs as ``cosine_topk_cuda``
+    / ``cosine_topk_int8_cuda`` check them. Each chunk adds one to
+    ``cosine_topk_large_cuda.launches`` (K3: ``.launches_int8``) and to
+    ``topk_select_cuda.launches``."""
+    q_n, d = queries.shape
+    n = corpus.shape[0]
+    dev = corpus.device
+    out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
+    if q_n == 0:
+        return out_s, out_i
+    ld = -(-n // 4) * 4
+    chunk = max(1, min(q_n, _SCORES_BYTES // (4 * ld)))
+    scores = torch.empty((chunk, ld), dtype=torch.float32, device=dev)
+    tmp_s, tmp_i = _sort_scratch(chunk, k, dev)
+    kind = 2 if scales is not None else int(corpus.dtype == torch.bfloat16)
+    for c0 in range(0, q_n, chunk):
+        qc = min(chunk, q_n - c0)
+        _, splits, rows_per_split = _plan_topk(qc, n)
+        err = _cuda.lib().ts_topk_large(
+            queries[c0].data_ptr(), corpus.data_ptr(), kind,
+            scales.data_ptr() if scales is not None else None, qc, n, d, k, splits,
+            rows_per_split, scores.data_ptr(), ld, out_s[c0].data_ptr(), out_i[c0].data_ptr(),
+            tmp_s.data_ptr() if tmp_s is not None else None,
+            tmp_i.data_ptr() if tmp_i is not None else None, _cuda.stream_handle(dev),
+        )
+        _cuda.check(err, "large-k top-k kernels")
+        if scales is not None:
+            cosine_topk_large_cuda.launches_int8 += 1
+        else:
+            cosine_topk_large_cuda.launches += 1
+        topk_select_cuda.launches += 1
+    return out_s, out_i
+
+
+cosine_topk_large_cuda.launches = 0
+cosine_topk_large_cuda.launches_int8 = 0
 
 
 _SMS = 132   # streaming multiprocessors of an H100 SXM
@@ -167,7 +293,8 @@ def cosine_topk_cuda(
     k: int = 10,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K2 on the card. queries (Q, D) f32, corpus (N, D) f32 or
-    bf16, both contiguous CUDA tensors; D a multiple of 32, k ≤ 256.
+    bf16, both contiguous CUDA tensors; D a multiple of 32, 1 ≤ k ≤ N;
+    above ``MAX_K`` the large-k route (``cosine_topk_large_cuda``).
     → (scores (Q, k) f32, ids (Q, k) int32)."""
     _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
     _cuda.require_cuda(corpus, "corpus", (torch.float32, torch.bfloat16), 2)
@@ -178,6 +305,8 @@ def cosine_topk_cuda(
     if queries.device != corpus.device:
         raise ValueError("queries and corpus must be on one device")
     _check_k(k, n)
+    if k > MAX_K:
+        return cosine_topk_large_cuda(queries, corpus, k)
     dev = corpus.device
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
@@ -238,7 +367,8 @@ def cosine_topk_int8_cuda(
     times the row's scale, so it equals K2's score over ``c.float()``
     times ``scale`` bit for bit and does not depend on Q.
     queries (Q, D) f32, corpus_q (N, D) int8, scales (N,) f32, contiguous
-    CUDA tensors; D a multiple of 32, k ≤ 256.
+    CUDA tensors; D a multiple of 32, 1 ≤ k ≤ N; above ``MAX_K`` the
+    large-k route (``cosine_topk_large_cuda``).
     → (scores (Q, k) f32, ids (Q, k) int32)."""
     _cuda.require_cuda(queries, "queries", (torch.float32,), 2)
     _cuda.require_cuda(corpus_q, "corpus_q", (torch.int8,), 2)
@@ -252,6 +382,8 @@ def cosine_topk_int8_cuda(
     if not queries.device == corpus_q.device == scales.device:
         raise ValueError("queries, corpus and scales must be on one device")
     _check_k(k, n)
+    if k > MAX_K:
+        return cosine_topk_large_cuda(queries, corpus_q, k, scales)
     dev = corpus_q.device
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q_n, k), dtype=torch.int32, device=dev)
@@ -384,13 +516,18 @@ def _fold_cuda(queries, corpus, k: int, block_c: int, keep_scores: bool):
     _, splits, per = _plan_fold(q_n, n, block_c)
     win_s = torch.empty((splits, q_n, block_c), dtype=torch.float32, device=dev)
     win_i = torch.empty((splits, q_n, block_c), dtype=torch.int32, device=dev)
-    args = (queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            q_n, n, d, k, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr())
-    scores = None
+    scores, ld = None, 0
     if keep_scores:
         ld = -(-n // 4) * 4
         scores = torch.empty((q_n, ld), dtype=torch.float32, device=dev)
+    head = (queries.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16), q_n, n, d)
+    if k > MAX_K:
+        _fold_large_cuda(head, q_n, k, block_c, splits, per, win_s, win_i, out_s, out_i,
+                         scores, ld, dev)
+        return out_s, out_i, scores
+    args = (*head, k, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr())
+    if keep_scores:
         err = _cuda.lib().ts_topk_2pass_fold_scores(*args, scores.data_ptr(), ld,
                                                     _cuda.stream_handle(dev))
     else:
@@ -400,11 +537,42 @@ def _fold_cuda(queries, corpus, k: int, block_c: int, keep_scores: bool):
     return out_s, out_i, scores
 
 
+def _fold_large_cuda(head, q_n, k, block_c, splits, per, win_s, win_i, out_s, out_i, scores,
+                     ld, dev):
+    """K8's pass A above ``MAX_K``: the fold, then the select kernel over
+    the classes' winners in place of the k rounds. Past the block_c
+    winners the rounds repeat (−inf, the lowest id of them), and so does
+    this."""
+    k_sel = min(k, block_c)
+    cls_s = torch.empty((q_n, block_c), dtype=torch.float32, device=dev)
+    cls_i = torch.empty((q_n, block_c), dtype=torch.int32, device=dev)
+    sel_s, sel_i = (out_s, out_i) if k_sel == k else (
+        torch.empty((q_n, k_sel), dtype=torch.float32, device=dev),
+        torch.empty((q_n, k_sel), dtype=torch.int32, device=dev))
+    tmp_s, tmp_i = _sort_scratch(q_n, k_sel, dev)
+    err = _cuda.lib().ts_topk_2pass_fold_large(
+        *head, k_sel, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
+        cls_s.data_ptr(), cls_i.data_ptr(), sel_s.data_ptr(), sel_i.data_ptr(),
+        tmp_s.data_ptr() if tmp_s is not None else None,
+        tmp_i.data_ptr() if tmp_i is not None else None,
+        scores.data_ptr() if scores is not None else None, ld, _cuda.stream_handle(dev),
+    )
+    _cuda.check(err, "two-pass top-k fold kernel (large k)")
+    topk_2pass_fold_cuda.launches += 1
+    topk_2pass_fold_cuda.launches_large += 1
+    topk_select_cuda.launches += 1
+    if k_sel < k:
+        out_s[:, :k_sel], out_i[:, :k_sel] = sel_s, sel_i
+        out_s[:, k_sel:] = -torch.inf
+        out_i[:, k_sel:] = sel_i.amin(dim=1, keepdim=True)
+
+
 def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
     """K8's pass A on the card: the class fold (CTAs over QT queries × 128
     classes × a run of corpus blocks on the score tile, QT = 16, 64 or 128
     by Q; winners to device memory), then one CTA a query runs the k merge
-    rounds over its ``block_c`` classes.
+    rounds over its ``block_c`` classes (above ``MAX_K``, the select kernel
+    over them: ``launches_large``).
     queries (Q, D) f32, corpus (N, D) f32 or bf16, contiguous CUDA; D a
     multiple of 32. → ((Q, k) f32, (Q, k) int32)."""
     out_s, out_i, _ = _fold_cuda(queries, corpus, k, block_c, False)
@@ -412,6 +580,7 @@ def topk_2pass_fold_cuda(queries, corpus, k: int, block_c: int = 2048):
 
 
 topk_2pass_fold_cuda.launches = 0
+topk_2pass_fold_cuda.launches_large = 0
 
 
 def topk_2pass_count_cuda(queries, corpus, thr: torch.Tensor, block_c: int = 2048,

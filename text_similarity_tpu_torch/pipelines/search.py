@@ -41,7 +41,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..index import BruteForceIndex, EmbeddingStore, IVFIndex
-from ..ops.topk import MAX_K, l2_normalize
+from ..ops.topk import l2_normalize
 
 logger = logging.getLogger(__name__)
 
@@ -344,11 +344,11 @@ class ShardedSearchPipeline:
         k = min(max_num_results, len(self.corpus))
         if self.ivf is None and self._removed:
             # over-fetch past the tombstones, snapped to a power of 2 (one
-            # query shape a range of removals) and held to the kernel's k
+            # query shape a range of removals)
             b = 1
             while b < k + len(self._removed):
                 b *= 2
-            k = min(b, len(self.corpus), MAX_K)
+            k = min(b, len(self.corpus))
         s, i = self.index.query(q_emb, k=k)
         return _rows(self.corpus, s, i, len(queries), max_num_results, self._removed)
 
