@@ -664,17 +664,22 @@ def phase_topk(torch, card):
 LARGE_KS = (300, 1000, 4096)
 
 
+LARGE_QS = (1, 8, 64, 256)
+
+
 def phase_large_k(torch, card):
     """The large-k route (``csrc/topk_select.cu``) of K2 (f32, bf16) and K3
-    (int8) at k ∈ ``LARGE_KS`` on phase 2's corpus (Q 256 × N 100,003 × D
-    384, exact ties), against the plain versions: f32 and int8 ids equal
-    where the scores are separated, scores allclose 1e-5, and f32 at k 300
-    equal to the selector's answer at k 256 bit for bit on its first 256
-    (the same score bits, the same tie rule); bf16 id overlap ≥ 0.99. Each
-    time beside ``torch.topk(q @ cᵀ, k)``'s and the bound (the f32
-    operations, or the corpus read and the (Q, N) score write and read).
-    → the rows of the K2 and K3 routes (launches filled in by phases 14 and
-    5)."""
+    (int8) at k ∈ ``LARGE_KS`` on phase 2's corpus (N 100,003 × D 384,
+    exact ties), at Q ∈ ``LARGE_QS`` (the first Q of its 256 queries),
+    against the plain versions: f32 and int8 ids equal where the scores are
+    separated, scores allclose 1e-5, and f32 at k 300 equal to the
+    selector's answer at k 256 bit for bit on its first 256 (the same score
+    bits, the same tie rule); bf16 id overlap ≥ 0.99. Each time at each Q
+    beside ``torch.topk(q @ cᵀ, k)``'s and the bound (the f32 operations,
+    or the corpus read and the (Q, N) score write and read), and the select
+    kernel alone over the (Q, N) f32 scores beside its own bound (one read
+    of them, the answer written). → the rows of the K2 and K3 routes
+    (launches filled in by phases 14 and 5)."""
     from text_similarity_tpu_torch.compress.quantize import quantize_embeddings_int8
     from text_similarity_tpu_torch.ops import topk
 
@@ -684,32 +689,35 @@ def phase_large_k(torch, card):
     qn = q.shape[0]
     codes, scales = quantize_embeddings_int8(corpus)
     kinds = {"f32": corpus, "bf16": corpus.to(torch.bfloat16).contiguous(), "int8": codes}
+    by_q = {q_n: q[:q_n].contiguous() for q_n in LARGE_QS}
 
-    def run(kind, k, plain=False):
+    def run(kind, k, plain=False, q_n=qn):
+        qq = by_q[q_n]
         if kind == "int8":
             fn = topk.cosine_topk_int8_reference if plain else topk.cosine_topk_int8_cuda
-            return fn(q, codes, scales, k)
+            return fn(qq, codes, scales, k)
         fn = topk.cosine_topk_reference if plain else topk.cosine_topk_cuda
-        return fn(q, kinds[kind], k)
+        return fn(qq, kinds[kind], k)
 
     before = (topk.cosine_topk_cuda.launches, topk.cosine_topk_int8_cuda.launches)
     worst = {"f32": 0.0, "bf16": 0.0, "int8": 0.0}
     for kind in kinds:
-        for k in LARGE_KS:
-            ks, ki = run(kind, k)
-            rs, ri = run(kind, k + 1, plain=True)
-            torch.cuda.synchronize()
-            sorted_ok = bool((ks[:, 1:] <= ks[:, :-1]).all())
-            err, ok, detail = agree_topk(ks, ki, rs[:, :k], ri[:, :k], kind != "bf16",
-                                         next_scores=rs[:, k].cpu().numpy())
-            ov = overlap(ki.cpu().numpy(), ri[:, :k].cpu().numpy())
-            ok = ok and sorted_ok and ov >= 0.99
-            worst[kind] = max(worst[kind], err)
-            log(f"large-k route {kind} Q={qn} k={k}: max|Δscore| {err:.2e}, {detail}, id-set "
-                f"overlap {ov:.4f}, sorted {sorted_ok} -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"the large-k route ({kind}, k {k}) disagrees with its "
-                                     "plain version")
+        for q_n in LARGE_QS:
+            for k in LARGE_KS:
+                ks, ki = run(kind, k, q_n=q_n)
+                rs, ri = run(kind, k + 1, plain=True, q_n=q_n)
+                torch.cuda.synchronize()
+                sorted_ok = bool((ks[:, 1:] <= ks[:, :-1]).all())
+                err, ok, detail = agree_topk(ks, ki, rs[:, :k], ri[:, :k], kind != "bf16",
+                                             next_scores=rs[:, k].cpu().numpy())
+                ov = overlap(ki.cpu().numpy(), ri[:, :k].cpu().numpy())
+                ok = ok and sorted_ok and ov >= 0.99
+                worst[kind] = max(worst[kind], err)
+                log(f"large-k route {kind} Q={q_n} k={k}: max|Δscore| {err:.2e}, {detail}, "
+                    f"id-set overlap {ov:.4f}, sorted {sorted_ok} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"the large-k route ({kind}, Q {q_n}, k {k}) disagrees "
+                                         "with its plain version")
     ls, li = topk.cosine_topk_cuda(q, corpus, 300)
     ss, si = topk.cosine_topk_cuda(q, corpus, 256)
     same = bool(torch.equal(ls[:, :256], ss) and torch.equal(li[:, :256], si))
@@ -719,51 +727,75 @@ def phase_large_k(torch, card):
         raise AssertionError(f"the large-k route's first 256 differ from the selector's, or a "
                              f"selector kernel ran above 256 (launches {before} -> {after})")
 
+    # where the time goes: the select kernel alone over each Q's f32 scores,
+    # beside torch.topk over them
+    select_by_q, select_lib_by_q = {}, {}
+    for q_n in LARGE_QS:
+        scores = by_q[q_n] @ corpus.T
+        select_by_q[q_n] = {k: time_ms(torch, lambda: topk.topk_select_cuda(scores, k))
+                            for k in LARGE_KS}
+        select_lib_by_q[q_n] = {k: time_ms(torch, lambda: torch.topk(scores, k, dim=1))
+                                for k in LARGE_KS}
+        bounds = {k: bound_ms(q_n * n * 4 + q_n * k * 8, 0.0, PEAK_F32)[0] for k in LARGE_KS}
+        if q_n == qn:
+            pos = torch.arange(n, dtype=torch.int32, device=scores.device).expand(qn, n)
+            select_plain = time_ms(torch, lambda: topk.select_topk_plain(scores, pos, 1000),
+                                   iters=3, warmup=1)
+        del scores
+        log(f"large-k select alone over the ({q_n}, {n}) f32 scores [{card}]: " + ", ".join(
+            f"k {k} {select_by_q[q_n][k]:.4f} ms (torch.topk {select_lib_by_q[q_n][k]:.4f}, "
+            f"bound {bounds[k]:.4f})" for k in LARGE_KS))
+    log(f"large-k select's plain version at Q {qn}, k 1000 [{card}]: {select_plain:.3f} ms")
     rows = []
     for kind, name, replaces in (
         ("f32", "cosine_topk_large", "text_similarity_tpu/ops/topk.py:307"),
         ("int8", "cosine_topk_int8_large", "text_similarity_tpu/ops/topk.py:617"),
     ):
-        by_k, lib_by_k, bound_by_k, bf16_by_k = {}, {}, {}, {}
-        for k in LARGE_KS:
-            by_k[k] = time_ms(torch, lambda: run(kind, k))
-            if kind == "int8":
-                lib_by_k[k] = time_ms(torch, lambda: torch.topk((q @ codes.float().T) * scales, k,
-                                                                dim=1))
-                c_bytes = n * d + n * 4
-            else:
-                lib_by_k[k] = time_ms(torch, lambda: torch.topk(q @ corpus.T, k, dim=1))
-                bf16_by_k[k] = time_ms(torch, lambda: run("bf16", k))
-                c_bytes = n * d * 4
-            # inputs once, the (Q, N) scores written and read once, the answer
-            bound_by_k[k] = bound_ms(qn * d * 4 + c_bytes + 2 * qn * n * 4 + qn * k * 8,
-                                     2.0 * qn * n * d, PEAK_F32)
-            bf16 = f", bf16 corpus {bf16_by_k[k]:.3f} ms" if bf16_by_k else ""
-            log(f"large-k route {kind} Q={qn} N={n} k={k} [{card}]: kernels {by_k[k]:.3f} ms"
-                f"{bf16}, torch.topk {lib_by_k[k]:.3f} ms, bound {bound_by_k[k][0]:.4f} ms "
-                f"({bound_by_k[k][1]})")
+        by_qk, lib_by_qk, bound_by_qk, bf16_by_qk = {}, {}, {}, {}
+        c_bytes = n * d + n * 4 if kind == "int8" else n * d * 4
+        for q_n in LARGE_QS:
+            qq = by_q[q_n]
+            by_qk[q_n], lib_by_qk[q_n], bound_by_qk[q_n] = {}, {}, {}
+            if kind == "f32":
+                bf16_by_qk[q_n] = {}
+            for k in LARGE_KS:
+                by_qk[q_n][k] = time_ms(torch, lambda: run(kind, k, q_n=q_n))
+                if kind == "int8":
+                    lib_by_qk[q_n][k] = time_ms(torch, lambda: torch.topk(
+                        (qq @ codes.float().T) * scales, k, dim=1))
+                else:
+                    lib_by_qk[q_n][k] = time_ms(torch, lambda: torch.topk(qq @ corpus.T, k,
+                                                                          dim=1))
+                    bf16_by_qk[q_n][k] = time_ms(torch, lambda: run("bf16", k, q_n=q_n))
+                # inputs once, the (Q, N) scores written and read once, the answer
+                bound_by_qk[q_n][k] = bound_ms(
+                    q_n * d * 4 + c_bytes + 2 * q_n * n * 4 + q_n * k * 8, 2.0 * q_n * n * d,
+                    PEAK_F32)
+                bf16 = f", bf16 corpus {bf16_by_qk[q_n][k]:.3f} ms" if kind == "f32" else ""
+                b, by = bound_by_qk[q_n][k]
+                log(f"large-k route {kind} Q={q_n} N={n} k={k} [{card}]: kernels "
+                    f"{by_qk[q_n][k]:.3f} ms{bf16}, torch.topk {lib_by_qk[q_n][k]:.3f} ms, "
+                    f"bound {b:.4f} ms ({by})")
         plain = time_ms(torch, lambda: run(kind, 1000, plain=True), iters=3, warmup=1)
-        b_ms, b_by = bound_by_k[1000]
-        if kind == "f32":
-            # where the time goes: the select kernel alone over these scores
-            scores = q @ corpus.T
-            select_by_k = {k: time_ms(torch, lambda: topk.topk_select_cuda(scores, k))
-                           for k in LARGE_KS}
-            del scores
-            log(f"large-k route f32 [{card}]: the select and sort alone over the (256, {n}) "
-                f"scores " + ", ".join(f"k {k} {v:.3f} ms" for k, v in select_by_k.items()))
+        b_ms, b_by = bound_by_qk[qn][1000]
         row = {
             "name": name, "route": "cuda", "source": "text_similarity_tpu_torch/csrc/topk_select.cu",
-            "replaces": replaces, "max_abs_err": worst[kind], "ms": by_k[1000], "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_by_k[1000],
-            "shape": f"Q={qn} N={n} D={d} k=1000 {kind}", "ms_by_k": by_k,
-            "bound_ms_by_k": {k: b for k, (b, _) in bound_by_k.items()},
-            "library_ms_by_k": lib_by_k,
+            "replaces": replaces, "max_abs_err": worst[kind], "ms": by_qk[qn][1000],
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_by_qk[qn][1000], "shape": f"Q={qn} N={n} D={d} k=1000 {kind}",
+            "ms_by_k": by_qk[qn], "bound_ms_by_k": {k: b for k, (b, _) in bound_by_qk[qn].items()},
+            "library_ms_by_k": lib_by_qk[qn], "ms_by_q_k": by_qk, "library_ms_by_q_k": lib_by_qk,
+            "bound_ms_by_q_k": {q_n: {k: b for k, (b, _) in v.items()}
+                                for q_n, v in bound_by_qk.items()},
         }
-        if bf16_by_k:
-            row["ms_bf16_by_k"] = bf16_by_k
+        if kind == "f32":
+            row["ms_bf16_by_k"] = bf16_by_qk[qn]
+            row["ms_bf16_by_q_k"] = bf16_by_qk
             row["max_abs_err_bf16"] = worst["bf16"]
-            row["select_ms_by_k"] = select_by_k
+            row["select_ms_by_k"] = select_by_q[qn]
+            row["select_ms_by_q_k"] = select_by_q
+            row["select_library_ms_by_q_k"] = select_lib_by_q
+            row["select_plain_ms"] = select_plain
         rows.append(row)
     return rows
 

@@ -2342,16 +2342,29 @@ def _large_k_data(cuda, q_n, n=30_011, d=64, seed=21):
     return torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
 
 
+def _plain_order(s, i, k):
+    """The first k of each row by (value desc, id asc), numpy arrays (int
+    values compare as ints)."""
+    order = np.lexsort((i, -s.astype(np.float64)), axis=1)[:, :k]
+    return np.take_along_axis(s, order, 1), np.take_along_axis(i, order, 1)
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("q_n,k", [(1, 257), (7, 300), (64, 1000), (5, 8193), (2, 20011)])
+@pytest.mark.parametrize("q_n,k", [(1, 257), (7, 300), (64, 1000), (5, 8193), (2, 20011),
+                                   (1, 1000), (1, 4096), (8, 257), (8, 1000), (8, 4096),
+                                   (64, 257), (64, 4096)])
 def test_large_k_route_matches_plain(cuda, kind, q_n, k):
     """K2 (f32, bf16) and K3 (int8) above 256 take the large-k route (no
-    launch of the selector kernels): scores allclose 1e-5, sorted; f32 and
-    int8 ids equal where separated, bf16 overlap ≥ 0.99; past 8,192
-    winners the merge passes run."""
+    launch of the selector kernels, one select launch): scores allclose
+    1e-5, sorted; f32 and int8 ids equal where separated, bf16 overlap ≥
+    0.99; past 4,096 winners the merge passes run. Bit for bit: f32 and
+    bf16 equal the plain (score desc, id asc) order of the tile's own
+    scores (K8's kept scores, K2's bits), int8's first 256 equal K3's
+    selector at k 256."""
     q, x = _large_k_data(cuda, q_n)
     before = (cosine_topk_cuda.launches, cosine_topk_int8_cuda.launches,
-              cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8)
+              cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8,
+              topk_select_cuda.launches)
     if kind == "int8":
         codes, scales = quantize_embeddings_int8(x)
         ks, ki = cosine_topk_int8_cuda(q, codes, scales, k)
@@ -2362,18 +2375,55 @@ def test_large_k_route_matches_plain(cuda, kind, q_n, k):
         rs, ri = cosine_topk_reference(q, c, k)
     torch.cuda.synchronize()
     after = (cosine_topk_cuda.launches, cosine_topk_int8_cuda.launches,
-             cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8)
-    assert after == (before[0], before[1], before[2] + 1)
+             cosine_topk_large_cuda.launches + cosine_topk_large_cuda.launches_int8,
+             topk_select_cuda.launches)
+    assert after == (before[0], before[1], before[2] + 1, before[3] + 1)
     assert bool((ks[:, 1:] <= ks[:, :-1]).all())
     _assert_agree(ks, ki, rs, ri, kind != "bf16")
+    if kind == "int8":
+        ss, si = cosine_topk_int8_cuda(q, codes, scales, 256)
+        assert torch.equal(ks[:, :256], ss) and torch.equal(ki[:, :256], si)
+    else:
+        n = x.shape[0]
+        kept = topk_mod._fold_cuda(q, c, 10, 2048, True)[2][:, :n].cpu().numpy()
+        ps, pi = _plain_order(kept, np.arange(n)[None].repeat(q_n, 0), k)
+        assert np.array_equal(ks.cpu().numpy(), ps) and np.array_equal(ki.cpu().numpy(), pi)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_large_k_route_on_one_repeated_row(cuda, kind):
+    """A corpus of 50,000 copies of one row: every score equal, so the cut's
+    bin holds the whole row, more than the select keeps as candidates (its
+    second digit cannot split it either): the lowest k ids, in order, one
+    select launch."""
+    rng = np.random.default_rng(22)
+    row = _unit(rng.standard_normal((1, 64)))
+    x = torch.from_numpy(np.repeat(row, 50_000, 0)).to(cuda)
+    q = torch.from_numpy(_unit(row + 0.1 * rng.standard_normal((3, 64)))).to(cuda)
+    before = topk_select_cuda.launches
+    if kind == "int8":
+        codes, scales = quantize_embeddings_int8(x)
+        ks, ki = cosine_topk_int8_cuda(q, codes, scales, 1000)
+        ss, _ = cosine_topk_int8_cuda(q, codes, scales, 1)
+    else:
+        c = x.to(torch.bfloat16) if kind == "bf16" else x
+        ks, ki = cosine_topk_cuda(q, c, 1000)
+        ss, _ = cosine_topk_cuda(q, c, 1)
+    torch.cuda.synchronize()
+    assert topk_select_cuda.launches == before + 1
+    assert torch.equal(ki.cpu(), torch.arange(1000, dtype=torch.int32)[None].repeat(3, 1))
+    assert torch.equal(ks, ss.expand(3, 1000))
 
 
 @pytest.mark.parametrize("rows,n,k", [(3, 5000, 700), (2, 300, 500), (4, 40_000, 9000),
-                                      (1, 70_000, 70_000)])
+                                      (1, 70_000, 70_000), (1, 30_011, 257), (1, 30_011, 1000),
+                                      (1, 30_011, 4096), (8, 30_011, 257), (8, 30_011, 1000),
+                                      (8, 30_011, 4096), (64, 30_011, 257), (64, 30_011, 1000),
+                                      (64, 30_011, 4096)])
 def test_select_kernel_is_exact_on_ties(cuda, rows, n, k):
     """The select kernel against the plain (score desc, id asc) order, bit
     for bit: scores on a 1/8 grid (ties everywhere, −0 beside +0), ids a
-    permutation; k past n pads (−inf, −1); past 8,192 the merge passes."""
+    permutation; k past n pads (−inf, −1); past 4,096 the merge passes."""
     g = torch.Generator().manual_seed(n)
     s = torch.round(torch.randn((rows, n), generator=g) * 8) / 8
     s[:, ::7] = -0.0
@@ -2391,6 +2441,53 @@ def test_select_kernel_is_exact_on_ties(cuda, rows, n, k):
     assert np.array_equal(pi.cpu().numpy()[:, :kk], by_pos)
     if k > n:
         assert bool((ks[:, n:] == -float("inf")).all()) and bool((ki[:, n:] == -1).all())
+
+
+@pytest.mark.parametrize("case", ["all equal", "n below a slice", "n below k",
+                                  "600,000 long", "segments with ids", "int keys"])
+@pytest.mark.parametrize("k", [300, 4096])
+def test_select_kernel_edges(cuda, case, k):
+    """The select kernel at its design's edges, bit for bit against the
+    plain (value desc, id asc) order, one launch a call: a row of one value
+    (its cut's bin past the candidates the kernel keeps: the select over
+    the row in place), rows shorter than one pass slice (4,096) and than k
+    (padding (−inf, −1)), a row of 600,000 continuous scores, (U, R, M)
+    IVF-style segments with ids (dead slots (−inf, −1)), int keys (padding
+    0)."""
+    g = torch.Generator().manual_seed(k)
+    rows, n = {"all equal": (2, 20_000), "n below a slice": (5, 3000), "n below k": (3, 250),
+               "600,000 long": (1, 600_000)}.get(case, (3, 0))
+    segments = case == "segments with ids"
+    if segments:
+        u, m = 56, 384
+        s = torch.randn((u, rows, m), generator=g)
+        i = torch.randint(0, 1 << 20, (u, rows, m), generator=g, dtype=torch.int32)
+        i[:, :, ::9] = -1
+        s[:, :, ::9] = -float("inf")
+        flat_s, flat_i = (t.permute(1, 0, 2).reshape(rows, u * m) for t in (s, i))
+    elif case == "int keys":
+        n = 50_000
+        s = torch.randint(-(1 << 30), 1 << 30, (rows, n), generator=g, dtype=torch.int32)
+        s[:, ::5] = s[:, 1::5]   # ties
+        i = torch.stack([torch.randperm(n, generator=g) for _ in range(rows)]).to(torch.int32)
+        flat_s, flat_i = s, i
+    else:
+        s = torch.full((rows, n), 0.5) if case == "all equal" else torch.randn((rows, n),
+                                                                               generator=g)
+        i = torch.stack([torch.randperm(n, generator=g) for _ in range(rows)]).to(torch.int32)
+        flat_s, flat_i = s, i
+    before = topk_select_cuda.launches
+    ks, ki = topk_select_cuda(s.to(cuda), k, i.to(cuda), segments=segments)
+    torch.cuda.synchronize()
+    assert topk_select_cuda.launches == before + 1
+    n_all = flat_s.shape[1]
+    kk = min(k, n_all)
+    ps, pi = _plain_order(flat_s.numpy(), flat_i.numpy(), kk)
+    assert np.array_equal(ks.cpu().numpy()[:, :kk], ps)
+    assert np.array_equal(ki.cpu().numpy()[:, :kk], pi)
+    if k > n_all:
+        pad = 0 if case == "int keys" else -float("inf")
+        assert bool((ks[:, n_all:] == pad).all()) and bool((ki[:, n_all:] == -1).all())
 
 
 def test_select_kernel_reads_segments_in_place(cuda):

@@ -182,14 +182,15 @@ class _LargeKRecorder:
 @pytest.mark.parametrize("q_n,n,budget_rows", [(10, 1000, 3), (1, 1001, 1), (300, 5003, 256)])
 def test_large_k_wrapper_chunks_the_queries(monkeypatch, q_n, n, budget_rows):
     """The wrapper's chunks of queries cover every query once, in order,
-    each chunk's (Qc, ld) f32 scores within the budget (ld = N rounded up
-    to 4), each on K2's score grid at k 1."""
+    each chunk's (Qc, ld) f32 scores and the select's workspace within the
+    budget (ld = N rounded up to 4), each on K2's score grid at k 1."""
     queries = torch.empty((q_n, 32))
     rec = _LargeKRecorder(queries.data_ptr())
     ld = -(-n // 4) * 4
     monkeypatch.setattr(topk_mod._cuda, "lib", lambda: rec)
     monkeypatch.setattr(topk_mod._cuda, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(topk_mod, "_SCORES_BYTES", budget_rows * ld * 4)
+    monkeypatch.setattr(topk_mod, "_SCORES_BYTES",
+                        budget_rows * (ld * 4 + topk_mod._select_row_bytes(n, 300)))
     cosine_topk_large_cuda(queries, torch.empty((n, 32)), 300)
     starts = [c[0] for c in rec.calls]
     sizes = [c[1] for c in rec.calls]
@@ -297,3 +298,67 @@ def test_sharded_pipeline_after_300_nearest_removed_matches_jax(eight_devices, t
     got_s, got_i = answer(pipe, 10)
     _ids_equal_where_separated(got_s, got_i, *answer(jpipe, 10))
     assert got_i.shape == (1, 10) and not set(got_i[0]) & set(removed)
+
+
+# ---------------------------------------------------------------------------
+# The serving route past 256: RankingPipeline and SemanticSearchPipeline
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def serving_pair(tmp_path_factory):
+    """The JAX package's and the port's brute-force search pipelines over
+    450 texts (one JAX-saved tiny-test bi-encoder, f32) and one JAX-saved
+    tiny-test cross-encoder (its random head scaled ×100, so that the
+    rerank scores spread far beyond the tolerance), built once."""
+    from text_similarity_tpu.models.cross_encoder import CrossEncoder as JaxCrossEncoder
+    from text_similarity_tpu.pipelines import SemanticSearchPipeline as JaxPipeline
+    from text_similarity_tpu_torch.models.cross_encoder import CrossEncoder
+    from text_similarity_tpu_torch.pipelines import SemanticSearchPipeline
+
+    corpus = _texts(450, seed=22)
+    tok = JaxTokenizer(train_wordpiece_vocab(corpus, vocab_size=900, min_freq=1))
+    arch = JAX_PRESETS["tiny-test"].replace(vocab_size=tok.vocab_size)
+    jenc = JaxSentenceEncoder(jax_init(jax.random.PRNGKey(22), arch), arch, tokenizer=tok,
+                              precision=JAX_FP32)
+    jce = JaxCrossEncoder.init(jax.random.PRNGKey(23), arch, tokenizer=tok, num_classes=1,
+                               precision=JAX_FP32)
+    jce.params["head"]["w"] = jce.params["head"]["w"] * 100.0
+    enc_dir, ce_dir = tmp_path_factory.mktemp("enc"), tmp_path_factory.mktemp("ce")
+    jenc.save(str(enc_dir))
+    jce.save(str(ce_dir))
+    enc = SentenceEncoder.load(str(enc_dir), bf16=False, device="cpu")
+    ce = CrossEncoder.load(str(ce_dir), bf16=False, device="cpu")
+    return (corpus, JaxPipeline(jenc, corpus=corpus, use_ivf=False), jce,
+            SemanticSearchPipeline(enc, corpus=corpus, use_ivf=False, device="cpu"), ce)
+
+
+def _same_rows(got, want):
+    """(document, score, id) rows: ids and order equal, scores allclose
+    1e-5."""
+    assert [[(d, i) for d, _, i in r] for r in got] == [[(d, i) for d, _, i in r] for r in want]
+    np.testing.assert_allclose([[s for _, s, _ in r] for r in got],
+                               [[s for _, s, _ in r] for r in want], atol=1e-5)
+
+
+def test_ranking_pipeline_retrieve_k200_matches_jax(serving_pair):
+    """``RankingPipeline(retrieve_k=200)``: its search fetches 400 rows a
+    query (the brute-force 2k over-fetch, past 256), then reranks; the
+    port returns the JAX package's ids in its order."""
+    from text_similarity_tpu.pipelines import RankingPipeline as JaxRankingPipeline
+    from text_similarity_tpu_torch.pipelines import RankingPipeline
+
+    corpus, jpipe, jce, pipe, ce = serving_pair
+    queries = [corpus[7], "unseen words of a query"]
+    want = JaxRankingPipeline(jpipe, jce, retrieve_k=200)(queries, top_k=200)
+    got = RankingPipeline(pipe, ce, retrieve_k=200)(queries, top_k=200)
+    assert [len(r) for r in got] == [200, 200]
+    _same_rows(got, want)
+
+
+def test_search_pipeline_one_query_150_results_matches_jax(serving_pair):
+    """One query at ``max_num_results=150`` (a 300-row fetch): the JAX
+    package's 150 rows, ids and order equal."""
+    corpus, jpipe, _, pipe, _ = serving_pair
+    got, want = pipe([corpus[11]], max_num_results=150), jpipe([corpus[11]], max_num_results=150)
+    assert len(got[0]) == 150
+    _same_rows(got, want)

@@ -381,18 +381,18 @@ extern "C" int ts_topk_2pass_fold_scores(const float* q, const void* corpus, int
 
 extern "C" int ts_topk_select(const float* scores, const int* ids, int R, int n, int seg_len,
                               long long seg_stride, long long row_stride, int k, float* out_s,
-                              int* out_i, float* tmp_s, int* tmp_i, int int_keys,
+                              int* out_i, void* work, long long work_bytes, int int_keys,
                               void* stream);
 
 // Pass A at k > 256: the fold (scores kept in scores (Q, ld) unless it is
 // NULL), the splits folded into cls_s / cls_i (Q, block_c), then the top
 // k_sel ≤ block_c of them → out_s / out_i (Q, k_sel), sorted, through
-// ts_topk_select (tmp_s / tmp_i (Q, k_sel) scratch above 8,192, else NULL).
+// ts_topk_select (work: its workspace over (Q, block_c) at k_sel).
 extern "C" int ts_topk_2pass_fold_large(const float* q, const void* corpus, int corpus_bf16,
                                         int Q, int N, int D, int k_sel, int block_c, int splits,
                                         int blocks_per_split, float* win_s, int* win_i,
                                         float* cls_s, int* cls_i, float* out_s, int* out_i,
-                                        float* tmp_s, int* tmp_i, float* scores, int ld,
+                                        void* work, long long work_bytes, float* scores, int ld,
                                         void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -408,7 +408,7 @@ extern "C" int ts_topk_2pass_fold_large(const float* q, const void* corpus, int 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return ts_topk_select(cls_s, cls_i, Q, block_c, block_c, 0, block_c, k_sel, out_s, out_i,
-                        tmp_s, tmp_i, 0, stream);
+                        work, work_bytes, 0, stream);
 }
 
 // q (Q, D) f32; corpus (N, D) f32 or bf16 (corpus_bf16); D % 32 == 0;

@@ -114,17 +114,17 @@ _SIGNATURES = {
     # scores, ld, thr, Q, N, cnt, stream
     "ts_topk_2pass_count_scores": [_P, _I, _P, _I, _I, _P, _P],
     # q, corpus, corpus_bf16, Q, N, D, k_sel, block_c, splits,
-    # blocks_per_split, win_s, win_i, cls_s, cls_i, out_s, out_i, tmp_s,
-    # tmp_i, scores (or NULL), ld, stream
+    # blocks_per_split, win_s, win_i, cls_s, cls_i, out_s, out_i, work,
+    # work_bytes, scores (or NULL), ld, stream
     "ts_topk_2pass_fold_large": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P, _I, _P],
+                                 _P, _P, _P, _L, _P, _I, _P],
     # scores, ids (or NULL), R, n, seg_len, seg_stride, row_stride, k,
-    # out_s, out_i, tmp_s, tmp_i, int_keys, stream
-    "ts_topk_select": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _P, _P, _P, _I, _P],
+    # out_s, out_i, work, work_bytes, int_keys, stream
+    "ts_topk_select": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _P, _P, _L, _I, _P],
     # q, corpus, corpus_kind (0 f32, 1 bf16, 2 int8), scales (or NULL), Q,
-    # N, D, k, splits, rows_per_split, scores, ld, out_s, out_i, tmp_s,
-    # tmp_i, stream
-    "ts_topk_large": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    # N, D, k, splits, rows_per_split, scores, ld, out_s, out_i, work,
+    # work_bytes, stream
+    "ts_topk_large": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _L, _P],
 }
 
 

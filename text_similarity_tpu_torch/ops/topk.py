@@ -34,8 +34,10 @@ queries in f32 (the semantics of the reference's Pallas kernel
   (``cosine_topk_2pass_reference``).
 * The large-k route (``csrc/topk_select.cu``): the selectors above hold at
   most ``MAX_K`` = 256 winners a query, so above that K2 and K3 write
-  their scores (``cosine_topk_large_cuda``) and one CTA a query selects
-  the top k by a radix select, then sorts them; K8's pass A selects its
+  their scores, counting each query's leading key digits as they go
+  (``cosine_topk_large_cuda``), and the select kernel cuts each row at the
+  digit of its k-th score, compacts what lies at or above it in one read,
+  selects among the candidates and sorts the k; K8's pass A selects its
   classes' winners the same way, and the IVF scans their candidates
   (``topk_select_cuda``). ``MAX_K`` only chooses between the two routes:
   every entry point takes 1 ≤ k ≤ N.
@@ -53,7 +55,9 @@ from . import _cuda
 MAX_K = 256   # above this k the kernels take the large-k route (topk_select.cu)
 _INT_MAX = 2**31 - 1
 _SCORES_BYTES = 1 << 30   # the large-k route's score buffer, at most
-_SORT_RUN = 8192          # winners the select's sort takes in shared memory
+_SORT_RUN = 4096          # entries the select's sort takes in shared memory
+_SELECT_CAP = 8192        # candidates a row of the select keeps
+_SELECT_ZEROED = 4 + 1024 + 4096   # a row's counters and histograms (int32)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -62,15 +66,21 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 def select_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis by (score desc, id asc): sort by id, then
-    stably by score (at most as many as there are). On CUDA tensors above
-    ``MAX_K`` the select kernel (``topk_select_cuda``) takes it."""
+    """Top-k along the last axis by (score desc, id asc), at most as many as
+    there are. On CUDA tensors above ``MAX_K`` the select kernel
+    (``topk_select_cuda``) takes it, else ``select_topk_plain``."""
     if scores.is_cuda and k > MAX_K:
         *lead, n = scores.shape
         k = min(k, n)
         s, i = topk_select_cuda(scores.reshape(-1, n).float().contiguous(), k,
                                 ids.reshape(-1, n).to(torch.int32).contiguous())
         return s.reshape(*lead, k).to(scores.dtype), i.reshape(*lead, k).to(ids.dtype)
+    return select_topk_plain(scores, ids, k)
+
+
+def select_topk_plain(scores: torch.Tensor, ids: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The select kernel's plain version: sort by id, then stably by score."""
     by_id = torch.argsort(ids, dim=-1, stable=True)
     s = torch.gather(scores, -1, by_id)
     i = torch.gather(ids, -1, by_id)
@@ -137,12 +147,24 @@ def _check_k(k: int, n: int) -> None:
 # The large-k route (k > MAX_K): csrc/topk_select.cu
 # ---------------------------------------------------------------------------
 
-def _sort_scratch(rows: int, k: int, dev):
-    """The merge passes' ping-pong buffer, needed above one sort run."""
-    if k <= _SORT_RUN:
-        return None, None
-    return (torch.empty((rows, k), dtype=torch.float32, device=dev),
-            torch.empty((rows, k), dtype=torch.int32, device=dev))
+def _select_row_bytes(n: int, k: int) -> int:
+    """The select's workspace a row (``_select_work`` less its alignment)."""
+    return _SELECT_ZEROED * 4 + max(1, min(n, _SELECT_CAP)) * 8 + (8 * k if k > _SORT_RUN else 0)
+
+
+def _select_work(rows: int, n: int, k: int, dev) -> torch.Tensor:
+    """The select kernel's workspace for ``rows`` rows of ``n`` at k, as
+    ``work_layout`` of ``csrc/topk_select.cu`` lays it out (and checks its
+    size): a row's counters (four ints) and two histograms, its min(n, 8,192)
+    candidates as (key, id), and past one sort run the merge passes'
+    second (score, id) buffer, each part 16-byte aligned."""
+    def align(x):
+        return -(-x // 16) * 16
+
+    size = align(rows * _SELECT_ZEROED * 4) + rows * max(1, min(n, _SELECT_CAP)) * 8
+    if k > _SORT_RUN:
+        size = align(align(size) + rows * k * 4) + rows * k * 4
+    return torch.empty(size, dtype=torch.uint8, device=dev)
 
 
 def topk_select_cuda(
@@ -178,13 +200,11 @@ def topk_select_cuda(
     out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
     if rows == 0:
         return out_s, out_i
-    tmp_s, tmp_i = _sort_scratch(rows, k, dev)
+    work = _select_work(rows, n, k, dev)
     err = _cuda.lib().ts_topk_select(
         scores.data_ptr(), ids.data_ptr() if ids is not None else None, rows, n, seg_len,
-        seg_stride, seg_len, k, out_s.data_ptr(), out_i.data_ptr(),
-        tmp_s.data_ptr() if tmp_s is not None else None,
-        tmp_i.data_ptr() if tmp_i is not None else None,
-        int(scores.dtype == torch.int32), _cuda.stream_handle(dev),
+        seg_stride, seg_len, k, out_s.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+        work.numel(), int(scores.dtype == torch.int32), _cuda.stream_handle(dev),
     )
     _cuda.check(err, "top-k select kernel")
     topk_select_cuda.launches += 1
@@ -201,10 +221,11 @@ def cosine_topk_large_cuda(
     scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 (and K3 with ``scales``) at any k on the card, the route taken
-    above ``MAX_K``: for each chunk of queries whose (Qc, N) f32 scores fit
-    ``_SCORES_BYTES``, the score tile writes them (K2's and K3's bits),
-    then the select kernel takes each query's top k by (score desc, id asc)
-    and sorts it (``csrc/topk_select.cu``). Inputs as ``cosine_topk_cuda``
+    above ``MAX_K``: for each chunk of queries whose (Qc, N) f32 scores and
+    the select's workspace fit ``_SCORES_BYTES``, the score tile writes them
+    (K2's and K3's bits) and counts their leading key digits, then the
+    select kernel takes each query's top k by (score desc, id asc) and sorts
+    it (``csrc/topk_select.cu``). Inputs as ``cosine_topk_cuda``
     / ``cosine_topk_int8_cuda`` check them. Each chunk adds one to
     ``cosine_topk_large_cuda.launches`` (K3: ``.launches_int8``) and to
     ``topk_select_cuda.launches``."""
@@ -216,9 +237,9 @@ def cosine_topk_large_cuda(
     if q_n == 0:
         return out_s, out_i
     ld = -(-n // 4) * 4
-    chunk = max(1, min(q_n, _SCORES_BYTES // (4 * ld)))
+    chunk = max(1, min(q_n, _SCORES_BYTES // (4 * ld + _select_row_bytes(n, k))))
     scores = torch.empty((chunk, ld), dtype=torch.float32, device=dev)
-    tmp_s, tmp_i = _sort_scratch(chunk, k, dev)
+    work = _select_work(chunk, n, k, dev)
     kind = 2 if scales is not None else int(corpus.dtype == torch.bfloat16)
     for c0 in range(0, q_n, chunk):
         qc = min(chunk, q_n - c0)
@@ -227,8 +248,7 @@ def cosine_topk_large_cuda(
             queries[c0].data_ptr(), corpus.data_ptr(), kind,
             scales.data_ptr() if scales is not None else None, qc, n, d, k, splits,
             rows_per_split, scores.data_ptr(), ld, out_s[c0].data_ptr(), out_i[c0].data_ptr(),
-            tmp_s.data_ptr() if tmp_s is not None else None,
-            tmp_i.data_ptr() if tmp_i is not None else None, _cuda.stream_handle(dev),
+            work.data_ptr(), work.numel(), _cuda.stream_handle(dev),
         )
         _cuda.check(err, "large-k top-k kernels")
         if scales is not None:
@@ -549,12 +569,11 @@ def _fold_large_cuda(head, q_n, k, block_c, splits, per, win_s, win_i, out_s, ou
     sel_s, sel_i = (out_s, out_i) if k_sel == k else (
         torch.empty((q_n, k_sel), dtype=torch.float32, device=dev),
         torch.empty((q_n, k_sel), dtype=torch.int32, device=dev))
-    tmp_s, tmp_i = _sort_scratch(q_n, k_sel, dev)
+    work = _select_work(q_n, block_c, k_sel, dev)
     err = _cuda.lib().ts_topk_2pass_fold_large(
         *head, k_sel, block_c, splits, per, win_s.data_ptr(), win_i.data_ptr(),
         cls_s.data_ptr(), cls_i.data_ptr(), sel_s.data_ptr(), sel_i.data_ptr(),
-        tmp_s.data_ptr() if tmp_s is not None else None,
-        tmp_i.data_ptr() if tmp_i is not None else None,
+        work.data_ptr(), work.numel(),
         scores.data_ptr() if scores is not None else None, ld, _cuda.stream_handle(dev),
     )
     _cuda.check(err, "two-pass top-k fold kernel (large k)")
