@@ -351,8 +351,8 @@ Phases (any failure exits non-zero):
       their plain versions at these shapes, outside their counted windows;
       ``to_int8`` (router f32, experts int8, min cosine to bf16 printed);
       one forward under ``torch.profiler`` split by MoE stage
-      (``moe_router``, ``moe_dispatch``, ``moe_experts``, ``moe_combine``
-      ranges) with the idle share; ``train-sts --experts 8`` on 512 pairs
+      (``ts.moe.router``, ``ts.moe.dispatch``, ``ts.moe.experts``,
+      ``ts.moe.combine`` spans) with the idle share; ``train-sts --experts 8`` on 512 pairs
       through the CLI (finite loss, ``moe_aux``, ``moe_drop``); 30
       bi-encoder steps whose loss falls; the router-skew drive's ``--train``
       (100 steps) and ``--sweep`` (b 1,024 × s 128), every row printed;
@@ -5022,7 +5022,7 @@ def phase_compression(torch, card, ctx):
 # Phase 13: MoE and Performer
 # ---------------------------------------------------------------------------
 
-MOE_STAGES = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+MOE_STAGES = ("ts.moe.router", "ts.moe.dispatch", "ts.moe.experts", "ts.moe.combine")
 # Performer (FAVOR+, m = head_dim) against the exact path (K5, window 0) on
 # the same roberta-base-long weights, one batch of 8 documents at 4096:
 # last_hidden_state on valid rows, mean and max |Δ|; the first H100 reading

@@ -47,6 +47,7 @@ from ..core.precision import resolve_device
 from ..ops import _cuda
 from ..ops.kmeans import assign_clusters_topk, kmeans
 from ..ops.topk import MAX_K, l2_normalize, topk_select_cuda
+from ..utils.profiling import span
 from .ivf_modes import (
     TILE_ROWS,
     _unpack_candidates,
@@ -422,9 +423,10 @@ def _ivf_query_fused(
     too), else K1 / K4. Sentinel slabs (D+1) take the queries with a 1
     appended and their scores come back shifted by 2; ``zero_tiles`` is
     their ``zero_tile_map``, which K11b reads in place of ids."""
-    q, probe_ids, order = _plan_probes(
-        queries, centroids, num_base, data_padded.shape[0], block_q, union, group
-    )
+    with span("ts.ivf.plan"):
+        q, probe_ids, order = _plan_probes(
+            queries, centroids, num_base, data_padded.shape[0], block_q, union, group
+        )
     k_scan = k_scan or k
     do_rescore = rescore_data is not None and k_scan > k
     d, dw = q.shape[1], data_padded.shape[-1]
@@ -441,49 +443,52 @@ def _ivf_query_fused(
         final_merge in ("xla", "xla_approx") and approx_width > 0
         and not per_probe and probes_per_step == 1
     )
-    if per_probe:
-        s_pp, i_pp = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k, block_q,
-                              scales=scales_padded, per_probe=True)
-        pool_s = s_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
-        pool_i = i_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
-        s, i = _top_by_position(pool_s, pool_i, min(k_scan, pool_s.shape[1]) if do_rescore else k)
-    elif final_merge == "packed":
-        if scales_padded is not None:
-            raise ValueError("packed fold does not support int8 scales")
-        if dw != d:
-            raise ValueError("packed fold is incompatible with sentinel")
-        out_p = ivf_scan_packed(q, probe_ids, data_padded, ids_padded, k_scan, block_q,
-                                approx_width, max(acc_slots, 1))
-        s, i = _unpack_candidates(out_p, probe_ids, ids_padded, block_q)
-    elif dma_pipeline:
-        if scales_padded is not None:
-            raise ValueError("dma_pipeline does not support int8 scales")
-        s, i = ivf_scan_dma(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
-                            max(acc_slots, 1), dma_buffers)
-    elif idless:
-        s, i = ivf_scan_idless(q_kern, probe_ids, data_padded, k_scan, block_q, approx_width,
-                               zero_tiles)
-        # flat slot ids → corpus ids with one (B, k) gather
-        ids_flat = ids_padded.reshape(-1)
-        i = torch.where(i >= 0, ids_flat[i.long().clamp(0, ids_flat.shape[0] - 1)], -1)
-    elif probes_per_step > 1:
-        if not approx_width:
-            raise ValueError("probes_per_step>1 needs the approx path")
-        s, i = ivf_scan_multiprobe(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
-                                   probes_per_step, scales_padded)
-    else:
-        s, i = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
-                        approx_width=approx_width,
-                        acc_slots=acc_slots if approx_width else 1,
-                        scales=scales_padded, emit_acc=emit_acc)
-        if emit_acc:
-            s, i = _top_by_position(s, i, k_scan)
-    if do_rescore:
-        s, i = _rescore(q, i, rescore_data, k)
-    elif final_merge != "packed":
-        s = s - shift
-    inv = torch.argsort(order)
-    return s[inv], i[inv]
+    with span("ts.ivf.scan"):
+        if per_probe:
+            s_pp, i_pp = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k, block_q,
+                                  scales=scales_padded, per_probe=True)
+            pool_s = s_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
+            pool_i = i_pp.permute(1, 0, 2).reshape(q.shape[0], -1)
+            s, i = _top_by_position(pool_s, pool_i,
+                                    min(k_scan, pool_s.shape[1]) if do_rescore else k)
+        elif final_merge == "packed":
+            if scales_padded is not None:
+                raise ValueError("packed fold does not support int8 scales")
+            if dw != d:
+                raise ValueError("packed fold is incompatible with sentinel")
+            out_p = ivf_scan_packed(q, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                                    approx_width, max(acc_slots, 1))
+            s, i = _unpack_candidates(out_p, probe_ids, ids_padded, block_q)
+        elif dma_pipeline:
+            if scales_padded is not None:
+                raise ValueError("dma_pipeline does not support int8 scales")
+            s, i = ivf_scan_dma(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                                max(acc_slots, 1), dma_buffers)
+        elif idless:
+            s, i = ivf_scan_idless(q_kern, probe_ids, data_padded, k_scan, block_q,
+                                   approx_width, zero_tiles)
+            # flat slot ids → corpus ids with one (B, k) gather
+            ids_flat = ids_padded.reshape(-1)
+            i = torch.where(i >= 0, ids_flat[i.long().clamp(0, ids_flat.shape[0] - 1)], -1)
+        elif probes_per_step > 1:
+            if not approx_width:
+                raise ValueError("probes_per_step>1 needs the approx path")
+            s, i = ivf_scan_multiprobe(q_kern, probe_ids, data_padded, ids_padded, k_scan,
+                                       block_q, probes_per_step, scales_padded)
+        else:
+            s, i = ivf_scan(q_kern, probe_ids, data_padded, ids_padded, k_scan, block_q,
+                            approx_width=approx_width,
+                            acc_slots=acc_slots if approx_width else 1,
+                            scales=scales_padded, emit_acc=emit_acc)
+            if emit_acc:
+                s, i = _top_by_position(s, i, k_scan)
+    with span("ts.ivf.merge"):
+        if do_rescore:
+            s, i = _rescore(q, i, rescore_data, k)
+        elif final_merge != "packed":
+            s = s - shift
+        inv = torch.argsort(order)
+        return s[inv], i[inv]
 
 
 def _ivf_query_xla(
@@ -797,31 +802,32 @@ class IVFIndex:
         ``rescore_data`` when there is one → unsort, with the reference's
         option rules. → (scores (B, k) f32, ids (B, k) int32) on the
         index's device."""
-        n_slabs = self.num_base_clusters // self.group
-        probes = min(probes or self.config.num_probes, n_slabs)
-        k_scan = self.scan_k(k, k_coarse)
-        approx_width, acc_slots = self.scan_mode(
-            k_scan, approx_width, acc_slots, per_probe, probes_per_step, final_merge,
-            dma_pipeline,
-        )
-        q = torch.as_tensor(queries).to(self.device)
-        b = q.shape[0]
-        if b == 0:
-            return (torch.empty((0, k), device=self.device),
-                    torch.empty((0, k), dtype=torch.int32, device=self.device))
-        block_q = min(block_q, b)
-        union = min(_round_up(probes * union_factor, 8), n_slabs)
-        s, i = _ivf_query_fused(
-            q, self.centroids, self.data_padded, self.ids_padded,
-            self.num_base_clusters, k, block_q, union,
-            approx_width=approx_width, acc_slots=acc_slots,
-            scales_padded=self.scales_padded, k_scan=k_scan,
-            rescore_data=self.rescore_data if k_scan > k else None,
-            group=self.group, per_probe=per_probe, probes_per_step=probes_per_step,
-            final_merge="kernel" if final_merge == "auto" else final_merge,
-            dma_pipeline=dma_pipeline, dma_buffers=dma_buffers, zero_tiles=self.zero_tiles,
-        )
-        return s[:b], i[:b]
+        with span("ts.ivf.query"):
+            n_slabs = self.num_base_clusters // self.group
+            probes = min(probes or self.config.num_probes, n_slabs)
+            k_scan = self.scan_k(k, k_coarse)
+            approx_width, acc_slots = self.scan_mode(
+                k_scan, approx_width, acc_slots, per_probe, probes_per_step, final_merge,
+                dma_pipeline,
+            )
+            q = torch.as_tensor(queries).to(self.device)
+            b = q.shape[0]
+            if b == 0:
+                return (torch.empty((0, k), device=self.device),
+                        torch.empty((0, k), dtype=torch.int32, device=self.device))
+            block_q = min(block_q, b)
+            union = min(_round_up(probes * union_factor, 8), n_slabs)
+            s, i = _ivf_query_fused(
+                q, self.centroids, self.data_padded, self.ids_padded,
+                self.num_base_clusters, k, block_q, union,
+                approx_width=approx_width, acc_slots=acc_slots,
+                scales_padded=self.scales_padded, k_scan=k_scan,
+                rescore_data=self.rescore_data if k_scan > k else None,
+                group=self.group, per_probe=per_probe, probes_per_step=probes_per_step,
+                final_merge="kernel" if final_merge == "auto" else final_merge,
+                dma_pipeline=dma_pipeline, dma_buffers=dma_buffers, zero_tiles=self.zero_tiles,
+            )
+            return s[:b], i[:b]
 
     # ------------------------------------------------------------------
     # Insert and delete on a built index

@@ -97,6 +97,7 @@ from ..core.precision import DEFAULT_PRECISION, Precision
 from ..ops import performer as _performer
 from ..ops.attention import multi_head_attention
 from ..ops.moe import moe_ffn
+from ..utils.profiling import span
 from .pooling import bert_pooler
 
 
@@ -483,19 +484,20 @@ def layer_after_attention(
     b, s, _ = hx.shape
     attn, mlp = lp["attn"], lp["mlp"]
     ctx = ctx.reshape(b, s, -1)    # nh·hd < h after head pruning
-    hx1 = residual_norm(hx, _dense(ctx, attn["o"]), lp["attn_ln"], arch=arch,
-                        deterministic=deterministic, generator=generator)
-    aux = drop = None
-    if arch.num_experts > 0:
-        ff, aux, drop = moe_ffn(
-            hx1, attention_mask, mlp["router"]["w"], mlp["in"]["w"], mlp["in"]["b"],
-            mlp["out"]["w"], mlp["out"]["b"], top_k=arch.expert_top_k,
-            capacity_factor=arch.expert_capacity_factor, activation=_act(arch.hidden_act),
-        )
-    else:
-        ff = _dense(mlp_hidden(hx1, mlp, arch=arch), mlp["out"])
-    out = residual_norm(hx1, ff, lp["mlp_ln"], arch=arch, deterministic=deterministic,
-                        generator=generator)
+    with span("ts.encoder.ffn"):
+        hx1 = residual_norm(hx, _dense(ctx, attn["o"]), lp["attn_ln"], arch=arch,
+                            deterministic=deterministic, generator=generator)
+        aux = drop = None
+        if arch.num_experts > 0:
+            ff, aux, drop = moe_ffn(
+                hx1, attention_mask, mlp["router"]["w"], mlp["in"]["w"], mlp["in"]["b"],
+                mlp["out"]["w"], mlp["out"]["b"], top_k=arch.expert_top_k,
+                capacity_factor=arch.expert_capacity_factor, activation=_act(arch.hidden_act),
+            )
+        else:
+            ff = _dense(mlp_hidden(hx1, mlp, arch=arch), mlp["out"])
+        out = residual_norm(hx1, ff, lp["mlp_ln"], arch=arch, deterministic=deterministic,
+                            generator=generator)
     if not with_aux:
         return out
     if aux is None:
@@ -517,15 +519,16 @@ def layer_attention(
     """A layer's attention: ``layer_qkv`` → ``multi_head_attention`` with
     the arch's window and Performer settings → (B, S, nh, hd). A tensor-
     parallel position passes an arch of its own head count."""
-    q, k, v = layer_qkv(hx, lp, arch=arch)
-    return multi_head_attention(
-        q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
-        window=arch.attention_window, window_global_cls=arch.window_global_cls,
-        segment_ids=segment_ids, performer_proj=performer_proj,
-        performer_kernel=arch.performer_kernel,
-        performer_local_heads=arch.performer_local_heads,
-        performer_local_window=arch.performer_local_window,
-    )
+    with span("ts.encoder.attention"):
+        q, k, v = layer_qkv(hx, lp, arch=arch)
+        return multi_head_attention(
+            q, k, v, mask=attention_mask, head_mask=head_mask, impl=attention_impl,
+            window=arch.attention_window, window_global_cls=arch.window_global_cls,
+            segment_ids=segment_ids, performer_proj=performer_proj,
+            performer_kernel=arch.performer_kernel,
+            performer_local_heads=arch.performer_local_heads,
+            performer_local_window=arch.performer_local_window,
+        )
 
 
 def transformer_layer(

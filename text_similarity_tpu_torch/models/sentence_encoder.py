@@ -81,6 +81,7 @@ from ..core.precision import DEFAULT_PRECISION, Precision, precision_for, resolv
 from ..data.batching import BUCKETS, LengthBucketBatcher, pick_bucket
 from ..data.packing import pack_sequences
 from ..data.tokenization import load_tokenizer
+from ..utils.profiling import span
 from .encoder import (
     Encoder, _cast_tree, dequant_weight, encoder_forward, params_from_jax,
 )
@@ -153,7 +154,8 @@ class SentenceEncoder(nn.Module):
             out = encoder_forward(params, ids, mask, arch=self.arch, precision=self.precision)
             return self._project_normalize(params, pool(self.pooling, out.last_hidden_state, mask))
 
-        return self._data_parallel(run, self._as_device(ids), self._as_device(mask))
+        with span("ts.encoder.forward"):
+            return self._data_parallel(run, self._as_device(ids), self._as_device(mask))
 
     def _params_on(self, device: torch.device) -> dict:
         if device not in self._replicas:
@@ -202,7 +204,9 @@ class SentenceEncoder(nn.Module):
             return self._project_normalize(params,
                                            segment_mean_pool(out.last_hidden_state, segments, m))
 
-        return self._data_parallel(run, *(self._as_device(x) for x in (ids, segments, positions)))
+        with span("ts.encoder.forward"):
+            return self._data_parallel(
+                run, *(self._as_device(x) for x in (ids, segments, positions)))
 
     def encode_packed(
         self,
@@ -236,7 +240,8 @@ class SentenceEncoder(nn.Module):
         count rounds up to a power of two, as the reference's serving calls
         do. Empty slots land in one extra trash row of the output."""
         self._check_packable()
-        packed = pack_sequences(row_ids, width, pad_id=self.tokenizer.pad_id)
+        with span("ts.pack"):
+            packed = pack_sequences(row_ids, width, pad_id=self.tokenizer.pad_id)
         m = max_segments or int(packed["owners"].shape[1])
         if round_segments and not max_segments and m > 1:
             m = 1 << (m - 1).bit_length()
@@ -287,10 +292,11 @@ class SentenceEncoder(nn.Module):
         # WordPiece, [CLS] body[: max_len - 2] [SEP] of the Python one,
         # HFTokenizerAdapter's own specials and truncation
         rows = []
-        for st in range(0, len(texts), _ROWS_CHUNK):
-            ids, mask = self.tokenizer.encode_batch(texts[st:st + _ROWS_CHUNK], max_len)
-            lens = mask.sum(axis=1)
-            rows += [ids[i, : lens[i]].tolist() for i in range(len(lens))]
+        with span("ts.tokenize"):
+            for st in range(0, len(texts), _ROWS_CHUNK):
+                ids, mask = self.tokenizer.encode_batch(texts[st:st + _ROWS_CHUNK], max_len)
+                lens = mask.sum(axis=1)
+                rows += [ids[i, : lens[i]].tolist() for i in range(len(lens))]
         return rows
 
     # bucketed batches must cost at least this many times the packed
@@ -332,32 +338,37 @@ class SentenceEncoder(nn.Module):
         of the widest text's bucket (mean pooling, no attention window);
         False runs length-sorted batches, each padded to a bucket; "auto"
         packs when :meth:`use_packed` says so."""
-        n = len(texts)
-        if n == 0:
-            out = torch.zeros((0, self.embedding_dim), dtype=torch.float32, device=self.device)
+        with span("ts.encode"):
+            n = len(texts)
+            if n == 0:
+                out = torch.zeros((0, self.embedding_dim), dtype=torch.float32,
+                                  device=self.device)
+                return out if device_output else out.cpu().numpy()
+            row_ids = self._tokenize_rows(texts, max_len)
+            if packed is True or (
+                packed == "auto" and self.use_packed(row_ids, batch_size, buckets)
+            ):
+                width = pick_bucket(max(len(r) for r in row_ids), buckets)
+                return self._encode_packed_rows(
+                    row_ids, n, width=width, device_output=device_output, round_segments=True,
+                )
+            out = torch.zeros((n, self.embedding_dim), dtype=torch.float32, device=self.device)
+            batcher = LengthBucketBatcher(batch_size, buckets=buckets, shuffle_batches=False)
+            moe = self.arch.num_experts > 0
+            batches = batcher.batches(row_ids, pad_id=self.tokenizer.pad_id)
+            for batch in _spanned(batches, "ts.pack"):
+                sel = batch["valid"]
+                idx = torch.as_tensor(batch["index"][sel]).to(self.device)
+                if moe:
+                    # an expert's capacity counts the whole batch, padding rows
+                    # included, as in the reference
+                    emb = self.embed_tokens(batch["ids"], batch["mask"])
+                    out[idx] = emb[torch.as_tensor(np.flatnonzero(sel)).to(self.device)]
+                    continue
+                # padding rows of the tail batch are dropped before the
+                # forward: rows are independent, so this changes no vector
+                out[idx] = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
             return out if device_output else out.cpu().numpy()
-        row_ids = self._tokenize_rows(texts, max_len)
-        if packed is True or (packed == "auto" and self.use_packed(row_ids, batch_size, buckets)):
-            width = pick_bucket(max(len(r) for r in row_ids), buckets)
-            return self._encode_packed_rows(
-                row_ids, n, width=width, device_output=device_output, round_segments=True,
-            )
-        out = torch.zeros((n, self.embedding_dim), dtype=torch.float32, device=self.device)
-        batcher = LengthBucketBatcher(batch_size, buckets=buckets, shuffle_batches=False)
-        moe = self.arch.num_experts > 0
-        for batch in batcher.batches(row_ids, pad_id=self.tokenizer.pad_id):
-            sel = batch["valid"]
-            idx = torch.as_tensor(batch["index"][sel]).to(self.device)
-            if moe:
-                # an expert's capacity counts the whole batch, padding rows
-                # included, as in the reference
-                emb = self.embed_tokens(batch["ids"], batch["mask"])
-                out[idx] = emb[torch.as_tensor(np.flatnonzero(sel)).to(self.device)]
-                continue
-            # padding rows of the tail batch are dropped before the
-            # forward: rows are independent, so this changes no vector
-            out[idx] = self.embed_tokens(batch["ids"][sel], batch["mask"][sel])
-        return out if device_output else out.cpu().numpy()
 
     @torch.no_grad()
     def encode_long(
@@ -482,3 +493,14 @@ def _tree_to(tree: dict, device: torch.device, copy: bool = False) -> dict:
         k: _tree_to(v, device, copy) if isinstance(v, dict) else v.detach().to(device, copy=copy)
         for k, v in tree.items()
     }
+
+
+def _spanned(items, name: str):
+    """Yield ``items``, each draw of the next one under ``span(name)``."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item

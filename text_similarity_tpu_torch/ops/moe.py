@@ -28,14 +28,13 @@ accumulator takes the f32 bias, as the reference's does; the activation's
 output and the expert output round to the compute dtype, as there.
 
 While a ``torch.profiler`` session records, the four stages run inside
-ranges named ``moe_router``, ``moe_dispatch``, ``moe_experts`` and
-``moe_combine``, so a profile splits an MoE forward's device time by stage;
-without a session no range is opened.
+spans (``utils.profiling.span``) named ``ts.moe.router``, ``ts.moe.dispatch``,
+``ts.moe.experts`` and ``ts.moe.combine``, so a profile splits an MoE
+forward's device time by stage; without a session no range is opened.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -45,13 +44,7 @@ import torch.nn.functional as F
 
 from ..compress.quantize import _is_q, _jit_scale, _quantize, int8_mm
 from ..core.precision import f32_matmul
-
-
-def _span(name: str):
-    """A profiler range around one stage while a profiler records."""
-    if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+from ..utils.profiling import span
 
 
 def _dyn_quant_slots(x: torch.Tensor):
@@ -187,11 +180,11 @@ def moe_route(
     t = b * s
     cap = expert_capacity(t, e, top_k, capacity_factor)
     xt = x.reshape(t, h)
-    with _span("moe_router"):
+    with span("ts.moe.router"):
         logits = f32_matmul(xt, router_w)                              # (T, E)
         choice, slot, gate, keep, aux, dropped = router_topk(logits, mask.reshape(t), top_k, cap)
 
-    with _span("moe_dispatch"):
+    with span("ts.moe.dispatch"):
         # token ids into E·C slots + the trash slot E·C, one gather
         trash = e * cap
         flat = torch.where(keep, choice * cap + slot, torch.full_like(slot, trash))   # (k, T)
@@ -221,7 +214,7 @@ def moe_combine(route: MoeRoute, ye: torch.Tensor, like: torch.Tensor) -> torch.
     """Each token's k expert outputs (``ye`` (E, C, H)) weighted by its gates
     → (B, S, H) in the dtype of ``like`` (the layer's input)."""
     b, s, h = like.shape
-    with _span("moe_combine"):
+    with span("ts.moe.combine"):
         ye_pad = torch.cat([ye.reshape(-1, h), ye.new_zeros((1, h))])
         y = torch.zeros((b * s, h), dtype=torch.float32, device=like.device)
         for r in range(route.flat.shape[0]):
@@ -246,7 +239,7 @@ def moe_ffn(
     dtype, load-balance loss, dropped fraction). A dropped or padding token
     gets a zero delta (the residual carries it)."""
     route = moe_route(x, mask, router_w, top_k=top_k, capacity_factor=capacity_factor)
-    with _span("moe_experts"):
+    with span("ts.moe.experts"):
         ye = (expert_partial(route.xe, wi, bi, wo, activation)
               + bo[:, None].float()).to(route.xe.dtype)
     return moe_combine(route, ye, x), route.aux, route.dropped

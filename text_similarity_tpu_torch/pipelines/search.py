@@ -42,6 +42,7 @@ from ..core.config import IndexConfig
 from ..core.precision import resolve_device
 from ..index import BruteForceIndex, EmbeddingStore, IVFIndex
 from ..ops.topk import l2_normalize
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -189,25 +190,30 @@ class SemanticSearchPipeline:
         """→ per query: [(document, score, corpus_id), ...] best-first."""
         if len(queries) == 0:
             return []
-        q_emb = self.encoder.encode(queries, batch_size=self.batch_size, device_output=True)
-        q_emb = _pad_pow2(q_emb)
-        if self._want_ivf():
-            if self.ivf is None:
-                self._build_ivf()
-            # the reference's serving args: 64-query blocks sharing the
-            # config's probe count as the union; the deferred merge for
-            # big clusters, the exact merge for small ones
-            mc = self.ivf.data_padded.shape[1]
-            s, i = self.ivf.query(
-                q_emb, k=max_num_results, block_q=64, union_factor=1,
-                approx_width=2048 if mc >= 1024 else 0,
-            )
-            s, i = s.cpu().numpy(), i.cpu().numpy()
-            if self._id_remap is not None:
-                i = np.where(i >= 0, self._id_remap[np.maximum(i, 0)], -1)
-        else:
-            s, i = BruteForceIndex(self.store).query(q_emb, k=max_num_results)
-        return _rows(self.corpus, s, i, len(queries), max_num_results)
+        with span("ts.search"):
+            q_emb = self.encoder.encode(queries, batch_size=self.batch_size, device_output=True)
+            q_emb = _pad_pow2(q_emb)
+            remap = None
+            if self._want_ivf():
+                if self.ivf is None:
+                    self._build_ivf()
+                # the reference's serving args: 64-query blocks sharing the
+                # config's probe count as the union; the deferred merge for
+                # big clusters, the exact merge for small ones
+                mc = self.ivf.data_padded.shape[1]
+                s, i = self.ivf.query(
+                    q_emb, k=max_num_results, block_q=64, union_factor=1,
+                    approx_width=2048 if mc >= 1024 else 0,
+                )
+                with span("ts.search.to_host"):
+                    s, i = s.cpu().numpy(), i.cpu().numpy()
+                remap = self._id_remap
+            else:
+                s, i = BruteForceIndex(self.store).query(q_emb, k=max_num_results)
+            with span("ts.search.rows"):
+                if remap is not None:
+                    i = np.where(i >= 0, remap[np.maximum(i, 0)], -1)
+                return _rows(self.corpus, s, i, len(queries), max_num_results)
 
     def warmup(self, ks: Sequence[int] = (10,), max_queries: int = 16) -> int:
         """Each power-of-2 query bucket up to ``max_queries`` × each k once

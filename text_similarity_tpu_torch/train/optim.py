@@ -26,6 +26,7 @@ import torch
 
 from ..core.config import TrainConfig
 from ..core.mesh import ShardedLeaf, pieces_of
+from ..utils.profiling import span
 
 _NO_DECAY_SUBTREES = ("ln", "attn_ln", "mlp_ln")
 _NO_DECAY_LEAVES = ("b", "bias", "scale")
@@ -146,56 +147,58 @@ class AdamW:
         in place → whether the parameters moved (False on the first k − 1
         micro-steps of an accumulation). Each formula is one ``_foreach``
         pass over the leaves of a device."""
-        g = [x.float() for x in _leaves(grads)]
-        if self.grad_accum_steps > 1:
-            acc = _leaves(state["acc"])
-            n = state["mini_step"]
-            delta = torch._foreach_sub(g, acc)
-            torch._foreach_div_(delta, float(n + 1))
-            torch._foreach_add_(acc, delta)
-            state["mini_step"] = (n + 1) % self.grad_accum_steps
-            if n != self.grad_accum_steps - 1:
-                return False
-            g = [a.clone() for a in acc]
-            torch._foreach_zero_(acc)
-            state["gradient_step"] += 1
-        groups = _by_device(g)
-        first = g[0].device
-        # ‖g‖ over every tensor once: each device's norms, reduced on the first
-        norms = [torch.stack(torch._foreach_norm([g[i] for i in idx])).to(first)
-                 for idx in groups.values()]
-        norm = torch.linalg.vector_norm(torch.cat(norms))
-        # optax: (g / ‖g‖) · max_norm when ‖g‖ ≥ max_norm, else g (g / 1 · 1)
-        keep = norm < self.max_grad_norm
-        one = torch.ones_like(norm)
-        div, mul = torch.where(keep, one, norm), torch.where(keep, one, one * self.max_grad_norm)
+        with span("ts.train.optimizer"):
+            g = [x.float() for x in _leaves(grads)]
+            if self.grad_accum_steps > 1:
+                acc = _leaves(state["acc"])
+                n = state["mini_step"]
+                delta = torch._foreach_sub(g, acc)
+                torch._foreach_div_(delta, float(n + 1))
+                torch._foreach_add_(acc, delta)
+                state["mini_step"] = (n + 1) % self.grad_accum_steps
+                if n != self.grad_accum_steps - 1:
+                    return False
+                g = [a.clone() for a in acc]
+                torch._foreach_zero_(acc)
+                state["gradient_step"] += 1
+            groups = _by_device(g)
+            first = g[0].device
+            # ‖g‖ over every tensor once: each device's norms, reduced on the first
+            norms = [torch.stack(torch._foreach_norm([g[i] for i in idx])).to(first)
+                     for idx in groups.values()]
+            norm = torch.linalg.vector_norm(torch.cat(norms))
+            # optax: (g / ‖g‖) · max_norm when ‖g‖ ≥ max_norm, else g (g / 1 · 1)
+            keep = norm < self.max_grad_norm
+            one = torch.ones_like(norm)
+            div = torch.where(keep, one, norm)
+            mul = torch.where(keep, one, one * self.max_grad_norm)
 
-        count = state["count"]
-        lr = self.schedule(count)
-        bc1 = 1.0 - float(torch.tensor(self.b1) ** (count + 1))
-        bc2 = 1.0 - float(torch.tensor(self.b2) ** (count + 1))
-        p_all, mu_all, nu_all = _leaves(params), _leaves(state["mu"]), _leaves(state["nu"])
-        decay = _piece_mask(self.decay_mask, params) if self.weight_decay else None
-        for device, idx in groups.items():
-            gd = torch._foreach_div([g[i] for i in idx], div.to(device))
-            torch._foreach_mul_(gd, mul.to(device))
-            p, mu, nu = ([t[i] for i in idx] for t in (p_all, mu_all, nu_all))
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, gd, alpha=1.0 - self.b1)
-            torch._foreach_mul_(nu, self.b2)
-            torch._foreach_add_(nu, torch._foreach_mul(gd, gd), alpha=1.0 - self.b2)
-            u = torch._foreach_div(mu, bc1)
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self.eps)
-            torch._foreach_div_(u, den)
-            if self.weight_decay:
-                decays = [j for j, i in enumerate(idx) if decay[i]]
-                torch._foreach_add_([u[j] for j in decays], [p[j] for j in decays],
-                                    alpha=self.weight_decay)
-            torch._foreach_add_(p, [x.to(t.dtype) for x, t in zip(u, p)], alpha=-lr)
-        state["count"] = count + 1
-        return True
+            count = state["count"]
+            lr = self.schedule(count)
+            bc1 = 1.0 - float(torch.tensor(self.b1) ** (count + 1))
+            bc2 = 1.0 - float(torch.tensor(self.b2) ** (count + 1))
+            p_all, mu_all, nu_all = _leaves(params), _leaves(state["mu"]), _leaves(state["nu"])
+            decay = _piece_mask(self.decay_mask, params) if self.weight_decay else None
+            for device, idx in groups.items():
+                gd = torch._foreach_div([g[i] for i in idx], div.to(device))
+                torch._foreach_mul_(gd, mul.to(device))
+                p, mu, nu = ([t[i] for i in idx] for t in (p_all, mu_all, nu_all))
+                torch._foreach_mul_(mu, self.b1)
+                torch._foreach_add_(mu, gd, alpha=1.0 - self.b1)
+                torch._foreach_mul_(nu, self.b2)
+                torch._foreach_add_(nu, torch._foreach_mul(gd, gd), alpha=1.0 - self.b2)
+                u = torch._foreach_div(mu, bc1)
+                den = torch._foreach_div(nu, bc2)
+                torch._foreach_sqrt_(den)
+                torch._foreach_add_(den, self.eps)
+                torch._foreach_div_(u, den)
+                if self.weight_decay:
+                    decays = [j for j, i in enumerate(idx) if decay[i]]
+                    torch._foreach_add_([u[j] for j in decays], [p[j] for j in decays],
+                                        alpha=self.weight_decay)
+                torch._foreach_add_(p, [x.to(t.dtype) for x, t in zip(u, p)], alpha=-lr)
+            state["count"] = count + 1
+            return True
 
 
 def make_optimizer(

@@ -59,6 +59,7 @@ from ..models.encoder import EncoderOutput, dequant_weight, encoder_forward
 from ..models.pooling import (
     bert_pooler, cls_pool, mean_pool, pool, segment_first_pool, segment_mean_pool, word_span_pool,
 )
+from ..utils.profiling import span
 from .optim import AdamW, _leaves
 
 
@@ -356,7 +357,8 @@ def value_and_grad(loss_fn: Callable, params: dict, *args, **kwargs):
     not reach, such as the pooler under mean pooling), in its structure."""
     loss, aux = loss_fn(params, *args, **kwargs)
     leaves = _leaves(params)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("ts.train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss, aux, _like(params, grads)
 
@@ -373,16 +375,18 @@ def _make_step(loss_fn: Callable, tx: AdamW, device, redraw_arch: Optional[Encod
     dev = resolve_device(device)
 
     def step(state: TrainState, batch, *extra):
-        mesh = mesh_of(state.params)
-        home = mesh.first_device if mesh is not None else _leaves(state.params)[0].device
-        if home.type != dev.type:
-            raise ValueError(f"the state lies on {home}, the step runs on {dev}")
-        batch = batch_to(batch, home)
-        kw = {} if redraw_arch is None else {"performer_step": _redraw_step(redraw_arch, state)}
-        loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra, **kw)
-        tx.step(state.params, grads, state.opt_state)
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
-        return state._replace(step=state.step + 1), metrics
+        with span("ts.train.step"):
+            mesh = mesh_of(state.params)
+            home = mesh.first_device if mesh is not None else _leaves(state.params)[0].device
+            if home.type != dev.type:
+                raise ValueError(f"the state lies on {home}, the step runs on {dev}")
+            batch = batch_to(batch, home)
+            kw = {} if redraw_arch is None else {"performer_step": _redraw_step(redraw_arch, state)}
+            loss, aux, grads = value_and_grad(loss_fn, state.params, batch, state.rng, *extra,
+                                              **kw)
+            tx.step(state.params, grads, state.opt_state)
+            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+            return state._replace(step=state.step + 1), metrics
 
     return step
 

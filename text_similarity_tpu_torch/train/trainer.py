@@ -31,6 +31,7 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core.mesh import ShardedLeaf, unshard
 from ..core.precision import resolve_device
+from ..utils.profiling import span
 from .steps import trainable
 
 logger = logging.getLogger("text_similarity_tpu_torch.trainer")
@@ -167,15 +168,16 @@ class Trainer:
     def _drain(self, pending, acc: Dict[str, float]) -> Dict[str, float]:
         if not pending:
             return acc
-        for m in pending:
-            for k, v in m.items():
-                v = float(v)
-                if k == "loss" and not math.isfinite(v):
-                    raise FloatingPointError(
-                        f"non-finite loss at step {int(self.state.step)}; run with "
-                        "torch.autograd.set_detect_anomaly(True) to localize"
-                    )
-                acc[k] = acc.get(k, 0.0) + v
+        with span("ts.train.drain"):
+            for m in pending:
+                for k, v in m.items():
+                    v = float(v)
+                    if k == "loss" and not math.isfinite(v):
+                        raise FloatingPointError(
+                            f"non-finite loss at step {int(self.state.step)}; run with "
+                            "torch.autograd.set_detect_anomaly(True) to localize"
+                        )
+                    acc[k] = acc.get(k, 0.0) + v
         return acc
 
     def _save(self, step: int, tag: Optional[str]):
